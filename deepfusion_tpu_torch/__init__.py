@@ -1,0 +1,16 @@
+"""deepfusion_tpu_torch — the PyTorch / CUDA port of deepfusion_tpu.
+
+Fused INT8 inference primitives for NVIDIA Hopper (sm_90a), written as CUDA
+kernels by hand (``csrc/``), with the JAX package ``deepfusion_tpu`` as the
+reference they are held against bit for bit. Each op runs its CUDA kernel on
+CUDA tensors and its plain PyTorch version on CPU tensors.
+
+Ported so far: the dense FusionNet serving path — ``ops.conv`` (with the
+deep-fused 1x1), ``ops.concat``, ``ops.pool`` (pooling and
+eltwise-sum+ReLU), ``models.FusionNet`` and ``serving.BatchServer``.
+"""
+from . import config, ops, serving, types, utils  # noqa: F401
+from .config import ConcatConfig, ConvConfig, PoolConfig  # noqa: F401
+from .types import dtype, f32, format, round_mode, s8, s32, u8  # noqa: F401
+
+__version__ = "0.1.0"

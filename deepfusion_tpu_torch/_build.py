@@ -1,0 +1,140 @@
+"""Build and load the package's CUDA kernels, and count their launches.
+
+``csrc/*.cu`` are compiled at first use by ``nvcc`` into one shared library
+with a plain C interface, ``_build/libdf_kernels-<hash>.so``, and loaded with
+``ctypes``. The name carries a hash of the sources and the flags, so an edit
+rebuilds; the library is written under a temporary name and moved into
+place with ``os.replace``, so a process never loads a half-written file. A
+failed build raises: there is no fallback to the plain PyTorch versions.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; ``check(rc, name)`` turns a non-zero code into an
+exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from .utils import env
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-I/usr/local/cutlass/include")
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "df_conv": [_P] * 8 + [_I] * 24 + [_P],
+    "df_concat": [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(_I), _I,
+                  _P, _L, _I, _I, _P],
+    "df_pool": [_P, _P] + [_I] * 15 + [_P],
+    "df_sum_relu": [_P, _P, _P, _L, _I, _I, _P],
+}
+
+KERNELS = ("conv_fused", "concat_relu", "pool", "sum_relu")
+
+_counts_lock = threading.Lock()
+_counts = dict.fromkeys(KERNELS, 0)
+
+
+def count_launch(name: str) -> None:
+    """Add one to `name`'s launch count; each wrapper calls this right after
+    its kernel launched."""
+    with _counts_lock:
+        _counts[name] += 1
+
+
+def launch_counts() -> dict:
+    with _counts_lock:
+        return dict(_counts)
+
+
+def reset_launch_counts() -> None:
+    with _counts_lock:
+        for k in _counts:
+            _counts[k] = 0
+
+
+def _nvcc() -> str:
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "deepfusion_tpu_torch need the CUDA toolkit")
+    return found
+
+
+def _flags() -> tuple:
+    return NVCC_FLAGS + (("-Xptxas", "-v") if env.dump_code() else ())
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(_flags()).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libdf_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the library unless it already exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    sources = [str(f) for f in sorted(CSRC.glob("*.cu"))]
+    cmd = [_nvcc(), *_flags(), "-o", str(tmp), *sources]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    if env.dump_code():
+        out.with_suffix(".ptxas.txt").write_text(proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+@functools.cache
+def kernels() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.df_error_string.argtypes = [ctypes.c_int]
+    lib.df_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        msg = kernels().df_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned, as the kernels' vector loads need."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The raw current CUDA stream of `t`'s device, read in this thread."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,109 @@
+// concat_relu_kernel<DT>: NHWC channel concat with an optional true ReLU.
+//
+// Replaces deepfusion_tpu/ops/concat.py:_concat_kernel (launcher
+// _concat_call).
+//
+// What bounds it on the H100: device-memory bytes. Every element is read
+// once and written once, so the floor is 2 x output bytes / 3.35 TB/s.
+//
+// Design: one pass. Grid row y copies input y: its threads walk the input's
+// 16-byte units in order (contiguous reads), apply the ReLU on 32-bit lanes
+// and store each unit at its pixel's row offset in the output. ConcatConfig's
+// legality (channels divisible by 16 for
+// 1-byte types, by 4 for 4-byte types) makes every input row a multiple of
+// 16 bytes, and the wrapper hands in 16-byte-aligned tensors, so no unit
+// straddles two inputs. ReLU is true ReLU per dtype; the reference's lane
+// quirks Q1/Q2 (deepfusion_tpu/ops/ref.py:23-27) are not reproduced.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "requant.cuh"
+
+namespace {
+
+constexpr int MAX_IN = 16;
+constexpr int NT = 256;
+
+struct ConcatArgs {
+  const uint4* src[MAX_IN];
+  int units[MAX_IN];   // 16-byte units per pixel row of input i
+  int offset[MAX_IN];  // first unit of input i in the output row
+  int out_units;
+  int pixels;
+  uint4* dst;
+};
+
+template <int DT>
+__device__ __forceinline__ uint32_t relu_word(uint32_t w) {
+  if constexpr (DT == DT_S8) {
+    return __vmaxs4(w, 0u);
+  } else if constexpr (DT == DT_S32) {
+    return static_cast<int32_t>(w) < 0 ? 0u : w;
+  } else if constexpr (DT == DT_F32) {
+    return __float_as_uint(relu_f32(__uint_as_float(w)));
+  } else {
+    return w;  // u8: ReLU is the identity
+  }
+}
+
+// grid: (x blocks, n_in); df_concat refuses pixels * out_units >= 2^31.
+template <int DT>
+__global__ void __launch_bounds__(NT) concat_relu_kernel(ConcatArgs a,
+                                                         int relu) {
+  const int i = blockIdx.y;
+  const uint4* src = a.src[i];
+  const int units = a.units[i];
+  const int total = a.pixels * units;
+  for (int u = blockIdx.x * NT + threadIdx.x; u < total;
+       u += gridDim.x * NT) {
+    const int pix = u / units;
+    uint4 v = src[u];
+    if (relu) {
+      v.x = relu_word<DT>(v.x);
+      v.y = relu_word<DT>(v.y);
+      v.z = relu_word<DT>(v.z);
+      v.w = relu_word<DT>(v.w);
+    }
+    a.dst[pix * a.out_units + a.offset[i] + (u - pix * units)] = v;
+  }
+}
+
+}  // namespace
+
+// srcs, row_bytes: host arrays of n_in device pointers and row widths.
+extern "C" int df_concat(const void* const* srcs, const int* row_bytes,
+                         int n_in, void* dst, long long pixels, int relu,
+                         int dt, void* stream) {
+  if (n_in < 1 || n_in > MAX_IN) return (int)cudaErrorInvalidValue;
+  ConcatArgs a;
+  int off = 0;
+  for (int i = 0; i < n_in; ++i) {
+    if (row_bytes[i] % 16) return (int)cudaErrorInvalidValue;
+    a.src[i] = static_cast<const uint4*>(srcs[i]);
+    a.units[i] = row_bytes[i] / 16;
+    a.offset[i] = off;
+    off += a.units[i];
+  }
+  const long long total = pixels * off;
+  if (total >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  if (total == 0) return (int)cudaSuccess;
+  a.out_units = off;
+  a.pixels = (int)pixels;
+  a.dst = static_cast<uint4*>(dst);
+  // enough blocks for the widest input; narrower ones loop less
+  int widest = 0;
+  for (int i = 0; i < n_in; ++i) widest = a.units[i] > widest ? a.units[i] : widest;
+  long long bx = (pixels * widest + NT - 1) / NT;
+  if (bx > 132 * 16) bx = 132 * 16;
+  const dim3 grid((unsigned)bx, (unsigned)n_in);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dt) {
+    case DT_F32: concat_relu_kernel<DT_F32><<<grid, NT, 0, s>>>(a, relu); break;
+    case DT_S32: concat_relu_kernel<DT_S32><<<grid, NT, 0, s>>>(a, relu); break;
+    case DT_S8: concat_relu_kernel<DT_S8><<<grid, NT, 0, s>>>(a, relu); break;
+    case DT_U8: concat_relu_kernel<DT_U8><<<grid, NT, 0, s>>>(a, relu); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,86 @@
+// Requantization epilogue as device functions, shared by the kernels.
+//
+// The same chain as deepfusion_tpu/ops/requant.py (requant, and
+// requant_to_u8_centered without the -128 centering) and as the plain
+// PyTorch version in deepfusion_tpu_torch/ops/requant.py:
+//
+//   f32(acc) -> +bias -> *scale -> ReLU (forced for u8) -> round -> saturate
+//
+// Every step is one correctly rounded IEEE operation, so the result is
+// bitwise that of the JAX package as long as nothing is contracted or
+// approximated: the library is compiled with --fmad=false, the adds and
+// multiplies are spelled __fadd_rn/__fmul_rn anyway, int->f32 is
+// __int2float_rn, rounding is rintf (half to even) or floorf, and every
+// float->int conversion is clamped first. The f32->s32 saturation is an
+// explicit clamp to [INT_MIN, INT_MAX], as the JAX kernels saturate
+// (ROADMAP finding C1: a plain convert would wrap to INT_MIN).
+#pragma once
+
+#include <climits>
+#include <cstdint>
+
+// dtype codes: the values of deepfusion_tpu_torch.types.dtype
+enum : int { DT_F32 = 1, DT_S32 = 2, DT_S8 = 3, DT_U8 = 4 };
+
+template <int DT> struct dt_traits;
+template <> struct dt_traits<DT_F32> { using T = float; };
+template <> struct dt_traits<DT_S32> { using T = int32_t; };
+template <> struct dt_traits<DT_S8> { using T = int8_t; };
+template <> struct dt_traits<DT_U8> { using T = uint8_t; };
+
+// ReLU as jnp.maximum(x, 0.0) computes it: -0.0 becomes +0.0, NaN stays NaN.
+__device__ __forceinline__ float relu_f32(float x) {
+  return x <= 0.0f ? 0.0f : x;
+}
+
+__device__ __forceinline__ float round_f32(float x, bool down) {
+  return down ? floorf(x) : rintf(x);
+}
+
+// f32 holding an integral value -> saturated integer of the dst type.
+template <int DT>
+__device__ __forceinline__ typename dt_traits<DT>::T saturate(float x) {
+  if constexpr (DT == DT_F32) {
+    return x;
+  } else if constexpr (DT == DT_S32) {
+    if (x >= 2147483648.0f) return INT_MAX;
+    if (x <= -2147483648.0f) return INT_MIN;
+    return static_cast<int32_t>(x);
+  } else if constexpr (DT == DT_S8) {
+    x = fminf(fmaxf(x, -128.0f), 127.0f);
+    return static_cast<int8_t>(static_cast<int32_t>(x));
+  } else {
+    x = fminf(fmaxf(x, 0.0f), 255.0f);
+    return static_cast<uint8_t>(static_cast<int32_t>(x));
+  }
+}
+
+// f32(acc) [+ bias] * scale
+__device__ __forceinline__ float scale_acc(int32_t acc, bool has_bias,
+                                           float bias, float scale) {
+  float x = __int2float_rn(acc);
+  if (has_bias) x = __fadd_rn(x, bias);
+  return __fmul_rn(x, scale);
+}
+
+// The full epilogue (deepfusion_tpu/ops/requant.py:requant without sum).
+template <int DT>
+__device__ __forceinline__ typename dt_traits<DT>::T requant(
+    int32_t acc, bool has_bias, float bias, float scale, bool relu,
+    bool down) {
+  float x = scale_acc(acc, has_bias, bias, scale);
+  if (relu || DT == DT_U8) x = relu_f32(x);
+  if constexpr (DT == DT_F32) {
+    return x;
+  } else {
+    return saturate<DT>(round_f32(x, down));
+  }
+}
+
+// The fused path's intermediate: always ReLU, always u8
+// (deepfusion_tpu/ops/requant.py:requant_to_u8_centered, uncentered).
+__device__ __forceinline__ uint8_t requant_to_u8(int32_t acc, bool has_bias,
+                                                 float bias, float scale,
+                                                 bool down) {
+  return requant<DT_U8>(acc, has_bias, bias, scale, true, down);
+}

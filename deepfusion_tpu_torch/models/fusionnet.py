@@ -1,0 +1,157 @@
+"""FusionNet: the flagship INT8 CNN, dense forward.
+
+The PyTorch counterpart of ``deepfusion_tpu/models/fusionnet.py``: the same
+layers, the same numpy-RNG weight draw (``_mkconv``), so ``FusionNet(cfg)``
+in both packages holds the same weights for the same seed, and the same
+dense forward: stem -> fused block -> branch concat -> residual ->
+downsample -> fused block -> global average pool -> f32 head. Weights made
+by the JAX package cross over with ``FusionNet.from_numpy_params``. The
+packed-domain forward (``build_packed``/``packed_call``) is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import ConvConfig
+from ..ops.concat import concat
+from ..ops.conv import ConvOp
+from ..ops.pool import eltwise_sum_relu, pool
+from ..utils.mathutil import conv_output_size
+
+LAYERS = ("stem", "block1", "branch", "res", "block2", "head")
+
+
+def _mkconv(rng, k, ic, oc, dst_dt, *, oc1x1=None, relu=True, in_std=30.0):
+    """Random int8 weights with analytically calibrated scales (scale ~
+    48 / std(acc) keeps u8 activations alive through deep stacks); the same
+    draws, in the same order, as the JAX package's ``_mkconv``. Returns one
+    layer's parameters as a dict of numpy arrays and flags."""
+    wei = rng.integers(-16, 17, (oc, ic, k, k)).astype(np.int8)
+    wei_std = 16.0 / np.sqrt(3.0)
+    acc_std = np.sqrt(k * k * ic) * in_std * wei_std
+    bia = rng.integers(-int(acc_std * 0.05) - 1, int(acc_std * 0.05) + 2,
+                       (oc,)).astype(np.int32)
+    sc0 = (rng.uniform(0.8, 1.2, oc).astype(np.float32)
+           * np.float32(48.0 / acc_std))
+    p = dict(wei=wei, bia=bia, conv0_scales=sc0, conv0_relu=relu,
+             dst_dt=dst_dt)
+    if oc1x1 is None:
+        return p
+    wei1 = rng.integers(-16, 17, (oc1x1, oc, 1, 1)).astype(np.int8)
+    acc1_std = np.sqrt(oc) * 30.0 * wei_std
+    bia1 = rng.integers(-int(acc1_std * 0.05) - 1, int(acc1_std * 0.05) + 2,
+                        (oc1x1,)).astype(np.int32)
+    sc1 = (rng.uniform(0.8, 1.2, oc1x1).astype(np.float32)
+           * np.float32(48.0 / acc1_std))
+    p.update(wei1=wei1, bia1=bia1, conv0_relu=True, conv1_scales=sc1,
+             conv1_relu=relu)
+    return p
+
+
+def _conv_config(n: int, hw: int, p: dict) -> ConvConfig:
+    """Stride-1, same-padding ConvConfig of one layer from its parameters."""
+    oc, ic, k, _ = np.shape(p["wei"])
+    pad = k // 2
+    o = conv_output_size(hw, k, 1, pad)
+    fuse = p.get("wei1") is not None
+    out_oc = np.shape(p["wei1"])[0] if fuse else oc
+    bia, bia1 = p.get("bia"), p.get("bia1")
+    return ConvConfig.make(
+        (n, hw, hw, ic), (oc, ic, k, k),
+        None if bia is None else np.asarray(bia).dtype, (1, 1), (pad, pad),
+        (n, o, o, out_oc), p["dst_dt"],
+        conv0_relu=bool(p["conv0_relu"]), conv0_scales=p["conv0_scales"],
+        wei1x1_shape=tuple(np.shape(p["wei1"])) if fuse else None,
+        bia1x1_dt=None if bia1 is None else np.asarray(bia1).dtype,
+        conv1_relu=bool(p.get("conv1_relu", False)),
+        conv1_scales=p.get("conv1_scales", (1.0,)))
+
+
+@dataclasses.dataclass
+class FusionNetConfig:
+    batch: int = 8
+    hw: int = 56
+    in_ch: int = 32
+    width: int = 128
+    num_classes: int = 128
+    seed: int = 0
+
+
+class FusionNet(nn.Module):
+    """INT8 CNN: stem -> fused block -> branch concat -> residual ->
+    downsample -> fused block -> global pool -> f32 head.
+
+    The forward takes any batch size; ``cfg.batch`` is the batch that
+    ``input_shape`` and ``example_input`` use."""
+
+    def __init__(self, cfg: FusionNetConfig = FusionNetConfig(),
+                 device="cpu", params: Optional[dict] = None):
+        super().__init__()
+        self.cfg = cfg
+        if params is None:
+            params = self.random_params(cfg)
+        n, hw = cfg.batch, cfg.hw
+        in_hw = dict(stem=hw, block1=hw, branch=hw, res=hw, block2=hw // 2,
+                     head=1)
+        self.params = params
+        for name in LAYERS:
+            p = params[name]
+            op = ConvOp(_conv_config(n, in_hw[name], p), p["wei"],
+                        p.get("bia"), p.get("wei1"), p.get("bia1"),
+                        device=device)
+            self.add_module(name, op)
+        self._stem_in_shape = (n, hw, hw, cfg.in_ch)
+
+    @staticmethod
+    def random_params(cfg: FusionNetConfig) -> dict:
+        """The JAX package's weight draw for `cfg.seed`."""
+        rng = np.random.default_rng(cfg.seed)
+        c, w = cfg.in_ch, cfg.width
+        return dict(
+            # raw u8 input has std ~74
+            stem=_mkconv(rng, 3, c, w, "u8", in_std=74.0),
+            block1=_mkconv(rng, 3, w, w, "u8", oc1x1=w),
+            branch=_mkconv(rng, 1, w, w, "u8"),
+            res=_mkconv(rng, 1, 2 * w, 2 * w, "u8"),
+            block2=_mkconv(rng, 3, 2 * w, 2 * w, "u8", oc1x1=w),
+            head=_mkconv(rng, 1, w, cfg.num_classes, "f32", relu=False))
+
+    @classmethod
+    def from_numpy_params(cls, cfg: FusionNetConfig, params: dict,
+                          device="cpu") -> "FusionNet":
+        """Build from parameters given as numpy arrays, one dict per layer
+        name in ``LAYERS``: ``wei``, ``bia``, ``conv0_scales``,
+        ``conv0_relu``, ``dst_dt`` and, for the fused blocks, ``wei1``,
+        ``bia1``, ``conv1_scales``, ``conv1_relu``."""
+        return cls(cfg, device=device, params=params)
+
+    @property
+    def device(self) -> torch.device:
+        return self.stem.device
+
+    @property
+    def input_shape(self):
+        return self._stem_in_shape
+
+    def example_input(self, rng: Optional[np.random.Generator] = None):
+        rng = rng or np.random.default_rng(42)
+        return rng.integers(0, 256, self._stem_in_shape, dtype=np.uint8)
+
+    def forward(self, x_u8) -> torch.Tensor:
+        x = self.stem(torch.as_tensor(x_u8, device=self.device))
+        a = self.block1(x)                          # fused 3x3+1x1
+        b = self.branch(x)                          # 1x1 branch
+        y = concat([a, b], post_relu=True)          # (n, hw, hw, 2w)
+        r = self.res(y)                             # 1x1 on merged
+        y = eltwise_sum_relu(y, r)                  # residual + relu
+        y = pool(y, "max", (2, 2), (2, 2), (0, 0))  # downsample
+        y = self.block2(y)                          # fused 3x3+1x1 -> w
+        h, w = y.shape[1], y.shape[2]
+        y = pool(y, "avg_exc", (h, w), (h, w), (0, 0))  # global avg
+        logits = self.head(y)                       # (n,1,1,classes) f32
+        return logits.reshape(logits.shape[0], -1)

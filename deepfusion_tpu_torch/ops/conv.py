@@ -1,0 +1,213 @@
+"""INT8 conv(+ReLU)(+deep-fused conv1x1+ReLU): ``ConvOp`` and ``conv()``.
+
+The PyTorch counterpart of ``deepfusion_tpu/ops/conv.py``. A ``ConvOp`` packs
+its weights once (``ops/layout.py``) and holds them as buffers on its device.
+Calling it on a CUDA tensor launches ``conv_fused_kernel`` (``csrc/conv.cu``);
+on a CPU tensor it runs ``conv_plain``, the plain PyTorch version of the same
+function, which reads the same packed buffers. Nothing else selects the path.
+
+Stride and padding are handled in the kernel's addressing. The sum post-op
+and the raw-accumulator output (``conv_fused_acc1``) are not ported yet:
+``ConvConfig.make`` raises for ``sum_dt``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import _build
+from ..config import ConvConfig
+from ..types import round_mode
+from ..utils.logger import check, check_eq
+from ..utils.mathutil import conv_output_size, round_up
+from ..utils.persist import dump_config, load_config
+from . import layout
+from .requant import requant, requant_to_u8
+
+def _operand_shapes(cfg: ConvConfig) -> dict:
+    oc0p = layout.conv_ocp(cfg.oc)
+    shapes = {"w0": (cfg.kh * cfg.kw, layout.conv_icp(cfg.ic) // 4, oc0p),
+              "bias0": (oc0p,), "scale0": (oc0p,)}
+    if cfg.fuse_conv1x1:
+        oc1p = layout.conv_ocp(cfg.oc1x1)
+        shapes.update(w1=(layout.fused_k(oc0p) // 4, oc1p), bias1=(oc1p,),
+                      scale1=(oc1p,))
+    return shapes
+
+
+def conv_acc(src_u8: torch.Tensor, wei_oihw: torch.Tensor, stride,
+             padding) -> torch.Tensor:
+    """Exact u8 x s8 -> s32 convolution accumulator, NHWC in and out.
+
+    Accumulates tap by tap in float64: every product and partial sum is an
+    integer below 2^53 (|acc| <= 255 * 128 * kh * kw * ic), so the sum is
+    exact whatever the order of the matrix product."""
+    n, ih, iw, ic = src_u8.shape
+    oc, _, kh, kw = wei_oihw.shape
+    (sh, sw), (ph, pw) = stride, padding
+    oh = conv_output_size(ih, kh, sh, ph)
+    ow = conv_output_size(iw, kw, sw, pw)
+    x = F.pad(src_u8.to(torch.float64), (0, 0, pw, pw, ph, ph))
+    w = wei_oihw.to(torch.float64)
+    acc = torch.zeros((n, oh, ow, oc), dtype=torch.float64,
+                      device=src_u8.device)
+    for ki in range(kh):
+        for kj in range(kw):
+            patch = x[:, ki:ki + (oh - 1) * sh + 1:sh,
+                      kj:kj + (ow - 1) * sw + 1:sw, :]
+            acc += patch @ w[:, :, ki, kj].T
+    return acc.to(torch.int32)
+
+
+class ConvOp(nn.Module):
+    """Pre-packed, pre-configured conv op (the analogue of constructing
+    ``op_conv`` once and calling ``submit()`` per batch,
+    ``src/op_conv.h:34-96``)."""
+
+    def __init__(self, cfg: ConvConfig, wei, bia=None, wei1x1=None,
+                 bia1x1=None, device="cpu"):
+        super().__init__()
+        check_eq(tuple(np.shape(wei)), (cfg.oc, cfg.ic, cfg.kh, cfg.kw),
+                 "conv weight shape (OIHW)")
+        oc0p = layout.conv_ocp(cfg.oc)
+        ops = {"w0": layout.pack_conv_weights(wei, layout.conv_icp(cfg.ic),
+                                              oc0p),
+               "bias0": layout.widen_bias(bia, oc0p),
+               "scale0": layout.widen_scales(cfg.conv0_scales, cfg.oc, oc0p)}
+        if cfg.fuse_conv1x1:
+            check_eq(tuple(np.shape(wei1x1)), (cfg.oc1x1, cfg.oc, 1, 1),
+                     "conv1x1 weight shape (OIHW)")
+            oc1p = layout.conv_ocp(cfg.oc1x1)
+            ops.update(
+                w1=layout.pack_1x1_weights(wei1x1, layout.fused_k(oc0p),
+                                           oc1p),
+                bias1=layout.widen_bias(bia1x1, oc1p),
+                scale1=layout.widen_scales(cfg.conv1_scales, cfg.oc1x1, oc1p))
+        self._set_operands(cfg, ops, device)
+
+    def _set_operands(self, cfg: ConvConfig, ops: dict, device):
+        self.cfg = cfg
+        for k, shape in _operand_shapes(cfg).items():
+            check_eq(tuple(ops[k].shape), shape, f"packed operand {k}")
+            self.register_buffer(k, torch.as_tensor(np.asarray(ops[k]),
+                                                    device=device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.w0.device
+
+    def forward(self, src: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        check_eq(src.dtype, torch.uint8, "conv src dtype")
+        check_eq(tuple(src.shape[1:]), (cfg.ih, cfg.iw, cfg.ic),
+                 "conv src shape (NHWC, any batch)")
+        check_eq(src.device, self.device, "conv src device")
+        if src.device.type == "cpu":
+            return conv_plain(self, src)
+        return conv_cuda(self, src)
+
+    def save(self, path: str):
+        """Save the packed operands and the config to an .npz archive."""
+        arrs = {k: getattr(self, k).cpu().numpy()
+                for k in _operand_shapes(self.cfg)}
+        np.savez(path, __cfg__=dump_config(self.cfg), **arrs)
+
+    @classmethod
+    def load(cls, path: str, device="cpu") -> "ConvOp":
+        with np.load(path, allow_pickle=False) as data:
+            cfg = load_config(data["__cfg__"], ConvConfig)
+            ops = {k: data[k] for k in _operand_shapes(cfg)}
+        op = cls.__new__(cls)
+        nn.Module.__init__(op)
+        op._set_operands(cfg, ops, device)
+        return op
+
+
+def conv_plain(op: ConvOp, src: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of ``conv_fused_kernel``."""
+    cfg = op.cfg
+    w0 = layout.unpack_weights(op.w0, cfg.oc, cfg.ic, cfg.kh, cfg.kw)
+    acc = conv_acc(src, w0, (cfg.sh, cfg.sw), (cfg.ph, cfg.pw))
+    bias0 = op.bias0[:cfg.oc] if cfg.conv0_with_bias else None
+    scale0 = op.scale0[:cfg.oc]
+    if not cfg.fuse_conv1x1:
+        return requant(acc, bias0, scale0, cfg.conv0_relu, cfg.conv0_round,
+                       cfg.dst_dt)
+    mid = requant_to_u8(acc, bias0, scale0, cfg.conv0_round)
+    w1 = layout.unpack_weights(op.w1, cfg.oc1x1, cfg.oc, 1, 1)
+    acc1 = conv_acc(mid, w1, (1, 1), (0, 0))
+    bias1 = op.bias1[:cfg.oc1x1] if cfg.conv1_with_bias else None
+    return requant(acc1, bias1, op.scale1[:cfg.oc1x1], cfg.conv1_relu,
+                   cfg.conv1_round, cfg.dst_dt)
+
+
+def conv_cuda(op: ConvOp, src: torch.Tensor) -> torch.Tensor:
+    """Launch ``conv_fused_kernel`` on the current stream."""
+    cfg = op.cfg
+    check(src.is_cuda, "conv_cuda needs a CUDA tensor")
+    ic = cfg.ic
+    if ic % 16:   # the kernel copies 16 channels at a time; zeros are exact
+        ic = round_up(ic, 16)
+        src = F.pad(src, (0, ic - cfg.ic))
+    src = _build.aligned(src)
+    n = src.shape[0]
+    out = torch.empty((n, cfg.oh, cfg.ow, cfg.out_oc), dtype=cfg.dst_dt.torch,
+                      device=src.device)
+    fuse = cfg.fuse_conv1x1
+    oc1p = layout.conv_ocp(cfg.oc1x1) if fuse else 0
+    with torch.cuda.device(src.device):
+        rc = _build.kernels().df_conv(
+            src.data_ptr(), op.w0.data_ptr(), op.bias0.data_ptr(),
+            op.scale0.data_ptr(),
+            op.w1.data_ptr() if fuse else None,
+            op.bias1.data_ptr() if fuse else None,
+            op.scale1.data_ptr() if fuse else None,
+            out.data_ptr(), n, cfg.ih, cfg.iw, ic, cfg.oh, cfg.ow,
+            cfg.kh, cfg.kw, cfg.sh, cfg.sw, cfg.ph, cfg.pw,
+            cfg.oc, layout.conv_ocp(cfg.oc), cfg.oc1x1, oc1p,
+            int(cfg.conv0_relu), int(cfg.conv1_relu),
+            int(cfg.conv0_round == round_mode.down),
+            int(cfg.conv1_round == round_mode.down),
+            int(cfg.conv0_with_bias), int(cfg.conv1_with_bias),
+            int(fuse), cfg.dst_dt.value, _build.stream_of(src))
+    _build.check(rc, "conv_fused_kernel")
+    _build.count_launch("conv_fused")
+    return out
+
+
+def conv(src, wei, bia=None, stride=(1, 1), padding=(0, 0), *,
+         dst_dtype, conv0_relu=False, conv0_scales=(1.0,),
+         conv0_round_mode=round_mode.nearest,
+         wei1x1=None, bia1x1=None, conv1_relu=False, conv1_scales=(1.0,),
+         conv1_round_mode=round_mode.nearest, groups=1,
+         sum_src=None, sum_scale=1.0):
+    """Functional conv3x3(+relu)(+conv1x1+relu), NHWC u8 in.
+
+    API parity with ``deepfusion::conv`` (``include/deepfusion.h:120-145``)
+    and with the JAX package's ``conv()``. ``src`` is a tensor (the op runs
+    on its device) or a numpy array (run on the CPU); the weights and biases
+    are numpy arrays or CPU tensors.
+    """
+    src = torch.as_tensor(src)
+    wei = np.asarray(wei)
+    n, ih, iw, ic = src.shape
+    oc, _, kh, kw = wei.shape
+    oh = conv_output_size(ih, kh, stride[0], padding[0])
+    ow = conv_output_size(iw, kw, stride[1], padding[1])
+    out_oc = np.shape(wei1x1)[0] if wei1x1 is not None else oc
+    cfg = ConvConfig.make(
+        (n, ih, iw, ic), tuple(wei.shape),
+        None if bia is None else np.asarray(bia).dtype,
+        stride, padding, (n, oh, ow, out_oc), dst_dtype,
+        conv0_relu=conv0_relu, conv0_scales=conv0_scales,
+        conv0_round=conv0_round_mode,
+        wei1x1_shape=None if wei1x1 is None else tuple(np.shape(wei1x1)),
+        bia1x1_dt=None if bia1x1 is None else np.asarray(bia1x1).dtype,
+        conv1_relu=conv1_relu, conv1_scales=conv1_scales,
+        conv1_round=conv1_round_mode, groups=groups,
+        sum_dt=None if sum_src is None else torch.as_tensor(sum_src).dtype,
+        sum_scale=sum_scale)
+    op = ConvOp(cfg, wei, bia, wei1x1, bia1x1, device=src.device)
+    return op(src)

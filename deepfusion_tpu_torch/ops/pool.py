@@ -1,0 +1,158 @@
+"""Pooling and eltwise-sum+ReLU over NHWC tensors.
+
+The PyTorch counterparts of ``deepfusion_tpu/ops/pool.py:pool`` and
+``eltwise_sum_relu``. On CUDA tensors they launch ``pool_kernel``
+(``csrc/pool.cu``) and ``sum_relu_kernel`` (``csrc/sum_relu.cu``); on CPU
+tensors they run ``pool_plain`` and ``sum_relu_plain``. ``conv_relu_pool``
+is not ported yet (it waits for the fused conv+pool kernel).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+from ..config import PoolConfig
+from ..types import dtype, round_mode
+from ..utils.logger import check, check_eq
+from .requant import relu_f32, round_f32, saturate
+
+_POOL_KINDS = {"max": 0, "avg_inc": 1, "avg_exc": 2}
+
+
+def _identity_pad(pc: PoolConfig, dt: dtype):
+    if pc.kind == "max":
+        return {dtype.u8: 0, dtype.s8: -128, dtype.s32: -(2 ** 31),
+                dtype.f32: float("-inf")}[dt]
+    return 0
+
+
+def avg_exc_inv_counts(pc: PoolConfig) -> np.ndarray:
+    """Per-output reciprocal of the in-image tap count, (oh, ow) f32,
+    computed exactly as ``deepfusion_tpu/ops/pool.py:104-114``."""
+    ones = np.zeros((pc.ih + pc.ph + pc.pb, pc.iw + pc.pw + pc.pr),
+                    np.int32)
+    ones[pc.ph:pc.ph + pc.ih, pc.pw:pc.pw + pc.iw] = 1
+    cnt = np.zeros((pc.oh, pc.ow), np.int32)
+    for ki in range(pc.kh):
+        for kj in range(pc.kw):
+            hs = slice(ki, ki + (pc.oh - 1) * pc.sh + 1, pc.sh)
+            ws = slice(kj, kj + (pc.ow - 1) * pc.sw + 1, pc.sw)
+            cnt += ones[hs, ws]
+    return (1.0 / cnt).astype(np.float32)
+
+
+def avg_inc_inv(pc: PoolConfig) -> np.float32:
+    """The f32 reciprocal of kh*kw. The JAX kernel writes ``sum / (kh*kw)``,
+    and XLA compiles a division by a constant as a multiplication by its
+    f32 reciprocal; the port multiplies by the same constant."""
+    return np.float32(1.0) / np.float32(pc.kh * pc.kw)
+
+
+def _wrap_s32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with two's-complement wrap (the JAX kernel's int32
+    sums wrap)."""
+    return (((x + 2 ** 31) % 2 ** 32) - 2 ** 31).to(torch.int32)
+
+
+def pool_plain(x: torch.Tensor, pc: PoolConfig, dt: dtype) -> torch.Tensor:
+    """The plain PyTorch version of ``pool_kernel``: identity padding, taps
+    taken in (ki, kj) order, f32 sums added one by one."""
+    pad = _identity_pad(pc, dt)
+    work = x.to(torch.int64) if dt.is_int else x
+    xp = F.pad(work, (0, 0, pc.pw, pc.pr, pc.ph, pc.pb), value=pad)
+    acc = None
+    for ki in range(pc.kh):
+        for kj in range(pc.kw):
+            tap = xp[:, ki:ki + (pc.oh - 1) * pc.sh + 1:pc.sh,
+                     kj:kj + (pc.ow - 1) * pc.sw + 1:pc.sw, :]
+            if acc is None:
+                acc = tap
+            elif pc.kind == "max":
+                acc = torch.maximum(acc, tap)
+            else:
+                acc = acc + tap
+    if pc.kind == "max":
+        return acc.to(dt.torch)
+    f = _wrap_s32(acc).to(torch.float32) if dt.is_int else acc
+    if pc.kind == "avg_inc":
+        val = f * torch.full_like(f, float(avg_inc_inv(pc)))
+    else:
+        inv = torch.from_numpy(avg_exc_inv_counts(pc)).to(x.device)
+        val = f * inv[None, :, :, None]
+    if not dt.is_int:
+        return val
+    return saturate(round_f32(val, pc.round), dt)
+
+
+def pool_cuda(x: torch.Tensor, pc: PoolConfig, dt: dtype) -> torch.Tensor:
+    """Launch ``pool_kernel`` on the current stream."""
+    x = _build.aligned(x)
+    n, _, _, c = x.shape
+    out = torch.empty((n, pc.oh, pc.ow, c), dtype=dt.torch, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _build.kernels().df_pool(
+            x.data_ptr(), out.data_ptr(), n, pc.ih, pc.iw, c, pc.oh, pc.ow, pc.kh, pc.kw, pc.sh, pc.sw,
+            pc.ph, pc.pw, _POOL_KINDS[pc.kind],
+            int(pc.round == round_mode.down), dt.value,
+            _build.stream_of(x))
+    _build.check(rc, "pool_kernel")
+    _build.count_launch("pool")
+    return out
+
+
+def pool(x, kind: str, kernel, stride, padding,
+         round=round_mode.nearest) -> torch.Tensor:
+    """Standalone max / avg_inc / avg_exc pooling over NHWC (any supported
+    dtype); integer averages round with `round` and saturate."""
+    x = torch.as_tensor(x)
+    check_eq(x.dim(), 4, "pool input must be NHWC")
+    dt = dtype.from_any(x.dtype)
+    pc = PoolConfig.make(kind, (x.shape[1], x.shape[2]), kernel, stride,
+                         padding, round)
+    if x.device.type == "cpu":
+        return pool_plain(x, pc, dt)
+    return pool_cuda(x, pc, dt)
+
+
+def sum_relu_plain(a: torch.Tensor, b: torch.Tensor, dt: dtype,
+                   with_relu: bool) -> torch.Tensor:
+    """The plain PyTorch version of ``sum_relu_kernel``."""
+    if dt == dtype.f32:
+        s = a + b
+        return relu_f32(s) if with_relu else s
+    s = a.to(torch.int64) + b.to(torch.int64)
+    if with_relu:
+        s = s.clamp_min(0)
+    lo, hi = {dtype.s32: (-2 ** 31, 2 ** 31 - 1), dtype.s8: (-128, 127),
+              dtype.u8: (0, 255)}[dt]
+    return s.clamp(lo, hi).to(dt.torch)
+
+
+def sum_relu_cuda(a: torch.Tensor, b: torch.Tensor, dt: dtype,
+                  with_relu: bool) -> torch.Tensor:
+    """Launch ``sum_relu_kernel`` on the current stream."""
+    a, b = _build.aligned(a), _build.aligned(b)
+    out = torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        rc = _build.kernels().df_sum_relu(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            a.numel() * dt.size, int(with_relu), dt.value,
+            _build.stream_of(a))
+    _build.check(rc, "sum_relu_kernel")
+    _build.count_launch("sum_relu")
+    return out
+
+
+def eltwise_sum_relu(a, b, with_relu: bool = True) -> torch.Tensor:
+    """Fused elementwise sum + ReLU (roadmap op, README.md:64-65): integer
+    dtypes add in wide integers and saturate back; f32 adds in f32."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    check_eq(tuple(a.shape), tuple(b.shape), "eltwise operand shapes")
+    check_eq(a.dtype, b.dtype, "eltwise operand dtypes")
+    check(a.device == b.device, "eltwise operands must share a device")
+    dt = dtype.from_any(a.dtype)
+    if a.device.type == "cpu":
+        return sum_relu_plain(a, b, dt, with_relu)
+    return sum_relu_cuda(a, b, dt, with_relu)

@@ -1,0 +1,48 @@
+"""Write ``fusionnet_full_logits.npz``: golden FusionNet logits from the JAX
+package at the full published width (``FusionNetConfig()`` defaults).
+
+The logits come from the JAX package's dense forward (``FusionNet.__call__``)
+run on the CPU, with its Pallas kernels in interpret mode. The input is
+``FusionNet.example_input(np.random.default_rng(INPUT_SEED))``; both the
+seed and the model seed are stored beside the logits so a reader can
+rebuild the same input and weights.
+
+    JAX_PLATFORMS=cpu python tests/data/make_fusionnet_full_logits.py
+"""
+import os
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+sys.path.insert(0, ROOT)
+
+INPUT_SEED = 7
+OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                   "fusionnet_full_logits.npz")
+
+
+def main():
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from deepfusion_tpu.models import FusionNet, FusionNetConfig
+
+    cfg = FusionNetConfig()
+    net = FusionNet(cfg)
+    x = net.example_input(np.random.default_rng(INPUT_SEED))
+    t0 = time.perf_counter()
+    logits = np.asarray(net(x))
+    print(f"JAX dense forward (CPU, interpret mode): "
+          f"{time.perf_counter() - t0:.1f} s, logits {logits.shape}")
+    np.savez(OUT, logits=logits, input_seed=np.int64(INPUT_SEED),
+             model_seed=np.int64(cfg.seed),
+             source=np.str_("deepfusion_tpu FusionNet.__call__ "
+                            "(Pallas interpret mode, CPU)"))
+    print(f"wrote {OUT}")
+
+
+if __name__ == "__main__":
+    main()

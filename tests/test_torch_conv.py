@@ -1,0 +1,171 @@
+"""Conv of the PyTorch port vs the JAX package, bitwise (CPU).
+
+The port's ``conv()`` (its plain PyTorch version, which reads the weights
+back from the kernel's packed layout) against ``deepfusion_tpu.ops.conv.conv``
+in Pallas interpret mode: 3x3 and 1x1, fused and unfused, all dst types,
+both round modes, every bias type, scalar and per-channel scales, on
+full-range u8 inputs and s8 weights (-128..127). Tolerance: bitwise.
+"""
+import numpy as np
+import pytest
+import torch
+
+from deepfusion_tpu.ops.conv import conv as jconv
+from deepfusion_tpu_torch.config import ConvConfig
+from deepfusion_tpu_torch.ops import layout
+from deepfusion_tpu_torch.ops.conv import ConvOp
+from deepfusion_tpu_torch.ops.conv import conv as tconv
+from deepfusion_tpu_torch.utils.logger import CheckError
+from deepfusion_tpu_torch.utils.mathutil import conv_output_size
+
+torch.set_num_threads(2)
+
+# (k, stride, pad, ic, oc, oc1x1, dst, round0, round1, bias, per_oc)
+CASES = {
+    "3x3-u8-rne-s32bias-peroc": (3, 1, 1, 16, 32, None, "u8", "nearest",
+                                 "nearest", "s32", True),
+    "3x3-s8-floor-s8bias-scalar": (3, 1, 1, 16, 24, None, "s8", "down",
+                                   "nearest", "s8", False),
+    "3x3-s32-rne-nobias": (3, 1, 1, 8, 16, None, "s32", "nearest",
+                           "nearest", None, True),
+    "3x3-f32-f32bias": (3, 1, 1, 16, 16, None, "f32", "nearest", "nearest",
+                        "f32", True),
+    "1x1-u8-floor-u8bias": (1, 1, 0, 32, 16, None, "u8", "down", "nearest",
+                            "u8", True),
+    "1x1-s8-rne-f32bias-scalar": (1, 1, 0, 24, 40, None, "s8", "nearest",
+                                  "nearest", "f32", False),
+    "fused-u8-rne": (3, 1, 1, 16, 32, 16, "u8", "nearest", "nearest",
+                     "s32", True),
+    "fused-s8-floor-floor": (3, 1, 1, 16, 16, 24, "s8", "down", "down",
+                             "s8", True),
+    "fused-s32-nobias-scalar": (3, 1, 1, 8, 32, 8, "s32", "nearest", "down",
+                                None, False),
+    "fused-f32-u8bias": (3, 1, 1, 16, 16, 16, "f32", "down", "nearest",
+                         "u8", True),
+    "3x3-stride2-odd-ic": (3, 2, 1, 3, 16, None, "u8", "nearest", "nearest",
+                           "s32", True),
+    "5x5-pad2-s8": (5, 1, 2, 4, 8, None, "s8", "nearest", "nearest", "s32",
+                    True),
+}
+
+
+def _bias(rng, kind, n):
+    if kind is None:
+        return None
+    if kind == "f32":
+        return (rng.standard_normal(n) * 300).astype(np.float32)
+    lo, hi = {"u8": (0, 256), "s8": (-128, 128),
+              "s32": (-20000, 20000)}[kind]
+    return rng.integers(lo, hi, n).astype({"u8": np.uint8, "s8": np.int8,
+                                           "s32": np.int32}[kind])
+
+
+def _case(name):
+    k, s, p, ic, oc, oc1, dst, r0, r1, bias, per_oc = CASES[name]
+    rng = np.random.default_rng(sorted(CASES).index(name))
+    n, hw = 2, 7
+    src = rng.integers(0, 256, (n, hw, hw, ic), dtype=np.uint8)
+    wei = rng.integers(-128, 128, (oc, ic, k, k)).astype(np.int8)
+    # scales that keep most outputs inside the u8/s8 range, some saturating
+    sc = 1.0 / (k * k * ic * 40)
+    kw = dict(dst_dtype=dst, conv0_relu=dst != "s8", conv0_round_mode=r0,
+              conv0_scales=(rng.uniform(0.5, 1.5, oc) * sc).astype(np.float32)
+              if per_oc else (sc,))
+    bia = _bias(rng, bias, oc)
+    if oc1 is not None:
+        kw.update(wei1x1=rng.integers(-128, 128, (oc1, oc, 1, 1)
+                                      ).astype(np.int8),
+                  bia1x1=_bias(rng, bias, oc1), conv1_relu=dst == "u8",
+                  conv1_round_mode=r1,
+                  conv1_scales=(rng.uniform(0.5, 1.5, oc1) / (oc * 40)
+                                ).astype(np.float32)
+                  if per_oc else (1.0 / (oc * 40),))
+    return src, wei, bia, (s, s), (p, p), kw
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_conv_matches_jax(name):
+    src, wei, bia, stride, pad, kw = _case(name)
+    want = np.asarray(jconv(src, wei, bia, stride, pad, **kw))
+    got = tconv(src, wei, bia, stride, pad, **kw).numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_conv_torch_input_and_numpy_input_agree():
+    src, wei, bia, stride, pad, kw = _case("fused-u8-rne")
+    a = tconv(src, wei, bia, stride, pad, **kw)
+    b = tconv(torch.from_numpy(src), wei, bia, stride, pad, **kw)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kh,kw,ic,oc", [(3, 3, 5, 9), (1, 1, 64, 16),
+                                         (5, 3, 33, 8)])
+def test_weight_pack_roundtrip(kh, kw, ic, oc):
+    rng = np.random.default_rng(0)
+    w = rng.integers(-128, 128, (oc, ic, kh, kw)).astype(np.int8)
+    words = layout.pack_conv_weights(w, layout.conv_icp(ic),
+                                     layout.conv_ocp(oc))
+    assert words.dtype == np.int32
+    assert words.shape == (kh * kw, layout.conv_icp(ic) // 4,
+                           layout.conv_ocp(oc))
+    back = layout.unpack_weights(torch.from_numpy(words), oc, ic, kh, kw)
+    np.testing.assert_array_equal(back.numpy(), w)
+    # byte b of word [t, k, o] is w[o, 4k + b, t // kw, t % kw]
+    t = kh * kw - 1
+    assert (words[t, 1, 2] & 0xFF) == (int(w[2, 4, kh - 1, kw - 1]) & 0xFF)
+    assert (words[t, 0, 2] >> 8 & 0xFF) == \
+        (int(w[2, 1, kh - 1, kw - 1]) & 0xFF)
+
+
+def test_save_load_roundtrip(tmp_path):
+    src, wei, bia, stride, pad, kw = _case("fused-s8-floor-floor")
+    n, ih, iw, ic = src.shape
+    oc = wei.shape[0]
+    oc1 = kw["wei1x1"].shape[0]
+    o = conv_output_size(ih, 3, 1, 1)
+    cfg = ConvConfig.make(
+        (n, ih, iw, ic), wei.shape, bia.dtype, stride, pad, (n, o, o, oc1),
+        "s8", conv0_relu=True, conv0_scales=kw["conv0_scales"],
+        conv0_round="down", wei1x1_shape=kw["wei1x1"].shape,
+        bia1x1_dt=kw["bia1x1"].dtype, conv1_scales=kw["conv1_scales"],
+        conv1_round="down")
+    op = ConvOp(cfg, wei, bia, kw["wei1x1"], kw["bia1x1"])
+    path = str(tmp_path / "op.npz")
+    op.save(path)
+    op2 = ConvOp.load(path)
+    assert op2.cfg == op.cfg
+    x = torch.from_numpy(src)
+    assert torch.equal(op(x), op2(x))
+    assert oc == op2.cfg.oc
+
+
+def test_sum_postop_raises_not_implemented():
+    src, wei, bia, stride, pad, kw = _case("3x3-u8-rne-s32bias-peroc")
+    with pytest.raises(NotImplementedError, match="sum post-op"):
+        tconv(src, wei, bia, stride, pad, sum_src=np.zeros((2, 7, 7, 32),
+                                                           np.uint8), **kw)
+
+
+def test_rejects_bad_geometry_like_jax():
+    with pytest.raises(CheckError, match="output h size mismatch"):
+        ConvConfig.make((1, 8, 8, 4), (8, 4, 3, 3), None, (1, 1), (1, 1),
+                        (1, 7, 8, 8), "u8")
+    with pytest.raises(CheckError, match="input channels must match"):
+        ConvConfig.make((1, 8, 8, 4), (8, 5, 3, 3), None, (1, 1), (1, 1),
+                        (1, 8, 8, 8), "u8")
+    with pytest.raises(CheckError, match="scales length"):
+        ConvConfig.make((1, 8, 8, 4), (8, 4, 3, 3), None, (1, 1), (1, 1),
+                        (1, 8, 8, 8), "u8", conv0_scales=(1.0, 2.0))
+
+
+def test_op_rejects_wrong_input():
+    src, wei, bia, stride, pad, kw = _case("3x3-s32-rne-nobias")
+    n, ih, iw, ic = src.shape
+    cfg = ConvConfig.make((n, ih, iw, ic), wei.shape, None, stride, pad,
+                          (n, ih, iw, wei.shape[0]), "s32")
+    op = ConvOp(cfg, wei)
+    with pytest.raises(CheckError):
+        op(torch.from_numpy(src).to(torch.int32))
+    with pytest.raises(CheckError):
+        op(torch.from_numpy(src[:, :5]))
