@@ -7,19 +7,25 @@ Phases, each printing its own lines:
   2. build: compile the CUDA kernels of deepfusion_tpu_torch/csrc;
   3. parity: each kernel against its plain PyTorch version on the card,
      bitwise, at every FusionNet full-width layer shape and extra cases
-     (every dtype, both round modes, saturation edges);
+     (every dtype, both round modes, saturation edges; for the packed
+     kernels also halo erosion, wide tap shifts, pad lanes, 1-3 inputs and
+     random bytes in the pad slots);
   4. slice: FusionNet(FusionNetConfig()) on the card behind BatchServer
-     answers 20 requests; each answer must equal the plain forward on the
+     answers 20 requests through the dense forward, then 20 through the
+     packed forward; each answer must equal the plain dense forward on the
      CPU bitwise (and the JAX package's golden logits where stored), and
-     every kernel must have been launched;
-  5. timings: CUDA-event medians of each kernel and its plain version at
-     the model's shapes, one forward, and served requests per second.
+     every kernel of each path must have been launched in that path's run;
+  5. timings: CUDA-event medians and profiler device times of each kernel
+     and its plain version at the model's shapes, the dense and packed
+     forwards, served requests per second on both paths, and the packed
+     fused conv at bench.py's default shape in TOP/s.
 
 Any failure raises and exits non-zero; nothing is caught. The line before
 the last is the per-kernel JSON summary, the last line the device JSON.
 """
 import importlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -44,7 +50,17 @@ KERNEL_INFO = {
              "deepfusion_tpu/ops/pool.py:62", None),
     "sum_relu": ("deepfusion_tpu_torch/csrc/sum_relu.cu",
                  "deepfusion_tpu/ops/pool.py:225", None),
+    "packed_conv": ("deepfusion_tpu_torch/csrc/packed_conv.cu",
+                    "deepfusion_tpu/ops/packed.py:290", None),
+    "packed_sum_pool": ("deepfusion_tpu_torch/csrc/packed_sum_pool.cu",
+                        "deepfusion_tpu/ops/packed.py:746",
+                        "deepfusion_tpu/ops/packed.py:645, "
+                        "deepfusion_tpu/ops/packed.py:693"),
 }
+# the kernels each served path launches (the packed head is the dense conv)
+DENSE_KERNELS = ("conv_fused", "concat_relu", "pool", "sum_relu")
+PACKED_KERNELS = ("packed_conv", "packed_sum_pool", "conv_fused")
+H100_INT8_PEAK_TOPS = 1979.0   # dense, NVIDIA data sheet, SXM at 700 W
 
 
 def card() -> str:
@@ -71,19 +87,28 @@ def cuda_ms(fn, reps=REPS, warmup=3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps=REPS):
+def device_ms(fn, reps=REPS, tries=3):
     """Device time per call of fn() in ms: the self device time of every
-    kernel and copy it ran, summed by torch.profiler over reps calls
-    (0.0 when the profiler records no device activity)."""
+    kernel and copy it ran, summed by torch.profiler over reps calls. A
+    profile that recorded no device activity is taken again; after `tries`
+    such profiles the time is not measured (nan)."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
-    return us / reps / 1e3
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages())
+        if us > 0:
+            return us / reps / 1e3
+    return float("nan")
+
+
+def _num(x: float):
+    """A measured number for the JSON line; None where not measured."""
+    return None if math.isnan(x) else round(x, 6)
 
 
 def rand(rng, shape, dt, dev):
@@ -265,17 +290,147 @@ def phase_parity(net, dev) -> Parity:
             par.check("sum_relu", f"{dt.name} {shape} relu={relu}",
                       P.sum_relu_cuda(a, b, dt, relu),
                       P.sum_relu_plain(a, b, dt, relu))
+    packed_parity(net, dev, par)
     for k in KERNEL_INFO:
         print(f"parity: {k} bitwise equal to its plain version in "
               f"{par.cases[k]} cases, max_abs_err {par.err[k]}", flush=True)
     return par
 
 
-def phase_slice(net, cfg, dev) -> dict:
-    from deepfusion_tpu_torch import _build
+def packed_input(rng, spec, n, dev, junk=False):
+    """A packed array for spec: random u8 images packed with -128 pads, or
+    (junk) random bytes in every slot, pads included."""
+    from deepfusion_tpu_torch.ops.packed import pack_image
+    from deepfusion_tpu_torch.types import dtype
+    if junk:
+        return rand(rng, spec.array_shape(n), dtype.s8, dev)
+    img = rng.integers(0, 256, (n, spec.h, spec.w, spec.c), dtype=np.uint8)
+    img.reshape(-1)[:2] = [0, 255]
+    return pack_image(torch.from_numpy(img).to(dev), spec)
+
+
+def packed_conv_cases(dev):
+    """(label, PackedConvOp, batch, junk pads) for the extra K5 cases."""
+    from deepfusion_tpu_torch.config import ConvConfig
+    from deepfusion_tpu_torch.ops.packed import PackedConvOp, PackedSpec
+    from deepfusion_tpu_torch.utils.mathutil import conv_output_size
+    rng = np.random.default_rng(12)
+    out = []
+
+    def add(label, hw, cs, oc, k=3, *, oc1=None, bias=True, per_oc=True,
+            rnd="nearest", halo_in=2, halo_out=1, off_in=2, off_out=2,
+            iwp=None, n=2, junk=False):
+        ic, p = sum(cs), k // 2
+        o = conv_output_size(hw, k, 1, p)
+        wei = rng.integers(-128, 128, (oc, ic, k, k)).astype(np.int8)
+        bia = rng.integers(-5000, 5000, (oc,)).astype(np.int32) \
+            if bias else None
+        sc = 1.0 / (k * k * ic * 60)
+        sc0 = (rng.uniform(0.5, 1.5, oc) * sc).astype(np.float32) \
+            if per_oc else (sc,)
+        kw = {}
+        wei1 = bia1 = None
+        if oc1 is not None:
+            wei1 = rng.integers(-128, 128, (oc1, oc, 1, 1)).astype(np.int8)
+            bia1 = rng.integers(-5000, 5000, (oc1,)).astype(np.int32) \
+                if bias else None
+            kw = dict(wei1x1_shape=(oc1, oc, 1, 1),
+                      bia1x1_dt=None if bia1 is None else np.int32,
+                      conv1_relu=True, conv1_round=rnd,
+                      conv1_scales=(rng.uniform(0.5, 1.5, oc1) / (oc * 60)
+                                    ).astype(np.float32) if per_oc
+                      else (1.0 / (oc * 60),))
+        cfg = ConvConfig.make((n, hw, hw, ic), (oc, ic, k, k),
+                              None if bia is None else bia.dtype, (1, 1),
+                              (p, p), (n, o, o, oc1 or oc), "u8",
+                              conv0_relu=True, conv0_scales=sc0,
+                              conv0_round=rnd, **kw)
+        sins = tuple(PackedSpec.make(hw, hw, c, halo=halo_in,
+                                     col_off=off_in, iwp=iwp) for c in cs)
+        op = PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sins,
+                          col_off_out=off_out, halo_out=halo_out,
+                          device=dev)
+        out.append((label, op, n, junk))
+
+    for rnd in ("nearest", "down"):
+        add(f"3x3 {rnd}", 12, [64], 64, rnd=rnd)
+        add(f"fused {rnd}", 12, [64], 96, oc1=64, rnd=rnd)
+    add("no-bias scalar-scale", 10, [32], 64, bias=False, per_oc=False)
+    add("fused no-bias scalar-scale", 10, [32], 32, oc1=32, bias=False,
+        per_oc=False)
+    add("c=40 oc=40 (pad lanes)", 11, [40], 40)
+    add("fused oc=72 oc1=40 (pad lanes)", 11, [40], 72, oc1=40)
+    for d in (0, 1, 2):
+        add(f"halo delta {d}", 12, [32], 32, halo_in=1 + d, halo_out=1)
+    add("col_off 1 -> 6 (|d| >= 4)", 12, [32], 32, halo_in=3,
+        off_in=1, off_out=6, iwp=32)
+    add("col_off 6 -> 1 (|d| >= 4)", 12, [32], 32, halo_in=3,
+        off_in=6, off_out=1, iwp=32)
+    add("5x5", 12, [32], 32, k=5, halo_in=3, halo_out=2, off_in=2,
+        off_out=2)
+    add("1x1 three inputs", 9, [32, 64, 48], 64, k=1)
+    add("3x3 two inputs fused", 9, [64, 64], 128, oc1=64)
+    add("fused oc0=544 (two channel passes)", 5, [32], 544, oc1=40, n=1)
+    add("junk pads 3x3", 12, [64], 64, junk=True)
+    add("junk pads fused two inputs", 12, [32, 48], 64, oc1=32, junk=True)
+    add("junk pads 5x5", 12, [40], 40, k=5, halo_in=3, junk=True)
+    return out
+
+
+def packed_parity(net, dev, par):
+    """K5 at every packed FusionNet layer (valid and junk pads) and the
+    extra cases; K6/K7/K8 at the residual shape, 1-3 inputs, edges."""
+    from deepfusion_tpu_torch.ops import packed as PK
+    from deepfusion_tpu_torch.ops.packed import PackedSpec
+    rng = np.random.default_rng(6)
+    P = net.build_packed()
+    n = net.cfg.batch
+    for name, op in P.items():
+        for junk in (False, True):
+            arrs = [packed_input(rng, s, n, dev, junk) for s in op.sins]
+            par.check("packed_conv", f"FusionNet {name} junk={junk}",
+                      PK.packed_conv_cuda(op, arrs),
+                      PK.packed_conv_plain(op, arrs))
+    for label, op, bn, junk in packed_conv_cases(dev):
+        arrs = [packed_input(rng, s, bn, dev, junk) for s in op.sins]
+        par.check("packed_conv", label, PK.packed_conv_cuda(op, arrs),
+                  PK.packed_conv_plain(op, arrs))
+
+    r = P["res"].sout
+    yspecs = [P["block1"].sout, P["branch"].sout]
+    cases = [("FusionNet residual", yspecs, r, n)]
+    for cs in ([64], [32, 32], [32, 64, 32]):
+        ys = [PackedSpec.make(6, 10, c, halo=2, col_off=2, iwp=16)
+              for c in cs]
+        cases.append((f"{cs}", ys, PackedSpec.make(
+            6, 10, sum(cs), halo=2, col_off=2, iwp=16), 2))
+    for label, ys_s, rs, bn in cases:
+        for junk in (False, True):
+            ys = [packed_input(rng, s, bn, dev, junk) for s in ys_s]
+            rr = packed_input(rng, rs, bn, dev, junk)
+            for sum_, pool in ((True, True), (True, False), (False, True)):
+                if not sum_ and len(ys) > 1:
+                    continue
+                what = f"{label} junk={junk} sum={sum_} pool={pool}"
+                args = (ys, rr if sum_ else None, pool, rs.rows, rs.iwp)
+                par.check("packed_sum_pool", what,
+                          PK.packed_sum_pool_cuda(*args),
+                          PK.packed_sum_pool_plain(*args))
+    # saturation edges: every (a, b) byte pair of -128, -1, 0, 127
+    edge = torch.tensor([-128, -1, 0, 127], dtype=torch.int8)
+    a = edge.repeat_interleave(4).repeat(16).reshape(1, 16, 16).to(dev)
+    b = edge.repeat(4).repeat(16).reshape(1, 16, 16).to(dev)
+    for pool in (False, True):
+        par.check("packed_sum_pool", f"edges pool={pool}",
+                  PK.packed_sum_pool_cuda([a], b, pool, 2, 8),
+                  PK.packed_sum_pool_plain([a], b, pool, 2, 8))
+
+
+def slice_requests(net, cfg):
+    """20 requests (the golden input's 8 first, where stored), the plain
+    dense forward's logits for them on the CPU, and the golden logits."""
     from deepfusion_tpu_torch.models import FusionNet
-    from deepfusion_tpu_torch.serving import BatchServer
-    from deepfusion_tpu_torch.utils.logger import check, check_eq
+    from deepfusion_tpu_torch.utils.logger import check_eq
     reqs = []
     golden = None
     if os.path.exists(GOLDEN):
@@ -286,37 +441,68 @@ def phase_slice(net, cfg, dev) -> dict:
     rng = np.random.default_rng(123)
     while len(reqs) < 20:
         reqs.append(rng.integers(0, 256, net.input_shape[1:], dtype=np.uint8))
+    with torch.inference_mode():
+        want = FusionNet(cfg, device="cpu")(np.stack(reqs)).numpy()
+    return reqs, want, golden
 
+
+def phase_slice(model, cfg, path, kernels, reqs, want, golden) -> dict:
+    """Serve reqs through `model` behind BatchServer; every kernel of the
+    path must launch in this run, and every answer must be bitwise right."""
+    from deepfusion_tpu_torch import _build
+    from deepfusion_tpu_torch.serving import BatchServer
+    from deepfusion_tpu_torch.utils.logger import check, check_eq
     _build.reset_launch_counts()
-    srv = BatchServer(net, batch=cfg.batch, input_shape=net.input_shape[1:])
+    srv = BatchServer(model, batch=cfg.batch,
+                      input_shape=model.input_shape[1:])
     with srv:
         outs = [f.result(timeout=300) for f in srv.submit_many(reqs)]
     counts = _build.launch_counts()
-    print(f"slice: 20 requests served in {srv.stats['flushes']} flushes "
-          f"({srv.stats['padded_rows']} padded rows); launches {counts}",
-          flush=True)
-    check_eq(srv.stats["requests"], 20, "served requests")
-    for k in KERNEL_INFO:
-        check(counts[k] > 0, f"kernel {k} was not launched on the main path")
+    print(f"slice: {path} path: {len(reqs)} requests served in "
+          f"{srv.stats['flushes']} flushes ({srv.stats['padded_rows']} "
+          f"padded rows); launches {counts}", flush=True)
+    check_eq(srv.stats["requests"], len(reqs), "served requests")
+    for k in kernels:
+        check(counts[k] > 0,
+              f"kernel {k} was not launched on the {path} path")
 
     got = np.stack(outs)
-    check_eq(got.shape, (20, cfg.num_classes), "served logits shape")
+    check_eq(got.shape, (len(reqs), cfg.num_classes), "served logits shape")
     check(got.dtype == np.float32 and np.isfinite(got).all(),
           "served logits must be finite f32")
-    cpu_net = FusionNet(cfg, device="cpu")
-    with torch.inference_mode():
-        want = cpu_net(np.stack(reqs)).numpy()
     check(np.array_equal(got, want),
-          f"served logits differ from the CPU plain forward: max_abs_err "
-          f"{np.abs(got - want).max()}")
-    msg = "bitwise equal to the CPU plain forward"
+          f"{path} served logits differ from the CPU plain dense forward: "
+          f"max_abs_err {np.abs(got - want).max()}")
+    msg = "bitwise equal to the CPU plain dense forward"
     if golden is not None:
         check(np.array_equal(got[:cfg.batch], golden["logits"]),
-              "card logits differ from the JAX package's golden logits: "
-              f"max_abs_err {np.abs(got[:cfg.batch] - golden['logits']).max()}")
+              f"{path} card logits differ from the JAX package's golden "
+              f"logits: max_abs_err "
+              f"{np.abs(got[:cfg.batch] - golden['logits']).max()}")
         msg += " and to the JAX package's golden logits"
-    print(f"slice: 20 served answers {msg}", flush=True)
+    print(f"slice: {path} path: {len(reqs)} served answers {msg}",
+          flush=True)
     return counts
+
+
+def flagship_op(dev):
+    """The packed fused conv at bench.py's default shape (bench.py:275-278):
+    8x126x126x256 -> 3x3:256 -> 1x1:256, PackedConvOp's default geometry."""
+    from deepfusion_tpu_torch.config import ConvConfig
+    from deepfusion_tpu_torch.ops.packed import PackedConvOp
+    n, hw, ic, oc, oc1 = 8, 126, 256, 256, 256
+    rng = np.random.default_rng(21)
+    wei = rng.integers(-128, 128, (oc, ic, 3, 3)).astype(np.int8)
+    bia = rng.integers(-5000, 5000, (oc,)).astype(np.int32)
+    wei1 = rng.integers(-128, 128, (oc1, oc, 1, 1)).astype(np.int8)
+    bia1 = rng.integers(-5000, 5000, (oc1,)).astype(np.int32)
+    cfg = ConvConfig.make((n, hw, hw, ic), (oc, ic, 3, 3), np.int32, (1, 1),
+                          (1, 1), (n, hw, hw, oc1), "u8", conv0_relu=True,
+                          conv0_scales=(1.0 / (9 * ic * 10),),
+                          wei1x1_shape=(oc1, oc, 1, 1), bia1x1_dt=np.int32,
+                          conv1_relu=True, conv1_scales=(1.0 / (oc * 20),))
+    macs = n * hw * hw * (9 * ic * oc + oc * oc1)
+    return PackedConvOp(cfg, wei, bia, wei1, bia1, device=dev), n, macs
 
 
 def phase_timings(net, cfg, dev, name_power, parity, counts) -> list:
@@ -325,22 +511,25 @@ def phase_timings(net, cfg, dev, name_power, parity, counts) -> list:
     C = importlib.import_module("deepfusion_tpu_torch.ops.concat")
     K = importlib.import_module("deepfusion_tpu_torch.ops.conv")
     P = importlib.import_module("deepfusion_tpu_torch.ops.pool")
+    PK = importlib.import_module("deepfusion_tpu_torch.ops.packed")
     from deepfusion_tpu_torch.serving import BatchServer
     from deepfusion_tpu_torch.types import dtype
     rng = np.random.default_rng(9)
     u8 = dtype.u8
     per = {k: [0.0, 0.0, 0.0, 0.0] for k in KERNEL_INFO}
 
-    def timed(kernel, label, fn_kernel, fn_plain):
+    def timed(kernel, label, fn_kernel, fn_plain, in_forward=True):
         t = (cuda_ms(fn_kernel), cuda_ms(fn_plain), device_ms(fn_kernel),
              device_ms(fn_plain))
-        for i, v in enumerate(t):
-            per[kernel][i] += v
+        if in_forward:
+            for i, v in enumerate(t):
+                per[kernel][i] += v
         print(f"timing: {kernel} {label} ms={t[0]:.4f} plain_ms={t[1]:.4f} "
               f"device_ms={t[2]:.4f} plain_device_ms={t[3]:.4f} "
               f"card=\"{name_power}\"", flush=True)
 
     w = cfg.width
+    packed = net.build_packed()
     with torch.inference_mode():
         for name in LAYERS:
             op = getattr(net, name)
@@ -366,46 +555,94 @@ def phase_timings(net, cfg, dev, name_power, parity, counts) -> list:
         timed("pool", "global avg_exc", lambda: P.pool_cuda(z, pc2, u8),
               lambda: P.pool_plain(z, pc2, u8))
 
+        # the packed path's kernels at its shapes (the head is conv_fused,
+        # timed above with the dense path)
+        for name, op in packed.items():
+            arrs = [packed_input(rng, s, n, dev) for s in op.sins]
+            timed("packed_conv", name, lambda: PK.packed_conv_cuda(op, arrs),
+                  lambda: PK.packed_conv_plain(op, arrs))
+        rs = packed["res"].sout
+        ys = [packed_input(rng, s, n, dev)
+              for s in (packed["block1"].sout, packed["branch"].sout)]
+        rr = packed_input(rng, rs, n, dev)
+        timed("packed_sum_pool", "residual sum+pool (K8)",
+              lambda: PK.packed_sum_pool_cuda(ys, rr, True, rs.rows, rs.iwp),
+              lambda: PK.packed_sum_pool_plain(ys, rr, True, rs.rows,
+                                               rs.iwp))
+        y2 = torch.cat(ys, dim=-1)
+        for label, args in (("sum only (K6)", ([y2], rr, False)),
+                            ("pool only (K7)", ([y2], None, True))):
+            timed("packed_sum_pool", label,
+                  lambda: PK.packed_sum_pool_cuda(*args, rs.rows, rs.iwp),
+                  lambda: PK.packed_sum_pool_plain(*args, rs.rows, rs.iwp),
+                  in_forward=False)
+
+        # dense vs packed forward, in turns
         x = torch.from_numpy(net.example_input()).to(dev)
-        fwd_ms = cuda_ms(lambda: net(x))
-        fwd_dev_ms = device_ms(lambda: net(x))
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(REPS):
-                net(x)
-            torch.cuda.synchronize()
-    print(f"timing: FusionNet forward batch={cfg.batch} ms={fwd_ms:.4f} "
-          f"device_ms={fwd_dev_ms:.4f} device_busy_share="
-          f"{fwd_dev_ms / fwd_ms:.3f} card=\"{name_power}\"", flush=True)
-    top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
-    for e in top[:8]:
-        if e.self_device_time_total > 0:
-            print(f"profile: forward {e.key[:60]} calls/fwd="
-                  f"{e.count / REPS:g} device_ms/fwd="
-                  f"{e.self_device_time_total / REPS / 1e3:.4f}", flush=True)
+        pm = net.packed_module()
+        fwd = {"dense": lambda: net(x), "packed": lambda: pm(x)}
+        ms = {k: [] for k in fwd}
+        for k in ("dense", "packed", "packed", "dense"):
+            ms[k].append(cuda_ms(fwd[k]))
+        for k, fn in fwd.items():
+            f_ms = statistics.mean(ms[k])
+            d_ms = device_ms(fn)
+            print(f"timing: FusionNet {k} forward batch={cfg.batch} "
+                  f"ms={f_ms:.4f} device_ms={d_ms:.4f} device_busy_share="
+                  f"{d_ms / f_ms:.3f} card=\"{name_power}\"", flush=True)
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(REPS):
+                    fn()
+                torch.cuda.synchronize()
+            top = sorted(prof.key_averages(),
+                         key=lambda e: -e.self_device_time_total)
+            for e in top[:8]:
+                if e.self_device_time_total > 0:
+                    print(f"profile: {k} forward {e.key[:60]} calls/fwd="
+                          f"{e.count / REPS:g} device_ms/fwd="
+                          f"{e.self_device_time_total / REPS / 1e3:.4f} "
+                          f"card=\"{name_power}\"", flush=True)
+
+        # the packed fused conv at bench.py's default shape
+        fop, fbatch, macs = flagship_op(dev)
+        fx = packed_input(rng, fop.sin, fbatch, dev)
+        parity.check("packed_conv", "bench.py default 8x126x126x256 fused",
+                     PK.packed_conv_cuda(fop, [fx]),
+                     PK.packed_conv_plain(fop, [fx]))
+        f_ms = cuda_ms(lambda: PK.packed_conv_cuda(fop, [fx]))
+        f_dev = device_ms(lambda: PK.packed_conv_cuda(fop, [fx]))
+        tops = 2 * macs / (f_dev * 1e-3) / 1e12
+        print(f"timing: packed fused conv 8x126x126x256 -> 3x3:256 -> "
+              f"1x1:256 ms={f_ms:.4f} device_ms={f_dev:.4f} "
+              f"device_TOPs={tops:.1f} share_of_int8_peak="
+              f"{tops / H100_INT8_PEAK_TOPS:.4f} bitwise equal to its plain "
+              f"version; card=\"{name_power}\"", flush=True)
+        del fop, fx
 
     req = list(np.random.default_rng(3).integers(
         0, 256, (64,) + net.input_shape[1:], dtype=np.uint8))
-    rps = []
-    for _ in range(3):
-        with BatchServer(net, batch=cfg.batch,
+    rps = {"dense": [], "packed": []}
+    for k in ("dense", "packed", "packed", "dense", "dense", "packed"):
+        with BatchServer(pm if k == "packed" else net, batch=cfg.batch,
                          input_shape=net.input_shape[1:]) as srv:
             t0 = time.perf_counter()
             for f in srv.submit_many(req):
                 f.result(timeout=300)
-            rps.append(len(req) / (time.perf_counter() - t0))
-    print(f"timing: served requests/s={statistics.median(rps):.1f} "
-          f"(median of 3 bursts of {len(req)}, batch {cfg.batch}) "
-          f"card=\"{name_power}\"", flush=True)
+            rps[k].append(len(req) / (time.perf_counter() - t0))
+    for k, v in rps.items():
+        print(f"timing: {k} served requests/s={statistics.median(v):.1f} "
+              f"(median of 3 bursts of {len(req)}, batch {cfg.batch}, in "
+              f"turns with the other path) card=\"{name_power}\"",
+              flush=True)
 
     rows = []
     for k, (src, replaces, also) in KERNEL_INFO.items():
         row = {"name": k, "route": "cuda", "source": src,
                "replaces": replaces, "launches": counts[k],
-               "max_abs_err": parity.err[k], "ms": round(per[k][0], 6),
-               "plain_ms": round(per[k][1], 6),
-               "device_ms": round(per[k][2], 6),
-               "plain_device_ms": round(per[k][3], 6)}
+               "max_abs_err": parity.err[k], "ms": _num(per[k][0]),
+               "plain_ms": _num(per[k][1]), "device_ms": _num(per[k][2]),
+               "plain_device_ms": _num(per[k][3])}
         if also:
             row["also_replaces"] = also
         rows.append(row)
@@ -424,9 +661,14 @@ def main():
     dev = torch.device("cuda:0")
     cfg = FusionNetConfig()
     net = FusionNet(cfg, device=dev)
+    net.build_packed()
     with torch.inference_mode():
         parity = phase_parity(net, dev)
-    counts = phase_slice(net, cfg, dev)
+    reqs, want, golden = slice_requests(net, cfg)
+    dense = phase_slice(net, cfg, "dense", DENSE_KERNELS, reqs, want, golden)
+    packed = phase_slice(net.packed_module(), cfg, "packed", PACKED_KERNELS,
+                         reqs, want, golden)
+    counts = {k: dense[k] + packed[k] for k in KERNEL_INFO}
     rows = phase_timings(net, cfg, dev, name_power, parity, counts)
     print(name_power)
     print(json.dumps({"kernels": rows}))

@@ -5,9 +5,11 @@ kernels by hand (``csrc/``), with the JAX package ``deepfusion_tpu`` as the
 reference they are held against bit for bit. Each op runs its CUDA kernel on
 CUDA tensors and its plain PyTorch version on CPU tensors.
 
-Ported so far: the dense FusionNet serving path — ``ops.conv`` (with the
+Ported so far: FusionNet's dense serving path — ``ops.conv`` (with the
 deep-fused 1x1), ``ops.concat``, ``ops.pool`` (pooling and
-eltwise-sum+ReLU), ``models.FusionNet`` and ``serving.BatchServer``.
+eltwise-sum+ReLU), ``models.FusionNet`` and ``serving.BatchServer`` — and
+its packed serving path: ``ops.packed`` (the packed conv with 1..n inputs,
+the packed residual sum and 2x2 max pool) and ``FusionNet.packed_call``.
 """
 from . import config, ops, serving, types, utils  # noqa: F401
 from .config import ConcatConfig, ConvConfig, PoolConfig  # noqa: F401

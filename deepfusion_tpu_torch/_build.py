@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels, and count their launches.
 
-``csrc/*.cu`` are compiled at first use by ``nvcc`` into one shared library
-with a plain C interface, ``_build/libdf_kernels-<hash>.so``, and loaded with
-``ctypes``. The name carries a hash of the sources and the flags, so an edit
-rebuilds; the library is written under a temporary name and moved into
-place with ``os.replace``, so a process never loads a half-written file. A
-failed build raises: there is no fallback to the plain PyTorch versions.
+``csrc/*.cu`` are compiled at first use by ``nvcc``, one process per source,
+all started together, and linked into one shared library with a plain C
+interface, ``_build/libdf_kernels-<hash>.so``, loaded with ``ctypes``. The
+name carries a hash of the sources and the flags, so an edit rebuilds; the
+library is written under a temporary name and moved into place with
+``os.replace``, so a process never loads a half-written file. A failed
+build raises: there is no fallback to the plain PyTorch versions.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check(rc, name)`` turns a non-zero code into an
@@ -28,9 +29,9 @@ from .utils import env
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-I/usr/local/cutlass/include")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
+                           "-fPIC", "-I/usr/local/cutlass/include")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -39,9 +40,14 @@ _SIGNATURES = {
                   _P, _L, _I, _I, _P],
     "df_pool": [_P, _P] + [_I] * 15 + [_P],
     "df_sum_relu": [_P, _P, _P, _L, _I, _I, _P],
+    "df_packed_conv": [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(_I),
+                       _I] + [_P] * 7 + [_I] * 23 + [_P],
+    "df_packed_sum_pool": [ctypes.POINTER(ctypes.c_void_p),
+                           ctypes.POINTER(_I), _I, _P, _P] + [_I] * 6 + [_P],
 }
 
-KERNELS = ("conv_fused", "concat_relu", "pool", "sum_relu")
+KERNELS = ("conv_fused", "concat_relu", "pool", "sum_relu", "packed_conv",
+           "packed_sum_pool")
 
 _counts_lock = threading.Lock()
 _counts = dict.fromkeys(KERNELS, 0)
@@ -90,23 +96,44 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the library unless it already exists."""
+    """Compile csrc/*.cu into the library unless it already exists: one
+    nvcc process per source, all running at once, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    sources = [str(f) for f in sorted(CSRC.glob("*.cu"))]
-    cmd = [_nvcc(), *_flags(), "-o", str(tmp), *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{out.stem}.{os.getpid()}"
+    tmp = out.with_name(f"{tag}.tmp.so")
+    objs = BUILD_DIR / f"{tag}.obj"
+    objs.mkdir(exist_ok=True)
+    try:
+        nvcc = _nvcc()
+        jobs = []
+        for f in sorted(CSRC.glob("*.cu")):
+            cmd = [nvcc, *_flags(), "-c", "-o", str(objs / f"{f.stem}.o"),
+                   str(f)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        logs = [proc.communicate()[1] for _, proc in jobs]
+        for (cmd, proc), err in zip(jobs, logs):
+            _raise_if_failed(proc.returncode, cmd, err)
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *[str(o) for o in sorted(objs.glob("*.o"))]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _raise_if_failed(proc.returncode, cmd, proc.stderr)
+        if env.dump_code():
+            out.with_suffix(".ptxas.txt").write_text("".join(logs))
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    if env.dump_code():
-        out.with_suffix(".ptxas.txt").write_text(proc.stderr)
-    os.replace(tmp, out)
+        shutil.rmtree(objs, ignore_errors=True)
     return out
+
+
+def _raise_if_failed(rc: int, cmd: list, err: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{err}")
 
 
 @functools.cache

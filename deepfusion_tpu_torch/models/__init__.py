@@ -1,1 +1,1 @@
-from .fusionnet import FusionNet, FusionNetConfig  # noqa: F401
+from .fusionnet import FusionNet, FusionNetConfig, PackedFusionNet  # noqa: F401

@@ -1,12 +1,15 @@
-"""FusionNet: the flagship INT8 CNN, dense forward.
+"""FusionNet: the flagship INT8 CNN, dense and packed-domain forwards.
 
 The PyTorch counterpart of ``deepfusion_tpu/models/fusionnet.py``: the same
 layers, the same numpy-RNG weight draw (``_mkconv``), so ``FusionNet(cfg)``
 in both packages holds the same weights for the same seed, and the same
 dense forward: stem -> fused block -> branch concat -> residual ->
 downsample -> fused block -> global average pool -> f32 head. Weights made
-by the JAX package cross over with ``FusionNet.from_numpy_params``. The
-packed-domain forward (``build_packed``/``packed_call``) is not ported yet.
+by the JAX package cross over with ``FusionNet.from_numpy_params``.
+
+``packed_call`` is the same forward with every activation in the packed
+domain (``ops/packed.py``), bitwise equal to the dense one;
+``packed_module()`` wraps it for ``serving.BatchServer``.
 """
 from __future__ import annotations
 
@@ -18,8 +21,11 @@ import torch
 from torch import nn
 
 from ..config import ConvConfig
+from ..ops import layout
 from ..ops.concat import concat
 from ..ops.conv import ConvOp
+from ..ops.packed import (PackedConvOp, PackedSpec, pack_image,
+                          packed_global_avgpool, packed_sum_relu_maxpool2)
 from ..ops.pool import eltwise_sum_relu, pool
 from ..utils.mathutil import conv_output_size
 
@@ -106,6 +112,8 @@ class FusionNet(nn.Module):
                         device=device)
             self.add_module(name, op)
         self._stem_in_shape = (n, hw, hw, cfg.in_ch)
+        self._in_hw = in_hw
+        self._packed = None
 
     @staticmethod
     def random_params(cfg: FusionNetConfig) -> dict:
@@ -155,3 +163,94 @@ class FusionNet(nn.Module):
         y = pool(y, "avg_exc", (h, w), (h, w), (0, 0))  # global avg
         logits = self.head(y)                       # (n,1,1,classes) f32
         return logits.reshape(logits.shape[0], -1)
+
+    # ------------------------------------------ packed-domain forward path
+
+    def build_packed(self) -> nn.ModuleDict:
+        """The layout-persistent pipeline (ops/packed.py), built once on the
+        model's device: every activation stays in the packed domain (conv,
+        concat, residual sum, the 2x2 maxpool and the global avg pool all
+        read packed arrays), so the only relayout in the model is the
+        boundary pack of the input image."""
+        if self._packed is not None:
+            return self._packed
+        hw, c, w = self.cfg.hw, self.cfg.in_ch, self.cfg.width
+
+        def op(name, sin, col_off_out, halo_out):
+            p = self.params[name]
+            return PackedConvOp(
+                _conv_config(self.cfg.batch, self._in_hw[name], p),
+                p["wei"], p.get("bia"), p.get("wei1"), p.get("bia1"),
+                sin=sin, col_off_out=col_off_out, halo_out=halo_out,
+                device=self.device)
+
+        # Halo budget (erosion scheme): each 3x3 conv consumes one halo row
+        # (halo_out = halo_in - ph), so every tap of an image pixel reads
+        # inside its input. The 2x2 maxpool needs its input halo even; the
+        # chain 4 -> 3 -> 2 (even) -> pool -> 1 -> 0 satisfies every
+        # consumer exactly.
+        sin0 = PackedSpec.make(hw, hw, c, cp=layout.conv_icp(c),
+                               halo=4, col_off=2)
+        stem = op("stem", sin0, 2, 3)
+        block1 = op("block1", stem.sout, 2, 2)
+        branch = op("branch", stem.sout, 2, 2)
+        # concat-free branch merge: the 1x1 residual conv reads both
+        # branches as K segments, and the fused sum+pool joins them, so the
+        # 2w-channel concat never exists in memory
+        res = op("res", (block1.sout, branch.sout), 2, 2)
+        pool_spec = PackedSpec(h=hw // 2, w=hw // 2, c=2 * w, cp=2 * w,
+                               halo=1, col_off=1, iwp=sin0.iwp // 2)
+        block2 = op("block2", pool_spec, 1, 0)
+        self._packed = nn.ModuleDict(dict(stem=stem, block1=block1,
+                                          branch=branch, res=res,
+                                          block2=block2))
+        return self._packed
+
+    def packed_call(self, x_u8) -> torch.Tensor:
+        """Forward pass bitwise equal to ``forward`` (u8 ReLU is the
+        identity through the concat; max pooling and the saturating
+        residual sum commute exactly with the -128 centering, see
+        ops/packed.py)."""
+        P = self.build_packed()
+        x = pack_image(torch.as_tensor(x_u8, device=self.device),
+                       P["stem"].sin)
+        x = P["stem"](x)
+        a = P["block1"](x)
+        b = P["branch"](x)
+        r = P["res"]((a, b))
+        y, _ = packed_sum_relu_maxpool2(
+            (a, b), r, (P["block1"].sout, P["branch"].sout), P["res"].sout)
+        y = P["block2"](y)
+        # global avg pool straight off the packed array: the -128 fill
+        # makes non-image slots contribute 0 to the u8 sum
+        y = packed_global_avgpool(y, P["block2"].sout)
+        logits = self.head(y)
+        return logits.reshape(logits.shape[0], -1)
+
+    def packed_module(self) -> "PackedFusionNet":
+        """The packed forward as a module to serve (the counterpart of the
+        JAX package's ``FusionNet.jit_packed``)."""
+        self.build_packed()
+        return PackedFusionNet(self)
+
+
+class PackedFusionNet(nn.Module):
+    """``FusionNet.packed_call`` as a module that carries ``device`` and
+    ``input_shape``, so ``BatchServer`` stages each batch on the model's
+    device (a bound method has no ``device``: the batch would stay on the
+    CPU)."""
+
+    def __init__(self, net: FusionNet):
+        super().__init__()
+        self.net = net
+
+    @property
+    def device(self) -> torch.device:
+        return self.net.device
+
+    @property
+    def input_shape(self):
+        return self.net.input_shape
+
+    def forward(self, x_u8) -> torch.Tensor:
+        return self.net.packed_call(x_u8)

@@ -16,6 +16,13 @@ zero.
 
 Zero padding of the image is exact in the u8 domain, so the JAX package's
 -128 shift of the activations and its correction term are not needed here.
+
+The packed-domain conv (``csrc/packed_conv.cu``) uses the same word layouts
+with wider padding: K is the sum of its sources' lanes (``conv_icp(ic)``,
+since every source but the last has ``cp == c``, OIHW with ic = c0 + c1 + ...
+is already in the lane order of the joined sources) and every N is
+``packed_cp(oc)``, the lane count of the packed output
+(``deepfusion_tpu/ops/packed.py:_narrow_cfg``).
 """
 from __future__ import annotations
 
@@ -34,6 +41,12 @@ def conv_icp(ic: int) -> int:
 
 def conv_ocp(oc: int) -> int:
     return round_up(oc, OC_ALIGN)
+
+
+def packed_cp(c: int) -> int:
+    """Lanes of a packed image of c channels: c rounded up to 32, at least
+    32."""
+    return max(round_up(c, IC_ALIGN), IC_ALIGN)
 
 
 def fused_k(oc0p: int) -> int:

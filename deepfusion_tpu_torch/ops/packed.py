@@ -1,0 +1,593 @@
+"""Packed-domain ops: the layout FusionNet's packed forward keeps between
+layers.
+
+The PyTorch counterpart of ``deepfusion_tpu/ops/packed.py``. An image of
+logical shape (N, H, W, C) u8 is stored as an int8 array of shape
+``(N, (H + 2*halo) * iwp, cp)`` (``PackedSpec``) where
+
+* the stored byte is ``u8 ^ 0x80`` viewed as int8, which is ``u8 - 128``,
+* the image occupies rows ``[halo, halo+H)`` and, within each row of ``iwp``
+  flat positions, columns ``[col_off, col_off+W)`` and lanes ``[0, C)``,
+* every non-image slot holds -128 (u8 zero, the conv's padding value),
+* ``iwp`` is a multiple of 8.
+
+A conv writes its output straight into this layout with the halo and column
+offset its consumer needs, so activations cross no relayout between layers;
+``pack_image``/``unpack_image`` convert at the model boundary only.
+
+On CUDA tensors ``PackedConvOp`` launches ``packed_conv_kernel``
+(``csrc/packed_conv.cu``) and the residual sum and 2x2 max pool launch
+``packed_sum_pool_kernel`` (``csrc/packed_sum_pool.cu``). On CPU tensors
+they run ``packed_conv_plain`` and ``packed_sum_pool_plain``, which read the
+packed arrays themselves (stored ^ 0x80 as u8, pad slots included), so each
+is the same function as its kernel even where a pad slot does not hold
+-128. Nothing else selects the path.
+
+Not ported yet: the conv's sum post-op, its fused 2x2 pool, strided convs
+(the s2d and sparse-tap lowering), the raw 1x1 accumulator (``emit_acc1``)
+and the tile range (``t_range``/``row0_off``), which raise
+``NotImplementedError``; ``pack_image_sharded``/``unpack_image_sharded``,
+which wait for ``parallel/``; ``PackedConvOp.pack_input``, ``reheight`` and
+``sout_pooled``. The JAX package's ``operands=`` override exists for
+``jax.jit`` and has no counterpart. Of the JAX package's legality checks,
+the row-tile and boundary-roll ones (``packed.py:222-237``) describe TPU
+tiling and are dropped: the CUDA kernel has no row tile and reads every tap
+of an image pixel inside the input.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import json
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import _build
+from ..config import ConvConfig
+from ..types import dtype, round_mode
+from ..utils.logger import check, check_eq
+from ..utils.persist import dump_configs, load_configs
+from . import layout
+from .requant import requant_to_u8, round_f32, saturate
+
+MAX_INPUTS = 4  # csrc/packed_conv.cu MAX_SRC, csrc/packed_sum_pool.cu MAX_IN
+LANE_UNIT = 16  # both kernels move 16 lanes (bytes) at a time
+_TOO_MANY = "the packed kernels join at most 4 inputs"
+_LANES = ("the packed kernels move 16 lanes at a time: every input's cp "
+          "must be a multiple of 16")
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedSpec:
+    """Static description of a packed-domain image (see module docstring)."""
+
+    h: int        # logical image height
+    w: int        # logical image width
+    c: int        # logical channels
+    cp: int       # stored channels (lane-padded); lanes >= c hold -128
+    halo: int     # pad rows above AND below the image
+    col_off: int  # first image column within a flat row
+    iwp: int      # flat positions per row (multiple of 8)
+
+    def __post_init__(self):
+        check(self.iwp % 8 == 0, "packed iwp must be sublane-aligned")
+        check(self.col_off + self.w <= self.iwp, "image exceeds packed row")
+
+    @property
+    def rows(self) -> int:
+        return self.h + 2 * self.halo
+
+    def array_shape(self, n: int):
+        return (n, self.rows * self.iwp, self.cp)
+
+    @staticmethod
+    def make(h: int, w: int, c: int, *, cp=None, halo: int = 1,
+             col_off: int = 1, iwp=None) -> "PackedSpec":
+        if cp is None:
+            cp = layout.packed_cp(c)
+        if iwp is None:
+            iwp = -(-(w + 2 * col_off) // 8) * 8
+        return PackedSpec(h=h, w=w, c=c, cp=cp, halo=halo,
+                          col_off=col_off, iwp=iwp)
+
+
+def _pooled_spec(s: PackedSpec) -> PackedSpec:
+    return PackedSpec(h=s.h // 2, w=s.w // 2, c=s.c, cp=s.cp,
+                      halo=s.halo // 2, col_off=s.col_off // 2,
+                      iwp=s.iwp // 2)
+
+
+def pack_image(src_u8, spec: PackedSpec) -> torch.Tensor:
+    """NHWC u8 (tensor on any device, or numpy) -> packed int8 array on the
+    same device (model-boundary cost only)."""
+    src = torch.as_tensor(src_u8)
+    n, h, w, c = src.shape
+    check((h, w) == (spec.h, spec.w) and c == spec.c,
+          "pack_image: shape does not match spec")
+    check_eq(src.dtype, torch.uint8, "pack_image source dtype")
+    out = F.pad((src ^ 0x80).view(torch.int8),
+                (0, spec.cp - c, spec.col_off, spec.iwp - spec.col_off - w,
+                 spec.halo, spec.halo), value=-128)
+    return out.reshape(spec.array_shape(n))
+
+
+def unpack_image(arr, spec: PackedSpec) -> torch.Tensor:
+    """Packed int8 array -> NHWC u8 on the same device."""
+    arr = torch.as_tensor(arr)
+    n = arr.shape[0]
+    img = arr.reshape(n, spec.rows, spec.iwp, spec.cp)[
+        :, spec.halo:spec.halo + spec.h,
+        spec.col_off:spec.col_off + spec.w, :spec.c]
+    return img.view(torch.uint8) ^ 0x80
+
+
+def validate_packed_conv(cfg: ConvConfig, sins, sout: PackedSpec):
+    """Legality of running cfg from sins to sout (init_conf-style checks).
+
+    sins is a tuple of input specs: a single entry for a plain conv, or
+    several whose lane-concatenation forms the conv input (concat-free
+    branch merge: the kernel reads each source separately, so the channel
+    concat never exists in memory)."""
+    sins = sins if isinstance(sins, (tuple, list)) else (sins,)
+    sin = sins[0]
+    for s in sins[1:]:
+        check((s.h, s.w, s.halo, s.col_off, s.iwp)
+              == (sin.h, sin.w, sin.halo, sin.col_off, sin.iwp),
+              "multi-input packed conv needs uniform image geometry")
+    for s in sins[:-1]:
+        check(s.cp == s.c, "non-final input has pad lanes (cp > c) which "
+                           "would split the conv input's image lanes")
+    check(cfg.sh == 1 and cfg.sw == 1, "packed path requires stride 1")
+    check(cfg.dst_dt == dtype.u8, "packed path requires a u8 destination")
+    check((sin.h, sin.w) == (cfg.ih, cfg.iw),
+          "input spec does not match conv geometry")
+    check(sum(s.c for s in sins) == cfg.ic,
+          "input channels must sum to cfg.ic")
+    check(sum(s.cp for s in sins) == layout.conv_icp(cfg.ic),
+          "input lane padding must sum to cfg.icp (ic rounded up to 32)")
+    check((sout.h, sout.w, sout.c) == (cfg.oh, cfg.ow, cfg.out_oc),
+          "output spec does not match conv geometry")
+    check(sout.cp == layout.packed_cp(cfg.out_oc),
+          "output lane padding must match cfg")
+    check(sin.halo >= cfg.ph, "input halo too small for kernel height")
+    check(sin.col_off >= cfg.pw, "input col_off too small for kernel width")
+    margin = sin.iwp - sin.col_off - sin.w
+    check(margin >= cfg.kw - 1 - cfg.pw,
+          "input right margin too small for kernel width")
+    # a tap past the row's end would read the next row's first slots
+    check(margin >= cfg.pw, "input right margin too small for the padding")
+    check(sin.iwp == sout.iwp, "packed conv needs iwp_in == iwp_out")
+
+
+def _same_image_geometry(specs):
+    s0 = specs[0]
+    for s in specs[1:]:
+        check((s.h, s.w, s.halo, s.col_off, s.iwp)
+              == (s0.h, s0.w, s0.halo, s0.col_off, s0.iwp),
+              "packed operands must share image geometry")
+
+
+def packed_concat(arrs, specs, post_relu: bool = True):
+    """Channel concat in the packed domain = lane concatenation.
+
+    ReLU on u8 is the identity, so the reference's concat+relu costs nothing
+    beyond the lane copy here; ``post_relu`` is kept for API parity. All
+    inputs must share image geometry, and every input but the last needs
+    ``cp == c`` so the output's image lanes stay contiguous in
+    ``[0, sum(c))``.
+
+    Returns ``(packed_array, PackedSpec)``.
+    """
+    del post_relu  # identity on u8 images (see docstring)
+    check(len(arrs) == len(specs) and len(arrs) >= 1,
+          "packed_concat needs one array per spec")
+    _same_image_geometry(specs)
+    for s in specs[:-1]:
+        check(s.cp == s.c, "packed_concat: non-final input has pad lanes "
+                           "(cp > c) which would split the output image")
+    s0, sl = specs[0], specs[-1]
+    ctot = sum(s.c for s in specs)
+    spec = PackedSpec(h=s0.h, w=s0.w, c=ctot,
+                      cp=ctot - sl.c + sl.cp, halo=s0.halo,
+                      col_off=s0.col_off, iwp=s0.iwp)
+    out = torch.cat([torch.as_tensor(a) for a in arrs], dim=-1)
+    return out, spec
+
+
+def repack(arr, sin: PackedSpec, sout: PackedSpec) -> torch.Tensor:
+    """Convert between packed specs of the same logical image (glue; use
+    only at geometry seams the fused ops cannot bridge)."""
+    check((sin.h, sin.w, sin.c) == (sout.h, sout.w, sout.c),
+          "repack cannot change the logical image")
+    return pack_image(unpack_image(arr, sin), sout)
+
+
+# ------------------------------------------------ K6/K7/K8: sum and pool
+
+def packed_sum_pool_plain(ys, r, pool: bool, rows: int,
+                          iwp: int) -> torch.Tensor:
+    """The plain PyTorch version of ``packed_sum_pool_kernel``: the lane
+    join of ys, then ``clip(y + r + 128)`` when r is given, then the 2x2/s2
+    max over (row pair, flat-column pair) when pool."""
+    y = ys[0] if len(ys) == 1 else torch.cat(list(ys), dim=-1)
+    if r is not None:
+        y = (y.to(torch.int32) + r.to(torch.int32) + 128).clamp(
+            -128, 127).to(torch.int8)
+    if pool:
+        n, _, cp = y.shape
+        y = y.reshape(n, rows // 2, 2, iwp // 2, 2, cp).amax(dim=(2, 4))
+        y = y.reshape(n, (rows // 2) * (iwp // 2), cp)
+    return y
+
+
+def packed_sum_pool_cuda(ys, r, pool: bool, rows: int,
+                         iwp: int) -> torch.Tensor:
+    """Launch ``packed_sum_pool_kernel`` on the current stream."""
+    check(len(ys) <= MAX_INPUTS, _TOO_MANY)
+    for y in ys:
+        check(y.shape[-1] % LANE_UNIT == 0, _LANES)
+    ys = [_build.aligned(y) for y in ys]
+    if r is not None:
+        r = _build.aligned(r)
+    n = ys[0].shape[0]
+    cp = sum(y.shape[-1] for y in ys)
+    rows_o, iwp_o = (rows // 2, iwp // 2) if pool else (rows, iwp)
+    out = torch.empty((n, rows_o * iwp_o, cp), dtype=torch.int8,
+                      device=ys[0].device)
+    ptrs = (ctypes.c_void_p * len(ys))(*[y.data_ptr() for y in ys])
+    cps = (ctypes.c_int * len(ys))(*[y.shape[-1] for y in ys])
+    with torch.cuda.device(out.device):
+        rc = _build.kernels().df_packed_sum_pool(
+            ptrs, cps, len(ys), None if r is None else r.data_ptr(),
+            out.data_ptr(), n, rows, iwp, cp, int(r is not None), int(pool),
+            _build.stream_of(out))
+    _build.check(rc, "packed_sum_pool_kernel")
+    _build.count_launch("packed_sum_pool")
+    return out
+
+
+def _sum_pool(ys, r, pool: bool, rows: int, iwp: int) -> torch.Tensor:
+    for t in list(ys) + ([r] if r is not None else []):
+        check_eq(t.dtype, torch.int8, "packed operand dtype")
+        check(t.device == ys[0].device, "packed operands must share a device")
+    if ys[0].device.type == "cpu":
+        return packed_sum_pool_plain(ys, r, pool, rows, iwp)
+    return packed_sum_pool_cuda(ys, r, pool, rows, iwp)
+
+
+def packed_sum_relu(a, b, spec: PackedSpec,
+                    with_relu: bool = True) -> torch.Tensor:
+    """Eltwise-sum+ReLU in the packed domain (ops/pool.py semantics).
+
+    For u8 operands the dense op is ``sat_u8(relu(xa + xb))``; since
+    xa, xb >= 0 the ReLU is the identity and the saturating sum maps to the
+    centered domain as ``clip(sa + sb + 128, -128, 127)``. Non-image slots
+    hold sa = sb = -128, which lands back on exactly -128, so halo and
+    margins stay valid and the result needs no re-packing.
+    """
+    del with_relu  # identity for u8 operands (see docstring)
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    check(a.shape == b.shape, "packed_sum_relu operand shapes differ")
+    check(tuple(a.shape) == spec.array_shape(a.shape[0]),
+          "packed_sum_relu: arrays do not match spec")
+    return _sum_pool([a], b, False, spec.rows, spec.iwp)
+
+
+def validate_packed_maxpool2(spec: PackedSpec):
+    check(spec.h % 2 == 0 and spec.w % 2 == 0,
+          "packed maxpool2 needs even image h and w")
+    check(spec.halo % 2 == 0 and spec.col_off % 2 == 0,
+          "packed maxpool2 needs even halo and col_off "
+          "(pass col_off_out=2 to the producing PackedConvOp)")
+    check(spec.iwp % 16 == 0, "packed maxpool2 needs iwp % 16 == 0")
+
+
+def packed_maxpool2(arr, spec: PackedSpec):
+    """2x2/stride-2 max pooling in the packed domain.
+
+    Max pooling commutes with the -128 centering (it is monotone), so the
+    pool runs directly on the stored s8 values: pair rows, pair flat
+    columns, take the max. Legality: h, w, halo, col_off all even (so 2x2
+    windows align with the image region and halo/margins map to
+    halo/margins) and iwp % 16 == 0 (so the halved row stays 8-aligned).
+    Non-image slots pool to -128, keeping the output a valid packed image
+    with ``halo/2``, ``col_off/2``, ``iwp/2``.
+
+    Returns ``(packed_array, PackedSpec)``.
+    """
+    validate_packed_maxpool2(spec)
+    arr = torch.as_tensor(arr)
+    check(tuple(arr.shape) == spec.array_shape(arr.shape[0]),
+          "packed_maxpool2: array does not match spec")
+    return _sum_pool([arr], None, True, spec.rows, spec.iwp), \
+        _pooled_spec(spec)
+
+
+def packed_sum_relu_maxpool2(ys, r, yspecs, rspec: PackedSpec,
+                             with_relu: bool = True):
+    """Fused (concat . sum+ReLU . 2x2/s2 maxpool) in the packed domain.
+
+    ``ys`` is a list of packed arrays whose lane-concatenation forms the
+    left sum operand (the branch-merge concat never exists in memory) and
+    ``r`` the right operand. Semantics = ``packed_maxpool2(packed_sum_relu(
+    packed_concat(ys), r))``: the saturating clip commutes with the
+    monotone max.
+
+    Returns ``(packed_array, PackedSpec)``.
+    """
+    del with_relu  # identity for u8 operands (see packed_sum_relu)
+    yspecs = tuple(yspecs) if isinstance(yspecs, (tuple, list)) \
+        else (yspecs,)
+    ys = [torch.as_tensor(a) for a in (ys if isinstance(ys, (tuple, list))
+                                       else (ys,))]
+    r = torch.as_tensor(r)
+    check(len(ys) == len(yspecs), "one array per spec")
+    _same_image_geometry(list(yspecs) + [rspec])
+    for s in yspecs[:-1]:
+        check(s.cp == s.c, "non-final input has pad lanes (cp > c)")
+    check(sum(s.cp for s in yspecs) == rspec.cp,
+          "summed lane widths must match the right operand")
+    check(sum(s.c for s in yspecs) == rspec.c,
+          "summed channels must match the right operand")
+    validate_packed_maxpool2(rspec)
+    n = r.shape[0]
+    for a, s in zip(ys, yspecs):
+        check(tuple(a.shape) == s.array_shape(n),
+              "packed_sum_relu_maxpool2: array does not match its spec")
+    check(tuple(r.shape) == rspec.array_shape(n),
+          "packed_sum_relu_maxpool2: right operand does not match rspec")
+    return _sum_pool(ys, r, True, rspec.rows, rspec.iwp), _pooled_spec(rspec)
+
+
+def packed_global_avgpool(arr, spec: PackedSpec, round=None) -> torch.Tensor:
+    """Global average pool (avg-exclude-padding) straight off a packed
+    array, as ``deepfusion_tpu/ops/packed.py:packed_global_avgpool``:
+
+        sum_u8(image) = sum_s8(all slots) + 128 * n_slots
+
+    because every non-image slot holds -128 (u8 zero). Then the avg_exc
+    epilogue: f32 sums times the f32 reciprocal of h*w (a multiply, as XLA
+    compiles the JAX package's constant division, ROADMAP C3), round,
+    saturate to u8. Returns (n, 1, 1, c) u8 for the classification head.
+    Plain PyTorch on every device, as the JAX package leaves it to XLA."""
+    mode = round_mode.nearest if round is None else round_mode.from_any(round)
+    arr = torch.as_tensor(arr)
+    n = arr.shape[0]
+    check(tuple(arr.shape) == spec.array_shape(n),
+          "packed_global_avgpool: array does not match spec")
+    n_slots = spec.rows * spec.iwp
+    sums = arr.sum(dim=1, dtype=torch.int32) + 128 * n_slots
+    # a Python float holding the f32 value exactly: an f32 multiply on
+    # every device, with no host-to-device copy
+    inv = float(np.float32(1.0 / (spec.h * spec.w)))
+    out = saturate(round_f32(sums.to(torch.float32) * inv, mode), dtype.u8)
+    return out[:, :spec.c].reshape(n, 1, 1, spec.c)
+
+
+# ------------------------------------------------------- K5: packed conv
+
+_OPERAND_KEYS = ("w0", "bias0", "scale0", "w1", "bias1", "scale1")
+
+
+def _operand_shapes(cfg: ConvConfig) -> dict:
+    """Packed operands: K = conv_icp(ic) lanes per tap, N = packed_cp(oc)
+    for the 3x3 (the fused intermediate's lanes) and packed_cp(oc1x1) for
+    the 1x1 (ops/layout.py)."""
+    n0 = layout.packed_cp(cfg.oc)
+    shapes = {"w0": (cfg.kh * cfg.kw, layout.conv_icp(cfg.ic) // 4, n0),
+              "bias0": (n0,), "scale0": (n0,)}
+    if cfg.fuse_conv1x1:
+        n1 = layout.packed_cp(cfg.oc1x1)
+        shapes.update(w1=(n0 // 4, n1), bias1=(n1,), scale1=(n1,))
+    return shapes
+
+
+class PackedConvOp(nn.Module):
+    """A conv op whose activations stay in the packed domain.
+
+    Usage::
+
+        pop = PackedConvOp(cfg, wei, bia, wei1, bia1, device=dev)
+        x   = pack_image(src_u8, pop.sin)
+        y   = pop(x)                        # packed, feeds the next conv
+        out = unpack_image(y, pop.sout)
+
+    ``sin`` is one input spec, or a tuple of them whose lane join is the
+    conv input; ``col_off_out`` and ``halo_out`` place the output for its
+    consumer (default: ``max(pw, 1)`` and the input's halo).
+    """
+
+    def __init__(self, cfg: ConvConfig, wei, bia=None, wei1x1=None,
+                 bia1x1=None, sin=None, col_off_out: int = None,
+                 halo_out: int = None, sum_spec: PackedSpec = None,
+                 pool2: bool = False, device="cpu"):
+        super().__init__()
+        if sum_spec is not None:
+            raise NotImplementedError(
+                "packed conv sum post-op (sum_spec/sum_arr) is not ported "
+                "to the PyTorch package yet")
+        if pool2:
+            raise NotImplementedError(
+                "packed conv fused 2x2 max pool (pool2) is not ported to "
+                "the PyTorch package yet")
+        if cfg.sh > 1 or cfg.sw > 1:
+            raise NotImplementedError(
+                "strided packed conv (the s2d / sparse-tap lowering) is not "
+                "ported to the PyTorch package yet")
+        check_eq(tuple(np.shape(wei)), (cfg.oc, cfg.ic, cfg.kh, cfg.kw),
+                 "conv weight shape (OIHW)")
+        if sin is None:
+            sin = PackedSpec.make(cfg.ih, cfg.iw, cfg.ic,
+                                  cp=layout.conv_icp(cfg.ic),
+                                  halo=max(cfg.ph, 1),
+                                  col_off=max(cfg.pw, 1))
+        sins = tuple(sin) if isinstance(sin, (tuple, list)) else (sin,)
+        if col_off_out is None:
+            col_off_out = max(cfg.pw, 1)
+        if halo_out is None:
+            halo_out = sins[0].halo     # self-chain-friendly default
+        sout = PackedSpec(h=cfg.oh, w=cfg.ow, c=cfg.out_oc,
+                          cp=layout.packed_cp(cfg.out_oc), halo=halo_out,
+                          col_off=col_off_out, iwp=sins[0].iwp)
+        validate_packed_conv(cfg, sins, sout)
+        n0 = layout.packed_cp(cfg.oc)
+        ops = {"w0": layout.pack_conv_weights(wei, layout.conv_icp(cfg.ic),
+                                              n0),
+               "bias0": layout.widen_bias(bia, n0),
+               "scale0": layout.widen_scales(cfg.conv0_scales, cfg.oc, n0)}
+        if cfg.fuse_conv1x1:
+            check_eq(tuple(np.shape(wei1x1)), (cfg.oc1x1, cfg.oc, 1, 1),
+                     "conv1x1 weight shape (OIHW)")
+            n1 = layout.packed_cp(cfg.oc1x1)
+            ops.update(w1=layout.pack_1x1_weights(wei1x1, n0, n1),
+                       bias1=layout.widen_bias(bia1x1, n1),
+                       scale1=layout.widen_scales(cfg.conv1_scales,
+                                                  cfg.oc1x1, n1))
+        self._set_state(cfg, sins, sout, ops, device)
+
+    def _set_state(self, cfg, sins, sout, ops: dict, device):
+        self.cfg = cfg
+        self.sins = sins
+        self.sin = sins[0]
+        self.sout = sout
+        for k, shape in _operand_shapes(cfg).items():
+            check_eq(tuple(ops[k].shape), shape, f"packed operand {k}")
+            self.register_buffer(k, torch.as_tensor(np.asarray(ops[k]),
+                                                    device=device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.w0.device
+
+    def forward(self, packed_arr, sum_arr=None, *, emit_acc1: bool = False,
+                t_range=None, row0_off: int = 0) -> torch.Tensor:
+        if sum_arr is not None:
+            raise NotImplementedError(
+                "packed conv sum post-op (sum_spec/sum_arr) is not ported "
+                "to the PyTorch package yet")
+        if emit_acc1:
+            raise NotImplementedError(
+                "packed conv raw 1x1 accumulator (emit_acc1) is not ported "
+                "to the PyTorch package yet")
+        if t_range is not None or row0_off:
+            raise NotImplementedError(
+                "packed conv tile range (t_range/row0_off) is not ported to "
+                "the PyTorch package yet")
+        arrs = (tuple(packed_arr) if isinstance(packed_arr, (tuple, list))
+                else (packed_arr,))
+        arrs = tuple(torch.as_tensor(a) for a in arrs)
+        check(len(arrs) == len(self.sins),
+              "op expects one array per input spec")
+        n = arrs[0].shape[0]
+        for a, s in zip(arrs, self.sins):
+            check_eq(a.dtype, torch.int8, "packed conv input dtype")
+            check_eq(tuple(a.shape), s.array_shape(n),
+                     "packed conv input shape (its spec's array)")
+            check_eq(a.device, self.device, "packed conv input device")
+        if arrs[0].device.type == "cpu":
+            return packed_conv_plain(self, arrs)
+        return packed_conv_cuda(self, arrs)
+
+    def save(self, path: str):
+        """Save the packed operands, the config and the specs to .npz."""
+        specs = {"cfg": self.cfg, "sout": self.sout}
+        for i, s in enumerate(self.sins):
+            specs[f"sin{i}"] = s
+        arrs = {k: getattr(self, k).cpu().numpy()
+                for k in _operand_shapes(self.cfg)}
+        np.savez(path, __cfg__=dump_configs(**specs),
+                 __n_sins__=np.int64(len(self.sins)), **arrs)
+
+    @classmethod
+    def load(cls, path: str, device="cpu") -> "PackedConvOp":
+        with np.load(path, allow_pickle=False) as data:
+            n_sins = int(data["__n_sins__"])
+            present = set(json.loads(str(data["__cfg__"])))
+            check({"cfg", "sout"} <= present, "not a saved PackedConvOp")
+            classes = {"cfg": ConvConfig, "sout": PackedSpec}
+            classes.update({f"sin{i}": PackedSpec for i in range(n_sins)})
+            cfgs = load_configs(data["__cfg__"], **classes)
+            ops = {k: data[k] for k in _operand_shapes(cfgs["cfg"])}
+        op = cls.__new__(cls)
+        nn.Module.__init__(op)
+        op._set_state(cfgs["cfg"], tuple(cfgs[f"sin{i}"]
+                                         for i in range(n_sins)),
+                      cfgs["sout"], ops, device)
+        return op
+
+
+def packed_conv_plain(op: PackedConvOp, arrs) -> torch.Tensor:
+    """The plain PyTorch version of ``packed_conv_kernel``.
+
+    Reads the packed inputs themselves: the lane join of the sources, each
+    stored byte ^ 0x80 as u8, windowed over the flat rows exactly as the
+    kernel addresses them, accumulated tap by tap in float64 (every partial
+    sum is an integer below 2^53, so the sum is exact). Writes image pixels
+    at (halo_out + y, col_off_out + x) and -128 everywhere else."""
+    cfg, sin, sout = op.cfg, op.sin, op.sout
+    n = arrs[0].shape[0]
+    icp = layout.conv_icp(cfg.ic)
+    n0 = layout.packed_cp(cfg.oc)
+    u = torch.cat([a.view(torch.uint8) for a in arrs], dim=-1) ^ 0x80
+    u = u.reshape(n, sin.rows, sin.iwp, icp).to(torch.float64)
+    w = layout.unpack_weights(op.w0, n0, icp, cfg.kh, cfg.kw).to(
+        torch.float64)
+    r0, c0 = sin.halo - cfg.ph, sin.col_off - cfg.pw
+    acc = torch.zeros((n, cfg.oh, cfg.ow, n0), dtype=torch.float64,
+                      device=u.device)
+    for ki in range(cfg.kh):
+        for kj in range(cfg.kw):
+            patch = u[:, r0 + ki:r0 + ki + cfg.oh, c0 + kj:c0 + kj + cfg.ow]
+            acc += patch @ w[:, :, ki, kj].T
+    acc = acc.to(torch.int32)[..., :cfg.oc]
+    bias0 = op.bias0[:cfg.oc] if cfg.conv0_with_bias else None
+    val = requant_to_u8(acc, bias0, op.scale0[:cfg.oc], cfg.conv0_round)
+    if cfg.fuse_conv1x1:
+        w1 = layout.unpack_weights(op.w1, cfg.oc1x1, cfg.oc, 1, 1)
+        acc1 = (val.to(torch.float64) @ w1[:, :, 0, 0].to(torch.float64).T
+                ).to(torch.int32)
+        bias1 = op.bias1[:cfg.oc1x1] if cfg.conv1_with_bias else None
+        val = requant_to_u8(acc1, bias1, op.scale1[:cfg.oc1x1],
+                            cfg.conv1_round)
+    out = torch.full((n, sout.rows, sout.iwp, sout.cp), -128,
+                     dtype=torch.int8, device=u.device)
+    out[:, sout.halo:sout.halo + cfg.oh,
+        sout.col_off:sout.col_off + cfg.ow, :cfg.out_oc] = \
+        (val ^ 0x80).view(torch.int8)
+    return out.reshape(sout.array_shape(n))
+
+
+def packed_conv_cuda(op: PackedConvOp, arrs) -> torch.Tensor:
+    """Launch ``packed_conv_kernel`` on the current stream."""
+    cfg, sin, sout = op.cfg, op.sin, op.sout
+    check(len(arrs) <= MAX_INPUTS, _TOO_MANY)
+    for s in op.sins:
+        check(s.cp % LANE_UNIT == 0, _LANES)
+    arrs = [_build.aligned(a) for a in arrs]
+    n = arrs[0].shape[0]
+    out = torch.empty(sout.array_shape(n), dtype=torch.int8,
+                      device=arrs[0].device)
+    fuse = cfg.fuse_conv1x1
+    ptrs = (ctypes.c_void_p * len(arrs))(*[a.data_ptr() for a in arrs])
+    cps = (ctypes.c_int * len(arrs))(*[s.cp for s in op.sins])
+    with torch.cuda.device(out.device):
+        rc = _build.kernels().df_packed_conv(
+            ptrs, cps, len(arrs), op.w0.data_ptr(), op.bias0.data_ptr(),
+            op.scale0.data_ptr(),
+            op.w1.data_ptr() if fuse else None,
+            op.bias1.data_ptr() if fuse else None,
+            op.scale1.data_ptr() if fuse else None,
+            out.data_ptr(), n, sin.rows, sin.iwp, sin.halo, sin.col_off,
+            sout.rows, sout.halo, sout.col_off, cfg.oh, cfg.ow, cfg.kh,
+            cfg.kw, cfg.ph, cfg.pw, cfg.oc, layout.packed_cp(cfg.oc),
+            cfg.oc1x1, layout.packed_cp(cfg.oc1x1) if fuse else 0,
+            int(cfg.conv0_round == round_mode.down),
+            int(cfg.conv1_round == round_mode.down),
+            int(cfg.conv0_with_bias), int(cfg.conv1_with_bias), int(fuse),
+            _build.stream_of(out))
+    _build.check(rc, "packed_conv_kernel")
+    _build.count_launch("packed_conv")
+    return out

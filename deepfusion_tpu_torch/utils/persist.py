@@ -46,3 +46,14 @@ def dump_config(cfg) -> str:
 
 def load_config(blob, cls):
     return config_from_jsonable(cls, json.loads(str(blob)))
+
+
+def dump_configs(**cfgs) -> str:
+    """Named configs -> one JSON string (stored as an .npz scalar entry)."""
+    return json.dumps({k: config_to_jsonable(v) for k, v in cfgs.items()})
+
+
+def load_configs(blob, **classes) -> dict:
+    """Inverse of dump_configs; classes maps name -> dataclass type."""
+    d = json.loads(str(blob))
+    return {k: config_from_jsonable(cls, d[k]) for k, cls in classes.items()}

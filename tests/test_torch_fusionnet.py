@@ -1,9 +1,9 @@
 """FusionNet and BatchServer of the PyTorch port vs the JAX package.
 
-The dense forward on the CPU (each op's plain PyTorch version) against the
-JAX ``FusionNet`` in Pallas interpret mode, bitwise on the f32 logits: every
-step of the integer pipeline is exact and every f32 step is one correctly
-rounded IEEE operation in both packages.
+The dense and packed forwards on the CPU (each op's plain PyTorch version)
+against the JAX ``FusionNet`` in Pallas interpret mode, bitwise on the f32
+logits: every step of the integer pipeline is exact and every f32 step is
+one correctly rounded IEEE operation in both packages.
 """
 import os
 
@@ -14,12 +14,14 @@ import torch
 from deepfusion_tpu.models import FusionNet as JFusionNet
 from deepfusion_tpu.models import FusionNetConfig as JConfig
 from deepfusion_tpu_torch.models import FusionNet, FusionNetConfig
-from deepfusion_tpu_torch.models.fusionnet import LAYERS
+from deepfusion_tpu_torch.models.fusionnet import LAYERS, PackedFusionNet
 from deepfusion_tpu_torch.serving import BatchServer
 
 torch.set_num_threads(2)
 
 SMALL = dict(batch=1, hw=8, in_ch=16, width=32, num_classes=16)
+# the smallest FusionNet the JAX packed geometry takes (tests/test_models.py)
+PACKED = dict(batch=2, hw=24, in_ch=32, width=64, num_classes=32)
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                       "fusionnet_full_logits.npz")
 
@@ -114,3 +116,85 @@ def test_batch_server_worker_runs_in_inference_mode():
         out = srv.submit(np.full((3,), 7, np.uint8)).result(timeout=30)
     np.testing.assert_array_equal(out, np.full((3,), 14, np.int32))
     assert seen and all(seen)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_packed_forward_matches_jax_packed_call(seed):
+    jnet = JFusionNet(JConfig(**PACKED))
+    tnet = FusionNet(FusionNetConfig(**PACKED))
+    x = tnet.example_input(np.random.default_rng(seed))
+    want = np.asarray(jnet.jit_packed()(x))
+    with torch.inference_mode():
+        got = tnet.packed_call(x).numpy()
+    assert got.shape == (2, 32) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_packed_specs_match_jax_build_packed():
+    jops = JFusionNet(JConfig(**PACKED)).build_packed()
+    tops = FusionNet(FusionNetConfig(**PACKED)).build_packed()
+    for name, jop in jops.items():
+        top = tops[name]
+        assert [vars(s) for s in top.sins] == [vars(s) for s in jop.sins]
+        assert vars(top.sout) == vars(jop.sout)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_packed_forward_matches_dense(seed, net):
+    x = net.example_input(np.random.default_rng(seed))
+    with torch.inference_mode():
+        np.testing.assert_array_equal(net.packed_call(x).numpy(),
+                                      net(x).numpy())
+
+
+def test_packed_full_width_matches_jax_golden_logits():
+    """The packed forward at FusionNetConfig()'s published width equals the
+    JAX package's golden dense logits (the packed forward is bitwise the
+    dense one in both packages)."""
+    golden = np.load(GOLDEN)
+    cfg = FusionNetConfig()
+    net = FusionNet(cfg)
+    x = net.example_input(np.random.default_rng(int(golden["input_seed"])))
+    with torch.inference_mode():
+        got = net.packed_module()(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, golden["logits"])
+
+
+def test_batch_server_packed_module_matches_direct_calls(net):
+    mod = net.packed_module()
+    assert isinstance(mod, PackedFusionNet)
+    assert mod.device == net.device and mod.input_shape == net.input_shape
+    xs = [net.example_input(np.random.default_rng(20 + i))[0]
+          for i in range(5)]
+    with torch.inference_mode():
+        direct = [net.packed_call(x[None]).numpy()[0] for x in xs]
+    srv = BatchServer(mod, batch=2, input_shape=mod.input_shape[1:],
+                      max_delay_ms=5.0)
+    with srv:
+        outs = [f.result(timeout=60) for f in srv.submit_many(xs)]
+    for o, d in zip(outs, direct):
+        np.testing.assert_array_equal(o, d)
+    assert srv.stats["requests"] == 5
+
+
+def test_batch_server_stages_packed_batches_on_the_module_device(
+        net, monkeypatch):
+    """The served module carries its model's device, and the worker moves
+    each batch there before the packed forward sees it (a bound
+    ``packed_call`` has no ``device``, so the batch would stay on the
+    CPU)."""
+    mod = net.packed_module()
+    seen = []
+
+    def fake_packed_call(x):
+        seen.append(x.device)
+        return torch.zeros((x.shape[0], 16))
+
+    monkeypatch.setattr(PackedFusionNet, "device",
+                        property(lambda self: torch.device("meta")))
+    monkeypatch.setattr(net, "packed_call", fake_packed_call)
+    with BatchServer(mod, batch=2, input_shape=mod.input_shape[1:]) as srv:
+        srv.submit(net.example_input()[0]).result(timeout=30)
+    assert seen == [torch.device("meta")]
+    assert not hasattr(FusionNet(FusionNetConfig(**SMALL)).packed_call,
+                       "device")

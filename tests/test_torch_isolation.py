@@ -25,7 +25,8 @@ MODULES = [
     "deepfusion_tpu_torch.utils.env", "deepfusion_tpu_torch.utils.persist",
     "deepfusion_tpu_torch.ops.layout", "deepfusion_tpu_torch.ops.requant",
     "deepfusion_tpu_torch.ops.conv", "deepfusion_tpu_torch.ops.concat",
-    "deepfusion_tpu_torch.ops.pool", "deepfusion_tpu_torch.models.fusionnet",
+    "deepfusion_tpu_torch.ops.pool", "deepfusion_tpu_torch.ops.packed",
+    "deepfusion_tpu_torch.models.fusionnet",
     "deepfusion_tpu_torch.serving",
 ]
 
@@ -47,7 +48,8 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("op", ["conv", "concat", "pool", "sum_relu"])
+@pytest.mark.parametrize("op", ["conv", "concat", "pool", "sum_relu",
+                                "packed_conv", "packed_sum_pool"])
 def test_non_cpu_tensors_never_take_the_plain_path(op, monkeypatch):
     """On a tensor that is not on the CPU each op goes to its kernel
     wrapper; with no kernel library to be had, it raises."""
@@ -64,8 +66,24 @@ def test_non_cpu_tensors_never_take_the_plain_path(op, monkeypatch):
             concat([x, x], post_relu=True)
         elif op == "pool":
             pool(x, "max", (2, 2), (2, 2), (0, 0))
-        else:
+        elif op == "sum_relu":
             eltwise_sum_relu(x, x)
+        elif op == "packed_conv":
+            from deepfusion_tpu_torch.config import ConvConfig
+            from deepfusion_tpu_torch.ops.packed import PackedConvOp
+            cfg = ConvConfig.make((1, 4, 4, 16), (16, 16, 1, 1), None,
+                                  (1, 1), (0, 0), (1, 4, 4, 16), "u8")
+            pop = PackedConvOp(cfg, np.zeros((16, 16, 1, 1), np.int8),
+                               device="meta")
+            pop(torch.zeros(pop.sin.array_shape(1), dtype=torch.int8,
+                            device="meta"))
+        else:
+            from deepfusion_tpu_torch.ops.packed import (PackedSpec,
+                                                         packed_sum_relu)
+            spec = PackedSpec.make(4, 4, 32)
+            a = torch.zeros(spec.array_shape(1), dtype=torch.int8,
+                            device="meta")
+            packed_sum_relu(a, a, spec)
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

@@ -1,0 +1,352 @@
+"""Packed-domain ops of the PyTorch port vs the JAX package, bitwise (CPU).
+
+The same numpy inputs, made from a seed, go through
+``deepfusion_tpu.ops.packed`` (Pallas interpret mode) and through the port's
+``ops/packed.py`` (its plain PyTorch versions). Whole packed arrays are
+compared, halo rows, margin columns and pad lanes included: both write -128
+to every non-image slot. Tolerance: bitwise.
+"""
+import numpy as np
+import pytest
+import torch
+
+import deepfusion_tpu.ops.packed as J
+from deepfusion_tpu.config import ConvConfig as JConvConfig
+from deepfusion_tpu.utils.logger import CheckError as JCheckError
+from deepfusion_tpu_torch.config import ConvConfig
+from deepfusion_tpu_torch.ops import packed as T
+from deepfusion_tpu_torch.utils.logger import CheckError
+from deepfusion_tpu_torch.utils.mathutil import conv_output_size
+
+torch.set_num_threads(2)
+
+
+def jspec(s: T.PackedSpec) -> J.PackedSpec:
+    return J.PackedSpec(**{f: getattr(s, f) for f in
+                           ("h", "w", "c", "cp", "halo", "col_off", "iwp")})
+
+
+def _cfgs(mb, hw, ic, oc, k=3, pad=1, oc1=None, bias=True, per_oc=False,
+          rnd="nearest", dst="u8", stride=1, seed=0):
+    """(port cfg, JAX cfg, wei, bia, wei1, bia1) from one seeded draw, with
+    full-range s8 weights and scales that keep most outputs in u8 range."""
+    rng = np.random.default_rng(seed)
+    o = conv_output_size(hw, k, stride, pad)
+    wei = rng.integers(-128, 128, (oc, ic, k, k)).astype(np.int8)
+    bia = rng.integers(-20000, 20000, (oc,)).astype(np.int32) \
+        if bias else None
+    sc = 1.0 / (k * k * ic * 40)
+    sc0 = (rng.uniform(0.5, 1.5, oc) * sc).astype(np.float32) \
+        if per_oc else (sc,)
+    kw = dict(conv0_relu=True, conv0_scales=sc0, conv0_round=rnd)
+    wei1 = bia1 = None
+    if oc1 is not None:
+        wei1 = rng.integers(-128, 128, (oc1, oc, 1, 1)).astype(np.int8)
+        bia1 = rng.integers(-20000, 20000, (oc1,)).astype(np.int32) \
+            if bias else None
+        sc1 = (rng.uniform(0.5, 1.5, oc1) / (oc * 40)).astype(np.float32) \
+            if per_oc else (1.0 / (oc * 40),)
+        kw.update(wei1x1_shape=(oc1, oc, 1, 1),
+                  bia1x1_dt=None if bia1 is None else bia1.dtype,
+                  conv1_relu=True, conv1_scales=sc1, conv1_round=rnd)
+    args = ((mb, hw, hw, ic), (oc, ic, k, k),
+            None if bia is None else bia.dtype, (stride, stride), (pad, pad),
+            (mb, o, o, oc1 or oc), dst)
+    return (ConvConfig.make(*args, **kw), JConvConfig.make(*args, **kw),
+            wei, bia, wei1, bia1)
+
+
+def _u8(rng, n, spec):
+    return rng.integers(0, 256, (n, spec.h, spec.w, spec.c), dtype=np.uint8)
+
+
+def _run_both(cfgs, sins, col_off_out=None, halo_out=None, n=2, seed=0):
+    """Pack the same random images for both packages, run both ops, return
+    (port output, JAX output) as numpy."""
+    cfg, jcfg, wei, bia, wei1, bia1 = cfgs
+    top = T.PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sins,
+                         col_off_out=col_off_out, halo_out=halo_out)
+    jop = J.PackedConvOp(jcfg, wei, bia, wei1, bia1,
+                         sin=tuple(jspec(s) for s in top.sins),
+                         col_off_out=col_off_out, halo_out=halo_out)
+    assert jspec(top.sout) == jop.sout
+    rng = np.random.default_rng(seed)
+    imgs = [_u8(rng, n, s) for s in top.sins]
+    got = top(tuple(T.pack_image(x, s) for x, s in zip(imgs, top.sins)))
+    want = jop(tuple(J.pack_image(x, jspec(s))
+                     for x, s in zip(imgs, top.sins)))
+    return got.numpy(), np.asarray(want), top
+
+
+def test_pack_unpack_matches_jax():
+    rng = np.random.default_rng(1)
+    spec = T.PackedSpec.make(13, 11, 40, halo=3, col_off=2)
+    src = rng.integers(0, 256, (2, 13, 11, 40), dtype=np.uint8)
+    got = T.pack_image(src, spec)
+    want = J.pack_image(src, jspec(spec))
+    assert got.dtype == torch.int8 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(T.unpack_image(got, spec).numpy(), src)
+    np.testing.assert_array_equal(T.unpack_image(want, spec).numpy(),
+                                  J.unpack_image(want, jspec(spec)))
+    # a tensor input packs on its own device and equals the numpy path
+    assert torch.equal(T.pack_image(torch.from_numpy(src), spec), got)
+
+
+def test_packed_spec_make_matches_jax():
+    for args, kw in [((13, 13, 32), dict(halo=3, col_off=1)),
+                     ((56, 56, 32), dict(cp=32, halo=4, col_off=2)),
+                     ((7, 9, 5), {}), ((28, 28, 200), dict(halo=0))]:
+        assert jspec(T.PackedSpec.make(*args, **kw)) == \
+            J.PackedSpec.make(*args, **kw)
+
+
+# the validation cases of tests/test_packed.py:123-145, in both packages
+@pytest.mark.parametrize("case", ["halo<ph", "s8 dst", "iwp unaligned",
+                                  "image exceeds row", "channels"])
+def test_validation_matches_jax(case):
+    cfg, jcfg, wei, bia, _, _ = _cfgs(1, 13, 32, 32)
+    if case == "iwp unaligned":
+        for mod, err in ((T, CheckError), (J, JCheckError)):
+            with pytest.raises(err, match="sublane-aligned"):
+                mod.PackedSpec(h=4, w=4, c=32, cp=32, halo=1, col_off=1,
+                               iwp=12)
+        return
+    if case == "image exceeds row":
+        for mod, err in ((T, CheckError), (J, JCheckError)):
+            with pytest.raises(err, match="image exceeds packed row"):
+                mod.PackedSpec(h=4, w=8, c=32, cp=32, halo=1, col_off=1,
+                               iwp=8)
+        return
+    sin = T.PackedSpec.make(13, 13, 32, halo=0, col_off=1)
+    if case == "s8 dst":
+        cfg, jcfg, wei, bia, _, _ = _cfgs(1, 13, 32, 32, dst="s8")
+        sin = None
+    elif case == "channels":
+        sin = T.PackedSpec.make(13, 13, 64, halo=1, col_off=1)
+    with pytest.raises(CheckError) as e:
+        T.PackedConvOp(cfg, wei, bia, sin=sin)
+    with pytest.raises(JCheckError) as je:
+        J.PackedConvOp(jcfg, wei, bia,
+                       sin=None if sin is None else jspec(sin))
+    assert str(e.value).split(" (")[0] == str(je.value).split(" (")[0]
+
+
+@pytest.mark.parametrize("hw,ph", [(13, 1), (13, 0), (12, 1)])
+def test_packed_conv_single_matches_jax(hw, ph):
+    got, want, _ = _run_both(_cfgs(2, hw, 32, 32, pad=ph, seed=hw + ph),
+                             None)
+    np.testing.assert_array_equal(got, want)
+
+
+# (label, _cfgs kwargs)
+CONV_CASES = {
+    "fused": dict(oc1=64),
+    "fused per-oc scales": dict(oc1=32, per_oc=True),
+    "per-oc scales": dict(per_oc=True),
+    "round down": dict(rnd="down", per_oc=True),
+    "fused round down": dict(oc1=40, rnd="down"),
+    "no bias scalar scale": dict(bias=False),
+    "fused no bias": dict(oc1=32, bias=False),
+    "pad lanes oc=40": dict(),          # oc set below
+    "1x1": dict(k=1, pad=0),
+    "5x5 pad 2": dict(k=5, pad=2),
+}
+
+
+@pytest.mark.parametrize("label", sorted(CONV_CASES))
+def test_packed_conv_matches_jax(label):
+    oc = 40 if "oc=40" in label else 32
+    kw = CONV_CASES[label]
+    pad = kw.get("pad", 1)
+    sin = T.PackedSpec.make(12, 12, 32, halo=max(pad, 1) + 1,
+                            col_off=max(pad, 1))
+    got, want, op = _run_both(_cfgs(2, 12, 32, oc, seed=len(label), **kw),
+                              sin, halo_out=max(pad, 1))
+    np.testing.assert_array_equal(got, want)
+    img = got.reshape(2, op.sout.rows, op.sout.iwp, op.sout.cp)
+    assert (img[..., op.sout.c:] == -128).all()
+
+
+@pytest.mark.parametrize("cs", [(32, 32), (32, 64), (64, 32, 32)])
+def test_packed_conv_multi_input_matches_jax(cs):
+    """Concat-free branch merge (tests/test_packed.py:224): the conv reads
+    its input as lane segments of 2 or 3 sources."""
+    ic = sum(cs)
+    specs = tuple(T.PackedSpec.make(12, 12, c, halo=2, col_off=1)
+                  for c in cs)
+    got, want, _ = _run_both(_cfgs(2, 12, ic, 64, seed=ic), specs,
+                             halo_out=1)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("halo_in,halo_out", [(1, 1), (2, 1), (3, 1),
+                                              (4, 3), (2, 0)])
+def test_packed_conv_halo_erosion_matches_jax(halo_in, halo_out):
+    sin = T.PackedSpec.make(12, 12, 32, halo=halo_in, col_off=2)
+    got, want, _ = _run_both(_cfgs(1, 12, 32, 32, oc1=32, seed=halo_in),
+                             sin, col_off_out=2, halo_out=halo_out, n=1)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("off_in,off_out", [(3, 1), (1, 3), (4, 1), (1, 6)])
+def test_packed_conv_large_tap_shifts_matches_jax(off_in, off_out):
+    """Column offsets whose taps shift by |d| >= 2, up to the JAX kernel's
+    output-roll formulation for |d| >= 4 (tests/test_packed.py:384)."""
+    hw = 12
+    iwp = ((hw + off_in + off_out + 6) // 8 + 1) * 8
+    sin = T.PackedSpec.make(hw, hw, 32, halo=3, col_off=off_in, iwp=iwp)
+    got, want, _ = _run_both(_cfgs(1, hw, 32, 32, seed=off_in + off_out),
+                             sin, col_off_out=off_out, halo_out=2, n=1)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_packed_conv_reads_pad_slots_as_stored():
+    """The plain version reads the pad slots themselves: junk in them
+    changes the result exactly as the JAX kernel's s8 x s8 + correction
+    does, which is what the CUDA kernel is held to on the card."""
+    cfg, jcfg, wei, bia, _, _ = _cfgs(1, 12, 32, 32, seed=3)
+    sin = T.PackedSpec.make(12, 12, 32, halo=2, col_off=2)
+    top = T.PackedConvOp(cfg, wei, bia, sin=sin, col_off_out=2, halo_out=1)
+    jop = J.PackedConvOp(jcfg, wei, bia, sin=jspec(sin), col_off_out=2,
+                         halo_out=1)
+    junk = np.random.default_rng(4).integers(
+        -128, 128, sin.array_shape(1), dtype=np.int8)
+    got = top(torch.from_numpy(junk)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jop(junk)))
+    clean = top(T.pack_image(T.unpack_image(junk, sin), sin)).numpy()
+    assert not np.array_equal(got, clean)
+
+
+@pytest.mark.parametrize("feature", ["sum_spec", "pool2", "stride",
+                                     "sum_arr", "emit_acc1", "t_range"])
+def test_unported_features_raise(feature):
+    cfg, _, wei, bia, _, _ = _cfgs(1, 12, 32, 32)
+    spec = T.PackedSpec.make(12, 12, 32)
+    match = {"sum_spec": "sum post-op", "pool2": "pool2",
+             "stride": "strided", "sum_arr": "sum post-op",
+             "emit_acc1": "emit_acc1", "t_range": "t_range"}[feature]
+    with pytest.raises(NotImplementedError, match=match):
+        if feature == "sum_spec":
+            T.PackedConvOp(cfg, wei, bia, sum_spec=spec)
+        elif feature == "pool2":
+            T.PackedConvOp(cfg, wei, bia, pool2=True)
+        elif feature == "stride":
+            scfg, _, swei, sbia, _, _ = _cfgs(1, 13, 32, 32, stride=2)
+            T.PackedConvOp(scfg, swei, sbia)
+        else:
+            op = T.PackedConvOp(cfg, wei, bia)
+            x = torch.full(op.sin.array_shape(1), -128, dtype=torch.int8)
+            kw = {"sum_arr": dict(sum_arr=x), "emit_acc1": dict(
+                emit_acc1=True), "t_range": dict(t_range=(0, 1))}[feature]
+            op(x, **kw)
+
+
+def test_save_load_roundtrip(tmp_path):
+    cfg, _, wei, bia, wei1, bia1 = _cfgs(2, 12, 64, 32, oc1=32, rnd="down",
+                                         per_oc=True)
+    sins = (T.PackedSpec.make(12, 12, 32, halo=2, col_off=2),
+            T.PackedSpec.make(12, 12, 32, halo=2, col_off=2))
+    op = T.PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sins, col_off_out=2,
+                        halo_out=1)
+    path = str(tmp_path / "pop.npz")
+    op.save(path)
+    op2 = T.PackedConvOp.load(path)
+    assert (op2.cfg, op2.sins, op2.sout) == (op.cfg, op.sins, op.sout)
+    rng = np.random.default_rng(2)
+    xs = tuple(T.pack_image(_u8(rng, 2, s), s) for s in sins)
+    assert torch.equal(op(xs), op2(xs))
+
+
+# ------------------------------------------------ K6/K7/K8 and the glue
+
+def test_packed_concat_matches_jax():
+    rng = np.random.default_rng(5)
+    specs = [T.PackedSpec.make(8, 12, 32, halo=2, col_off=2),
+             T.PackedSpec.make(8, 12, 40, halo=2, col_off=2)]
+    imgs = [_u8(rng, 2, s) for s in specs]
+    got, gspec = T.packed_concat([T.pack_image(x, s)
+                                  for x, s in zip(imgs, specs)], specs)
+    want, wspec = J.packed_concat([J.pack_image(x, jspec(s))
+                                   for x, s in zip(imgs, specs)],
+                                  [jspec(s) for s in specs])
+    assert jspec(gspec) == wspec
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(CheckError):
+        T.packed_concat([T.pack_image(imgs[1], specs[1])] * 2,
+                        [specs[1]] * 2)
+
+
+def _edge_u8(rng, shape):
+    """Full-range u8 with both saturation edges present."""
+    x = rng.integers(0, 256, shape, dtype=np.uint8)
+    flat = x.reshape(-1)
+    flat[:4] = [0, 255, 255, 0]
+    return x
+
+
+def test_packed_sum_relu_matches_jax():
+    rng = np.random.default_rng(6)
+    spec = T.PackedSpec.make(6, 10, 32, halo=2, col_off=2)
+    a, b = _edge_u8(rng, (2, 6, 10, 32)), _edge_u8(rng, (2, 6, 10, 32))
+    got = T.packed_sum_relu(T.pack_image(a, spec), T.pack_image(b, spec),
+                            spec)
+    want = J.packed_sum_relu(J.pack_image(a, jspec(spec)),
+                             J.pack_image(b, jspec(spec)), jspec(spec))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_packed_maxpool2_matches_jax():
+    rng = np.random.default_rng(7)
+    spec = T.PackedSpec.make(8, 12, 48, halo=2, col_off=2, iwp=16)
+    src = _edge_u8(rng, (2, 8, 12, 48))
+    got, gspec = T.packed_maxpool2(T.pack_image(src, spec), spec)
+    want, wspec = J.packed_maxpool2(J.pack_image(src, jspec(spec)),
+                                    jspec(spec))
+    assert jspec(gspec) == wspec
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    odd = T.PackedSpec.make(8, 12, 32, halo=2, col_off=1, iwp=16)
+    with pytest.raises(CheckError, match="even halo and col_off"):
+        T.packed_maxpool2(T.pack_image(_u8(rng, 1, odd), odd), odd)
+
+
+@pytest.mark.parametrize("cs", [(64,), (32, 32), (32, 64, 32)])
+def test_packed_sum_relu_maxpool2_matches_jax(cs):
+    rng = np.random.default_rng(len(cs))
+    yspecs = [T.PackedSpec.make(8, 12, c, halo=2, col_off=2, iwp=16)
+              for c in cs]
+    rspec = T.PackedSpec.make(8, 12, sum(cs), halo=2, col_off=2, iwp=16)
+    ys = [_edge_u8(rng, (2, 8, 12, c)) for c in cs]
+    r = _edge_u8(rng, (2, 8, 12, sum(cs)))
+    got, gspec = T.packed_sum_relu_maxpool2(
+        [T.pack_image(y, s) for y, s in zip(ys, yspecs)],
+        T.pack_image(r, rspec), yspecs, rspec)
+    want, wspec = J.packed_sum_relu_maxpool2(
+        [J.pack_image(y, jspec(s)) for y, s in zip(ys, yspecs)],
+        J.pack_image(r, jspec(rspec)), [jspec(s) for s in yspecs],
+        jspec(rspec))
+    assert jspec(gspec) == wspec
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("rnd", ["nearest", "down"])
+def test_packed_global_avgpool_matches_jax(rnd):
+    from deepfusion_tpu.types import round_mode as jround
+    rng = np.random.default_rng(8)
+    spec = T.PackedSpec.make(9, 13, 40, halo=3, col_off=2)
+    x = rng.integers(0, 256, (3, 9, 13, 40), dtype=np.uint8)
+    got = T.packed_global_avgpool(T.pack_image(x, spec), spec, round=rnd)
+    want = J.packed_global_avgpool(J.pack_image(x, jspec(spec)),
+                                   jspec(spec), round=jround[rnd])
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (3, 1, 1, 40)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_repack_matches_jax():
+    rng = np.random.default_rng(9)
+    s1 = T.PackedSpec.make(5, 9, 24, halo=1, col_off=1)
+    s2 = T.PackedSpec.make(5, 9, 24, cp=64, halo=3, col_off=4, iwp=24)
+    src = _u8(rng, 2, s1)
+    got = T.repack(T.pack_image(src, s1), s1, s2)
+    want = J.repack(J.pack_image(src, jspec(s1)), jspec(s1), jspec(s2))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
