@@ -6,19 +6,23 @@ Phases, each printing its own lines:
   1. device: the card's name and power limit, compute capability 9.0;
   2. build: compile the CUDA kernels of deepfusion_tpu_torch/csrc;
   3. parity: each kernel against its plain PyTorch version on the card,
-     bitwise, at every FusionNet full-width layer shape and extra cases
-     (every dtype, both round modes, saturation edges; for the packed
-     kernels also halo erosion, wide tap shifts, pad lanes, 1-3 inputs and
-     random bytes in the pad slots);
-  4. slice: FusionNet(FusionNetConfig()) on the card behind BatchServer
-     answers 20 requests through the dense forward, then 20 through the
-     packed forward; each answer must equal the plain dense forward on the
-     CPU bitwise (and the JAX package's golden logits where stored), and
-     every kernel of each path must have been launched in that path's run;
+     bitwise, at every FusionNet and ResFusionNet full-width layer shape
+     and extra cases (every dtype, both round modes, saturation edges, the
+     conv sum post-op with every operand dtype; for the fused conv+pool
+     both pools, strides and sums; for the packed kernels also halo
+     erosion, wide tap shifts, pad lanes, 1-3 inputs, the packed sum
+     operand, the s2d stem and random bytes in the pad slots);
+  4. slice: FusionNet(FusionNetConfig()) and then
+     ResFusionNet(ResFusionNetConfig()) on the card behind BatchServer
+     each answer 20 requests through the dense forward, then 20 through
+     the packed forward; each answer must equal the model's plain dense
+     forward on the CPU bitwise (and the JAX package's golden logits where
+     stored), and every kernel of each path must have been launched in
+     that path's run;
   5. timings: CUDA-event medians and profiler device times of each kernel
-     and its plain version at the model's shapes, the dense and packed
-     forwards, served requests per second on both paths, and the packed
-     fused conv at bench.py's default shape in TOP/s.
+     and its plain version at the models' shapes, the dense and packed
+     forwards of both models, served requests per second on every path,
+     and the packed fused conv at bench.py's default shape in TOP/s.
 
 Any failure raises and exits non-zero; nothing is caught. The line before
 the last is the per-kernel JSON summary, the last line the device JSON.
@@ -39,7 +43,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 REPS = 20
-GOLDEN = os.path.join(ROOT, "tests", "data", "fusionnet_full_logits.npz")
+GOLDEN = {m: os.path.join(ROOT, "tests", "data", f"{f}_full_logits.npz")
+          for m, f in (("FusionNet", "fusionnet"),
+                       ("ResFusionNet", "resfusion"))}
 KERNEL_INFO = {
     "conv_fused": ("deepfusion_tpu_torch/csrc/conv.cu",
                    "deepfusion_tpu/ops/conv.py:163",
@@ -56,10 +62,17 @@ KERNEL_INFO = {
                         "deepfusion_tpu/ops/packed.py:746",
                         "deepfusion_tpu/ops/packed.py:645, "
                         "deepfusion_tpu/ops/packed.py:693"),
+    "convpool": ("deepfusion_tpu_torch/csrc/convpool.cu",
+                 "deepfusion_tpu/ops/convpool.py:104", None),
 }
-# the kernels each served path launches (the packed head is the dense conv)
-DENSE_KERNELS = ("conv_fused", "concat_relu", "pool", "sum_relu")
-PACKED_KERNELS = ("packed_conv", "packed_sum_pool", "conv_fused")
+# the kernels each served path launches (the packed heads are dense convs)
+PATH_KERNELS = {
+    ("FusionNet", "dense"): ("conv_fused", "concat_relu", "pool", "sum_relu"),
+    ("FusionNet", "packed"): ("packed_conv", "packed_sum_pool", "conv_fused"),
+    ("ResFusionNet", "dense"): ("conv_fused", "convpool", "pool"),
+    ("ResFusionNet", "packed"): ("packed_conv", "packed_sum_pool",
+                                 "conv_fused"),
+}
 H100_INT8_PEAK_TOPS = 1979.0   # dense, NVIDIA data sheet, SXM at 700 W
 
 
@@ -172,15 +185,17 @@ def phase_build():
 
 
 def conv_cases(dev):
-    """(label, ConvOp, input) for the extra K1 cases."""
+    """(label, ConvOp, input, sum operand or None) for the extra K1 cases."""
     from deepfusion_tpu_torch.config import ConvConfig
     from deepfusion_tpu_torch.ops.conv import ConvOp
+    from deepfusion_tpu_torch.types import dtype
     from deepfusion_tpu_torch.utils.mathutil import conv_output_size
     rng = np.random.default_rng(11)
     out = []
 
     def add(label, n, hw, ic, oc, k, s, p, dst, *, oc1=None, bias=True,
-            per_oc=True, rnd="nearest", relu=True, scale=None):
+            per_oc=True, rnd="nearest", relu=True, scale=None, sum_dt=None,
+            sum_scale=1.0):
         o = conv_output_size(hw, k, s, p)
         wei = rng.integers(-128, 128, (oc, ic, k, k)).astype(np.int8)
         bia = rng.integers(-5000, 5000, (oc,)).astype(np.int32) \
@@ -198,14 +213,18 @@ def conv_cases(dev):
                               None if bia is None else bia.dtype, (s, s),
                               (p, p), (n, o, o, oc1 or oc), dst,
                               conv0_relu=relu, conv0_scales=sc0,
-                              conv0_round=rnd, **kw)
+                              conv0_round=rnd, sum_dt=sum_dt,
+                              sum_scale=sum_scale, **kw)
         wei1 = bia1 = None
         if oc1 is not None:
             wei1 = rng.integers(-128, 128, (oc1, oc, 1, 1)).astype(np.int8)
             bia1 = rng.integers(-5000, 5000, (oc1,)).astype(np.int32)
         x = torch.from_numpy(rng.integers(0, 256, (n, hw, hw, ic),
                                           dtype=np.uint8)).to(dev)
-        out.append((label, ConvOp(cfg, wei, bia, wei1, bia1, device=dev), x))
+        sm = None if sum_dt is None else rand(
+            rng, (n, o, o, oc1 or oc), dtype.from_any(sum_dt), dev)
+        out.append((label, ConvOp(cfg, wei, bia, wei1, bia1, device=dev), x,
+                    sm))
 
     for dst in ("u8", "s8", "s32", "f32"):
         for rnd in ("nearest", "down"):
@@ -224,10 +243,73 @@ def conv_cases(dev):
     for dst in ("u8", "s8", "s32"):   # saturation at both ends
         add(f"saturate {dst}", 1, 8, 64, 32, 3, 1, 1, dst, relu=False,
             scale=1e6 if dst == "s32" else 0.05)
+    # the sum post-op: every operand dtype into every dst, fused or not,
+    # both round modes, sum_scale != 1, then saturation at both ends
+    for i, sdt in enumerate(("u8", "s8", "s32", "f32")):
+        for j, dst in enumerate(("u8", "s8", "s32", "f32")):
+            for oc1 in (None, 32):
+                rnd = ("nearest", "down")[(i + j) % 2]
+                add(f"sum {sdt} -> {dst} fused={oc1 is not None} {rnd}", 2,
+                    10, 32, 48, 3, 1, 1, dst, oc1=oc1, rnd=rnd,
+                    relu=dst != "s8", sum_dt=sdt, sum_scale=0.75)
+    add("sum s8 stride2 odd ic", 2, 13, 3, 40, 3, 2, 1, "s8", relu=False,
+        sum_dt="s8", sum_scale=1.5)
+    for dst, sdt in (("u8", "s32"), ("s8", "s32"), ("s32", "s32"),
+                     ("s8", "f32")):
+        add(f"sum saturate {sdt} -> {dst}", 1, 8, 64, 32, 3, 1, 1, dst,
+            relu=False, scale=1e6 if dst == "s32" else 0.05, sum_dt=sdt,
+            sum_scale=3.0)
     return out
 
 
-def phase_parity(net, dev) -> Parity:
+def convpool_cases(dev):
+    """(label, ConvPoolOp, input, sum operand or None) for the K9 cases:
+    max/avg x dst x both conv and pool round modes x no/u8/s32 sum x
+    (stride 1, stride 2, odd ic), then saturating conv values."""
+    from deepfusion_tpu_torch.config import ConvConfig, PoolConfig
+    from deepfusion_tpu_torch.ops.convpool import ConvPoolOp
+    from deepfusion_tpu_torch.types import dtype
+    from deepfusion_tpu_torch.utils.mathutil import conv_output_size
+    rng = np.random.default_rng(13)
+    out = []
+
+    def add(label, n, hw, ic, oc, s, dst, kind, r0, rp, sum_dt, scale=None):
+        o = conv_output_size(hw, 3, s, 1)
+        wei = rng.integers(-128, 128, (oc, ic, 3, 3)).astype(np.int8)
+        bia = rng.integers(-5000, 5000, (oc,)).astype(np.int32)
+        sc = scale if scale is not None else 1.0 / (9 * ic * 60)
+        cfg = ConvConfig.make(
+            (n, hw, hw, ic), (oc, ic, 3, 3), bia.dtype, (s, s), (1, 1),
+            (n, o, o, oc), dst, conv0_relu=dst != "s8",
+            conv0_scales=(rng.uniform(0.5, 1.5, oc) * sc).astype(np.float32),
+            conv0_round=r0, sum_dt=sum_dt, sum_scale=0.5)
+        pc = PoolConfig.make(kind, (o, o), (2, 2), (2, 2), (0, 0), rp)
+        x = torch.from_numpy(rng.integers(0, 256, (n, hw, hw, ic),
+                                          dtype=np.uint8)).to(dev)
+        sm = None if sum_dt is None else rand(
+            rng, (n, o, o, oc), dtype.from_any(sum_dt), dev)
+        out.append((label, ConvPoolOp(cfg, pc, wei, bia, device=dev), x, sm))
+
+    geos = (("stride 1", 8, 32, 40, 1), ("stride 2", 16, 32, 24, 2),
+            ("odd ic", 8, 3, 16, 1))
+    for kind in ("max", "avg_exc"):
+        for dst in ("u8", "s8", "s32", "f32"):
+            if kind != "max" and dst == "s32":
+                continue
+            for r0 in ("nearest", "down"):
+                for rp in ("nearest", "down"):
+                    for sdt in (None, "u8", "s32"):
+                        for g, hw, ic, oc, s in geos:
+                            add(f"{kind} {dst} conv={r0} pool={rp} "
+                                f"sum={sdt} {g}", 2, hw, ic, oc, s, dst,
+                                kind, r0, rp, sdt)
+    for dst, kind in (("u8", "max"), ("s8", "avg_exc"), ("s32", "max")):
+        add(f"saturate {kind} {dst}", 1, 8, 64, 32, 1, dst, kind, "nearest",
+            "nearest", None, scale=1e6 if dst == "s32" else 0.05)
+    return out
+
+
+def phase_parity(net, rnet, dev) -> Parity:
     from deepfusion_tpu_torch.config import ConcatConfig, PoolConfig
     from deepfusion_tpu_torch.models.fusionnet import LAYERS
     C = importlib.import_module("deepfusion_tpu_torch.ops.concat")
@@ -245,9 +327,27 @@ def phase_parity(net, dev) -> Parity:
         x = rand(rng, (cfg.bs, cfg.ih, cfg.iw, cfg.ic), u8, dev)
         par.check("conv_fused", f"FusionNet {name}", K.conv_cuda(op, x),
                   K.conv_plain(op, x))
-    for label, op, x in conv_cases(dev):
-        par.check("conv_fused", label, K.conv_cuda(op, x),
-                  K.conv_plain(op, x))
+    for name in ("stem", "block1", "block2", "head"):
+        op = getattr(rnet, name)
+        cfg = op.cfg
+        x = rand(rng, (cfg.bs, cfg.ih, cfg.iw, cfg.ic), u8, dev)
+        sm = rand(rng, (cfg.bs, cfg.oh, cfg.ow, cfg.out_oc), u8, dev) \
+            if cfg.with_sum else None
+        par.check("conv_fused", f"ResFusionNet {name}",
+                  K.conv_cuda(op, x, sm), K.conv_plain(op, x, sm))
+    for label, op, x, sm in conv_cases(dev):
+        par.check("conv_fused", label, K.conv_cuda(op, x, sm),
+                  K.conv_plain(op, x, sm))
+
+    # K9: ResFusionNet's downsample at full width, then the extra cases
+    CP = importlib.import_module("deepfusion_tpu_torch.ops.convpool")
+    c = rnet.down.cfg
+    x = rand(rng, (c.bs, c.ih, c.iw, c.ic), u8, dev)
+    par.check("convpool", "ResFusionNet down",
+              CP.convpool_cuda(rnet.down, x), CP.convpool_plain(rnet.down, x))
+    for label, op, x, sm in convpool_cases(dev):
+        par.check("convpool", label, CP.convpool_cuda(op, x, sm),
+                  CP.convpool_plain(op, x, sm))
 
     # K2: the branch merge, then every dtype with 1-3 inputs
     cases = [(u8, [128, 128], (8, 56, 56), True)]
@@ -262,9 +362,13 @@ def phase_parity(net, dev) -> Parity:
         par.check("concat_relu", f"{dt.name} {ics} relu={relu}",
                   C.concat_cuda(xs, cfg), C.concat_plain(xs, cfg))
 
-    # K3: the model's two pools, then every dtype and kind
+    # K3: FusionNet's two pools and ResFusionNet's global average, then
+    # every dtype and kind
+    c = rnet.block2.cfg
     pcases = [(u8, (8, 56, 56, 256), "max", (2, 2), (2, 2), (0, 0)),
-              (u8, (8, 28, 28, 128), "avg_exc", (28, 28), (28, 28), (0, 0))]
+              (u8, (8, 28, 28, 128), "avg_exc", (28, 28), (28, 28), (0, 0)),
+              (u8, (c.bs, c.oh, c.ow, c.out_oc), "avg_exc", (c.oh, c.ow),
+               (c.oh, c.ow), (0, 0))]
     for dt in (dtype.u8, dtype.s8, dtype.s32, dtype.f32):
         for kind in ("max", "avg_inc", "avg_exc"):
             pcases += [(dt, (2, 9, 11, 40), kind, (3, 3), (2, 2), (1, 1)),
@@ -290,7 +394,7 @@ def phase_parity(net, dev) -> Parity:
             par.check("sum_relu", f"{dt.name} {shape} relu={relu}",
                       P.sum_relu_cuda(a, b, dt, relu),
                       P.sum_relu_plain(a, b, dt, relu))
-    packed_parity(net, dev, par)
+    packed_parity(net, rnet, dev, par)
     for k in KERNEL_INFO:
         print(f"parity: {k} bitwise equal to its plain version in "
               f"{par.cases[k]} cases, max_abs_err {par.err[k]}", flush=True)
@@ -312,6 +416,7 @@ def packed_input(rng, spec, n, dev, junk=False):
 def packed_conv_cases(dev):
     """(label, PackedConvOp, batch, junk pads) for the extra K5 cases."""
     from deepfusion_tpu_torch.config import ConvConfig
+    from deepfusion_tpu_torch.ops import layout
     from deepfusion_tpu_torch.ops.packed import PackedConvOp, PackedSpec
     from deepfusion_tpu_torch.utils.mathutil import conv_output_size
     rng = np.random.default_rng(12)
@@ -319,7 +424,7 @@ def packed_conv_cases(dev):
 
     def add(label, hw, cs, oc, k=3, *, oc1=None, bias=True, per_oc=True,
             rnd="nearest", halo_in=2, halo_out=1, off_in=2, off_out=2,
-            iwp=None, n=2, junk=False):
+            iwp=None, n=2, junk=False, sum_halo=None, sum_scale=1.0):
         ic, p = sum(cs), k // 2
         o = conv_output_size(hw, k, 1, p)
         wei = rng.integers(-128, 128, (oc, ic, k, k)).astype(np.int8)
@@ -344,12 +449,17 @@ def packed_conv_cases(dev):
                               None if bia is None else bia.dtype, (1, 1),
                               (p, p), (n, o, o, oc1 or oc), "u8",
                               conv0_relu=True, conv0_scales=sc0,
-                              conv0_round=rnd, **kw)
+                              conv0_round=rnd,
+                              sum_dt=None if sum_halo is None else "u8",
+                              sum_scale=sum_scale, **kw)
         sins = tuple(PackedSpec.make(hw, hw, c, halo=halo_in,
                                      col_off=off_in, iwp=iwp) for c in cs)
+        ssum = None if sum_halo is None else PackedSpec(
+            h=o, w=o, c=oc1 or oc, cp=layout.packed_cp(oc1 or oc),
+            halo=sum_halo, col_off=off_out, iwp=sins[0].iwp)
         op = PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sins,
                           col_off_out=off_out, halo_out=halo_out,
-                          device=dev)
+                          sum_spec=ssum, device=dev)
         out.append((label, op, n, junk))
 
     for rnd in ("nearest", "down"):
@@ -374,27 +484,46 @@ def packed_conv_cases(dev):
     add("junk pads 3x3", 12, [64], 64, junk=True)
     add("junk pads fused two inputs", 12, [32, 48], 64, oc1=32, junk=True)
     add("junk pads 5x5", 12, [40], 40, k=5, halo_in=3, junk=True)
+    # the packed sum operand at halo differences 0 and 1, fused and not,
+    # both round modes, with valid and with random pad bytes
+    for d in (0, 1):
+        for oc1 in (None, 40):
+            for rnd in ("nearest", "down"):
+                for junk in (False, True):
+                    add(f"sum halo+{d} fused={oc1 is not None} {rnd} "
+                        f"junk={junk}", 12, [64], 72, oc1=oc1, rnd=rnd,
+                        halo_in=2, halo_out=1, sum_halo=1 + d,
+                        sum_scale=0.8 if d else 1.0, junk=junk)
     return out
 
 
-def packed_parity(net, dev, par):
-    """K5 at every packed FusionNet layer (valid and junk pads) and the
-    extra cases; K6/K7/K8 at the residual shape, 1-3 inputs, edges."""
+def packed_parity(net, rnet, dev, par):
+    """K5 at every packed FusionNet and ResFusionNet layer (valid and junk
+    pads; the s2d stem, the sum operand) and the extra cases; K6/K7/K8 at
+    FusionNet's residual shape, K7 at ResFusionNet's pool, 1-3 inputs,
+    edges."""
     from deepfusion_tpu_torch.ops import packed as PK
     from deepfusion_tpu_torch.ops.packed import PackedSpec
     rng = np.random.default_rng(6)
     P = net.build_packed()
     n = net.cfg.batch
-    for name, op in P.items():
+    cases = [(f"FusionNet {name}", op, n) for name, op in P.items()]
+    cases += [(f"ResFusionNet {name}", op, rnet.cfg.batch)
+              for name, op in rnet.build_packed().items()]
+    for label, op, bn in cases:
         for junk in (False, True):
-            arrs = [packed_input(rng, s, n, dev, junk) for s in op.sins]
-            par.check("packed_conv", f"FusionNet {name} junk={junk}",
-                      PK.packed_conv_cuda(op, arrs),
-                      PK.packed_conv_plain(op, arrs))
+            arrs = [packed_input(rng, s, bn, dev, junk) for s in op.sins]
+            sm = None if op.ssum is None else \
+                packed_input(rng, op.ssum, bn, dev, junk)
+            par.check("packed_conv", f"{label} junk={junk}",
+                      PK.packed_conv_cuda(op, arrs, sm),
+                      PK.packed_conv_plain(op, arrs, sm))
     for label, op, bn, junk in packed_conv_cases(dev):
         arrs = [packed_input(rng, s, bn, dev, junk) for s in op.sins]
-        par.check("packed_conv", label, PK.packed_conv_cuda(op, arrs),
-                  PK.packed_conv_plain(op, arrs))
+        sm = None if op.ssum is None else \
+            packed_input(rng, op.ssum, bn, dev, junk)
+        par.check("packed_conv", label, PK.packed_conv_cuda(op, arrs, sm),
+                  PK.packed_conv_plain(op, arrs, sm))
 
     r = P["res"].sout
     yspecs = [P["block1"].sout, P["branch"].sout]
@@ -416,6 +545,14 @@ def packed_parity(net, dev, par):
                 par.check("packed_sum_pool", what,
                           PK.packed_sum_pool_cuda(*args),
                           PK.packed_sum_pool_plain(*args))
+    # ResFusionNet's packed max pool after its downsample conv
+    ds = rnet.build_packed()["down"].sout
+    for junk in (False, True):
+        y = packed_input(rng, ds, rnet.cfg.batch, dev, junk)
+        args = ([y], None, True, ds.rows, ds.iwp)
+        par.check("packed_sum_pool", f"ResFusionNet down pool junk={junk}",
+                  PK.packed_sum_pool_cuda(*args),
+                  PK.packed_sum_pool_plain(*args))
     # saturation edges: every (a, b) byte pair of -128, -1, 0, 127
     edge = torch.tensor([-128, -1, 0, 127], dtype=torch.int8)
     a = edge.repeat_interleave(4).repeat(16).reshape(1, 16, 16).to(dev)
@@ -426,15 +563,16 @@ def packed_parity(net, dev, par):
                   PK.packed_sum_pool_plain([a], b, pool, 2, 8))
 
 
-def slice_requests(net, cfg):
+def slice_requests(net, golden_path):
     """20 requests (the golden input's 8 first, where stored), the plain
-    dense forward's logits for them on the CPU, and the golden logits."""
-    from deepfusion_tpu_torch.models import FusionNet
+    dense forward's logits for them on the CPU (the same model, built on
+    the CPU), and the golden logits."""
     from deepfusion_tpu_torch.utils.logger import check_eq
+    cfg = net.cfg
     reqs = []
     golden = None
-    if os.path.exists(GOLDEN):
-        golden = np.load(GOLDEN)
+    if os.path.exists(golden_path):
+        golden = np.load(golden_path)
         check_eq(int(golden["model_seed"]), cfg.seed, "golden model seed")
         reqs += list(net.example_input(
             np.random.default_rng(int(golden["input_seed"]))))
@@ -442,13 +580,14 @@ def slice_requests(net, cfg):
     while len(reqs) < 20:
         reqs.append(rng.integers(0, 256, net.input_shape[1:], dtype=np.uint8))
     with torch.inference_mode():
-        want = FusionNet(cfg, device="cpu")(np.stack(reqs)).numpy()
+        want = type(net)(cfg, device="cpu")(np.stack(reqs)).numpy()
     return reqs, want, golden
 
 
 def phase_slice(model, cfg, path, kernels, reqs, want, golden) -> dict:
     """Serve reqs through `model` behind BatchServer; every kernel of the
-    path must launch in this run, and every answer must be bitwise right."""
+    path must launch in this run, and every answer must be bitwise right.
+    `path` names the model and the forward."""
     from deepfusion_tpu_torch import _build
     from deepfusion_tpu_torch.serving import BatchServer
     from deepfusion_tpu_torch.utils.logger import check, check_eq
@@ -505,14 +644,114 @@ def flagship_op(dev):
     return PackedConvOp(cfg, wei, bia, wei1, bia1, device=dev), n, macs
 
 
-def phase_timings(net, cfg, dev, name_power, parity, counts) -> list:
+def time_forwards(name, fwd, batch, name_power):
+    """Per-call and device ms of each forward in `fwd` (taken in turns, as
+    A, B, B, A) and the profiler's top device entries."""
+    ms = {k: [] for k in fwd}
+    ks = list(fwd)
+    for k in ks + ks[::-1]:
+        ms[k].append(cuda_ms(fwd[k]))
+    for k, fn in fwd.items():
+        f_ms = statistics.mean(ms[k])
+        d_ms = device_ms(fn)
+        print(f"timing: {name} {k} forward batch={batch} "
+              f"ms={f_ms:.4f} device_ms={d_ms:.4f} device_busy_share="
+              f"{d_ms / f_ms:.3f} card=\"{name_power}\"", flush=True)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+        top = sorted(prof.key_averages(),
+                     key=lambda e: -e.self_device_time_total)
+        for e in top[:8]:
+            if e.self_device_time_total > 0:
+                print(f"profile: {name} {k} forward {e.key[:60]} calls/fwd="
+                      f"{e.count / REPS:g} device_ms/fwd="
+                      f"{e.self_device_time_total / REPS / 1e3:.4f} "
+                      f"card=\"{name_power}\"", flush=True)
+
+
+def served_rate(name, models, batch, input_shape, name_power):
+    """Served requests/s of each model in `models`, median of 3 bursts of
+    64 requests taken in turns."""
+    from deepfusion_tpu_torch.serving import BatchServer
+    req = list(np.random.default_rng(3).integers(
+        0, 256, (64,) + tuple(input_shape[1:]), dtype=np.uint8))
+    rps = {k: [] for k in models}
+    ks = list(models)
+    for k in ks + ks[::-1] + ks:
+        with BatchServer(models[k], batch=batch,
+                         input_shape=input_shape[1:]) as srv:
+            t0 = time.perf_counter()
+            for f in srv.submit_many(req):
+                f.result(timeout=300)
+            rps[k].append(len(req) / (time.perf_counter() - t0))
+    for k, v in rps.items():
+        print(f"timing: {name} {k} served requests/s="
+              f"{statistics.median(v):.1f} (median of 3 bursts of "
+              f"{len(req)}, batch {batch}, in turns with the other path) "
+              f"card=\"{name_power}\"", flush=True)
+
+
+def resfusion_timings(rnet, dev, name_power, timed):
+    """ResFusionNet: K9 at the downsample against its plain version, its
+    other layers' kernels, both forwards and both served paths."""
+    from deepfusion_tpu_torch.types import dtype
+    from deepfusion_tpu_torch.utils.logger import check
+    CP = importlib.import_module("deepfusion_tpu_torch.ops.convpool")
+    K = importlib.import_module("deepfusion_tpu_torch.ops.conv")
+    PK = importlib.import_module("deepfusion_tpu_torch.ops.packed")
+    rng = np.random.default_rng(10)
+    u8 = dtype.u8
+    n = rnet.cfg.batch
+    c = rnet.down.cfg
+    x = rand(rng, (c.bs, c.ih, c.iw, c.ic), u8, dev)
+    timed("convpool", "ResFusionNet down (K9)",
+          lambda: CP.convpool_cuda(rnet.down, x),
+          lambda: CP.convpool_plain(rnet.down, x))
+    # the same layer as two kernels: the conv's u8 output through memory,
+    # then the 2x2 max pool
+    P = importlib.import_module("deepfusion_tpu_torch.ops.pool")
+    p = rnet.params["down"]
+    cop = K.ConvOp(rnet.down.cfg, p["wei"], p["bia"], device=dev)
+
+    def composed():
+        return P.pool_cuda(K.conv_cuda(cop, x), rnet.down.pc, u8)
+    check(torch.equal(composed(), CP.convpool_cuda(rnet.down, x)),
+          "K9 differs from conv then pool at ResFusionNet's downsample")
+    print(f"timing: ResFusionNet down as conv_fused + pool ms="
+          f"{cuda_ms(composed):.4f} device_ms={device_ms(composed):.4f} "
+          f"(bitwise equal to K9) card=\"{name_power}\"", flush=True)
+    for name in ("stem", "block1"):
+        op = getattr(rnet, name)
+        c = op.cfg
+        xi = rand(rng, (c.bs, c.ih, c.iw, c.ic), u8, dev)
+        sm = rand(rng, (c.bs, c.oh, c.ow, c.out_oc), u8, dev) \
+            if c.with_sum else None
+        timed("conv_fused", f"ResFusionNet {name}",
+              lambda: K.conv_cuda(op, xi, sm),
+              lambda: K.conv_plain(op, xi, sm), in_forward=False)
+    for name, op in rnet.build_packed().items():
+        arrs = [packed_input(rng, s, n, dev) for s in op.sins]
+        sm = None if op.ssum is None else packed_input(rng, op.ssum, n, dev)
+        timed("packed_conv", f"ResFusionNet {name}",
+              lambda: PK.packed_conv_cuda(op, arrs, sm),
+              lambda: PK.packed_conv_plain(op, arrs, sm), in_forward=False)
+    xr = torch.from_numpy(rnet.example_input()).to(dev)
+    pm = rnet.packed_module()
+    time_forwards("ResFusionNet", {"dense": lambda: rnet(xr),
+                                   "packed": lambda: pm(xr)}, n, name_power)
+    return {"dense": rnet, "packed": pm}
+
+
+def phase_timings(net, cfg, rnet, dev, name_power, parity, counts) -> list:
     from deepfusion_tpu_torch.config import ConcatConfig, PoolConfig
     from deepfusion_tpu_torch.models.fusionnet import LAYERS
     C = importlib.import_module("deepfusion_tpu_torch.ops.concat")
     K = importlib.import_module("deepfusion_tpu_torch.ops.conv")
     P = importlib.import_module("deepfusion_tpu_torch.ops.pool")
     PK = importlib.import_module("deepfusion_tpu_torch.ops.packed")
-    from deepfusion_tpu_torch.serving import BatchServer
     from deepfusion_tpu_torch.types import dtype
     rng = np.random.default_rng(9)
     u8 = dtype.u8
@@ -580,29 +819,10 @@ def phase_timings(net, cfg, dev, name_power, parity, counts) -> list:
         # dense vs packed forward, in turns
         x = torch.from_numpy(net.example_input()).to(dev)
         pm = net.packed_module()
-        fwd = {"dense": lambda: net(x), "packed": lambda: pm(x)}
-        ms = {k: [] for k in fwd}
-        for k in ("dense", "packed", "packed", "dense"):
-            ms[k].append(cuda_ms(fwd[k]))
-        for k, fn in fwd.items():
-            f_ms = statistics.mean(ms[k])
-            d_ms = device_ms(fn)
-            print(f"timing: FusionNet {k} forward batch={cfg.batch} "
-                  f"ms={f_ms:.4f} device_ms={d_ms:.4f} device_busy_share="
-                  f"{d_ms / f_ms:.3f} card=\"{name_power}\"", flush=True)
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for _ in range(REPS):
-                    fn()
-                torch.cuda.synchronize()
-            top = sorted(prof.key_averages(),
-                         key=lambda e: -e.self_device_time_total)
-            for e in top[:8]:
-                if e.self_device_time_total > 0:
-                    print(f"profile: {k} forward {e.key[:60]} calls/fwd="
-                          f"{e.count / REPS:g} device_ms/fwd="
-                          f"{e.self_device_time_total / REPS / 1e3:.4f} "
-                          f"card=\"{name_power}\"", flush=True)
+        time_forwards("FusionNet", {"dense": lambda: net(x),
+                                    "packed": lambda: pm(x)}, cfg.batch,
+                      name_power)
+        rmodels = resfusion_timings(rnet, dev, name_power, timed)
 
         # the packed fused conv at bench.py's default shape
         fop, fbatch, macs = flagship_op(dev)
@@ -620,21 +840,10 @@ def phase_timings(net, cfg, dev, name_power, parity, counts) -> list:
               f"version; card=\"{name_power}\"", flush=True)
         del fop, fx
 
-    req = list(np.random.default_rng(3).integers(
-        0, 256, (64,) + net.input_shape[1:], dtype=np.uint8))
-    rps = {"dense": [], "packed": []}
-    for k in ("dense", "packed", "packed", "dense", "dense", "packed"):
-        with BatchServer(pm if k == "packed" else net, batch=cfg.batch,
-                         input_shape=net.input_shape[1:]) as srv:
-            t0 = time.perf_counter()
-            for f in srv.submit_many(req):
-                f.result(timeout=300)
-            rps[k].append(len(req) / (time.perf_counter() - t0))
-    for k, v in rps.items():
-        print(f"timing: {k} served requests/s={statistics.median(v):.1f} "
-              f"(median of 3 bursts of {len(req)}, batch {cfg.batch}, in "
-              f"turns with the other path) card=\"{name_power}\"",
-              flush=True)
+    served_rate("FusionNet", {"dense": net, "packed": pm}, cfg.batch,
+                net.input_shape, name_power)
+    served_rate("ResFusionNet", rmodels, rnet.cfg.batch, rnet.input_shape,
+                name_power)
 
     rows = []
     for k, (src, replaces, also) in KERNEL_INFO.items():
@@ -654,7 +863,8 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA H100", file=sys.stderr)
         sys.exit(1)
-    from deepfusion_tpu_torch.models import FusionNet, FusionNetConfig
+    from deepfusion_tpu_torch.models import (FusionNet, FusionNetConfig,
+                                             ResFusionNet, ResFusionNetConfig)
 
     name_power = phase_device()
     phase_build()
@@ -662,14 +872,22 @@ def main():
     cfg = FusionNetConfig()
     net = FusionNet(cfg, device=dev)
     net.build_packed()
+    rnet = ResFusionNet(ResFusionNetConfig(), device=dev)
+    rnet.build_packed()
     with torch.inference_mode():
-        parity = phase_parity(net, dev)
-    reqs, want, golden = slice_requests(net, cfg)
-    dense = phase_slice(net, cfg, "dense", DENSE_KERNELS, reqs, want, golden)
-    packed = phase_slice(net.packed_module(), cfg, "packed", PACKED_KERNELS,
-                         reqs, want, golden)
-    counts = {k: dense[k] + packed[k] for k in KERNEL_INFO}
-    rows = phase_timings(net, cfg, dev, name_power, parity, counts)
+        parity = phase_parity(net, rnet, dev)
+    counts = dict.fromkeys(KERNEL_INFO, 0)
+    for model, golden_path in ((net, GOLDEN["FusionNet"]),
+                               (rnet, GOLDEN["ResFusionNet"])):
+        reqs, want, golden = slice_requests(model, golden_path)
+        name = type(model).__name__
+        for path, served in (("dense", model),
+                             ("packed", model.packed_module())):
+            got = phase_slice(served, model.cfg, f"{name} {path}",
+                              PATH_KERNELS[(name, path)], reqs, want, golden)
+            for k in KERNEL_INFO:
+                counts[k] += got[k]
+    rows = phase_timings(net, cfg, rnet, dev, name_power, parity, counts)
     print(name_power)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,11 @@ Ported so far: FusionNet's dense serving path — ``ops.conv`` (with the
 deep-fused 1x1), ``ops.concat``, ``ops.pool`` (pooling and
 eltwise-sum+ReLU), ``models.FusionNet`` and ``serving.BatchServer`` — and
 its packed serving path: ``ops.packed`` (the packed conv with 1..n inputs,
-the packed residual sum and 2x2 max pool) and ``FusionNet.packed_call``.
+the packed residual sum and 2x2 max pool) and ``FusionNet.packed_call``;
+and ResFusionNet's serving paths, dense and packed: the conv sum post-op,
+strided packed convs on the space-to-depth grid, ``ops.convpool`` (the
+fused conv+pool kernel), ``ops.pool.conv_relu_pool`` and
+``models.ResFusionNet``.
 """
 from . import config, ops, serving, types, utils  # noqa: F401
 from .config import ConcatConfig, ConvConfig, PoolConfig  # noqa: F401

@@ -33,21 +33,23 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
                            "-fPIC", "-I/usr/local/cutlass/include")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 _SIGNATURES = {
-    "df_conv": [_P] * 8 + [_I] * 24 + [_P],
+    "df_conv": [_P] * 9 + [_I] * 25 + [_F, _P],
+    "df_convpool": [_P] * 6 + [_I] * 21 + [_F, _P],
     "df_concat": [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(_I), _I,
                   _P, _L, _I, _I, _P],
     "df_pool": [_P, _P] + [_I] * 15 + [_P],
     "df_sum_relu": [_P, _P, _P, _L, _I, _I, _P],
     "df_packed_conv": [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(_I),
-                       _I] + [_P] * 7 + [_I] * 23 + [_P],
+                       _I] + [_P] * 8 + [_I] * 25 + [_F, _P],
     "df_packed_sum_pool": [ctypes.POINTER(ctypes.c_void_p),
                            ctypes.POINTER(_I), _I, _P, _P] + [_I] * 6 + [_P],
 }
 
 KERNELS = ("conv_fused", "concat_relu", "pool", "sum_relu", "packed_conv",
-           "packed_sum_pool")
+           "packed_sum_pool", "convpool")
 
 _counts_lock = threading.Lock()
 _counts = dict.fromkeys(KERNELS, 0)

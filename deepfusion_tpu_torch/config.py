@@ -105,6 +105,11 @@ class ConvConfig:
     conv1_relu: bool = False
     conv1_scales: Tuple[float, ...] = (1.0,)
     conv1_round: round_mode = round_mode.nearest
+    # eltwise-sum post-op on the final stage: the operand is NHWC
+    # (n, oh, ow, out_oc) of sum_dt, scaled by sum_scale (ops/requant.py)
+    with_sum: bool = False
+    sum_scale: float = 1.0
+    sum_dt: Optional[dtype] = None
 
     @property
     def conv0_with_bias(self) -> bool:
@@ -128,15 +133,7 @@ class ConvConfig:
              conv1_round=round_mode.nearest,
              groups=1, sum_dt=None, sum_scale=1.0) -> "ConvConfig":
         """Validate and build; shapes are NHWC (src/dst) and OIHW (weights).
-
-        The eltwise-sum post-op (``sum_dt``) is not ported yet and raises
-        ``NotImplementedError``; ``sum_scale`` is accepted only so callers
-        keep the JAX package's signature.
-        """
-        if sum_dt is not None:
-            raise NotImplementedError(
-                "conv sum post-op (sum_dt/sum_src) is not ported to the "
-                "PyTorch package yet")
+        ``sum_dt`` (u8, s8, s32 or f32) adds the eltwise-sum post-op."""
         src_dt = dtype.from_any(src_dt)
         wei_dt = dtype.from_any(wei_dt)
         dst_dt = dtype.from_any(dst_dt)
@@ -190,7 +187,9 @@ class ConvConfig:
             conv0_round=conv0_round,
             fuse_conv1x1=fuse, oc1x1=oc1x1, bia1x1_dt=bia1x1_dt,
             conv1_relu=conv1_relu, conv1_scales=tuple(conv1_scales),
-            conv1_round=conv1_round)
+            conv1_round=conv1_round,
+            with_sum=sum_dt is not None, sum_scale=float(sum_scale),
+            sum_dt=dtype.from_any(sum_dt) if sum_dt is not None else None)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,14 +2,21 @@
 // requantization epilogue and, when FUSE, the deep-fused 1x1 tail.
 //
 // Replaces deepfusion_tpu/ops/conv.py:_conv_kernel and
-// deepfusion_tpu/ops/conv.py:_conv_fused_kernel (launcher _conv_pallas).
+// deepfusion_tpu/ops/conv.py:_conv_fused_kernel (launcher _conv_pallas),
+// with the eltwise-sum post-op.
 //
 // What it computes, per output pixel p and channel o:
 //   acc0[p,o] = sum_{ki,kj,c} src_u8[n, y*sh-ph+ki, x*sw-pw+kj, c] * w0[o,c,ki,kj]
 //   (taps outside the image read 0: zero padding is exact in the u8 domain,
 //   so there is no -128 shift and no correction term)
-//   not fused: dst = requant(acc0)
-//   fused:     mid = requant_to_u8(acc0); acc1 = mid . w1; dst = requant(acc1)
+//   not fused: dst = requant(acc0 [, sum])
+//   fused:     mid = requant_to_u8(acc0); acc1 = mid . w1;
+//              dst = requant(acc1 [, sum])
+// The optional sum operand is NHWC (n, oh, ow, out_oc) of u8, s8, s32 or
+// f32; the final stage's epilogue reads it at the output pixel and joins it
+// in the JAX package's order (requant.cuh: requant_sum). Whether there is
+// one is a uniform branch around the store loop, and its dtype a switch
+// inside it, so it adds no kernel instantiations.
 //
 // What bounds it on the H100: int8 multiply-adds. At FusionNet's full width
 // a forward is about 11 G MACs against a few MB of activations, so once its
@@ -35,43 +42,64 @@
 //   (w1 streams through shared memory like w0); it never reaches device
 //   memory. This is the on-chip residency the TPU kernel keeps in VMEM.
 //
-// Layouts (deepfusion_tpu_torch/ops/layout.py): the input is NHWC u8 with
-// ic a multiple of 16 (the wrapper pads other counts); w0 is int32 words
-// [kh*kw][icp/4][oc0p], each word 4 s8 weights of 4 consecutive input
-// channels (byte b = channel 4k+b), icp = ic rounded up to 32, oc0p = oc
-// rounded up to 8, zero padded; w1 is [k1/4][oc1p] the same way, with k1 =
-// oc0p rounded up to 32. A word is exactly one register of an mma.sync
-// fragment: A = (pixel row, 4 channels), B = (4 channels, output channel).
+// The argument struct, the layouts and the K loop are in conv_common.cuh,
+// shared with convpool.cu.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "mma_sync.cuh"
-#include "requant.cuh"
+#include "conv_common.cuh"
 
 namespace {
 
-struct ConvArgs {
-  const uint8_t* src;
-  const int32_t* w0;
-  const float* bias0;
-  const float* scale0;
-  const int32_t* w1;
-  const float* bias1;
-  const float* scale1;
-  void* dst;
-  int n, ih, iw, ic, oh, ow, kh, kw, sh, sw, ph, pw;
-  int oc0, oc0p, oc1, oc1p;
-  int relu0, relu1, down0, down1, has_bias0, has_bias1;
-  int wc;    // warps along the channels; 8 / wc along the pixels
-  int kcw;   // K words per chunk of the conv: 8, 16 or 32
-  int k1;    // K of the fused 1x1: oc0p rounded up to 32
-};
+// Requantize the warp's tile of the final stage and store it (with the sum
+// operand's element at the same index when SUM): pixels p0 + [0, L.m),
+// channels n0 + [0, nb) of oc. The caller picks SUM with one uniform
+// branch, so the unrolled loop carries no per-element test.
+template <int DST, bool SUM>
+__device__ __forceinline__ void store_tile(
+    const ConvArgs& a, const int32_t (&acc)[MI][NI][4], long long p0,
+    long long total, int n0, int oc, bool has_bias, const float* bias,
+    const float* scale, bool relu, bool down, int ntiles) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp / a.wc, wc = warp % a.wc;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      if (ni >= ntiles) continue;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const long long gp = p0 + wr * 32 + mi * 16 + g + (r >> 1) * 8;
+        const int o = n0 + wc * 64 + ni * 8 + 2 * t + (r & 1);
+        if (gp >= total || o >= oc) continue;
+        const size_t idx = (size_t)gp * oc + o;
+        if constexpr (SUM)
+          store_out<DST>(a.dst, idx,
+                         requant_sum<DST>(acc[mi][ni][r], has_bias, bias[o],
+                                          scale[o], relu, down,
+                                          load_sum(a.sum, idx, a.sum_dt,
+                                                   a.sum_scale)));
+        else
+          store_out<DST>(a.dst, idx,
+                         requant<DST>(acc[mi][ni][r], has_bias, bias[o],
+                                      scale[o], relu, down));
+      }
+    }
+}
 
 template <int DST>
-__device__ __forceinline__ void store_out(void* dst, size_t idx,
-                                          typename dt_traits<DST>::T v) {
-  static_cast<typename dt_traits<DST>::T*>(dst)[idx] = v;
+__device__ __forceinline__ void store_final(
+    const ConvArgs& a, const int32_t (&acc)[MI][NI][4], long long p0,
+    long long total, int n0, int oc, bool has_bias, const float* bias,
+    const float* scale, bool relu, bool down, int ntiles) {
+  if (a.sum)
+    store_tile<DST, true>(a, acc, p0, total, n0, oc, has_bias, bias, scale,
+                          relu, down, ntiles);
+  else
+    store_tile<DST, false>(a, acc, p0, total, n0, oc, has_bias, bias, scale,
+                           relu, down, ntiles);
 }
 
 template <bool FUSE, int DST>
@@ -110,75 +138,33 @@ __global__ void __launch_bounds__(NT, 2) conv_fused_kernel(ConvArgs a) {
   }
   __syncthreads();
 
-  const int icp4 = ((a.ic + 31) / 32) * 8;  // K words per tap
-  const int cpt = icp4 / a.kcw;             // chunks per tap
-  const int nchunks = a.kh * a.kw * cpt;
-  const int upp = a.kcw / 4;                // 16-byte units per pixel row
   int32_t acc[MI][NI][4];
 
   for (int n0 = 0; n0 < a.oc0p; n0 += L.nb) {
     const int nbv = min(L.nb, a.oc0p - n0);   // valid columns of the pass
     const int ntiles = min(NI, max(0, (nbv - wc * 64) / 8));
-    // copy chunk c (one tap, kcw words of channels) into buffer b
-    auto issue = [&](int c, int b) {
-      const int tap = c / cpt, c40 = (c - tap * cpt) * a.kcw;
-      const int ki = tap / a.kw, kj = tap - ki * a.kw;
-      for (int e = tid; e < L.m * upp; e += NT) {
-        const int p = e / upp, u = e - p * upp;
-        const int nn = s_pix[3 * p];
-        const int iy = s_pix[3 * p + 1] + ki, ix = s_pix[3 * p + 2] + kj;
-        const int ch = (c40 + 4 * u) * 4;
-        const bool ok = nn >= 0 && iy >= 0 && iy < a.ih && ix >= 0 &&
-                        ix < a.iw && ch < a.ic;
-        const uint8_t* src =
-            ok ? a.src + (((size_t)nn * a.ih + iy) * a.iw + ix) * a.ic + ch
-               : a.src;
-        cp_async16(s_in[b] + p * L.lda + 4 * u, src, ok ? 16 : 0);
-      }
-      issue_rows(s_w[b], L.ldw,
-                 a.w0 + ((size_t)tap * icp4 + c40) * a.oc0p + n0, a.oc0p,
-                 a.kcw, nbv, warp, lane);
-      cp_async_commit();
-    };
-    zero(acc);
-    issue(0, 0);
-    for (int c = 0; c < nchunks; ++c) {
-      if (c + 1 < nchunks) {
-        issue(c + 1, (c + 1) & 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      mma_chunk(acc, s_in[c & 1] + wr * 32 * L.lda, L.lda,
-                s_w[c & 1] + wc * 64, L.ldw, a.kcw / 8, ntiles, g, t);
-      __syncthreads();  // buffer c&1 is refilled by the next issue
-    }
+    conv_pass(a, L, s_in, s_w, s_pix, n0, nbv, ntiles, acc);
 
+    if constexpr (FUSE) {
 #pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
+      for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        if (ni >= ntiles) continue;
+        for (int ni = 0; ni < NI; ++ni) {
+          if (ni >= ntiles) continue;
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int p = wr * 32 + mi * 16 + g + (r >> 1) * 8;
-          const int o = n0 + wc * 64 + ni * 8 + 2 * t + (r & 1);
-          if constexpr (FUSE) {
+          for (int r = 0; r < 4; ++r) {
+            const int p = wr * 32 + mi * 16 + g + (r >> 1) * 8;
+            const int o = n0 + wc * 64 + ni * 8 + 2 * t + (r & 1);
             if (o < a.oc0)
               reinterpret_cast<uint8_t*>(s_mid)[(size_t)p * L.ldm * 4 + o] =
                   requant_to_u8(acc[mi][ni][r], a.has_bias0, a.bias0[o],
                                 a.scale0[o], a.down0);
-          } else {
-            const long long gp = p0 + p;
-            if (gp < total && o < a.oc0)
-              store_out<DST>(a.dst, (size_t)gp * a.oc0 + o,
-                             requant<DST>(acc[mi][ni][r], a.has_bias0,
-                                          a.bias0[o], a.scale0[o], a.relu0,
-                                          a.down0));
           }
         }
-      }
+    } else {
+      store_final<DST>(a, acc, p0, total, n0, a.oc0, a.has_bias0, a.bias0,
+                       a.scale0, a.relu0, a.down0, ntiles);
+    }
   }
 
   if constexpr (FUSE) {
@@ -210,22 +196,8 @@ __global__ void __launch_bounds__(NT, 2) conv_fused_kernel(ConvArgs a) {
                   ntiles, g, t);
         __syncthreads();
       }
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni) {
-          if (ni >= ntiles) continue;
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const long long gp = p0 + wr * 32 + mi * 16 + g + (r >> 1) * 8;
-            const int o = n0 + wc * 64 + ni * 8 + 2 * t + (r & 1);
-            if (gp < total && o < a.oc1)
-              store_out<DST>(a.dst, (size_t)gp * a.oc1 + o,
-                             requant<DST>(acc[mi][ni][r], a.has_bias1,
-                                          a.bias1[o], a.scale1[o], a.relu1,
-                                          a.down1));
-          }
-        }
+      store_final<DST>(a, acc, p0, total, n0, a.oc1, a.has_bias1, a.bias1,
+                       a.scale1, a.relu1, a.down1, ntiles);
     }
   }
 }
@@ -234,12 +206,7 @@ template <bool FUSE, int DST>
 int launch(const ConvArgs& a, cudaStream_t stream) {
   const Smem L(a);
   const size_t smem = L.bytes(FUSE);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        conv_fused_kernel<FUSE, DST>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  if (int e = allow_smem(conv_fused_kernel<FUSE, DST>, smem)) return e;
   const long long total = (long long)a.n * a.oh * a.ow;
   const unsigned blocks = (unsigned)((total + L.m - 1) / L.m);
   conv_fused_kernel<FUSE, DST><<<blocks, NT, smem, stream>>>(a);
@@ -257,19 +224,22 @@ int launch_dst(const ConvArgs& a, int dst_dt, cudaStream_t stream) {
   }
 }
 
-int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
 }  // namespace
 
+// sum: null, or the NHWC sum operand of sum_dt (the dst dtype codes)
 extern "C" int df_conv(const void* src, const void* w0, const void* bias0,
                        const void* scale0, const void* w1, const void* bias1,
-                       const void* scale1, void* dst, int n, int ih, int iw,
-                       int ic, int oh, int ow, int kh, int kw, int sh, int sw,
-                       int ph, int pw, int oc0, int oc0p, int oc1, int oc1p,
-                       int relu0, int relu1, int down0, int down1,
-                       int has_bias0, int has_bias1, int fuse, int dst_dt,
+                       const void* scale1, void* dst, const void* sum, int n,
+                       int ih, int iw, int ic, int oh, int ow, int kh, int kw,
+                       int sh, int sw, int ph, int pw, int oc0, int oc0p,
+                       int oc1, int oc1p, int relu0, int relu1, int down0,
+                       int down1, int has_bias0, int has_bias1, int fuse,
+                       int dst_dt, int sum_dt, float sum_scale,
                        void* stream) {
   if (ic % 16 || oc0p % 8 || oc0p <= 0 || (fuse && (oc1p % 8 || oc1p <= 0)))
+    return (int)cudaErrorInvalidValue;
+  if (sum && sum_dt != DT_F32 && sum_dt != DT_S32 && sum_dt != DT_S8 &&
+      sum_dt != DT_U8)
     return (int)cudaErrorInvalidValue;
   ConvArgs a;
   a.src = static_cast<const uint8_t*>(src);
@@ -280,17 +250,15 @@ extern "C" int df_conv(const void* src, const void* w0, const void* bias0,
   a.bias1 = static_cast<const float*>(bias1);
   a.scale1 = static_cast<const float*>(scale1);
   a.dst = dst;
+  a.sum = sum;
+  a.sum_dt = sum_dt;
+  a.sum_scale = sum_scale;
   a.n = n; a.ih = ih; a.iw = iw; a.ic = ic; a.oh = oh; a.ow = ow;
   a.kh = kh; a.kw = kw; a.sh = sh; a.sw = sw; a.ph = ph; a.pw = pw;
   a.oc0 = oc0; a.oc0p = oc0p; a.oc1 = oc1; a.oc1p = oc1p;
   a.relu0 = relu0; a.relu1 = relu1; a.down0 = down0; a.down1 = down1;
   a.has_bias0 = has_bias0; a.has_bias1 = has_bias1;
-  // channels per pass: the smallest of 64, 128, 256, 512 covering oc0p
-  a.wc = 1;
-  while (a.wc < 8 && 64 * a.wc < oc0p) a.wc *= 2;
-  const int icp4 = round_up(ic, 32) / 4;
-  a.kcw = icp4 % 32 == 0 ? 32 : icp4 % 16 == 0 ? 16 : 8;
-  a.k1 = round_up(oc0p, 32);
+  pick_tiles(a);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return fuse ? launch_dst<true>(a, dst_dt, s) : launch_dst<false>(a, dst_dt, s);
 }

@@ -2,8 +2,10 @@
 // with the requantization epilogue and, when FUSE, the deep-fused 1x1 tail.
 //
 // Replaces deepfusion_tpu/ops/packed.py:_packed_kernel (launcher
-// _packed_call) for 1..n inputs, u8 destination, without the sum post-op,
-// the fused 2x2 pool, strided taps, emit_acc1 and the tile range.
+// _packed_call) for 1..n inputs, u8 destination, with the packed sum
+// operand, without the fused 2x2 pool, sparse-phase taps, emit_acc1 and the
+// tile range. A strided conv reaches it as a stride-1 conv on the s2d grid
+// (ops/packed.py: PackedConvOp.pack_input), as in the JAX package.
 //
 // Packed domain (deepfusion_tpu_torch/ops/packed.py): an image is an int8
 // array (n, rows * iwp, cp), rows = h + 2 * halo, whose byte at an image
@@ -19,6 +21,13 @@
 // non-image slot of the output get 0x80. This is bitwise
 // requant_to_u8_centered (deepfusion_tpu/ops/requant.py) with the TPU
 // kernel's zero mask and zero pad-lane scales.
+// With a sum operand (a packed image of the output's image, columns and
+// lanes, whose halo may be deeper), the final stage joins
+//   sum_rounded = round(f32(u8(sum[halo_sum + y, col_off_out + x, o]))
+//                       * sum_scale)
+// after its own round: min(max(round(x) + sum_rounded, 0), 255). The
+// operand is read at its own halo, so a producer's deeper halo needs no
+// repack; its slots outside the image are never read.
 //
 // What bounds it on the H100: int8 multiply-adds, as for conv.cu (the block1
 // layer is 4.1 G MAC against 4 MB of packed input at batch 8). It runs on
@@ -68,6 +77,9 @@ struct PackedArgs {
   const float* bias1;
   const float* scale1;
   uint8_t* dst;
+  const uint8_t* sum;     // the packed sum operand, or null
+  float sum_scale;
+  int rows_sum, halo_sum;
   int n, rows_in, iwp, halo_in, col_off_in;
   int rows_out, halo_out, col_off_out, oh, ow;
   int kh, kw, ph, pw;
@@ -104,6 +116,68 @@ __device__ __forceinline__ void store_pair(uint8_t* dst, size_t idx,
       static_cast<uint16_t>(b0 | (static_cast<uint16_t>(b1) << 8));
 }
 
+// Requantize the warp's tile of the final stage to u8 and store it, ^ 0x80,
+// at each pixel's output slot: channels n0 + [0, nb), lanes >= oc get 0x80.
+// With SUM each value joins the sum operand's byte at the pixel's sum slot.
+// The caller picks SUM with one uniform branch, so the unrolled loop
+// carries no per-element test.
+template <bool SUM>
+__device__ __forceinline__ void store_tile(
+    const PackedArgs& a, const int32_t (&acc)[MI][NI][4], const int* s_pix,
+    int n0, int oc, bool has_bias, const float* bias, const float* scale,
+    bool down, int ntiles) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp / a.wc, wc = warp % a.wc;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      if (ni >= ntiles) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = wr * 32 + mi * 16 + g + h * 8;
+        const int out_pix = s_pix[3 * p + 1];
+        if (out_pix < 0) continue;
+        const int o = n0 + wc * 64 + ni * 8 + 2 * t;
+        uint8_t v[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int oo = o + j;
+          const int32_t x = acc[mi][ni][2 * h + j];
+          if (oo >= oc) {
+            v[j] = 0;
+          } else if constexpr (SUM) {
+            const float sv = __int2float_rn(
+                a.sum[(size_t)s_pix[3 * p + 2] * a.cp_out + oo] ^ 0x80);
+            // sum_rounded is integral, so requant_sum's round of it is
+            // exact: this is requant_to_u8_centered(..., sum_rounded=)
+            v[j] = requant_sum<DT_U8>(x, has_bias, bias[oo], scale[oo], true,
+                                      down,
+                                      round_f32(__fmul_rn(sv, a.sum_scale),
+                                                down));
+          } else {
+            v[j] = requant_to_u8(x, has_bias, bias[oo], scale[oo], down);
+          }
+        }
+        store_pair(a.dst, (size_t)out_pix * a.cp_out + o, v[0] ^ 0x80,
+                   v[1] ^ 0x80);
+      }
+    }
+}
+
+__device__ __forceinline__ void store_final(
+    const PackedArgs& a, const int32_t (&acc)[MI][NI][4], const int* s_pix,
+    int n0, int oc, bool has_bias, const float* bias, const float* scale,
+    bool down, int ntiles) {
+  if (a.sum)
+    store_tile<true>(a, acc, s_pix, n0, oc, has_bias, bias, scale, down,
+                     ntiles);
+  else
+    store_tile<false>(a, acc, s_pix, n0, oc, has_bias, bias, scale, down,
+                      ntiles);
+}
+
 template <bool FUSE>
 __global__ void __launch_bounds__(NT, 2) packed_conv_kernel(PackedArgs a) {
   fill_pads(a, blockIdx.x, gridDim.x);
@@ -112,8 +186,9 @@ __global__ void __launch_bounds__(NT, 2) packed_conv_kernel(PackedArgs a) {
   uint32_t* s_in[2] = {smem, smem + L.in_words};
   uint32_t* s_w[2] = {smem + 2 * L.in_words,
                       smem + 2 * L.in_words + L.w_words};
-  // per pixel of the block: the flat input slot of its tap (0, 0) and its
-  // flat output slot, both -1 past the last pixel
+  // per pixel of the block: the flat input slot of its tap (0, 0), its
+  // flat output slot and its flat sum operand slot, all -1 past the last
+  // pixel
   int* s_pix = reinterpret_cast<int*>(smem + 2 * (L.in_words + L.w_words));
   uint32_t* s_mid = reinterpret_cast<uint32_t*>(s_pix + 3 * L.m);
 
@@ -125,7 +200,7 @@ __global__ void __launch_bounds__(NT, 2) packed_conv_kernel(PackedArgs a) {
 
   for (int p = tid; p < L.m; p += NT) {
     const long long gp = p0 + p;
-    int in_pix = -1, out_pix = -1;
+    int in_pix = -1, out_pix = -1, sum_pix = -1;
     if (gp < total) {
       const int ox = int(gp % a.ow);
       const long long q = gp / a.ow;
@@ -135,9 +210,12 @@ __global__ void __launch_bounds__(NT, 2) packed_conv_kernel(PackedArgs a) {
                a.col_off_in + ox - a.pw;
       out_pix = (nn * a.rows_out + a.halo_out + oy) * a.iwp +
                 a.col_off_out + ox;
+      sum_pix = (nn * a.rows_sum + a.halo_sum + oy) * a.iwp +
+                a.col_off_out + ox;
     }
-    s_pix[2 * p] = in_pix;
-    s_pix[2 * p + 1] = out_pix;
+    s_pix[3 * p] = in_pix;
+    s_pix[3 * p + 1] = out_pix;
+    s_pix[3 * p + 2] = sum_pix;
   }
   if (FUSE) {  // channels [oc0, k1) of the intermediate stay 0
     for (size_t e = tid; e < L.mid_words; e += NT) s_mid[e] = 0u;
@@ -160,7 +238,7 @@ __global__ void __launch_bounds__(NT, 2) packed_conv_kernel(PackedArgs a) {
       const int toff = ki * a.iwp + kj;
       for (int e = tid; e < L.m * upp; e += NT) {
         const int p = e / upp, u = e - p * upp;
-        const int pix = s_pix[2 * p];
+        const int pix = s_pix[3 * p];
         const int ch = (c40 + 4 * u) * 4;   // K lane of this 16-byte unit
         const uint8_t* base = a.src[0];
         int cp = a.src_cp[0], l0 = ch;
@@ -198,37 +276,31 @@ __global__ void __launch_bounds__(NT, 2) packed_conv_kernel(PackedArgs a) {
       __syncthreads();  // buffer c&1 is refilled by the next issue
     }
 
+    if constexpr (FUSE) {
 #pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
+      for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        if (ni >= ntiles) continue;
+        for (int ni = 0; ni < NI; ++ni) {
+          if (ni >= ntiles) continue;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int p = wr * 32 + mi * 16 + g + h * 8;
-          const int o = n0 + wc * 64 + ni * 8 + 2 * t;
-          uint8_t v[2];
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int oo = o + j;
-            v[j] = oo < a.oc0 ? requant_to_u8(acc[mi][ni][2 * h + j],
-                                              a.has_bias0, a.bias0[oo],
-                                              a.scale0[oo], a.down0)
-                              : 0;
-          }
-          if constexpr (FUSE) {
+          for (int h = 0; h < 2; ++h) {
+            const int p = wr * 32 + mi * 16 + g + h * 8;
+            const int o = n0 + wc * 64 + ni * 8 + 2 * t;
             uint8_t* mid = reinterpret_cast<uint8_t*>(s_mid) +
                            (size_t)p * L.ldm * 4 + o;
-            mid[0] = v[0];
-            mid[1] = v[1];
-          } else {
-            const int out_pix = s_pix[2 * p + 1];
-            if (out_pix >= 0)
-              store_pair(a.dst, (size_t)out_pix * a.cp_out + o, v[0] ^ 0x80,
-                         v[1] ^ 0x80);
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              mid[j] = o + j < a.oc0
+                           ? requant_to_u8(acc[mi][ni][2 * h + j],
+                                           a.has_bias0, a.bias0[o + j],
+                                           a.scale0[o + j], a.down0)
+                           : 0;
           }
         }
-      }
+    } else {
+      store_final(a, acc, s_pix, n0, a.oc0, a.has_bias0, a.bias0, a.scale0,
+                  a.down0, ntiles);
+    }
   }
 
   if constexpr (FUSE) {
@@ -260,30 +332,8 @@ __global__ void __launch_bounds__(NT, 2) packed_conv_kernel(PackedArgs a) {
                   ntiles, g, t);
         __syncthreads();
       }
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni) {
-          if (ni >= ntiles) continue;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int p = wr * 32 + mi * 16 + g + h * 8;
-            const int out_pix = s_pix[2 * p + 1];
-            if (out_pix < 0) continue;
-            const int o = n0 + wc * 64 + ni * 8 + 2 * t;
-            uint8_t v[2];
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const int oo = o + j;
-              v[j] = oo < a.oc1 ? requant_to_u8(acc[mi][ni][2 * h + j],
-                                                a.has_bias1, a.bias1[oo],
-                                                a.scale1[oo], a.down1)
-                                : 0;
-            }
-            store_pair(a.dst, (size_t)out_pix * a.cp_out + o, v[0] ^ 0x80,
-                       v[1] ^ 0x80);
-          }
-        }
+      store_final(a, acc, s_pix, n0, a.oc1, a.has_bias1, a.bias1, a.scale1,
+                  a.down1, ntiles);
     }
   }
 }
@@ -309,20 +359,25 @@ int launch(const PackedArgs& a, cudaStream_t stream) {
 // srcs/src_cps: n_src input arrays and their lane counts (each a multiple
 // of 16, summing to icp); w0 [kh*kw][icp/4][oc0p] words, w1 [oc0p/4][oc1p]
 // words (ops/layout.py); the output lane count is oc0p unfused, oc1p fused.
+// sum: null, or a packed array of rows_sum rows with the output's iwp,
+// col_off and lanes and halo_sum >= halo_out.
 extern "C" int df_packed_conv(
     const void* const* srcs, const int* src_cps, int n_src, const void* w0,
     const void* bias0, const void* scale0, const void* w1, const void* bias1,
-    const void* scale1, void* dst, int n, int rows_in, int iwp, int halo_in,
-    int col_off_in, int rows_out, int halo_out, int col_off_out, int oh,
-    int ow, int kh, int kw, int ph, int pw, int oc0, int oc0p, int oc1,
-    int oc1p, int down0, int down1, int has_bias0, int has_bias1, int fuse,
+    const void* scale1, void* dst, const void* sum, int n, int rows_in,
+    int iwp, int halo_in, int col_off_in, int rows_out, int halo_out,
+    int col_off_out, int oh, int ow, int kh, int kw, int ph, int pw, int oc0,
+    int oc0p, int oc1, int oc1p, int down0, int down1, int has_bias0,
+    int has_bias1, int fuse, int rows_sum, int halo_sum, float sum_scale,
     void* stream) {
   if (n_src < 1 || n_src > MAX_SRC || oc0p % 32 || oc0p <= 0 ||
       (fuse && (oc1p % 32 || oc1p <= 0)))
     return (int)cudaErrorInvalidValue;
   // every flat slot index must fit an int
   if ((long long)n * rows_in * iwp >= (1LL << 31) ||
-      (long long)n * rows_out * iwp >= (1LL << 31))
+      (long long)n * rows_out * iwp >= (1LL << 31) ||
+      (sum && ((long long)n * rows_sum * iwp >= (1LL << 31) ||
+               halo_sum < halo_out || rows_sum - halo_sum < oh)))
     return (int)cudaErrorInvalidValue;
   PackedArgs a = {};
   int icp = 0;
@@ -342,6 +397,10 @@ extern "C" int df_packed_conv(
   a.bias1 = static_cast<const float*>(bias1);
   a.scale1 = static_cast<const float*>(scale1);
   a.dst = static_cast<uint8_t*>(dst);
+  a.sum = static_cast<const uint8_t*>(sum);
+  a.sum_scale = sum_scale;
+  a.rows_sum = rows_sum;
+  a.halo_sum = halo_sum;
   a.n = n; a.rows_in = rows_in; a.iwp = iwp; a.halo_in = halo_in;
   a.col_off_in = col_off_in; a.rows_out = rows_out; a.halo_out = halo_out;
   a.col_off_out = col_off_out; a.oh = oh; a.ow = ow;

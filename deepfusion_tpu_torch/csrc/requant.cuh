@@ -14,6 +14,12 @@
 // float->int conversion is clamped first. The f32->s32 saturation is an
 // explicit clamp to [INT_MIN, INT_MAX], as the JAX kernels saturate
 // (ROADMAP finding C1: a plain convert would wrap to INT_MIN).
+//
+// The eltwise-sum post-op joins after rounding, in the exact integer domain
+// (deepfusion_tpu/ops/requant.py:72-84): for an integer dst
+// round(x) + round(sum * sum_scale), then ReLU, then saturate; for an f32
+// dst an f32 add, then ReLU. The operand widens exactly from u8/s8 and
+// converts with __int2float_rn from s32.
 #pragma once
 
 #include <climits>
@@ -75,6 +81,58 @@ __device__ __forceinline__ typename dt_traits<DT>::T requant(
   } else {
     return saturate<DT>(round_f32(x, down));
   }
+}
+
+// One element of the sum operand, times sum_scale: f32(src[idx]) * scale.
+__device__ __forceinline__ float load_sum(const void* src, size_t idx,
+                                          int dt, float scale) {
+  float v;
+  if (dt == DT_U8)
+    v = __int2float_rn(static_cast<const uint8_t*>(src)[idx]);
+  else if (dt == DT_S8)
+    v = __int2float_rn(static_cast<const int8_t*>(src)[idx]);
+  else if (dt == DT_S32)
+    v = __int2float_rn(static_cast<const int32_t*>(src)[idx]);
+  else
+    v = static_cast<const float*>(src)[idx];
+  return __fmul_rn(v, scale);
+}
+
+// requant with the sum post-op: the f32 value before the final cast,
+// already clipped to the dst's range (integral for integer dsts)
+// (deepfusion_tpu/ops/convpool.py:_requant_presat).
+template <int DT>
+__device__ __forceinline__ float requant_presat(int32_t acc, bool has_bias,
+                                                float bias, float scale,
+                                                bool relu, bool down,
+                                                bool has_sum, float st) {
+  float x = scale_acc(acc, has_bias, bias, scale);
+  relu = relu || DT == DT_U8;
+  if (has_sum && DT != DT_F32) {
+    x = __fadd_rn(round_f32(x, down), round_f32(st, down));
+    if (relu) x = relu_f32(x);
+  } else {
+    if (has_sum) x = __fadd_rn(x, st);
+    if (relu) x = relu_f32(x);
+    if (DT != DT_F32) x = round_f32(x, down);
+  }
+  if constexpr (DT == DT_S32) {
+    x = fminf(fmaxf(x, -2147483648.0f), 2147483648.0f);
+  } else if constexpr (DT == DT_S8) {
+    x = fminf(fmaxf(x, -128.0f), 127.0f);
+  } else if constexpr (DT == DT_U8) {
+    x = fminf(fmaxf(x, 0.0f), 255.0f);
+  }
+  return x;
+}
+
+// The full epilogue with the sum post-op (requant(..., sum_term=)).
+template <int DT>
+__device__ __forceinline__ typename dt_traits<DT>::T requant_sum(
+    int32_t acc, bool has_bias, float bias, float scale, bool relu,
+    bool down, float st) {
+  return saturate<DT>(
+      requant_presat<DT>(acc, has_bias, bias, scale, relu, down, true, st));
 }
 
 // The fused path's intermediate: always ReLU, always u8

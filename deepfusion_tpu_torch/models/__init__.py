@@ -1,1 +1,2 @@
 from .fusionnet import FusionNet, FusionNetConfig, PackedFusionNet  # noqa: F401
+from .resfusion import ResFusionNet, ResFusionNetConfig  # noqa: F401

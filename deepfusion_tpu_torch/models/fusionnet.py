@@ -59,23 +59,26 @@ def _mkconv(rng, k, ic, oc, dst_dt, *, oc1x1=None, relu=True, in_std=30.0):
     return p
 
 
-def _conv_config(n: int, hw: int, p: dict) -> ConvConfig:
-    """Stride-1, same-padding ConvConfig of one layer from its parameters."""
+def _conv_config(n: int, hw: int, p: dict, stride: int = 1) -> ConvConfig:
+    """ConvConfig of one layer from its parameters: padding k // 2 (same
+    padding at stride 1), the given stride, and the sum post-op when the
+    parameters name a ``sum_dt`` (with ``sum_scale``, default 1)."""
     oc, ic, k, _ = np.shape(p["wei"])
     pad = k // 2
-    o = conv_output_size(hw, k, 1, pad)
+    o = conv_output_size(hw, k, stride, pad)
     fuse = p.get("wei1") is not None
     out_oc = np.shape(p["wei1"])[0] if fuse else oc
     bia, bia1 = p.get("bia"), p.get("bia1")
     return ConvConfig.make(
         (n, hw, hw, ic), (oc, ic, k, k),
-        None if bia is None else np.asarray(bia).dtype, (1, 1), (pad, pad),
-        (n, o, o, out_oc), p["dst_dt"],
+        None if bia is None else np.asarray(bia).dtype, (stride, stride),
+        (pad, pad), (n, o, o, out_oc), p["dst_dt"],
         conv0_relu=bool(p["conv0_relu"]), conv0_scales=p["conv0_scales"],
         wei1x1_shape=tuple(np.shape(p["wei1"])) if fuse else None,
         bia1x1_dt=None if bia1 is None else np.asarray(bia1).dtype,
         conv1_relu=bool(p.get("conv1_relu", False)),
-        conv1_scales=p.get("conv1_scales", (1.0,)))
+        conv1_scales=p.get("conv1_scales", (1.0,)),
+        sum_dt=p.get("sum_dt"), sum_scale=p.get("sum_scale", 1.0))
 
 
 @dataclasses.dataclass
@@ -235,12 +238,12 @@ class FusionNet(nn.Module):
 
 
 class PackedFusionNet(nn.Module):
-    """``FusionNet.packed_call`` as a module that carries ``device`` and
-    ``input_shape``, so ``BatchServer`` stages each batch on the model's
-    device (a bound method has no ``device``: the batch would stay on the
-    CPU)."""
+    """A model's ``packed_call`` (FusionNet's or ResFusionNet's) as a module
+    that carries ``device`` and ``input_shape``, so ``BatchServer`` stages
+    each batch on the model's device (a bound method has no ``device``: the
+    batch would stay on the CPU)."""
 
-    def __init__(self, net: FusionNet):
+    def __init__(self, net: nn.Module):
         super().__init__()
         self.net = net
 

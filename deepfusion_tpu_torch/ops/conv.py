@@ -6,9 +6,10 @@ Calling it on a CUDA tensor launches ``conv_fused_kernel`` (``csrc/conv.cu``);
 on a CPU tensor it runs ``conv_plain``, the plain PyTorch version of the same
 function, which reads the same packed buffers. Nothing else selects the path.
 
-Stride and padding are handled in the kernel's addressing. The sum post-op
-and the raw-accumulator output (``conv_fused_acc1``) are not ported yet:
-``ConvConfig.make`` raises for ``sum_dt``.
+Stride and padding are handled in the kernel's addressing. The eltwise-sum
+post-op (``sum_src``, NHWC at the output's shape) joins the final stage's
+epilogue, fused or not. The raw-accumulator output (``conv_fused_acc1``)
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from ..utils.logger import check, check_eq
 from ..utils.mathutil import conv_output_size, round_up
 from ..utils.persist import dump_config, load_config
 from . import layout
-from .requant import requant, requant_to_u8
+from .requant import requant, requant_to_u8, sum_term
 
 def _operand_shapes(cfg: ConvConfig) -> dict:
     oc0p = layout.conv_ocp(cfg.oc)
@@ -98,15 +99,16 @@ class ConvOp(nn.Module):
     def device(self) -> torch.device:
         return self.w0.device
 
-    def forward(self, src: torch.Tensor) -> torch.Tensor:
+    def forward(self, src: torch.Tensor, sum_src=None) -> torch.Tensor:
         cfg = self.cfg
         check_eq(src.dtype, torch.uint8, "conv src dtype")
         check_eq(tuple(src.shape[1:]), (cfg.ih, cfg.iw, cfg.ic),
                  "conv src shape (NHWC, any batch)")
         check_eq(src.device, self.device, "conv src device")
+        sum_src = check_sum_src(cfg, src, sum_src)
         if src.device.type == "cpu":
-            return conv_plain(self, src)
-        return conv_cuda(self, src)
+            return conv_plain(self, src, sum_src)
+        return conv_cuda(self, src, sum_src)
 
     def save(self, path: str):
         """Save the packed operands and the config to an .npz archive."""
@@ -125,25 +127,45 @@ class ConvOp(nn.Module):
         return op
 
 
-def conv_plain(op: ConvOp, src: torch.Tensor) -> torch.Tensor:
+def check_sum_src(cfg: ConvConfig, src: torch.Tensor, sum_src):
+    """The sum operand as a tensor on src's device, checked against cfg:
+    given exactly when cfg has the post-op, NHWC (n, oh, ow, out_oc) of
+    cfg.sum_dt."""
+    if cfg.with_sum and sum_src is None:
+        raise ValueError("config has a sum post-op; pass sum_src")
+    check(cfg.with_sum or sum_src is None,
+          "config has no sum post-op; sum_src must be None")
+    if sum_src is None:
+        return None
+    sum_src = torch.as_tensor(sum_src)
+    check_eq(sum_src.dtype, cfg.sum_dt.torch, "sum operand dtype")
+    check_eq(tuple(sum_src.shape),
+             (src.shape[0], cfg.oh, cfg.ow, cfg.out_oc),
+             "sum operand shape (NHWC, the output's)")
+    check_eq(sum_src.device, src.device, "sum operand device")
+    return sum_src
+
+
+def conv_plain(op: ConvOp, src: torch.Tensor, sum_src=None) -> torch.Tensor:
     """The plain PyTorch version of ``conv_fused_kernel``."""
     cfg = op.cfg
     w0 = layout.unpack_weights(op.w0, cfg.oc, cfg.ic, cfg.kh, cfg.kw)
     acc = conv_acc(src, w0, (cfg.sh, cfg.sw), (cfg.ph, cfg.pw))
     bias0 = op.bias0[:cfg.oc] if cfg.conv0_with_bias else None
     scale0 = op.scale0[:cfg.oc]
+    st = None if sum_src is None else sum_term(sum_src, cfg.sum_scale)
     if not cfg.fuse_conv1x1:
         return requant(acc, bias0, scale0, cfg.conv0_relu, cfg.conv0_round,
-                       cfg.dst_dt)
+                       cfg.dst_dt, st)
     mid = requant_to_u8(acc, bias0, scale0, cfg.conv0_round)
     w1 = layout.unpack_weights(op.w1, cfg.oc1x1, cfg.oc, 1, 1)
     acc1 = conv_acc(mid, w1, (1, 1), (0, 0))
     bias1 = op.bias1[:cfg.oc1x1] if cfg.conv1_with_bias else None
     return requant(acc1, bias1, op.scale1[:cfg.oc1x1], cfg.conv1_relu,
-                   cfg.conv1_round, cfg.dst_dt)
+                   cfg.conv1_round, cfg.dst_dt, st)
 
 
-def conv_cuda(op: ConvOp, src: torch.Tensor) -> torch.Tensor:
+def conv_cuda(op: ConvOp, src: torch.Tensor, sum_src=None) -> torch.Tensor:
     """Launch ``conv_fused_kernel`` on the current stream."""
     cfg = op.cfg
     check(src.is_cuda, "conv_cuda needs a CUDA tensor")
@@ -152,6 +174,8 @@ def conv_cuda(op: ConvOp, src: torch.Tensor) -> torch.Tensor:
         ic = round_up(ic, 16)
         src = F.pad(src, (0, ic - cfg.ic))
     src = _build.aligned(src)
+    if sum_src is not None:
+        sum_src = _build.aligned(sum_src)
     n = src.shape[0]
     out = torch.empty((n, cfg.oh, cfg.ow, cfg.out_oc), dtype=cfg.dst_dt.torch,
                       device=src.device)
@@ -164,14 +188,18 @@ def conv_cuda(op: ConvOp, src: torch.Tensor) -> torch.Tensor:
             op.w1.data_ptr() if fuse else None,
             op.bias1.data_ptr() if fuse else None,
             op.scale1.data_ptr() if fuse else None,
-            out.data_ptr(), n, cfg.ih, cfg.iw, ic, cfg.oh, cfg.ow,
+            out.data_ptr(),
+            None if sum_src is None else sum_src.data_ptr(),
+            n, cfg.ih, cfg.iw, ic, cfg.oh, cfg.ow,
             cfg.kh, cfg.kw, cfg.sh, cfg.sw, cfg.ph, cfg.pw,
             cfg.oc, layout.conv_ocp(cfg.oc), cfg.oc1x1, oc1p,
             int(cfg.conv0_relu), int(cfg.conv1_relu),
             int(cfg.conv0_round == round_mode.down),
             int(cfg.conv1_round == round_mode.down),
             int(cfg.conv0_with_bias), int(cfg.conv1_with_bias),
-            int(fuse), cfg.dst_dt.value, _build.stream_of(src))
+            int(fuse), cfg.dst_dt.value,
+            cfg.sum_dt.value if cfg.with_sum else 0, cfg.sum_scale,
+            _build.stream_of(src))
     _build.check(rc, "conv_fused_kernel")
     _build.count_launch("conv_fused")
     return out
@@ -210,4 +238,5 @@ def conv(src, wei, bia=None, stride=(1, 1), padding=(0, 0), *,
         sum_dt=None if sum_src is None else torch.as_tensor(sum_src).dtype,
         sum_scale=sum_scale)
     op = ConvOp(cfg, wei, bia, wei1x1, bia1x1, device=src.device)
-    return op(src)
+    return op(src, sum_src=None if sum_src is None
+              else torch.as_tensor(sum_src, device=src.device))

@@ -23,12 +23,21 @@ since every source but the last has ``cp == c``, OIHW with ic = c0 + c1 + ...
 is already in the lane order of the joined sources) and every N is
 ``packed_cp(oc)``, the lane count of the packed output
 (``deepfusion_tpu/ops/packed.py:_narrow_cfg``).
+
+The space-to-depth helpers (``s2d_*``) serve the packed strided conv only:
+its input spec describes the packed s2d image, so its specs compare one to
+one with the JAX package's, and it runs as a stride-1 conv on that grid.
+The dense kernels take stride in their addressing and never use them.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ..config import ConvConfig
 from ..utils.mathutil import round_up
 
 IC_ALIGN = 32   # K of one mma.sync m16n8k32 step
@@ -109,3 +118,70 @@ def widen_scales(scales, oc: int, ocp: int) -> np.ndarray:
     out = np.ones((ocp,), dtype=np.float32)
     out[:oc] = sc if sc.size > 1 else np.full((oc,), sc[0], np.float32)
     return out
+
+
+# ------------------------------------------------------------ strided
+# Space-to-depth: a stride-(sh, sw) conv is exactly a stride-1 conv over the
+# (sh*sw*ic)-channel s2d grid with remapped weights. Original tap (ki, kj)
+# lands at s2d tap (ki // sh, kj // sw) in lane group g = (ki % sh) * sw +
+# (kj % sw); s2d slots with no original tap get zero weights. Copies of
+# deepfusion_tpu/ops/layout.py:144-226.
+
+
+def s2d_taps(cfg: ConvConfig) -> Tuple[int, int]:
+    """Kernel extent of the stride-1 equivalent on the s2d grid."""
+    return (cfg.kh - 1) // cfg.sh + 1, (cfg.kw - 1) // cfg.sw + 1
+
+
+def s2d_cfg(cfg: ConvConfig) -> ConvConfig:
+    """The stride-1 ConvConfig equivalent to a strided `cfg` on the s2d
+    grid: output geometry, dtypes, scales, fusion and post-ops carry over;
+    only the input side is re-expressed."""
+    kh2, kw2 = s2d_taps(cfg)
+    ic2 = cfg.sh * cfg.sw * cfg.ic
+    ih2 = cfg.oh + kh2 - 1
+    iw2 = cfg.ow + kw2 - 1
+    return ConvConfig.make(
+        (cfg.bs, ih2, iw2, ic2), (cfg.oc, ic2, kh2, kw2), cfg.bia_dt,
+        (1, 1), (0, 0), (cfg.bs, cfg.oh, cfg.ow, cfg.out_oc), cfg.dst_dt,
+        conv0_relu=cfg.conv0_relu, conv0_scales=cfg.conv0_scales,
+        conv0_round=cfg.conv0_round,
+        wei1x1_shape=(cfg.oc1x1, cfg.oc, 1, 1) if cfg.fuse_conv1x1 else None,
+        bia1x1_dt=cfg.bia1x1_dt, conv1_relu=cfg.conv1_relu,
+        conv1_scales=cfg.conv1_scales, conv1_round=cfg.conv1_round,
+        groups=cfg.gp, sum_dt=cfg.sum_dt if cfg.with_sum else None,
+        sum_scale=cfg.sum_scale)
+
+
+def s2d_weights(cfg: ConvConfig, wei_oihw: np.ndarray) -> np.ndarray:
+    """OIHW weights of the strided conv -> OIHW weights of the s2d conv."""
+    w = np.asarray(wei_oihw)
+    oc, ic, kh, kw = w.shape
+    kh2, kw2 = s2d_taps(cfg)
+    out = np.zeros((oc, cfg.sh * cfg.sw * ic, kh2, kw2), w.dtype)
+    for ki in range(kh):
+        qi, a = divmod(ki, cfg.sh)
+        for kj in range(kw):
+            qj, b = divmod(kj, cfg.sw)
+            g = a * cfg.sw + b
+            out[:, g * ic:(g + 1) * ic, qi, qj] = w[:, :, ki, kj]
+    return out
+
+
+def s2d_image_u8(cfg: ConvConfig, src_u8) -> torch.Tensor:
+    """NHWC u8 (tensor on any device, or numpy) -> the s2d-grid NHWC u8
+    image of the strided conv `cfg`, on the same device: the conv padding
+    baked in as u8 zeros, rows and columns the stride never reads cropped,
+    lane group g = (row % sh) * sw + (col % sw), channel g * ic + c."""
+    cfg2 = s2d_cfg(cfg)
+    x = torch.as_tensor(src_u8)
+    n, ih, iw, ic = x.shape
+    sh, sw = cfg.sh, cfg.sw
+    hp, wp = cfg2.ih * sh, cfg2.iw * sw
+    take_h = min(ih, hp - cfg.ph)
+    take_w = min(iw, wp - cfg.pw)
+    x = F.pad(x[:, :take_h, :take_w, :],
+              (0, 0, cfg.pw, wp - cfg.pw - take_w,
+               cfg.ph, hp - cfg.ph - take_h))
+    x = x.reshape(n, cfg2.ih, sh, cfg2.iw, sw, ic).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, cfg2.ih, cfg2.iw, sh * sw * ic).contiguous()

@@ -23,11 +23,21 @@ packed arrays themselves (stored ^ 0x80 as u8, pad slots included), so each
 is the same function as its kernel even where a pad slot does not hold
 -128. Nothing else selects the path.
 
-Not ported yet: the conv's sum post-op, its fused 2x2 pool, strided convs
-(the s2d and sparse-tap lowering), the raw 1x1 accumulator (``emit_acc1``)
-and the tile range (``t_range``/``row0_off``), which raise
-``NotImplementedError``; ``pack_image_sharded``/``unpack_image_sharded``,
-which wait for ``parallel/``; ``PackedConvOp.pack_input``, ``reheight`` and
+The conv takes the packed eltwise-sum operand (``sum_spec``/``sum_arr``):
+a packed image of the output's image, columns and lanes whose halo may be
+deeper, read at its own halo and joined after the final stage's round, as
+``requant_to_u8_centered(..., sum_rounded=)``. A strided conv runs, as in
+the JAX package, as a stride-1 conv on the space-to-depth grid: the op's
+``cfg`` and ``sin`` describe that grid, ``cfg_orig`` the strided conv, and
+``pack_input`` regroups a dense image at the model boundary. The JAX
+package's sparse-phase taps (for ic a multiple of 128) compute the same
+accumulator with fewer MACs and are not ported: the dense s2d lowering
+runs for every strided conv.
+
+Not ported yet: the conv's fused 2x2 pool (``pool2``), the raw 1x1
+accumulator (``emit_acc1``) and the tile range (``t_range``/``row0_off``),
+which raise ``NotImplementedError``; ``pack_image_sharded``/
+``unpack_image_sharded``, which wait for ``parallel/``; ``reheight`` and
 ``sout_pooled``. The JAX package's ``operands=`` override exists for
 ``jax.jit`` and has no counterpart. Of the JAX package's legality checks,
 the row-tile and boundary-roll ones (``packed.py:222-237``) describe TPU
@@ -51,7 +61,7 @@ from ..types import dtype, round_mode
 from ..utils.logger import check, check_eq
 from ..utils.persist import dump_configs, load_configs
 from . import layout
-from .requant import requant_to_u8, round_f32, saturate
+from .requant import requant_to_u8, round_f32, saturate, sum_term
 
 MAX_INPUTS = 4  # csrc/packed_conv.cu MAX_SRC, csrc/packed_sum_pool.cu MAX_IN
 LANE_UNIT = 16  # both kernels move 16 lanes (bytes) at a time
@@ -124,13 +134,16 @@ def unpack_image(arr, spec: PackedSpec) -> torch.Tensor:
     return img.view(torch.uint8) ^ 0x80
 
 
-def validate_packed_conv(cfg: ConvConfig, sins, sout: PackedSpec):
+def validate_packed_conv(cfg: ConvConfig, sins, sout: PackedSpec,
+                         ssum: PackedSpec = None):
     """Legality of running cfg from sins to sout (init_conf-style checks).
 
     sins is a tuple of input specs: a single entry for a plain conv, or
     several whose lane-concatenation forms the conv input (concat-free
     branch merge: the kernel reads each source separately, so the channel
-    concat never exists in memory)."""
+    concat never exists in memory). ssum (exactly when cfg has a sum
+    post-op) is the packed sum operand's spec: the output's image, columns
+    and lane padding, with a halo at least the output's."""
     sins = sins if isinstance(sins, (tuple, list)) else (sins,)
     sin = sins[0]
     for s in sins[1:]:
@@ -140,8 +153,23 @@ def validate_packed_conv(cfg: ConvConfig, sins, sout: PackedSpec):
     for s in sins[:-1]:
         check(s.cp == s.c, "non-final input has pad lanes (cp > c) which "
                            "would split the conv input's image lanes")
-    check(cfg.sh == 1 and cfg.sw == 1, "packed path requires stride 1")
+    check(cfg.sh == 1 and cfg.sw == 1,
+          "packed path requires stride 1 (strided configs are s2d-lowered "
+          "by PackedConvOp before reaching here)")
     check(cfg.dst_dt == dtype.u8, "packed path requires a u8 destination")
+    check(cfg.with_sum == (ssum is not None),
+          "pass ssum exactly when cfg has a sum post-op")
+    if ssum is not None:
+        check(cfg.sum_dt == dtype.u8,
+              "packed sum post-op requires a u8 sum operand")
+        check((ssum.h, ssum.w, ssum.c) == (cfg.oh, cfg.ow, cfg.out_oc),
+              "sum operand spec does not match the output image")
+        check((ssum.col_off, ssum.iwp) == (sout.col_off, sout.iwp),
+              "sum operand must share the output's column geometry")
+        check(ssum.cp == layout.packed_cp(cfg.out_oc),
+              "sum operand lane padding must match the output's")
+        check(ssum.halo >= sout.halo,
+              "sum operand halo must cover the output halo")
     check((sin.h, sin.w) == (cfg.ih, cfg.iw),
           "input spec does not match conv geometry")
     check(sum(s.c for s in sins) == cfg.ic,
@@ -397,7 +425,10 @@ class PackedConvOp(nn.Module):
 
     ``sin`` is one input spec, or a tuple of them whose lane join is the
     conv input; ``col_off_out`` and ``halo_out`` place the output for its
-    consumer (default: ``max(pw, 1)`` and the input's halo).
+    consumer (default: ``max(pw, 1)`` and the input's halo). ``sum_spec``
+    adds the sum post-op (pass ``sum_arr`` to each call). A strided
+    ``cfg`` runs on the s2d grid: ``sin`` then describes the packed s2d
+    image, which ``pack_input`` makes from a dense one.
     """
 
     def __init__(self, cfg: ConvConfig, wei, bia=None, wei1x1=None,
@@ -405,20 +436,17 @@ class PackedConvOp(nn.Module):
                  halo_out: int = None, sum_spec: PackedSpec = None,
                  pool2: bool = False, device="cpu"):
         super().__init__()
-        if sum_spec is not None:
-            raise NotImplementedError(
-                "packed conv sum post-op (sum_spec/sum_arr) is not ported "
-                "to the PyTorch package yet")
         if pool2:
             raise NotImplementedError(
                 "packed conv fused 2x2 max pool (pool2) is not ported to "
                 "the PyTorch package yet")
-        if cfg.sh > 1 or cfg.sw > 1:
-            raise NotImplementedError(
-                "strided packed conv (the s2d / sparse-tap lowering) is not "
-                "ported to the PyTorch package yet")
         check_eq(tuple(np.shape(wei)), (cfg.oc, cfg.ic, cfg.kh, cfg.kw),
                  "conv weight shape (OIHW)")
+        cfg_orig = None
+        if cfg.sh > 1 or cfg.sw > 1:
+            cfg_orig = cfg
+            wei = layout.s2d_weights(cfg, np.asarray(wei))
+            cfg = layout.s2d_cfg(cfg)
         if sin is None:
             sin = PackedSpec.make(cfg.ih, cfg.iw, cfg.ic,
                                   cp=layout.conv_icp(cfg.ic),
@@ -432,7 +460,7 @@ class PackedConvOp(nn.Module):
         sout = PackedSpec(h=cfg.oh, w=cfg.ow, c=cfg.out_oc,
                           cp=layout.packed_cp(cfg.out_oc), halo=halo_out,
                           col_off=col_off_out, iwp=sins[0].iwp)
-        validate_packed_conv(cfg, sins, sout)
+        validate_packed_conv(cfg, sins, sout, sum_spec)
         n0 = layout.packed_cp(cfg.oc)
         ops = {"w0": layout.pack_conv_weights(wei, layout.conv_icp(cfg.ic),
                                               n0),
@@ -446,13 +474,16 @@ class PackedConvOp(nn.Module):
                        bias1=layout.widen_bias(bia1x1, n1),
                        scale1=layout.widen_scales(cfg.conv1_scales,
                                                   cfg.oc1x1, n1))
-        self._set_state(cfg, sins, sout, ops, device)
+        self._set_state(cfg, sins, sout, ops, device, cfg_orig, sum_spec)
 
-    def _set_state(self, cfg, sins, sout, ops: dict, device):
+    def _set_state(self, cfg, sins, sout, ops: dict, device, cfg_orig=None,
+                   ssum=None):
         self.cfg = cfg
+        self.cfg_orig = cfg_orig
         self.sins = sins
         self.sin = sins[0]
         self.sout = sout
+        self.ssum = ssum
         for k, shape in _operand_shapes(cfg).items():
             check_eq(tuple(ops[k].shape), shape, f"packed operand {k}")
             self.register_buffer(k, torch.as_tensor(np.asarray(ops[k]),
@@ -462,12 +493,18 @@ class PackedConvOp(nn.Module):
     def device(self) -> torch.device:
         return self.w0.device
 
+    def pack_input(self, src_u8) -> torch.Tensor:
+        """Model-boundary pack: dense NHWC u8 (tensor on any device, or
+        numpy) -> this op's packed input on the same device, regrouped onto
+        the s2d grid first for a strided op."""
+        check(len(self.sins) == 1,
+              "pack_input only supports single-input ops")
+        if self.cfg_orig is not None:
+            src_u8 = layout.s2d_image_u8(self.cfg_orig, src_u8)
+        return pack_image(src_u8, self.sin)
+
     def forward(self, packed_arr, sum_arr=None, *, emit_acc1: bool = False,
                 t_range=None, row0_off: int = 0) -> torch.Tensor:
-        if sum_arr is not None:
-            raise NotImplementedError(
-                "packed conv sum post-op (sum_spec/sum_arr) is not ported "
-                "to the PyTorch package yet")
         if emit_acc1:
             raise NotImplementedError(
                 "packed conv raw 1x1 accumulator (emit_acc1) is not ported "
@@ -487,15 +524,28 @@ class PackedConvOp(nn.Module):
             check_eq(tuple(a.shape), s.array_shape(n),
                      "packed conv input shape (its spec's array)")
             check_eq(a.device, self.device, "packed conv input device")
+        check((sum_arr is not None) == (self.ssum is not None),
+              "pass sum_arr exactly when the op has a sum post-op")
+        if sum_arr is not None:
+            sum_arr = torch.as_tensor(sum_arr)
+            check_eq(sum_arr.dtype, torch.int8, "packed sum operand dtype")
+            check_eq(tuple(sum_arr.shape), self.ssum.array_shape(n),
+                     "sum_arr does not match the sum spec")
+            check_eq(sum_arr.device, self.device, "packed sum operand device")
         if arrs[0].device.type == "cpu":
-            return packed_conv_plain(self, arrs)
-        return packed_conv_cuda(self, arrs)
+            return packed_conv_plain(self, arrs, sum_arr)
+        return packed_conv_cuda(self, arrs, sum_arr)
 
     def save(self, path: str):
-        """Save the packed operands, the config and the specs to .npz."""
+        """Save the packed operands, the config (and a strided op's original
+        config) and the specs to .npz."""
         specs = {"cfg": self.cfg, "sout": self.sout}
         for i, s in enumerate(self.sins):
             specs[f"sin{i}"] = s
+        if self.cfg_orig is not None:
+            specs["cfg_orig"] = self.cfg_orig
+        if self.ssum is not None:
+            specs["ssum"] = self.ssum
         arrs = {k: getattr(self, k).cpu().numpy()
                 for k in _operand_shapes(self.cfg)}
         np.savez(path, __cfg__=dump_configs(**specs),
@@ -509,23 +559,29 @@ class PackedConvOp(nn.Module):
             check({"cfg", "sout"} <= present, "not a saved PackedConvOp")
             classes = {"cfg": ConvConfig, "sout": PackedSpec}
             classes.update({f"sin{i}": PackedSpec for i in range(n_sins)})
+            if "cfg_orig" in present:
+                classes["cfg_orig"] = ConvConfig
+            if "ssum" in present:
+                classes["ssum"] = PackedSpec
             cfgs = load_configs(data["__cfg__"], **classes)
             ops = {k: data[k] for k in _operand_shapes(cfgs["cfg"])}
         op = cls.__new__(cls)
         nn.Module.__init__(op)
         op._set_state(cfgs["cfg"], tuple(cfgs[f"sin{i}"]
                                          for i in range(n_sins)),
-                      cfgs["sout"], ops, device)
+                      cfgs["sout"], ops, device, cfgs.get("cfg_orig"),
+                      cfgs.get("ssum"))
         return op
 
 
-def packed_conv_plain(op: PackedConvOp, arrs) -> torch.Tensor:
+def packed_conv_plain(op: PackedConvOp, arrs, sum_arr=None) -> torch.Tensor:
     """The plain PyTorch version of ``packed_conv_kernel``.
 
     Reads the packed inputs themselves: the lane join of the sources, each
     stored byte ^ 0x80 as u8, windowed over the flat rows exactly as the
     kernel addresses them, accumulated tap by tap in float64 (every partial
-    sum is an integer below 2^53, so the sum is exact). Writes image pixels
+    sum is an integer below 2^53, so the sum is exact). The sum operand is
+    read at its image pixels and lanes < c, as stored. Writes image pixels
     at (halo_out + y, col_off_out + x) and -128 everywhere else."""
     cfg, sin, sout = op.cfg, op.sin, op.sout
     n = arrs[0].shape[0]
@@ -543,15 +599,25 @@ def packed_conv_plain(op: PackedConvOp, arrs) -> torch.Tensor:
             patch = u[:, r0 + ki:r0 + ki + cfg.oh, c0 + kj:c0 + kj + cfg.ow]
             acc += patch @ w[:, :, ki, kj].T
     acc = acc.to(torch.int32)[..., :cfg.oc]
+    sum_rounded = None
+    if sum_arr is not None:
+        ss = op.ssum
+        sv = (sum_arr.view(torch.uint8) ^ 0x80).reshape(
+            n, ss.rows, ss.iwp, ss.cp)[
+            :, ss.halo:ss.halo + cfg.oh, ss.col_off:ss.col_off + cfg.ow,
+            :cfg.out_oc]
+        fin = cfg.conv1_round if cfg.fuse_conv1x1 else cfg.conv0_round
+        sum_rounded = round_f32(sum_term(sv, cfg.sum_scale), fin)
     bias0 = op.bias0[:cfg.oc] if cfg.conv0_with_bias else None
-    val = requant_to_u8(acc, bias0, op.scale0[:cfg.oc], cfg.conv0_round)
+    val = requant_to_u8(acc, bias0, op.scale0[:cfg.oc], cfg.conv0_round,
+                        None if cfg.fuse_conv1x1 else sum_rounded)
     if cfg.fuse_conv1x1:
         w1 = layout.unpack_weights(op.w1, cfg.oc1x1, cfg.oc, 1, 1)
         acc1 = (val.to(torch.float64) @ w1[:, :, 0, 0].to(torch.float64).T
                 ).to(torch.int32)
         bias1 = op.bias1[:cfg.oc1x1] if cfg.conv1_with_bias else None
         val = requant_to_u8(acc1, bias1, op.scale1[:cfg.oc1x1],
-                            cfg.conv1_round)
+                            cfg.conv1_round, sum_rounded)
     out = torch.full((n, sout.rows, sout.iwp, sout.cp), -128,
                      dtype=torch.int8, device=u.device)
     out[:, sout.halo:sout.halo + cfg.oh,
@@ -560,13 +626,15 @@ def packed_conv_plain(op: PackedConvOp, arrs) -> torch.Tensor:
     return out.reshape(sout.array_shape(n))
 
 
-def packed_conv_cuda(op: PackedConvOp, arrs) -> torch.Tensor:
+def packed_conv_cuda(op: PackedConvOp, arrs, sum_arr=None) -> torch.Tensor:
     """Launch ``packed_conv_kernel`` on the current stream."""
-    cfg, sin, sout = op.cfg, op.sin, op.sout
+    cfg, sin, sout, ss = op.cfg, op.sin, op.sout, op.ssum
     check(len(arrs) <= MAX_INPUTS, _TOO_MANY)
     for s in op.sins:
         check(s.cp % LANE_UNIT == 0, _LANES)
     arrs = [_build.aligned(a) for a in arrs]
+    if sum_arr is not None:
+        sum_arr = _build.aligned(sum_arr)
     n = arrs[0].shape[0]
     out = torch.empty(sout.array_shape(n), dtype=torch.int8,
                       device=arrs[0].device)
@@ -580,13 +648,17 @@ def packed_conv_cuda(op: PackedConvOp, arrs) -> torch.Tensor:
             op.w1.data_ptr() if fuse else None,
             op.bias1.data_ptr() if fuse else None,
             op.scale1.data_ptr() if fuse else None,
-            out.data_ptr(), n, sin.rows, sin.iwp, sin.halo, sin.col_off,
+            out.data_ptr(),
+            None if sum_arr is None else sum_arr.data_ptr(),
+            n, sin.rows, sin.iwp, sin.halo, sin.col_off,
             sout.rows, sout.halo, sout.col_off, cfg.oh, cfg.ow, cfg.kh,
             cfg.kw, cfg.ph, cfg.pw, cfg.oc, layout.packed_cp(cfg.oc),
             cfg.oc1x1, layout.packed_cp(cfg.oc1x1) if fuse else 0,
             int(cfg.conv0_round == round_mode.down),
             int(cfg.conv1_round == round_mode.down),
             int(cfg.conv0_with_bias), int(cfg.conv1_with_bias), int(fuse),
+            0 if ss is None else ss.rows, 0 if ss is None else ss.halo,
+            cfg.sum_scale,
             _build.stream_of(out))
     _build.check(rc, "packed_conv_kernel")
     _build.count_launch("packed_conv")

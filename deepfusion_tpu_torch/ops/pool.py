@@ -4,7 +4,8 @@ The PyTorch counterparts of ``deepfusion_tpu/ops/pool.py:pool`` and
 ``eltwise_sum_relu``. On CUDA tensors they launch ``pool_kernel``
 (``csrc/pool.cu``) and ``sum_relu_kernel`` (``csrc/sum_relu.cu``); on CPU
 tensors they run ``pool_plain`` and ``sum_relu_plain``. ``conv_relu_pool``
-is not ported yet (it waits for the fused conv+pool kernel).
+runs ``ConvPoolOp`` (``ops/convpool.py``) where ``pool2_fusable`` holds and
+``conv`` followed by ``pool`` elsewhere.
 """
 from __future__ import annotations
 
@@ -13,9 +14,10 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from ..config import PoolConfig
+from ..config import ConvConfig, PoolConfig
 from ..types import dtype, round_mode
 from ..utils.logger import check, check_eq
+from ..utils.mathutil import conv_output_size
 from .requant import relu_f32, round_f32, saturate
 
 _POOL_KINDS = {"max": 0, "avg_inc": 1, "avg_exc": 2}
@@ -156,3 +158,38 @@ def eltwise_sum_relu(a, b, with_relu: bool = True) -> torch.Tensor:
     if a.device.type == "cpu":
         return sum_relu_plain(a, b, dt, with_relu)
     return sum_relu_cuda(a, b, dt, with_relu)
+
+
+def conv_relu_pool(src, wei, bia, stride, padding, *, dst_dtype,
+                   conv_scales=(1.0,), conv_relu=True,
+                   conv_round_mode=round_mode.nearest,
+                   pool_kind="max", pool_kernel=(2, 2), pool_stride=(2, 2),
+                   pool_padding=(0, 0), pool_round_mode=round_mode.nearest):
+    """Fused conv+ReLU+pooling, NHWC u8 in (``deepfusion_tpu/ops/pool.py:
+    conv_relu_pool``): one ``convpool_kernel`` for the 2x2/s2 geometries
+    ``pool2_fusable`` admits, the conv then the pool otherwise. ``src`` is a
+    tensor (the op runs on its device) or a numpy array (the CPU)."""
+    from .conv import conv
+    from .convpool import ConvPoolOp, pool2_fusable
+
+    src = torch.as_tensor(src)
+    wei = np.asarray(wei)
+    n, ih, iw, ic = src.shape
+    oc, _, kh, kw = wei.shape
+    oh = conv_output_size(ih, kh, stride[0], padding[0])
+    ow = conv_output_size(iw, kw, stride[1], padding[1])
+    cfg = ConvConfig.make(
+        (n, ih, iw, ic), tuple(wei.shape),
+        None if bia is None else np.asarray(bia).dtype,
+        stride, padding, (n, oh, ow, oc), dst_dtype,
+        conv0_relu=conv_relu, conv0_scales=conv_scales,
+        conv0_round=conv_round_mode)
+    pc = PoolConfig.make(pool_kind, (oh, ow), pool_kernel, pool_stride,
+                         pool_padding, pool_round_mode)
+    if pool2_fusable(cfg, pc):
+        return ConvPoolOp(cfg, pc, wei, bia, device=src.device)(src)
+    out = conv(src, wei, bia, stride, padding, dst_dtype=dst_dtype,
+               conv0_relu=conv_relu, conv0_scales=conv_scales,
+               conv0_round_mode=conv_round_mode)
+    return pool(out, pool_kind, pool_kernel, pool_stride, pool_padding,
+                pool_round_mode)

@@ -140,13 +140,6 @@ def test_save_load_roundtrip(tmp_path):
     assert oc == op2.cfg.oc
 
 
-def test_sum_postop_raises_not_implemented():
-    src, wei, bia, stride, pad, kw = _case("3x3-u8-rne-s32bias-peroc")
-    with pytest.raises(NotImplementedError, match="sum post-op"):
-        tconv(src, wei, bia, stride, pad, sum_src=np.zeros((2, 7, 7, 32),
-                                                           np.uint8), **kw)
-
-
 def test_rejects_bad_geometry_like_jax():
     with pytest.raises(CheckError, match="output h size mismatch"):
         ConvConfig.make((1, 8, 8, 4), (8, 4, 3, 3), None, (1, 1), (1, 1),

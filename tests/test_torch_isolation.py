@@ -26,7 +26,9 @@ MODULES = [
     "deepfusion_tpu_torch.ops.layout", "deepfusion_tpu_torch.ops.requant",
     "deepfusion_tpu_torch.ops.conv", "deepfusion_tpu_torch.ops.concat",
     "deepfusion_tpu_torch.ops.pool", "deepfusion_tpu_torch.ops.packed",
+    "deepfusion_tpu_torch.ops.convpool",
     "deepfusion_tpu_torch.models.fusionnet",
+    "deepfusion_tpu_torch.models.resfusion",
     "deepfusion_tpu_torch.serving",
 ]
 
@@ -49,7 +51,8 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("op", ["conv", "concat", "pool", "sum_relu",
-                                "packed_conv", "packed_sum_pool"])
+                                "packed_conv", "packed_sum_pool",
+                                "convpool"])
 def test_non_cpu_tensors_never_take_the_plain_path(op, monkeypatch):
     """On a tensor that is not on the CPU each op goes to its kernel
     wrapper; with no kernel library to be had, it raises."""
@@ -68,6 +71,10 @@ def test_non_cpu_tensors_never_take_the_plain_path(op, monkeypatch):
             pool(x, "max", (2, 2), (2, 2), (0, 0))
         elif op == "sum_relu":
             eltwise_sum_relu(x, x)
+        elif op == "convpool":
+            from deepfusion_tpu_torch.ops.pool import conv_relu_pool
+            conv_relu_pool(x, np.zeros((16, 16, 3, 3), np.int8), None,
+                           (1, 1), (1, 1), dst_dtype="u8")
         elif op == "packed_conv":
             from deepfusion_tpu_torch.config import ConvConfig
             from deepfusion_tpu_torch.ops.packed import PackedConvOp

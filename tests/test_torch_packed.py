@@ -27,7 +27,7 @@ def jspec(s: T.PackedSpec) -> J.PackedSpec:
 
 
 def _cfgs(mb, hw, ic, oc, k=3, pad=1, oc1=None, bias=True, per_oc=False,
-          rnd="nearest", dst="u8", stride=1, seed=0):
+          rnd="nearest", dst="u8", stride=1, seed=0, sum_scale=None):
     """(port cfg, JAX cfg, wei, bia, wei1, bia1) from one seeded draw, with
     full-range s8 weights and scales that keep most outputs in u8 range."""
     rng = np.random.default_rng(seed)
@@ -39,6 +39,8 @@ def _cfgs(mb, hw, ic, oc, k=3, pad=1, oc1=None, bias=True, per_oc=False,
     sc0 = (rng.uniform(0.5, 1.5, oc) * sc).astype(np.float32) \
         if per_oc else (sc,)
     kw = dict(conv0_relu=True, conv0_scales=sc0, conv0_round=rnd)
+    if sum_scale is not None:
+        kw.update(sum_dt="u8", sum_scale=sum_scale)
     wei1 = bia1 = None
     if oc1 is not None:
         wei1 = rng.integers(-128, 128, (oc1, oc, 1, 1)).astype(np.int8)
@@ -218,28 +220,129 @@ def test_packed_conv_reads_pad_slots_as_stored():
     assert not np.array_equal(got, clean)
 
 
-@pytest.mark.parametrize("feature", ["sum_spec", "pool2", "stride",
-                                     "sum_arr", "emit_acc1", "t_range"])
+@pytest.mark.parametrize("feature", ["pool2", "emit_acc1", "t_range"])
 def test_unported_features_raise(feature):
     cfg, _, wei, bia, _, _ = _cfgs(1, 12, 32, 32)
-    spec = T.PackedSpec.make(12, 12, 32)
-    match = {"sum_spec": "sum post-op", "pool2": "pool2",
-             "stride": "strided", "sum_arr": "sum post-op",
-             "emit_acc1": "emit_acc1", "t_range": "t_range"}[feature]
-    with pytest.raises(NotImplementedError, match=match):
-        if feature == "sum_spec":
-            T.PackedConvOp(cfg, wei, bia, sum_spec=spec)
-        elif feature == "pool2":
+    with pytest.raises(NotImplementedError, match=feature):
+        if feature == "pool2":
             T.PackedConvOp(cfg, wei, bia, pool2=True)
-        elif feature == "stride":
-            scfg, _, swei, sbia, _, _ = _cfgs(1, 13, 32, 32, stride=2)
-            T.PackedConvOp(scfg, swei, sbia)
         else:
             op = T.PackedConvOp(cfg, wei, bia)
             x = torch.full(op.sin.array_shape(1), -128, dtype=torch.int8)
-            kw = {"sum_arr": dict(sum_arr=x), "emit_acc1": dict(
-                emit_acc1=True), "t_range": dict(t_range=(0, 1))}[feature]
+            kw = {"emit_acc1": dict(emit_acc1=True),
+                  "t_range": dict(t_range=(0, 1))}[feature]
             op(x, **kw)
+
+
+def _sum_op_pair(delta, rnd, fused, seed):
+    """Port and JAX ops with a packed sum operand whose halo is the
+    output's plus delta."""
+    out_c = 32 if fused else 40
+    cfg, jcfg, wei, bia, wei1, bia1 = _cfgs(
+        2, 12, 32, 40, oc1=32 if fused else None, rnd=rnd, per_oc=True,
+        seed=seed, sum_scale=0.8 if delta else 1.0)
+    sin = T.PackedSpec.make(12, 12, 32, halo=2, col_off=2)
+    ssum = T.PackedSpec.make(12, 12, out_c, halo=1 + delta, col_off=2,
+                             iwp=sin.iwp)
+    top = T.PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sin, col_off_out=2,
+                         halo_out=1, sum_spec=ssum)
+    jop = J.PackedConvOp(jcfg, wei, bia, wei1, bia1, sin=jspec(sin),
+                         col_off_out=2, halo_out=1, sum_spec=jspec(ssum))
+    assert jspec(top.sout) == jop.sout
+    return top, jop
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("rnd", ["nearest", "down"])
+@pytest.mark.parametrize("delta", [0, 1])
+def test_packed_conv_sum_matches_jax(delta, rnd, fused):
+    """The packed sum post-op (ResFusionNet's residual): the operand's halo
+    is the output's (delta 0) or one deeper (delta 1), read at its own
+    rows; sum_scale != 1 with the deeper halo."""
+    top, jop = _sum_op_pair(delta, rnd, fused, seed=10 + 4 * delta + fused)
+    rng = np.random.default_rng(delta + 2 * fused)
+    img = _edge_u8(rng, (2, 12, 12, 32))
+    res = _edge_u8(rng, (2, 12, 12, top.ssum.c))
+    got = top(T.pack_image(img, top.sin),
+              sum_arr=T.pack_image(res, top.ssum)).numpy()
+    want = jop(J.pack_image(img, jspec(top.sin)),
+               sum_arr=J.pack_image(res, jspec(top.ssum)))
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_packed_sum_validation_matches_jax():
+    cfg, jcfg, wei, bia, _, _ = _cfgs(1, 12, 32, 32, sum_scale=1.0)
+    sin = T.PackedSpec.make(12, 12, 32, halo=2, col_off=2)
+    shallow = T.PackedSpec.make(12, 12, 32, halo=0, col_off=2, iwp=sin.iwp)
+    for ssum, match in ((None, "pass ssum exactly"),
+                        (shallow, "halo must cover")):
+        with pytest.raises(CheckError, match=match):
+            T.PackedConvOp(cfg, wei, bia, sin=sin, col_off_out=2,
+                           halo_out=1, sum_spec=ssum)
+        with pytest.raises(JCheckError, match=match):
+            J.PackedConvOp(jcfg, wei, bia, sin=jspec(sin), col_off_out=2,
+                           halo_out=1,
+                           sum_spec=None if ssum is None else jspec(ssum))
+    top, _ = _sum_op_pair(0, "nearest", False, seed=3)
+    x = T.pack_image(np.zeros((2, 12, 12, 32), np.uint8), top.sin)
+    with pytest.raises(CheckError, match="pass sum_arr"):
+        top(x)
+
+
+@pytest.mark.parametrize("ic,hw,oc1", [(16, 13, None), (32, 14, 32),
+                                       (128, 9, None)])
+def test_strided_pack_input_matches_jax(ic, hw, oc1):
+    """A 3x3/s2 conv runs on the s2d grid: pack_input regroups the dense
+    image and the op's specs are the JAX op's. ic = 128 is where the JAX
+    op takes its sparse-phase taps; the port's dense s2d lowering computes
+    the same accumulator."""
+    cfg, jcfg, wei, bia, wei1, bia1 = _cfgs(2, hw, ic, 32, oc1=oc1,
+                                            stride=2, per_oc=True, seed=ic)
+    top = T.PackedConvOp(cfg, wei, bia, wei1, bia1)
+    jop = J.PackedConvOp(jcfg, wei, bia, wei1, bia1)
+    assert (jspec(top.sin), jspec(top.sout)) == (jop.sin, jop.sout)
+    assert top.cfg_orig == cfg and top.cfg.sh == 1 and top.cfg.ic == 4 * ic
+    assert (jop.sparse_taps is not None) == (ic % 128 == 0)
+    img = _edge_u8(np.random.default_rng(ic), (2, hw, hw, ic))
+    x = top.pack_input(img)
+    jx = jop.pack_input(img)
+    np.testing.assert_array_equal(x.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(top(x).numpy(), np.asarray(jop(jx)))
+
+
+def test_s2d_helpers_match_jax():
+    from deepfusion_tpu.ops import layout as JL
+    from deepfusion_tpu_torch.ops import layout as TL
+    for k, s, p, hw in ((3, 2, 1, 13), (7, 2, 3, 16), (3, 3, 1, 11),
+                        (1, 2, 0, 8)):
+        cfg, jcfg, wei, *_ = _cfgs(2, hw, 5, 8, k=k, pad=p, stride=s,
+                                   seed=k + s)
+        assert TL.s2d_taps(cfg) == JL.s2d_taps(jcfg)
+        c2, j2 = TL.s2d_cfg(cfg), JL.s2d_cfg(jcfg)
+        for f in ("ih", "iw", "ic", "oh", "ow", "kh", "kw", "sh", "ph"):
+            assert getattr(c2, f) == getattr(j2, f), (k, s, f)
+        np.testing.assert_array_equal(TL.s2d_weights(cfg, wei),
+                                      JL.s2d_weights(jcfg, wei))
+        img = np.random.default_rng(k).integers(0, 256, (2, hw, hw, 5),
+                                                dtype=np.uint8)
+        np.testing.assert_array_equal(TL.s2d_image_u8(cfg, img).numpy(),
+                                      JL.s2d_image_u8(jcfg, img))
+
+
+def test_save_load_strided_and_sum_ops(tmp_path):
+    cfg, _, wei, bia, _, _ = _cfgs(2, 13, 16, 32, stride=2, seed=5)
+    ops = [T.PackedConvOp(cfg, wei, bia), _sum_op_pair(1, "down", True, 6)[0]]
+    rng = np.random.default_rng(11)
+    for i, op in enumerate(ops):
+        path = str(tmp_path / f"op{i}.npz")
+        op.save(path)
+        op2 = T.PackedConvOp.load(path)
+        assert (op2.cfg, op2.cfg_orig, op2.sins, op2.sout, op2.ssum) == \
+            (op.cfg, op.cfg_orig, op.sins, op.sout, op.ssum)
+        x = T.pack_image(_u8(rng, 2, op.sin), op.sin)
+        kw = {} if op.ssum is None else dict(
+            sum_arr=T.pack_image(_u8(rng, 2, op.ssum), op.ssum))
+        assert torch.equal(op(x, **kw), op2(x, **kw))
 
 
 def test_save_load_roundtrip(tmp_path):
