@@ -6,23 +6,29 @@ Phases, each printing its own lines:
   1. device: the card's name and power limit, compute capability 9.0;
   2. build: compile the CUDA kernels of deepfusion_tpu_torch/csrc;
   3. parity: each kernel against its plain PyTorch version on the card,
-     bitwise, at every FusionNet and ResFusionNet full-width layer shape
-     and extra cases (every dtype, both round modes, saturation edges, the
-     conv sum post-op with every operand dtype; for the fused conv+pool
-     both pools, strides and sums; for the packed kernels also halo
-     erosion, wide tap shifts, pad lanes, 1-3 inputs, the packed sum
-     operand, the s2d stem and random bytes in the pad slots);
-  4. slice: FusionNet(FusionNetConfig()) and then
-     ResFusionNet(ResFusionNetConfig()) on the card behind BatchServer
-     each answer 20 requests through the dense forward, then 20 through
-     the packed forward; each answer must equal the model's plain dense
-     forward on the CPU bitwise (and the JAX package's golden logits where
-     stored), and every kernel of each path must have been launched in
-     that path's run;
+     bitwise, at every FusionNet, ResFusionNet and VGGFusion full-width
+     layer shape and extra cases (every dtype, both round modes,
+     saturation edges, the conv sum post-op with every operand dtype; for
+     the fused conv+pool both pools, strides and sums; for the packed
+     kernels also halo erosion, wide tap shifts, pad lanes, 1-3 inputs,
+     the packed sum operand, the s2d stem, the fused 2x2 pool and random
+     bytes in the pad slots; for the conv pair every fused combination
+     with and without the pool, a channel change, round-down per-oc
+     scales, deeper and shallower input halos, and bench.py's --pair
+     shape);
+  4. slice: FusionNet(FusionNetConfig()), ResFusionNet(ResFusionNetConfig())
+     and VGGFusion(VGGFusionConfig()) on the card behind BatchServer each
+     answer 20 requests through the dense forward, then 20 through the
+     packed forward; VGGFusion's hybrid forward runs the golden batch; each
+     answer must equal the model's plain dense forward on the CPU bitwise
+     (and the JAX package's golden logits where stored), and every kernel
+     of each path must have been launched in that path's run;
   5. timings: CUDA-event medians and profiler device times of each kernel
-     and its plain version at the models' shapes, the dense and packed
-     forwards of both models, served requests per second on every path,
-     and the packed fused conv at bench.py's default shape in TOP/s.
+     and its plain version at the models' shapes, the conv pair per
+     VGGFusion block against the same block as two or three packed
+     kernels, the forwards of all three models, served requests per second
+     on every served path, and the packed fused conv and the conv pair at
+     bench.py's default and --pair shapes in TOP/s.
 
 Any failure raises and exits non-zero; nothing is caught. The line before
 the last is the per-kernel JSON summary, the last line the device JSON.
@@ -45,7 +51,8 @@ sys.path.insert(0, ROOT)
 REPS = 20
 GOLDEN = {m: os.path.join(ROOT, "tests", "data", f"{f}_full_logits.npz")
           for m, f in (("FusionNet", "fusionnet"),
-                       ("ResFusionNet", "resfusion"))}
+                       ("ResFusionNet", "resfusion"),
+                       ("VGGFusion", "vggfusion"))}
 KERNEL_INFO = {
     "conv_fused": ("deepfusion_tpu_torch/csrc/conv.cu",
                    "deepfusion_tpu/ops/conv.py:163",
@@ -64,6 +71,8 @@ KERNEL_INFO = {
                         "deepfusion_tpu/ops/packed.py:693"),
     "convpool": ("deepfusion_tpu_torch/csrc/convpool.cu",
                  "deepfusion_tpu/ops/convpool.py:104", None),
+    "pair_conv": ("deepfusion_tpu_torch/csrc/pair_conv.cu",
+                  "deepfusion_tpu/ops/mega.py:237", None),
 }
 # the kernels each served path launches (the packed heads are dense convs)
 PATH_KERNELS = {
@@ -72,6 +81,9 @@ PATH_KERNELS = {
     ("ResFusionNet", "dense"): ("conv_fused", "convpool", "pool"),
     ("ResFusionNet", "packed"): ("packed_conv", "packed_sum_pool",
                                  "conv_fused"),
+    ("VGGFusion", "dense"): ("conv_fused", "convpool", "pool"),
+    ("VGGFusion", "packed"): ("pair_conv", "conv_fused"),
+    ("VGGFusion", "hybrid"): ("pair_conv", "conv_fused", "convpool", "pool"),
 }
 H100_INT8_PEAK_TOPS = 1979.0   # dense, NVIDIA data sheet, SXM at 700 W
 
@@ -309,7 +321,7 @@ def convpool_cases(dev):
     return out
 
 
-def phase_parity(net, rnet, dev) -> Parity:
+def phase_parity(net, rnet, vnet, dev) -> Parity:
     from deepfusion_tpu_torch.config import ConcatConfig, PoolConfig
     from deepfusion_tpu_torch.models.fusionnet import LAYERS
     C = importlib.import_module("deepfusion_tpu_torch.ops.concat")
@@ -335,16 +347,27 @@ def phase_parity(net, rnet, dev) -> Parity:
             if cfg.with_sum else None
         par.check("conv_fused", f"ResFusionNet {name}",
                   K.conv_cuda(op, x, sm), K.conv_plain(op, x, sm))
+    for name, op in [(f"block{b}_conv1", op)
+                     for b, op in enumerate(vnet.conv1, 1)] + [
+                         ("head", vnet.head)]:
+        cfg = op.cfg
+        x = rand(rng, (cfg.bs, cfg.ih, cfg.iw, cfg.ic), u8, dev)
+        par.check("conv_fused", f"VGGFusion {name}", K.conv_cuda(op, x),
+                  K.conv_plain(op, x))
     for label, op, x, sm in conv_cases(dev):
         par.check("conv_fused", label, K.conv_cuda(op, x, sm),
                   K.conv_plain(op, x, sm))
 
-    # K9: ResFusionNet's downsample at full width, then the extra cases
+    # K9: ResFusionNet's downsample and VGGFusion's conv2+pool of every
+    # block at full width, then the extra cases
     CP = importlib.import_module("deepfusion_tpu_torch.ops.convpool")
-    c = rnet.down.cfg
-    x = rand(rng, (c.bs, c.ih, c.iw, c.ic), u8, dev)
-    par.check("convpool", "ResFusionNet down",
-              CP.convpool_cuda(rnet.down, x), CP.convpool_plain(rnet.down, x))
+    for label, op in [("ResFusionNet down", rnet.down)] + [
+            (f"VGGFusion block{b}_conv2+pool", op)
+            for b, op in enumerate(vnet.convpool2, 1)]:
+        c = op.cfg
+        x = rand(rng, (c.bs, c.ih, c.iw, c.ic), u8, dev)
+        par.check("convpool", label, CP.convpool_cuda(op, x),
+                  CP.convpool_plain(op, x))
     for label, op, x, sm in convpool_cases(dev):
         par.check("convpool", label, CP.convpool_cuda(op, x, sm),
                   CP.convpool_plain(op, x, sm))
@@ -362,13 +385,16 @@ def phase_parity(net, rnet, dev) -> Parity:
         par.check("concat_relu", f"{dt.name} {ics} relu={relu}",
                   C.concat_cuda(xs, cfg), C.concat_plain(xs, cfg))
 
-    # K3: FusionNet's two pools and ResFusionNet's global average, then
-    # every dtype and kind
+    # K3: FusionNet's two pools, ResFusionNet's and VGGFusion's global
+    # averages (the last, 49 taps, on pool_kernel), then every dtype and kind
     c = rnet.block2.cfg
+    v = vnet.convpool2[-1].cfg
     pcases = [(u8, (8, 56, 56, 256), "max", (2, 2), (2, 2), (0, 0)),
               (u8, (8, 28, 28, 128), "avg_exc", (28, 28), (28, 28), (0, 0)),
               (u8, (c.bs, c.oh, c.ow, c.out_oc), "avg_exc", (c.oh, c.ow),
-               (c.oh, c.ow), (0, 0))]
+               (c.oh, c.ow), (0, 0)),
+              (u8, (v.bs, v.oh // 2, v.ow // 2, v.out_oc), "avg_exc",
+               (v.oh // 2, v.ow // 2), (v.oh // 2, v.ow // 2), (0, 0))]
     for dt in (dtype.u8, dtype.s8, dtype.s32, dtype.f32):
         for kind in ("max", "avg_inc", "avg_exc"):
             pcases += [(dt, (2, 9, 11, 40), kind, (3, 3), (2, 2), (1, 1)),
@@ -395,6 +421,7 @@ def phase_parity(net, rnet, dev) -> Parity:
                       P.sum_relu_cuda(a, b, dt, relu),
                       P.sum_relu_plain(a, b, dt, relu))
     packed_parity(net, rnet, dev, par)
+    pair_parity(vnet, dev, par)
     for k in KERNEL_INFO:
         print(f"parity: {k} bitwise equal to its plain version in "
               f"{par.cases[k]} cases, max_abs_err {par.err[k]}", flush=True)
@@ -424,7 +451,8 @@ def packed_conv_cases(dev):
 
     def add(label, hw, cs, oc, k=3, *, oc1=None, bias=True, per_oc=True,
             rnd="nearest", halo_in=2, halo_out=1, off_in=2, off_out=2,
-            iwp=None, n=2, junk=False, sum_halo=None, sum_scale=1.0):
+            iwp=None, n=2, junk=False, sum_halo=None, sum_scale=1.0,
+            pool2=False):
         ic, p = sum(cs), k // 2
         o = conv_output_size(hw, k, 1, p)
         wei = rng.integers(-128, 128, (oc, ic, k, k)).astype(np.int8)
@@ -459,7 +487,7 @@ def packed_conv_cases(dev):
             halo=sum_halo, col_off=off_out, iwp=sins[0].iwp)
         op = PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sins,
                           col_off_out=off_out, halo_out=halo_out,
-                          sum_spec=ssum, device=dev)
+                          sum_spec=ssum, pool2=pool2, device=dev)
         out.append((label, op, n, junk))
 
     for rnd in ("nearest", "down"):
@@ -494,6 +522,80 @@ def packed_conv_cases(dev):
                         f"junk={junk}", 12, [64], 72, oc1=oc1, rnd=rnd,
                         halo_in=2, halo_out=1, sum_halo=1 + d,
                         sum_scale=0.8 if d else 1.0, junk=junk)
+    # the fused 2x2 pool (pool2): fused and not, both round modes, with and
+    # without the sum operand, valid and random pad bytes, output halo 2
+    # and 0
+    for oc1 in (None, 40):
+        for rnd in ("nearest", "down"):
+            for sum_halo in (None, 3):
+                for junk in (False, True):
+                    add(f"pool2 fused={oc1 is not None} {rnd} "
+                        f"sum={sum_halo is not None} junk={junk}", 12, [64],
+                        72, oc1=oc1, rnd=rnd, halo_in=3, halo_out=2,
+                        iwp=16, sum_halo=sum_halo, sum_scale=0.8, junk=junk,
+                        pool2=True)
+    add("pool2 halo_out 0", 14, [32], 64, halo_in=1, halo_out=0, iwp=32,
+        pool2=True)
+    return out
+
+
+def pair_cases(dev):
+    """(label, PackedConvPairOp, batch, junk pads) for the extra K10
+    cases: every fused combination with and without the pool, a channel
+    change, round-down per-oc scales, deeper and shallower input halos."""
+    from deepfusion_tpu_torch.config import ConvConfig
+    from deepfusion_tpu_torch.ops.mega import PackedConvPairOp
+    from deepfusion_tpu_torch.ops.packed import PackedSpec
+    rng = np.random.default_rng(14)
+    out = []
+
+    def layer(n, hw, ic, oc, oc1=None, rnd="nearest", per_oc=True):
+        wei = rng.integers(-128, 128, (oc, ic, 3, 3)).astype(np.int8)
+        bia = rng.integers(-5000, 5000, (oc,)).astype(np.int32)
+        sc = 1.0 / (9 * ic * 60)
+        kw = {}
+        wei1 = bia1 = None
+        if oc1 is not None:
+            wei1 = rng.integers(-128, 128, (oc1, oc, 1, 1)).astype(np.int8)
+            bia1 = rng.integers(-5000, 5000, (oc1,)).astype(np.int32)
+            kw = dict(wei1x1_shape=(oc1, oc, 1, 1), bia1x1_dt=np.int32,
+                      conv1_relu=True, conv1_round=rnd,
+                      conv1_scales=(rng.uniform(0.5, 1.5, oc1) / (oc * 60)
+                                    ).astype(np.float32) if per_oc
+                      else (1.0 / (oc * 60),))
+        cfg = ConvConfig.make(
+            (n, hw, hw, ic), (oc, ic, 3, 3), np.int32, (1, 1), (1, 1),
+            (n, hw, hw, oc1 or oc), "u8", conv0_relu=True, conv0_round=rnd,
+            conv0_scales=(rng.uniform(0.5, 1.5, oc) * sc).astype(np.float32)
+            if per_oc else (sc,), **kw)
+        return cfg, (wei, bia, wei1, bia1)
+
+    def add(label, n, hw, a, b, junk=True, **kw):
+        (ca, wa), (cb, wb) = layer(n, hw, *a), layer(n, hw, *b)
+        out.append((label, PackedConvPairOp(ca, wa, cb, wb, device=dev,
+                                            **kw), n, junk))
+
+    sin = PackedSpec.make(12, 12, 32, halo=2, col_off=2, iwp=16)
+    for fa in (None, 48):
+        for fb in (None, 40):
+            for pool2 in (False, True):
+                add(f"fused_a={fa is not None} fused_b={fb is not None} "
+                    f"pool2={pool2}", 2, 12, (32, 64, fa), (fa or 64, 64, fb),
+                    sin=sin, halo_out=2, col_off_out=2, pool2=pool2)
+    add("channel change 32 -> 48 -> 1x1 96 -> 128 -> 1x1 32", 2, 10,
+        (32, 48, 96), (96, 128, 32), junk=False)
+    add("round down, per-oc scales", 2, 12, (32, 64, 32, "down"),
+        (32, 64, 32, "down"), sin=sin, halo_out=2, col_off_out=2,
+        pool2=True)
+    add("scalar scales", 1, 9, (32, 32, None, "nearest", False),
+        (32, 32, None, "nearest", False))
+    add("deep input halo 3 -> 1", 2, 12, (32, 64), (64, 64),
+        sin=PackedSpec.make(12, 12, 32, halo=3, col_off=1), halo_out=1)
+    add("shallow input halo 1 -> 2 (tests/test_mega.py:322)", 1, 4,
+        (32, 32), (32, 32), sin=PackedSpec.make(4, 4, 32, halo=1, col_off=1,
+                                                iwp=16),
+        halo_out=2, col_off_out=2)
+    add("oc 544 (two channel passes)", 1, 6, (32, 544), (544, 64))
     return out
 
 
@@ -563,6 +665,31 @@ def packed_parity(net, rnet, dev, par):
                   PK.packed_sum_pool_plain([a], b, pool, 2, 8))
 
 
+def pair_parity(vnet, dev, par):
+    """K10 at each of VGGFusion's three full-width pairs (valid and junk
+    pads), then the extra cases; and the same three blocks as a packed conv
+    then a packed conv with K5's fused pool, against the pair's plain
+    version (K5 pool2 at full width)."""
+    from deepfusion_tpu_torch.ops import mega as M
+    from deepfusion_tpu_torch.ops import packed as PK
+    rng = np.random.default_rng(15)
+    n = vnet.cfg.batch
+    for b, pair in enumerate(vnet.build_packed(), 1):
+        for junk in (False, True):
+            x = packed_input(rng, pair.sin, n, dev, junk)
+            want = M.pair_conv_plain(pair, x)
+            par.check("pair_conv", f"VGGFusion block{b} junk={junk}",
+                      M.pair_conv_cuda(pair, x), want)
+            mid = PK.packed_conv_cuda(pair.op_a, [x])
+            par.check("packed_conv", f"VGGFusion block{b} conv a, conv b "
+                      f"pool2 junk={junk}",
+                      PK.packed_conv_cuda(pair.op_b, [mid]), want)
+    for label, pair, bn, junk in pair_cases(dev):
+        x = packed_input(rng, pair.sin, bn, dev, junk)
+        par.check("pair_conv", label, M.pair_conv_cuda(pair, x),
+                  M.pair_conv_plain(pair, x))
+
+
 def slice_requests(net, golden_path):
     """20 requests (the golden input's 8 first, where stored), the plain
     dense forward's logits for them on the CPU (the same model, built on
@@ -624,13 +751,39 @@ def phase_slice(model, cfg, path, kernels, reqs, want, golden) -> dict:
     return counts
 
 
-def flagship_op(dev):
-    """The packed fused conv at bench.py's default shape (bench.py:275-278):
-    8x126x126x256 -> 3x3:256 -> 1x1:256, PackedConvOp's default geometry."""
+def phase_hybrid(vnet, golden_path) -> dict:
+    """VGGFusion's hybrid forward (block 1 on the conv pair, the dense tail)
+    on the golden batch: its kernels must launch and its logits must equal
+    the JAX package's golden logits bitwise."""
+    from deepfusion_tpu_torch import _build
+    from deepfusion_tpu_torch.utils.logger import check
+    golden = np.load(golden_path)
+    x = vnet.example_input(np.random.default_rng(int(golden["input_seed"])))
+    _build.reset_launch_counts()
+    with torch.inference_mode():
+        got = vnet.hybrid_call(torch.from_numpy(x).to(vnet.device))
+    got = got.cpu().numpy()
+    counts = _build.launch_counts()
+    print(f"slice: VGGFusion hybrid path: golden batch of {len(x)}; "
+          f"launches {counts}", flush=True)
+    for k in PATH_KERNELS[("VGGFusion", "hybrid")]:
+        check(counts[k] > 0,
+              f"kernel {k} was not launched on the VGGFusion hybrid path")
+    check(got.dtype == np.float32 and np.isfinite(got).all(),
+          "hybrid logits must be finite f32")
+    check(np.array_equal(got, golden["logits"]),
+          f"VGGFusion hybrid logits differ from the JAX package's golden "
+          f"logits: max_abs_err {np.abs(got - golden['logits']).max()}")
+    print("slice: VGGFusion hybrid path: logits bitwise equal to the JAX "
+          "package's golden logits", flush=True)
+    return counts
+
+
+def flagship_layer(rng):
+    """bench.py's default layer (bench.py:275-278): 8x126x126x256 -> 3x3:256
+    -> 1x1:256, random weights from rng; returns (cfg, weights, MACs)."""
     from deepfusion_tpu_torch.config import ConvConfig
-    from deepfusion_tpu_torch.ops.packed import PackedConvOp
     n, hw, ic, oc, oc1 = 8, 126, 256, 256, 256
-    rng = np.random.default_rng(21)
     wei = rng.integers(-128, 128, (oc, ic, 3, 3)).astype(np.int8)
     bia = rng.integers(-5000, 5000, (oc,)).astype(np.int32)
     wei1 = rng.integers(-128, 128, (oc1, oc, 1, 1)).astype(np.int8)
@@ -641,7 +794,26 @@ def flagship_op(dev):
                           wei1x1_shape=(oc1, oc, 1, 1), bia1x1_dt=np.int32,
                           conv1_relu=True, conv1_scales=(1.0 / (oc * 20),))
     macs = n * hw * hw * (9 * ic * oc + oc * oc1)
-    return PackedConvOp(cfg, wei, bia, wei1, bia1, device=dev), n, macs
+    return cfg, (wei, bia, wei1, bia1), macs
+
+
+def flagship_op(dev):
+    """The packed fused conv at bench.py's default shape, PackedConvOp's
+    default geometry."""
+    from deepfusion_tpu_torch.ops.packed import PackedConvOp
+    cfg, w, macs = flagship_layer(np.random.default_rng(21))
+    return PackedConvOp(cfg, *w, device=dev), cfg.bs, macs
+
+
+def flagship_pair(dev):
+    """The conv pair at bench.py's --pair shape (bench.py:257-272): two of
+    bench.py's default layers chained, PackedConvPairOp's default geometry
+    (halo 1, no pool)."""
+    from deepfusion_tpu_torch.ops.mega import PackedConvPairOp
+    rng = np.random.default_rng(22)
+    cfg, wa, macs = flagship_layer(rng)
+    _, wb, _ = flagship_layer(rng)
+    return PackedConvPairOp(cfg, wa, cfg, wb, device=dev), cfg.bs, 2 * macs
 
 
 def time_forwards(name, fwd, batch, name_power):
@@ -745,7 +917,65 @@ def resfusion_timings(rnet, dev, name_power, timed):
     return {"dense": rnet, "packed": pm}
 
 
-def phase_timings(net, cfg, rnet, dev, name_power, parity, counts) -> list:
+def vggfusion_timings(vnet, dev, name_power, timed):
+    """VGGFusion: K10 per block against its plain version and against the
+    same block as separate packed kernels (both checked bitwise), the
+    pair's tiling, the three forwards."""
+    from deepfusion_tpu_torch.ops import mega as M
+    from deepfusion_tpu_torch.ops.packed import PackedConvOp
+    from deepfusion_tpu_torch.utils.logger import check
+    PK = importlib.import_module("deepfusion_tpu_torch.ops.packed")
+    rng = np.random.default_rng(16)
+    n = vnet.cfg.batch
+    for b, pair in enumerate(vnet.build_packed(), 1):
+        plan = M.pair_conv_plan(pair, n)
+        print(f"plan: VGGFusion block{b} pair_conv tile={plan['tile']} "
+              f"blocks={plan['blocks']} smem_bytes={plan['smem_bytes']} "
+              f"layer_a_pixels_ratio={plan['layer_a_ratio']:.4f} "
+              f"executed_mac_ratio={plan['executed_mac_ratio']:.4f}",
+              flush=True)
+        x = packed_input(rng, pair.sin, n, dev)
+        timed("pair_conv", f"VGGFusion block{b}",
+              lambda: M.pair_conv_cuda(pair, x),
+              lambda: M.pair_conv_plain(pair, x))
+        p2 = vnet.params[f"block{b}_conv2"]
+        op_b = PackedConvOp(pair.cfg_b, p2["wei"], p2.get("bia"),
+                            sin=pair.op_b.sin, col_off_out=pair.sout.col_off,
+                            halo_out=pair.sout.halo, device=dev)
+
+        def three():
+            y = PK.packed_conv_cuda(op_b, [PK.packed_conv_cuda(pair.op_a,
+                                                                [x])])
+            return PK.packed_maxpool2(y, pair.sout)[0]
+
+        def two():
+            return PK.packed_conv_cuda(pair.op_b, [PK.packed_conv_cuda(
+                pair.op_a, [x])])
+        mid = PK.packed_conv_cuda(pair.op_a, [x])
+        timed("packed_conv", f"VGGFusion block{b} conv b with pool2",
+              lambda: PK.packed_conv_cuda(pair.op_b, [mid]),
+              lambda: PK.packed_conv_plain(pair.op_b, [mid]),
+              in_forward=False)
+        ref = M.pair_conv_cuda(pair, x)
+        for label, fn in (("packed conv a, packed conv b, K7 pool", three),
+                          ("packed conv a, packed conv b with pool2", two)):
+            check(torch.equal(fn(), ref),
+                  f"VGGFusion block{b} as {label} differs from pair_conv")
+            print(f"timing: VGGFusion block{b} as {label} "
+                  f"ms={cuda_ms(fn):.4f} device_ms={device_ms(fn):.4f} "
+                  f"(bitwise equal to pair_conv) card=\"{name_power}\"",
+                  flush=True)
+    xv = torch.from_numpy(vnet.example_input()).to(dev)
+    pm = vnet.packed_module()
+    time_forwards("VGGFusion", {"dense": lambda: vnet(xv),
+                                "packed": lambda: pm(xv),
+                                "hybrid": lambda: vnet.hybrid_call(xv)},
+                  n, name_power)
+    return {"dense": vnet, "packed": pm}
+
+
+def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
+                  counts) -> list:
     from deepfusion_tpu_torch.config import ConcatConfig, PoolConfig
     from deepfusion_tpu_torch.models.fusionnet import LAYERS
     C = importlib.import_module("deepfusion_tpu_torch.ops.concat")
@@ -823,6 +1053,7 @@ def phase_timings(net, cfg, rnet, dev, name_power, parity, counts) -> list:
                                     "packed": lambda: pm(x)}, cfg.batch,
                       name_power)
         rmodels = resfusion_timings(rnet, dev, name_power, timed)
+        vmodels = vggfusion_timings(vnet, dev, name_power, timed)
 
         # the packed fused conv at bench.py's default shape
         fop, fbatch, macs = flagship_op(dev)
@@ -840,9 +1071,30 @@ def phase_timings(net, cfg, rnet, dev, name_power, parity, counts) -> list:
               f"version; card=\"{name_power}\"", flush=True)
         del fop, fx
 
+        # the conv pair at bench.py's --pair shape
+        M = importlib.import_module("deepfusion_tpu_torch.ops.mega")
+        pop, pbatch, pmacs = flagship_pair(dev)
+        px = packed_input(rng, pop.sin, pbatch, dev)
+        parity.check("pair_conv", "bench.py --pair 8x126x126x256 fused x2",
+                     M.pair_conv_cuda(pop, px), M.pair_conv_plain(pop, px))
+        plan = M.pair_conv_plan(pop, pbatch)
+        p_ms = cuda_ms(lambda: M.pair_conv_cuda(pop, px))
+        p_dev = device_ms(lambda: M.pair_conv_cuda(pop, px))
+        tops = 2 * pmacs / (p_dev * 1e-3) / 1e12
+        print(f"timing: conv pair 8x126x126x256 -> (3x3:256 -> 1x1:256) x2 "
+              f"tile={plan['tile']} blocks={plan['blocks']} "
+              f"executed_mac_ratio={plan['executed_mac_ratio']:.4f} "
+              f"ms={p_ms:.4f} device_ms={p_dev:.4f} device_TOPs={tops:.1f} "
+              f"share_of_int8_peak={tops / H100_INT8_PEAK_TOPS:.4f} bitwise "
+              f"equal to its plain version; card=\"{name_power}\"",
+              flush=True)
+        del pop, px
+
     served_rate("FusionNet", {"dense": net, "packed": pm}, cfg.batch,
                 net.input_shape, name_power)
     served_rate("ResFusionNet", rmodels, rnet.cfg.batch, rnet.input_shape,
+                name_power)
+    served_rate("VGGFusion", vmodels, vnet.cfg.batch, vnet.input_shape,
                 name_power)
 
     rows = []
@@ -864,7 +1116,8 @@ def main():
               "needs an NVIDIA H100", file=sys.stderr)
         sys.exit(1)
     from deepfusion_tpu_torch.models import (FusionNet, FusionNetConfig,
-                                             ResFusionNet, ResFusionNetConfig)
+                                             ResFusionNet, ResFusionNetConfig,
+                                             VGGFusion, VGGFusionConfig)
 
     name_power = phase_device()
     phase_build()
@@ -874,11 +1127,14 @@ def main():
     net.build_packed()
     rnet = ResFusionNet(ResFusionNetConfig(), device=dev)
     rnet.build_packed()
+    vnet = VGGFusion(VGGFusionConfig(), device=dev)
+    vnet.build_packed()
     with torch.inference_mode():
-        parity = phase_parity(net, rnet, dev)
+        parity = phase_parity(net, rnet, vnet, dev)
     counts = dict.fromkeys(KERNEL_INFO, 0)
     for model, golden_path in ((net, GOLDEN["FusionNet"]),
-                               (rnet, GOLDEN["ResFusionNet"])):
+                               (rnet, GOLDEN["ResFusionNet"]),
+                               (vnet, GOLDEN["VGGFusion"])):
         reqs, want, golden = slice_requests(model, golden_path)
         name = type(model).__name__
         for path, served in (("dense", model),
@@ -887,7 +1143,11 @@ def main():
                               PATH_KERNELS[(name, path)], reqs, want, golden)
             for k in KERNEL_INFO:
                 counts[k] += got[k]
-    rows = phase_timings(net, cfg, rnet, dev, name_power, parity, counts)
+    got = phase_hybrid(vnet, GOLDEN["VGGFusion"])
+    for k in KERNEL_INFO:
+        counts[k] += got[k]
+    rows = phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
+                         counts)
     print(name_power)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

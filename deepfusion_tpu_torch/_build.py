@@ -43,13 +43,18 @@ _SIGNATURES = {
     "df_pool": [_P, _P] + [_I] * 15 + [_P],
     "df_sum_relu": [_P, _P, _P, _L, _I, _I, _P],
     "df_packed_conv": [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(_I),
-                       _I] + [_P] * 8 + [_I] * 25 + [_F, _P],
+                       _I] + [_P] * 8 + [_I] * 26 + [_F, _P],
     "df_packed_sum_pool": [ctypes.POINTER(ctypes.c_void_p),
                            ctypes.POINTER(_I), _I, _P, _P] + [_I] * 6 + [_P],
+    "df_pair_conv": [_P, ctypes.POINTER(ctypes.c_void_p),
+                     ctypes.POINTER(ctypes.c_void_p), _P,
+                     ctypes.POINTER(_I), ctypes.POINTER(_I),
+                     ctypes.POINTER(_I), _P],
+    "df_pair_plan": [ctypes.POINTER(_I)] * 4,
 }
 
 KERNELS = ("conv_fused", "concat_relu", "pool", "sum_relu", "packed_conv",
-           "packed_sum_pool", "convpool")
+           "packed_sum_pool", "convpool", "pair_conv")
 
 _counts_lock = threading.Lock()
 _counts = dict.fromkeys(KERNELS, 0)

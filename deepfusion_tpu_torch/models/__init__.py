@@ -1,2 +1,3 @@
 from .fusionnet import FusionNet, FusionNetConfig, PackedFusionNet  # noqa: F401
 from .resfusion import ResFusionNet, ResFusionNetConfig  # noqa: F401
+from .vggfusion import VGGFusion, VGGFusionConfig  # noqa: F401

@@ -238,10 +238,10 @@ class FusionNet(nn.Module):
 
 
 class PackedFusionNet(nn.Module):
-    """A model's ``packed_call`` (FusionNet's or ResFusionNet's) as a module
-    that carries ``device`` and ``input_shape``, so ``BatchServer`` stages
-    each batch on the model's device (a bound method has no ``device``: the
-    batch would stay on the CPU)."""
+    """A model's ``packed_call`` (FusionNet's, ResFusionNet's or
+    VGGFusion's) as a module that carries ``device`` and ``input_shape``,
+    so ``BatchServer`` stages each batch on the model's device (a bound
+    method has no ``device``: the batch would stay on the CPU)."""
 
     def __init__(self, net: nn.Module):
         super().__init__()

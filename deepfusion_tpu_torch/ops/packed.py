@@ -34,15 +34,20 @@ package's sparse-phase taps (for ic a multiple of 128) compute the same
 accumulator with fewer MACs and are not ported: the dense s2d lowering
 runs for every strided conv.
 
-Not ported yet: the conv's fused 2x2 pool (``pool2``), the raw 1x1
-accumulator (``emit_acc1``) and the tile range (``t_range``/``row0_off``),
-which raise ``NotImplementedError``; ``pack_image_sharded``/
-``unpack_image_sharded``, which wait for ``parallel/``; ``reheight`` and
-``sout_pooled``. The JAX package's ``operands=`` override exists for
-``jax.jit`` and has no counterpart. Of the JAX package's legality checks,
-the row-tile and boundary-roll ones (``packed.py:222-237``) describe TPU
-tiling and are dropped: the CUDA kernel has no row tile and reads every tap
-of an image pixel inside the input.
+``pool2=True`` fuses the 2x2/s2 max pool into the conv's epilogue: the
+op returns the pooled image at ``sout_pooled``, the max of the final u8
+values (after the sum operand joins, at full resolution), as the JAX
+package pools the clamped values before the byte pack.
+
+Not ported yet: the raw 1x1 accumulator (``emit_acc1``) and the tile range
+(``t_range``/``row0_off``), which raise ``NotImplementedError``;
+``pack_image_sharded``/``unpack_image_sharded``, which wait for
+``parallel/``; ``reheight``. The JAX package's ``operands=`` override
+exists for ``jax.jit`` and has no counterpart. Of the JAX package's
+legality checks, the row-tile and boundary-roll ones
+(``packed.py:222-237``) describe TPU tiling and are dropped: the CUDA
+kernel has no row tile and reads every tap of an image pixel inside the
+input.
 """
 from __future__ import annotations
 
@@ -426,7 +431,9 @@ class PackedConvOp(nn.Module):
     ``sin`` is one input spec, or a tuple of them whose lane join is the
     conv input; ``col_off_out`` and ``halo_out`` place the output for its
     consumer (default: ``max(pw, 1)`` and the input's halo). ``sum_spec``
-    adds the sum post-op (pass ``sum_arr`` to each call). A strided
+    adds the sum post-op (pass ``sum_arr`` to each call). ``pool2`` fuses
+    the 2x2/s2 max pool: the op then returns an array of ``sout_pooled``,
+    and ``sout`` must satisfy ``validate_packed_maxpool2``. A strided
     ``cfg`` runs on the s2d grid: ``sin`` then describes the packed s2d
     image, which ``pack_input`` makes from a dense one.
     """
@@ -436,10 +443,6 @@ class PackedConvOp(nn.Module):
                  halo_out: int = None, sum_spec: PackedSpec = None,
                  pool2: bool = False, device="cpu"):
         super().__init__()
-        if pool2:
-            raise NotImplementedError(
-                "packed conv fused 2x2 max pool (pool2) is not ported to "
-                "the PyTorch package yet")
         check_eq(tuple(np.shape(wei)), (cfg.oc, cfg.ic, cfg.kh, cfg.kw),
                  "conv weight shape (OIHW)")
         cfg_orig = None
@@ -460,7 +463,6 @@ class PackedConvOp(nn.Module):
         sout = PackedSpec(h=cfg.oh, w=cfg.ow, c=cfg.out_oc,
                           cp=layout.packed_cp(cfg.out_oc), halo=halo_out,
                           col_off=col_off_out, iwp=sins[0].iwp)
-        validate_packed_conv(cfg, sins, sout, sum_spec)
         n0 = layout.packed_cp(cfg.oc)
         ops = {"w0": layout.pack_conv_weights(wei, layout.conv_icp(cfg.ic),
                                               n0),
@@ -474,10 +476,17 @@ class PackedConvOp(nn.Module):
                        bias1=layout.widen_bias(bia1x1, n1),
                        scale1=layout.widen_scales(cfg.conv1_scales,
                                                   cfg.oc1x1, n1))
-        self._set_state(cfg, sins, sout, ops, device, cfg_orig, sum_spec)
+        self._set_state(cfg, sins, sout, ops, device, cfg_orig, sum_spec,
+                        pool2)
 
     def _set_state(self, cfg, sins, sout, ops: dict, device, cfg_orig=None,
-                   ssum=None):
+                   ssum=None, pool2=False):
+        """The constructor's checks and state, shared with ``load``."""
+        validate_packed_conv(cfg, sins, sout, ssum)
+        if pool2:
+            # the halved result must itself be a valid packed image
+            validate_packed_maxpool2(sout)
+        self.pool2 = bool(pool2)
         self.cfg = cfg
         self.cfg_orig = cfg_orig
         self.sins = sins
@@ -492,6 +501,17 @@ class PackedConvOp(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.w0.device
+
+    @property
+    def sout_pooled(self) -> PackedSpec:
+        """Output spec of the fused pool2 epilogue (valid when pool2)."""
+        return _pooled_spec(self.sout)
+
+    @property
+    def sout_final(self) -> PackedSpec:
+        """The spec of what the op returns: ``sout_pooled`` with pool2,
+        else ``sout``."""
+        return self.sout_pooled if self.pool2 else self.sout
 
     def pack_input(self, src_u8) -> torch.Tensor:
         """Model-boundary pack: dense NHWC u8 (tensor on any device, or
@@ -549,7 +569,8 @@ class PackedConvOp(nn.Module):
         arrs = {k: getattr(self, k).cpu().numpy()
                 for k in _operand_shapes(self.cfg)}
         np.savez(path, __cfg__=dump_configs(**specs),
-                 __n_sins__=np.int64(len(self.sins)), **arrs)
+                 __n_sins__=np.int64(len(self.sins)),
+                 __pool2__=np.bool_(self.pool2), **arrs)
 
     @classmethod
     def load(cls, path: str, device="cpu") -> "PackedConvOp":
@@ -565,12 +586,13 @@ class PackedConvOp(nn.Module):
                 classes["ssum"] = PackedSpec
             cfgs = load_configs(data["__cfg__"], **classes)
             ops = {k: data[k] for k in _operand_shapes(cfgs["cfg"])}
+            pool2 = "__pool2__" in data and bool(data["__pool2__"])
         op = cls.__new__(cls)
         nn.Module.__init__(op)
         op._set_state(cfgs["cfg"], tuple(cfgs[f"sin{i}"]
                                          for i in range(n_sins)),
                       cfgs["sout"], ops, device, cfgs.get("cfg_orig"),
-                      cfgs.get("ssum"))
+                      cfgs.get("ssum"), pool2)
         return op
 
 
@@ -582,7 +604,8 @@ def packed_conv_plain(op: PackedConvOp, arrs, sum_arr=None) -> torch.Tensor:
     kernel addresses them, accumulated tap by tap in float64 (every partial
     sum is an integer below 2^53, so the sum is exact). The sum operand is
     read at its image pixels and lanes < c, as stored. Writes image pixels
-    at (halo_out + y, col_off_out + x) and -128 everywhere else."""
+    at (halo_out + y, col_off_out + x) and -128 everywhere else; with pool2
+    the 2x2/s2 max of the u8 values first, at the pooled spec."""
     cfg, sin, sout = op.cfg, op.sin, op.sout
     n = arrs[0].shape[0]
     icp = layout.conv_icp(cfg.ic)
@@ -618,12 +641,15 @@ def packed_conv_plain(op: PackedConvOp, arrs, sum_arr=None) -> torch.Tensor:
         bias1 = op.bias1[:cfg.oc1x1] if cfg.conv1_with_bias else None
         val = requant_to_u8(acc1, bias1, op.scale1[:cfg.oc1x1],
                             cfg.conv1_round, sum_rounded)
-    out = torch.full((n, sout.rows, sout.iwp, sout.cp), -128,
-                     dtype=torch.int8, device=u.device)
-    out[:, sout.halo:sout.halo + cfg.oh,
-        sout.col_off:sout.col_off + cfg.ow, :cfg.out_oc] = \
-        (val ^ 0x80).view(torch.int8)
-    return out.reshape(sout.array_shape(n))
+    if op.pool2:
+        val = val.reshape(n, cfg.oh // 2, 2, cfg.ow // 2, 2,
+                          cfg.out_oc).amax(dim=(2, 4))
+    so = op.sout_final
+    out = torch.full((n, so.rows, so.iwp, so.cp), -128, dtype=torch.int8,
+                     device=u.device)
+    out[:, so.halo:so.halo + so.h, so.col_off:so.col_off + so.w,
+        :cfg.out_oc] = (val ^ 0x80).view(torch.int8)
+    return out.reshape(so.array_shape(n))
 
 
 def packed_conv_cuda(op: PackedConvOp, arrs, sum_arr=None) -> torch.Tensor:
@@ -636,7 +662,7 @@ def packed_conv_cuda(op: PackedConvOp, arrs, sum_arr=None) -> torch.Tensor:
     if sum_arr is not None:
         sum_arr = _build.aligned(sum_arr)
     n = arrs[0].shape[0]
-    out = torch.empty(sout.array_shape(n), dtype=torch.int8,
+    out = torch.empty(op.sout_final.array_shape(n), dtype=torch.int8,
                       device=arrs[0].device)
     fuse = cfg.fuse_conv1x1
     ptrs = (ctypes.c_void_p * len(arrs))(*[a.data_ptr() for a in arrs])
@@ -658,7 +684,7 @@ def packed_conv_cuda(op: PackedConvOp, arrs, sum_arr=None) -> torch.Tensor:
             int(cfg.conv1_round == round_mode.down),
             int(cfg.conv0_with_bias), int(cfg.conv1_with_bias), int(fuse),
             0 if ss is None else ss.rows, 0 if ss is None else ss.halo,
-            cfg.sum_scale,
+            int(op.pool2), cfg.sum_scale,
             _build.stream_of(out))
     _build.check(rc, "packed_conv_kernel")
     _build.count_launch("packed_conv")

@@ -26,9 +26,10 @@ MODULES = [
     "deepfusion_tpu_torch.ops.layout", "deepfusion_tpu_torch.ops.requant",
     "deepfusion_tpu_torch.ops.conv", "deepfusion_tpu_torch.ops.concat",
     "deepfusion_tpu_torch.ops.pool", "deepfusion_tpu_torch.ops.packed",
-    "deepfusion_tpu_torch.ops.convpool",
+    "deepfusion_tpu_torch.ops.convpool", "deepfusion_tpu_torch.ops.mega",
     "deepfusion_tpu_torch.models.fusionnet",
     "deepfusion_tpu_torch.models.resfusion",
+    "deepfusion_tpu_torch.models.vggfusion",
     "deepfusion_tpu_torch.serving",
 ]
 
@@ -52,7 +53,7 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("op", ["conv", "concat", "pool", "sum_relu",
                                 "packed_conv", "packed_sum_pool",
-                                "convpool"])
+                                "convpool", "pair_conv"])
 def test_non_cpu_tensors_never_take_the_plain_path(op, monkeypatch):
     """On a tensor that is not on the CPU each op goes to its kernel
     wrapper; with no kernel library to be had, it raises."""
@@ -75,6 +76,15 @@ def test_non_cpu_tensors_never_take_the_plain_path(op, monkeypatch):
             from deepfusion_tpu_torch.ops.pool import conv_relu_pool
             conv_relu_pool(x, np.zeros((16, 16, 3, 3), np.int8), None,
                            (1, 1), (1, 1), dst_dtype="u8")
+        elif op == "pair_conv":
+            from deepfusion_tpu_torch.config import ConvConfig
+            from deepfusion_tpu_torch.ops.mega import PackedConvPairOp
+            cfg = ConvConfig.make((1, 4, 4, 16), (16, 16, 3, 3), None,
+                                  (1, 1), (1, 1), (1, 4, 4, 16), "u8")
+            w = (np.zeros((16, 16, 3, 3), np.int8),)
+            pair = PackedConvPairOp(cfg, w, cfg, w, device="meta")
+            pair(torch.zeros(pair.sin.array_shape(1), dtype=torch.int8,
+                             device="meta"))
         elif op == "packed_conv":
             from deepfusion_tpu_torch.config import ConvConfig
             from deepfusion_tpu_torch.ops.packed import PackedConvOp

@@ -220,18 +220,101 @@ def test_packed_conv_reads_pad_slots_as_stored():
     assert not np.array_equal(got, clean)
 
 
-@pytest.mark.parametrize("feature", ["pool2", "emit_acc1", "t_range"])
+@pytest.mark.parametrize("feature", ["emit_acc1", "t_range"])
 def test_unported_features_raise(feature):
     cfg, _, wei, bia, _, _ = _cfgs(1, 12, 32, 32)
     with pytest.raises(NotImplementedError, match=feature):
-        if feature == "pool2":
-            T.PackedConvOp(cfg, wei, bia, pool2=True)
-        else:
-            op = T.PackedConvOp(cfg, wei, bia)
-            x = torch.full(op.sin.array_shape(1), -128, dtype=torch.int8)
-            kw = {"emit_acc1": dict(emit_acc1=True),
-                  "t_range": dict(t_range=(0, 1))}[feature]
-            op(x, **kw)
+        op = T.PackedConvOp(cfg, wei, bia)
+        x = torch.full(op.sin.array_shape(1), -128, dtype=torch.int8)
+        kw = {"emit_acc1": dict(emit_acc1=True),
+              "t_range": dict(t_range=(0, 1))}[feature]
+        op(x, **kw)
+
+
+# ------------------------------------------ K5's fused 2x2 pool (pool2)
+
+def _pool2_ops(fused, halo_out, rnd="nearest", sum_scale=None, seed=0):
+    """Port and JAX pool2 ops and the port's op without the pool, on the
+    geometry of tests/test_packed.py:410-460."""
+    cfg, jcfg, wei, bia, wei1, bia1 = _cfgs(
+        2, 12, 32, 32, oc1=32 if fused else None, rnd=rnd, per_oc=True,
+        seed=seed, sum_scale=sum_scale)
+    sin = T.PackedSpec.make(12, 12, 32, halo=max(halo_out + 1, 1),
+                            col_off=2, iwp=16)
+    ssum = None if sum_scale is None else T.PackedSpec.make(
+        12, 12, 32, halo=halo_out + 1, col_off=2, iwp=16)
+    kw = dict(col_off_out=2, halo_out=halo_out)
+    ops = [T.PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sin, sum_spec=ssum,
+                          pool2=pool2, **kw) for pool2 in (True, False)]
+    jop = J.PackedConvOp(jcfg, wei, bia, wei1, bia1, sin=jspec(sin),
+                         sum_spec=None if ssum is None else jspec(ssum),
+                         pool2=True, **kw)
+    assert jspec(ops[0].sout_pooled) == jop.sout_pooled
+    return ops[0], jop, ops[1]
+
+
+def _pool2_check(top, jop, plain, seed):
+    rng = np.random.default_rng(seed)
+    img = _edge_u8(rng, (2, 12, 12, 32))
+    x = T.pack_image(img, top.sin)
+    kw, jkw = {}, {}
+    if top.ssum is not None:
+        res = _edge_u8(rng, (2, 12, 12, top.ssum.c))
+        kw = dict(sum_arr=T.pack_image(res, top.ssum))
+        jkw = dict(sum_arr=J.pack_image(res, jspec(top.ssum)))
+    got = top(x, **kw)
+    assert tuple(got.shape) == top.sout_pooled.array_shape(2)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jop(J.pack_image(img, jspec(top.sin)),
+                                    **jkw)))
+    want, wspec = T.packed_maxpool2(plain(x, **kw), plain.sout)
+    assert wspec == top.sout_pooled
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("halo_out", [2, 0])
+def test_packed_conv_pool2_matches_jax(fused, halo_out):
+    """The fused 2x2/s2 max pool equals the JAX op with pool2 and
+    packed_maxpool2 of the unpooled conv, for deep and zero output
+    halos."""
+    _pool2_check(*_pool2_ops(fused, halo_out, seed=40 + fused + halo_out),
+                 seed=halo_out)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("rnd", ["nearest", "down"])
+def test_packed_conv_pool2_with_sum_matches_jax(rnd, fused):
+    """The sum operand joins at full resolution, before the pool."""
+    _pool2_check(*_pool2_ops(fused, 2, rnd=rnd, sum_scale=0.8,
+                             seed=50 + fused), seed=7)
+
+
+def test_packed_conv_pool2_save_load(tmp_path):
+    import json
+    top, _, _ = _pool2_ops(True, 2, seed=60)
+    path = str(tmp_path / "pp.npz")
+    top.save(path)
+    back = T.PackedConvOp.load(path)
+    assert back.pool2 and back.sout_pooled == top.sout_pooled
+    x = T.pack_image(_u8(np.random.default_rng(3), 2, top.sin), top.sin)
+    assert torch.equal(back(x), top(x))
+    # a hand-edited checkpoint with a pool-illegal output fails at load
+    data = dict(np.load(path, allow_pickle=False))
+    cfgs = json.loads(str(data["__cfg__"]))
+    cfgs["sout"]["col_off"] = 3
+    data["__cfg__"] = np.str_(json.dumps(cfgs))
+    np.savez(path, **data)
+    with pytest.raises(CheckError, match="maxpool2"):
+        T.PackedConvOp.load(path)
+
+
+def test_packed_conv_pool2_validation():
+    cfg, _, wei, bia, _, _ = _cfgs(1, 12, 32, 32)
+    sin = T.PackedSpec.make(12, 12, 32, halo=2, col_off=2, iwp=16)
+    with pytest.raises(CheckError, match="even halo and col_off"):
+        T.PackedConvOp(cfg, wei, bia, sin=sin, col_off_out=1, halo_out=2,
+                       pool2=True)
 
 
 def _sum_op_pair(delta, rnd, fused, seed):
