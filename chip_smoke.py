@@ -15,7 +15,9 @@ Phases, each printing its own lines:
      bytes in the pad slots; for the conv pair every fused combination
      with and without the pool, a channel change, round-down per-oc
      scales, deeper and shallower input halos, and bench.py's --pair
-     shape);
+     shape); then the kernel modes of the sharded path: K1b's and K5's raw
+     1x1 accumulator, K5's output row ranges from input row slices, K10's
+     widened intermediate bounds with row ranges (junk pads included);
   4. slice: FusionNet(FusionNetConfig()), ResFusionNet(ResFusionNetConfig())
      and VGGFusion(VGGFusionConfig()) on the card behind BatchServer each
      answer 20 requests through the dense forward, then 20 through the
@@ -28,7 +30,19 @@ Phases, each printing its own lines:
      VGGFusion block against the same block as two or three packed
      kernels, the forwards of all three models, served requests per second
      on every served path, and the packed fused conv and the conv pair at
-     bench.py's default and --pair shapes in TOP/s.
+     bench.py's default and --pair shapes in TOP/s; each kernel's bound (the
+     larger of its bytes over 3.35 TB/s and its operations over the peak
+     rate) and, where one PyTorch call computes the same function, that
+     call's time;
+  6. sharded: the parallel/ wrappers on meshes whose slots are all this
+     card (tp_fused_conv and tp_packed_fused at tp 2 and 4, both wires;
+     sp_conv at sp 2, 4 and dp 2 x sp 2; sp_packed on the packed conv at sp
+     2 and 4; dp_shard of the four op families; sp_packed on VGGFusion's
+     block 1 and 2 pairs with pool2; three_stage_plan at meshes (2, 2, 2)
+     and (1, 1, 1)), each bitwise equal to the single-device op, every
+     kernel mode launched; then each wrapper's time against its
+     single-device op (one card runs the shards in turn: the cost of
+     sharding, not scaling).
 
 Any failure raises and exits non-zero; nothing is caught. The line before
 the last is the per-kernel JSON summary, the last line the device JSON.
@@ -85,7 +99,12 @@ PATH_KERNELS = {
     ("VGGFusion", "packed"): ("pair_conv", "conv_fused"),
     ("VGGFusion", "hybrid"): ("pair_conv", "conv_fused", "convpool", "pool"),
 }
+# three_stage_plan in phase 6: bench.py's scaling-plan widths (64
+# channels, bench.py:673-678) at hw 128, batch 8 per dp shard
+PLAN = dict(mb=16, hw=128, c=64)
 H100_INT8_PEAK_TOPS = 1979.0   # dense, NVIDIA data sheet, SXM at 700 W
+H100_CORE_TOPS = 67.0          # f32 outside the tensor cores, same sheet
+H100_HBM_TBS = 3.35            # HBM3 bytes/s, same sheet
 
 
 def card() -> str:
@@ -150,14 +169,45 @@ def rand(rng, shape, dt, dev):
     return torch.from_numpy(a).to(dev)
 
 
+def nbytes(*items) -> int:
+    """Bytes of the tensors, lists of tensors and modules' buffers."""
+    total = 0
+    for it in items:
+        if isinstance(it, torch.nn.Module):
+            total += sum(b.numel() * b.element_size() for b in it.buffers())
+        elif isinstance(it, (list, tuple)):
+            total += nbytes(*it)
+        elif it is not None:
+            total += it.numel() * it.element_size()
+    return total
+
+
+def conv_ops(cfg, n=None) -> float:
+    """2 x the multiply-adds of a conv config (+ its fused 1x1)."""
+    per_px = cfg.kh * cfg.kw * cfg.ic * cfg.oc + (
+        cfg.oc * cfg.oc1x1 if cfg.fuse_conv1x1 else 0)
+    return 2.0 * (n or cfg.bs) * cfg.oh * cfg.ow * per_px
+
+
+def bound_ms(nbytes_: float, ops: float, tensor: bool = True):
+    """(ms, what binds): the larger of bytes over HBM rate and operations
+    over the peak rate of their type (int8 tensor cores, or the CUDA
+    cores for elementwise work)."""
+    t_b = nbytes_ / (H100_HBM_TBS * 1e12) * 1e3
+    rate = H100_INT8_PEAK_TOPS if tensor else H100_CORE_TOPS
+    t_o = ops / (rate * 1e12) * 1e3
+    return (t_o, "operations") if t_o > t_b else (t_b, "bytes")
+
+
 class Parity:
     """Bitwise comparison of a kernel with its plain version."""
 
     def __init__(self):
         self.cases = {k: 0 for k in KERNEL_INFO}
         self.err = {k: 0.0 for k in KERNEL_INFO}
+        self.modes = {}
 
-    def check(self, kernel: str, what: str, got, want):
+    def check(self, kernel: str, what: str, got, want, mode=None):
         torch.cuda.synchronize()
         assert got.shape == want.shape and got.dtype == want.dtype, \
             f"{kernel} {what}: {got.shape}/{got.dtype} vs " \
@@ -167,6 +217,8 @@ class Parity:
                            initial=0.0))
         self.err[kernel] = max(self.err[kernel], err)
         self.cases[kernel] += 1
+        if mode:
+            self.modes[mode] = self.modes.get(mode, 0) + 1
         if not np.array_equal(g, w, equal_nan=True):
             bad = np.argwhere(g != w)[:5]
             raise AssertionError(
@@ -422,9 +474,14 @@ def phase_parity(net, rnet, vnet, dev) -> Parity:
                       P.sum_relu_plain(a, b, dt, relu))
     packed_parity(net, rnet, dev, par)
     pair_parity(vnet, dev, par)
+    acc1_parity(net, dev, par)
+    range_parity(vnet, dev, par)
     for k in KERNEL_INFO:
         print(f"parity: {k} bitwise equal to its plain version in "
               f"{par.cases[k]} cases, max_abs_err {par.err[k]}", flush=True)
+    for m, c in sorted(par.modes.items()):
+        print(f"parity: mode {m} bitwise equal to its plain version in {c} "
+              f"cases", flush=True)
     return par
 
 
@@ -690,6 +747,271 @@ def pair_parity(vnet, dev, par):
                   M.pair_conv_plain(pair, x))
 
 
+def scaling_layer(dev, oc=256):
+    """bench.py's scaling-op layer (bench.py:730-742): batch 8, 128x128x256
+    -> 3x3:256 -> 1x1:256, u8 out, seed 0; with oc < 256 the first oc of
+    the 3x3's channels (a tensor-parallel shard's slice). Returns (cfg,
+    weights, the input on dev)."""
+    from deepfusion_tpu_torch.config import ConvConfig
+    rng = np.random.default_rng(0)
+    bs, hw, c = 8, 128, 256
+    src = rng.integers(0, 256, (bs, hw, hw, c), dtype=np.uint8)
+    wei = rng.integers(-127, 128, (c, c, 3, 3)).astype(np.int8)
+    bia = rng.integers(-100, 101, (c,)).astype(np.int32)
+    wei1 = rng.integers(-127, 128, (c, c, 1, 1)).astype(np.int8)
+    bia1 = rng.integers(-100, 101, (c,)).astype(np.int32)
+    cfg = ConvConfig.make((bs, hw, hw, c), (oc, c, 3, 3), bia.dtype, (1, 1),
+                          (1, 1), (bs, hw, hw, c), "u8", conv0_scales=(0.001,),
+                          wei1x1_shape=(c, oc, 1, 1), bia1x1_dt=bia1.dtype,
+                          conv1_relu=True, conv1_scales=(0.05,))
+    return (cfg, (wei[:oc], bia[:oc], wei1[:, :oc], bia1),
+            torch.from_numpy(src).to(dev))
+
+
+def vgg_pair(vnet, b, dev, halo=4):
+    """VGGFusion block b's pair (its weights, pool2, halo_out 2) on an input
+    of halo `halo`: halo_out + ph_a + ph_b = 4 is what sp_packed needs."""
+    from deepfusion_tpu_torch.ops.mega import PackedConvPairOp
+    from deepfusion_tpu_torch.ops.packed import PackedSpec
+    from deepfusion_tpu_torch.utils.mathutil import round_up
+    ca, cb = (vnet._conv_cfg(f"block{b}_conv{i}") for i in (1, 2))
+    p1, p2 = (vnet.params[f"block{b}_conv{i}"] for i in (1, 2))
+    sin = PackedSpec.make(ca.ih, ca.iw, ca.ic, halo=halo, col_off=2,
+                          iwp=round_up(ca.iw + 4, 16))
+    return PackedConvPairOp(ca, (p1["wei"], p1.get("bia")), cb,
+                            (p2["wei"], p2.get("bia")), sin=sin, halo_out=2,
+                            col_off_out=2, pool2=True, device=dev)
+
+
+def acc1_parity(net, dev, par):
+    """K1b's and K5's raw 1x1 accumulator (emit_acc1) against their plain
+    versions: FusionNet's fused layers, a tensor-parallel shard's slice of
+    bench.py's scaling layer (tp 2 and 4), the fused extra cases, junk pads
+    for K5."""
+    from deepfusion_tpu_torch.ops import packed as PK
+    from deepfusion_tpu_torch.ops.conv import ConvOp, conv_cuda, conv_plain
+    from deepfusion_tpu_torch.ops.packed import PackedConvOp
+    from deepfusion_tpu_torch.types import dtype
+    rng = np.random.default_rng(17)
+    cases = [(f"FusionNet {k}", getattr(net, k)) for k in ("block1", "block2")]
+    for oc in (128, 64):
+        cfg, w, x = scaling_layer(dev, oc)
+        cases.append((f"scaling layer 3x3 channels [0, {oc})",
+                      ConvOp(cfg, *w, device=dev), x))
+    cases += [(label, op, x) for label, op, x, sm in conv_cases(dev)
+              if op.cfg.fuse_conv1x1 and sm is None]
+    for case in cases:
+        label, op = case[:2]
+        c = op.cfg
+        x = case[2] if len(case) > 2 else rand(
+            rng, (c.bs, c.ih, c.iw, c.ic), dtype.u8, dev)
+        par.check("conv_fused", f"acc1 {label}",
+                  conv_cuda(op, x, emit_acc1=True),
+                  conv_plain(op, x, emit_acc1=True), "conv_fused.acc1")
+    pcases = [(f"FusionNet {k}", op, net.cfg.batch, junk)
+              for k, op in net.build_packed().items()
+              if op.cfg.fuse_conv1x1 and len(op.sins) == 1
+              for junk in (False, True)]
+    cfg, w, _ = scaling_layer(dev, 128)
+    pcases.append(("scaling layer 3x3 channels [0, 128)",
+                   PackedConvOp(cfg, *w, device=dev), cfg.bs, False))
+    pcases += [(label, op, n, junk)
+               for label, op, n, junk in packed_conv_cases(dev)
+               if op.cfg.fuse_conv1x1 and len(op.sins) == 1
+               and op.ssum is None and not op.pool2]
+    for label, op, n, junk in pcases:
+        x = packed_input(rng, op.sin, n, dev, junk)
+        par.check("packed_conv", f"acc1 {label} junk={junk}",
+                  PK.packed_conv_cuda(op, [x], emit_acc1=True),
+                  PK.packed_conv_plain(op, [x], emit_acc1=True),
+                  "packed_conv.acc1")
+
+
+def range_cuts(rows):
+    """Cuts of an array's rows into four ranges: an edge row, a short one,
+    the middle, the last rows."""
+    return sorted({0, 1, min(3, rows - 1), max(rows - 3, 1), rows})
+
+
+def range_parity(vnet, dev, par):
+    """K5's output row ranges, each from the input row slice it reads (as
+    sp_packed calls it), and K10's widened intermediate bounds with row
+    ranges, against their plain versions, junk pads included: a
+    sequence-parallel shard of bench.py's scaling layer, the pool2 and sum
+    cases, and shards of VGGFusion's block pairs."""
+    from deepfusion_tpu_torch.ops import mega as M
+    from deepfusion_tpu_torch.ops import packed as PK
+    from deepfusion_tpu_torch.ops.packed import PackedConvOp
+    rng = np.random.default_rng(18)
+    cfg, w, _ = scaling_layer(dev)
+    ops = [("scaling layer, sp=2 shard", PackedConvOp(cfg, *w, device=dev)
+            .reheight(64), cfg.bs, False)]
+    ops += [(label, op, n, junk)
+            for label, op, n, junk in packed_conv_cases(dev)
+            if label.startswith(("pool2", "sum halo+1", "3x3", "fused n"))]
+    for label, op, n, junk in ops:
+        arrs = [packed_input(rng, s, n, dev, junk) for s in op.sins]
+        sm = None if op.ssum is None else packed_input(rng, op.ssum, n, dev,
+                                                       junk)
+        iwp, c = op.sin.iwp, op.cfg
+        cuts = range_cuts(op.sout_final.rows)
+        for r in zip(cuts, cuts[1:]):
+            _, _, oy0, oy1 = op._row_plan(r)
+            lo = op.sin.halo + oy0 - c.ph
+            hi = lo + oy1 - oy0 + c.kh - 1 if oy1 > oy0 else lo
+            sl = [a[:, lo * iwp:hi * iwp] for a in arrs]
+            kw = dict(rows=r, row0_off=lo)
+            par.check("packed_conv", f"rows {r} {label}",
+                      PK.packed_conv_cuda(op, sl, sm, **kw),
+                      PK.packed_conv_plain(op, sl, sm, **kw),
+                      "packed_conv.rows")
+    for b, sp in ((1, 4), (2, 2), (3, 1)):
+        pair = vgg_pair(vnet, b, dev)
+        h = pair.cfg_a.ih // sp
+        local = pair.reheight(h)
+        ph_b = local.cfg_b.ph
+        for junk in (False, True):
+            x = packed_input(rng, local.sin, vnet.cfg.batch, dev, junk)
+            for j, bounds in (("first", (0, h + ph_b)),
+                              ("inner", (-ph_b, h + ph_b)),
+                              ("last", (-ph_b, h))):
+                what = f"VGGFusion block{b} sp={sp} {j} shard junk={junk}"
+                par.check("pair_conv", f"bounds {what}",
+                          M.pair_conv_cuda(local, x, mid_bounds=bounds),
+                          M.pair_conv_plain(local, x, mid_bounds=bounds),
+                          "pair_conv.bounds")
+                cuts = range_cuts(local.sout_final.rows)
+                iwp, ca = local.sin.iwp, local.cfg_a
+                for r in zip(cuts, cuts[1:]):
+                    y0, y1 = local._mid_rows(r, bounds)
+                    lo = local.sin.halo + y0 - ca.ph
+                    hi = lo + y1 - y0 + ca.kh - 1 if y1 > y0 else lo
+                    kw = dict(rows=r, row0_off=lo, mid_bounds=bounds)
+                    xs = x[:, lo * iwp:hi * iwp]
+                    par.check("pair_conv", f"rows {r} {what}",
+                              M.pair_conv_cuda(local, xs, **kw),
+                              M.pair_conv_plain(local, xs, **kw),
+                              "pair_conv.rows")
+
+
+def phase_sharded(vnet, dev, name_power):
+    """Phase 6: the parallel/ wrappers on meshes whose slots are all this
+    card, each result bitwise equal to the single-device op's, every kernel
+    mode launched in the run; then each wrapper's time against its
+    single-device op. Returns the launch counts of the run."""
+    from deepfusion_tpu_torch import _build
+    from deepfusion_tpu_torch.ops.conv import ConvOp
+    from deepfusion_tpu_torch.ops.packed import (PackedConvOp, pack_image,
+                                                 pack_image_sharded,
+                                                 unpack_image,
+                                                 unpack_image_sharded)
+    from deepfusion_tpu_torch.parallel import (dp_shard, make_mesh,
+                                               sp_conv, sp_packed,
+                                               tp_fused_conv,
+                                               tp_packed_fused)
+    from deepfusion_tpu_torch.parallel.plan import three_stage_plan
+    from deepfusion_tpu_torch.types import dtype
+    from deepfusion_tpu_torch.utils.logger import check
+
+    def mesh(dp=1, sp=1, tp=1):
+        return make_mesh(dp, sp, tp, devices=[dev] * (dp * sp * tp))
+
+    cfg, w, x = scaling_layer(dev)
+    op = ConvOp(cfg, *w, device=dev)
+    pop = PackedConvOp(cfg, *w, device=dev)
+    px = pack_image(x, pop.sin)
+    cases = []     # (label, sharded call, single-device call, as images)
+    for n in (2, 4):
+        for wire in ("psum", "reduce_scatter"):
+            cases.append((f"tp_fused_conv tp={n} {wire}",
+                          tp_fused_conv(cfg, *w, mesh(tp=n), wire=wire), x,
+                          lambda: op(x)))
+            cases.append((f"tp_packed_fused tp={n} {wire}",
+                          tp_packed_fused(pop, mesh(tp=n), wire=wire), px,
+                          lambda: pop(px)))
+    for label, m, dp_axis in (("sp=2", mesh(sp=2), None),
+                              ("sp=4", mesh(sp=4), None),
+                              ("dp=2 x sp=2", mesh(dp=2, sp=2), "dp")):
+        cases.append((f"sp_conv {label}", sp_conv(op, m, dp_axis=dp_axis), x,
+                      lambda: op(x)))
+
+    def sp_case(label, pk, n, img):
+        fn = sp_packed(pk, mesh(sp=n))
+        xs = pack_image_sharded(img, fn.local_spec, n)
+        g = pk.pack_input(img)
+        cases.append((label, lambda a: unpack_image_sharded(
+            fn(a), fn.local_out_spec, n), xs,
+            lambda: unpack_image(pk(g), pk.sout_final)))
+    for n in (2, 4):
+        sp_case(f"sp_packed packed conv sp={n}", pop, n, x)
+    pair1 = vnet.build_packed()[0]
+    cp = vnet.convpool2[0]
+    u8 = rand(np.random.default_rng(19),
+              (vnet.cfg.batch, cp.cfg.ih, cp.cfg.iw, cp.cfg.ic), dtype.u8, dev)
+    p1x = pair1.pack_input(torch.from_numpy(vnet.example_input()).to(dev))
+    for label, o, a in (("ConvOp", op, x), ("ConvPoolOp", cp, u8),
+                        ("PackedConvOp", pop, px),
+                        ("PackedConvPairOp", pair1, p1x)):
+        cases.append((f"dp_shard {label} dp=2", dp_shard(o, mesh(dp=2)), a,
+                      lambda o=o, a=a: o(a)))
+    rng = np.random.default_rng(20)
+    for b, n in ((1, 2), (1, 4), (2, 2)):
+        pr = vgg_pair(vnet, b, dev)
+        img = torch.from_numpy(rng.integers(
+            0, 256, (vnet.cfg.batch, pr.sin.h, pr.sin.w, pr.sin.c),
+            dtype=np.uint8)).to(dev)
+        sp_case(f"sp_packed VGGFusion block{b} pair pool2 sp={n}", pr, n, img)
+
+    results = {}
+    _build.reset_launch_counts()
+    with torch.inference_mode():
+        for label, fn, a, single in cases:
+            got, want = fn(a), single()
+            torch.cuda.synchronize()
+            check(got.device == want.device and torch.equal(got, want),
+                  f"{label}: not bitwise equal to the single-device op")
+            results[label] = got.shape
+        # the composed plan at bench.py's scaling-plan widths, hw 128
+        outs = {}
+        mb, hw, c = PLAN["mb"], PLAN["hw"], PLAN["c"]
+        for m in ((2, 2, 2), (1, 1, 1)):
+            step, _, _ = three_stage_plan(mesh(*m), mb, hw, c, c, c,
+                                          rng=np.random.default_rng(0))
+            src = torch.from_numpy(np.random.default_rng(1).integers(
+                0, 256, (mb, hw, hw, c), dtype=np.uint8)).to(dev)
+            outs[m] = (step, src, step(src))
+        torch.cuda.synchronize()
+        check(torch.equal(outs[(2, 2, 2)][2], outs[(1, 1, 1)][2]),
+              "three_stage_plan differs between meshes (2, 2, 2) and "
+              "(1, 1, 1)")
+    counts, modes = _build.launch_counts(), _build.mode_counts()
+    for label, shape in results.items():
+        print(f"sharded: {label}: {tuple(shape)} bitwise equal to the "
+              f"single-device op", flush=True)
+    print(f"sharded: three_stage_plan {(mb, hw, hw, c)} -> "
+          f"{tuple(outs[(1, 1, 1)][2].shape)}, mesh (2, 2, 2) bitwise equal "
+          "to mesh (1, 1, 1)", flush=True)
+    print(f"sharded: launches {counts}; modes {modes}", flush=True)
+    for k, v in modes.items():
+        check(v > 0, f"kernel mode {k} was not launched on the sharded path")
+    for k in ("conv_fused", "packed_conv", "pair_conv", "convpool"):
+        check(counts[k] > 0, f"kernel {k} was not launched on the sharded "
+                             "path")
+
+    with torch.inference_mode():
+        for label, fn, a, single in cases:
+            t_s, t_1 = cuda_ms(lambda: fn(a), reps=5), cuda_ms(single, reps=5)
+            print(f"timing: sharded {label} ms={t_s:.4f} single_device_ms="
+                  f"{t_1:.4f} ratio={t_s / t_1:.3f} (one card, shards in "
+                  f"turn) card=\"{name_power}\"", flush=True)
+        t = {m: cuda_ms(lambda v=v: v[0](v[1]), reps=5)
+             for m, v in outs.items()}
+        print(f"timing: sharded three_stage_plan mesh (2, 2, 2) "
+              f"ms={t[(2, 2, 2)]:.4f} mesh (1, 1, 1) ms={t[(1, 1, 1)]:.4f} "
+              f"(one card) card=\"{name_power}\"", flush=True)
+    return counts
+
+
 def slice_requests(net, golden_path):
     """20 requests (the golden input's 8 first, where stored), the plain
     dense forward's logits for them on the CPU (the same model, built on
@@ -881,7 +1203,8 @@ def resfusion_timings(rnet, dev, name_power, timed):
     x = rand(rng, (c.bs, c.ih, c.iw, c.ic), u8, dev)
     timed("convpool", "ResFusionNet down (K9)",
           lambda: CP.convpool_cuda(rnet.down, x),
-          lambda: CP.convpool_plain(rnet.down, x))
+          lambda: CP.convpool_plain(rnet.down, x), reads=(x, rnet.down),
+          ops=conv_ops(c))
     # the same layer as two kernels: the conv's u8 output through memory,
     # then the 2x2 max pool
     P = importlib.import_module("deepfusion_tpu_torch.ops.pool")
@@ -903,13 +1226,15 @@ def resfusion_timings(rnet, dev, name_power, timed):
             if c.with_sum else None
         timed("conv_fused", f"ResFusionNet {name}",
               lambda: K.conv_cuda(op, xi, sm),
-              lambda: K.conv_plain(op, xi, sm), in_forward=False)
+              lambda: K.conv_plain(op, xi, sm), in_forward=False,
+              reads=(xi, sm, op), ops=conv_ops(c))
     for name, op in rnet.build_packed().items():
         arrs = [packed_input(rng, s, n, dev) for s in op.sins]
         sm = None if op.ssum is None else packed_input(rng, op.ssum, n, dev)
         timed("packed_conv", f"ResFusionNet {name}",
               lambda: PK.packed_conv_cuda(op, arrs, sm),
-              lambda: PK.packed_conv_plain(op, arrs, sm), in_forward=False)
+              lambda: PK.packed_conv_plain(op, arrs, sm), in_forward=False,
+              reads=(arrs, sm, op), ops=conv_ops(op.cfg_orig or op.cfg, n))
     xr = torch.from_numpy(rnet.example_input()).to(dev)
     pm = rnet.packed_module()
     time_forwards("ResFusionNet", {"dense": lambda: rnet(xr),
@@ -937,7 +1262,8 @@ def vggfusion_timings(vnet, dev, name_power, timed):
         x = packed_input(rng, pair.sin, n, dev)
         timed("pair_conv", f"VGGFusion block{b}",
               lambda: M.pair_conv_cuda(pair, x),
-              lambda: M.pair_conv_plain(pair, x))
+              lambda: M.pair_conv_plain(pair, x), reads=(x, pair),
+              ops=conv_ops(pair.cfg_a, n) + conv_ops(pair.cfg_b, n))
         p2 = vnet.params[f"block{b}_conv2"]
         op_b = PackedConvOp(pair.cfg_b, p2["wei"], p2.get("bia"),
                             sin=pair.op_b.sin, col_off_out=pair.sout.col_off,
@@ -955,7 +1281,8 @@ def vggfusion_timings(vnet, dev, name_power, timed):
         timed("packed_conv", f"VGGFusion block{b} conv b with pool2",
               lambda: PK.packed_conv_cuda(pair.op_b, [mid]),
               lambda: PK.packed_conv_plain(pair.op_b, [mid]),
-              in_forward=False)
+              in_forward=False, reads=(mid, pair.op_b),
+              ops=conv_ops(pair.cfg_b, n))
         ref = M.pair_conv_cuda(pair, x)
         for label, fn in (("packed conv a, packed conv b, K7 pool", three),
                           ("packed conv a, packed conv b with pool2", two)):
@@ -976,6 +1303,9 @@ def vggfusion_timings(vnet, dev, name_power, timed):
 
 def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
                   counts) -> list:
+    """Phase 5; returns the kernels' JSON rows (sums over the calls one
+    forward of each model makes: FusionNet's layers, its packed layers,
+    ResFusionNet's downsample, VGGFusion's pairs)."""
     from deepfusion_tpu_torch.config import ConcatConfig, PoolConfig
     from deepfusion_tpu_torch.models.fusionnet import LAYERS
     C = importlib.import_module("deepfusion_tpu_torch.ops.concat")
@@ -985,17 +1315,33 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
     from deepfusion_tpu_torch.types import dtype
     rng = np.random.default_rng(9)
     u8 = dtype.u8
-    per = {k: [0.0, 0.0, 0.0, 0.0] for k in KERNEL_INFO}
+    # ms, plain ms, device ms, plain device ms, bound ms, bytes-bound ms,
+    # operations-bound ms, library ms (nan once a call has none)
+    per = {k: [0.0] * 8 for k in KERNEL_INFO}
 
-    def timed(kernel, label, fn_kernel, fn_plain, in_forward=True):
+    def timed(kernel, label, fn_kernel, fn_plain, in_forward=True, reads=(),
+              ops=0.0, tensor=True, library=None):
+        """Time a kernel and its plain version; its bound from the bytes it
+        must move (reads, each once, and its output) and its operations;
+        the library call's time where there is one."""
         t = (cuda_ms(fn_kernel), cuda_ms(fn_plain), device_ms(fn_kernel),
              device_ms(fn_plain))
+        nb = nbytes(reads, fn_kernel())
+        b_ms, b_by = bound_ms(nb, ops, tensor)
+        nan = float("nan")
+        lib = (nan, nan) if library is None else (cuda_ms(library),
+                                                  device_ms(library))
         if in_forward:
-            for i, v in enumerate(t):
+            parts = t + (b_ms, bound_ms(nb, 0)[0], bound_ms(0, ops, tensor)[0],
+                         lib[0])
+            for i, v in enumerate(parts):
                 per[kernel][i] += v
         print(f"timing: {kernel} {label} ms={t[0]:.4f} plain_ms={t[1]:.4f} "
               f"device_ms={t[2]:.4f} plain_device_ms={t[3]:.4f} "
-              f"card=\"{name_power}\"", flush=True)
+              f"bound_ms={b_ms:.4f} bound_by={b_by} bytes={nb} ops={ops:.4g} "
+              f"library_ms={lib[0]:.4f} library_device_ms={lib[1]:.4f} "
+              f"card=\"{name_power}\"",
+              flush=True)
 
     w = cfg.width
     packed = net.build_packed()
@@ -1005,31 +1351,38 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
             c = op.cfg
             x = rand(rng, (c.bs, c.ih, c.iw, c.ic), u8, dev)
             timed("conv_fused", name, lambda: K.conv_cuda(op, x),
-                  lambda: K.conv_plain(op, x))
+                  lambda: K.conv_plain(op, x), reads=(x, op),
+                  ops=conv_ops(c))
         n, hw = cfg.batch, cfg.hw
         xs = [rand(rng, (n, hw, hw, w), u8, dev) for _ in range(2)]
         ccfg = ConcatConfig.make([tuple(x.shape) for x in xs], u8, True)
         timed("concat_relu", "branch merge", lambda: C.concat_cuda(xs, ccfg),
-              lambda: C.concat_plain(xs, ccfg))
+              lambda: C.concat_plain(xs, ccfg), reads=xs, tensor=False,
+              library=lambda: torch.cat(xs, dim=-1))
         y = rand(rng, (n, hw, hw, 2 * w), u8, dev)
         r = rand(rng, (n, hw, hw, 2 * w), u8, dev)
         timed("sum_relu", "residual", lambda: P.sum_relu_cuda(y, r, u8, True),
-              lambda: P.sum_relu_plain(y, r, u8, True))
+              lambda: P.sum_relu_plain(y, r, u8, True), reads=(y, r),
+              ops=y.numel(), tensor=False)
         pc = PoolConfig.make("max", (hw, hw), (2, 2), (2, 2), (0, 0))
         timed("pool", "maxpool 2x2/s2", lambda: P.pool_cuda(y, pc, u8),
-              lambda: P.pool_plain(y, pc, u8))
+              lambda: P.pool_plain(y, pc, u8), reads=(y,), ops=y.numel(),
+              tensor=False, library=lambda: y.reshape(
+                  n, hw // 2, 2, hw // 2, 2, 2 * w).amax(dim=(2, 4)))
         h2 = hw // 2
         z = rand(rng, (n, h2, h2, w), u8, dev)
         pc2 = PoolConfig.make("avg_exc", (h2, h2), (h2, h2), (h2, h2), (0, 0))
         timed("pool", "global avg_exc", lambda: P.pool_cuda(z, pc2, u8),
-              lambda: P.pool_plain(z, pc2, u8))
+              lambda: P.pool_plain(z, pc2, u8), reads=(z,), ops=z.numel(),
+              tensor=False)
 
         # the packed path's kernels at its shapes (the head is conv_fused,
         # timed above with the dense path)
         for name, op in packed.items():
             arrs = [packed_input(rng, s, n, dev) for s in op.sins]
             timed("packed_conv", name, lambda: PK.packed_conv_cuda(op, arrs),
-                  lambda: PK.packed_conv_plain(op, arrs))
+                  lambda: PK.packed_conv_plain(op, arrs), reads=(arrs, op),
+                  ops=conv_ops(op.cfg_orig or op.cfg, n))
         rs = packed["res"].sout
         ys = [packed_input(rng, s, n, dev)
               for s in (packed["block1"].sout, packed["branch"].sout)]
@@ -1037,7 +1390,8 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
         timed("packed_sum_pool", "residual sum+pool (K8)",
               lambda: PK.packed_sum_pool_cuda(ys, rr, True, rs.rows, rs.iwp),
               lambda: PK.packed_sum_pool_plain(ys, rr, True, rs.rows,
-                                               rs.iwp))
+                                               rs.iwp), reads=(ys, rr),
+              ops=2 * rr.numel(), tensor=False)
         y2 = torch.cat(ys, dim=-1)
         for label, args in (("sum only (K6)", ([y2], rr, False)),
                             ("pool only (K7)", ([y2], None, True))):
@@ -1099,11 +1453,14 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
 
     rows = []
     for k, (src, replaces, also) in KERNEL_INFO.items():
+        p = per[k]
         row = {"name": k, "route": "cuda", "source": src,
                "replaces": replaces, "launches": counts[k],
-               "max_abs_err": parity.err[k], "ms": _num(per[k][0]),
-               "plain_ms": _num(per[k][1]), "device_ms": _num(per[k][2]),
-               "plain_device_ms": _num(per[k][3])}
+               "max_abs_err": parity.err[k], "ms": _num(p[0]),
+               "plain_ms": _num(p[1]), "bound_ms": _num(p[4]),
+               "bound_by": "operations" if p[6] > p[5] else "bytes",
+               "library_ms": _num(p[7]), "device_ms": _num(p[2]),
+               "plain_device_ms": _num(p[3])}
         if also:
             row["also_replaces"] = also
         rows.append(row)
@@ -1148,6 +1505,9 @@ def main():
         counts[k] += got[k]
     rows = phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
                          counts)
+    got = phase_sharded(vnet, dev, name_power)
+    for row in rows:
+        row["launches"] += got[row["name"]]
     print(name_power)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

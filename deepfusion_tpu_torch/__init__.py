@@ -13,7 +13,10 @@ the packed residual sum and 2x2 max pool) and ``FusionNet.packed_call``;
 and ResFusionNet's serving paths, dense and packed: the conv sum post-op,
 strided packed convs on the space-to-depth grid, ``ops.convpool`` (the
 fused conv+pool kernel), ``ops.pool.conv_relu_pool`` and
-``models.ResFusionNet``.
+``models.ResFusionNet``; VGGFusion's serving paths (``ops.mega``, the conv
+pair in one kernel, and ``models.VGGFusion``); and the sharded path
+``parallel`` (dp / tp / sp wrappers over a mesh of torch devices, and
+``parallel.plan.three_stage_plan``).
 """
 from . import config, ops, serving, types, utils  # noqa: F401
 from .config import ConcatConfig, ConvConfig, PoolConfig  # noqa: F401

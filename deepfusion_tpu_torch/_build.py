@@ -10,7 +10,8 @@ build raises: there is no fallback to the plain PyTorch versions.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check(rc, name)`` turns a non-zero code into an
-exception.
+exception. Each wrapper counts its launches per kernel (``launch_counts``)
+and, for the modes the sharded wrappers use, per mode (``mode_counts``).
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ _SIGNATURES = {
     "df_pool": [_P, _P] + [_I] * 15 + [_P],
     "df_sum_relu": [_P, _P, _P, _L, _I, _I, _P],
     "df_packed_conv": [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(_I),
-                       _I] + [_P] * 8 + [_I] * 26 + [_F, _P],
+                       _I] + [_P] * 8 + [_I] * 29 + [_F, _P],
     "df_packed_sum_pool": [ctypes.POINTER(ctypes.c_void_p),
                            ctypes.POINTER(_I), _I, _P, _P] + [_I] * 6 + [_P],
     "df_pair_conv": [_P, ctypes.POINTER(ctypes.c_void_p),
@@ -55,16 +56,23 @@ _SIGNATURES = {
 
 KERNELS = ("conv_fused", "concat_relu", "pool", "sum_relu", "packed_conv",
            "packed_sum_pool", "convpool", "pair_conv")
+# kernel modes counted on their own: the raw 1x1 accumulator (emit_acc1),
+# an output row range (or input row slice), the widened intermediate bounds
+MODES = ("conv_fused.acc1", "packed_conv.acc1", "packed_conv.rows",
+         "pair_conv.rows", "pair_conv.bounds")
 
 _counts_lock = threading.Lock()
 _counts = dict.fromkeys(KERNELS, 0)
+_modes = dict.fromkeys(MODES, 0)
 
 
-def count_launch(name: str) -> None:
-    """Add one to `name`'s launch count; each wrapper calls this right after
-    its kernel launched."""
+def count_launch(name: str, *modes: str) -> None:
+    """Add one to `name`'s launch count and to each of its `modes`; each
+    wrapper calls this right after its kernel launched."""
     with _counts_lock:
         _counts[name] += 1
+        for m in modes:
+            _modes[f"{name}.{m}"] += 1
 
 
 def launch_counts() -> dict:
@@ -72,10 +80,16 @@ def launch_counts() -> dict:
         return dict(_counts)
 
 
+def mode_counts() -> dict:
+    with _counts_lock:
+        return dict(_modes)
+
+
 def reset_launch_counts() -> None:
     with _counts_lock:
-        for k in _counts:
-            _counts[k] = 0
+        for d in (_counts, _modes):
+            for k in d:
+                d[k] = 0
 
 
 def _nvcc() -> str:

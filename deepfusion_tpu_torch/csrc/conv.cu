@@ -3,7 +3,10 @@
 //
 // Replaces deepfusion_tpu/ops/conv.py:_conv_kernel and
 // deepfusion_tpu/ops/conv.py:_conv_fused_kernel (launcher _conv_pallas),
-// with the eltwise-sum post-op.
+// with the eltwise-sum post-op and emit_acc1: with DST = DT_ACC the fused
+// kernel stores the raw s32 1x1 accumulator, NHWC (n, oh, ow, oc1), with no
+// bias, scale or requant (deepfusion_tpu/ops/conv.py:conv_fused_acc1, the
+// tensor-parallel local step).
 //
 // What it computes, per output pixel p and channel o:
 //   acc0[p,o] = sum_{ki,kj,c} src_u8[n, y*sh-ph+ki, x*sw-pw+kj, c] * w0[o,c,ki,kj]
@@ -52,6 +55,33 @@
 
 namespace {
 
+// The DST of the fused kernel's raw 1x1 accumulator store (not a dtype code)
+constexpr int DT_ACC = 0;
+
+// Store the warp's tile of the raw s32 accumulator: pixels p0 + [0, L.m),
+// channels n0 + [0, nb) of oc, NHWC.
+__device__ __forceinline__ void store_acc(const ConvArgs& a,
+                                          const int32_t (&acc)[MI][NI][4],
+                                          long long p0, long long total,
+                                          int n0, int oc, int ntiles) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp / a.wc, wc = warp % a.wc;
+  int32_t* dst = static_cast<int32_t*>(a.dst);
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      if (ni >= ntiles) continue;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const long long gp = p0 + wr * 32 + mi * 16 + g + (r >> 1) * 8;
+        const int o = n0 + wc * 64 + ni * 8 + 2 * t + (r & 1);
+        if (gp < total && o < oc) dst[(size_t)gp * oc + o] = acc[mi][ni][r];
+      }
+    }
+}
+
 // Requantize the warp's tile of the final stage and store it (with the sum
 // operand's element at the same index when SUM): pixels p0 + [0, L.m),
 // channels n0 + [0, nb) of oc. The caller picks SUM with one uniform
@@ -94,7 +124,9 @@ __device__ __forceinline__ void store_final(
     const ConvArgs& a, const int32_t (&acc)[MI][NI][4], long long p0,
     long long total, int n0, int oc, bool has_bias, const float* bias,
     const float* scale, bool relu, bool down, int ntiles) {
-  if (a.sum)
+  if constexpr (DST == DT_ACC)
+    store_acc(a, acc, p0, total, n0, oc, ntiles);
+  else if (a.sum)
     store_tile<DST, true>(a, acc, p0, total, n0, oc, has_bias, bias, scale,
                           relu, down, ntiles);
   else
@@ -216,6 +248,9 @@ int launch(const ConvArgs& a, cudaStream_t stream) {
 template <bool FUSE>
 int launch_dst(const ConvArgs& a, int dst_dt, cudaStream_t stream) {
   switch (dst_dt) {
+    case DT_ACC:
+      if constexpr (FUSE) return launch<true, DT_ACC>(a, stream);
+      return (int)cudaErrorInvalidValue;
     case DT_F32: return launch<FUSE, DT_F32>(a, stream);
     case DT_S32: return launch<FUSE, DT_S32>(a, stream);
     case DT_S8: return launch<FUSE, DT_S8>(a, stream);
@@ -226,7 +261,9 @@ int launch_dst(const ConvArgs& a, int dst_dt, cudaStream_t stream) {
 
 }  // namespace
 
-// sum: null, or the NHWC sum operand of sum_dt (the dst dtype codes)
+// sum: null, or the NHWC sum operand of sum_dt (the dst dtype codes).
+// dst_dt 0 (fused only): dst is the raw s32 1x1 accumulator, (n, oh, ow,
+// oc1) int32, and bias1, scale1, relu1, down1 and sum are not read.
 extern "C" int df_conv(const void* src, const void* w0, const void* bias0,
                        const void* scale0, const void* w1, const void* bias1,
                        const void* scale1, void* dst, const void* sum, int n,
@@ -238,6 +275,7 @@ extern "C" int df_conv(const void* src, const void* w0, const void* bias0,
                        void* stream) {
   if (ic % 16 || oc0p % 8 || oc0p <= 0 || (fuse && (oc1p % 8 || oc1p <= 0)))
     return (int)cudaErrorInvalidValue;
+  if (dst_dt == DT_ACC && (!fuse || sum)) return (int)cudaErrorInvalidValue;
   if (sum && sum_dt != DT_F32 && sum_dt != DT_S32 && sum_dt != DT_S8 &&
       sum_dt != DT_U8)
     return (int)cudaErrorInvalidValue;

@@ -2,8 +2,8 @@
 // (packed_conv.cu) and pair_conv_kernel (pair_conv.cu): one conv stage's
 // operands, the K loop over a packed input, the fused 1x1 tail, the u8
 // requant into shared memory, the final store (plain, or with the fused
-// 2x2/s2 max pool; with or without the packed sum operand) and the 0x80
-// fill of the output's non-image slots.
+// 2x2/s2 max pool; with or without the packed sum operand; or the raw s32
+// accumulator) and the fill of the output's non-image slots.
 //
 // Packed domain (deepfusion_tpu_torch/ops/packed.py): an image is an int8
 // array (n, rows * iwp, cp), rows = h + 2 * halo, whose byte at an image
@@ -65,18 +65,22 @@ inline void pick_stage_tiles(Stage& s) {
   s.k1 = s.oc0p;
 }
 
-// A kernel's final output: a packed image (the pooled spec when it pools).
+// A kernel's final output: a packed image (the pooled spec when it pools),
+// or rows [r0, r0 + rows) of one, with halo = the image's halo - r0 (so it
+// may be negative); bytes per lane 1, or 4 for a raw s32 accumulator.
 struct PackedDst {
   uint8_t* dst;
   int n, rows, iwp, cp, halo, h, col_off, w;
 };
 
-// Fill block fb's share (of nfb) of the output's non-image slots with
-// 0x80, 16 bytes at a time.
+// Fill block fb's share (of nfb) of the output's non-image slots with the
+// byte 0x80, or with LANE_BYTES = 4 the s32 zero, 16 bytes at a time.
+template <int LANE_BYTES = 1>
 __device__ void fill_pads(const PackedDst& d, int fb, int nfb) {
-  const int upp = d.cp / 16;
+  const int upp = d.cp * LANE_BYTES / 16;
   const long long total = (long long)d.n * d.rows * d.iwp * upp;
-  const uint4 pad = make_uint4(CENTER4, CENTER4, CENTER4, CENTER4);
+  const uint32_t word = LANE_BYTES == 1 ? CENTER4 : 0u;
+  const uint4 pad = make_uint4(word, word, word, word);
   uint4* out = reinterpret_cast<uint4*>(d.dst);
   for (long long e = (long long)fb * NT + threadIdx.x; e < total;
        e += (long long)nfb * NT) {
@@ -289,6 +293,33 @@ __device__ __forceinline__ void store_out(const PackedDst& d,
         if (slot >= 0)
           *reinterpret_cast<uint16_t*>(d.dst + (size_t)slot * d.cp + o) =
               static_cast<uint16_t>(v ^ 0x8080u);
+      }
+    }
+}
+
+// Store the warp's tile of the raw s32 accumulator (channels n0 + [0, nb),
+// wcn warps along the channels) at each row's destination slot of an s32
+// packed array, two lanes per 8-byte store.
+__device__ __forceinline__ void store_acc(const PackedDst& d,
+                                          const int32_t (&acc)[MI][NI][4],
+                                          const int* s_pix, int n0, int wcn,
+                                          int ntiles) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp / wcn, wc = warp % wcn;
+  int32_t* dst = reinterpret_cast<int32_t*>(d.dst);
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      if (ni >= ntiles) continue;  // warp-uniform
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int slot = s_pix[3 * (wr * 32 + mi * 16 + g + h * 8) + 1];
+        const int o = n0 + wc * 64 + ni * 8 + 2 * t;
+        if (slot >= 0)
+          *reinterpret_cast<int2*>(dst + (size_t)slot * d.cp + o) =
+              make_int2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
       }
     }
 }

@@ -3,10 +3,10 @@
 //
 // Replaces deepfusion_tpu/ops/packed.py:_packed_kernel (launcher
 // _packed_call) for 1..n inputs, u8 destination, with the packed sum
-// operand and the fused 2x2/s2 max pool, without sparse-phase taps,
-// emit_acc1 and the tile range. A strided conv reaches it as a stride-1
-// conv on the s2d grid (ops/packed.py: PackedConvOp.pack_input), as in the
-// JAX package.
+// operand, the fused 2x2/s2 max pool, the raw 1x1 accumulator (emit_acc1)
+// and an output row range (t_range/row0_off), without sparse-phase taps. A
+// strided conv reaches it as a stride-1 conv on the s2d grid
+// (ops/packed.py: PackedConvOp.pack_input), as in the JAX package.
 //
 // What it computes, per image pixel (y, x) of the output and channel o:
 //   acc0[o] = sum_{ki,kj,k} u8(src[halo_in + y - ph + ki, col_off_in + x - pw
@@ -27,6 +27,16 @@
 // With pool2 the output is the 2x2/s2 max of those u8 values (the sum
 // joined first, at full resolution), stored ^ 0x80 at the pooled spec's
 // slot (halo_out / 2 + y / 2, col_off_out / 2 + x / 2) of rows iwp / 2 wide.
+// With RAW (fused, no pool, no sum: the tensor-parallel local step) the
+// output is an s32 array of the output spec holding acc1 = mid . w1 at
+// image slots (pad lanes 0: their w1 columns are 0) and 0 elsewhere.
+// Row range (sequence-parallel interior/boundary split): the kernel
+// computes the image rows [oy0, oy0 + noy) only and writes an array of the
+// output rows [r0, r0 + rows) (pooled rows with pool2); the input may be a
+// row slice of the full array. The host passes rows_out, halo_out and
+// halo_in re-based by the range's first row and the slice's first row, so
+// the kernel's addressing is unchanged; every tap of the computed pixels
+// must lie in the slice.
 //
 // What bounds it on the H100: int8 multiply-adds, as for conv.cu (the block1
 // layer is 4.1 G MAC against 4 MB of packed input at batch 8). It runs on
@@ -74,11 +84,12 @@ struct PackedArgs {
   int rows_sum, halo_sum;
   int n, rows_in, iwp, halo_in, col_off_in;
   int rows_out, halo_out, col_off_out, oh, ow;  // the unpooled output
+  int oy0, noy;  // the image rows computed
 };
 
-template <bool FUSE, bool POOL>
+template <bool FUSE, bool POOL, bool RAW>
 __global__ void __launch_bounds__(NT, 2) packed_conv_kernel(PackedArgs a) {
-  fill_pads(a.out, blockIdx.x, gridDim.x);
+  fill_pads<RAW ? 4 : 1>(a.out, blockIdx.x, gridDim.x);
   extern __shared__ __align__(16) uint32_t smem[];
   const Stage& st = a.st;
   const Smem L(st);
@@ -90,9 +101,9 @@ __global__ void __launch_bounds__(NT, 2) packed_conv_kernel(PackedArgs a) {
 
   const int tid = threadIdx.x;
   const int wc = (tid >> 5) % st.wc;
-  const long long total = (long long)a.n * a.oh * a.ow;
+  const long long total = (long long)a.n * a.noy * a.ow;
   const long long p0 = (long long)blockIdx.x * L.m;
-  const int oh2 = a.oh / 2, ow2 = a.ow / 2;
+  const int nh2 = a.noy / 2, ow2 = a.ow / 2;
 
   for (int p = tid; p < L.m; p += NT) {
     const long long gp = p0 + p;
@@ -103,8 +114,8 @@ __global__ void __launch_bounds__(NT, 2) packed_conv_kernel(PackedArgs a) {
         const long long q = gp >> 2;
         const int px = int(q % ow2);
         const long long r = q / ow2;
-        const int py = int(r % oh2);
-        nn = int(r / oh2);
+        const int py = a.oy0 / 2 + int(r % nh2);
+        nn = int(r / nh2);
         oy = 2 * py + int((gp >> 1) & 1);
         ox = 2 * px + int(gp & 1);
         out_pix = (nn * a.out.rows + a.out.halo + py) * a.out.iwp +
@@ -112,8 +123,8 @@ __global__ void __launch_bounds__(NT, 2) packed_conv_kernel(PackedArgs a) {
       } else {
         ox = int(gp % a.ow);
         const long long q = gp / a.ow;
-        oy = int(q % a.oh);
-        nn = int(q / a.oh);
+        oy = a.oy0 + int(q % a.noy);
+        nn = int(q / a.noy);
         out_pix = (nn * a.rows_out + a.halo_out + oy) * a.iwp +
                   a.col_off_out + ox;
       }
@@ -153,26 +164,29 @@ __global__ void __launch_bounds__(NT, 2) packed_conv_kernel(PackedArgs a) {
       const int nbv = min(L.nb, st.oc1p - n0);
       const int ntiles = min(NI, max(0, (nbv - wc * 64) / 8));
       conv1x1_pass(st, L, s_mid, s_w, n0, nbv, ntiles, acc);
-      store_final<POOL>(a.out, a.sum, a.sum_scale, acc, s_pix, n0, st.wc,
-                        st.oc1, st.has_bias1, st.bias1, st.scale1, st.down1,
-                        ntiles);
+      if constexpr (RAW)
+        store_acc(a.out, acc, s_pix, n0, st.wc, ntiles);
+      else
+        store_final<POOL>(a.out, a.sum, a.sum_scale, acc, s_pix, n0, st.wc,
+                          st.oc1, st.has_bias1, st.bias1, st.scale1,
+                          st.down1, ntiles);
     }
   }
 }
 
-template <bool FUSE, bool POOL>
+template <bool FUSE, bool POOL, bool RAW = false>
 int launch(const PackedArgs& a, cudaStream_t stream) {
   const Smem L(a.st);
   const size_t smem = L.bytes(FUSE);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        packed_conv_kernel<FUSE, POOL>,
+        packed_conv_kernel<FUSE, POOL, RAW>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const long long total = (long long)a.n * a.oh * a.ow;
+  const long long total = (long long)a.n * a.noy * a.ow;
   const unsigned blocks = (unsigned)((total + L.m - 1) / L.m);
-  packed_conv_kernel<FUSE, POOL><<<blocks, NT, smem, stream>>>(a);
+  packed_conv_kernel<FUSE, POOL, RAW><<<blocks, NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -184,7 +198,11 @@ int launch(const PackedArgs& a, cudaStream_t stream) {
 // sum: null, or a packed array of rows_sum rows with the output's iwp,
 // col_off and lanes and halo_sum >= halo_out. pool2: the output is the
 // pooled spec (rows_out / 2 rows of iwp / 2, halo_out / 2, col_off_out / 2);
-// oh, ow, halo_out, col_off_out and iwp must then be even.
+// oh, ow, halo_out, col_off_out and iwp must then be even. raw (fused, no
+// pool, no sum): dst is s32, the raw 1x1 accumulator. Row range: the image
+// rows [oy0, oy0 + noy) (noy >= 1; both even with pool2) are computed;
+// rows_out/halo_out describe the rows of dst (halo_out re-based, may be
+// negative) and rows_in/halo_in the input slice (halo_in re-based).
 extern "C" int df_packed_conv(
     const void* const* srcs, const int* src_cps, int n_src, const void* w0,
     const void* bias0, const void* scale0, const void* w1, const void* bias1,
@@ -192,14 +210,16 @@ extern "C" int df_packed_conv(
     int iwp, int halo_in, int col_off_in, int rows_out, int halo_out,
     int col_off_out, int oh, int ow, int kh, int kw, int ph, int pw, int oc0,
     int oc0p, int oc1, int oc1p, int down0, int down1, int has_bias0,
-    int has_bias1, int fuse, int rows_sum, int halo_sum, int pool2,
-    float sum_scale, void* stream) {
+    int has_bias1, int fuse, int rows_sum, int halo_sum, int pool2, int raw,
+    int oy0, int noy, float sum_scale, void* stream) {
   if (n_src < 1 || n_src > MAX_SRC || oc0p % 32 || oc0p <= 0 ||
       (fuse && (oc1p % 32 || oc1p <= 0)))
     return (int)cudaErrorInvalidValue;
   if (pool2 && (oh % 2 || ow % 2 || halo_out % 2 || col_off_out % 2 ||
-                iwp % 16))
+                iwp % 16 || oy0 % 2 || noy % 2))
     return (int)cudaErrorInvalidValue;
+  if (raw && (!fuse || pool2 || sum)) return (int)cudaErrorInvalidValue;
+  if (noy < 1 || oy0 < 0 || oy0 + noy > oh) return (int)cudaErrorInvalidValue;
   // every flat slot index must fit an int
   if ((long long)n * rows_in * iwp >= (1LL << 31) ||
       (long long)n * rows_out * iwp >= (1LL << 31) ||
@@ -242,7 +262,9 @@ extern "C" int df_packed_conv(
   a.n = n; a.rows_in = rows_in; a.iwp = iwp; a.halo_in = halo_in;
   a.col_off_in = col_off_in; a.rows_out = rows_out; a.halo_out = halo_out;
   a.col_off_out = col_off_out; a.oh = oh; a.ow = ow;
+  a.oy0 = oy0; a.noy = noy;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (raw) return launch<true, false, true>(a, s);
   if (pool2)
     return fuse ? launch<true, true>(a, s) : launch<false, true>(a, s);
   return fuse ? launch<true, false>(a, s) : launch<false, false>(a, s);

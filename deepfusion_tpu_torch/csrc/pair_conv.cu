@@ -3,7 +3,8 @@
 // launch; the intermediate image never reaches device memory.
 //
 // Replaces deepfusion_tpu/ops/mega.py:_pair_kernel (launcher _pair_call):
-// VGGFusion's conv3x3+ReLU -> conv3x3+ReLU -> maxpool2 block.
+// VGGFusion's conv3x3+ReLU -> conv3x3+ReLU -> maxpool2 block, with the
+// sequence-parallel modes (mid_bounds, t_range/row0_off/offs).
 //
 // What it computes: out = op_b(op_a(x)), then the 2x2/s2 max pool when
 // pool2, where op_a and op_b are packed convs (packed_conv.cu) and op_a's
@@ -13,6 +14,13 @@
 // included); the output is a packed image at sout, or at its pooled spec,
 // with 0x80 in every non-image slot. Bitwise the composition of the two
 // packed conv kernels through any intermediate spec.
+// Sequence-parallel modes (ops/mega.py: PackedConvPairOp.forward): the
+// intermediate's image rows are [mlo, mhi) (default [0, mh)); a shard
+// widens them past its own image so layer b reads rows layer a computes
+// from the exchanged halo. Layer b computes its image rows [oy0, oy0 +
+// noy) only, into an array of a row range of the output; the input may be
+// a row slice. The host re-bases halo_in and halo_out as for K5
+// (packed_conv.cu), and every row layer a reads must lie in the slice.
 //
 // What bounds it on the H100: int8 multiply-adds (VGGFusion's pairs are
 // 1.39 G MAC each at batch 8, against 0.4-0.8 MB of packed input). The
@@ -58,6 +66,8 @@ struct PairArgs {
   int oh, ow;          // layer b's output image
   int rows_out, halo_out, col_off_out;  // the unpooled output spec
   int pool2;
+  int oy0, noy;        // layer b's image rows computed
+  int mlo, mhi;        // the intermediate's image rows
   int tr, tc;          // the output tile of a block
   int ldt;             // row pitch of the shared tile in words
 };
@@ -88,16 +98,20 @@ struct PairSmem {
 // The window of output tile (ty, tx): the intermediate pixels layer a
 // computes for it, the tile widened by kh_b - 1 rows and kw_b - 1 columns
 // (origin y0, x0), of which rows [ylo, ylo + vr) and columns [xlo, xlo +
-// vc) lie inside the intermediate image.
+// vc) lie inside the intermediate image (rows [mlo, mhi)) and are read by
+// an output row of the range.
 struct Window {
   int y0, x0, ylo, xlo, vr, vc;
   __host__ __device__ Window(const PairArgs& a, int ty, int tx) {
-    y0 = ty * a.tr - a.b.ph;
+    y0 = a.oy0 + ty * a.tr - a.b.ph;
     x0 = tx * a.tc - a.b.pw;
-    ylo = y0 > 0 ? y0 : 0;
+    ylo = y0 > a.mlo ? y0 : a.mlo;
     xlo = x0 > 0 ? x0 : 0;
-    const int yhi = y0 + a.tr + a.b.kh - 1, xhi = x0 + a.tc + a.b.kw - 1;
-    vr = (yhi < a.mh ? yhi : a.mh) - ylo;
+    const int need = a.oy0 + a.noy - a.b.ph + a.b.kh - 1;
+    int yhi = y0 + a.tr + a.b.kh - 1;
+    yhi = yhi < need ? yhi : need;
+    const int xhi = x0 + a.tc + a.b.kw - 1;
+    vr = (yhi < a.mhi ? yhi : a.mhi) - ylo;
     vc = (xhi < a.mw ? xhi : a.mw) - xlo;
     vr = vr > 0 ? vr : 0;
     vc = vc > 0 ? vc : 0;
@@ -220,22 +234,23 @@ __global__ void __launch_bounds__(NT, 1) pair_conv_kernel(PairArgs a) {
   const Stage& A = a.a;
   const Stage& B = a.b;
   const int tiles_x = (a.ow + a.tc - 1) / a.tc;
-  const int tiles_y = (a.oh + a.tr - 1) / a.tr;
+  const int tiles_y = (a.noy + a.tr - 1) / a.tr;
   const int tx = blockIdx.x % tiles_x;
   const int ty = (blockIdx.x / tiles_x) % tiles_y;
   const int nn = blockIdx.x / (tiles_x * tiles_y);
-  const int ty0 = ty * a.tr, tx0 = tx * a.tc;
+  const int ty0 = a.oy0 + ty * a.tr, tx0 = tx * a.tc;
   const int mr = a.tr + B.kh - 1, mc = a.tc + B.kw - 1;  // the tile window
   const Window W(a, ty, tx);
   const int y0 = W.y0, x0 = W.x0, ylo = W.ylo, xlo = W.xlo, vc = W.vc;
 
-  // window slots outside the intermediate image: u8 0, layer b's padding
+  // window slots outside the intermediate image (rows [mlo, mhi)): u8 0,
+  // layer b's padding
   const int wpp = B.icp / 4;  // words of one intermediate pixel
   for (int e = tid; e < mr * mc * wpp; e += NT) {
     const int px = e / wpp;
     const int my = px / mc, mx = px - my * mc;
     const int y = y0 + my, x = x0 + mx;
-    if (y < 0 || y >= a.mh || x < 0 || x >= a.mw)
+    if (y < a.mlo || y >= a.mhi || x < 0 || x >= a.mw)
       s_tile[(size_t)px * a.ldt + (e - px * wpp)] = 0u;
   }
   if (FUSE_A || FUSE_B) {  // channels [oc0, k1) of the 1x1's input stay 0
@@ -310,7 +325,7 @@ __global__ void __launch_bounds__(NT, 1) pair_conv_kernel(PairArgs a) {
         }
         idx = ry * mc + rx;
         const int oy = ty0 + ry, ox = tx0 + rx;
-        if (oy < a.oh && ox < a.ow)
+        if (oy < a.oy0 + a.noy && ox < a.ow)
           slot = a.pool2 ? (nn * a.out.rows + a.out.halo + oy / 2) *
                                    a.out.iwp + a.out.col_off + ox / 2
                          : (nn * a.rows_out + a.halo_out + oy) * a.iwp +
@@ -350,7 +365,7 @@ constexpr int TILES[][2] = {{16, 16}, {16, 8}, {8, 8}, {8, 4},
                             {4, 4},   {4, 2},  {2, 2}};
 
 int blocks_of(const PairArgs& a) {
-  return a.n * ((a.oh + a.tr - 1) / a.tr) * ((a.ow + a.tc - 1) / a.tc);
+  return a.n * ((a.noy + a.tr - 1) / a.tr) * ((a.ow + a.tc - 1) / a.tc);
 }
 
 // Pick a.tr, a.tc: among the tiles whose shared memory fits, the first
@@ -426,7 +441,9 @@ bool make_stage(Stage& s, const int* v, const void* const* ops) {
 }
 
 // geo: n, iwp, rows_in, halo_in, col_off_in, mh, mw, oh, ow, rows_out,
-// halo_out, col_off_out, pool2.
+// halo_out, col_off_out, pool2, oy0, noy, mlo, mhi (rows_in/halo_in and
+// rows_out/halo_out those of the slice and of the output range, the halos
+// re-based).
 int make_args(PairArgs& a, const void* src, const void* const* ops_a,
               const void* const* ops_b, void* dst, const int* ia,
               const int* ib, const int* geo) {
@@ -438,6 +455,10 @@ int make_args(PairArgs& a, const void* src, const void* const* ops_a,
   a.col_off_in = geo[4]; a.mh = geo[5]; a.mw = geo[6]; a.oh = geo[7];
   a.ow = geo[8]; a.rows_out = geo[9]; a.halo_out = geo[10];
   a.col_off_out = geo[11]; a.pool2 = geo[12];
+  a.oy0 = geo[13]; a.noy = geo[14]; a.mlo = geo[15]; a.mhi = geo[16];
+  if (a.noy < 1 || a.oy0 < 0 || a.oy0 + a.noy > a.oh || a.mlo >= a.mhi ||
+      (a.pool2 && (a.oy0 % 2 || a.noy % 2)))
+    return (int)cudaErrorInvalidValue;
   const int cp_mid = a.a.fuse ? a.a.oc1p : a.a.oc0p;
   if (cp_mid != a.b.icp) return (int)cudaErrorInvalidValue;
   a.ldt = cp_mid / 4 + 4;  // == 4 mod 8: eight tile rows hit 32 banks
@@ -461,8 +482,8 @@ int make_args(PairArgs& a, const void* src, const void* const* ops_a,
 
 // src: the packed input; ops_a/ops_b: each stage's six operand pointers
 // (ops/layout.py layouts, as df_packed_conv takes them; the 1x1's null
-// when not fused); ia/ib: each stage's 14 ints (make_stage); geo: 13 ints
-// (make_args). dst: the packed output, pooled when pool2.
+// when not fused); ia/ib: each stage's 14 ints (make_stage); geo: 17 ints
+// (make_args). dst: the packed output (rows of it), pooled when pool2.
 extern "C" int df_pair_conv(const void* src, const void* const* ops_a,
                             const void* const* ops_b, void* dst,
                             const int* ia, const int* ib, const int* geo,
@@ -490,7 +511,7 @@ extern "C" int df_pair_plan(const int* ia, const int* ib, const int* geo,
   out[2] = blocks_of(a);
   out[3] = (int)PairSmem(a).bytes();
   out[4] = 0;
-  for (int ty = 0; ty < (a.oh + a.tr - 1) / a.tr; ++ty)
+  for (int ty = 0; ty < (a.noy + a.tr - 1) / a.tr; ++ty)
     for (int tx = 0; tx < (a.ow + a.tc - 1) / a.tc; ++tx) {
       const Window w(a, ty, tx);
       out[4] += w.vr * w.vc;

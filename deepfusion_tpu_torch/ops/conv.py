@@ -8,8 +8,9 @@ function, which reads the same packed buffers. Nothing else selects the path.
 
 Stride and padding are handled in the kernel's addressing. The eltwise-sum
 post-op (``sum_src``, NHWC at the output's shape) joins the final stage's
-epilogue, fused or not. The raw-accumulator output (``conv_fused_acc1``)
-is not ported yet.
+epilogue, fused or not. ``conv_fused_acc1`` stops the fused conv at its
+1x1 product and returns the raw s32 accumulator, the tensor-parallel local
+step (``parallel/shard.py``).
 """
 from __future__ import annotations
 
@@ -19,13 +20,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import _build
-from ..config import ConvConfig
+from ..config import ConvConfig, replace_geometry
 from ..types import round_mode
 from ..utils.logger import check, check_eq
 from ..utils.mathutil import conv_output_size, round_up
 from ..utils.persist import dump_config, load_config
 from . import layout
 from .requant import requant, requant_to_u8, sum_term
+
+_ACC1 = 0  # df_conv's dst code of the raw 1x1 accumulator (csrc/conv.cu)
+
 
 def _operand_shapes(cfg: ConvConfig) -> dict:
     oc0p = layout.conv_ocp(cfg.oc)
@@ -92,8 +96,22 @@ class ConvOp(nn.Module):
         self.cfg = cfg
         for k, shape in _operand_shapes(cfg).items():
             check_eq(tuple(ops[k].shape), shape, f"packed operand {k}")
-            self.register_buffer(k, torch.as_tensor(np.asarray(ops[k]),
-                                                    device=device))
+            t = ops[k]
+            self.register_buffer(k, t if isinstance(t, torch.Tensor) else
+                                 torch.as_tensor(np.asarray(t),
+                                                 device=device))
+
+    def with_geometry(self, **kw) -> "ConvOp":
+        """The op at another geometry (``replace_geometry``: image and
+        output sizes, padding, batch) on the same operand buffers; the
+        weights' layout does not depend on it. The spatially sharded
+        wrapper runs its row slabs through these."""
+        op = ConvOp.__new__(ConvOp)
+        nn.Module.__init__(op)
+        op._set_operands(replace_geometry(self.cfg, **kw),
+                         {k: getattr(self, k)
+                          for k in _operand_shapes(self.cfg)}, self.device)
+        return op
 
     @property
     def device(self) -> torch.device:
@@ -146,8 +164,28 @@ def check_sum_src(cfg: ConvConfig, src: torch.Tensor, sum_src):
     return sum_src
 
 
-def conv_plain(op: ConvOp, src: torch.Tensor, sum_src=None) -> torch.Tensor:
-    """The plain PyTorch version of ``conv_fused_kernel``."""
+def conv_fused_acc1(op: ConvOp, src: torch.Tensor) -> torch.Tensor:
+    """The fused conv's raw s32 1x1 accumulator, NHWC (n, oh, ow, oc1x1):
+    the u8 intermediate times w1, with no bias, scale or requant (the JAX
+    package's ``conv_fused_acc1``, which returns ``oc1x1p`` lanes, the
+    extra ones zero). Partial sums over slices of the intermediate's
+    channels add up to the whole op's accumulator."""
+    cfg = op.cfg
+    check(cfg.fuse_conv1x1, "conv_fused_acc1 needs the fused config")
+    check(not cfg.with_sum, "conv_fused_acc1 takes no sum post-op")
+    check_eq(src.dtype, torch.uint8, "conv src dtype")
+    check_eq(tuple(src.shape[1:]), (cfg.ih, cfg.iw, cfg.ic),
+             "conv src shape (NHWC, any batch)")
+    check_eq(src.device, op.device, "conv src device")
+    if src.device.type == "cpu":
+        return conv_plain(op, src, emit_acc1=True)
+    return conv_cuda(op, src, emit_acc1=True)
+
+
+def conv_plain(op: ConvOp, src: torch.Tensor, sum_src=None,
+               emit_acc1: bool = False) -> torch.Tensor:
+    """The plain PyTorch version of ``conv_fused_kernel`` (with
+    ``emit_acc1``, up to the 1x1 product)."""
     cfg = op.cfg
     w0 = layout.unpack_weights(op.w0, cfg.oc, cfg.ic, cfg.kh, cfg.kw)
     acc = conv_acc(src, w0, (cfg.sh, cfg.sw), (cfg.ph, cfg.pw))
@@ -160,13 +198,17 @@ def conv_plain(op: ConvOp, src: torch.Tensor, sum_src=None) -> torch.Tensor:
     mid = requant_to_u8(acc, bias0, scale0, cfg.conv0_round)
     w1 = layout.unpack_weights(op.w1, cfg.oc1x1, cfg.oc, 1, 1)
     acc1 = conv_acc(mid, w1, (1, 1), (0, 0))
+    if emit_acc1:
+        return acc1
     bias1 = op.bias1[:cfg.oc1x1] if cfg.conv1_with_bias else None
     return requant(acc1, bias1, op.scale1[:cfg.oc1x1], cfg.conv1_relu,
                    cfg.conv1_round, cfg.dst_dt, st)
 
 
-def conv_cuda(op: ConvOp, src: torch.Tensor, sum_src=None) -> torch.Tensor:
-    """Launch ``conv_fused_kernel`` on the current stream."""
+def conv_cuda(op: ConvOp, src: torch.Tensor, sum_src=None,
+              emit_acc1: bool = False) -> torch.Tensor:
+    """Launch ``conv_fused_kernel`` on the current stream (with
+    ``emit_acc1``, its raw 1x1 accumulator store)."""
     cfg = op.cfg
     check(src.is_cuda, "conv_cuda needs a CUDA tensor")
     ic = cfg.ic
@@ -177,7 +219,8 @@ def conv_cuda(op: ConvOp, src: torch.Tensor, sum_src=None) -> torch.Tensor:
     if sum_src is not None:
         sum_src = _build.aligned(sum_src)
     n = src.shape[0]
-    out = torch.empty((n, cfg.oh, cfg.ow, cfg.out_oc), dtype=cfg.dst_dt.torch,
+    out = torch.empty((n, cfg.oh, cfg.ow, cfg.out_oc),
+                      dtype=torch.int32 if emit_acc1 else cfg.dst_dt.torch,
                       device=src.device)
     fuse = cfg.fuse_conv1x1
     oc1p = layout.conv_ocp(cfg.oc1x1) if fuse else 0
@@ -197,11 +240,11 @@ def conv_cuda(op: ConvOp, src: torch.Tensor, sum_src=None) -> torch.Tensor:
             int(cfg.conv0_round == round_mode.down),
             int(cfg.conv1_round == round_mode.down),
             int(cfg.conv0_with_bias), int(cfg.conv1_with_bias),
-            int(fuse), cfg.dst_dt.value,
+            int(fuse), _ACC1 if emit_acc1 else cfg.dst_dt.value,
             cfg.sum_dt.value if cfg.with_sum else 0, cfg.sum_scale,
             _build.stream_of(src))
     _build.check(rc, "conv_fused_kernel")
-    _build.count_launch("conv_fused")
+    _build.count_launch("conv_fused", *(("acc1",) if emit_acc1 else ()))
     return out
 
 

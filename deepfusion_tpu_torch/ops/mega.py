@@ -25,8 +25,14 @@ keeps the semantic ones and drops the TPU tiling ones: the byte-shift range
 |d| < 4 of the column taps, the row tile and the boundary rolls
 (``_pair_row_tile_cands``). The port accepts every geometry the JAX package
 accepts. Not ported, as TPU schedule knobs: ``split_kh``, ``msplit``,
-``grid_order``, ``reuse_mid``, ``vmem_budget``, ``row_tile``. Left for
-``parallel/``: ``reheight``, ``mid_bounds`` and the tile range.
+``grid_order``, ``reuse_mid``, ``vmem_budget``, ``row_tile``.
+
+For ``parallel.shard.sp_packed`` the pair takes the intermediate's image
+rows at run time (``mid_bounds``: a shard widens them into its neighbours'
+rows, which layer a computes from the exchanged input halo), computes a
+range of output rows from a row slice of its input (``rows``/``row0_off``,
+in rows where the JAX package counts row tiles and passes ``offs``), and
+``reheight`` makes the pair of one shard's slab.
 """
 from __future__ import annotations
 
@@ -38,14 +44,14 @@ import torch
 from torch import nn
 
 from .. import _build
-from ..config import ConvConfig
+from ..config import ConvConfig, replace_geometry
 from ..types import dtype, round_mode
 from ..utils.logger import check, check_eq
 from ..utils.persist import dump_configs, load_configs
 from . import layout
-from .packed import (PackedConvOp, PackedSpec, _operand_shapes,
-                     _pooled_spec, pack_image, packed_conv_plain,
-                     validate_packed_maxpool2)
+from .packed import (PackedConvOp, PackedSpec, _operand_shapes, _place,
+                     _pooled_spec, _stage_plain, check_slice, pack_image,
+                     row_plan, validate_packed_maxpool2)
 
 
 def _out_c(cfg: ConvConfig):
@@ -170,15 +176,67 @@ class PackedConvPairOp(nn.Module):
         numpy) -> this op's packed input on the same device."""
         return pack_image(src_u8, self.sin)
 
-    def forward(self, packed_arr) -> torch.Tensor:
+    def reheight(self, h: int) -> "PackedConvPairOp":
+        """The pair on an h-row horizontal slab of the image, with the same
+        columns, lanes and operand buffers: the per-shard local op of
+        ``parallel.shard.sp_packed``. Needs oh == ih and ow == iw on both
+        layers so shard boundaries align."""
+        for cfg, name in ((self.cfg_a, "a"), (self.cfg_b, "b")):
+            check(cfg.oh == cfg.ih and cfg.ow == cfg.iw,
+                  f"reheight requires oh == ih on layer {name}")
+        op = PackedConvPairOp.__new__(PackedConvPairOp)
+        nn.Module.__init__(op)
+        op._check(replace_geometry(self.cfg_a, ih=h, oh=h),
+                  replace_geometry(self.cfg_b, ih=h, oh=h),
+                  dataclasses.replace(self.sin, h=h),
+                  dataclasses.replace(self.smid, h=h),
+                  dataclasses.replace(self.sout, h=h), self.pool2)
+        op.op_a = self.op_a.reheight(h)
+        op.op_b = self.op_b.reheight(h)
+        return op
+
+    def forward(self, packed_arr, *, rows=None, row0_off: int = 0,
+                mid_bounds=None) -> torch.Tensor:
+        """The packed output (``sout_final``) of the packed input.
+
+        mid_bounds=(lo, hi): the intermediate's image rows, default
+        (0, h): layer a computes rows [lo, hi) (reading the input's halo
+        rows where they reach past the image) and layer b reads u8 0
+        outside them. rows/row0_off: as ``PackedConvOp.forward``, a range
+        of the returned array's rows from a row slice of the input."""
         arr = torch.as_tensor(packed_arr)
         check_eq(arr.dtype, torch.int8, "packed pair input dtype")
-        check_eq(tuple(arr.shape), self.sin.array_shape(arr.shape[0]),
-                 "input does not match the op's packed spec")
+        n = arr.shape[0]
+        if rows is None and row0_off == 0:
+            check_eq(tuple(arr.shape), self.sin.array_shape(n),
+                     "input does not match the op's packed spec")
+        y0, y1 = self._mid_rows(rows, mid_bounds)
+        check_slice(arr, self.sin, n,
+                    self.sin.halo - row0_off + y0 - self.cfg_a.ph,
+                    y1 - y0 + self.cfg_a.kh - 1 if y1 > y0 else 0)
         check_eq(arr.device, self.device, "packed pair input device")
-        if arr.device.type == "cpu":
-            return pair_conv_plain(self, arr)
-        return pair_conv_cuda(self, arr)
+        fn = pair_conv_plain if arr.device.type == "cpu" else pair_conv_cuda
+        return fn(self, arr, rows=rows, row0_off=row0_off,
+                  mid_bounds=mid_bounds)
+
+    def _row_plan(self, rows):
+        """As ``PackedConvOp._row_plan``, for layer b's output."""
+        return row_plan(self.sout_final, self.sout.halo, self.cfg_b.oh,
+                        self.pool2, rows)
+
+    def _mid_rows(self, rows, mid_bounds):
+        """The intermediate rows [y0, y1) layer a computes for the output
+        range: those layer b's image rows read, inside the bounds."""
+        _, _, oy0, oy1 = self._row_plan(rows)
+        lo, hi = self._bounds(mid_bounds)
+        cb = self.cfg_b
+        return (max(oy0 - cb.ph, lo),
+                min(oy1 - cb.ph + cb.kh - 1, hi) if oy1 > oy0 else lo)
+
+    def _bounds(self, mid_bounds):
+        lo, hi = (0, self.cfg_a.oh) if mid_bounds is None else mid_bounds
+        check(lo < hi, f"empty intermediate bounds {mid_bounds}")
+        return int(lo), int(hi)
 
     def save(self, path: str):
         """Save both layers' packed operands, the configs, the specs and
@@ -218,12 +276,34 @@ class PackedConvPairOp(nn.Module):
         return op
 
 
-def pair_conv_plain(op: PackedConvPairOp, arr) -> torch.Tensor:
-    """The plain PyTorch version of ``pair_conv_kernel``: the two packed
-    convs' plain versions through the intermediate spec, then the fused
-    pool of ``op_b``."""
-    mid = packed_conv_plain(op.op_a, (arr,))
-    return packed_conv_plain(op.op_b, (mid,))
+def pair_conv_plain(op: PackedConvPairOp, arr, *, rows=None,
+                    row0_off: int = 0, mid_bounds=None) -> torch.Tensor:
+    """The plain PyTorch version of ``pair_conv_kernel``: layer a's plain
+    stage over the intermediate rows the output range reads (inside the
+    bounds), layer b's over that window with u8 0 around it, then the fused
+    pool of ``op_b``. With the defaults, ``op_b(op_a(x))``."""
+    ca, cb, sin = op.cfg_a, op.cfg_b, op.sin
+    n = arr.shape[0]
+    u0, u1, oy0, oy1 = op._row_plan(rows)
+    y0, y1 = op._mid_rows(rows, mid_bounds)
+    u = (arr.view(torch.uint8) ^ 0x80).reshape(n, -1, sin.iwp, sin.cp)
+    mid = _stage_plain(op.op_a, u.to(torch.float64),
+                       sin.halo - row0_off - ca.ph + y0, sin.col_off - ca.pw,
+                       max(y1 - y0, 0), ca.ow)
+    w0 = oy0 - cb.ph       # the first intermediate row layer b reads
+    win = torch.zeros((n, oy1 - oy0 + cb.kh - 1, ca.ow + 2 * cb.pw,
+                       layout.conv_icp(cb.ic)), dtype=torch.float64,
+                      device=arr.device)
+    win[:, y0 - w0:y0 - w0 + mid.shape[1], cb.pw:cb.pw + ca.ow,
+        :mid.shape[-1]] = mid.to(torch.float64)
+    val = _stage_plain(op.op_b, win, 0, 0, oy1 - oy0, cb.ow)
+    row = op.sout.halo - u0 + oy0
+    if op.pool2:
+        val = val.reshape(n, (oy1 - oy0) // 2, 2, cb.ow // 2, 2,
+                          cb.out_oc).amax(dim=(2, 4))
+        row //= 2
+    return _place(val, op.sout_final, (u1 - u0) // (2 if op.pool2 else 1),
+                  row, cb.out_oc, False)
 
 
 def _stage_ints(pop: PackedConvOp):
@@ -246,27 +326,41 @@ def _stage_ptrs(pop: PackedConvOp):
     return (ctypes.c_void_p * 6)(*(ptrs + [None] * (6 - len(ptrs))))
 
 
-def _geo_ints(op: PackedConvPairOp, n: int):
+def _geo_ints(op: PackedConvPairOp, n: int, rows_in=None, row0_off=0,
+              rows=None, mid_bounds=None):
+    """``csrc/pair_conv.cu:make_args``'s 17 ints: the input slice's rows
+    and the output range's, their halos re-based."""
     sin, sout = op.sin, op.sout
-    v = [n, sin.iwp, sin.rows, sin.halo, sin.col_off, op.cfg_a.oh,
-         op.cfg_a.ow, op.cfg_b.oh, op.cfg_b.ow, sout.rows, sout.halo,
-         sout.col_off, int(op.pool2)]
+    u0, u1, oy0, oy1 = op._row_plan(rows)
+    lo, hi = op._bounds(mid_bounds)
+    v = [n, sin.iwp, sin.rows if rows_in is None else rows_in,
+         sin.halo - row0_off, sin.col_off, op.cfg_a.oh, op.cfg_a.ow,
+         op.cfg_b.oh, op.cfg_b.ow, u1 - u0, sout.halo - u0, sout.col_off,
+         int(op.pool2), oy0, oy1 - oy0, lo, hi]
     return (ctypes.c_int * len(v))(*v)
 
 
-def pair_conv_cuda(op: PackedConvPairOp, arr) -> torch.Tensor:
+def pair_conv_cuda(op: PackedConvPairOp, arr, *, rows=None,
+                   row0_off: int = 0, mid_bounds=None) -> torch.Tensor:
     """Launch ``pair_conv_kernel`` on the current stream."""
     arr = _build.aligned(arr)
     n = arr.shape[0]
-    out = torch.empty(op.sout_final.array_shape(n), dtype=torch.int8,
-                      device=arr.device)
+    so = op.sout_final
+    u0, u1, oy0, oy1 = op._row_plan(rows)
+    out = torch.empty((n, (u1 - u0) // (2 if op.pool2 else 1) * so.iwp,
+                       so.cp), dtype=torch.int8, device=arr.device)
+    if oy1 == oy0:   # a range of pad rows only: nothing to compute
+        return out.fill_(-128)
     with torch.cuda.device(out.device):
         rc = _build.kernels().df_pair_conv(
             arr.data_ptr(), _stage_ptrs(op.op_a), _stage_ptrs(op.op_b),
             out.data_ptr(), _stage_ints(op.op_a), _stage_ints(op.op_b),
-            _geo_ints(op, n), _build.stream_of(out))
+            _geo_ints(op, n, arr.shape[1] // op.sin.iwp, row0_off, rows,
+                      mid_bounds), _build.stream_of(out))
     _build.check(rc, "pair_conv_kernel")
-    _build.count_launch("pair_conv")
+    modes = (("rows",) if rows is not None or row0_off else ()) + (
+        ("bounds",) if mid_bounds is not None else ())
+    _build.count_launch("pair_conv", *modes)
     return out
 
 

@@ -39,11 +39,13 @@ op returns the pooled image at ``sout_pooled``, the max of the final u8
 values (after the sum operand joins, at full resolution), as the JAX
 package pools the clamped values before the byte pack.
 
-Not ported yet: the raw 1x1 accumulator (``emit_acc1``) and the tile range
-(``t_range``/``row0_off``), which raise ``NotImplementedError``;
-``pack_image_sharded``/``unpack_image_sharded``, which wait for
-``parallel/``; ``reheight``. The JAX package's ``operands=`` override
-exists for ``jax.jit`` and has no counterpart. Of the JAX package's
+For the sharded wrappers (``parallel/shard.py``) the conv also returns its
+raw 1x1 accumulator (``emit_acc1``), computes a range of output rows from
+a row slice of its input (``rows``/``row0_off``, in rows where the JAX
+package counts row tiles), and ``reheight`` makes the op of one shard's
+slab; ``pack_image_sharded``/``unpack_image_sharded`` convert the sharded
+format. The JAX package's ``operands=`` override exists for ``jax.jit``
+and has no counterpart. Of the JAX package's
 legality checks, the row-tile and boundary-roll ones
 (``packed.py:222-237``) describe TPU tiling and are dropped: the CUDA
 kernel has no row tile and reads every tap of an image pixel inside the
@@ -61,7 +63,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import _build
-from ..config import ConvConfig
+from ..config import ConvConfig, replace_geometry
 from ..types import dtype, round_mode
 from ..utils.logger import check, check_eq
 from ..utils.persist import dump_configs, load_configs
@@ -495,8 +497,10 @@ class PackedConvOp(nn.Module):
         self.ssum = ssum
         for k, shape in _operand_shapes(cfg).items():
             check_eq(tuple(ops[k].shape), shape, f"packed operand {k}")
-            self.register_buffer(k, torch.as_tensor(np.asarray(ops[k]),
-                                                    device=device))
+            t = ops[k]
+            self.register_buffer(k, t if isinstance(t, torch.Tensor) else
+                                 torch.as_tensor(np.asarray(t),
+                                                 device=device))
 
     @property
     def device(self) -> torch.device:
@@ -523,38 +527,85 @@ class PackedConvOp(nn.Module):
             src_u8 = layout.s2d_image_u8(self.cfg_orig, src_u8)
         return pack_image(src_u8, self.sin)
 
+    def reheight(self, h: int) -> "PackedConvOp":
+        """The op on an h-row horizontal slab of the image, with the same
+        columns, lanes and operand buffers: the per-shard local op of
+        ``parallel.shard.sp_packed``. Needs stride 1 and oh == ih, ow == iw
+        so shard boundaries align."""
+        check(self.cfg_orig is None,
+              "reheight does not support s2d-lowered strided ops")
+        cfg = self.cfg
+        check(cfg.oh == cfg.ih and cfg.ow == cfg.iw,
+              "reheight requires oh == ih (stride-1 SAME geometry)")
+        op = PackedConvOp.__new__(PackedConvOp)
+        nn.Module.__init__(op)
+        op._set_state(
+            replace_geometry(cfg, ih=h, oh=h),
+            tuple(dataclasses.replace(s, h=h) for s in self.sins),
+            dataclasses.replace(self.sout, h=h),
+            {k: getattr(self, k) for k in _operand_shapes(cfg)}, self.device,
+            ssum=None if self.ssum is None
+            else dataclasses.replace(self.ssum, h=h), pool2=self.pool2)
+        return op
+
     def forward(self, packed_arr, sum_arr=None, *, emit_acc1: bool = False,
-                t_range=None, row0_off: int = 0) -> torch.Tensor:
-        if emit_acc1:
-            raise NotImplementedError(
-                "packed conv raw 1x1 accumulator (emit_acc1) is not ported "
-                "to the PyTorch package yet")
-        if t_range is not None or row0_off:
-            raise NotImplementedError(
-                "packed conv tile range (t_range/row0_off) is not ported to "
-                "the PyTorch package yet")
+                rows=None, row0_off: int = 0) -> torch.Tensor:
+        """The packed output (``sout_final``) of the packed input(s).
+
+        emit_acc1: (fused, one input, no sum operand, no pool2) the raw
+        s32 1x1 accumulator instead, an int32 array of ``sout``: image
+        slots hold the accumulator (0 in lanes >= oc1x1), every other slot
+        0. Partial accumulators over slices of the intermediate's channels
+        add up to the whole op's (the tensor-parallel local step).
+        rows=(r0, r1): only rows [r0, r1) of the returned array (of
+        ``sout_final``); row0_off: the inputs are row slices of the full
+        input arrays, starting at that row, holding every row the image
+        rows of the range read. The sum operand stays whole. Together they
+        are ``sp_packed``'s interior/boundary split (the JAX package's
+        ``t_range``/``row0_off`` in its row tiles)."""
         arrs = (tuple(packed_arr) if isinstance(packed_arr, (tuple, list))
                 else (packed_arr,))
         arrs = tuple(torch.as_tensor(a) for a in arrs)
         check(len(arrs) == len(self.sins),
               "op expects one array per input spec")
         n = arrs[0].shape[0]
+        sliced = rows is not None or row0_off != 0
+        _, _, oy0, oy1 = self._row_plan(rows)
         for a, s in zip(arrs, self.sins):
             check_eq(a.dtype, torch.int8, "packed conv input dtype")
-            check_eq(tuple(a.shape), s.array_shape(n),
-                     "packed conv input shape (its spec's array)")
+            if sliced:
+                check_slice(a, s, n, self.sin.halo - row0_off + oy0
+                            - self.cfg.ph,
+                            oy1 - oy0 + self.cfg.kh - 1 if oy1 > oy0 else 0)
+            else:
+                check_eq(tuple(a.shape), s.array_shape(n),
+                         "packed conv input shape (its spec's array)")
             check_eq(a.device, self.device, "packed conv input device")
         check((sum_arr is not None) == (self.ssum is not None),
               "pass sum_arr exactly when the op has a sum post-op")
+        if emit_acc1:
+            check(self.cfg.fuse_conv1x1,
+                  "emit_acc1 needs the fused config")
+            check(len(self.sins) == 1 and self.ssum is None
+                  and not self.pool2,
+                  "tp_packed_fused: single input, no sum post-op, no pool2")
         if sum_arr is not None:
             sum_arr = torch.as_tensor(sum_arr)
             check_eq(sum_arr.dtype, torch.int8, "packed sum operand dtype")
             check_eq(tuple(sum_arr.shape), self.ssum.array_shape(n),
                      "sum_arr does not match the sum spec")
             check_eq(sum_arr.device, self.device, "packed sum operand device")
-        if arrs[0].device.type == "cpu":
-            return packed_conv_plain(self, arrs, sum_arr)
-        return packed_conv_cuda(self, arrs, sum_arr)
+        fn = packed_conv_plain if arrs[0].device.type == "cpu" \
+            else packed_conv_cuda
+        return fn(self, arrs, sum_arr, emit_acc1=emit_acc1, rows=rows,
+                  row0_off=row0_off)
+
+    def _row_plan(self, rows):
+        """(u0, u1, oy0, oy1): the unpooled output rows [u0, u1) of the
+        range ``rows`` (rows of ``sout_final``) and the image rows
+        [oy0, oy1) among them."""
+        return row_plan(self.sout_final, self.sout.halo, self.cfg.oh,
+                        self.pool2, rows)
 
     def save(self, path: str):
         """Save the packed operands, the config (and a strided op's original
@@ -596,74 +647,144 @@ class PackedConvOp(nn.Module):
         return op
 
 
-def packed_conv_plain(op: PackedConvOp, arrs, sum_arr=None) -> torch.Tensor:
+def row_plan(so: PackedSpec, halo_out: int, oh: int, pool2: bool, rows):
+    """(u0, u1, oy0, oy1) of an output row range: ``rows`` (default all)
+    counts rows of the returned array ``so``, pooled rows with pool2;
+    [u0, u1) are the unpooled output rows and [oy0, oy1) the image rows
+    among them."""
+    r0, r1 = (0, so.rows) if rows is None else rows
+    check(0 <= r0 < r1 <= so.rows,
+          f"output row range {rows} outside [0, {so.rows})")
+    f = 2 if pool2 else 1
+    u0, u1 = f * r0, f * r1
+    return (u0, u1, min(max(u0 - halo_out, 0), oh),
+            min(max(u1 - halo_out, 0), oh))
+
+
+def check_slice(arr, spec: PackedSpec, n: int, first: int, count: int):
+    """A row slice of a packed array of `spec`: `count` rows from row
+    `first` of the slice must lie in it."""
+    check(arr.dim() == 3 and arr.shape[0] == n and arr.shape[2] == spec.cp
+          and arr.shape[1] % spec.iwp == 0,
+          "packed input slice must be (n, rows * iwp, cp) of its spec")
+    check(count <= 0 or (first >= 0
+                         and first + count <= arr.shape[1] // spec.iwp),
+          "input slice does not hold every row the output range reads")
+
+
+def _stage_plain(op: PackedConvOp, u: torch.Tensor, r0: int, c0: int,
+                 nrows: int, ncols: int, sum_rounded=None,
+                 emit_acc1: bool = False) -> torch.Tensor:
+    """One packed conv stage (the 3x3, its fused 1x1) in plain PyTorch over
+    u, (n, R, C, icp) float64 u8 values padding included: output pixel
+    (i, x) reads u[:, r0 + i + ki, c0 + x + kj]. Accumulates tap by tap in
+    float64 (every partial sum is an integer below 2^53, so the sum is
+    exact). Returns the u8 values (n, nrows, ncols, out_oc), the sum joined
+    after the final round, or with emit_acc1 the s32 1x1 accumulator over
+    all packed_cp(oc1x1) lanes."""
+    cfg = op.cfg
+    n = u.shape[0]
+    n0 = layout.packed_cp(cfg.oc)
+    w = layout.unpack_weights(op.w0, n0, layout.conv_icp(cfg.ic), cfg.kh,
+                              cfg.kw).to(torch.float64)
+    acc = torch.zeros((n, nrows, ncols, n0), dtype=torch.float64,
+                      device=u.device)
+    for ki in range(cfg.kh):
+        for kj in range(cfg.kw):
+            patch = u[:, r0 + ki:r0 + ki + nrows, c0 + kj:c0 + kj + ncols]
+            acc += patch @ w[:, :, ki, kj].T
+    acc = acc.to(torch.int32)[..., :cfg.oc]
+    bias0 = op.bias0[:cfg.oc] if cfg.conv0_with_bias else None
+    val = requant_to_u8(acc, bias0, op.scale0[:cfg.oc], cfg.conv0_round,
+                        None if cfg.fuse_conv1x1 else sum_rounded)
+    if not cfg.fuse_conv1x1:
+        return val
+    n1 = layout.packed_cp(cfg.oc1x1) if emit_acc1 else cfg.oc1x1
+    w1 = layout.unpack_weights(op.w1, n1, cfg.oc, 1, 1)
+    acc1 = (val.to(torch.float64) @ w1[:, :, 0, 0].to(torch.float64).T
+            ).to(torch.int32)
+    if emit_acc1:
+        return acc1
+    bias1 = op.bias1[:cfg.oc1x1] if cfg.conv1_with_bias else None
+    return requant_to_u8(acc1, bias1, op.scale1[:cfg.oc1x1],
+                         cfg.conv1_round, sum_rounded)
+
+
+def _place(val: torch.Tensor, so: PackedSpec, nrows: int, row: int,
+           lanes: int, emit_acc1: bool) -> torch.Tensor:
+    """An output array of nrows rows of `so` (its rows re-based so the
+    image starts at row so.halo - r0): -128 (or the s32 zero) everywhere
+    but val's pixels, stored ^ 0x80 (or as they are) from row `row` of the
+    array at column so.col_off, lanes [0, lanes)."""
+    n = val.shape[0]
+    out = torch.full((n, nrows, so.iwp, so.cp), 0 if emit_acc1 else -128,
+                     dtype=torch.int32 if emit_acc1 else torch.int8,
+                     device=val.device)
+    out[:, row:row + val.shape[1], so.col_off:so.col_off + val.shape[2],
+        :lanes] = val if emit_acc1 else (val ^ 0x80).view(torch.int8)
+    return out.reshape(n, nrows * so.iwp, so.cp)
+
+
+def packed_conv_plain(op: PackedConvOp, arrs, sum_arr=None, *,
+                      emit_acc1: bool = False, rows=None,
+                      row0_off: int = 0) -> torch.Tensor:
     """The plain PyTorch version of ``packed_conv_kernel``.
 
     Reads the packed inputs themselves: the lane join of the sources, each
     stored byte ^ 0x80 as u8, windowed over the flat rows exactly as the
-    kernel addresses them, accumulated tap by tap in float64 (every partial
-    sum is an integer below 2^53, so the sum is exact). The sum operand is
-    read at its image pixels and lanes < c, as stored. Writes image pixels
-    at (halo_out + y, col_off_out + x) and -128 everywhere else; with pool2
-    the 2x2/s2 max of the u8 values first, at the pooled spec."""
-    cfg, sin, sout = op.cfg, op.sin, op.sout
+    kernel addresses them (``_stage_plain``). The sum operand is read at
+    its image pixels and lanes < c, as stored. Writes image pixels at
+    (halo_out + y, col_off_out + x) and -128 everywhere else; with pool2
+    the 2x2/s2 max of the u8 values first, at the pooled spec; with
+    emit_acc1 the raw 1x1 accumulator and 0 elsewhere. rows/row0_off as in
+    ``PackedConvOp.forward``."""
+    cfg, sin = op.cfg, op.sin
     n = arrs[0].shape[0]
-    icp = layout.conv_icp(cfg.ic)
-    n0 = layout.packed_cp(cfg.oc)
+    u0, u1, oy0, oy1 = op._row_plan(rows)
     u = torch.cat([a.view(torch.uint8) for a in arrs], dim=-1) ^ 0x80
-    u = u.reshape(n, sin.rows, sin.iwp, icp).to(torch.float64)
-    w = layout.unpack_weights(op.w0, n0, icp, cfg.kh, cfg.kw).to(
-        torch.float64)
-    r0, c0 = sin.halo - cfg.ph, sin.col_off - cfg.pw
-    acc = torch.zeros((n, cfg.oh, cfg.ow, n0), dtype=torch.float64,
-                      device=u.device)
-    for ki in range(cfg.kh):
-        for kj in range(cfg.kw):
-            patch = u[:, r0 + ki:r0 + ki + cfg.oh, c0 + kj:c0 + kj + cfg.ow]
-            acc += patch @ w[:, :, ki, kj].T
-    acc = acc.to(torch.int32)[..., :cfg.oc]
+    u = u.reshape(n, -1, sin.iwp, layout.conv_icp(cfg.ic)).to(torch.float64)
     sum_rounded = None
     if sum_arr is not None:
         ss = op.ssum
         sv = (sum_arr.view(torch.uint8) ^ 0x80).reshape(
             n, ss.rows, ss.iwp, ss.cp)[
-            :, ss.halo:ss.halo + cfg.oh, ss.col_off:ss.col_off + cfg.ow,
+            :, ss.halo + oy0:ss.halo + oy1, ss.col_off:ss.col_off + cfg.ow,
             :cfg.out_oc]
         fin = cfg.conv1_round if cfg.fuse_conv1x1 else cfg.conv0_round
         sum_rounded = round_f32(sum_term(sv, cfg.sum_scale), fin)
-    bias0 = op.bias0[:cfg.oc] if cfg.conv0_with_bias else None
-    val = requant_to_u8(acc, bias0, op.scale0[:cfg.oc], cfg.conv0_round,
-                        None if cfg.fuse_conv1x1 else sum_rounded)
-    if cfg.fuse_conv1x1:
-        w1 = layout.unpack_weights(op.w1, cfg.oc1x1, cfg.oc, 1, 1)
-        acc1 = (val.to(torch.float64) @ w1[:, :, 0, 0].to(torch.float64).T
-                ).to(torch.int32)
-        bias1 = op.bias1[:cfg.oc1x1] if cfg.conv1_with_bias else None
-        val = requant_to_u8(acc1, bias1, op.scale1[:cfg.oc1x1],
-                            cfg.conv1_round, sum_rounded)
+    val = _stage_plain(op, u, sin.halo - row0_off - cfg.ph + oy0,
+                       sin.col_off - cfg.pw, oy1 - oy0, cfg.ow, sum_rounded,
+                       emit_acc1)
+    row = op.sout.halo - u0 + oy0
     if op.pool2:
-        val = val.reshape(n, cfg.oh // 2, 2, cfg.ow // 2, 2,
+        val = val.reshape(n, (oy1 - oy0) // 2, 2, cfg.ow // 2, 2,
                           cfg.out_oc).amax(dim=(2, 4))
+        row //= 2
     so = op.sout_final
-    out = torch.full((n, so.rows, so.iwp, so.cp), -128, dtype=torch.int8,
-                     device=u.device)
-    out[:, so.halo:so.halo + so.h, so.col_off:so.col_off + so.w,
-        :cfg.out_oc] = (val ^ 0x80).view(torch.int8)
-    return out.reshape(so.array_shape(n))
+    return _place(val, so, (u1 - u0) // (2 if op.pool2 else 1), row,
+                  so.cp if emit_acc1 else cfg.out_oc, emit_acc1)
 
 
-def packed_conv_cuda(op: PackedConvOp, arrs, sum_arr=None) -> torch.Tensor:
+def packed_conv_cuda(op: PackedConvOp, arrs, sum_arr=None, *,
+                     emit_acc1: bool = False, rows=None,
+                     row0_off: int = 0) -> torch.Tensor:
     """Launch ``packed_conv_kernel`` on the current stream."""
     cfg, sin, sout, ss = op.cfg, op.sin, op.sout, op.ssum
     check(len(arrs) <= MAX_INPUTS, _TOO_MANY)
     for s in op.sins:
         check(s.cp % LANE_UNIT == 0, _LANES)
+    u0, u1, oy0, oy1 = op._row_plan(rows)
     arrs = [_build.aligned(a) for a in arrs]
     if sum_arr is not None:
         sum_arr = _build.aligned(sum_arr)
     n = arrs[0].shape[0]
-    out = torch.empty(op.sout_final.array_shape(n), dtype=torch.int8,
+    so = op.sout_final
+    nrows = (u1 - u0) // (2 if op.pool2 else 1)
+    out = torch.empty((n, nrows * so.iwp, so.cp),
+                      dtype=torch.int32 if emit_acc1 else torch.int8,
                       device=arrs[0].device)
+    if oy1 == oy0:   # a range of pad rows only: nothing to compute
+        return out.fill_(0 if emit_acc1 else -128)
     fuse = cfg.fuse_conv1x1
     ptrs = (ctypes.c_void_p * len(arrs))(*[a.data_ptr() for a in arrs])
     cps = (ctypes.c_int * len(arrs))(*[s.cp for s in op.sins])
@@ -676,16 +797,47 @@ def packed_conv_cuda(op: PackedConvOp, arrs, sum_arr=None) -> torch.Tensor:
             op.scale1.data_ptr() if fuse else None,
             out.data_ptr(),
             None if sum_arr is None else sum_arr.data_ptr(),
-            n, sin.rows, sin.iwp, sin.halo, sin.col_off,
-            sout.rows, sout.halo, sout.col_off, cfg.oh, cfg.ow, cfg.kh,
-            cfg.kw, cfg.ph, cfg.pw, cfg.oc, layout.packed_cp(cfg.oc),
-            cfg.oc1x1, layout.packed_cp(cfg.oc1x1) if fuse else 0,
+            n, arrs[0].shape[1] // sin.iwp, sin.iwp, sin.halo - row0_off,
+            sin.col_off, u1 - u0, sout.halo - u0, sout.col_off, cfg.oh,
+            cfg.ow, cfg.kh, cfg.kw, cfg.ph, cfg.pw, cfg.oc,
+            layout.packed_cp(cfg.oc), cfg.oc1x1,
+            layout.packed_cp(cfg.oc1x1) if fuse else 0,
             int(cfg.conv0_round == round_mode.down),
             int(cfg.conv1_round == round_mode.down),
             int(cfg.conv0_with_bias), int(cfg.conv1_with_bias), int(fuse),
             0 if ss is None else ss.rows, 0 if ss is None else ss.halo,
-            int(op.pool2), cfg.sum_scale,
+            int(op.pool2), int(emit_acc1), oy0, oy1 - oy0, cfg.sum_scale,
             _build.stream_of(out))
     _build.check(rc, "packed_conv_kernel")
-    _build.count_launch("packed_conv")
+    modes = (("acc1",) if emit_acc1 else ()) + (
+        ("rows",) if rows is not None or row0_off else ())
+    _build.count_launch("packed_conv", *modes)
     return out
+
+
+# -------------------------------------------- sharded packed images
+
+def pack_image_sharded(src_u8, spec_local: PackedSpec,
+                       n_shards: int) -> torch.Tensor:
+    """NHWC u8 -> the sharded packed format: H split into n_shards equal
+    slabs, each packed with ``spec_local`` (whose ``h`` is a shard's
+    height), joined on the flat-row dim, on the source's device. Split on
+    that dim, each shard is a valid packed image whose halo rows
+    ``parallel.shard.sp_packed`` fills from its neighbours."""
+    src = torch.as_tensor(src_u8)
+    check(src.shape[1] == spec_local.h * n_shards,
+          "pack_image_sharded: H does not split into n_shards local specs")
+    return torch.cat([pack_image(x, spec_local)
+                      for x in src.split(spec_local.h, dim=1)], dim=1)
+
+
+def unpack_image_sharded(arr, spec_local: PackedSpec,
+                         n_shards: int) -> torch.Tensor:
+    """Inverse of pack_image_sharded (image rows only; the shards' halo
+    rows are dropped)."""
+    arr = torch.as_tensor(arr)
+    rl = spec_local.rows * spec_local.iwp
+    check(arr.shape[1] == rl * n_shards,
+          "unpack_image_sharded: array does not hold n_shards local specs")
+    return torch.cat([unpack_image(a, spec_local)
+                      for a in arr.split(rl, dim=1)], dim=1)

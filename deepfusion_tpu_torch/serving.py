@@ -7,10 +7,11 @@ dropped. ``submit`` feeds the least loaded replica, ``submit_many`` splits a
 burst across replicas with ``balance211``.
 
 The worker turns the stacked numpy batch into a u8 tensor on the model's
-device (the ``device`` attribute of the model, such as ``FusionNet.device``;
-the CPU for a model without one), runs the model under
-``torch.inference_mode()`` (which is thread-local, so the worker enters it
-itself) and copies the result back to a numpy array.
+device, runs the model under ``torch.inference_mode()`` (which is
+thread-local, so the worker enters it itself) and copies the result back to
+a numpy array. The device is the model's ``device`` attribute (such as
+``FusionNet.device``) or, for a bound method, its object's; a model with
+neither is refused, so no batch lands on the CPU by default.
 """
 from __future__ import annotations
 
@@ -22,8 +23,21 @@ from typing import Callable, Sequence, Union
 import numpy as np
 import torch
 
-from .utils.logger import check, info
+from .utils.logger import CheckError, check, info
 from .utils.mathutil import balance211
+
+
+def model_device(fn) -> torch.device:
+    """The device a served callable runs on: its ``device`` attribute, or
+    its object's for a bound method."""
+    for obj in (fn, getattr(fn, "__self__", None)):
+        dev = getattr(obj, "device", None)
+        if dev is not None:
+            return torch.device(dev)
+    raise CheckError(
+        f"{fn!r} names no device: serve a module with a `device` "
+        "attribute (such as FusionNet.packed_module()) or a bound method "
+        "of one")
 
 
 class BatchServer:
@@ -43,6 +57,7 @@ class BatchServer:
         self._fns = list(model_fn) if isinstance(model_fn, (list, tuple)) \
             else [model_fn]
         check(len(self._fns) >= 1, "need at least one model replica")
+        self._devices = [model_device(fn) for fn in self._fns]
         self._batch = batch
         self._in_shape = tuple(input_shape)
         self._in_dtype = np.dtype(input_dtype)
@@ -129,7 +144,7 @@ class BatchServer:
 
     def _run(self, replica: int):
         fn, q = self._fns[replica], self._qs[replica]
-        device = getattr(fn, "device", torch.device("cpu"))
+        device = self._devices[replica]
         with torch.inference_mode():
             while not self._stop.is_set() or not q.empty():
                 items = self._gather(q)

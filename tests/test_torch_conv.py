@@ -162,3 +162,59 @@ def test_op_rejects_wrong_input():
         op(torch.from_numpy(src).to(torch.int32))
     with pytest.raises(CheckError):
         op(torch.from_numpy(src[:, :5]))
+
+
+# --------------------------------- K1b's raw 1x1 accumulator (emit_acc1)
+
+@pytest.mark.parametrize("name", ["fused-u8-rne", "fused-s8-floor-floor",
+                                  "fused-s32-nobias-scalar"])
+def test_conv_fused_acc1_matches_jax(name):
+    """conv_fused_acc1: the raw s32 1x1 accumulator, against the JAX
+    package's on its first oc1x1 lanes (JAX pads to oc1x1p; its u8 shift
+    correction is folded in, the port multiplies u8 by s8 directly)."""
+    from deepfusion_tpu.config import ConvConfig as JConvConfig
+    from deepfusion_tpu.ops.conv import ConvOp as JConvOp
+    from deepfusion_tpu.ops.conv import conv_fused_acc1 as jacc1
+    from deepfusion_tpu_torch.ops.conv import conv_fused_acc1
+    src, wei, bia, stride, pad, kw = _case(name)
+    n, hw, _, ic = src.shape
+    oc, oc1 = wei.shape[0], kw["wei1x1"].shape[0]
+    args = ((n, hw, hw, ic), wei.shape, None if bia is None else bia.dtype,
+            stride, pad, (n, hw, hw, oc1), kw["dst_dtype"])
+    ckw = dict(conv0_relu=kw["conv0_relu"], conv0_scales=kw["conv0_scales"],
+               conv0_round=kw["conv0_round_mode"],
+               wei1x1_shape=kw["wei1x1"].shape,
+               bia1x1_dt=None if kw["bia1x1"] is None
+               else kw["bia1x1"].dtype, conv1_scales=kw["conv1_scales"])
+    jop = JConvOp(JConvConfig.make(*args, **ckw), wei, bia, kw["wei1x1"],
+                  kw["bia1x1"])
+    want = np.asarray(jacc1(jop.cfg, src, *jop._operands[:6]))
+    op = ConvOp(ConvConfig.make(*args, **ckw), wei, bia, kw["wei1x1"],
+                kw["bia1x1"])
+    got = conv_fused_acc1(op, torch.from_numpy(src)).numpy()
+    assert got.dtype == np.int32 and got.shape == (n, hw, hw, oc1)
+    np.testing.assert_array_equal(got, want[..., :oc1])
+    assert oc % 2 == 0
+    # partial accumulators over halves of the 3x3's channels add up
+    halves = []
+    for sl in (slice(0, oc // 2), slice(oc // 2, oc)):
+        sc = kw["conv0_scales"]
+        c = ConvConfig.make(*((n, hw, hw, ic), (oc // 2,) + wei.shape[1:],
+                              *args[2:]),
+                            **{**ckw, "conv0_scales": sc[sl] if len(sc) > 1
+                               else sc,
+                               "wei1x1_shape": (oc1, oc // 2, 1, 1)})
+        h = ConvOp(c, wei[sl], None if bia is None else bia[sl],
+                   kw["wei1x1"][:, sl])
+        halves.append(conv_fused_acc1(h, torch.from_numpy(src)))
+    np.testing.assert_array_equal((halves[0] + halves[1]).numpy(), got)
+
+
+def test_conv_fused_acc1_refuses_unfused():
+    from deepfusion_tpu_torch.ops.conv import conv_fused_acc1
+    src, wei, bia, stride, pad, kw = _case("3x3-u8-rne-s32bias-peroc")
+    n, hw, _, ic = src.shape
+    cfg = ConvConfig.make((n, hw, hw, ic), wei.shape, bia.dtype, stride,
+                          pad, (n, hw, hw, wei.shape[0]), "u8")
+    with pytest.raises(CheckError, match="needs the fused config"):
+        conv_fused_acc1(ConvOp(cfg, wei, bia), torch.from_numpy(src))

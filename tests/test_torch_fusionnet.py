@@ -111,11 +111,28 @@ def test_batch_server_worker_runs_in_inference_mode():
     def model(x):
         seen.append(torch.is_inference_mode_enabled())
         return x.to(torch.int32) * 2
+    model.device = torch.device("cpu")
 
     with BatchServer(model, batch=2, input_shape=(3,)) as srv:
         out = srv.submit(np.full((3,), 7, np.uint8)).result(timeout=30)
     np.testing.assert_array_equal(out, np.full((3,), 14, np.int32))
     assert seen and all(seen)
+
+
+def test_batch_server_refuses_a_callable_without_a_device():
+    """A callable that names no device (not itself, not its object) is
+    refused when the server is built: its batches would otherwise be staged
+    on the CPU without a word."""
+    from deepfusion_tpu_torch.utils.logger import CheckError
+
+    def model(x):
+        return x
+    with pytest.raises(CheckError, match="names no device"):
+        BatchServer(model, batch=2, input_shape=(3,))
+    net = FusionNet(FusionNetConfig(**SMALL))
+    srv = BatchServer(net.packed_call, batch=2,
+                      input_shape=net.input_shape[1:])
+    assert srv._devices == [torch.device("cpu")]
 
 
 @pytest.mark.parametrize("seed", [0, 3])

@@ -30,7 +30,10 @@ MODULES = [
     "deepfusion_tpu_torch.models.fusionnet",
     "deepfusion_tpu_torch.models.resfusion",
     "deepfusion_tpu_torch.models.vggfusion",
-    "deepfusion_tpu_torch.serving",
+    "deepfusion_tpu_torch.serving", "deepfusion_tpu_torch.parallel",
+    "deepfusion_tpu_torch.parallel.mesh",
+    "deepfusion_tpu_torch.parallel.shard",
+    "deepfusion_tpu_torch.parallel.plan",
 ]
 
 
@@ -53,7 +56,7 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("op", ["conv", "concat", "pool", "sum_relu",
                                 "packed_conv", "packed_sum_pool",
-                                "convpool", "pair_conv"])
+                                "convpool", "pair_conv", "sharded"])
 def test_non_cpu_tensors_never_take_the_plain_path(op, monkeypatch):
     """On a tensor that is not on the CPU each op goes to its kernel
     wrapper; with no kernel library to be had, it raises."""
@@ -76,6 +79,16 @@ def test_non_cpu_tensors_never_take_the_plain_path(op, monkeypatch):
             from deepfusion_tpu_torch.ops.pool import conv_relu_pool
             conv_relu_pool(x, np.zeros((16, 16, 3, 3), np.int8), None,
                            (1, 1), (1, 1), dst_dtype="u8")
+        elif op == "sharded":
+            from deepfusion_tpu_torch.config import ConvConfig
+            from deepfusion_tpu_torch.parallel import make_mesh, tp_fused_conv
+            cfg = ConvConfig.make((1, 4, 4, 16), (16, 16, 3, 3), None,
+                                  (1, 1), (1, 1), (1, 4, 4, 16), "u8",
+                                  wei1x1_shape=(16, 16, 1, 1))
+            w = np.zeros((16, 16, 3, 3), np.int8)
+            fn = tp_fused_conv(cfg, w, None, w[:, :, :1, :1], None,
+                               make_mesh(tp=2, devices=["meta"] * 2))
+            fn(x)
         elif op == "pair_conv":
             from deepfusion_tpu_torch.config import ConvConfig
             from deepfusion_tpu_torch.ops.mega import PackedConvPairOp

@@ -271,3 +271,82 @@ def test_pair_plain_is_the_two_packed_convs():
     assert top.op_a.sout == top.smid and top.op_b.sin == top.smid
     x = torch.from_numpy(_input(top, 2, 33))
     assert torch.equal(top(x), top.op_b(top.op_a(x)))
+
+
+# ------------------------- K10's modes for the sharded wrappers
+
+def _shard_pair(pool2=True, fused_b=False):
+    """A 12-row pair with the input halo sp_packed needs (halo_out + ph_a
+    + ph_b), and its JAX twin."""
+    ca = _cfgs(2, 12, 32, 64, per_oc=True, seed=1)
+    cb = _cfgs(2, 12, 64, 32, oc1=48 if fused_b else None, per_oc=True,
+               seed=2)
+    sin = T.PackedSpec.make(12, 12, 32, halo=4, col_off=2, iwp=16)
+    return _pair(ca, cb, sin=sin, halo_out=2, col_off_out=2, pool2=pool2)
+
+
+@pytest.mark.parametrize("pool2,fused_b", [(True, False), (False, True)])
+def test_widened_bounds_give_the_shards_rows(pool2, fused_b):
+    """A shard's pair (reheight) on its slab of the whole input, halo band
+    holding the neighbours' rows, with the intermediate's bounds widened
+    by ph_b on the inside sides, gives the whole pair's output rows of
+    the slab; the default bounds would pad there instead."""
+    top, _ = _shard_pair(pool2, fused_b)
+    x = torch.from_numpy(_input(top, 2, 0))
+    want = T.unpack_image(top(x), top.sout_final)
+    h, halo, iwp = 6, top.sin.halo, top.sin.iwp
+    local = top.reheight(h)
+    f = 2 if pool2 else 1
+    for j, bounds in ((0, (0, h + 1)), (1, (-1, h))):
+        xl = x[:, j * h * iwp:(j * h + h + 2 * halo) * iwp]
+        got = T.unpack_image(local(xl, mid_bounds=bounds),
+                             local.sout_final)
+        np.testing.assert_array_equal(
+            got.numpy(), want[:, j * h // f:(j + 1) * h // f].numpy())
+        plain = T.unpack_image(local(xl), local.sout_final)
+        assert not torch.equal(plain, got)
+
+
+def test_pair_row_ranges_from_slices_stitch_to_the_output():
+    """Row ranges of a shard's pair, each from the input rows its layer a
+    reads (bounds widened on both sides), join to the full-call output."""
+    top, _ = _shard_pair(pool2=True)
+    local = top.reheight(6)
+    x = torch.from_numpy(_input(local, 2, 4))
+    bounds = (-1, 7)
+    want = local(x, mid_bounds=bounds)
+    so, iwp, halo = local.sout_final, local.sin.iwp, local.sin.halo
+    parts = []
+    cuts = [0, 2, 4, so.rows]
+    for r0, r1 in zip(cuts, cuts[1:]):
+        y0, y1 = local._mid_rows((r0, r1), bounds)
+        lo = halo + y0 - 1
+        hi = halo + y1 + 1 if y1 > y0 else lo
+        parts.append(local(x[:, lo * iwp:hi * iwp], rows=(r0, r1),
+                           row0_off=lo, mid_bounds=bounds))
+    torch.testing.assert_close(torch.cat(parts, dim=1), want, rtol=0,
+                               atol=0)
+    with pytest.raises(CheckError, match="does not hold every row"):
+        local(x[:, (halo - 1) * iwp:(halo + 3) * iwp], rows=(0, 2),
+              row0_off=halo - 1, mid_bounds=bounds)
+
+
+def test_pair_reheight_matches_jax():
+    top, jop = _shard_pair(pool2=True)
+    tl, jl = top.reheight(6), jop.reheight(6)
+    assert (jspec(tl.sin), jspec(tl.smid), jspec(tl.sout)) == \
+        (jl.sin, jl.smid, jl.sout)
+    x = _input(tl, 2, 5)
+    np.testing.assert_array_equal(tl(torch.from_numpy(x)).numpy(),
+                                  np.asarray(jl(x)))
+
+
+def test_pair_reheight_check_matches_jax():
+    ca = _cfgs(1, 12, 32, 32, pad=0, seed=1)
+    cb = _cfgs(1, 10, 32, 32, seed=2)
+    top, jop = _pair(ca, cb)
+    msg = "reheight requires oh == ih on layer a"
+    with pytest.raises(CheckError, match=msg):
+        top.reheight(6)
+    with pytest.raises(JCheckError, match=msg):
+        jop.reheight(6)

@@ -222,13 +222,18 @@ def test_packed_conv_reads_pad_slots_as_stored():
 
 @pytest.mark.parametrize("feature", ["emit_acc1", "t_range"])
 def test_unported_features_raise(feature):
+    """The raw accumulator needs the fused config; the JAX package's
+    t_range (TPU row tiles) has no counterpart: the port takes ``rows``,
+    rows of the output array."""
     cfg, _, wei, bia, _, _ = _cfgs(1, 12, 32, 32)
-    with pytest.raises(NotImplementedError, match=feature):
-        op = T.PackedConvOp(cfg, wei, bia)
-        x = torch.full(op.sin.array_shape(1), -128, dtype=torch.int8)
-        kw = {"emit_acc1": dict(emit_acc1=True),
-              "t_range": dict(t_range=(0, 1))}[feature]
-        op(x, **kw)
+    op = T.PackedConvOp(cfg, wei, bia)
+    x = torch.full(op.sin.array_shape(1), -128, dtype=torch.int8)
+    if feature == "emit_acc1":
+        with pytest.raises(CheckError, match="emit_acc1 needs the fused"):
+            op(x, emit_acc1=True)
+    else:
+        with pytest.raises(TypeError, match="t_range"):
+            op(x, t_range=(0, 1))
 
 
 # ------------------------------------------ K5's fused 2x2 pool (pool2)
@@ -536,3 +541,155 @@ def test_repack_matches_jax():
     got = T.repack(T.pack_image(src, s1), s1, s2)
     want = J.repack(J.pack_image(src, jspec(s1)), jspec(s1), jspec(s2))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ------------------------------- K5's modes for the sharded wrappers
+
+def _acc1_ops(seed, per_oc):
+    cfg, jcfg, wei, bia, wei1, bia1 = _cfgs(2, 12, 32, 64, oc1=40,
+                                            per_oc=per_oc, seed=seed)
+    sin = T.PackedSpec.make(12, 12, 32, halo=2, col_off=2, iwp=16)
+    kw = dict(halo_out=1, col_off_out=2)
+    return (T.PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sin, **kw),
+            J.PackedConvOp(jcfg, wei, bia, wei1, bia1, sin=jspec(sin), **kw))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_emit_acc1_matches_jax_on_image_slots(seed):
+    """The raw 1x1 accumulator against JAX's _packed_call(emit_acc1=True):
+    equal on the image slots, every lane; 0 on every other slot (the JAX
+    kernel computes pad rows like image rows)."""
+    top, jop = _acc1_ops(seed, per_oc=bool(seed))
+    s = top.sout
+    x = np.asarray(J.pack_image(_edge_u8(np.random.default_rng(seed),
+                                         (2, 12, 12, 32)), jspec(top.sin)))
+    got = top(torch.from_numpy(x), emit_acc1=True).numpy()
+    want = np.asarray(J._packed_call(jop.cfg, jop.sins, jop.sout, (x,),
+                                     *jop._operands, emit_acc1=True))
+    assert got.dtype == np.int32 and got.shape == s.array_shape(2)
+    assert want.shape == got.shape
+    g, w = (a.reshape(2, s.rows, s.iwp, s.cp) for a in (got, want))
+    img = np.zeros(g.shape[:3], bool)
+    img[:, s.halo:s.halo + s.h, s.col_off:s.col_off + s.w] = True
+    np.testing.assert_array_equal(g[img], w[img])
+    assert (g[~img] == 0).all() and (g[img][:, 40:] == 0).all()
+
+
+@pytest.mark.parametrize("what", ["sum", "pool2", "two inputs", "unfused"])
+def test_emit_acc1_refusals(what):
+    cfg, _, wei, bia, wei1, bia1 = _cfgs(
+        1, 12, 64, 32, oc1=None if what == "unfused" else 32,
+        sum_scale=1.0 if what == "sum" else None)
+    sin = T.PackedSpec.make(12, 12, 64, halo=2, col_off=2, iwp=16)
+    if what == "two inputs":
+        sin = (T.PackedSpec.make(12, 12, 32, halo=2, col_off=2, iwp=16),) * 2
+    ssum = T.PackedSpec.make(12, 12, 32, halo=2, col_off=2, iwp=16) \
+        if what == "sum" else None
+    op = T.PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sin, halo_out=2,
+                        col_off_out=2, sum_spec=ssum, pool2=what == "pool2")
+    xs = [torch.full(s.array_shape(1), -128, dtype=torch.int8)
+          for s in op.sins]
+    sm = None if ssum is None else torch.full(ssum.array_shape(1), -128,
+                                              dtype=torch.int8)
+    msg = "needs the fused config" if what == "unfused" else \
+        "single input, no sum post-op, no pool2"
+    with pytest.raises(CheckError, match=msg):
+        op(xs, sm, emit_acc1=True)
+
+
+def _range_op(halo_in, pool2, with_sum, n_in, seed=0):
+    cs = (32,) * n_in
+    cfg, _, wei, bia, wei1, bia1 = _cfgs(
+        2, 12, sum(cs), 32, oc1=32, per_oc=True, seed=seed,
+        sum_scale=0.75 if with_sum else None)
+    sins = tuple(T.PackedSpec.make(12, 12, c, halo=halo_in, col_off=2,
+                                   iwp=16) for c in cs)
+    ssum = T.PackedSpec.make(12, 12, 32, halo=3, col_off=2, iwp=16) \
+        if with_sum else None
+    return T.PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sins, halo_out=2,
+                          col_off_out=2, sum_spec=ssum, pool2=pool2)
+
+
+@pytest.mark.parametrize("halo_in,pool2,with_sum,n_in",
+                         [(1, False, False, 1), (3, False, True, 1),
+                          (2, True, False, 2), (4, True, True, 1)])
+def test_row_ranges_from_slices_stitch_to_the_output(halo_in, pool2,
+                                                     with_sum, n_in):
+    """Output row ranges (rows of sout_final), each computed from the
+    smallest input row slice that holds its taps (halos deeper than ph and
+    equal to it), joined, are the whole output bitwise."""
+    op = _range_op(halo_in, pool2, with_sum, n_in)
+    rng = np.random.default_rng(halo_in)
+    xs = [T.pack_image(torch.from_numpy(_edge_u8(rng, (2, 12, 12, s.c))), s)
+          for s in op.sins]
+    sm = T.pack_image(torch.from_numpy(_edge_u8(rng, (2, 12, 12, 32))),
+                      op.ssum) if with_sum else None
+    want = op(xs if n_in > 1 else xs[0], sm)
+    so, iwp = op.sout_final, op.sin.iwp
+    cuts = [0, 1, 3, so.rows - 2, so.rows]
+    parts = []
+    for r0, r1 in zip(cuts, cuts[1:]):
+        _, _, oy0, oy1 = op._row_plan((r0, r1))
+        lo = op.sin.halo + oy0 - 1          # the first row a tap reads
+        hi = op.sin.halo + oy1 + 1 if oy1 > oy0 else lo
+        sl = [x[:, lo * iwp:hi * iwp] for x in xs]
+        parts.append(op(sl if n_in > 1 else sl[0], sm, rows=(r0, r1),
+                        row0_off=lo))
+        assert parts[-1].shape[1] == (r1 - r0) * so.iwp
+    torch.testing.assert_close(torch.cat(parts, dim=1), want, rtol=0, atol=0)
+
+
+def test_row_range_slice_must_hold_the_taps():
+    op = _range_op(1, False, False, 1)
+    x = torch.full(op.sin.array_shape(1), -128, dtype=torch.int8)
+    iwp = op.sin.iwp
+    with pytest.raises(CheckError, match="does not hold every row"):
+        op(x[:, 2 * iwp:6 * iwp], rows=(3, 6), row0_off=2)
+    with pytest.raises(CheckError, match="outside"):
+        op(x, rows=(0, op.sout.rows + 1))
+
+
+def test_reheight_matches_jax():
+    cfg, jcfg, wei, bia, wei1, bia1 = _cfgs(2, 12, 32, 32, oc1=32,
+                                            per_oc=True, sum_scale=0.5)
+    sin = T.PackedSpec.make(12, 12, 32, halo=2, col_off=2, iwp=16)
+    ssum = T.PackedSpec.make(12, 12, 32, halo=3, col_off=2, iwp=16)
+    kw = dict(halo_out=2, col_off_out=2, pool2=True)
+    top = T.PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sin, sum_spec=ssum,
+                         **kw).reheight(6)
+    jop = J.PackedConvOp(jcfg, wei, bia, wei1, bia1, sin=jspec(sin),
+                         sum_spec=jspec(ssum), **kw).reheight(6)
+    assert (jspec(top.sin), jspec(top.sout), jspec(top.ssum)) == \
+        (jop.sin, jop.sout, jop.ssum)
+    assert (top.cfg.ih, top.cfg.oh) == (jop.cfg.ih, jop.cfg.oh) == (6, 6)
+    rng = np.random.default_rng(3)
+    x = np.asarray(J.pack_image(_edge_u8(rng, (2, 6, 12, 32)), jop.sin))
+    s = np.asarray(J.pack_image(_edge_u8(rng, (2, 6, 12, 32)), jop.ssum))
+    np.testing.assert_array_equal(
+        top(torch.from_numpy(x), torch.from_numpy(s)).numpy(),
+        np.asarray(jop(x, s)))
+
+
+@pytest.mark.parametrize("case", ["strided", "valid"])
+def test_reheight_checks_match_jax(case):
+    stride, pad = (2, 1) if case == "strided" else (1, 0)
+    cfg, jcfg, wei, bia, *_ = _cfgs(1, 12, 16, 32, stride=stride, pad=pad)
+    msg = {"strided": "reheight does not support s2d-lowered strided ops",
+           "valid": "reheight requires oh == ih"}[case]
+    with pytest.raises(CheckError, match=msg):
+        T.PackedConvOp(cfg, wei, bia).reheight(4)
+    with pytest.raises(JCheckError, match=msg):
+        J.PackedConvOp(jcfg, wei, bia).reheight(4)
+
+
+def test_pack_image_sharded_matches_jax():
+    rng = np.random.default_rng(5)
+    src = _edge_u8(rng, (2, 12, 10, 40))
+    spec = T.PackedSpec.make(4, 10, 40, halo=2, col_off=2, iwp=16)
+    got = T.pack_image_sharded(torch.from_numpy(src), spec, 3)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(J.pack_image_sharded(src, jspec(spec), 3)))
+    np.testing.assert_array_equal(
+        T.unpack_image_sharded(got, spec, 3).numpy(), src)
+    with pytest.raises(CheckError, match="does not split"):
+        T.pack_image_sharded(torch.from_numpy(src), spec, 2)
