@@ -17,7 +17,10 @@ Phases, each printing its own lines:
      scales, deeper and shallower input halos, and bench.py's --pair
      shape); then the kernel modes of the sharded path: K1b's and K5's raw
      1x1 accumulator, K5's output row ranges from input row slices, K10's
-     widened intermediate bounds with row ranges (junk pads included);
+     widened intermediate bounds with row ranges (junk pads included); then
+     every call of phase 6 and its single-device call once, each kernel
+     launch inside them held against its plain version on the same inputs
+     (the shapes, slices, ranges and bounds the wrappers give the kernels);
   4. slice: FusionNet(FusionNetConfig()), ResFusionNet(ResFusionNetConfig())
      and VGGFusion(VGGFusionConfig()) on the card behind BatchServer each
      answer 20 requests through the dense forward, then 20 through the
@@ -39,14 +42,16 @@ Phases, each printing its own lines:
      sp_conv at sp 2, 4 and dp 2 x sp 2; sp_packed on the packed conv at sp
      2 and 4; dp_shard of the four op families; sp_packed on VGGFusion's
      block 1 and 2 pairs with pool2; three_stage_plan at meshes (2, 2, 2)
-     and (1, 1, 1)), each bitwise equal to the single-device op, every
-     kernel mode launched; then each wrapper's time against its
-     single-device op (one card runs the shards in turn: the cost of
-     sharding, not scaling).
+     and (1, 1, 1)): the sharded calls alone between setting the launch
+     counts to 0 and reading them, every kernel and mode of the path
+     launched; then each result bitwise equal to the single-device call;
+     then each wrapper's time against the single-device call (one card
+     runs the shards in turn: the cost of sharding, not scaling).
 
 Any failure raises and exits non-zero; nothing is caught. The line before
 the last is the per-kernel JSON summary, the last line the device JSON.
 """
+import contextlib
 import importlib
 import json
 import math
@@ -131,14 +136,16 @@ def cuda_ms(fn, reps=REPS, warmup=3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps=REPS, tries=3):
+def device_ms(fn, reps=REPS, profiles=1, tries=3):
     """Device time per call of fn() in ms: the self device time of every
-    kernel and copy it ran, summed by torch.profiler over reps calls. A
-    profile that recorded no device activity is taken again; after `tries`
-    such profiles the time is not measured (nan)."""
+    kernel and copy it ran, summed by torch.profiler over reps calls; the
+    median of `profiles` profiles. A profile that recorded no device
+    activity is taken again; after `tries` such profiles the time is not
+    measured (nan)."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    out, empty = [], 0
+    while len(out) < profiles:
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -146,8 +153,12 @@ def device_ms(fn, reps=REPS, tries=3):
             torch.cuda.synchronize()
         us = sum(e.self_device_time_total for e in prof.key_averages())
         if us > 0:
-            return us / reps / 1e3
-    return float("nan")
+            out.append(us / reps / 1e3)
+            continue
+        empty += 1
+        if empty == tries:
+            return float("nan")
+    return statistics.median(out)
 
 
 def _num(x: float):
@@ -170,16 +181,30 @@ def rand(rng, shape, dt, dev):
 
 
 def nbytes(*items) -> int:
-    """Bytes of the tensors, lists of tensors and modules' buffers."""
+    """Bytes of the tensors, lists of tensors and modules' buffers; an int
+    is a byte count already."""
     total = 0
     for it in items:
-        if isinstance(it, torch.nn.Module):
+        if isinstance(it, int):
+            total += it
+        elif isinstance(it, torch.nn.Module):
             total += sum(b.numel() * b.element_size() for b in it.buffers())
         elif isinstance(it, (list, tuple)):
             total += nbytes(*it)
         elif it is not None:
             total += it.numel() * it.element_size()
     return total
+
+
+def packed_reads(op, n) -> int:
+    """Bytes a packed conv's taps read at batch n: (oh + kh - 1) x
+    (ow + kw - 1) pixels of each input, all its lanes, and the sum
+    operand's image pixels. The halo rows and columns past them are never
+    read."""
+    c = op.cfg
+    px = n * (c.oh + c.kh - 1) * (c.ow + c.kw - 1)
+    return sum(px * s.cp for s in op.sins) + (
+        0 if op.ssum is None else n * c.oh * c.ow * op.ssum.cp)
 
 
 def conv_ops(cfg, n=None) -> float:
@@ -205,25 +230,58 @@ class Parity:
     def __init__(self):
         self.cases = {k: 0 for k in KERNEL_INFO}
         self.err = {k: 0.0 for k in KERNEL_INFO}
-        self.modes = {}
 
-    def check(self, kernel: str, what: str, got, want, mode=None):
+    def check(self, kernel: str, what: str, got, want):
         torch.cuda.synchronize()
         assert got.shape == want.shape and got.dtype == want.dtype, \
             f"{kernel} {what}: {got.shape}/{got.dtype} vs " \
             f"{want.shape}/{want.dtype}"
+        self.cases[kernel] += 1
+        if torch.equal(got, want):
+            return
         g, w = got.cpu().numpy(), want.cpu().numpy()
         err = float(np.max(np.abs(g.astype(np.float64) - w.astype(np.float64)),
                            initial=0.0))
         self.err[kernel] = max(self.err[kernel], err)
-        self.cases[kernel] += 1
-        if mode:
-            self.modes[mode] = self.modes.get(mode, 0) + 1
         if not np.array_equal(g, w, equal_nan=True):
             bad = np.argwhere(g != w)[:5]
             raise AssertionError(
                 f"{kernel} {what}: not bitwise equal to the plain version; "
                 f"max_abs_err {err}, first mismatches at {bad.tolist()}")
+
+
+@contextlib.contextmanager
+def held_against_plain(par: Parity, label: str):
+    """Inside the block, every launch of K1, K5, K9 and K10 through its op
+    (the ops look their launchers up at each call) is followed by the
+    plain version on the same inputs and arguments, and the two must be
+    bitwise equal: the kernels are held at the very shapes, slices, row
+    ranges and bounds the code under test gives them."""
+    launchers = [("conv_fused", "conv", "conv_cuda", "conv_plain"),
+                 ("convpool", "convpool", "convpool_cuda", "convpool_plain"),
+                 ("packed_conv", "packed", "packed_conv_cuda",
+                  "packed_conv_plain"),
+                 ("pair_conv", "mega", "pair_conv_cuda", "pair_conv_plain")]
+    saved = []
+    for kernel, mod, cuda, plain in launchers:
+        m = importlib.import_module(f"deepfusion_tpu_torch.ops.{mod}")
+        real, ref = getattr(m, cuda), getattr(m, plain)
+
+        def tap(*a, kernel=kernel, real=real, ref=ref, **kw):
+            got = real(*a, **kw)
+            args = " ".join(f"{k}={v}" for k, v in kw.items()
+                            if v is not None and v is not False and v != 0)
+            par.check(kernel, f"{label}: {type(a[0]).__name__} "
+                              f"{tuple(got.shape)} {args}",
+                      got, ref(*a, **kw))
+            return got
+        saved.append((m, cuda, real))
+        setattr(m, cuda, tap)
+    try:
+        yield
+    finally:
+        for m, cuda, real in saved:
+            setattr(m, cuda, real)
 
 
 def phase_device():
@@ -373,7 +431,8 @@ def convpool_cases(dev):
     return out
 
 
-def phase_parity(net, rnet, vnet, dev) -> Parity:
+def phase_parity(net, rnet, vnet, dev, sharded) -> Parity:
+    from deepfusion_tpu_torch import _build
     from deepfusion_tpu_torch.config import ConcatConfig, PoolConfig
     from deepfusion_tpu_torch.models.fusionnet import LAYERS
     C = importlib.import_module("deepfusion_tpu_torch.ops.concat")
@@ -383,6 +442,7 @@ def phase_parity(net, rnet, vnet, dev) -> Parity:
     rng = np.random.default_rng(5)
     par = Parity()
     u8 = dtype.u8
+    _build.reset_launch_counts()
 
     # K1: every FusionNet full-width layer, then the extra cases
     for name in LAYERS:
@@ -476,12 +536,13 @@ def phase_parity(net, rnet, vnet, dev) -> Parity:
     pair_parity(vnet, dev, par)
     acc1_parity(net, dev, par)
     range_parity(vnet, dev, par)
+    sharded_parity(sharded, par)
     for k in KERNEL_INFO:
         print(f"parity: {k} bitwise equal to its plain version in "
               f"{par.cases[k]} cases, max_abs_err {par.err[k]}", flush=True)
-    for m, c in sorted(par.modes.items()):
-        print(f"parity: mode {m} bitwise equal to its plain version in {c} "
-              f"cases", flush=True)
+    for m, c in _build.mode_counts().items():
+        print(f"parity: mode {m} launched {c} times, each launch held "
+              "against its plain version", flush=True)
     return par
 
 
@@ -747,11 +808,10 @@ def pair_parity(vnet, dev, par):
                   M.pair_conv_plain(pair, x))
 
 
-def scaling_layer(dev, oc=256):
+def scaling_layer(dev):
     """bench.py's scaling-op layer (bench.py:730-742): batch 8, 128x128x256
-    -> 3x3:256 -> 1x1:256, u8 out, seed 0; with oc < 256 the first oc of
-    the 3x3's channels (a tensor-parallel shard's slice). Returns (cfg,
-    weights, the input on dev)."""
+    -> 3x3:256 -> 1x1:256, u8 out, seed 0. Returns (cfg, weights, the input
+    on dev)."""
     from deepfusion_tpu_torch.config import ConvConfig
     rng = np.random.default_rng(0)
     bs, hw, c = 8, 128, 256
@@ -760,12 +820,11 @@ def scaling_layer(dev, oc=256):
     bia = rng.integers(-100, 101, (c,)).astype(np.int32)
     wei1 = rng.integers(-127, 128, (c, c, 1, 1)).astype(np.int8)
     bia1 = rng.integers(-100, 101, (c,)).astype(np.int32)
-    cfg = ConvConfig.make((bs, hw, hw, c), (oc, c, 3, 3), bia.dtype, (1, 1),
+    cfg = ConvConfig.make((bs, hw, hw, c), (c, c, 3, 3), bia.dtype, (1, 1),
                           (1, 1), (bs, hw, hw, c), "u8", conv0_scales=(0.001,),
-                          wei1x1_shape=(c, oc, 1, 1), bia1x1_dt=bia1.dtype,
+                          wei1x1_shape=(c, c, 1, 1), bia1x1_dt=bia1.dtype,
                           conv1_relu=True, conv1_scales=(0.05,))
-    return (cfg, (wei[:oc], bia[:oc], wei1[:, :oc], bia1),
-            torch.from_numpy(src).to(dev))
+    return cfg, (wei, bia, wei1, bia1), torch.from_numpy(src).to(dev)
 
 
 def vgg_pair(vnet, b, dev, halo=4):
@@ -785,19 +844,13 @@ def vgg_pair(vnet, b, dev, halo=4):
 
 def acc1_parity(net, dev, par):
     """K1b's and K5's raw 1x1 accumulator (emit_acc1) against their plain
-    versions: FusionNet's fused layers, a tensor-parallel shard's slice of
-    bench.py's scaling layer (tp 2 and 4), the fused extra cases, junk pads
-    for K5."""
+    versions: FusionNet's fused layers, the fused extra cases, junk pads
+    for K5 (the tensor-parallel shards are held in ``sharded_parity``)."""
     from deepfusion_tpu_torch.ops import packed as PK
-    from deepfusion_tpu_torch.ops.conv import ConvOp, conv_cuda, conv_plain
-    from deepfusion_tpu_torch.ops.packed import PackedConvOp
+    from deepfusion_tpu_torch.ops.conv import conv_cuda, conv_plain
     from deepfusion_tpu_torch.types import dtype
     rng = np.random.default_rng(17)
     cases = [(f"FusionNet {k}", getattr(net, k)) for k in ("block1", "block2")]
-    for oc in (128, 64):
-        cfg, w, x = scaling_layer(dev, oc)
-        cases.append((f"scaling layer 3x3 channels [0, {oc})",
-                      ConvOp(cfg, *w, device=dev), x))
     cases += [(label, op, x) for label, op, x, sm in conv_cases(dev)
               if op.cfg.fuse_conv1x1 and sm is None]
     for case in cases:
@@ -807,14 +860,11 @@ def acc1_parity(net, dev, par):
             rng, (c.bs, c.ih, c.iw, c.ic), dtype.u8, dev)
         par.check("conv_fused", f"acc1 {label}",
                   conv_cuda(op, x, emit_acc1=True),
-                  conv_plain(op, x, emit_acc1=True), "conv_fused.acc1")
+                  conv_plain(op, x, emit_acc1=True))
     pcases = [(f"FusionNet {k}", op, net.cfg.batch, junk)
               for k, op in net.build_packed().items()
               if op.cfg.fuse_conv1x1 and len(op.sins) == 1
               for junk in (False, True)]
-    cfg, w, _ = scaling_layer(dev, 128)
-    pcases.append(("scaling layer 3x3 channels [0, 128)",
-                   PackedConvOp(cfg, *w, device=dev), cfg.bs, False))
     pcases += [(label, op, n, junk)
                for label, op, n, junk in packed_conv_cases(dev)
                if op.cfg.fuse_conv1x1 and len(op.sins) == 1
@@ -823,8 +873,7 @@ def acc1_parity(net, dev, par):
         x = packed_input(rng, op.sin, n, dev, junk)
         par.check("packed_conv", f"acc1 {label} junk={junk}",
                   PK.packed_conv_cuda(op, [x], emit_acc1=True),
-                  PK.packed_conv_plain(op, [x], emit_acc1=True),
-                  "packed_conv.acc1")
+                  PK.packed_conv_plain(op, [x], emit_acc1=True))
 
 
 def range_cuts(rows):
@@ -836,19 +885,15 @@ def range_cuts(rows):
 def range_parity(vnet, dev, par):
     """K5's output row ranges, each from the input row slice it reads (as
     sp_packed calls it), and K10's widened intermediate bounds with row
-    ranges, against their plain versions, junk pads included: a
-    sequence-parallel shard of bench.py's scaling layer, the pool2 and sum
-    cases, and shards of VGGFusion's block pairs."""
+    ranges, against their plain versions, junk pads included, at every
+    range cut of a shard: the pool2 and sum cases and shards of VGGFusion's
+    block pairs (the shards phase 6 runs are held in ``sharded_parity``)."""
     from deepfusion_tpu_torch.ops import mega as M
     from deepfusion_tpu_torch.ops import packed as PK
-    from deepfusion_tpu_torch.ops.packed import PackedConvOp
     rng = np.random.default_rng(18)
-    cfg, w, _ = scaling_layer(dev)
-    ops = [("scaling layer, sp=2 shard", PackedConvOp(cfg, *w, device=dev)
-            .reheight(64), cfg.bs, False)]
-    ops += [(label, op, n, junk)
-            for label, op, n, junk in packed_conv_cases(dev)
-            if label.startswith(("pool2", "sum halo+1", "3x3", "fused n"))]
+    ops = [(label, op, n, junk)
+           for label, op, n, junk in packed_conv_cases(dev)
+           if label.startswith(("pool2", "sum halo+1", "3x3", "fused n"))]
     for label, op, n, junk in ops:
         arrs = [packed_input(rng, s, n, dev, junk) for s in op.sins]
         sm = None if op.ssum is None else packed_input(rng, op.ssum, n, dev,
@@ -863,8 +908,7 @@ def range_parity(vnet, dev, par):
             kw = dict(rows=r, row0_off=lo)
             par.check("packed_conv", f"rows {r} {label}",
                       PK.packed_conv_cuda(op, sl, sm, **kw),
-                      PK.packed_conv_plain(op, sl, sm, **kw),
-                      "packed_conv.rows")
+                      PK.packed_conv_plain(op, sl, sm, **kw))
     for b, sp in ((1, 4), (2, 2), (3, 1)):
         pair = vgg_pair(vnet, b, dev)
         h = pair.cfg_a.ih // sp
@@ -878,8 +922,7 @@ def range_parity(vnet, dev, par):
                 what = f"VGGFusion block{b} sp={sp} {j} shard junk={junk}"
                 par.check("pair_conv", f"bounds {what}",
                           M.pair_conv_cuda(local, x, mid_bounds=bounds),
-                          M.pair_conv_plain(local, x, mid_bounds=bounds),
-                          "pair_conv.bounds")
+                          M.pair_conv_plain(local, x, mid_bounds=bounds))
                 cuts = range_cuts(local.sout_final.rows)
                 iwp, ca = local.sin.iwp, local.cfg_a
                 for r in zip(cuts, cuts[1:]):
@@ -890,16 +933,14 @@ def range_parity(vnet, dev, par):
                     xs = x[:, lo * iwp:hi * iwp]
                     par.check("pair_conv", f"rows {r} {what}",
                               M.pair_conv_cuda(local, xs, **kw),
-                              M.pair_conv_plain(local, xs, **kw),
-                              "pair_conv.rows")
+                              M.pair_conv_plain(local, xs, **kw))
 
 
-def phase_sharded(vnet, dev, name_power):
-    """Phase 6: the parallel/ wrappers on meshes whose slots are all this
-    card, each result bitwise equal to the single-device op's, every kernel
-    mode launched in the run; then each wrapper's time against its
-    single-device op. Returns the launch counts of the run."""
-    from deepfusion_tpu_torch import _build
+def sharded_cases(vnet, dev):
+    """Phase 6's cases, built once; phase 3 runs them too. Each is (label,
+    sharded call, its input, the single-device call it must equal), on
+    meshes whose slots are all this card; the last is three_stage_plan at
+    mesh (2, 2, 2) against the same plan at mesh (1, 1, 1)."""
     from deepfusion_tpu_torch.ops.conv import ConvOp
     from deepfusion_tpu_torch.ops.packed import (PackedConvOp, pack_image,
                                                  pack_image_sharded,
@@ -911,7 +952,6 @@ def phase_sharded(vnet, dev, name_power):
                                                tp_packed_fused)
     from deepfusion_tpu_torch.parallel.plan import three_stage_plan
     from deepfusion_tpu_torch.types import dtype
-    from deepfusion_tpu_torch.utils.logger import check
 
     def mesh(dp=1, sp=1, tp=1):
         return make_mesh(dp, sp, tp, devices=[dev] * (dp * sp * tp))
@@ -920,7 +960,7 @@ def phase_sharded(vnet, dev, name_power):
     op = ConvOp(cfg, *w, device=dev)
     pop = PackedConvOp(cfg, *w, device=dev)
     px = pack_image(x, pop.sin)
-    cases = []     # (label, sharded call, single-device call, as images)
+    cases = []
     for n in (2, 4):
         for wire in ("psum", "reduce_scatter"):
             cases.append((f"tp_fused_conv tp={n} {wire}",
@@ -961,54 +1001,65 @@ def phase_sharded(vnet, dev, name_power):
             0, 256, (vnet.cfg.batch, pr.sin.h, pr.sin.w, pr.sin.c),
             dtype=np.uint8)).to(dev)
         sp_case(f"sp_packed VGGFusion block{b} pair pool2 sp={n}", pr, n, img)
+    # the composed plan at bench.py's scaling-plan widths, hw 128
+    mb, hw, c = PLAN["mb"], PLAN["hw"], PLAN["c"]
+    steps = {m: three_stage_plan(mesh(*m), mb, hw, c, c, c,
+                                 rng=np.random.default_rng(0))[0]
+             for m in ((2, 2, 2), (1, 1, 1))}
+    src = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (mb, hw, hw, c), dtype=np.uint8)).to(dev)
+    cases.append((f"three_stage_plan {(mb, hw, hw, c)} mesh (2, 2, 2) "
+                  "against mesh (1, 1, 1)", steps[(2, 2, 2)], src,
+                  lambda: steps[(1, 1, 1)](src)))
+    return cases
 
-    results = {}
+
+def sharded_parity(cases, par):
+    """Phase 3's hold of the sharded path's kernel modes at phase 6's
+    shapes: each case's sharded call and its single-device call once, every
+    kernel launch inside them against its plain version."""
+    for label, fn, a, single in cases:
+        with held_against_plain(par, label):
+            fn(a)
+            single()
+
+
+def phase_sharded(cases, name_power):
+    """Phase 6: the sharded calls alone, with the launch counts set to 0
+    before and read after, every kernel and mode of the path launched;
+    then each result against its single-device call, bitwise; then each
+    sharded call's time against the single-device call's. Returns the
+    sharded calls' launch counts."""
+    from deepfusion_tpu_torch import _build
+    from deepfusion_tpu_torch.utils.logger import check
     _build.reset_launch_counts()
     with torch.inference_mode():
-        for label, fn, a, single in cases:
-            got, want = fn(a), single()
-            torch.cuda.synchronize()
-            check(got.device == want.device and torch.equal(got, want),
-                  f"{label}: not bitwise equal to the single-device op")
-            results[label] = got.shape
-        # the composed plan at bench.py's scaling-plan widths, hw 128
-        outs = {}
-        mb, hw, c = PLAN["mb"], PLAN["hw"], PLAN["c"]
-        for m in ((2, 2, 2), (1, 1, 1)):
-            step, _, _ = three_stage_plan(mesh(*m), mb, hw, c, c, c,
-                                          rng=np.random.default_rng(0))
-            src = torch.from_numpy(np.random.default_rng(1).integers(
-                0, 256, (mb, hw, hw, c), dtype=np.uint8)).to(dev)
-            outs[m] = (step, src, step(src))
+        got = [fn(a) for _, fn, a, _ in cases]
         torch.cuda.synchronize()
-        check(torch.equal(outs[(2, 2, 2)][2], outs[(1, 1, 1)][2]),
-              "three_stage_plan differs between meshes (2, 2, 2) and "
-              "(1, 1, 1)")
     counts, modes = _build.launch_counts(), _build.mode_counts()
-    for label, shape in results.items():
-        print(f"sharded: {label}: {tuple(shape)} bitwise equal to the "
-              f"single-device op", flush=True)
-    print(f"sharded: three_stage_plan {(mb, hw, hw, c)} -> "
-          f"{tuple(outs[(1, 1, 1)][2].shape)}, mesh (2, 2, 2) bitwise equal "
-          "to mesh (1, 1, 1)", flush=True)
-    print(f"sharded: launches {counts}; modes {modes}", flush=True)
-    for k, v in modes.items():
-        check(v > 0, f"kernel mode {k} was not launched on the sharded path")
+    print(f"sharded: launches of the sharded calls {counts}; modes {modes}",
+          flush=True)
+    for k in _build.MODES:
+        check(modes[k] > 0, f"kernel mode {k} was not launched on the "
+                            "sharded path")
     for k in ("conv_fused", "packed_conv", "pair_conv", "convpool"):
         check(counts[k] > 0, f"kernel {k} was not launched on the sharded "
                              "path")
-
+    with torch.inference_mode():
+        for (label, _, _, single), g in zip(cases, got):
+            want = single()
+            torch.cuda.synchronize()
+            check(g.device == want.device and torch.equal(g, want),
+                  f"{label}: not bitwise equal to the single-device call")
+            print(f"sharded: {label}: {tuple(g.shape)} bitwise equal to the "
+                  "single-device call", flush=True)
+    del got
     with torch.inference_mode():
         for label, fn, a, single in cases:
             t_s, t_1 = cuda_ms(lambda: fn(a), reps=5), cuda_ms(single, reps=5)
             print(f"timing: sharded {label} ms={t_s:.4f} single_device_ms="
                   f"{t_1:.4f} ratio={t_s / t_1:.3f} (one card, shards in "
                   f"turn) card=\"{name_power}\"", flush=True)
-        t = {m: cuda_ms(lambda v=v: v[0](v[1]), reps=5)
-             for m, v in outs.items()}
-        print(f"timing: sharded three_stage_plan mesh (2, 2, 2) "
-              f"ms={t[(2, 2, 2)]:.4f} mesh (1, 1, 1) ms={t[(1, 1, 1)]:.4f} "
-              f"(one card) card=\"{name_power}\"", flush=True)
     return counts
 
 
@@ -1234,7 +1285,8 @@ def resfusion_timings(rnet, dev, name_power, timed):
         timed("packed_conv", f"ResFusionNet {name}",
               lambda: PK.packed_conv_cuda(op, arrs, sm),
               lambda: PK.packed_conv_plain(op, arrs, sm), in_forward=False,
-              reads=(arrs, sm, op), ops=conv_ops(op.cfg_orig or op.cfg, n))
+              reads=(packed_reads(op, n), op),
+              ops=conv_ops(op.cfg_orig or op.cfg, n))
     xr = torch.from_numpy(rnet.example_input()).to(dev)
     pm = rnet.packed_module()
     time_forwards("ResFusionNet", {"dense": lambda: rnet(xr),
@@ -1262,7 +1314,8 @@ def vggfusion_timings(vnet, dev, name_power, timed):
         x = packed_input(rng, pair.sin, n, dev)
         timed("pair_conv", f"VGGFusion block{b}",
               lambda: M.pair_conv_cuda(pair, x),
-              lambda: M.pair_conv_plain(pair, x), reads=(x, pair),
+              lambda: M.pair_conv_plain(pair, x),
+              reads=(packed_reads(pair.op_a, n), pair),
               ops=conv_ops(pair.cfg_a, n) + conv_ops(pair.cfg_b, n))
         p2 = vnet.params[f"block{b}_conv2"]
         op_b = PackedConvOp(pair.cfg_b, p2["wei"], p2.get("bia"),
@@ -1281,7 +1334,8 @@ def vggfusion_timings(vnet, dev, name_power, timed):
         timed("packed_conv", f"VGGFusion block{b} conv b with pool2",
               lambda: PK.packed_conv_cuda(pair.op_b, [mid]),
               lambda: PK.packed_conv_plain(pair.op_b, [mid]),
-              in_forward=False, reads=(mid, pair.op_b),
+              in_forward=False,
+              reads=(packed_reads(pair.op_b, n), pair.op_b),
               ops=conv_ops(pair.cfg_b, n))
         ref = M.pair_conv_cuda(pair, x)
         for label, fn in (("packed conv a, packed conv b, K7 pool", three),
@@ -1381,7 +1435,8 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
         for name, op in packed.items():
             arrs = [packed_input(rng, s, n, dev) for s in op.sins]
             timed("packed_conv", name, lambda: PK.packed_conv_cuda(op, arrs),
-                  lambda: PK.packed_conv_plain(op, arrs), reads=(arrs, op),
+                  lambda: PK.packed_conv_plain(op, arrs),
+                  reads=(packed_reads(op, n), op),
                   ops=conv_ops(op.cfg_orig or op.cfg, n))
         rs = packed["res"].sout
         ys = [packed_input(rng, s, n, dev)
@@ -1486,8 +1541,9 @@ def main():
     rnet.build_packed()
     vnet = VGGFusion(VGGFusionConfig(), device=dev)
     vnet.build_packed()
+    sharded = sharded_cases(vnet, dev)
     with torch.inference_mode():
-        parity = phase_parity(net, rnet, vnet, dev)
+        parity = phase_parity(net, rnet, vnet, dev, sharded)
     counts = dict.fromkeys(KERNEL_INFO, 0)
     for model, golden_path in ((net, GOLDEN["FusionNet"]),
                                (rnet, GOLDEN["ResFusionNet"]),
@@ -1505,7 +1561,7 @@ def main():
         counts[k] += got[k]
     rows = phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
                          counts)
-    got = phase_sharded(vnet, dev, name_power)
+    got = phase_sharded(sharded, name_power)
     for row in rows:
         row["launches"] += got[row["name"]]
     print(name_power)

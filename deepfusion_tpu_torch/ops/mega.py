@@ -49,9 +49,10 @@ from ..types import dtype, round_mode
 from ..utils.logger import check, check_eq
 from ..utils.persist import dump_configs, load_configs
 from . import layout
-from .packed import (PackedConvOp, PackedSpec, _operand_shapes, _place,
-                     _pooled_spec, _stage_plain, check_slice, pack_image,
-                     row_plan, validate_packed_maxpool2)
+from .packed import (PackedConvOp, PackedSpec, _embed, _operand_shapes,
+                     _place, _pooled_spec, _rows_of, _stage_plain,
+                     check_slice, pack_image, row_plan,
+                     validate_packed_maxpool2)
 
 
 def _out_c(cfg: ConvConfig):
@@ -279,31 +280,42 @@ class PackedConvPairOp(nn.Module):
 def pair_conv_plain(op: PackedConvPairOp, arr, *, rows=None,
                     row0_off: int = 0, mid_bounds=None) -> torch.Tensor:
     """The plain PyTorch version of ``pair_conv_kernel``: layer a's plain
-    stage over the intermediate rows the output range reads (inside the
-    bounds), layer b's over that window with u8 0 around it, then the fused
-    pool of ``op_b``. With the defaults, ``op_b(op_a(x))``."""
+    stage over the intermediate rows [lo, hi) of ``mid_bounds`` (default
+    the image's), layer b's over the whole image with u8 0 around those
+    rows, then the fused pool of ``op_b``. With the defaults,
+    ``op_b(op_a(x))``. rows/row0_off as in ``PackedConvOp.forward``,
+    computed without the wrapper's range plan: the input slice goes to row
+    row0_off of a whole input array (u8 0 around it), the whole output is
+    computed, and rows [r0, r1) of it are returned."""
     ca, cb, sin = op.cfg_a, op.cfg_b, op.sin
     n = arr.shape[0]
-    u0, u1, oy0, oy1 = op._row_plan(rows)
-    y0, y1 = op._mid_rows(rows, mid_bounds)
+    lo, hi = (0, ca.oh) if mid_bounds is None else mid_bounds
     u = (arr.view(torch.uint8) ^ 0x80).reshape(n, -1, sin.iwp, sin.cp)
+    # whole rows, with `top` more above the array where layer a's taps of
+    # rows [lo, hi) reach past its first row
+    top = max(0, ca.ph - lo - sin.halo)
+    u = _embed(u, top + row0_off,
+               top + max(sin.rows, row0_off + u.shape[1],
+                         sin.halo - ca.ph + hi + ca.kh - 1))
     mid = _stage_plain(op.op_a, u.to(torch.float64),
-                       sin.halo - row0_off - ca.ph + y0, sin.col_off - ca.pw,
-                       max(y1 - y0, 0), ca.ow)
-    w0 = oy0 - cb.ph       # the first intermediate row layer b reads
-    win = torch.zeros((n, oy1 - oy0 + cb.kh - 1, ca.ow + 2 * cb.pw,
+                       top + sin.halo - ca.ph + lo, sin.col_off - ca.pw,
+                       hi - lo, ca.ow)
+    # layer b's window: intermediate rows [-ph_b, oh_b - ph_b + kh_b - 1)
+    win = torch.zeros((n, cb.oh + cb.kh - 1, ca.ow + 2 * cb.pw,
                        layout.conv_icp(cb.ic)), dtype=torch.float64,
                       device=arr.device)
-    win[:, y0 - w0:y0 - w0 + mid.shape[1], cb.pw:cb.pw + ca.ow,
-        :mid.shape[-1]] = mid.to(torch.float64)
-    val = _stage_plain(op.op_b, win, 0, 0, oy1 - oy0, cb.ow)
-    row = op.sout.halo - u0 + oy0
+    m0, m1 = max(lo, -cb.ph), min(hi, cb.oh - cb.ph + cb.kh - 1)
+    win[:, m0 + cb.ph:m1 + cb.ph, cb.pw:cb.pw + ca.ow, :mid.shape[-1]] = \
+        mid[:, m0 - lo:m1 - lo].to(torch.float64)
+    val = _stage_plain(op.op_b, win, 0, 0, cb.oh, cb.ow)
+    row = op.sout.halo
     if op.pool2:
-        val = val.reshape(n, (oy1 - oy0) // 2, 2, cb.ow // 2, 2,
+        val = val.reshape(n, cb.oh // 2, 2, cb.ow // 2, 2,
                           cb.out_oc).amax(dim=(2, 4))
         row //= 2
-    return _place(val, op.sout_final, (u1 - u0) // (2 if op.pool2 else 1),
-                  row, cb.out_oc, False)
+    so = op.sout_final
+    return _rows_of(_place(val, so, so.rows, row, cb.out_oc, False), so,
+                    rows)
 
 
 def _stage_ints(pop: PackedConvOp):

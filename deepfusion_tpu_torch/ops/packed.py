@@ -725,6 +725,24 @@ def _place(val: torch.Tensor, so: PackedSpec, nrows: int, row: int,
     return out.reshape(n, nrows * so.iwp, so.cp)
 
 
+def _embed(u: torch.Tensor, first: int, total: int) -> torch.Tensor:
+    """u (n, rows, ...) as rows [first, first + rows) of `total` rows, u8
+    0 in the others."""
+    if first == 0 and u.shape[1] == total:
+        return u
+    whole = u.new_zeros((u.shape[0], total) + tuple(u.shape[2:]))
+    whole[:, first:first + u.shape[1]] = u
+    return whole
+
+
+def _rows_of(out: torch.Tensor, so: PackedSpec, rows) -> torch.Tensor:
+    """Rows [r0, r1) (default all) of a whole output array of `so`."""
+    if rows is None:
+        return out
+    r0, r1 = rows
+    return out[:, r0 * so.iwp:r1 * so.iwp]
+
+
 def packed_conv_plain(op: PackedConvOp, arrs, sum_arr=None, *,
                       emit_acc1: bool = False, rows=None,
                       row0_off: int = 0) -> torch.Tensor:
@@ -737,32 +755,35 @@ def packed_conv_plain(op: PackedConvOp, arrs, sum_arr=None, *,
     (halo_out + y, col_off_out + x) and -128 everywhere else; with pool2
     the 2x2/s2 max of the u8 values first, at the pooled spec; with
     emit_acc1 the raw 1x1 accumulator and 0 elsewhere. rows/row0_off as in
-    ``PackedConvOp.forward``."""
+    ``PackedConvOp.forward``, computed without its range plan: the input
+    slices go to row row0_off of whole input arrays (u8 0 around them),
+    the whole output is computed, and rows [r0, r1) of it are returned."""
     cfg, sin = op.cfg, op.sin
     n = arrs[0].shape[0]
-    u0, u1, oy0, oy1 = op._row_plan(rows)
     u = torch.cat([a.view(torch.uint8) for a in arrs], dim=-1) ^ 0x80
-    u = u.reshape(n, -1, sin.iwp, layout.conv_icp(cfg.ic)).to(torch.float64)
+    u = u.reshape(n, -1, sin.iwp, layout.conv_icp(cfg.ic))
+    u = _embed(u, row0_off, max(sin.rows, row0_off + u.shape[1]))
     sum_rounded = None
     if sum_arr is not None:
         ss = op.ssum
         sv = (sum_arr.view(torch.uint8) ^ 0x80).reshape(
             n, ss.rows, ss.iwp, ss.cp)[
-            :, ss.halo + oy0:ss.halo + oy1, ss.col_off:ss.col_off + cfg.ow,
+            :, ss.halo:ss.halo + cfg.oh, ss.col_off:ss.col_off + cfg.ow,
             :cfg.out_oc]
         fin = cfg.conv1_round if cfg.fuse_conv1x1 else cfg.conv0_round
         sum_rounded = round_f32(sum_term(sv, cfg.sum_scale), fin)
-    val = _stage_plain(op, u, sin.halo - row0_off - cfg.ph + oy0,
-                       sin.col_off - cfg.pw, oy1 - oy0, cfg.ow, sum_rounded,
+    val = _stage_plain(op, u.to(torch.float64), sin.halo - cfg.ph,
+                       sin.col_off - cfg.pw, cfg.oh, cfg.ow, sum_rounded,
                        emit_acc1)
-    row = op.sout.halo - u0 + oy0
+    row = op.sout.halo
     if op.pool2:
-        val = val.reshape(n, (oy1 - oy0) // 2, 2, cfg.ow // 2, 2,
+        val = val.reshape(n, cfg.oh // 2, 2, cfg.ow // 2, 2,
                           cfg.out_oc).amax(dim=(2, 4))
         row //= 2
     so = op.sout_final
-    return _place(val, so, (u1 - u0) // (2 if op.pool2 else 1), row,
-                  so.cp if emit_acc1 else cfg.out_oc, emit_acc1)
+    return _rows_of(_place(val, so, so.rows, row,
+                           so.cp if emit_acc1 else cfg.out_oc, emit_acc1),
+                    so, rows)
 
 
 def packed_conv_cuda(op: PackedConvOp, arrs, sum_arr=None, *,

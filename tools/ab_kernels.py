@@ -8,9 +8,10 @@ that imports ``deepfusion_tpu_torch`` from that tree (which builds its own
 kernels): K1 (``conv_cuda``) at FusionNet's layers, K5 (``packed_conv_cuda``)
 at FusionNet's and ResFusionNet's packed layers, K10 (``pair_conv_cuda``)
 at VGGFusion's blocks, full width, batch 8, inputs from seed 0. Each time
-is the median of 3 ``torch.profiler`` profiles of 50 calls (self device
-time per call, ms). Give the trees as parent, change, change, parent.
-Prints one JSON line per run, then the median per tree of each layer.
+is ``chip_smoke.device_ms``: the median of 3 ``torch.profiler`` profiles of
+50 calls (self device time per call, ms). Give the trees as parent,
+change, change, parent. Prints one JSON line per run, then the median per
+tree of each layer.
 """
 import json
 import os
@@ -18,24 +19,13 @@ import statistics
 import subprocess
 import sys
 
-
-def device_ms(fn, reps=50, profiles=3):
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(profiles):
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        out.append(sum(e.self_device_time_total
-                       for e in prof.key_averages()) / reps / 1e3)
-    return statistics.median(out)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke as cs  # noqa: E402  (this checkout's; imports no package)
 
 
 def run_tree(tree):
+    # the tree's package, ahead of this checkout's
     sys.path.insert(0, os.path.abspath(tree))
     import importlib
 
@@ -44,37 +34,36 @@ def run_tree(tree):
     from deepfusion_tpu_torch.models import (FusionNet, FusionNetConfig,
                                              ResFusionNet, ResFusionNetConfig,
                                              VGGFusion, VGGFusionConfig)
+    from deepfusion_tpu_torch.models.fusionnet import LAYERS
+    from deepfusion_tpu_torch.types import dtype
     K = importlib.import_module("deepfusion_tpu_torch.ops.conv")
     PK = importlib.import_module("deepfusion_tpu_torch.ops.packed")
     M = importlib.import_module("deepfusion_tpu_torch.ops.mega")
     dev = torch.device("cuda:0")
     rng = np.random.default_rng(0)
 
-    def u8(shape):
-        return torch.from_numpy(rng.integers(0, 256, shape,
-                                             dtype=np.uint8)).to(dev)
-
-    def packed(spec, n):
-        return PK.pack_image(u8((n, spec.h, spec.w, spec.c)), spec)
+    def device_ms(fn):
+        return cs.device_ms(fn, reps=50, profiles=3)
 
     res = {}
     with torch.inference_mode():
         net = FusionNet(FusionNetConfig(), device=dev)
-        for name in ("stem", "block1", "branch", "res", "block2"):
+        for name in LAYERS:
             op = getattr(net, name)
             c = op.cfg
-            x = u8((c.bs, c.ih, c.iw, c.ic))
+            x = cs.rand(rng, (c.bs, c.ih, c.iw, c.ic), dtype.u8, dev)
             res[f"K1 FusionNet {name}"] = device_ms(lambda: K.conv_cuda(op, x))
         for model in (net, ResFusionNet(ResFusionNetConfig(), device=dev)):
             n = model.cfg.batch
             for name, op in model.build_packed().items():
-                arrs = [packed(s, n) for s in op.sins]
-                sm = None if op.ssum is None else packed(op.ssum, n)
+                arrs = [cs.packed_input(rng, s, n, dev) for s in op.sins]
+                sm = None if op.ssum is None else cs.packed_input(
+                    rng, op.ssum, n, dev)
                 res[f"K5 {type(model).__name__} {name}"] = device_ms(
                     lambda: PK.packed_conv_cuda(op, arrs, sm))
         vnet = VGGFusion(VGGFusionConfig(), device=dev)
         for b, pair in enumerate(vnet.build_packed(), 1):
-            x = packed(pair.sin, vnet.cfg.batch)
+            x = cs.packed_input(rng, pair.sin, vnet.cfg.batch, dev)
             res[f"K10 VGGFusion block{b}"] = device_ms(
                 lambda: M.pair_conv_cuda(pair, x))
     print(json.dumps({"tree": tree, "device_ms": res}), flush=True)
