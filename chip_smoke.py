@@ -29,14 +29,17 @@ Phases, each printing its own lines:
      (and the JAX package's golden logits where stored), and every kernel
      of each path must have been launched in that path's run;
   5. timings: CUDA-event medians and profiler device times of each kernel
-     and its plain version at the models' shapes, the conv pair per
-     VGGFusion block against the same block as two or three packed
-     kernels, the forwards of all three models, served requests per second
-     on every served path, and the packed fused conv and the conv pair at
-     bench.py's default and --pair shapes in TOP/s; each kernel's bound (the
-     larger of its bytes over 3.35 TB/s and its operations over the peak
-     rate) and, where one PyTorch call computes the same function, that
-     call's time;
+     and its plain version at the models' shapes, the kernel warm (inputs
+     reused) and cold (the L2 evicted before every call), the packed
+     conv's plan (tile, tiles, blocks, stages, shared bytes) at each
+     layer, the conv pair per VGGFusion block against the same block as
+     two or three packed kernels, the forwards of all three models, served
+     requests per second on every served path, and the packed fused conv
+     and the conv pair at bench.py's default and --pair shapes in TOP/s,
+     beside torch._int_mm at the default shape's two GEMMs; each kernel's
+     bound (the larger of its bytes over 3.35 TB/s and its operations over
+     the peak rate) and, where one PyTorch call computes the same function
+     (torch.cat, a 2x2 amax), that call's time;
   6. sharded: the parallel/ wrappers on meshes whose slots are all this
      card (tp_fused_conv and tp_packed_fused at tp 2 and 4, both wires;
      sp_conv at sp 2, 4 and dp 2 x sp 2; sp_packed on the packed conv at sp
@@ -52,6 +55,7 @@ Any failure raises and exits non-zero; nothing is caught. The line before
 the last is the per-kernel JSON summary, the last line the device JSON.
 """
 import contextlib
+import ctypes
 import importlib
 import json
 import math
@@ -110,6 +114,7 @@ PLAN = dict(mb=16, hw=128, c=64)
 H100_INT8_PEAK_TOPS = 1979.0   # dense, NVIDIA data sheet, SXM at 700 W
 H100_CORE_TOPS = 67.0          # f32 outside the tensor cores, same sheet
 H100_HBM_TBS = 3.35            # HBM3 bytes/s, same sheet
+L2_EVICT_BYTES = 128 << 20     # read between cold calls: 2.56x the 50 MB L2
 
 
 def card() -> str:
@@ -158,6 +163,44 @@ def device_ms(fn, reps=REPS, profiles=1, tries=3):
         empty += 1
         if empty == tries:
             return float("nan")
+    return statistics.median(out)
+
+
+_EVICT = []
+
+
+def l2_evict():
+    """Read a buffer of L2_EVICT_BYTES, 2.56x the H100's 50 MB L2: after
+    it no line of an earlier call's data is left in the L2."""
+    if not _EVICT:
+        _EVICT.append(torch.ones(L2_EVICT_BYTES // 4, dtype=torch.int32,
+                                 device="cuda"))
+    return _EVICT[0].sum()
+
+
+def cold_device_ms(fn, reps=REPS, profiles=3):
+    """Device time per call of fn() with cold caches: every call follows
+    l2_evict(), whose own kernels (the names that a profile of it alone
+    records) are left out of the sum; the median of `profiles` profiles,
+    nan if the profiler saw no device activity."""
+    fn()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        l2_evict()
+        torch.cuda.synchronize()
+    evict = {e.key for e in prof.key_averages()
+             if e.self_device_time_total > 0}
+    out = []
+    for _ in range(profiles):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                l2_evict()
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.key not in evict)
+        out.append(us / reps / 1e3 if us > 0 else float("nan"))
     return statistics.median(out)
 
 
@@ -513,14 +556,46 @@ def phase_parity(net, rnet, vnet, dev, sharded) -> Parity:
                        (dt, (2, 9, 9, 24), kind, (2, 2), (2, 2), (0, 0)),
                        (dt, (2, 12, 12, 40), kind, (12, 12), (12, 12),
                         (0, 0))]
+    # 16-byte units (c = 16 in 8 bits, every s32 c here), 8-bit rows that
+    # are no multiple of 16 bytes (c = 40, 264), strides 1-3 with padding
+    for dt in (dtype.u8, dtype.s8, dtype.s32):
+        for c in (16, 40, 264):
+            for kind in ("max", "avg_inc", "avg_exc"):
+                for k, s, p in (((3, 3), (1, 1), (1, 1)),
+                                ((3, 3), (2, 2), (1, 1)),
+                                ((4, 4), (3, 3), (1, 1))):
+                    pcases.append((dt, (2, 8, 10, c), kind, k, s, p))
+    # global windows at batch 1: few output units, the split kernel
+    for dt, shape, kind in ((u8, (1, 28, 28, 128), "avg_exc"),
+                            (u8, (1, 28, 28, 128), "max"),
+                            (u8, (1, 7, 7, 256), "avg_exc"),
+                            (dtype.s8, (1, 12, 12, 16), "avg_inc")):
+        pcases.append((dt, shape, kind, shape[1:3], shape[1:3], (0, 0)))
+    # 8-bit inputs at both extremes only, and s32 sums that wrap
+    xcases = []
+    for dt in (u8, dtype.s8):
+        info = np.iinfo(dt.np)
+        a = torch.from_numpy(rng.choice([info.min, info.max], (2, 9, 9, 32)
+                                        ).astype(dt.np)).to(dev)
+        for kind, k, s, p in (("max", (3, 3), (2, 2), (1, 1)),
+                              ("avg_inc", (3, 3), (1, 1), (1, 1)),
+                              ("avg_exc", (9, 9), (9, 9), (0, 0)),
+                              ("max", (9, 9), (9, 9), (0, 0))):
+            xcases.append((f"{dt.name} extremes", a, dt, kind, k, s, p))
+    big = torch.from_numpy((2 ** 31 - 1 - rng.integers(0, 1000, (
+        1, 6, 6, 16))).astype(np.int32)).to(dev)
+    for kind, k, s, p in (("avg_inc", (3, 3), (1, 1), (1, 1)),
+                          ("avg_exc", (6, 6), (6, 6), (0, 0))):
+        xcases.append(("s32 sums that wrap", big, dtype.s32, kind, k, s, p))
     for dt, shape, kind, k, s, p in pcases:
-        x = rand(rng, shape, dt, dev)
+        xcases.append((f"{dt.name} {shape}", rand(rng, shape, dt, dev), dt,
+                       kind, k, s, p))
+    for what, x, dt, kind, k, s, p in xcases:
         for rnd in (("nearest", "down") if kind != "max" and dt.is_int
                     else ("nearest",)):
-            pc = PoolConfig.make(kind, shape[1:3], k, s, p, rnd)
-            par.check("pool", f"{dt.name} {shape} {kind} k{k} s{s} p{p} "
-                      f"{rnd}", P.pool_cuda(x, pc, dt),
-                      P.pool_plain(x, pc, dt))
+            pc = PoolConfig.make(kind, tuple(x.shape[1:3]), k, s, p, rnd)
+            par.check("pool", f"{what} {kind} k{k} s{s} p{p} {rnd}",
+                      P.pool_cuda(x, pc, dt), P.pool_plain(x, pc, dt))
 
     # K4: the residual, then every dtype, with a ragged tail
     scases = [(u8, (8, 56, 56, 256))]
@@ -571,8 +646,11 @@ def packed_conv_cases(dev):
             rnd="nearest", halo_in=2, halo_out=1, off_in=2, off_out=2,
             iwp=None, n=2, junk=False, sum_halo=None, sum_scale=1.0,
             pool2=False):
-        ic, p = sum(cs), k // 2
-        o = conv_output_size(hw, k, 1, p)
+        # hw: side or (h, w); cs: channels per input, or (c, cp)
+        h, w = (hw, hw) if isinstance(hw, int) else hw
+        cs = [(c, None) if isinstance(c, int) else c for c in cs]
+        ic, p = sum(c for c, _ in cs), k // 2
+        oh, ow = (conv_output_size(d, k, 1, p) for d in (h, w))
         wei = rng.integers(-128, 128, (oc, ic, k, k)).astype(np.int8)
         bia = rng.integers(-5000, 5000, (oc,)).astype(np.int32) \
             if bias else None
@@ -591,17 +669,18 @@ def packed_conv_cases(dev):
                       conv1_scales=(rng.uniform(0.5, 1.5, oc1) / (oc * 60)
                                     ).astype(np.float32) if per_oc
                       else (1.0 / (oc * 60),))
-        cfg = ConvConfig.make((n, hw, hw, ic), (oc, ic, k, k),
+        cfg = ConvConfig.make((n, h, w, ic), (oc, ic, k, k),
                               None if bia is None else bia.dtype, (1, 1),
-                              (p, p), (n, o, o, oc1 or oc), "u8",
+                              (p, p), (n, oh, ow, oc1 or oc), "u8",
                               conv0_relu=True, conv0_scales=sc0,
                               conv0_round=rnd,
                               sum_dt=None if sum_halo is None else "u8",
                               sum_scale=sum_scale, **kw)
-        sins = tuple(PackedSpec.make(hw, hw, c, halo=halo_in,
-                                     col_off=off_in, iwp=iwp) for c in cs)
+        sins = tuple(PackedSpec.make(h, w, c, cp=cp, halo=halo_in,
+                                     col_off=off_in, iwp=iwp)
+                     for c, cp in cs)
         ssum = None if sum_halo is None else PackedSpec(
-            h=o, w=o, c=oc1 or oc, cp=layout.packed_cp(oc1 or oc),
+            h=oh, w=ow, c=oc1 or oc, cp=layout.packed_cp(oc1 or oc),
             halo=sum_halo, col_off=off_out, iwp=sins[0].iwp)
         op = PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sins,
                           col_off_out=off_out, halo_out=halo_out,
@@ -654,6 +733,25 @@ def packed_conv_cases(dev):
                         pool2=True)
     add("pool2 halo_out 0", 14, [32], 64, halo_in=1, halo_out=0, iwp=32,
         pool2=True)
+    # the kernel's 16 x 8 output tiles: oh and ow no multiple of 16 or 8,
+    # batch 1 and 3, fused and not, with random pad bytes
+    add("tile edges 19x13 batch 1", (19, 13), [64], 64, n=1, junk=True)
+    add("tile edges 21x11 batch 3 fused", (21, 11), [32], 64, oc1=32, n=3,
+        junk=True)
+    add("tile edges 37x9 batch 1 fused sum", (37, 9), [64], 64, oc1=40,
+        n=1, sum_halo=2, sum_scale=0.8, junk=True)
+    # four inputs, one of 16 lanes (each input's lanes padded to 32 K bytes)
+    add("four inputs, one of 16 lanes", 10, [32, (16, 16), 64, (48, 48)],
+        64, junk=True)
+    add("fused four inputs, one of 16 lanes", 10,
+        [(16, 16), 64, 32, (48, 48)], 72, oc1=40, junk=True)
+    # the narrowest lane passes: oc0p 32 unfused and fused
+    add("oc0p 32 (oc 24)", 11, [32], 24, junk=True)
+    add("fused oc0p 32 (oc 32, oc1 24)", 11, [64], 32, oc1=24, junk=True)
+    # 5x5 with the fused pool
+    for oc1 in (None, 40):
+        add(f"5x5 pool2 fused={oc1 is not None}", 12, [32], 64, k=5,
+            oc1=oc1, halo_in=3, halo_out=2, iwp=16, pool2=True, junk=True)
     return out
 
 
@@ -893,14 +991,18 @@ def range_parity(vnet, dev, par):
     rng = np.random.default_rng(18)
     ops = [(label, op, n, junk)
            for label, op, n, junk in packed_conv_cases(dev)
-           if label.startswith(("pool2", "sum halo+1", "3x3", "fused n"))]
+           if label.startswith(("pool2", "sum halo+1", "3x3", "fused n",
+                                "tile edges", "5x5 pool2"))]
     for label, op, n, junk in ops:
         arrs = [packed_input(rng, s, n, dev, junk) for s in op.sins]
         sm = None if op.ssum is None else packed_input(rng, op.ssum, n, dev,
                                                        junk)
         iwp, c = op.sin.iwp, op.cfg
-        cuts = range_cuts(op.sout_final.rows)
-        for r in zip(cuts, cuts[1:]):
+        rows = op.sout_final.rows
+        cuts = range_cuts(rows)
+        # and ranges that start inside the kernel's first row tile
+        extra = [(5, rows - 1), (7, rows)] if rows > 9 else []
+        for r in list(zip(cuts, cuts[1:])) + extra:
             _, _, oy0, oy1 = op._row_plan(r)
             lo = op.sin.halo + oy0 - c.ph
             hi = lo + oy1 - oy0 + c.kh - 1 if oy1 > oy0 else lo
@@ -1189,6 +1291,76 @@ def flagship_pair(dev):
     return PackedConvPairOp(cfg, wa, cfg, wb, device=dev), cfg.bs, 2 * macs
 
 
+def print_plan(label, op, n):
+    """The packed conv kernel's plan for op at batch n
+    (``packed_conv_plan``)."""
+    from deepfusion_tpu_torch.ops.packed import packed_conv_plan
+    p = packed_conv_plan(op, n)
+    print(f"plan: packed_conv {label} tile={p['tile_rows']}x{p['tile_cols']} "
+          f"tiles={p['tiles']} blocks={p['blocks']} (of 132 SMs) "
+          f"stages={p['stages']} "
+          f"smem_bytes={p['smem_bytes']} lanes_per_pass={p['nb0']}/"
+          f"{p['nb1']} passes={p['passes0']}/{p['passes1']} "
+          f"k_chunks_per_tap={p['chunks_per_tap']} k_per_tap="
+          f"{p['k_per_tap']}", flush=True)
+
+
+def int_mm_yardstick(name_power):
+    """torch._int_mm at the two GEMM shapes of bench.py's default layer
+    (8x126x126 pixels: the im2col'd 3x3, K = 9 x 256, then the 1x1, K =
+    256; both N = 256), A built outside the timed call: what the card's
+    own int8 GEMM does with the layer's multiply-adds. A yardstick only:
+    it is not the same function (no requant, no fusion)."""
+    m = 8 * 126 * 126
+    g = torch.Generator(device="cuda").manual_seed(0)
+    total = 0.0
+    for k in (9 * 256, 256):
+        a = torch.randint(-128, 128, (m, k), dtype=torch.int8, device="cuda",
+                          generator=g)
+        b = torch.randint(-128, 128, (256, k), dtype=torch.int8,
+                          device="cuda", generator=g).t()
+        d = device_ms(lambda: torch._int_mm(a, b), profiles=3)
+        total += d
+        print(f"yardstick: torch._int_mm {m}x{k}x256 device_ms={d:.4f} "
+              f"device_TOPs={2 * m * k * 256 / d / 1e9:.1f} "
+              f"card=\"{name_power}\"", flush=True)
+        del a, b
+    macs = m * (9 * 256 + 256) * 256
+    print(f"yardstick: torch._int_mm both GEMMs device_ms={total:.4f} "
+          f"device_TOPs={2 * macs / total / 1e9:.1f} card=\"{name_power}\"",
+          flush=True)
+
+
+def encode_host_us(arr, spec, name_power, calls=2000):
+    """Host microseconds of one cuTensorMapEncodeTiled, the call the packed
+    conv's launcher makes for each input box width at every launch: a
+    128-lane box of 16 x 8 pixels of the packed array `arr` (its spec
+    `spec`), 128-byte swizzle, called through the driver library here to
+    time it alone."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    fn = lib.cuTensorMapEncodeTiled
+    u64, u32 = ctypes.c_uint64, ctypes.c_uint32
+    n = arr.shape[0]
+    dims = (u64 * 4)(spec.cp, spec.iwp, spec.rows, n)
+    strides = (u64 * 3)(spec.cp, spec.cp * spec.iwp,
+                        spec.cp * spec.iwp * spec.rows)
+    box, ones = (u32 * 4)(128, 8, 16, 1), (u32 * 4)(1, 1, 1, 1)
+    out = (ctypes.c_uint8 * 128)()
+    # UINT8, rank 4, no interleave, 128-byte swizzle, 128-byte L2
+    # promotion, no NaN fill: the launcher's arguments
+    args = (out, 0, 4, ctypes.c_void_p(arr.data_ptr()), dims, strides, box,
+            ones, 0, 3, 2, 0)
+    rc = fn(*args)
+    assert rc == 0, f"cuTensorMapEncodeTiled returned {rc}"
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(*args)
+    us = (time.perf_counter() - t0) / calls * 1e6
+    print(f"host: cuTensorMapEncodeTiled {us:.3f} us per map (mean "
+          f"of {calls} calls, through ctypes) card=\"{name_power}\"",
+          flush=True)
+
+
 def time_forwards(name, fwd, batch, name_power):
     """Per-call and device ms of each forward in `fwd` (taken in turns, as
     A, B, B, A) and the profiler's top device entries."""
@@ -1242,6 +1414,7 @@ def served_rate(name, models, batch, input_shape, name_power):
 def resfusion_timings(rnet, dev, name_power, timed):
     """ResFusionNet: K9 at the downsample against its plain version, its
     other layers' kernels, both forwards and both served paths."""
+    from deepfusion_tpu_torch.config import PoolConfig
     from deepfusion_tpu_torch.types import dtype
     from deepfusion_tpu_torch.utils.logger import check
     CP = importlib.import_module("deepfusion_tpu_torch.ops.convpool")
@@ -1282,11 +1455,33 @@ def resfusion_timings(rnet, dev, name_power, timed):
     for name, op in rnet.build_packed().items():
         arrs = [packed_input(rng, s, n, dev) for s in op.sins]
         sm = None if op.ssum is None else packed_input(rng, op.ssum, n, dev)
+        print_plan(f"ResFusionNet {name}", op, n)
         timed("packed_conv", f"ResFusionNet {name}",
               lambda: PK.packed_conv_cuda(op, arrs, sm),
               lambda: PK.packed_conv_plain(op, arrs, sm), in_forward=False,
               reads=(packed_reads(op, n), op),
               ops=conv_ops(op.cfg_orig or op.cfg, n))
+    # K3, the global average pool of the dense forward
+    c = rnet.block2.cfg
+    z = rand(rng, (c.bs, c.oh, c.ow, c.out_oc), u8, dev)
+    pg = PoolConfig.make("avg_exc", (c.oh, c.ow), (c.oh, c.ow), (c.oh, c.ow),
+                         (0, 0))
+    timed("pool", "ResFusionNet global avg_exc", lambda: P.pool_cuda(z, pg, u8),
+          lambda: P.pool_plain(z, pg, u8), in_forward=False, reads=(z,),
+          ops=z.numel(), tensor=False)
+    # K7, the packed max pool after the downsample, against a 2x2 amax of
+    # the packed image's interior view (stored bytes order as u8 does)
+    ds = rnet.build_packed()["down"].sout
+    y = packed_input(rng, ds, n, dev)
+    inner = y.view(n, ds.rows, ds.iwp, ds.cp)[
+        :, ds.halo:ds.halo + ds.h, ds.col_off:ds.col_off + ds.w]
+    timed("packed_sum_pool", "ResFusionNet down pool only (K7)",
+          lambda: PK.packed_sum_pool_cuda([y], None, True, ds.rows, ds.iwp),
+          lambda: PK.packed_sum_pool_plain([y], None, True, ds.rows, ds.iwp),
+          in_forward=False, reads=(n * ds.h * ds.w * ds.cp,),
+          ops=n * ds.h * ds.w * ds.cp, tensor=False,
+          library=lambda: inner.unflatten(1, (ds.h // 2, 2)).unflatten(
+              3, (ds.w // 2, 2)).amax(dim=(2, 4)))
     xr = torch.from_numpy(rnet.example_input()).to(dev)
     pm = rnet.packed_module()
     time_forwards("ResFusionNet", {"dense": lambda: rnet(xr),
@@ -1298,9 +1493,12 @@ def vggfusion_timings(vnet, dev, name_power, timed):
     """VGGFusion: K10 per block against its plain version and against the
     same block as separate packed kernels (both checked bitwise), the
     pair's tiling, the three forwards."""
+    from deepfusion_tpu_torch.config import PoolConfig
     from deepfusion_tpu_torch.ops import mega as M
     from deepfusion_tpu_torch.ops.packed import PackedConvOp
+    from deepfusion_tpu_torch.types import dtype
     from deepfusion_tpu_torch.utils.logger import check
+    P = importlib.import_module("deepfusion_tpu_torch.ops.pool")
     PK = importlib.import_module("deepfusion_tpu_torch.ops.packed")
     rng = np.random.default_rng(16)
     n = vnet.cfg.batch
@@ -1331,6 +1529,7 @@ def vggfusion_timings(vnet, dev, name_power, timed):
             return PK.packed_conv_cuda(pair.op_b, [PK.packed_conv_cuda(
                 pair.op_a, [x])])
         mid = PK.packed_conv_cuda(pair.op_a, [x])
+        print_plan(f"VGGFusion block{b} conv b with pool2", pair.op_b, n)
         timed("packed_conv", f"VGGFusion block{b} conv b with pool2",
               lambda: PK.packed_conv_cuda(pair.op_b, [mid]),
               lambda: PK.packed_conv_plain(pair.op_b, [mid]),
@@ -1346,6 +1545,15 @@ def vggfusion_timings(vnet, dev, name_power, timed):
                   f"ms={cuda_ms(fn):.4f} device_ms={device_ms(fn):.4f} "
                   f"(bitwise equal to pair_conv) card=\"{name_power}\"",
                   flush=True)
+    # K3, the 49-tap global average pool of the dense forward
+    v = vnet.convpool2[-1].cfg
+    z = rand(rng, (v.bs, v.oh // 2, v.ow // 2, v.out_oc), dtype.u8, dev)
+    pg = PoolConfig.make("avg_exc", z.shape[1:3], z.shape[1:3], z.shape[1:3],
+                         (0, 0))
+    timed("pool", "VGGFusion global avg_exc", lambda: P.pool_cuda(z, pg,
+                                                                  dtype.u8),
+          lambda: P.pool_plain(z, pg, dtype.u8), in_forward=False,
+          reads=(z,), ops=z.numel(), tensor=False)
     xv = torch.from_numpy(vnet.example_input()).to(dev)
     pm = vnet.packed_module()
     time_forwards("VGGFusion", {"dense": lambda: vnet(xv),
@@ -1370,16 +1578,20 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
     rng = np.random.default_rng(9)
     u8 = dtype.u8
     # ms, plain ms, device ms, plain device ms, bound ms, bytes-bound ms,
-    # operations-bound ms, library ms (nan once a call has none)
-    per = {k: [0.0] * 8 for k in KERNEL_INFO}
+    # operations-bound ms, library ms (nan once a call has none), cold
+    # device ms
+    per = {k: [0.0] * 9 for k in KERNEL_INFO}
 
     def timed(kernel, label, fn_kernel, fn_plain, in_forward=True, reads=(),
               ops=0.0, tensor=True, library=None):
-        """Time a kernel and its plain version; its bound from the bytes it
-        must move (reads, each once, and its output) and its operations;
-        the library call's time where there is one."""
+        """Time a kernel and its plain version, the kernel warm (inputs
+        reused, so they may sit in the L2) and cold (``cold_device_ms``);
+        its bound from the bytes it must move (reads, each once, and its
+        output) and its operations; the library call's time where there is
+        one."""
         t = (cuda_ms(fn_kernel), cuda_ms(fn_plain), device_ms(fn_kernel),
              device_ms(fn_plain))
+        cold = cold_device_ms(fn_kernel)
         nb = nbytes(reads, fn_kernel())
         b_ms, b_by = bound_ms(nb, ops, tensor)
         nan = float("nan")
@@ -1387,12 +1599,14 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
                                                   device_ms(library))
         if in_forward:
             parts = t + (b_ms, bound_ms(nb, 0)[0], bound_ms(0, ops, tensor)[0],
-                         lib[0])
+                         lib[0], cold)
             for i, v in enumerate(parts):
                 per[kernel][i] += v
         print(f"timing: {kernel} {label} ms={t[0]:.4f} plain_ms={t[1]:.4f} "
-              f"device_ms={t[2]:.4f} plain_device_ms={t[3]:.4f} "
+              f"device_ms={t[2]:.4f} cold_device_ms={cold:.4f} "
+              f"plain_device_ms={t[3]:.4f} "
               f"bound_ms={b_ms:.4f} bound_by={b_by} bytes={nb} ops={ops:.4g} "
+              f"cold_share={b_ms / cold:.4f} "
               f"library_ms={lib[0]:.4f} library_device_ms={lib[1]:.4f} "
               f"card=\"{name_power}\"",
               flush=True)
@@ -1434,6 +1648,7 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
         # timed above with the dense path)
         for name, op in packed.items():
             arrs = [packed_input(rng, s, n, dev) for s in op.sins]
+            print_plan(f"FusionNet {name}", op, n)
             timed("packed_conv", name, lambda: PK.packed_conv_cuda(op, arrs),
                   lambda: PK.packed_conv_plain(op, arrs),
                   reads=(packed_reads(op, n), op),
@@ -1470,15 +1685,21 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
         parity.check("packed_conv", "bench.py default 8x126x126x256 fused",
                      PK.packed_conv_cuda(fop, [fx]),
                      PK.packed_conv_plain(fop, [fx]))
+        print_plan("bench.py default", fop, fbatch)
+        encode_host_us(fx, fop.sin, name_power)
         f_ms = cuda_ms(lambda: PK.packed_conv_cuda(fop, [fx]))
-        f_dev = device_ms(lambda: PK.packed_conv_cuda(fop, [fx]))
+        f_dev = device_ms(lambda: PK.packed_conv_cuda(fop, [fx]), profiles=3)
+        f_cold = cold_device_ms(lambda: PK.packed_conv_cuda(fop, [fx]))
         tops = 2 * macs / (f_dev * 1e-3) / 1e12
         print(f"timing: packed fused conv 8x126x126x256 -> 3x3:256 -> "
               f"1x1:256 ms={f_ms:.4f} device_ms={f_dev:.4f} "
-              f"device_TOPs={tops:.1f} share_of_int8_peak="
-              f"{tops / H100_INT8_PEAK_TOPS:.4f} bitwise equal to its plain "
-              f"version; card=\"{name_power}\"", flush=True)
+              f"cold_device_ms={f_cold:.4f} device_TOPs={tops:.1f} "
+              f"cold_device_TOPs={2 * macs / f_cold / 1e9:.1f} "
+              f"share_of_int8_peak={tops / H100_INT8_PEAK_TOPS:.4f} bitwise "
+              f"equal to its plain version; card=\"{name_power}\"",
+              flush=True)
         del fop, fx
+        int_mm_yardstick(name_power)
 
         # the conv pair at bench.py's --pair shape
         M = importlib.import_module("deepfusion_tpu_torch.ops.mega")
@@ -1515,7 +1736,7 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
                "plain_ms": _num(p[1]), "bound_ms": _num(p[4]),
                "bound_by": "operations" if p[6] > p[5] else "bytes",
                "library_ms": _num(p[7]), "device_ms": _num(p[2]),
-               "plain_device_ms": _num(p[3])}
+               "cold_device_ms": _num(p[8]), "plain_device_ms": _num(p[3])}
         if also:
             row["also_replaces"] = also
         rows.append(row)

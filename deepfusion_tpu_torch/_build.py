@@ -45,6 +45,8 @@ _SIGNATURES = {
     "df_sum_relu": [_P, _P, _P, _L, _I, _I, _P],
     "df_packed_conv": [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(_I),
                        _I] + [_P] * 8 + [_I] * 29 + [_F, _P],
+    "df_packed_weight_maps": [_P, _I, _I, _P, _I, _P],
+    "df_packed_plan": [ctypes.POINTER(_I)] * 2,
     "df_packed_sum_pool": [ctypes.POINTER(ctypes.c_void_p),
                            ctypes.POINTER(_I), _I, _P, _P] + [_I] * 6 + [_P],
     "df_pair_conv": [_P, ctypes.POINTER(ctypes.c_void_p),

@@ -1,5 +1,5 @@
-// Tensor-core building blocks shared by the conv kernels (conv.cu,
-// packed_conv.cu): u8 x s8 mma.sync m16n8k32, cp.async copies, the
+// Tensor-core building blocks shared by the mma.sync conv kernels (conv.cu,
+// convpool.cu, pair_conv.cu): u8 x s8 mma.sync m16n8k32, cp.async copies, the
 // shared-memory geometry of a block, and the chunked multiply over one
 // K chunk held in shared memory.
 //

@@ -1,9 +1,8 @@
-// Device code shared by the packed conv kernels, packed_conv_kernel
-// (packed_conv.cu) and pair_conv_kernel (pair_conv.cu): one conv stage's
-// operands, the K loop over a packed input, the fused 1x1 tail, the u8
-// requant into shared memory, the final store (plain, or with the fused
-// 2x2/s2 max pool; with or without the packed sum operand; or the raw s32
-// accumulator) and the fill of the output's non-image slots.
+// Device code of the conv pair kernel, pair_conv_kernel (pair_conv.cu),
+// on the mma.sync K loop (mma_sync.cuh): one conv stage's operands, the K
+// loop over a packed input, the fused 1x1 tail, the u8 requant into shared
+// memory, the final store (plain or with the fused 2x2/s2 max pool), and
+// each block's share of the fill of the output's non-image slots.
 //
 // Packed domain (deepfusion_tpu_torch/ops/packed.py): an image is an int8
 // array (n, rows * iwp, cp), rows = h + 2 * halo, whose byte at an image
@@ -12,8 +11,8 @@
 //
 // Per M row p of a block, s_pix holds three ints: [3p] the row's source
 // (the flat input slot of its tap (0, 0)), [3p + 1] its destination (the
-// flat output slot, the pooled one when the kernel pools), [3p + 2] the
-// flat slot of its sum operand; -1 where the row has none.
+// flat output slot, the pooled one when the kernel pools), [3p + 2] -1
+// (the pair has no sum operand); -1 where the row has none.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -21,12 +20,10 @@
 #include <cstdint>
 
 #include "mma_sync.cuh"
+#include "packed_dst.cuh"
 #include "requant.cuh"
 
 namespace {
-
-constexpr int MAX_SRC = 4;
-constexpr uint32_t CENTER4 = 0x80808080u;
 
 // A packed conv input: 1..MAX_SRC sources whose lane join is the conv input.
 struct PackedSrc {
@@ -65,22 +62,12 @@ inline void pick_stage_tiles(Stage& s) {
   s.k1 = s.oc0p;
 }
 
-// A kernel's final output: a packed image (the pooled spec when it pools),
-// or rows [r0, r0 + rows) of one, with halo = the image's halo - r0 (so it
-// may be negative); bytes per lane 1, or 4 for a raw s32 accumulator.
-struct PackedDst {
-  uint8_t* dst;
-  int n, rows, iwp, cp, halo, h, col_off, w;
-};
-
 // Fill block fb's share (of nfb) of the output's non-image slots with the
-// byte 0x80, or with LANE_BYTES = 4 the s32 zero, 16 bytes at a time.
-template <int LANE_BYTES = 1>
+// byte 0x80, 16 bytes at a time.
 __device__ void fill_pads(const PackedDst& d, int fb, int nfb) {
-  const int upp = d.cp * LANE_BYTES / 16;
+  const int upp = d.cp / 16;
   const long long total = (long long)d.n * d.rows * d.iwp * upp;
-  const uint32_t word = LANE_BYTES == 1 ? CENTER4 : 0u;
-  const uint4 pad = make_uint4(word, word, word, word);
+  const uint4 pad = make_uint4(CENTER4, CENTER4, CENTER4, CENTER4);
   uint4* out = reinterpret_cast<uint4*>(d.dst);
   for (long long e = (long long)fb * NT + threadIdx.x; e < total;
        e += (long long)nfb * NT) {
@@ -229,19 +216,16 @@ __device__ __forceinline__ void store_u8(uint8_t* base, int ldb,
 }
 
 // The final stage's store: requantize the warp's tile to u8 (lanes >= oc
-// as 0; with SUM joined with the sum operand's byte at the row's sum slot,
-// requant_to_u8_centered(..., sum_rounded=)), then store it ^ 0x80 at the
-// row's destination slot, two lanes per 16-bit store. With POOL the four
-// rows 4q..4q+3 of the M tile are one 2x2 window: their values meet in the
-// lanes 4g + t that differ in lane bits 2 and 3, two xor-shuffles take the
-// max of each byte, and the window's first row stores at its (pooled)
-// slot. A max over clamped u8 values is the JAX pool over the clamped f32
-// values: the pack is monotone, and so is rounding (requant.py:138-187).
-// The caller picks SUM and POOL with one uniform branch, so the unrolled
-// loop carries no per-element test.
-template <bool SUM, bool POOL>
+// as 0), then store it ^ 0x80 at the row's destination slot, two lanes per
+// 16-bit store. With POOL the four rows 4q..4q+3 of the M tile are one 2x2
+// window: their values meet in the lanes 4g + t that differ in lane bits 2
+// and 3, two xor-shuffles take the max of each byte, and the window's first
+// row stores at its (pooled) slot. A max over clamped u8 values is the JAX
+// pool over the clamped f32 values: the pack is monotone, and so is
+// rounding (requant.py:138-187). The caller picks POOL with one uniform
+// branch, so the unrolled loop carries no per-element test.
+template <bool POOL>
 __device__ __forceinline__ void store_out(const PackedDst& d,
-                                          const uint8_t* sum, float sum_scale,
                                           const int32_t (&acc)[MI][NI][4],
                                           const int* s_pix, int n0, int wcn,
                                           int oc, bool has_bias,
@@ -266,23 +250,10 @@ __device__ __forceinline__ void store_out(const PackedDst& d,
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int oo = o + j;
-            const int32_t x = acc[mi][ni][2 * h + j];
-            uint32_t u = 0;
-            if (oo >= oc) {
-              // pad lanes stay u8 0
-            } else if constexpr (SUM) {
-              const float sv = __int2float_rn(
-                  sum[(size_t)s_pix[3 * p + 2] * d.cp + oo] ^ 0x80);
-              // sum_rounded is integral, so requant_sum's round of it is
-              // exact: this is requant_to_u8_centered(..., sum_rounded=)
-              u = requant_sum<DT_U8>(x, has_bias, bias[oo], scale[oo], true,
-                                     down,
-                                     round_f32(__fmul_rn(sv, sum_scale),
-                                               down));
-            } else {
-              u = requant_to_u8(x, has_bias, bias[oo], scale[oo], down);
-            }
-            v |= u << (8 * j);
+            if (oo < oc)   // pad lanes stay u8 0
+              v |= uint32_t(requant_to_u8(acc[mi][ni][2 * h + j], has_bias,
+                                          bias[oo], scale[oo], down))
+                   << (8 * j);
           }
         }
         if constexpr (POOL) {
@@ -295,49 +266,6 @@ __device__ __forceinline__ void store_out(const PackedDst& d,
               static_cast<uint16_t>(v ^ 0x8080u);
       }
     }
-}
-
-// Store the warp's tile of the raw s32 accumulator (channels n0 + [0, nb),
-// wcn warps along the channels) at each row's destination slot of an s32
-// packed array, two lanes per 8-byte store.
-__device__ __forceinline__ void store_acc(const PackedDst& d,
-                                          const int32_t (&acc)[MI][NI][4],
-                                          const int* s_pix, int n0, int wcn,
-                                          int ntiles) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = warp / wcn, wc = warp % wcn;
-  int32_t* dst = reinterpret_cast<int32_t*>(d.dst);
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-      if (ni >= ntiles) continue;  // warp-uniform
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int slot = s_pix[3 * (wr * 32 + mi * 16 + g + h * 8) + 1];
-        const int o = n0 + wc * 64 + ni * 8 + 2 * t;
-        if (slot >= 0)
-          *reinterpret_cast<int2*>(dst + (size_t)slot * d.cp + o) =
-              make_int2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-      }
-    }
-}
-
-// store_out with SUM picked by one uniform branch; the kernel's template
-// fixes POOL.
-template <bool POOL>
-__device__ __forceinline__ void store_final(
-    const PackedDst& d, const uint8_t* sum, float sum_scale,
-    const int32_t (&acc)[MI][NI][4], const int* s_pix, int n0, int wcn,
-    int oc, bool has_bias, const float* bias, const float* scale, bool down,
-    int ntiles) {
-  if (sum)
-    store_out<true, POOL>(d, sum, sum_scale, acc, s_pix, n0, wcn, oc,
-                          has_bias, bias, scale, down, ntiles);
-  else
-    store_out<false, POOL>(d, sum, sum_scale, acc, s_pix, n0, wcn, oc,
-                           has_bias, bias, scale, down, ntiles);
 }
 
 }  // namespace

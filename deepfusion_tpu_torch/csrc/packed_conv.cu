@@ -1,8 +1,9 @@
-// packed_conv_kernel<FUSE>: stride-1 INT8 convolution in the packed domain,
-// with the requantization epilogue and, when FUSE, the deep-fused 1x1 tail.
+// packed_conv_kernel<MODE>: stride-1 INT8 convolution in the packed domain,
+// with the requantization epilogue and, when fused, the deep-fused 1x1
+// tail; wgmma on tiles that TMA brings into shared memory.
 //
 // Replaces deepfusion_tpu/ops/packed.py:_packed_kernel (launcher
-// _packed_call) for 1..n inputs, u8 destination, with the packed sum
+// _packed_call) for 1..4 inputs, u8 destination, with the packed sum
 // operand, the fused 2x2/s2 max pool, the raw 1x1 accumulator (emit_acc1)
 // and an output row range (t_range/row0_off), without sparse-phase taps. A
 // strided conv reaches it as a stride-1 conv on the s2d grid
@@ -22,8 +23,8 @@
 //   sum_rounded = round(f32(u8(sum[halo_sum + y, col_off_out + x, o]))
 //                       * sum_scale)
 // after its own round: min(max(round(x) + sum_rounded, 0), 255). The
-// operand is read at its own halo, so a producer's deeper halo needs no
-// repack; its slots outside the image are never read.
+// operand is read at its own halo; its slots outside the image are never
+// read.
 // With pool2 the output is the 2x2/s2 max of those u8 values (the sum
 // joined first, at full resolution), stored ^ 0x80 at the pooled spec's
 // slot (halo_out / 2 + y / 2, col_off_out / 2 + x / 2) of rows iwp / 2 wide.
@@ -34,167 +35,736 @@
 // computes the image rows [oy0, oy0 + noy) only and writes an array of the
 // output rows [r0, r0 + rows) (pooled rows with pool2); the input may be a
 // row slice of the full array. The host passes rows_out, halo_out and
-// halo_in re-based by the range's first row and the slice's first row, so
-// the kernel's addressing is unchanged; every tap of the computed pixels
-// must lie in the slice.
+// halo_in re-based by the range's first row and the slice's first row
+// (either may be negative); every tap of the computed pixels lies in the
+// slice.
 //
-// What bounds it on the H100: int8 multiply-adds, as for conv.cu (the block1
-// layer is 4.1 G MAC against 4 MB of packed input at batch 8). It runs on
-// the tensor cores with mma.sync m16n8k32 u8 x s8 and cp.async double
-// buffering (mma_sync.cuh); wgmma and TMA are later work.
+// What bounds it on the H100: int8 multiply-adds. bench.py's default layer
+// (8x126x126x256 -> 3x3:256 -> 1x1:256) is 83.2 G MAC, 0.084 ms at the
+// 1,979 TOP/s dense int8 peak, against 33 MB of packed input and output.
+// Only wgmma reaches that rate; and every block reads all of the weights
+// (655 KB for that layer) from L2, so a block must cover many pixels per
+// weight byte. Next to the K loop, the epilogue is the cost: it turns
+// every accumulator into a u8 through f32 (twice when fused), and a first
+// version of this kernel spent more time there than in its wgmma.
 //
-// Design (the K loop and the stores live in packed_common.cuh, shared with
-// pair_conv.cu):
-// * The dense kernel's tiling: a block owns M = 32 * 8 / wc image pixels
-//   (flattened over n, oh, ow) and all output lanes in passes of 64 * wc;
-//   K streams through shared memory one tap and up to 128 lanes at a time.
-//   With pool2 (the kernel's POOL), M runs over 2x2 windows, four
-//   consecutive rows each, so the pool is two warp shuffles in the store.
-//   POOL is a template parameter, so the unpooled kernel carries no pool
-//   code.
-// * Input: a stored byte is u8 ^ 0x80, so each A-fragment register is
-//   XOR-ed with 0x80808080 before its mma. Halo, margin and pad-lane slots
-//   then read as u8 0, the conv's zero padding, and no correction term is
-//   needed. The validated geometry keeps every tap of an image pixel inside
-//   the input (halo_in >= ph, col_off_in >= pw, right margin >= kw-1-pw), so
-//   the copy never zero-fills an image pixel's tap: zero bytes would read as
-//   u8 128. Only the pixels past the last one of the last block are
-//   zero-filled, and their outputs are dropped.
-// * Multi-input (the concat-free branch merge): K runs over (tap, source 0
-//   lanes, source 1 lanes, ...); each 16-byte unit is copied from the
-//   source that holds its lanes, so the joined input never exists.
-// * Output: only image pixels are computed (the TPU kernel computes the
-//   whole padded space and masks it). Each block first writes 0x80 over its
-//   share of the output's non-image slots, so the result is a valid packed
-//   image with no second pass and no extra blocks.
+// Design:
+// * A block owns a TR x TC = 16 x 8 tile of output pixels of one image
+//   (M = 128) and all output lanes, in passes of nb0 <= 256 lanes. Two
+//   consumer warpgroups each own 64 rows of M (8 image rows) and issue
+//   wgmma m64n{nb}k32; one producer warp keeps TMA loads in flight through
+//   a ring of `stages` slots with full/empty mbarriers; the producer
+//   warpgroup's other three warps write 0x80 over the block's share of the
+//   output's non-image slots, a row of the array per warp. setmaxnreg moves
+//   registers from the producer warpgroup to the consumers (128 s32
+//   accumulators each). At most one block runs on an SM (its shared
+//   memory), so the grid is at most 132 blocks, each walking the same
+//   number of tiles give or take one; the ring runs on from one tile into
+//   the next, so the next tile's loads overlap this tile's epilogue.
+// * A by TMA, without an index list: for tap (ki, kj) and a K chunk of one
+//   source's lanes, the A operand of the tile is one box of the source
+//   viewed as a 4-D tensor (n, rows, iwp, cp), at (n, halo_in + y0 - ph +
+//   ki, col_off_in + x0 - pw + kj, lane0). The validated geometry (halo_in
+//   >= ph, col_off_in >= pw, right margin >= kw - 1 - pw) puts every tap of
+//   an image pixel inside the array, so TMA's zero fill (outside the array)
+//   reaches only pixels past the image or the row range, whose results are
+//   dropped: a zero byte would read as u8 128.
+// * The stored bytes are read as s8 (u8 - 128) by wgmma .s8.s8, and the
+//   accumulator gets the exact correction 128 * sum(w0) per output channel
+//   (ops/layout.py:u8_shift_correction, the JAX package's device): u8 =
+//   s8 + 128 holds for every stored byte, image, pad or junk, so the
+//   accumulator is bitwise the u8 one. The fused 1x1 reads the plain u8
+//   intermediate the kernel wrote itself, with .u8.s8 and no correction.
+// * K runs over (tap, source, the source's lanes padded to a multiple of
+//   32): a 16-lane remainder of a source reads 16 lanes of TMA zero fill
+//   against zero weights, so no 32-byte k-step straddles two sources. Each
+//   source's lanes go in chunks of 128, then 64, then 32 bytes, each chunk
+//   one A box and one B box swizzled to its width.
+// * B by TMA from K-major copies of the weights that PackedConvOp derives
+//   once (ops/layout.py:kmajor_weights): N rows x K bytes in the kernel's K
+//   order. Their tensor maps are encoded once per op
+//   (df_packed_weight_maps); the activations' maps are encoded per call.
+//   cuTensorMapEncodeTiled is reached through cudaGetDriverEntryPoint, so
+//   the library needs no link to the driver library.
+// * The fused intermediate (M x oc0p u8) stays in shared memory in the
+//   no-swizzle K-major layout the 1x1's wgmma reads. Each consumer
+//   warpgroup writes and reads only its own 64 rows of it.
+// * Epilogue: per warp, 16 rows of M are two image rows of 8 pixels, so a
+//   thread's registers of rows g and g + 8 are the two rows of one column:
+//   the 2x2 pool is one in-thread max and one __shfl_xor_sync(.., 4). The
+//   per-channel parameters (correction, bias, scale) sit in shared memory,
+//   copied once per block: read from global memory at every value they
+//   cost more than the requant itself. A pass loads its parameters before
+//   it stores anything, and the u8 requant takes one int-to-float
+//   conversion (requant_u8: the rounding and the clamp by a magic-number
+//   add and integer ops, bitwise requant_to_u8). The final stage stages
+//   its pixels in shared memory (the intermediate's own rows when the 1x1
+//   needs them no more) and stores 16 bytes a lane, full 32-byte sectors.
+#include <cuda.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
+#include <cstring>
 
-#include "packed_common.cuh"
+#include "packed_dst.cuh"
+#include "requant.cuh"
+#include "wgmma_tma.cuh"
 
 namespace {
 
-struct PackedArgs {
-  PackedSrc in;
-  Stage st;
+constexpr int TR = 16, TC = 8, TM = TR * TC;  // a block's output tile
+constexpr int NTH = 384;            // two consumer warpgroups + the producer's
+constexpr int MAX_CHUNKS = 16;      // K chunks per tap or 1x1
+constexpr int MAX_STAGES = 8;
+constexpr int SMEM_LIMIT = 232448;  // opt-in shared memory of a block
+constexpr int SMS = 132;            // the H100 SXM's SMs
+constexpr int MODE_FUSE = 1, MODE_POOL = 2, MODE_RAW = 4;
+
+// One K chunk: kc = 32 << wcode bytes of source `src`'s lanes from lane0,
+// at K offset koff of the tap (of oc0p for the 1x1).
+struct Chunk {
+  int8_t src, wcode;
+  int16_t lane0, koff;
+};
+
+// The block plan, the same on host and device.
+struct Plan {
+  int tiles_x, tiles_y, tiles, blocks;  // blocks walk the tiles in turn
+  int nb0, nb1, npass0, npass1;  // lanes per pass and passes of each stage
+  int kp;                        // K bytes per tap
+  int nchunk0, nchunk1;
+  Chunk chunk0[MAX_CHUNKS], chunk1[MAX_CHUNKS];
+  int slot_a, slot, stages, mid_off, stage_off, par_off, bar_off, smem;
+};
+
+struct KArgs {
+  Plan p;
+  const int32_t* corr0;  // 128 * sum(w0) per output channel
+  const float* bias0;
+  const float* scale0;
+  const float* bias1;
+  const float* scale1;
   PackedDst out;          // the output spec (pooled with pool2)
   const uint8_t* sum;     // the packed sum operand, or null
   float sum_scale;
   int rows_sum, halo_sum;
-  int n, rows_in, iwp, halo_in, col_off_in;
-  int rows_out, halo_out, col_off_out, oh, ow;  // the unpooled output
+  int iwp, halo_in, col_off_in, col_off_out, ow;
+  int kh, kw, ph, pw;
+  int oc0, oc0p, oc1, oc1p;  // oc1p 0 unfused
+  int down0, down1, has_bias0, has_bias1;
   int oy0, noy;  // the image rows computed
 };
 
-template <bool FUSE, bool POOL, bool RAW>
-__global__ void __launch_bounds__(NT, 2) packed_conv_kernel(PackedArgs a) {
-  fill_pads<RAW ? 4 : 1>(a.out, blockIdx.x, gridDim.x);
-  extern __shared__ __align__(16) uint32_t smem[];
-  const Stage& st = a.st;
-  const Smem L(st);
-  uint32_t* s_in[2] = {smem, smem + L.in_words};
-  uint32_t* s_w[2] = {smem + 2 * L.in_words,
-                      smem + 2 * L.in_words + L.w_words};
-  int* s_pix = reinterpret_cast<int*>(smem + 2 * (L.in_words + L.w_words));
-  uint32_t* s_mid = reinterpret_cast<uint32_t*>(s_pix + 3 * L.m);
+// Tensor maps: a[s][w] source s with boxes of 32 << w lanes; b0[w], b1[w]
+// the K-major w0 and w1 with boxes of 32 << w K bytes by nb0 / nb1 rows.
+struct __align__(64) Maps {
+  CUtensorMap a[MAX_SRC][3];
+  CUtensorMap b0[3], b1[3];
+};
 
-  const int tid = threadIdx.x;
-  const int wc = (tid >> 5) % st.wc;
-  const long long total = (long long)a.n * a.noy * a.ow;
-  const long long p0 = (long long)blockIdx.x * L.m;
-  const int nh2 = a.noy / 2, ow2 = a.ow / 2;
+int pass_width(int ocp) {
+  const int w = ocp < 256 ? ocp : 256;
+  return w <= 32 ? 32 : w <= 64 ? 64 : w <= 128 ? 128 : 256;
+}
 
-  for (int p = tid; p < L.m; p += NT) {
-    const long long gp = p0 + p;
-    int in_pix = -1, out_pix = -1, sum_pix = -1;
-    if (gp < total) {
-      int nn, oy, ox;
-      if constexpr (POOL) {  // gp = 4 * window + (dy, dx)
-        const long long q = gp >> 2;
-        const int px = int(q % ow2);
-        const long long r = q / ow2;
-        const int py = a.oy0 / 2 + int(r % nh2);
-        nn = int(r / nh2);
-        oy = 2 * py + int((gp >> 1) & 1);
-        ox = 2 * px + int(gp & 1);
-        out_pix = (nn * a.out.rows + a.out.halo + py) * a.out.iwp +
-                  a.out.col_off + px;
-      } else {
-        ox = int(gp % a.ow);
-        const long long q = gp / a.ow;
-        oy = a.oy0 + int(q % a.noy);
-        nn = int(q / a.noy);
-        out_pix = (nn * a.rows_out + a.halo_out + oy) * a.iwp +
-                  a.col_off_out + ox;
+// Split kpad bytes (a multiple of 32) into chunks of 128, 64 and 32.
+bool add_chunks(Chunk* c, int& n, int src, int kpad, int koff) {
+  for (int l = 0; l < kpad;) {
+    const int w = kpad - l >= 128 ? 2 : kpad - l >= 64 ? 1 : 0;
+    if (n == MAX_CHUNKS) return false;
+    c[n++] = Chunk{int8_t(src), int8_t(w), int16_t(l), int16_t(koff + l)};
+    l += 32 << w;
+  }
+  return true;
+}
+
+// staged: the final stage stores through shared memory (not pooled, not
+// the raw accumulator).
+bool make_plan(Plan& p, int n, int noy, int ow, int n_src, const int* cps,
+               int kh, int kw, int oc0p, int oc1p, bool fuse, bool staged) {
+  p = Plan{};
+  p.tiles_x = (ow + TC - 1) / TC;
+  p.tiles_y = (noy + TR - 1) / TR;
+  const long long tiles = (long long)n * p.tiles_x * p.tiles_y;
+  if (tiles >= (1LL << 31)) return false;
+  p.tiles = (int)tiles;
+  // at most one block per SM (its shared memory), each the same number of
+  // tiles give or take one
+  const int per = (p.tiles + SMS - 1) / SMS;
+  p.blocks = (p.tiles + per - 1) / per;
+  p.kp = 0;
+  for (int s = 0; s < n_src; ++s) {
+    const int kpad = (cps[s] + 31) / 32 * 32;
+    if (!add_chunks(p.chunk0, p.nchunk0, s, kpad, p.kp)) return false;
+    p.kp += kpad;
+  }
+  if ((long long)kh * kw * p.kp >= (1LL << 31)) return false;
+  p.nb0 = pass_width(oc0p);
+  p.npass0 = (oc0p + p.nb0 - 1) / p.nb0;
+  int kc = 32;
+  for (int c = 0; c < p.nchunk0; ++c)
+    kc = std::max(kc, 32 << p.chunk0[c].wcode);
+  int b_bytes = p.nb0 * kc;
+  if (fuse) {
+    if (!add_chunks(p.chunk1, p.nchunk1, -1, oc0p, 0)) return false;
+    p.nb1 = pass_width(oc1p);
+    p.npass1 = (oc1p + p.nb1 - 1) / p.nb1;
+    for (int c = 0; c < p.nchunk1; ++c)
+      b_bytes = std::max(b_bytes, p.nb1 * (32 << p.chunk1[c].wcode));
+  }
+  p.slot_a = TM * kc;              // a multiple of 1024, as is b_bytes
+  p.slot = p.slot_a + b_bytes;
+  const int mid = fuse ? TM * oc0p : 0;
+  // the final stage's staging rows: the intermediate's own, once the last
+  // 1x1 pass has read them, else a buffer of their own
+  const int nbf = fuse ? p.nb1 : p.nb0;
+  const bool in_mid = fuse && p.npass1 == 1 && nbf <= oc0p;
+  const int stage = staged && !in_mid ? TM * nbf : 0;
+  // the epilogue's per-channel parameters (stage_params)
+  const int par = (3 * oc0p + (fuse ? 2 * oc1p : 0)) * 4;
+  const int fixed = 1024 + mid + stage + par + 2 * MAX_STAGES * 8;
+  p.stages = std::min(MAX_STAGES, (SMEM_LIMIT - fixed) / p.slot);
+  if (p.stages < 2) return false;
+  p.mid_off = p.stages * p.slot;
+  p.stage_off = in_mid ? p.mid_off : p.mid_off + mid;
+  p.par_off = p.mid_off + mid + stage;
+  p.bar_off = p.par_off + par;
+  p.smem = 1024 + p.bar_off + 2 * p.stages * 8;
+  return true;
+}
+
+// Tile t's image nn and first output row and column.
+struct Tile {
+  int nn, y0, x0;
+};
+__device__ __forceinline__ Tile tile_at(const KArgs& a, int t) {
+  const Plan& p = a.p;
+  return Tile{t / (p.tiles_x * p.tiles_y),
+              a.oy0 + TR * ((t / p.tiles_x) % p.tiles_y),
+              TC * (t % p.tiles_x)};
+}
+
+// ------------------------------------------------------------ producer
+// Every chunk of every tile of the block, in the order the consumers take
+// them: the ring runs on from one tile into the next, so the next tile's
+// loads are in flight while the consumers finish the last one.
+__device__ __forceinline__ void produce(const Maps& maps, const KArgs& a,
+                                        uint8_t* smem, uint64_t* full,
+                                        uint64_t* empty, bool fuse) {
+  const Plan& p = a.p;
+  int stage = 0;
+  uint32_t phase = 0;
+  auto slot = [&](int bytes) {
+    mbar_wait(&empty[stage], phase ^ 1);
+    mbar_expect_tx(&full[stage], bytes);
+    return smem + stage * p.slot;
+  };
+  auto next = [&] {
+    if (++stage == p.stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const Tile tl = tile_at(a, t);
+    for (int ps = 0; ps < p.npass0; ++ps)
+      for (int ki = 0; ki < a.kh; ++ki)
+        for (int kj = 0; kj < a.kw; ++kj)
+          for (int c = 0; c < p.nchunk0; ++c) {
+            const Chunk ch = p.chunk0[c];
+            const int kc = 32 << ch.wcode;
+            uint8_t* s = slot((TM + p.nb0) * kc);
+            tma_load_4d(s, &maps.a[ch.src][ch.wcode], &full[stage], ch.lane0,
+                        a.col_off_in + tl.x0 - a.pw + kj,
+                        a.halo_in + tl.y0 - a.ph + ki, tl.nn);
+            tma_load_2d(s + p.slot_a, &maps.b0[ch.wcode], &full[stage],
+                        (ki * a.kw + kj) * p.kp + ch.koff, ps * p.nb0);
+            next();
+          }
+    if (!fuse) continue;
+    for (int ps = 0; ps < p.npass1; ++ps)
+      for (int c = 0; c < p.nchunk1; ++c) {
+        const Chunk ch = p.chunk1[c];
+        uint8_t* s = slot(p.nb1 * (32 << ch.wcode));
+        tma_load_2d(s + p.slot_a, &maps.b1[ch.wcode], &full[stage], ch.koff,
+                    ps * p.nb1);
+        next();
       }
-      in_pix = (nn * a.rows_in + a.halo_in + oy - st.ph) * a.iwp +
-               a.col_off_in + ox - st.pw;
-      sum_pix = (nn * a.rows_sum + a.halo_sum + oy) * a.iwp +
-                a.col_off_out + ox;
-    }
-    s_pix[3 * p] = in_pix;
-    s_pix[3 * p + 1] = out_pix;
-    s_pix[3 * p + 2] = sum_pix;
   }
-  if (FUSE) {  // channels [oc0, k1) of the intermediate stay 0
-    for (size_t e = tid; e < L.mid_words; e += NT) s_mid[e] = 0u;
-  }
-  __syncthreads();
+}
 
-  int32_t acc[MI][NI][4];
-  for (int n0 = 0; n0 < st.oc0p; n0 += L.nb) {
-    const int nbv = min(L.nb, st.oc0p - n0);   // valid columns of the pass
-    const int ntiles = min(NI, max(0, (nbv - wc * 64) / 8));
-    packed_pass(a.in, st, a.iwp, L, s_in, s_w, s_pix, n0, nbv, ntiles, acc);
-    if constexpr (FUSE) {
-      store_u8<false>(reinterpret_cast<uint8_t*>(s_mid), L.ldm * 4, s_pix,
-                      acc, n0, st.wc, st.oc0, st.has_bias0, st.bias0,
-                      st.scale0, st.down0, ntiles);
-    } else {
-      store_final<POOL>(a.out, a.sum, a.sum_scale, acc, s_pix, n0, st.wc,
-                        st.oc0, st.has_bias0, st.bias0, st.scale0, st.down0,
-                        ntiles);
-    }
-  }
+// ------------------------------------------------------------ epilogues
+// A thread's pixels: rows y (h = 0) and y + 1 (h = 1) of column x.
+struct Pix {
+  int y, x;
+  bool ok[2];
+};
 
-  if constexpr (FUSE) {
-    __syncthreads();  // the intermediate is complete
-    for (int n0 = 0; n0 < st.oc1p; n0 += L.nb) {
-      const int nbv = min(L.nb, st.oc1p - n0);
-      const int ntiles = min(NI, max(0, (nbv - wc * 64) / 8));
-      conv1x1_pass(st, L, s_mid, s_w, n0, nbv, ntiles, acc);
-      if constexpr (RAW)
-        store_acc(a.out, acc, s_pix, n0, st.wc, ntiles);
-      else
-        store_final<POOL>(a.out, a.sum, a.sum_scale, acc, s_pix, n0, st.wc,
-                          st.oc1, st.has_bias1, st.bias1, st.scale1,
-                          st.down1, ntiles);
+// requant_to_u8 (requant.cuh) with one conversion instead of three: ReLU,
+// then adding 1.5 * 2^23 rounds to an integer (half to even, or down with
+// __fadd_rd) exactly below 2^22, where the sum's low mantissa bits hold the
+// integer; from 2^22 on the sum's bits exceed 255 and the clamp saturates,
+// as it must. Bitwise requant_to_u8 for every int32 acc and finite bias and
+// scale.
+__device__ __forceinline__ uint32_t requant_u8(int32_t acc, float bias,
+                                               float scale, bool down) {
+  const float x =
+      fmaxf(__fmul_rn(__fadd_rn(__int2float_rn(acc), bias), scale), 0.0f);
+  const float y = down ? __fadd_rd(x, 12582912.0f) : __fadd_rn(x, 12582912.0f);
+  return uint32_t(min(int(__float_as_uint(y)) - 0x4B400000, 255));
+}
+
+// The epilogue's per-channel parameters, copied into shared memory once
+// per block by the consumers: corr0, bias0, scale0 over the oc0p lanes,
+// then bias1, scale1 over the oc1p lanes when fused. A missing bias is
+// zeros: adding +0.0 changes no f32 value of an integer.
+struct Params {
+  const int32_t* corr0;
+  const float *bias0, *scale0, *bias1, *scale1;
+};
+__device__ __forceinline__ Params stage_params(const KArgs& a,
+                                               uint8_t* par) {
+  int32_t* corr0 = reinterpret_cast<int32_t*>(par);
+  float* f = reinterpret_cast<float*>(par + 4 * a.oc0p);
+  for (int i = threadIdx.x; i < a.oc0p; i += 256) {
+    corr0[i] = a.corr0[i];
+    f[i] = a.has_bias0 ? a.bias0[i] : 0.0f;
+    f[a.oc0p + i] = a.scale0[i];
+  }
+  for (int i = threadIdx.x; i < a.oc1p; i += 256) {
+    f[2 * a.oc0p + i] = a.has_bias1 ? a.bias1[i] : 0.0f;
+    f[2 * a.oc0p + a.oc1p + i] = a.scale1[i];
+  }
+  return Params{corr0, f, f + a.oc0p, f + 2 * a.oc0p,
+                f + 2 * a.oc0p + a.oc1p};
+}
+
+// Requantize the thread's accumulators of one pass (lanes n0 + [0, nb),
+// those below lim) to u8, lanes >= oc as 0: the 16-bit half j % 2 of
+// q[h][j / 2] holds lanes n0 + 8j + 2t and + 1 of row h. corr may be null
+// (no correction). With SUM the sum operand's byte joins after the round
+// (requant_to_u8_centered(..., sum_rounded=)). The parameters come from
+// shared memory, and every load comes before the caller's first store.
+template <bool SUM>
+__device__ __forceinline__ void requant_pass(
+    const KArgs& a, const int32_t (&acc)[128], const int32_t* corr,
+    const float* bias, const float* scale, bool down, int n0, int nb,
+    int lim, int oc, const int (&sslot)[2], const Pix& px,
+    uint32_t (&q)[2][16]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    if (8 * j >= nb || n0 + 8 * j >= lim) break;  // warp-uniform
+    const int o = n0 + 8 * j + 2 * t;  // even: the pairs below are aligned
+    const float2 b = *reinterpret_cast<const float2*>(bias + o);
+    const float2 sc = *reinterpret_cast<const float2*>(scale + o);
+    const int2 c = corr ? *reinterpret_cast<const int2*>(corr + o)
+                        : make_int2(0, 0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t v = 0;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (o + e >= oc) continue;  // pad lanes stay u8 0
+        const int32_t x = acc[4 * j + 2 * h + e] + (e ? c.y : c.x);
+        const float be = e ? b.y : b.x, se = e ? sc.y : sc.x;
+        uint32_t u;
+        if constexpr (SUM) {
+          if (!px.ok[h]) continue;  // no sum slot: the value is dropped
+          const float sv = __int2float_rn(
+              a.sum[(size_t)sslot[h] * a.out.cp + o + e] ^ 0x80);
+          // sum_rounded is integral, so requant_sum's round of it is
+          // exact: this is requant_to_u8_centered(..., sum_rounded=)
+          u = requant_sum<DT_U8>(x, true, be, se, true, down,
+                                 round_f32(__fmul_rn(sv, a.sum_scale), down));
+        } else {
+          u = requant_u8(x, be, se, down);
+        }
+        v |= u << (8 * e);
+      }
+      q[h][j >> 1] = (j & 1) ? q[h][j >> 1] | (v << 16) : v;
     }
   }
 }
 
-template <bool FUSE, bool POOL, bool RAW = false>
-int launch(const PackedArgs& a, cudaStream_t stream) {
-  const Smem L(a.st);
-  const size_t smem = L.bytes(FUSE);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        packed_conv_kernel<FUSE, POOL, RAW>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+// Store q's bytes (XOR-ed with x) in the no-swizzle K-major layout of the
+// fused intermediate: byte (m, k) at (k / 16) * TM * 16 + m * 16 + k % 16,
+// rows m0 + g and m0 + g + 8, lanes k = 8j + 2t - n0 of the pass.
+__device__ __forceinline__ void store_kmajor(uint8_t* buf,
+                                             const uint32_t (&q)[2][16],
+                                             int nb, int lim, int n0, int m0,
+                                             uint32_t x) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    if (8 * j >= nb || n0 + 8 * j >= lim) break;  // warp-uniform
+    const int k = 8 * j + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint16_t*>(buf + (k >> 4) * (TM * 16) +
+                                   (m0 + g + 8 * h) * 16 + (k & 15)) =
+          static_cast<uint16_t>((q[h][j >> 1] >> (16 * (j & 1))) ^ x);
   }
-  const long long total = (long long)a.n * a.noy * a.ow;
-  const unsigned blocks = (unsigned)((total + L.m - 1) / L.m);
-  packed_conv_kernel<FUSE, POOL, RAW><<<blocks, NT, smem, stream>>>(a);
+}
+
+// Requantize the warpgroup's pass to plain u8 into the intermediate (lanes
+// n0 + [0, nb) of the K-major layout), lanes >= oc0 as 0.
+__device__ __forceinline__ void write_mid(const KArgs& a, const Params& pr,
+                                          uint8_t* mid,
+                                          const int32_t (&acc)[128], int n0,
+                                          int nb, int m0, const Pix& px) {
+  uint32_t q[2][16];
+  const int none[2] = {0, 0};
+  requant_pass<false>(a, acc, pr.corr0, pr.bias0, pr.scale0, a.down0, n0,
+                      nb, a.oc0p, a.oc0, none, px, q);
+  store_kmajor(mid + (n0 >> 4) * (TM * 16), q, nb, a.oc0p, n0, m0, 0u);
+}
+
+// The final stage's store of the warpgroup's pass: requantize to u8 (lanes
+// >= oc as 0; with SUM joined with the sum operand's byte), XOR 0x80. With
+// POOL the max of the 2x2 window (rows h = 0, 1 in the thread, columns g,
+// g ^ 1 in lanes 4 apart) goes to its pooled slot, two lanes per 16-bit
+// store; a max over clamped u8 values is the JAX pool over the clamped f32
+// values: the pack is monotone, and so is rounding. Without POOL the warp
+// stages its 16 pixels in `stage` (the K-major layout, its own rows m0 +
+// [0, 16)) and stores them 16 bytes a lane: lane i takes row i % 16 of
+// granule i / 16, so a warp's shared loads meet no bank conflict and each
+// of its global stores fills 32-byte sectors.
+template <bool SUM, bool POOL>
+__device__ __forceinline__ void write_out(
+    const KArgs& a, const int32_t (&acc)[128], const int32_t* corr,
+    const float* bias, const float* scale, bool down, int n0, int nb, int oc,
+    int nn, const Pix& px, uint8_t* stage, int m0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const PackedDst& d = a.out;
+  int sslot[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    sslot[h] = (nn * a.rows_sum + a.halo_sum + px.y + h) * a.iwp +
+               a.col_off_out + px.x;
+  uint32_t q[2][16];
+  requant_pass<SUM>(a, acc, corr, bias, scale, down, n0, nb, d.cp, oc, sslot,
+                    px, q);
+  if constexpr (POOL) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      if (8 * j >= nb || n0 + 8 * j >= d.cp) break;  // warp-uniform
+      const int sh = 16 * (j & 1);
+      uint32_t m = __vmaxu4((q[0][j >> 1] >> sh) & 0xffffu,
+                            (q[1][j >> 1] >> sh) & 0xffffu);
+      m = __vmaxu4(m, __shfl_xor_sync(0xffffffffu, m, 4));
+      if (!(g & 1) && px.ok[0]) {
+        const int ps = (nn * d.rows + d.halo + px.y / 2) * d.iwp +
+                       d.col_off + px.x / 2;
+        const size_t at = (size_t)ps * d.cp + n0 + 8 * j + 2 * t;
+        *reinterpret_cast<uint16_t*>(d.dst + at) =
+            static_cast<uint16_t>(m ^ 0x8080u);
+      }
+    }
+  } else {
+    store_kmajor(stage, q, nb, d.cp, n0, m0, 0x8080u);
+    __syncwarp();
+    const int ng = (min(nb, d.cp - n0) + 15) / 16;  // granules of the pass
+    const int x0 = px.x - g;
+    for (int i = lane; i < 16 * ng; i += 32) {
+      const int r = i & 15, gi = i >> 4, y = px.y + (r >> 3), x = x0 + (r & 7);
+      if (x >= a.ow || y >= a.oy0 + a.noy) continue;
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          stage + gi * (TM * 16) + (m0 + r) * 16);
+      const int slot = (nn * d.rows + d.halo + y) * d.iwp + d.col_off + x;
+      *reinterpret_cast<uint4*>(d.dst + (size_t)slot * d.cp + n0 + 16 * gi) = v;
+    }
+    __syncwarp();   // the stage rows are free for the next pass
+  }
+}
+
+// The raw s32 1x1 accumulator at the pixels' slots, two lanes per 8 bytes.
+__device__ __forceinline__ void write_acc(const KArgs& a,
+                                          const int32_t (&acc)[128], int n0,
+                                          int nb, int nn, const Pix& px) {
+  const int t = threadIdx.x & 3;
+  const PackedDst& d = a.out;
+  int32_t* dst = reinterpret_cast<int32_t*>(d.dst);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    if (8 * j >= nb || n0 + 8 * j >= d.cp) break;  // warp-uniform
+    const int o = n0 + 8 * j + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int slot =
+          (nn * d.rows + d.halo + px.y + h) * d.iwp + d.col_off + px.x;
+      if (px.ok[h])
+        *reinterpret_cast<int2*>(dst + (size_t)slot * d.cp + o) =
+            make_int2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+template <bool POOL>
+__device__ __forceinline__ void write_final(
+    const KArgs& a, const int32_t (&acc)[128], const int32_t* corr,
+    const float* bias, const float* scale, bool down, int n0, int nb, int oc,
+    int nn, const Pix& px, uint8_t* stage, int m0) {
+  if (a.sum)  // one uniform branch: the unrolled loops carry no test
+    write_out<true, POOL>(a, acc, corr, bias, scale, down, n0, nb, oc, nn, px,
+                          stage, m0);
+  else
+    write_out<false, POOL>(a, acc, corr, bias, scale, down, n0, nb, oc, nn,
+                           px, stage, m0);
+}
+
+// ------------------------------------------------------------ consumers
+template <int MODE>
+__device__ __forceinline__ void consume(const KArgs& a, uint8_t* smem,
+                                        uint64_t* full, uint64_t* empty) {
+  constexpr bool FUSE = MODE & MODE_FUSE, POOL = MODE & MODE_POOL,
+                 RAW = MODE & MODE_RAW;
+  const Plan& p = a.p;
+  const int wg = threadIdx.x >> 7;            // 0 or 1: rows 64 wg + [0, 64)
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  uint8_t* mid = smem + p.mid_off;
+  uint8_t* stg = smem + p.stage_off;  // the final stage's staging rows
+  const int m0 = 64 * wg + 16 * warp;   // the warp's rows of M
+  const Params pr = stage_params(a, smem + p.par_off);
+  named_barrier(3, 256);   // the consumers' copy of the parameters
+  // Slots are read in ring order (stage, phase) and released in the same
+  // order one chunk later (rstage): a chunk's wgmma group stays in flight
+  // while the next chunk's is issued.
+  int stage = 0, rstage = 0;
+  uint32_t phase = 0;
+  auto acquire = [&] {
+    mbar_wait(&full[stage], phase);
+    __syncwarp();   // wgmma is .aligned: the warp issues it together
+    return smem + stage * p.slot;
+  };
+  auto advance = [&] {
+    if (++stage == p.stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+  auto release = [&] {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[rstage]);
+    if (++rstage == p.stages) rstage = 0;
+  };
+  int32_t acc[128];
+  const int ntaps = a.kh * a.kw;
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const Tile tl = tile_at(a, t);
+    const int nn = tl.nn;
+    Pix px;
+    px.y = tl.y0 + 8 * wg + 2 * warp;
+    px.x = tl.x0 + (lane >> 2);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      px.ok[h] = px.x < a.ow && px.y + h < a.oy0 + a.noy;
+    for (int ps = 0; ps < p.npass0; ++ps) {
+      fence_regs(acc);
+      bool first = true;
+      for (int tap = 0; tap < ntaps; ++tap)
+        for (int c = 0; c < p.nchunk0; ++c) {
+          const int kc = 32 << p.chunk0[c].wcode;
+          uint8_t* s = acquire();
+          const uint32_t sa = smem_u32(s) + wg * 64 * kc;
+          const uint32_t sb = smem_u32(s + p.slot_a);
+          wgmma_fence();
+          for (int kk = 0; kk < kc / 32; ++kk)
+            wgmma_step<false>(acc, swizzled_desc(sa, kc, kk),
+                              swizzled_desc(sb, kc, kk), p.nb0,
+                              !(first && kk == 0));
+          wgmma_commit();
+          advance();
+          wgmma_wait<1>();        // the previous chunk is done with its slot
+          if (!first) release();
+          first = false;
+        }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release();
+      const int n0 = ps * p.nb0;
+      if constexpr (FUSE)
+        write_mid(a, pr, mid, acc, n0, p.nb0, m0, px);
+      else
+        write_final<POOL>(a, acc, pr.corr0, pr.bias0, pr.scale0, a.down0, n0,
+                          p.nb0, a.oc0, nn, px, stg, m0);
+    }
+    if constexpr (FUSE) {
+      fence_async_shared();   // the intermediate, for wgmma
+      named_barrier(1 + wg, 128);
+      const uint32_t sm = smem_u32(mid) + wg * 64 * 16;
+      for (int ps = 0; ps < p.npass1; ++ps) {
+        fence_regs(acc);
+        bool first = true;
+        for (int c = 0; c < p.nchunk1; ++c) {
+          const Chunk ch = p.chunk1[c];
+          const int kc = 32 << ch.wcode;
+          const uint32_t sb = smem_u32(acquire() + p.slot_a);
+          wgmma_fence();
+          for (int kk = 0; kk < kc / 32; ++kk) {
+            const int k = ch.koff + 32 * kk;   // two 16-byte granules
+            wgmma_step<true>(acc,
+                             smem_desc(sm + (k >> 4) * (TM * 16), TM * 16, 128,
+                                       0),
+                             swizzled_desc(sb, kc, kk), p.nb1,
+                             !(first && kk == 0));
+          }
+          wgmma_commit();
+          advance();
+          wgmma_wait<1>();
+          if (!first) release();
+          first = false;
+        }
+        wgmma_wait<0>();
+        fence_regs(acc);
+        release();
+        const int n0 = ps * p.nb1;
+        // the staging rows may be the intermediate's: every warp of the
+        // warpgroup is past its last read of them
+        if constexpr (!RAW && !POOL) named_barrier(1 + wg, 128);
+        if constexpr (RAW)
+          write_acc(a, acc, n0, p.nb1, nn, px);
+        else
+          write_final<POOL>(a, acc, nullptr, pr.bias1, pr.scale1, a.down1,
+                            n0, p.nb1, a.oc1, nn, px, stg, m0);
+      }
+    }
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(NTH, 1)
+    packed_conv_kernel(const __grid_constant__ Maps maps,
+                       const __grid_constant__ KArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  uint8_t* smem = smem_raw + (((base + 1023) & ~1023u) - base);
+  const Plan& p = a.p;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + p.bar_off);
+  uint64_t* empty = full + p.stages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);   // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x >= 256) {   // the producer warpgroup
+    setmaxnreg_dec<56>();
+    const int w = (threadIdx.x - 256) >> 5;
+    if (w == 0) {
+      if (threadIdx.x == 256)
+        produce(maps, a, smem, full, empty, MODE & MODE_FUSE);
+    } else {   // three warps fill the block's rows of the output's pads
+      fill_pad_rows<(MODE & MODE_RAW) ? 4 : 1>(a.out, blockIdx.x * 3 + w - 1,
+                                               gridDim.x * 3);
+    }
+  } else {
+    setmaxnreg_inc<224>();
+    consume<MODE>(a, smem, full, empty);
+  }
+}
+
+template <int MODE>
+int launch(const Maps& maps, const KArgs& a, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      packed_conv_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      a.p.smem);
+  if (e != cudaSuccess) return (int)e;
+  packed_conv_kernel<MODE><<<a.p.blocks, NTH, a.p.smem, stream>>>(maps, a);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------- tensor maps
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                            &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// A u8 tensor map of `rank` dims (innermost first), strides in bytes of
+// dims 1.., boxes of box[] elements, swizzled to the box's inner width.
+bool encode(CUtensorMap* m, const void* ptr, int rank, const cuuint64_t* dims,
+            const cuuint64_t* strides, const cuuint32_t* box) {
+  EncodeTiled fn = encode_fn();
+  if (!fn) return false;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw = box[0] == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : box[0] == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(ptr),
+            dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The maps of a K-major weight matrix (rows x k bytes), boxes of 32, 64 and
+// 128 K bytes by nb rows.
+bool encode_weights(CUtensorMap* m, const void* w, int k, int rows, int nb) {
+  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)k};
+  for (int i = 0; i < 3; ++i) {
+    const cuuint32_t box[2] = {32u << i, (cuuint32_t)nb};
+    if (!encode(&m[i], w, 2, dims, strides, box)) return false;
+  }
+  return true;
 }
 
 }  // namespace
 
+// The weight maps of an op, encoded once (ops/packed.py caches them):
+// out[0, 3) the maps of w0k (oc0p rows x k0 bytes, the kernel's K order),
+// out[3, 6) those of w1k (oc1p rows x oc0p bytes) when w1k is not null.
+// out holds 6 * 128 bytes.
+extern "C" int df_packed_weight_maps(const void* w0k, int k0, int oc0p,
+                                     const void* w1k, int oc1p, void* out) {
+  CUtensorMap m[6] = {};
+  if (!encode_weights(m, w0k, k0, oc0p, pass_width(oc0p)) ||
+      (w1k && !encode_weights(m + 3, w1k, oc0p, oc1p, pass_width(oc1p))))
+    return (int)cudaErrorInvalidValue;
+  memcpy(out, m, sizeof(m));
+  return (int)cudaSuccess;
+}
+
+// in: n, noy, ow, n_src, cp[0..3], kh, kw, oc0p, oc1p, fuse, pool2; out:
+// the tile rows and columns, blocks, stages, shared bytes, nb0, nb1,
+// passes of each stage, K chunks per tap, K bytes per tap, tiles. Returns
+// 0, or non-zero if the kernel cannot run the op.
+extern "C" int df_packed_plan(const int* in, int* out) {
+  Plan p;
+  if (!make_plan(p, in[0], in[1], in[2], in[3], in + 4, in[8], in[9], in[10],
+                 in[11], in[12] != 0, in[13] == 0))
+    return (int)cudaErrorInvalidValue;
+  const int v[] = {TR, TC, p.blocks, p.stages, p.smem, p.nb0, p.nb1,
+                   p.npass0, p.npass1, p.nchunk0, p.kp, p.tiles};
+  for (int i = 0; i < 12; ++i) out[i] = v[i];
+  return 0;
+}
+
 // srcs/src_cps: n_src input arrays and their lane counts (each a multiple
-// of 16, summing to icp); w0 [kh*kw][icp/4][oc0p] words, w1 [oc0p/4][oc1p]
-// words (ops/layout.py); the output lane count is oc0p unfused, oc1p fused.
+// of 16, summing to icp, a multiple of 32); corr0 [oc0p] s32, 128 * sum(w0)
+// per channel; wmaps: df_packed_weight_maps' maps of the op's K-major
+// weights; the output lane count is oc0p unfused, oc1p fused.
 // sum: null, or a packed array of rows_sum rows with the output's iwp,
 // col_off and lanes and halo_sum >= halo_out. pool2: the output is the
 // pooled spec (rows_out / 2 rows of iwp / 2, halo_out / 2, col_off_out / 2);
@@ -204,14 +774,14 @@ int launch(const PackedArgs& a, cudaStream_t stream) {
 // rows_out/halo_out describe the rows of dst (halo_out re-based, may be
 // negative) and rows_in/halo_in the input slice (halo_in re-based).
 extern "C" int df_packed_conv(
-    const void* const* srcs, const int* src_cps, int n_src, const void* w0,
-    const void* bias0, const void* scale0, const void* w1, const void* bias1,
-    const void* scale1, void* dst, const void* sum, int n, int rows_in,
-    int iwp, int halo_in, int col_off_in, int rows_out, int halo_out,
-    int col_off_out, int oh, int ow, int kh, int kw, int ph, int pw, int oc0,
-    int oc0p, int oc1, int oc1p, int down0, int down1, int has_bias0,
-    int has_bias1, int fuse, int rows_sum, int halo_sum, int pool2, int raw,
-    int oy0, int noy, float sum_scale, void* stream) {
+    const void* const* srcs, const int* src_cps, int n_src, const void* corr0,
+    const void* bias0, const void* scale0, const void* bias1,
+    const void* scale1, const void* wmaps, void* dst, const void* sum, int n,
+    int rows_in, int iwp, int halo_in, int col_off_in, int rows_out,
+    int halo_out, int col_off_out, int oh, int ow, int kh, int kw, int ph,
+    int pw, int oc0, int oc0p, int oc1, int oc1p, int down0, int down1,
+    int has_bias0, int has_bias1, int fuse, int rows_sum, int halo_sum,
+    int pool2, int raw, int oy0, int noy, float sum_scale, void* stream) {
   if (n_src < 1 || n_src > MAX_SRC || oc0p % 32 || oc0p <= 0 ||
       (fuse && (oc1p % 32 || oc1p <= 0)))
     return (int)cudaErrorInvalidValue;
@@ -226,29 +796,41 @@ extern "C" int df_packed_conv(
       (sum && ((long long)n * rows_sum * iwp >= (1LL << 31) ||
                halo_sum < halo_out || rows_sum - halo_sum < oh)))
     return (int)cudaErrorInvalidValue;
-  PackedArgs a = {};
   int icp = 0;
   for (int s = 0; s < n_src; ++s) {
     if (src_cps[s] <= 0 || src_cps[s] % 16) return (int)cudaErrorInvalidValue;
-    a.in.src[s] = static_cast<const uint8_t*>(srcs[s]);
-    a.in.src_cp[s] = src_cps[s];
-    a.in.src_off[s] = icp;
     icp += src_cps[s];
   }
   if (icp % 32) return (int)cudaErrorInvalidValue;
-  a.in.n_src = n_src;
-  Stage& st = a.st;
-  st.w0 = static_cast<const int32_t*>(w0);
-  st.bias0 = static_cast<const float*>(bias0);
-  st.scale0 = static_cast<const float*>(scale0);
-  st.w1 = static_cast<const int32_t*>(w1);
-  st.bias1 = static_cast<const float*>(bias1);
-  st.scale1 = static_cast<const float*>(scale1);
-  st.kh = kh; st.kw = kw; st.ph = ph; st.pw = pw; st.icp = icp;
-  st.oc0 = oc0; st.oc0p = oc0p; st.oc1 = oc1; st.oc1p = oc1p;
-  st.down0 = down0; st.down1 = down1;
-  st.has_bias0 = has_bias0; st.has_bias1 = has_bias1; st.fuse = fuse;
-  pick_stage_tiles(st);
+  KArgs a = {};
+  if (!make_plan(a.p, n, noy, ow, n_src, src_cps, kh, kw, oc0p, oc1p,
+                 fuse != 0, !pool2 && !raw))
+    return (int)cudaErrorInvalidValue;
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  memcpy(maps.b0, wmaps, 3 * sizeof(CUtensorMap));
+  if (fuse)
+    memcpy(maps.b1, static_cast<const CUtensorMap*>(wmaps) + 3,
+           3 * sizeof(CUtensorMap));
+  for (int s = 0; s < n_src; ++s) {
+    const cuuint64_t cp = (cuuint64_t)src_cps[s];
+    const cuuint64_t dims[4] = {cp, (cuuint64_t)iwp, (cuuint64_t)rows_in,
+                                (cuuint64_t)n};
+    const cuuint64_t strides[3] = {cp, cp * iwp, cp * iwp * rows_in};
+    for (int w = 0; w < 3; ++w) {
+      bool used = false;
+      for (int c = 0; c < a.p.nchunk0; ++c)
+        used |= a.p.chunk0[c].src == s && a.p.chunk0[c].wcode == w;
+      const cuuint32_t box[4] = {32u << w, TC, TR, 1};
+      if (used && !encode(&maps.a[s][w], srcs[s], 4, dims, strides, box))
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  a.corr0 = static_cast<const int32_t*>(corr0);
+  a.bias0 = static_cast<const float*>(bias0);
+  a.scale0 = static_cast<const float*>(scale0);
+  a.bias1 = static_cast<const float*>(bias1);
+  a.scale1 = static_cast<const float*>(scale1);
   const int cp_out = fuse ? oc1p : oc0p;
   a.out = pool2 ? PackedDst{static_cast<uint8_t*>(dst), n, rows_out / 2,
                             iwp / 2, cp_out, halo_out / 2, oh / 2,
@@ -259,13 +841,17 @@ extern "C" int df_packed_conv(
   a.sum_scale = sum_scale;
   a.rows_sum = rows_sum;
   a.halo_sum = halo_sum;
-  a.n = n; a.rows_in = rows_in; a.iwp = iwp; a.halo_in = halo_in;
-  a.col_off_in = col_off_in; a.rows_out = rows_out; a.halo_out = halo_out;
-  a.col_off_out = col_off_out; a.oh = oh; a.ow = ow;
+  a.iwp = iwp; a.halo_in = halo_in; a.col_off_in = col_off_in;
+  a.col_off_out = col_off_out; a.ow = ow;
+  a.kh = kh; a.kw = kw; a.ph = ph; a.pw = pw;
+  a.oc0 = oc0; a.oc0p = oc0p; a.oc1 = oc1; a.oc1p = fuse ? oc1p : 0;
+  a.down0 = down0; a.down1 = down1;
+  a.has_bias0 = has_bias0; a.has_bias1 = has_bias1;
   a.oy0 = oy0; a.noy = noy;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (raw) return launch<true, false, true>(a, s);
+  if (raw) return launch<MODE_FUSE | MODE_RAW>(maps, a, s);
   if (pool2)
-    return fuse ? launch<true, true>(a, s) : launch<false, true>(a, s);
-  return fuse ? launch<true, false>(a, s) : launch<false, false>(a, s);
+    return fuse ? launch<MODE_FUSE | MODE_POOL>(maps, a, s)
+                : launch<MODE_POOL>(maps, a, s);
+  return fuse ? launch<MODE_FUSE>(maps, a, s) : launch<0>(maps, a, s);
 }

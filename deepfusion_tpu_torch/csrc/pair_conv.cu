@@ -208,11 +208,11 @@ __device__ __forceinline__ void store_b(const PairArgs& a,
                                         const float* bias, const float* scale,
                                         bool down, int ntiles) {
   if (a.pool2)
-    store_out<false, true>(a.out, nullptr, 0.0f, acc, s_pix, n0, wcn, oc,
-                           has_bias, bias, scale, down, ntiles);
+    store_out<true>(a.out, acc, s_pix, n0, wcn, oc, has_bias, bias, scale,
+                    down, ntiles);
   else
-    store_out<false, false>(a.out, nullptr, 0.0f, acc, s_pix, n0, wcn, oc,
-                            has_bias, bias, scale, down, ntiles);
+    store_out<false>(a.out, acc, s_pix, n0, wcn, oc, has_bias, bias, scale,
+                     down, ntiles);
 }
 
 template <bool FUSE_A, bool FUSE_B>

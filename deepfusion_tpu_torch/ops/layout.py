@@ -14,15 +14,26 @@ with ``icp`` = ic rounded up to 32 (one mma k-step) for the conv and
 for the 1x1, and ``ocp`` = oc rounded up to 8 (one mma n-tile). Padding is
 zero.
 
-Zero padding of the image is exact in the u8 domain, so the JAX package's
--128 shift of the activations and its correction term are not needed here.
+The dense kernel's zero padding is exact in the u8 domain, so it needs
+neither the JAX package's -128 shift of the activations nor its
+correction term.
 
-The packed-domain conv (``csrc/packed_conv.cu``) uses the same word layouts
-with wider padding: K is the sum of its sources' lanes (``conv_icp(ic)``,
-since every source but the last has ``cp == c``, OIHW with ic = c0 + c1 + ...
-is already in the lane order of the joined sources) and every N is
+The packed-domain conv (``ops/packed.py``) keeps the same word layouts with
+wider padding: K is the sum of its sources' lanes (``conv_icp(ic)``, since
+every source but the last has ``cp == c``, OIHW with ic = c0 + c1 + ... is
+already in the lane order of the joined sources) and every N is
 ``packed_cp(oc)``, the lane count of the packed output
-(``deepfusion_tpu/ops/packed.py:_narrow_cfg``).
+(``deepfusion_tpu/ops/packed.py:_narrow_cfg``). Its kernel
+(``csrc/packed_conv.cu``) runs wgmma, which takes 8-bit operands K-major
+only, on the stored bytes read as s8: ``kmajor_weights`` derives its
+(N, K) int8 matrices from the words, K in the order the kernel walks, and
+``u8_shift_correction`` the exact correction the JAX package adds
+(``deepfusion_tpu/ops/layout.py:u8_shift_correction``):
+
+    conv_u8s8(x, w) = conv_s8s8(x - 128, w) + 128 * sum_{taps, k} w
+
+exact in int32 for every stored byte, pads included, because a stored
+byte b is u8 - 128 whatever u8 is.
 
 The space-to-depth helpers (``s2d_*``) serve the packed strided conv only:
 its input spec describes the packed s2d image, so its specs compare one to
@@ -99,6 +110,40 @@ def unpack_weights(words: torch.Tensor, oc: int, ic: int, kh: int,
     b = w.view(torch.int8).reshape(t, k4, ocp, 4)      # little-endian bytes
     b = b.permute(2, 1, 3, 0).reshape(ocp, k4 * 4, kh, kw)
     return b[:oc, :ic].contiguous()
+
+
+def source_k(cp: int) -> int:
+    """K bytes the packed conv kernel gives a source of cp lanes: cp rounded
+    up to 32, one wgmma k-step (the lanes past cp read zeros against zero
+    weights)."""
+    return round_up(cp, IC_ALIGN)
+
+
+def kmajor_weights(words: torch.Tensor, kh: int, kw: int,
+                   cps) -> torch.Tensor:
+    """The packed conv kernel's B operand: int32 words [kh*kw][icp/4][ocp]
+    (``pack_conv_weights``, or ``pack_1x1_weights`` with kh = kw = 1) ->
+    int8 (ocp, kh*kw*KP) on the words' device, row o holding output channel
+    o's weights with K in the kernel's order: tap t = ki*kw + kj, then each
+    source's cp lanes padded with zeros to ``source_k(cp)``; KP is the sum
+    of those."""
+    ocp = words.shape[-1]
+    w = unpack_weights(words, ocp, sum(cps), kh, kw)     # (ocp, icp, kh, kw)
+    w = w.permute(0, 2, 3, 1).reshape(ocp, kh * kw, -1)
+    parts, off = [], 0
+    for cp in cps:
+        parts.append(F.pad(w[..., off:off + cp], (0, source_k(cp) - cp)))
+        off += cp
+    return torch.cat(parts, dim=-1).reshape(ocp, -1).contiguous()
+
+
+def u8_shift_correction(wk: torch.Tensor) -> torch.Tensor:
+    """Per-output-channel exact correction, int32: 128 * the row sum of a
+    K-major (N, K) int8 weight matrix. Added to the accumulator of the
+    stored bytes read as s8, it gives the u8-activation accumulator. The
+    JAX package's function sums the columns of its (K, N) matrix: the same
+    sums over another row order."""
+    return 128 * wk.to(torch.int32).sum(dim=1, dtype=torch.int32)
 
 
 def widen_bias(bias, ocp: int) -> np.ndarray:

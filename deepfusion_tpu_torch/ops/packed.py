@@ -70,7 +70,7 @@ from ..utils.persist import dump_configs, load_configs
 from . import layout
 from .requant import requant_to_u8, round_f32, saturate, sum_term
 
-MAX_INPUTS = 4  # csrc/packed_conv.cu MAX_SRC, csrc/packed_sum_pool.cu MAX_IN
+MAX_INPUTS = 4  # csrc/packed_dst.cuh MAX_SRC, csrc/packed_sum_pool.cu MAX_IN
 LANE_UNIT = 16  # both kernels move 16 lanes (bytes) at a time
 _TOO_MANY = "the packed kernels join at most 4 inputs"
 _LANES = ("the packed kernels move 16 lanes at a time: every input's cp "
@@ -501,6 +501,19 @@ class PackedConvOp(nn.Module):
             self.register_buffer(k, t if isinstance(t, torch.Tensor) else
                                  torch.as_tensor(np.asarray(t),
                                                  device=device))
+        # the kernel's K-major copies of the weights and the correction of
+        # the s8 read (ops/layout.py), derived from the words above: they
+        # are not operands, so save/load and reheight keep their format;
+        # non-persistent buffers, so .to() moves them with the words
+        w0k = layout.kmajor_weights(self.w0, cfg.kh, cfg.kw,
+                                    [s.cp for s in sins])
+        derived = {"w0k": w0k, "corr0": layout.u8_shift_correction(w0k),
+                   "w1k": layout.kmajor_weights(
+                       self.w1, 1, 1, [layout.packed_cp(cfg.oc)])
+                   if cfg.fuse_conv1x1 else None}
+        for k, t in derived.items():
+            self.register_buffer(k, t, persistent=False)
+        self._wmaps = None   # (device pointers, their encoded tensor maps)
 
     @property
     def device(self) -> torch.device:
@@ -786,6 +799,47 @@ def packed_conv_plain(op: PackedConvOp, arrs, sum_arr=None, *,
                     so, rows)
 
 
+def _weight_maps(op: PackedConvOp):
+    """The TMA tensor maps of the op's K-major weights, encoded once for
+    their device pointers (``df_packed_weight_maps``)."""
+    w1k = op.w1k
+    key = (op.w0k.data_ptr(), None if w1k is None else w1k.data_ptr())
+    if op._wmaps is None or op._wmaps[0] != key:
+        buf = (ctypes.c_ubyte * (6 * 128))()
+        rc = _build.kernels().df_packed_weight_maps(
+            op.w0k.data_ptr(), op.w0k.shape[1], op.w0k.shape[0],
+            None if w1k is None else w1k.data_ptr(),
+            0 if w1k is None else w1k.shape[0], buf)
+        _build.check(rc, "df_packed_weight_maps")
+        op._wmaps = (key, buf)
+    return op._wmaps[1]
+
+
+def packed_conv_plan(op: PackedConvOp, n: int, rows=None) -> dict:
+    """The packed conv kernel's plan for a call at batch n (and row range
+    ``rows``), without launching: its output tile, the tiles, the blocks
+    (at most one per SM of the H100's 132, each walking its share of the
+    tiles), ring stages, shared bytes, lanes per pass and passes of each
+    stage, K chunks and bytes per tap (``df_packed_plan``, the launcher's
+    own planning)."""
+    cfg = op.cfg
+    _, _, oy0, oy1 = op._row_plan(rows)
+    cps = [s.cp for s in op.sins] + [0] * (MAX_INPUTS - len(op.sins))
+    fuse = cfg.fuse_conv1x1
+    vals = [n, oy1 - oy0, cfg.ow, len(op.sins), *cps, cfg.kh, cfg.kw,
+            layout.packed_cp(cfg.oc),
+            layout.packed_cp(cfg.oc1x1) if fuse else 0, int(fuse),
+            int(op.pool2)]
+    keys = ("tile_rows", "tile_cols", "blocks", "stages", "smem_bytes",
+            "nb0", "nb1", "passes0", "passes1", "chunks_per_tap",
+            "k_per_tap", "tiles")
+    out = (ctypes.c_int * len(keys))()
+    rc = _build.kernels().df_packed_plan((ctypes.c_int * len(vals))(*vals),
+                                         out)
+    _build.check(rc, "df_packed_plan")
+    return dict(zip(keys, list(out)))
+
+
 def packed_conv_cuda(op: PackedConvOp, arrs, sum_arr=None, *,
                      emit_acc1: bool = False, rows=None,
                      row0_off: int = 0) -> torch.Tensor:
@@ -811,12 +865,11 @@ def packed_conv_cuda(op: PackedConvOp, arrs, sum_arr=None, *,
     cps = (ctypes.c_int * len(arrs))(*[s.cp for s in op.sins])
     with torch.cuda.device(out.device):
         rc = _build.kernels().df_packed_conv(
-            ptrs, cps, len(arrs), op.w0.data_ptr(), op.bias0.data_ptr(),
+            ptrs, cps, len(arrs), op.corr0.data_ptr(), op.bias0.data_ptr(),
             op.scale0.data_ptr(),
-            op.w1.data_ptr() if fuse else None,
             op.bias1.data_ptr() if fuse else None,
             op.scale1.data_ptr() if fuse else None,
-            out.data_ptr(),
+            _weight_maps(op), out.data_ptr(),
             None if sum_arr is None else sum_arr.data_ptr(),
             n, arrs[0].shape[1] // sin.iwp, sin.iwp, sin.halo - row0_off,
             sin.col_off, u1 - u0, sout.halo - u0, sout.col_off, cfg.oh,

@@ -1,4 +1,4 @@
-"""Device time of the conv kernels at the models' layers, for an A/B of two
+"""Device time of the kernels at the models' layers, for an A/B of two
 trees of the repository on one card.
 
     python3 tools/ab_kernels.py TREE [TREE ...]
@@ -6,18 +6,27 @@ trees of the repository on one card.
 Runs itself once per TREE, in the order given, each in its own process
 that imports ``deepfusion_tpu_torch`` from that tree (which builds its own
 kernels): K1 (``conv_cuda``) at FusionNet's layers, K5 (``packed_conv_cuda``)
-at FusionNet's and ResFusionNet's packed layers, K10 (``pair_conv_cuda``)
-at VGGFusion's blocks, full width, batch 8, inputs from seed 0. Each time
-is ``chip_smoke.device_ms``: the median of 3 ``torch.profiler`` profiles of
-50 calls (self device time per call, ms). Give the trees as parent,
-change, change, parent. Prints one JSON line per run, then the median per
-tree of each layer.
+at FusionNet's and ResFusionNet's packed layers and at bench.py's default
+shape (8x126x126x256 -> 3x3:256 -> 1x1:256), K9 (``convpool_cuda``) at
+ResFusionNet's downsample and VGGFusion's three conv+pool layers, K10
+(``pair_conv_cuda``) at VGGFusion's blocks, K3 (``pool_cuda``) at its four
+model launches (FusionNet's 2x2 max pool and global average, ResFusionNet's
+and VGGFusion's global averages); full width, batch 8, inputs from seed 0.
+Each time is ``chip_smoke.device_ms``: the median of 3 ``torch.profiler``
+profiles of 50 calls (self device time per call, ms); K3 and the bench
+shape also cold (``chip_smoke.cold_device_ms``: the L2 evicted before every
+call). Entries ending in "host us" are the host's time per call of the
+wrapper (a loop of 200 calls that the device keeps up with, no
+synchronisation inside; median of 5 loops, microseconds). Give the trees
+as parent, change, change, parent. Prints one JSON line per run, then the
+median per tree of each entry and, for the bench shape, TOP/s.
 """
 import json
 import os
 import statistics
 import subprocess
 import sys
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -36,24 +45,44 @@ def run_tree(tree):
                                              VGGFusion, VGGFusionConfig)
     from deepfusion_tpu_torch.models.fusionnet import LAYERS
     from deepfusion_tpu_torch.types import dtype
+    from deepfusion_tpu_torch.config import PoolConfig
     K = importlib.import_module("deepfusion_tpu_torch.ops.conv")
     PK = importlib.import_module("deepfusion_tpu_torch.ops.packed")
     M = importlib.import_module("deepfusion_tpu_torch.ops.mega")
+    CP = importlib.import_module("deepfusion_tpu_torch.ops.convpool")
+    P = importlib.import_module("deepfusion_tpu_torch.ops.pool")
     dev = torch.device("cuda:0")
     rng = np.random.default_rng(0)
 
     def device_ms(fn):
         return cs.device_ms(fn, reps=50, profiles=3)
 
+    def cold_ms(fn):
+        return cs.cold_device_ms(fn, reps=50, profiles=3)
+
+    def host_us(fn, calls=200, loops=5):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(loops):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            out.append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+        return statistics.median(out)
+
+    u8 = dtype.u8
     res = {}
     with torch.inference_mode():
         net = FusionNet(FusionNetConfig(), device=dev)
+        rnet = ResFusionNet(ResFusionNetConfig(), device=dev)
         for name in LAYERS:
             op = getattr(net, name)
             c = op.cfg
-            x = cs.rand(rng, (c.bs, c.ih, c.iw, c.ic), dtype.u8, dev)
+            x = cs.rand(rng, (c.bs, c.ih, c.iw, c.ic), u8, dev)
             res[f"K1 FusionNet {name}"] = device_ms(lambda: K.conv_cuda(op, x))
-        for model in (net, ResFusionNet(ResFusionNetConfig(), device=dev)):
+        for model in (net, rnet):
             n = model.cfg.batch
             for name, op in model.build_packed().items():
                 arrs = [cs.packed_input(rng, s, n, dev) for s in op.sins]
@@ -61,12 +90,55 @@ def run_tree(tree):
                     rng, op.ssum, n, dev)
                 res[f"K5 {type(model).__name__} {name}"] = device_ms(
                     lambda: PK.packed_conv_cuda(op, arrs, sm))
+                if model is net and name in ("stem", "res"):
+                    res[f"K5 FusionNet {name} host us"] = host_us(
+                        lambda: PK.packed_conv_cuda(op, arrs, sm))
         vnet = VGGFusion(VGGFusionConfig(), device=dev)
         for b, pair in enumerate(vnet.build_packed(), 1):
             x = cs.packed_input(rng, pair.sin, vnet.cfg.batch, dev)
             res[f"K10 VGGFusion block{b}"] = device_ms(
                 lambda: M.pair_conv_cuda(pair, x))
-    print(json.dumps({"tree": tree, "device_ms": res}), flush=True)
+        for label, op in [("ResFusionNet down", rnet.down)] + [
+                (f"VGGFusion block{b} conv2+pool", op)
+                for b, op in enumerate(vnet.convpool2, 1)]:
+            c = op.cfg
+            x = cs.rand(rng, (c.bs, c.ih, c.iw, c.ic), u8, dev)
+            res[f"K9 {label}"] = device_ms(lambda: CP.convpool_cuda(op, x))
+        # K3 at its model launches
+        hw, w = net.cfg.hw, net.cfg.width
+        r, v = rnet.block2.cfg, vnet.convpool2[-1].cfg
+        pools = [("FusionNet maxpool 2x2/s2", (8, hw, hw, 2 * w), "max",
+                  (2, 2)),
+                 ("FusionNet global avg", (8, hw // 2, hw // 2, w),
+                  "avg_exc", None),
+                 ("ResFusionNet global avg", (r.bs, r.oh, r.ow, r.out_oc),
+                  "avg_exc", None),
+                 ("VGGFusion global avg",
+                  (v.bs, v.oh // 2, v.ow // 2, v.out_oc), "avg_exc", None)]
+        for label, shape, kind, k in pools:
+            x = cs.rand(rng, shape, u8, dev)
+            k = k or shape[1:3]
+            pc = PoolConfig.make(kind, shape[1:3], k, k, (0, 0))
+            res[f"K3 {label}"] = device_ms(lambda: P.pool_cuda(x, pc, u8))
+            res[f"K3 {label} cold"] = cold_ms(lambda: P.pool_cuda(x, pc, u8))
+            if kind == "max":
+                res[f"K3 {label} host us"] = host_us(
+                    lambda: P.pool_cuda(x, pc, u8))
+        # the host's time of the packed forwards, which launch K5
+        for model in (net, rnet):
+            xm = torch.from_numpy(model.example_input()).to(dev)
+            pm = model.packed_module()
+            res[f"{type(model).__name__} packed forward host us"] = host_us(
+                lambda: pm(xm), calls=50)
+        # K5 at bench.py's default shape
+        fop, fb, macs = cs.flagship_op(dev)
+        fx = cs.packed_input(rng, fop.sin, fb, dev)
+        res["K5 bench.py default"] = device_ms(
+            lambda: PK.packed_conv_cuda(fop, [fx]))
+        res["K5 bench.py default cold"] = cold_ms(
+            lambda: PK.packed_conv_cuda(fop, [fx]))
+    print(json.dumps({"tree": tree, "device_ms": res, "bench_macs": macs}),
+          flush=True)
 
 
 def main():
@@ -84,9 +156,15 @@ def main():
     for layer in runs[0]["device_ms"]:
         meds = [statistics.median(r["device_ms"][layer] for r in runs
                                   if r["tree"] == t) for t in trees]
-        print(f"{layer}: " + " ".join(f"{t}={m:.5f}" for t, m in
-                                      zip(trees, meds))
-              + (f" ratio={meds[1] / meds[0]:.4f}" if len(meds) == 2 else ""))
+        line = f"{layer}: " + " ".join(f"{t}={m:.5f}" for t, m in
+                                       zip(trees, meds))
+        if len(meds) == 2:
+            line += f" ratio={meds[1] / meds[0]:.4f}"
+        if layer.startswith("K5 bench.py"):
+            line += " TOP/s " + " ".join(
+                f"{t}={2 * runs[0]['bench_macs'] / m / 1e9:.1f}"
+                for t, m in zip(trees, meds))
+        print(line)
 
 
 if __name__ == "__main__":
