@@ -4,12 +4,20 @@
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit, compute capability 9.0;
-  2. build: compile the CUDA kernels of deepfusion_tpu_torch/csrc;
+  2. build: compile the CUDA kernels of deepfusion_tpu_torch/csrc; the
+     SASS of every instance of the dense conv kernel (K1) must issue wgmma
+     u8 x s8 on TMA-loaded tiles and no mma.sync; then the device rule:
+     FusionNet(cfg) and conv() on a numpy input, given no device, must run
+     on cuda:0 through the kernels;
   3. parity: each kernel against its plain PyTorch version on the card,
      bitwise, at every FusionNet, ResFusionNet and VGGFusion full-width
      layer shape and extra cases (every dtype, both round modes,
      saturation edges, the conv sum post-op with every operand dtype; for
-     the fused conv+pool both pools, strides and sums; for the packed
+     K1 also strides 2, 3 and above 8 with padding at both edges and odd
+     output sizes, 1x1 GEMM tiles across images, ragged dst pitches, ic
+     16, M below one tile, and the geometries of sp_conv's row slabs and
+     tp_fused_conv's weight slices; for the fused conv+pool both pools,
+     strides and sums; for the packed
      kernels also halo erosion, wide tap shifts, pad lanes, 1-3 inputs,
      the packed sum operand, the s2d stem, the fused 2x2 pool and random
      bytes in the pad slots; for the conv pair every fused combination
@@ -30,16 +38,19 @@ Phases, each printing its own lines:
      of each path must have been launched in that path's run;
   5. timings: CUDA-event medians and profiler device times of each kernel
      and its plain version at the models' shapes, the kernel warm (inputs
-     reused) and cold (the L2 evicted before every call), the packed
-     conv's plan (tile, tiles, blocks, stages, shared bytes) at each
-     layer, the conv pair per VGGFusion block against the same block as
+     reused) and cold (the L2 evicted before every call), every K1 launch
+     of every forward with its plan (conv_plan) and its sums per model,
+     the packed conv's plan (tile, tiles, blocks, stages, shared bytes) at
+     each layer, the conv pair per VGGFusion block against the same block as
      two or three packed kernels, the forwards of all three models, served
      requests per second on every served path, and the packed fused conv
-     and the conv pair at bench.py's default and --pair shapes in TOP/s,
-     beside torch._int_mm at the default shape's two GEMMs; each kernel's
-     bound (the larger of its bytes over 3.35 TB/s and its operations over
-     the peak rate) and, where one PyTorch call computes the same function
-     (torch.cat, a 2x2 amax), that call's time;
+     and the conv pair at bench.py's default and --pair shapes and K1 at
+     its --dense shape in TOP/s, beside torch._int_mm at the default
+     shape's two GEMMs and at FusionNet's fused blocks' im2col GEMMs (K1's
+     yardstick); each kernel's bound (the larger of its bytes over 3.35
+     TB/s and its operations over the peak rate) and, where one PyTorch
+     call computes the same function (torch.cat, a 2x2 amax), that call's
+     time;
   6. sharded: the parallel/ wrappers on meshes whose slots are all this
      card (tp_fused_conv and tp_packed_fused at tp 2 and 4, both wires;
      sp_conv at sp 2, 4 and dp 2 x sp 2; sp_packed on the packed conv at sp
@@ -151,12 +162,7 @@ def device_ms(fn, reps=REPS, profiles=1, tries=3):
     torch.cuda.synchronize()
     out, empty = [], 0
     while len(out) < profiles:
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages())
+        us = sum(kernel_profile(fn, reps).values())
         if us > 0:
             out.append(us / reps / 1e3)
             continue
@@ -178,30 +184,38 @@ def l2_evict():
     return _EVICT[0].sum()
 
 
-def cold_device_ms(fn, reps=REPS, profiles=3):
-    """Device time per call of fn() with cold caches: every call follows
-    l2_evict(), whose own kernels (the names that a profile of it alone
-    records) are left out of the sum; the median of `profiles` profiles,
-    nan if the profiler saw no device activity."""
-    fn()
+def kernel_profile(fn, reps):
+    """{kernel name: self device us} that torch.profiler records over
+    reps calls of fn()."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        l2_evict()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-    evict = {e.key for e in prof.key_averages()
-             if e.self_device_time_total > 0}
-    out = []
-    for _ in range(profiles):
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                l2_evict()
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.key not in evict)
-        out.append(us / reps / 1e3 if us > 0 else float("nan"))
-    return statistics.median(out)
+    return {e.key: e.self_device_time_total for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+
+
+def cold_device_ms(fn, reps=REPS, profiles=3, tries=3):
+    """Device time per call of fn() with cold caches: every call follows
+    l2_evict(), and only fn's own kernels count (the names a profile of fn
+    alone records; none may share a name with the eviction's). The median
+    of `profiles` profiles; after `tries` profiles that lack one of fn's
+    kernels the time is not measured (nan)."""
+    l2_evict()
+    fn()
+    torch.cuda.synchronize()
+    own = set(kernel_profile(fn, reps))
+    out, missed = [], 0
+    while own and len(out) < profiles:
+        c = kernel_profile(lambda: (l2_evict(), fn()), reps)
+        if own <= set(c):
+            out.append(sum(c[k] for k in own) / reps / 1e3)
+            continue
+        missed += 1
+        if missed == tries:
+            break
+    return statistics.median(out) if len(out) == profiles else float("nan")
 
 
 def _num(x: float):
@@ -224,14 +238,16 @@ def rand(rng, shape, dt, dev):
 
 
 def nbytes(*items) -> int:
-    """Bytes of the tensors, lists of tensors and modules' buffers; an int
-    is a byte count already."""
+    """Bytes of the tensors, lists of tensors and modules' operands (their
+    persistent buffers: the copies a kernel's layout derives from them hold
+    the same weights once more); an int is a byte count already."""
     total = 0
     for it in items:
         if isinstance(it, int):
             total += it
         elif isinstance(it, torch.nn.Module):
-            total += sum(b.numel() * b.element_size() for b in it.buffers())
+            total += sum(b.numel() * b.element_size()
+                         for b in it.state_dict().values())
         elif isinstance(it, (list, tuple)):
             total += nbytes(*it)
         elif it is not None:
@@ -347,6 +363,78 @@ def phase_build():
     _build.kernels()
     print(f"build: {_build.library_path().name} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    sass_check(_build.library_path())
+
+
+def sass_check(lib):
+    """cuobjdump -sass of the built library: every conv_fused_kernel
+    instance (K1) issues wgmma u8 x s8 (IGMMA.64xNx32.U8.S8) on tiles that
+    TMA loads (UTMALDG), and no mma.sync (IMMA.16832)."""
+    from deepfusion_tpu_torch._build import _nvcc
+    from deepfusion_tpu_torch.utils.logger import check
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :")[1].strip()
+            funcs[cur] = {"igmma": set(), "utmaldg": 0, "imma": 0}
+        elif cur is not None:
+            f = funcs[cur]
+            if "IGMMA." in line:
+                f["igmma"].add(line.split("IGMMA.")[1].split()[0])
+            f["utmaldg"] += "UTMALDG" in line
+            f["imma"] += "IMMA.16832" in line
+    k1 = {k: v for k, v in funcs.items() if "conv_fused_kernel" in k}
+    check(len(k1) == 9, f"expected 9 conv_fused_kernel instances in the "
+                        f"SASS, found {len(k1)}")
+    for name, f in k1.items():
+        ok = (f["igmma"] and all(g.endswith(".U8.S8") for g in f["igmma"])
+              and f["utmaldg"] > 0 and f["imma"] == 0)
+        print(f"sass: {name[:72]} IGMMA {sorted(f['igmma'])} UTMALDG "
+              f"{f['utmaldg']} IMMA.16832 {f['imma']}", flush=True)
+        check(ok, f"{name}: K1 must issue IGMMA .U8.S8 on UTMALDG tiles and "
+                  "no IMMA.16832")
+
+
+def phase_default_device(cfg):
+    """The device rule: a model and a functional call given no device run
+    on the current CUDA device (cuda:0 here), through the kernels; the
+    functional call equals the same call on the CPU (device="cpu")
+    bitwise. Returns the model."""
+    from deepfusion_tpu_torch import _build
+    from deepfusion_tpu_torch.models import FusionNet
+    from deepfusion_tpu_torch.ops.conv import conv
+    from deepfusion_tpu_torch.utils.logger import check, check_eq
+    cuda0 = torch.device("cuda", 0)
+    net = FusionNet(cfg)
+    check(all(b.device == cuda0 for b in net.buffers()),
+          "FusionNet(cfg) with no device must be built on cuda:0")
+    rng = np.random.default_rng(4)
+    x = rng.integers(0, 256, (2, 9, 9, 32), dtype=np.uint8)
+    w = rng.integers(-128, 128, (48, 32, 3, 3)).astype(np.int8)
+    kw = dict(dst_dtype="u8", conv0_relu=True, conv0_scales=(1 / 5000,))
+    _build.reset_launch_counts()
+    with torch.inference_mode():
+        y = conv(x, w, None, (1, 1), (1, 1), **kw)
+        logits = net(net.example_input())
+        torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    check(y.device == cuda0 and logits.device == cuda0,
+          "conv() and the model's forward on numpy inputs given no device "
+          "must run on cuda:0")
+    check_eq(counts["conv_fused"], 1 + 6, "K1 launches of conv() and one "
+                                          "FusionNet forward")
+    for k in PATH_KERNELS[("FusionNet", "dense")]:
+        check(counts[k] > 0, f"kernel {k} was not launched by FusionNet(cfg)")
+    want = conv(x, w, None, (1, 1), (1, 1), **kw, device="cpu")
+    check(torch.equal(y.cpu(), want), "conv() on cuda:0 differs from the "
+                                      "same call with device=\"cpu\"")
+    print(f"default device: FusionNet(cfg) and conv(numpy) given no device "
+          f"ran on {cuda0} through the kernels (launches {counts}); conv() "
+          "bitwise equal to device=\"cpu\"", flush=True)
+    return net
 
 
 def conv_cases(dev):
@@ -419,11 +507,78 @@ def conv_cases(dev):
                     relu=dst != "s8", sum_dt=sdt, sum_scale=0.75)
     add("sum s8 stride2 odd ic", 2, 13, 3, 40, 3, 2, 1, "s8", relu=False,
         sum_dt="s8", sum_scale=1.5)
+    # what the TMA addressing and the tiling can get wrong: stride 2 with
+    # padding at both edges and odd output sizes; 1x1 GEMM tiles across
+    # image and batch boundaries; oc 8 and oc no multiple of 16 (a ragged
+    # dst pitch, byte stores), ic 16, M below one tile (the head), strides
+    # above TMA's 8 (gathered by the wrapper), oc0p 136 (a pass wider than
+    # the weights), both pass splits
+    for hw, o in ((17, "odd 9"), (15, "even 8"), (31, "odd 16")):
+        add(f"3x3 stride2 pad1 {hw} -> {o}", 2, hw, 32, 64, 3, 2, 1, "u8")
+    add("3x3 stride2 pad1 fused sum", 3, 21, 16, 40, 3, 2, 1, "u8", oc1=24,
+        sum_dt="u8")
+    add("5x5 stride3 pad2 odd", 1, 20, 16, 24, 5, 3, 2, "s8", relu=False)
+    add("1x1 GEMM 3x7x7 (tiles cross images)", 3, 7, 64, 64, 1, 1, 0, "u8")
+    add("1x1 GEMM 5x13x13 s32", 5, 13, 32, 48, 1, 1, 0, "s32", relu=False)
+    add("fused 1x1 GEMM 3x9x9", 3, 9, 32, 64, 1, 1, 0, "u8", oc1=32)
+    add("oc 8 u8", 2, 9, 32, 8, 3, 1, 1, "u8")
+    add("oc 24 s8", 2, 9, 32, 24, 3, 1, 1, "s8", relu=False)
+    add("oc 40 u8 fused oc1 20", 2, 9, 32, 40, 3, 1, 1, "u8", oc1=20)
+    add("oc 130 (oc0p 136) u8", 1, 10, 32, 130, 3, 1, 1, "u8")
+    add("fused oc0 136 oc1 264 u8", 1, 10, 32, 136, 3, 1, 1, "u8", oc1=264)
+    add("ic 16 3x3", 2, 12, 16, 64, 3, 1, 1, "u8")
+    add("ic 16 fused", 2, 12, 16, 32, 3, 1, 1, "u8", oc1=64)
+    add("head-like M=8 f32", 8, 1, 128, 128, 1, 1, 0, "f32", relu=False)
+    add("head-like M=3 f32 odd oc", 3, 1, 64, 37, 1, 1, 0, "f32",
+        relu=False)
+    add("M=1 3x3 u8", 1, 1, 32, 64, 3, 1, 1, "u8")
+    add("1x1 stride 9 (gathered)", 2, 20, 32, 32, 1, 9, 0, "s32",
+        relu=False)
+    add("3x3 stride 10 pad 1 (gathered)", 2, 23, 32, 32, 3, 10, 1, "u8")
     for dst, sdt in (("u8", "s32"), ("s8", "s32"), ("s32", "s32"),
                      ("s8", "f32")):
         add(f"sum saturate {sdt} -> {dst}", 1, 8, 64, 32, 3, 1, 1, dst,
             relu=False, scale=1e6 if dst == "s32" else 0.05, sum_dt=sdt,
             sum_scale=3.0)
+    return out
+
+
+def k1_geometry_cases(net, dev):
+    """(label, ConvOp) for K1 at the geometries the sharded wrappers give
+    it: sp_conv's row slabs of FusionNet's block1 and block2
+    (``ConvOp.with_geometry``: the interior of 2 and 4 shards, the top and
+    bottom slabs) and tp_fused_conv's weight slices (oc 64 and 32 of
+    block1's 128, as its tp = 2 and 4 shards; fused, for the raw 1x1
+    accumulator)."""
+    from deepfusion_tpu_torch.config import ConvConfig
+    from deepfusion_tpu_torch.ops.conv import ConvOp
+    out = []
+    for name in ("block1", "block2"):
+        op = getattr(net, name)
+        c = op.cfg
+        for sp in (2, 4):
+            ih = c.ih // sp
+            out.append((f"{name} sp={sp} interior slab",
+                        op.with_geometry(ph=0, ih=ih, oh=ih - c.kh + 1)))
+        out.append((f"{name} top slab", op.with_geometry(
+            ph=0, ih=c.ph + c.kh - 1, oh=c.ph)))
+        kb = c.kh - 1 - c.ph
+        out.append((f"{name} bottom slab", op.with_geometry(
+            ph=0, ih=kb + c.kh - 1, oh=kb)))
+    p = net.params["block1"]
+    c = net.block1.cfg
+    for tp in (2, 4):
+        k = c.oc // tp
+        sc = np.asarray(p["conv0_scales"])
+        cfg = ConvConfig.make(
+            (c.bs, c.ih, c.iw, c.ic), (k, c.ic, c.kh, c.kw), np.int32,
+            (c.sh, c.sw), (c.ph, c.pw), (c.bs, c.oh, c.ow, c.oc1x1), "u8",
+            conv0_relu=True, conv0_scales=sc[:k],
+            wei1x1_shape=(c.oc1x1, k, 1, 1), bia1x1_dt=np.int32,
+            conv1_relu=True, conv1_scales=p["conv1_scales"])
+        out.append((f"block1 tp={tp} slice oc {k}", ConvOp(
+            cfg, p["wei"][:k], p["bia"][:k], p["wei1"][:, :k], p["bia1"],
+            device=dev)))
     return out
 
 
@@ -512,6 +667,15 @@ def phase_parity(net, rnet, vnet, dev, sharded) -> Parity:
     for label, op, x, sm in conv_cases(dev):
         par.check("conv_fused", label, K.conv_cuda(op, x, sm),
                   K.conv_plain(op, x, sm))
+    for label, op in k1_geometry_cases(net, dev):
+        cfg = op.cfg
+        x = rand(rng, (cfg.bs, cfg.ih, cfg.iw, cfg.ic), u8, dev)
+        par.check("conv_fused", f"FusionNet {label}", K.conv_cuda(op, x),
+                  K.conv_plain(op, x))
+        if cfg.fuse_conv1x1:
+            par.check("conv_fused", f"acc1 FusionNet {label}",
+                      K.conv_cuda(op, x, emit_acc1=True),
+                      K.conv_plain(op, x, emit_acc1=True))
 
     # K9: ResFusionNet's downsample and VGGFusion's conv2+pool of every
     # block at full width, then the extra cases
@@ -1280,6 +1444,14 @@ def flagship_op(dev):
     return PackedConvOp(cfg, *w, device=dev), cfg.bs, macs
 
 
+def flagship_dense(dev):
+    """K1 at bench.py's --dense shape: bench.py's default layer as a dense
+    ConvOp (NHWC u8 in and out)."""
+    from deepfusion_tpu_torch.ops.conv import ConvOp
+    cfg, w, macs = flagship_layer(np.random.default_rng(21))
+    return ConvOp(cfg, *w, device=dev), macs
+
+
 def flagship_pair(dev):
     """The conv pair at bench.py's --pair shape (bench.py:257-272): two of
     bench.py's default layers chained, PackedConvPairOp's default geometry
@@ -1289,6 +1461,19 @@ def flagship_pair(dev):
     cfg, wa, macs = flagship_layer(rng)
     _, wb, _ = flagship_layer(rng)
     return PackedConvPairOp(cfg, wa, cfg, wb, device=dev), cfg.bs, 2 * macs
+
+
+def print_conv_plan(label, op, n):
+    """The dense conv kernel's plan for op at batch n (``conv_plan``)."""
+    from deepfusion_tpu_torch.ops.conv import conv_plan
+    p = conv_plan(op, n)
+    print(f"plan: conv_fused {label} tile_m={p['tile_m']} tile="
+          f"{p['tile_rows']}x{p['tile_cols']} split={p['split']} "
+          f"gemm={p['gemm']} tiles={p['tiles']} blocks={p['blocks']} "
+          f"(of 132 SMs) stages={p['stages']} smem_bytes={p['smem_bytes']} "
+          f"lanes_per_pass={p['nb0']}/{p['nb1']} passes={p['passes0']}/"
+          f"{p['passes1']} k_chunks_per_tap={p['chunks_per_tap']} "
+          f"k_per_tap={p['k_per_tap']}", flush=True)
 
 
 def print_plan(label, op, n):
@@ -1305,30 +1490,31 @@ def print_plan(label, op, n):
           f"{p['k_per_tap']}", flush=True)
 
 
-def int_mm_yardstick(name_power):
-    """torch._int_mm at the two GEMM shapes of bench.py's default layer
-    (8x126x126 pixels: the im2col'd 3x3, K = 9 x 256, then the 1x1, K =
-    256; both N = 256), A built outside the timed call: what the card's
-    own int8 GEMM does with the layer's multiply-adds. A yardstick only:
-    it is not the same function (no requant, no fusion)."""
-    m = 8 * 126 * 126
+def int_mm_yardstick(name_power, label="bench.py default layer",
+                     m=8 * 126 * 126, gemms=((9 * 256, 256), (256, 256))):
+    """torch._int_mm at a fused layer's GEMM shapes (by default bench.py's
+    default layer, 8x126x126 pixels: the im2col'd 3x3, K = 9 x 256, then
+    the 1x1, K = 256; both N = 256), A built outside the timed call: what
+    the card's own int8 GEMM does with the layer's multiply-adds. A
+    yardstick only: it is not the same function (no im2col, no requant, no
+    fusion)."""
     g = torch.Generator(device="cuda").manual_seed(0)
-    total = 0.0
-    for k in (9 * 256, 256):
+    total, macs = 0.0, 0
+    for k, n in gemms:
         a = torch.randint(-128, 128, (m, k), dtype=torch.int8, device="cuda",
                           generator=g)
-        b = torch.randint(-128, 128, (256, k), dtype=torch.int8,
+        b = torch.randint(-128, 128, (n, k), dtype=torch.int8,
                           device="cuda", generator=g).t()
         d = device_ms(lambda: torch._int_mm(a, b), profiles=3)
         total += d
-        print(f"yardstick: torch._int_mm {m}x{k}x256 device_ms={d:.4f} "
-              f"device_TOPs={2 * m * k * 256 / d / 1e9:.1f} "
+        macs += m * k * n
+        print(f"yardstick: {label} torch._int_mm {m}x{k}x{n} "
+              f"device_ms={d:.4f} device_TOPs={2 * m * k * n / d / 1e9:.1f} "
               f"card=\"{name_power}\"", flush=True)
         del a, b
-    macs = m * (9 * 256 + 256) * 256
-    print(f"yardstick: torch._int_mm both GEMMs device_ms={total:.4f} "
-          f"device_TOPs={2 * macs / total / 1e9:.1f} card=\"{name_power}\"",
-          flush=True)
+    print(f"yardstick: {label} torch._int_mm both GEMMs device_ms="
+          f"{total:.4f} device_TOPs={2 * macs / total / 1e9:.1f} "
+          f"card=\"{name_power}\"", flush=True)
 
 
 def encode_host_us(arr, spec, name_power, calls=2000):
@@ -1442,16 +1628,17 @@ def resfusion_timings(rnet, dev, name_power, timed):
     print(f"timing: ResFusionNet down as conv_fused + pool ms="
           f"{cuda_ms(composed):.4f} device_ms={device_ms(composed):.4f} "
           f"(bitwise equal to K9) card=\"{name_power}\"", flush=True)
-    for name in ("stem", "block1"):
+    for name in ("stem", "block1", "block2", "head"):
         op = getattr(rnet, name)
         c = op.cfg
         xi = rand(rng, (c.bs, c.ih, c.iw, c.ic), u8, dev)
         sm = rand(rng, (c.bs, c.oh, c.ow, c.out_oc), u8, dev) \
             if c.with_sum else None
+        print_conv_plan(f"ResFusionNet {name}", op, c.bs)
         timed("conv_fused", f"ResFusionNet {name}",
               lambda: K.conv_cuda(op, xi, sm),
-              lambda: K.conv_plain(op, xi, sm), in_forward=False,
-              reads=(xi, sm, op), ops=conv_ops(c))
+              lambda: K.conv_plain(op, xi, sm), reads=(xi, sm, op),
+              ops=conv_ops(c), group="Rd" if name != "head" else "heads")
     for name, op in rnet.build_packed().items():
         arrs = [packed_input(rng, s, n, dev) for s in op.sins]
         sm = None if op.ssum is None else packed_input(rng, op.ssum, n, dev)
@@ -1502,6 +1689,16 @@ def vggfusion_timings(vnet, dev, name_power, timed):
     PK = importlib.import_module("deepfusion_tpu_torch.ops.packed")
     rng = np.random.default_rng(16)
     n = vnet.cfg.batch
+    K = importlib.import_module("deepfusion_tpu_torch.ops.conv")
+    for name, op in [(f"block{b}_conv1", op)
+                     for b, op in enumerate(vnet.conv1, 1)] + [
+                         ("head", vnet.head)]:
+        c = op.cfg
+        xi = rand(rng, (c.bs, c.ih, c.iw, c.ic), dtype.u8, dev)
+        print_conv_plan(f"VGGFusion {name}", op, c.bs)
+        timed("conv_fused", f"VGGFusion {name}", lambda: K.conv_cuda(op, xi),
+              lambda: K.conv_plain(op, xi), reads=(xi, op), ops=conv_ops(c),
+              group="Vd" if name != "head" else "heads")
     for b, pair in enumerate(vnet.build_packed(), 1):
         plan = M.pair_conv_plan(pair, n)
         print(f"plan: VGGFusion block{b} pair_conv tile={plan['tile']} "
@@ -1581,9 +1778,11 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
     # operations-bound ms, library ms (nan once a call has none), cold
     # device ms
     per = {k: [0.0] * 9 for k in KERNEL_INFO}
+    # K1's launches per forward: warm, cold and bound ms and launches
+    groups = {g: [0.0, 0.0, 0.0, 0] for g in ("Fd", "Rd", "Vd", "heads")}
 
     def timed(kernel, label, fn_kernel, fn_plain, in_forward=True, reads=(),
-              ops=0.0, tensor=True, library=None):
+              ops=0.0, tensor=True, library=None, group=None):
         """Time a kernel and its plain version, the kernel warm (inputs
         reused, so they may sit in the L2) and cold (``cold_device_ms``);
         its bound from the bytes it must move (reads, each once, and its
@@ -1602,6 +1801,9 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
                          lib[0], cold)
             for i, v in enumerate(parts):
                 per[kernel][i] += v
+        if group is not None:
+            for i, v in enumerate((t[2], cold, b_ms, 1)):
+                groups[group][i] += v
         print(f"timing: {kernel} {label} ms={t[0]:.4f} plain_ms={t[1]:.4f} "
               f"device_ms={t[2]:.4f} cold_device_ms={cold:.4f} "
               f"plain_device_ms={t[3]:.4f} "
@@ -1618,9 +1820,11 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
             op = getattr(net, name)
             c = op.cfg
             x = rand(rng, (c.bs, c.ih, c.iw, c.ic), u8, dev)
-            timed("conv_fused", name, lambda: K.conv_cuda(op, x),
-                  lambda: K.conv_plain(op, x), reads=(x, op),
-                  ops=conv_ops(c))
+            print_conv_plan(f"FusionNet {name}", op, c.bs)
+            timed("conv_fused", f"FusionNet {name}",
+                  lambda: K.conv_cuda(op, x), lambda: K.conv_plain(op, x),
+                  reads=(x, op), ops=conv_ops(c),
+                  group="Fd" if name != "head" else "heads")
         n, hw = cfg.batch, cfg.hw
         xs = [rand(rng, (n, hw, hw, w), u8, dev) for _ in range(2)]
         ccfg = ConcatConfig.make([tuple(x.shape) for x in xs], u8, True)
@@ -1701,6 +1905,40 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
         del fop, fx
         int_mm_yardstick(name_power)
 
+        # the dense fused conv (K1) at bench.py's --dense shape
+        dop, dmacs = flagship_dense(dev)
+        dx = rand(rng, (dop.cfg.bs, dop.cfg.ih, dop.cfg.iw, dop.cfg.ic), u8,
+                  dev)
+        parity.check("conv_fused", "bench.py --dense 8x126x126x256 fused",
+                     K.conv_cuda(dop, dx), K.conv_plain(dop, dx))
+        print_conv_plan("bench.py --dense", dop, dop.cfg.bs)
+        d_ms = cuda_ms(lambda: K.conv_cuda(dop, dx))
+        d_dev = device_ms(lambda: K.conv_cuda(dop, dx), profiles=3)
+        d_cold = cold_device_ms(lambda: K.conv_cuda(dop, dx))
+        tops = 2 * dmacs / (d_dev * 1e-3) / 1e12
+        print(f"timing: dense fused conv 8x126x126x256 -> 3x3:256 -> 1x1:256 "
+              f"ms={d_ms:.4f} device_ms={d_dev:.4f} cold_device_ms="
+              f"{d_cold:.4f} device_TOPs={tops:.1f} cold_device_TOPs="
+              f"{2 * dmacs / d_cold / 1e9:.1f} share_of_int8_peak="
+              f"{tops / H100_INT8_PEAK_TOPS:.4f} bitwise equal to its plain "
+              f"version; card=\"{name_power}\"", flush=True)
+        del dop, dx
+        # K1's yardsticks: FusionNet's fused blocks as im2col GEMMs
+        for name in ("block1", "block2"):
+            c = getattr(net, name).cfg
+            int_mm_yardstick(name_power, f"FusionNet {name}",
+                             c.bs * c.oh * c.ow,
+                             ((c.kh * c.kw * c.ic, c.oc), (c.oc, c.oc1x1)))
+        models = {"Fd": "FusionNet dense", "Rd": "ResFusionNet dense",
+                  "Vd": "VGGFusion dense",
+                  "heads": "the three heads (each launched once by the dense "
+                           "and once by the packed forward)"}
+        for g, (warm, cold, bound, n_l) in groups.items():
+            print(f"timing: conv_fused sum over {models[g]} ({n_l} launches"
+                  f") device_ms={warm:.4f} cold_device_ms={cold:.4f} "
+                  f"bound_ms={bound:.4f} cold_share={bound / cold:.4f} "
+                  f"card=\"{name_power}\"", flush=True)
+
         # the conv pair at bench.py's --pair shape
         M = importlib.import_module("deepfusion_tpu_torch.ops.mega")
         pop, pbatch, pmacs = flagship_pair(dev)
@@ -1748,15 +1986,15 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA H100", file=sys.stderr)
         sys.exit(1)
-    from deepfusion_tpu_torch.models import (FusionNet, FusionNetConfig,
-                                             ResFusionNet, ResFusionNetConfig,
-                                             VGGFusion, VGGFusionConfig)
+    from deepfusion_tpu_torch.models import (FusionNetConfig, ResFusionNet,
+                                             ResFusionNetConfig, VGGFusion,
+                                             VGGFusionConfig)
 
     name_power = phase_device()
     phase_build()
     dev = torch.device("cuda:0")
     cfg = FusionNetConfig()
-    net = FusionNet(cfg, device=dev)
+    net = phase_default_device(cfg)
     net.build_packed()
     rnet = ResFusionNet(ResFusionNetConfig(), device=dev)
     rnet.build_packed()

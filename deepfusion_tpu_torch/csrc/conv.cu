@@ -1,5 +1,6 @@
 // conv_fused_kernel<FUSE, DST>: direct INT8 convolution with the
-// requantization epilogue and, when FUSE, the deep-fused 1x1 tail.
+// requantization epilogue and, when FUSE, the deep-fused 1x1 tail; wgmma on
+// tiles that TMA brings into shared memory.
 //
 // Replaces deepfusion_tpu/ops/conv.py:_conv_kernel and
 // deepfusion_tpu/ops/conv.py:_conv_fused_kernel (launcher _conv_pallas),
@@ -18,254 +19,735 @@
 // The optional sum operand is NHWC (n, oh, ow, out_oc) of u8, s8, s32 or
 // f32; the final stage's epilogue reads it at the output pixel and joins it
 // in the JAX package's order (requant.cuh: requant_sum). Whether there is
-// one is a uniform branch around the store loop, and its dtype a switch
+// one is a uniform branch around the epilogue, and its dtype a switch
 // inside it, so it adds no kernel instantiations.
 //
 // What bounds it on the H100: int8 multiply-adds. At FusionNet's full width
-// a forward is about 11 G MACs against a few MB of activations, so once its
-// operands sit in shared memory the kernel is bound by the tensor cores and
-// by the shared-memory loads that feed them. It multiplies u8 x s8 on the
-// tensor cores with mma.sync m16n8k32 (s32 accumulators); wgmma and TMA,
-// which the card's full int8 rate needs, are later work.
+// a forward is about 11 G MACs against a few MB of activations, and
+// bench.py's dense layer (8x126x126x256 -> 3x3:256 -> 1x1:256) is 83.2 G MAC,
+// 0.084 ms at the 1,979 TOP/s dense int8 peak. Only wgmma reaches that
+// rate; every block reads all of the weights from L2, so a block covers many
+// pixels per weight byte; and the small layers (FusionNet's block2: 6,272
+// pixels) must still give every SM a tile.
 //
-// Design:
-// * A block owns M = 32*WR consecutive output pixels (flattened over
-//   n, oh, ow) and the output channels in passes of nb = 64*WC <= 512 (one
-//   pass for FusionNet), WR*WC = 8 warps. Each warp owns a 32 x 64 tile:
-//   2 x 8 mma tiles of s32 accumulators in registers.
-// * K streams through shared memory one tap and up to 128 input channels
-//   (four mma k-steps) at a time: an M x kcw-word input tile and the
-//   matching kcw x nb weight words, copied with cp.async into two buffers so
-//   the next chunk loads while this one multiplies. Taps outside the image
-//   and channels past ic are zero-filled by the copy itself, so padding
-//   and stride are only addressing. Row pitches are padded so the fragment
-//   loads are free of bank conflicts.
-// * Fused: the u8 intermediate tile (M x oc0p bytes, 16 KB for FusionNet's
-//   block2) stays in shared memory and is the A operand of the 1x1 product
-//   (w1 streams through shared memory like w0); it never reaches device
-//   memory. This is the on-chip residency the TPU kernel keeps in VMEM.
-//
-// The argument struct, the layouts and the K loop are in conv_common.cuh,
-// shared with convpool.cu.
+// Design (the packed conv's, csrc/packed_conv.cu, on the dense layout):
+// * A tile is tr x tc output pixels of one image, tm = 128 or 64 rows of M.
+//   tm = 128: two consumer warpgroups own 64 rows each and all lanes of a
+//   pass; tm = 64 ("split"): both own the 64 rows and half the pass's lanes
+//   each, so a layer has twice the tiles. The host picks tm (make_plan:
+//   64 where 128-pixel tiles fill less than 3/4 of their waves of 132) and
+//   the tile's tr x tc pixels (tile_plan: the fewest waves, then tiles).
+//   One producer warp keeps TMA loads in flight through a ring of `stages`
+//   slots with full/empty mbarriers; setmaxnreg moves registers from the
+//   producer warpgroup to the consumers (128 s32 accumulators each). At most
+//   one block runs on an SM, so the grid is at most 132 blocks, each walking
+//   the same number of tiles give or take one; the ring runs on from one
+//   tile into the next, so the next tile's loads overlap this epilogue.
+// * A by TMA, one box per tap and K chunk: the NHWC input as a 4-D tensor
+//   (c, x, y, n), the box (kc, tc, tr, 1) at (c0, x0*sw - pw + kj,
+//   y0*sh - ph + ki, n), every sw-th column and sh-th row (TMA's element
+//   strides, at most 8; the wrapper gathers larger strides away). TMA's zero
+//   fill outside the tensor is the conv's zero padding, exactly, and reads
+//   zeros for the channels past ic of a 32-byte k-step. A 1x1 conv with
+//   stride 1 and no padding is a plain GEMM over the flattened pixels: the
+//   host runs it as one image of one row, so its tiles are tm consecutive
+//   pixels and cross image and batch boundaries.
+// * B by TMA from the K-major copies of the weights that ConvOp derives
+//   once (ops/layout.py:dense_kmajor_weights): oc0p rows x kh*kw*icp bytes
+//   and oc1p rows x k1 bytes. Rows past oc0p (oc1p) up to the pass width
+//   read TMA's zero fill. Their tensor maps are encoded once per op
+//   (df_conv_weight_maps); the input's maps at every call (1.7 us each).
+// * K runs over (tap, the input's channels padded to a multiple of 32) in
+//   chunks of 128, 64 and 32 bytes, each chunk one A box and one B box
+//   swizzled to its width. wgmma multiplies u8 x s8 (.u8.s8).
+// * The fused intermediate (tm x k1 u8) stays in shared memory in the
+//   no-swizzle K-major layout the 1x1's wgmma reads; its channels
+//   [oc0, k1) are written as 0.
+// * Epilogue: the per-channel parameters sit in shared memory, copied once
+//   per block (a missing bias is zeros: adding +0.0 changes no f32 value
+//   of an integer), and a pass loads them before it stores anything. The
+//   u8 requant takes one conversion (requant.cuh: requant_u8). 1-byte dsts
+//   are staged in shared memory (the intermediate's own rows when the 1x1
+//   needs them no more) and stored 16 bytes a lane where the dst's row
+//   pitch oc allows it, byte by byte where it does not; 4-byte dsts go out
+//   from the registers, two lanes per 8-byte store where oc is even.
+#include <cuda.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
+#include <cstring>
 
-#include "conv_common.cuh"
+#include "requant.cuh"
+#include "wgmma_tma.cuh"
 
 namespace {
 
+constexpr int NTH = 384;            // two consumer warpgroups + the producer's
+constexpr int MAX_STAGES = 8;
+constexpr int SMEM_LIMIT = 232448;  // opt-in shared memory of a block
+constexpr int SMS = 132;            // the H100 SXM's SMs
+constexpr int MAX_BOX = 256;        // TMA box elements per dimension
+constexpr int MAX_ESTRIDE = 8;      // TMA element stride
 // The DST of the fused kernel's raw 1x1 accumulator store (not a dtype code)
 constexpr int DT_ACC = 0;
 
-// Store the warp's tile of the raw s32 accumulator: pixels p0 + [0, L.m),
-// channels n0 + [0, nb) of oc, NHWC.
-__device__ __forceinline__ void store_acc(const ConvArgs& a,
-                                          const int32_t (&acc)[MI][NI][4],
-                                          long long p0, long long total,
-                                          int n0, int oc, int ntiles) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = warp / a.wc, wc = warp % a.wc;
-  int32_t* dst = static_cast<int32_t*>(a.dst);
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-      if (ni >= ntiles) continue;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const long long gp = p0 + wr * 32 + mi * 16 + g + (r >> 1) * 8;
-        const int o = n0 + wc * 64 + ni * 8 + 2 * t + (r & 1);
-        if (gp < total && o < oc) dst[(size_t)gp * oc + o] = acc[mi][ni][r];
-      }
-    }
+// K chunks of k bytes (a multiple of 32): 128-byte chunks, then at most one
+// of 64 and one of 32. Chunk c is 32 << wcode bytes at offset koff.
+struct Chunk {
+  int wcode, koff;
+};
+__host__ __device__ __forceinline__ int chunk_count(int k) {
+  return k / 128 + (k % 128 >= 64) + (k % 64 == 32);
+}
+__host__ __device__ __forceinline__ Chunk chunk_at(int k, int c) {
+  const int full = k / 128;
+  if (c < full) return Chunk{2, 128 * c};
+  if (c == full && k % 128 >= 64) return Chunk{1, 128 * full};
+  return Chunk{0, k - 32};
 }
 
-// Requantize the warp's tile of the final stage and store it (with the sum
-// operand's element at the same index when SUM): pixels p0 + [0, L.m),
-// channels n0 + [0, nb) of oc. The caller picks SUM with one uniform
-// branch, so the unrolled loop carries no per-element test.
+// The conv's geometry as the kernel runs it (a 1x1 GEMM as one image of
+// one row of n*oh*ow pixels).
+struct Geo {
+  int n, ih, iw, ic, oh, ow, kh, kw, sh, sw, ph, pw;
+  bool gemm;
+};
+
+// The block plan, the same on host and device.
+struct Plan {
+  int tm, tr, tc, split;         // rows of a tile, its tr x tc pixels
+  int tiles_x, tiles_y, tiles, blocks;  // blocks walk the tiles in turn
+  int nb0, nb1, npass0, npass1;  // lanes per pass and passes of each stage
+  int np0, np1;                  // lanes of the staged parameters
+  int kp, k1, nchunk0, nchunk1;  // K bytes per tap and of the 1x1, chunks
+  int slot_a, slot, stages, mid_off, stage_off, par_off, bar_off, smem;
+};
+
+struct KArgs {
+  Plan p;
+  const float* bias0;
+  const float* scale0;
+  const float* bias1;
+  const float* scale1;
+  void* dst;
+  const void* sum;  // the sum operand, or null
+  float sum_scale;
+  int sum_dt;
+  int oh, ow, kh, kw, sh, sw, ph, pw;
+  int oc0, oc0p, oc1p, out_oc;  // out_oc: the dst's lanes and pitch
+  int relu0, relu1, down0, down1, has_bias0, has_bias1;
+};
+
+// Tensor maps: a[w] the input with boxes of 32 << w channels; b0[w], b1[w]
+// the K-major w0 and w1 with boxes of 32 << w K bytes by nb0 / nb1 rows.
+struct __align__(64) Maps {
+  CUtensorMap a[3];
+  CUtensorMap b0[3], b1[3];
+};
+
+int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+Geo geometry(int n, int ih, int iw, int ic, int oh, int ow, int kh, int kw,
+             int sh, int sw, int ph, int pw) {
+  const long long px = (long long)n * oh * ow;
+  if (kh == 1 && kw == 1 && sh == 1 && sw == 1 && ph == 0 && pw == 0 &&
+      px < (1LL << 31))
+    return Geo{1, 1, (int)px, ic, 1, (int)px, 1, 1, 1, 1, 0, 0, true};
+  return Geo{n, ih, iw, ic, oh, ow, kh, kw, sh, sw, ph, pw, false};
+}
+
+// Ring slots, the intermediate, the staging rows, the parameters and the
+// barriers of a plan whose tiling is set; false if they do not fit.
+bool layout_smem(Plan& p, bool fuse, bool staged) {
+  int kc = 32;
+  for (int c = 0; c < p.nchunk0; ++c)
+    kc = std::max(kc, 32 << chunk_at(p.kp, c).wcode);
+  int b_bytes = p.nb0 * kc;
+  for (int c = 0; c < p.nchunk1; ++c)
+    b_bytes = std::max(b_bytes, p.nb1 * (32 << chunk_at(p.k1, c).wcode));
+  p.slot_a = round_up(p.tm * kc, 1024);  // b_bytes is a multiple of 1024
+  p.slot = p.slot_a + b_bytes;
+  const int mid = fuse ? p.tm * p.k1 : 0;
+  // the final stage's staging rows: the intermediate's own, once the last
+  // 1x1 pass has read them, else a buffer of their own
+  const int nbf = fuse ? p.nb1 : p.nb0;
+  const bool in_mid = fuse && p.npass1 == 1 && nbf <= p.k1;
+  const int stage = staged && !in_mid ? p.tm * nbf : 0;
+  const int par = 8 * (p.np0 + p.np1);  // bias and scale per lane
+  const int fixed = 1024 + mid + stage + par + 2 * MAX_STAGES * 8;
+  p.stages = std::min(MAX_STAGES, (SMEM_LIMIT - fixed) / p.slot);
+  if (p.stages < 2) return false;
+  p.mid_off = p.stages * p.slot;
+  p.stage_off = in_mid ? p.mid_off : p.mid_off + mid;
+  p.par_off = p.mid_off + mid + stage;
+  p.bar_off = p.par_off + par;
+  p.smem = 1024 + p.bar_off + 2 * p.stages * 8;
+  return true;
+}
+
+// The tiling of one tile size tm: every tc with tr = the most rows that fit
+// (tr * tc a multiple of 8, the boxes within TMA's 256 elements); the plan
+// with the fewest waves of SMS tiles, then the fewest tiles, then the
+// fewest input pixels per output pixel. False if tm does not fit.
+bool tile_plan(Plan& q, const Geo& g, int tm, bool fuse, bool staged) {
+  q.tm = tm;
+  q.split = tm == 64;
+  if (!layout_smem(q, fuse, staged)) return false;
+  bool found = false;
+  long long best[3] = {0, 0, 0};
+  for (int tc = 1; tc <= std::min(tm, std::min(g.ow, MAX_BOX / g.sw)); ++tc) {
+    int tr = std::min(tm / tc, MAX_BOX / g.sh);
+    while (tr > 0 && (tr * tc) % 8) --tr;
+    if (tr == 0) continue;
+    const long long tx = (g.ow + tc - 1) / tc, ty = (g.oh + tr - 1) / tr;
+    const long long tiles = (long long)g.n * tx * ty;
+    if (tiles >= (1LL << 31)) continue;
+    const long long key[3] = {
+        (tiles + SMS - 1) / SMS, tiles,
+        1024LL * (tr + g.kh - 1) * (tc + g.kw - 1) / (tr * tc)};
+    if (found && !std::lexicographical_compare(key, key + 3, best, best + 3))
+      continue;
+    found = true;
+    std::copy(key, key + 3, best);
+    q.tr = tr;
+    q.tc = tc;
+    q.tiles_x = (int)tx;
+    q.tiles_y = (int)ty;
+    q.tiles = (int)tiles;
+  }
+  return found;
+}
+
+// The plan: tiles of tm = 128, unless they fill less than 3/4 of their
+// waves of SMS and each warpgroup's half of a pass is a wgmma width (nb >=
+// 64): then tm = 64 ("split"), twice the tiles. The split narrows each
+// wgmma and reads the weights twice as often per pixel, so it pays only
+// where the last wave of 128-pixel tiles leaves many SMs idle.
+// staged: the dst is 1 byte (its epilogue stages through shared memory).
+bool make_plan(Plan& p, const Geo& g, int oc0p, int oc1p, bool fuse,
+               bool staged) {
+  p = Plan{};
+  p.kp = round_up(g.ic, 32);
+  p.nchunk0 = chunk_count(p.kp);
+  p.nb0 = pass_width(oc0p);
+  p.npass0 = (oc0p + p.nb0 - 1) / p.nb0;
+  p.np0 = p.npass0 * p.nb0;
+  if (fuse) {
+    p.k1 = round_up(oc0p, 32);
+    p.nchunk1 = chunk_count(p.k1);
+    p.nb1 = pass_width(oc1p);
+    p.npass1 = (oc1p + p.nb1 - 1) / p.nb1;
+    p.np1 = p.npass1 * p.nb1;
+  }
+  if ((long long)g.kh * g.kw * p.kp >= (1LL << 31)) return false;
+  if (g.sh > MAX_ESTRIDE || g.sw > MAX_ESTRIDE) return false;
+  const bool can_split = p.nb0 >= 64 && (!fuse || p.nb1 >= 64);
+  Plan wide = p, split = p;
+  const bool has_wide = tile_plan(wide, g, 128, fuse, staged);
+  const bool has_split = can_split && tile_plan(split, g, 64, fuse, staged);
+  if (has_wide &&
+      !(has_split && 4LL * wide.tiles <
+                         3LL * SMS * ((wide.tiles + SMS - 1) / SMS)))
+    p = wide;
+  else if (has_split)
+    p = split;
+  else
+    return false;
+  const int per = (p.tiles + SMS - 1) / SMS;
+  p.blocks = (p.tiles + per - 1) / per;
+  return true;
+}
+
+// Tile t's image nn and first output row and column.
+struct Tile {
+  int nn, y0, x0;
+};
+__device__ __forceinline__ Tile tile_at(const Plan& p, int t) {
+  return Tile{t / (p.tiles_x * p.tiles_y),
+              p.tr * ((t / p.tiles_x) % p.tiles_y), p.tc * (t % p.tiles_x)};
+}
+// The flat NHWC pixel of row m of a tile, -1 if none.
+__device__ __forceinline__ long long pixel_of(const KArgs& a, const Tile& tl,
+                                              int m) {
+  const Plan& p = a.p;
+  if (m >= p.tr * p.tc) return -1;
+  const int y = tl.y0 + m / p.tc, x = tl.x0 + m % p.tc;
+  if (y >= a.oh || x >= a.ow) return -1;
+  return ((long long)tl.nn * a.oh + y) * a.ow + x;
+}
+
+// ------------------------------------------------------------ producer
+// Every chunk of every tile of the block, in the order the consumers take
+// them: the ring runs on from one tile into the next.
+__device__ __forceinline__ void produce(const Maps& maps, const KArgs& a,
+                                        uint8_t* smem, uint64_t* full,
+                                        uint64_t* empty, bool fuse) {
+  const Plan& p = a.p;
+  int stage = 0;
+  uint32_t phase = 0;
+  auto slot = [&](int bytes) {
+    mbar_wait(&empty[stage], phase ^ 1);
+    mbar_expect_tx(&full[stage], bytes);
+    return smem + stage * p.slot;
+  };
+  auto next = [&] {
+    if (++stage == p.stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+  const int box_px = p.tr * p.tc;
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const Tile tl = tile_at(p, t);
+    for (int ps = 0; ps < p.npass0; ++ps)
+      for (int ki = 0; ki < a.kh; ++ki)
+        for (int kj = 0; kj < a.kw; ++kj)
+          for (int c = 0; c < p.nchunk0; ++c) {
+            const Chunk ch = chunk_at(p.kp, c);
+            const int kc = 32 << ch.wcode;
+            uint8_t* s = slot((box_px + p.nb0) * kc);
+            tma_load_4d(s, &maps.a[ch.wcode], &full[stage], ch.koff,
+                        tl.x0 * a.sw - a.pw + kj, tl.y0 * a.sh - a.ph + ki,
+                        tl.nn);
+            tma_load_2d(s + p.slot_a, &maps.b0[ch.wcode], &full[stage],
+                        (ki * a.kw + kj) * p.kp + ch.koff, ps * p.nb0);
+            next();
+          }
+    if (!fuse) continue;
+    for (int ps = 0; ps < p.npass1; ++ps)
+      for (int c = 0; c < p.nchunk1; ++c) {
+        const Chunk ch = chunk_at(p.k1, c);
+        uint8_t* s = slot(p.nb1 * (32 << ch.wcode));
+        tma_load_2d(s + p.slot_a, &maps.b1[ch.wcode], &full[stage], ch.koff,
+                    ps * p.nb1);
+        next();
+      }
+  }
+}
+
+// ------------------------------------------------------------ epilogues
+// A thread's accumulator registers of a pass: for n8 block j, register
+// 4j + 2h + e holds row m0 + g + 8h (h = 0, 1), lane col0 + 8j + 2t + e.
+
+// Requantize the warpgroup's pass (lanes col0 + [0, nbw)) to plain u8 into
+// the intermediate's K-major layout, byte (m, k) at (k / 16) * tm * 16 +
+// m * 16 + k % 16; lanes in [oc0, k1) as 0.
+__device__ __forceinline__ void write_mid(const KArgs& a, const float* bias,
+                                          const float* scale, uint8_t* mid,
+                                          const int32_t (&acc)[128], int col0,
+                                          int nbw, int m0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int tm = a.p.tm;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    if (8 * j >= nbw || col0 + 8 * j >= a.p.k1) break;  // warp-uniform
+    const int o = col0 + 8 * j + 2 * t;  // even: the pairs are aligned
+    const float2 b = *reinterpret_cast<const float2*>(bias + o);
+    const float2 sc = *reinterpret_cast<const float2*>(scale + o);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t v = 0;
+      if (o < a.oc0) v = requant_u8(acc[4 * j + 2 * h], b.x, sc.x, a.down0);
+      if (o + 1 < a.oc0)
+        v |= requant_u8(acc[4 * j + 2 * h + 1], b.y, sc.y, a.down0) << 8;
+      *reinterpret_cast<uint16_t*>(mid + (o >> 4) * (tm * 16) +
+                                   (m0 + g + 8 * h) * 16 + (o & 15)) =
+          static_cast<uint16_t>(v);
+    }
+  }
+}
+
+// One value of the final stage, with the sum operand's element at idx when
+// SUM.
 template <int DST, bool SUM>
-__device__ __forceinline__ void store_tile(
-    const ConvArgs& a, const int32_t (&acc)[MI][NI][4], long long p0,
-    long long total, int n0, int oc, bool has_bias, const float* bias,
-    const float* scale, bool relu, bool down, int ntiles) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = warp / a.wc, wc = warp % a.wc;
+__device__ __forceinline__ typename dt_traits<DST>::T final_value(
+    const KArgs& a, int32_t x, float b, float s, bool relu, bool down,
+    long long idx) {
+  if constexpr (SUM)
+    return requant_sum<DST>(x, true, b, s, relu, down,
+                            load_sum(a.sum, (size_t)idx, a.sum_dt,
+                                     a.sum_scale));
+  else if constexpr (DST == DT_U8)
+    return static_cast<uint8_t>(requant_u8(x, b, s, down));
+  else
+    return requant<DST>(x, true, b, s, relu, down);
+}
+
+// The final stage's store of a 1-byte dst: requantize the warp's pass into
+// byte pairs, stage them in `stage` (the K-major layout, column kst + 8j +
+// 2t of the pass, the warp's rows m0 + [0, 16)) and store them 16 bytes a
+// lane: lane i takes row i % 16 of granule i / 16, so a warp's shared loads
+// meet no bank conflict and each global store fills 32-byte sectors. A
+// pitch oc that is no multiple of 16 stores byte by byte.
+template <int DST, bool SUM>
+__device__ __forceinline__ void write_bytes(
+    const KArgs& a, const int32_t (&acc)[128], const float* bias,
+    const float* scale, bool relu, bool down, int col0, int nbw, int kst,
+    const long long (&pix)[2], long long spix, uint8_t* stage, int m0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int oc = a.out_oc, tm = a.p.tm;
+  uint32_t q[2][16];
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
+  for (int j = 0; j < 32; ++j) {
+    if (8 * j >= nbw || col0 + 8 * j >= oc) break;  // warp-uniform
+    const int o = col0 + 8 * j + 2 * t;
+    const float2 b = *reinterpret_cast<const float2*>(bias + o);
+    const float2 sc = *reinterpret_cast<const float2*>(scale + o);
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-      if (ni >= ntiles) continue;
+    for (int h = 0; h < 2; ++h) {
+      uint32_t v = 0;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const long long gp = p0 + wr * 32 + mi * 16 + g + (r >> 1) * 8;
-        const int o = n0 + wc * 64 + ni * 8 + 2 * t + (r & 1);
-        if (gp >= total || o >= oc) continue;
-        const size_t idx = (size_t)gp * oc + o;
-        if constexpr (SUM)
-          store_out<DST>(a.dst, idx,
-                         requant_sum<DST>(acc[mi][ni][r], has_bias, bias[o],
-                                          scale[o], relu, down,
-                                          load_sum(a.sum, idx, a.sum_dt,
-                                                   a.sum_scale)));
+      for (int e = 0; e < 2; ++e) {
+        if (o + e >= oc || (SUM && pix[h] < 0)) continue;
+        const uint8_t u = static_cast<uint8_t>(final_value<DST, SUM>(
+            a, acc[4 * j + 2 * h + e], e ? b.y : b.x, e ? sc.y : sc.x, relu,
+            down, pix[h] * oc + o + e));
+        v |= uint32_t(u) << (8 * e);
+      }
+      q[h][j >> 1] = (j & 1) ? q[h][j >> 1] | (v << 16) : v;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    if (8 * j >= nbw || col0 + 8 * j >= oc) break;  // warp-uniform
+    const int k = kst + 8 * j + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint16_t*>(stage + (k >> 4) * (tm * 16) +
+                                   (m0 + g + 8 * h) * 16 + (k & 15)) =
+          static_cast<uint16_t>(q[h][j >> 1] >> (16 * (j & 1)));
+  }
+  __syncwarp();
+  const int ng = (min(nbw, oc - col0) + 15) / 16;  // granules
+  const bool vec = oc % 16 == 0;
+  uint8_t* dst = static_cast<uint8_t*>(a.dst);
+  for (int i = lane; i < 16 * ng; i += 32) {
+    if (spix < 0) break;  // the lane's row, the same at every i
+    const int gi = i >> 4;
+    const uint8_t* s =
+        stage + ((kst >> 4) + gi) * (tm * 16) + (m0 + (lane & 15)) * 16;
+    uint8_t* d = dst + spix * oc + col0 + 16 * gi;
+    if (vec) {
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
+    } else {
+      for (int e = 0; e < 16 && col0 + 16 * gi + e < oc; ++e) d[e] = s[e];
+    }
+  }
+  __syncwarp();  // the staging rows are free for the next pass
+}
+
+// The final stage's store of a 4-byte dst (or the raw accumulator) from
+// the registers: two lanes per 8-byte store where oc is even.
+template <int DST, bool SUM>
+__device__ __forceinline__ void write_words(
+    const KArgs& a, const int32_t (&acc)[128], const float* bias,
+    const float* scale, bool relu, bool down, int col0, int nbw,
+    const long long (&pix)[2]) {
+  using T = typename dt_traits<DST == DT_ACC ? DT_S32 : DST>::T;
+  const int t = threadIdx.x & 3;
+  const int oc = a.out_oc;
+  const bool pairs = oc % 2 == 0;
+  T* dst = static_cast<T*>(a.dst);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    if (8 * j >= nbw || col0 + 8 * j >= oc) break;  // warp-uniform
+    const int o = col0 + 8 * j + 2 * t;
+    const float2 b = *reinterpret_cast<const float2*>(bias + o);
+    const float2 sc = *reinterpret_cast<const float2*>(scale + o);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (o >= oc || pix[h] < 0) continue;
+      const long long idx = pix[h] * oc + o;
+      T v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int32_t x = acc[4 * j + 2 * h + e];
+        if constexpr (DST == DT_ACC)
+          v[e] = x;
         else
-          store_out<DST>(a.dst, idx,
-                         requant<DST>(acc[mi][ni][r], has_bias, bias[o],
-                                      scale[o], relu, down));
+          v[e] = o + e < oc ? final_value<DST, SUM>(a, x, e ? b.y : b.x,
+                                                    e ? sc.y : sc.x, relu,
+                                                    down, idx + e)
+                            : T(0);
+      }
+      if (pairs) {
+        if constexpr (DST == DT_F32)
+          *reinterpret_cast<float2*>(dst + idx) = make_float2(v[0], v[1]);
+        else
+          *reinterpret_cast<int2*>(dst + idx) = make_int2(v[0], v[1]);
+      } else {
+        dst[idx] = v[0];
+        if (o + 1 < oc) dst[idx + 1] = v[1];
       }
     }
+  }
 }
 
 template <int DST>
-__device__ __forceinline__ void store_final(
-    const ConvArgs& a, const int32_t (&acc)[MI][NI][4], long long p0,
-    long long total, int n0, int oc, bool has_bias, const float* bias,
-    const float* scale, bool relu, bool down, int ntiles) {
-  if constexpr (DST == DT_ACC)
-    store_acc(a, acc, p0, total, n0, oc, ntiles);
-  else if (a.sum)
-    store_tile<DST, true>(a, acc, p0, total, n0, oc, has_bias, bias, scale,
-                          relu, down, ntiles);
-  else
-    store_tile<DST, false>(a, acc, p0, total, n0, oc, has_bias, bias, scale,
-                           relu, down, ntiles);
+__device__ __forceinline__ void write_final(
+    const KArgs& a, const int32_t (&acc)[128], const float* bias,
+    const float* scale, bool relu, bool down, int col0, int nbw, int kst,
+    const long long (&pix)[2], long long spix, uint8_t* stage, int m0) {
+  if constexpr (DST == DT_U8 || DST == DT_S8) {
+    if (a.sum)  // one uniform branch: the unrolled loops carry no test
+      write_bytes<DST, true>(a, acc, bias, scale, relu, down, col0, nbw, kst,
+                             pix, spix, stage, m0);
+    else
+      write_bytes<DST, false>(a, acc, bias, scale, relu, down, col0, nbw,
+                              kst, pix, spix, stage, m0);
+  } else if constexpr (DST == DT_ACC) {
+    write_words<DST, false>(a, acc, bias, scale, relu, down, col0, nbw, pix);
+  } else {
+    if (a.sum)
+      write_words<DST, true>(a, acc, bias, scale, relu, down, col0, nbw, pix);
+    else
+      write_words<DST, false>(a, acc, bias, scale, relu, down, col0, nbw,
+                              pix);
+  }
+}
+
+// ------------------------------------------------------------ consumers
+template <bool FUSE, int DST>
+__device__ __forceinline__ void consume(const KArgs& a, uint8_t* smem,
+                                        uint64_t* full, uint64_t* empty) {
+  constexpr bool STAGED = DST == DT_U8 || DST == DT_S8;
+  const Plan& p = a.p;
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const bool split = p.split;
+  const int row0 = split ? 0 : 64 * wg;  // the warpgroup's rows of M
+  const int m0 = row0 + 16 * warp;       // the warp's rows of M
+  uint8_t* mid = smem + p.mid_off;
+  uint8_t* stg = smem + p.stage_off;  // the final stage's staging rows
+  // the per-channel parameters: bias0, scale0 over np0 lanes, then bias1,
+  // scale1 over np1 lanes; lanes past oc0p / oc1p are never used
+  float* par = reinterpret_cast<float*>(smem + p.par_off);
+  float* par1 = par + 2 * p.np0;
+  for (int i = threadIdx.x; i < p.np0; i += 256) {
+    const bool in = i < a.oc0p;
+    par[i] = in && a.has_bias0 ? a.bias0[i] : 0.0f;
+    par[p.np0 + i] = in ? a.scale0[i] : 1.0f;
+  }
+  for (int i = threadIdx.x; i < p.np1; i += 256) {
+    const bool in = i < a.oc1p;
+    par1[i] = in && a.has_bias1 ? a.bias1[i] : 0.0f;
+    par1[p.np1 + i] = in ? a.scale1[i] : 1.0f;
+  }
+  named_barrier(3, 256);  // the consumers' copy of the parameters
+  // Slots are read in ring order (stage, phase) and released in the same
+  // order one chunk later (rstage): a chunk's wgmma group stays in flight
+  // while the next chunk's is issued.
+  int stage = 0, rstage = 0;
+  uint32_t phase = 0;
+  auto acquire = [&] {
+    mbar_wait(&full[stage], phase);
+    __syncwarp();  // wgmma is .aligned: the warp issues it together
+    return smem + stage * p.slot;
+  };
+  auto advance = [&] {
+    if (++stage == p.stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+  auto release = [&] {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[rstage]);
+    if (++rstage == p.stages) rstage = 0;
+  };
+  // both warpgroups, or this one, are past their reads of the shared rows
+  auto sync_rows = [&] {
+    if (split)
+      named_barrier(4, 256);
+    else
+      named_barrier(1 + wg, 128);
+  };
+  int32_t acc[128];
+  const int ntaps = a.kh * a.kw;
+  const int nbw0 = split ? p.nb0 / 2 : p.nb0;  // this warpgroup's lanes
+  const int nbw1 = split ? p.nb1 / 2 : p.nb1;
+  const int kst0 = split ? wg * nbw0 : 0;  // and their offset in the pass
+  const int kst1 = split ? wg * nbw1 : 0;
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const Tile tl = tile_at(p, t);
+    long long pix[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) pix[h] = pixel_of(a, tl, m0 + g + 8 * h);
+    const long long spix = pixel_of(a, tl, m0 + (lane & 15));
+    for (int ps = 0; ps < p.npass0; ++ps) {
+      fence_regs(acc);
+      bool first = true;
+      for (int tap = 0; tap < ntaps; ++tap)
+        for (int c = 0; c < p.nchunk0; ++c) {
+          const int kc = 32 << chunk_at(p.kp, c).wcode;
+          uint8_t* s = acquire();
+          const uint32_t sa = smem_u32(s) + row0 * kc;
+          const uint32_t sb = smem_u32(s + p.slot_a) + kst0 * kc;
+          wgmma_fence();
+          for (int kk = 0; kk < kc / 32; ++kk)
+            wgmma_step<true>(acc, swizzled_desc(sa, kc, kk),
+                             swizzled_desc(sb, kc, kk), nbw0,
+                             !(first && kk == 0));
+          wgmma_commit();
+          advance();
+          wgmma_wait<1>();  // the previous chunk is done with its slot
+          if (!first) release();
+          first = false;
+        }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release();
+      const int col0 = ps * p.nb0 + kst0;
+      if constexpr (FUSE) {
+        // in split, the other warpgroup reads these rows in its 1x1 of
+        // the last tile
+        if (split && ps == 0) named_barrier(4, 256);
+        write_mid(a, par, par + p.np0, mid, acc, col0, nbw0, m0);
+      } else {
+        if (col0 < a.out_oc)
+          write_final<DST>(a, acc, par, par + p.np0, a.relu0, a.down0, col0,
+                           nbw0, kst0, pix, spix, stg, m0);
+      }
+    }
+    if constexpr (FUSE) {
+      fence_async_shared();  // the intermediate, for wgmma
+      sync_rows();
+      const uint32_t sm = smem_u32(mid) + row0 * 16;
+      for (int ps = 0; ps < p.npass1; ++ps) {
+        fence_regs(acc);
+        bool first = true;
+        for (int c = 0; c < p.nchunk1; ++c) {
+          const Chunk ch = chunk_at(p.k1, c);
+          const int kc = 32 << ch.wcode;
+          const uint32_t sb = smem_u32(acquire() + p.slot_a) + kst1 * kc;
+          wgmma_fence();
+          for (int kk = 0; kk < kc / 32; ++kk) {
+            const int k = ch.koff + 32 * kk;  // two 16-byte granules
+            wgmma_step<true>(acc,
+                             smem_desc(sm + (k >> 4) * (p.tm * 16),
+                                       p.tm * 16, 128, 0),
+                             swizzled_desc(sb, kc, kk), nbw1,
+                             !(first && kk == 0));
+          }
+          wgmma_commit();
+          advance();
+          wgmma_wait<1>();
+          if (!first) release();
+          first = false;
+        }
+        wgmma_wait<0>();
+        fence_regs(acc);
+        release();
+        const int col0 = ps * p.nb1 + kst1;
+        // the staging rows may be the intermediate's: every warp that
+        // reads them is past its last read
+        if (STAGED && p.stage_off == p.mid_off) sync_rows();
+        if (col0 < a.out_oc)
+          write_final<DST>(a, acc, par1, par1 + p.np1, a.relu1, a.down1,
+                           col0, nbw1, kst1, pix, spix, stg, m0);
+      }
+    }
+  }
 }
 
 template <bool FUSE, int DST>
-__global__ void __launch_bounds__(NT, 2) conv_fused_kernel(ConvArgs a) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const Smem L(a);
-  uint32_t* s_in[2] = {smem, smem + L.in_words};
-  uint32_t* s_w[2] = {smem + 2 * L.in_words,
-                      smem + 2 * L.in_words + L.w_words};
-  int* s_pix = reinterpret_cast<int*>(smem + 2 * (L.in_words + L.w_words));
-  uint32_t* s_mid = reinterpret_cast<uint32_t*>(s_pix + 3 * L.m);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = warp / a.wc, wc = warp % a.wc;  // this warp's 32 x 64 tile
-  const long long total = (long long)a.n * a.oh * a.ow;
-  const long long p0 = (long long)blockIdx.x * L.m;
-
-  for (int p = tid; p < L.m; p += NT) {
-    const long long gp = p0 + p;
-    int nn = -1, y0 = 0, x0 = 0;
-    if (gp < total) {
-      const int ox = int(gp % a.ow);
-      const long long q = gp / a.ow;
-      const int oy = int(q % a.oh);
-      nn = int(q / a.oh);
-      y0 = oy * a.sh - a.ph;
-      x0 = ox * a.sw - a.pw;
+__global__ void __launch_bounds__(NTH, 1)
+    conv_fused_kernel(const __grid_constant__ Maps maps,
+                      const __grid_constant__ KArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  uint8_t* smem = smem_raw + (((base + 1023) & ~1023u) - base);
+  const Plan& p = a.p;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + p.bar_off);
+  uint64_t* empty = full + p.stages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
-    s_pix[3 * p] = nn;
-    s_pix[3 * p + 1] = y0;
-    s_pix[3 * p + 2] = x0;
-  }
-  if (FUSE) {  // channels [oc0, k1) of the intermediate stay 0
-    for (size_t e = tid; e < L.mid_words; e += NT) s_mid[e] = 0u;
+    mbar_init_fence();
   }
   __syncthreads();
-
-  int32_t acc[MI][NI][4];
-
-  for (int n0 = 0; n0 < a.oc0p; n0 += L.nb) {
-    const int nbv = min(L.nb, a.oc0p - n0);   // valid columns of the pass
-    const int ntiles = min(NI, max(0, (nbv - wc * 64) / 8));
-    conv_pass(a, L, s_in, s_w, s_pix, n0, nbv, ntiles, acc);
-
-    if constexpr (FUSE) {
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni) {
-          if (ni >= ntiles) continue;
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int p = wr * 32 + mi * 16 + g + (r >> 1) * 8;
-            const int o = n0 + wc * 64 + ni * 8 + 2 * t + (r & 1);
-            if (o < a.oc0)
-              reinterpret_cast<uint8_t*>(s_mid)[(size_t)p * L.ldm * 4 + o] =
-                  requant_to_u8(acc[mi][ni][r], a.has_bias0, a.bias0[o],
-                                a.scale0[o], a.down0);
-          }
-        }
-    } else {
-      store_final<DST>(a, acc, p0, total, n0, a.oc0, a.has_bias0, a.bias0,
-                       a.scale0, a.relu0, a.down0, ntiles);
-    }
-  }
-
-  if constexpr (FUSE) {
-    // 1x1 tail: A = the u8 tile in shared memory, B = w1 words streamed
-    // through shared memory 32 K-words at a time, double-buffered
-    const int k1w = a.k1 / 4;
-    const int nk = (k1w + KCW - 1) / KCW;
-    __syncthreads();  // the intermediate is complete
-    for (int n0 = 0; n0 < a.oc1p; n0 += L.nb) {
-      const int nbv = min(L.nb, a.oc1p - n0);
-      const int ntiles = min(NI, max(0, (nbv - wc * 64) / 8));
-      auto issue = [&](int c, int b) {
-        issue_rows(s_w[b], L.ldw, a.w1 + (size_t)c * KCW * a.oc1p + n0,
-                   a.oc1p, min(KCW, k1w - c * KCW), nbv, warp, lane);
-        cp_async_commit();
-      };
-      zero(acc);
-      issue(0, 0);
-      for (int c = 0; c < nk; ++c) {
-        if (c + 1 < nk) {
-          issue(c + 1, (c + 1) & 1);
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
-        }
-        __syncthreads();
-        mma_chunk(acc, s_mid + wr * 32 * L.ldm + c * KCW, L.ldm,
-                  s_w[c & 1] + wc * 64, L.ldw, min(KCW, k1w - c * KCW) / 8,
-                  ntiles, g, t);
-        __syncthreads();
-      }
-      store_final<DST>(a, acc, p0, total, n0, a.oc1, a.has_bias1, a.bias1,
-                       a.scale1, a.relu1, a.down1, ntiles);
-    }
+  if (threadIdx.x >= 256) {  // the producer warpgroup
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) produce(maps, a, smem, full, empty, FUSE);
+  } else {
+    setmaxnreg_inc<232>();
+    consume<FUSE, DST>(a, smem, full, empty);
   }
 }
 
 template <bool FUSE, int DST>
-int launch(const ConvArgs& a, cudaStream_t stream) {
-  const Smem L(a);
-  const size_t smem = L.bytes(FUSE);
-  if (int e = allow_smem(conv_fused_kernel<FUSE, DST>, smem)) return e;
-  const long long total = (long long)a.n * a.oh * a.ow;
-  const unsigned blocks = (unsigned)((total + L.m - 1) / L.m);
-  conv_fused_kernel<FUSE, DST><<<blocks, NT, smem, stream>>>(a);
+int launch(const Maps& maps, const KArgs& a, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      conv_fused_kernel<FUSE, DST>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, a.p.smem);
+  if (e != cudaSuccess) return (int)e;
+  conv_fused_kernel<FUSE, DST><<<a.p.blocks, NTH, a.p.smem, stream>>>(maps,
+                                                                        a);
   return (int)cudaGetLastError();
 }
 
 template <bool FUSE>
-int launch_dst(const ConvArgs& a, int dst_dt, cudaStream_t stream) {
+int launch_dst(const Maps& maps, const KArgs& a, int dst_dt,
+               cudaStream_t stream) {
   switch (dst_dt) {
     case DT_ACC:
-      if constexpr (FUSE) return launch<true, DT_ACC>(a, stream);
+      if constexpr (FUSE) return launch<true, DT_ACC>(maps, a, stream);
       return (int)cudaErrorInvalidValue;
-    case DT_F32: return launch<FUSE, DT_F32>(a, stream);
-    case DT_S32: return launch<FUSE, DT_S32>(a, stream);
-    case DT_S8: return launch<FUSE, DT_S8>(a, stream);
-    case DT_U8: return launch<FUSE, DT_U8>(a, stream);
+    case DT_F32: return launch<FUSE, DT_F32>(maps, a, stream);
+    case DT_S32: return launch<FUSE, DT_S32>(maps, a, stream);
+    case DT_S8: return launch<FUSE, DT_S8>(maps, a, stream);
+    case DT_U8: return launch<FUSE, DT_U8>(maps, a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+bool staged_dst(int dst_dt) { return dst_dt == DT_U8 || dst_dt == DT_S8; }
+
 }  // namespace
 
-// sum: null, or the NHWC sum operand of sum_dt (the dst dtype codes).
-// dst_dt 0 (fused only): dst is the raw s32 1x1 accumulator, (n, oh, ow,
-// oc1) int32, and bias1, scale1, relu1, down1 and sum are not read.
-extern "C" int df_conv(const void* src, const void* w0, const void* bias0,
-                       const void* scale0, const void* w1, const void* bias1,
+// The weight maps of an op, encoded once (ops/conv.py caches them): out[0,
+// 3) the maps of w0k (oc0p rows x k0 bytes), out[3, 6) those of w1k (oc1p
+// rows x k1 bytes) when w1k is not null. out holds 6 * 128 bytes.
+extern "C" int df_conv_weight_maps(const void* w0k, int k0, int oc0p,
+                                   const void* w1k, int k1, int oc1p,
+                                   void* out) {
+  CUtensorMap m[6] = {};
+  if (!encode_weights(m, w0k, k0, oc0p, pass_width(oc0p)) ||
+      (w1k && !encode_weights(m + 3, w1k, k1, oc1p, pass_width(oc1p))))
+    return (int)cudaErrorInvalidValue;
+  memcpy(out, m, sizeof(m));
+  return (int)cudaSuccess;
+}
+
+// in: n, ih, iw, ic, oh, ow, kh, kw, sh, sw, ph, pw, oc0p, oc1p, fuse,
+// dst_dt; out: tile rows of M, tile rows and columns of pixels, split,
+// tiles, blocks, stages, shared bytes, nb0, nb1, passes of each stage, K
+// chunks per tap, K bytes per tap, gemm (the 1x1 run as a GEMM). Returns
+// 0, or non-zero if the kernel cannot run the conv.
+extern "C" int df_conv_plan(const int* in, int* out) {
+  const Geo g = geometry(in[0], in[1], in[2], in[3], in[4], in[5], in[6],
+                         in[7], in[8], in[9], in[10], in[11]);
+  Plan p;
+  if (!make_plan(p, g, in[12], in[13], in[14] != 0, staged_dst(in[15])))
+    return (int)cudaErrorInvalidValue;
+  const int v[] = {p.tm, p.tr, p.tc, p.split, p.tiles, p.blocks,
+                   p.stages, p.smem, p.nb0, p.nb1, p.npass0, p.npass1,
+                   p.nchunk0, p.kp, g.gemm ? 1 : 0};
+  for (int i = 0; i < 15; ++i) out[i] = v[i];
+  return 0;
+}
+
+// src: NHWC u8, ic a multiple of 16; wmaps: df_conv_weight_maps' maps of
+// the op's K-major weights; bias/scale: f32 over oc0p (oc1p) lanes. sum:
+// null, or the NHWC sum operand of sum_dt (the dst dtype codes). dst_dt 0
+// (fused only): dst is the raw s32 1x1 accumulator, (n, oh, ow, oc1) int32,
+// and bias1, scale1, relu1, down1 and sum are not read. Strides 1..8.
+extern "C" int df_conv(const void* src, const void* wmaps, const void* bias0,
+                       const void* scale0, const void* bias1,
                        const void* scale1, void* dst, const void* sum, int n,
                        int ih, int iw, int ic, int oh, int ow, int kh, int kw,
                        int sh, int sw, int ph, int pw, int oc0, int oc0p,
@@ -273,32 +755,56 @@ extern "C" int df_conv(const void* src, const void* w0, const void* bias0,
                        int down1, int has_bias0, int has_bias1, int fuse,
                        int dst_dt, int sum_dt, float sum_scale,
                        void* stream) {
-  if (ic % 16 || oc0p % 8 || oc0p <= 0 || (fuse && (oc1p % 8 || oc1p <= 0)))
+  if (ic % 16 || ic <= 0 || oc0p % 8 || oc0p <= 0 ||
+      (fuse && (oc1p % 8 || oc1p <= 0)))
     return (int)cudaErrorInvalidValue;
   if (dst_dt == DT_ACC && (!fuse || sum)) return (int)cudaErrorInvalidValue;
   if (sum && sum_dt != DT_F32 && sum_dt != DT_S32 && sum_dt != DT_S8 &&
       sum_dt != DT_U8)
     return (int)cudaErrorInvalidValue;
-  ConvArgs a;
-  a.src = static_cast<const uint8_t*>(src);
-  a.w0 = static_cast<const int32_t*>(w0);
+  if (sh < 1 || sw < 1 || sh > MAX_ESTRIDE || sw > MAX_ESTRIDE)
+    return (int)cudaErrorInvalidValue;
+  const Geo g = geometry(n, ih, iw, ic, oh, ow, kh, kw, sh, sw, ph, pw);
+  KArgs a = {};
+  if (!make_plan(a.p, g, oc0p, oc1p, fuse != 0, staged_dst(dst_dt)))
+    return (int)cudaErrorInvalidValue;
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  memcpy(maps.b0, wmaps, 3 * sizeof(CUtensorMap));
+  if (fuse)
+    memcpy(maps.b1, static_cast<const CUtensorMap*>(wmaps) + 3,
+           3 * sizeof(CUtensorMap));
+  const cuuint64_t c = (cuuint64_t)g.ic;
+  const cuuint64_t dims[4] = {c, (cuuint64_t)g.iw, (cuuint64_t)g.ih,
+                              (cuuint64_t)g.n};
+  const cuuint64_t strides[3] = {c, c * g.iw, c * g.iw * g.ih};
+  const cuuint32_t estrides[4] = {1, (cuuint32_t)g.sw, (cuuint32_t)g.sh, 1};
+  for (int w = 0; w < 3; ++w) {
+    bool used = false;
+    for (int k = 0; k < a.p.nchunk0; ++k)
+      used |= chunk_at(a.p.kp, k).wcode == w;
+    const cuuint32_t box[4] = {32u << w, (cuuint32_t)(a.p.tc * g.sw),
+                               (cuuint32_t)(a.p.tr * g.sh), 1};
+    if (used && !encode(&maps.a[w], src, 4, dims, strides, box, estrides))
+      return (int)cudaErrorInvalidValue;
+  }
   a.bias0 = static_cast<const float*>(bias0);
   a.scale0 = static_cast<const float*>(scale0);
-  a.w1 = static_cast<const int32_t*>(w1);
   a.bias1 = static_cast<const float*>(bias1);
   a.scale1 = static_cast<const float*>(scale1);
   a.dst = dst;
   a.sum = sum;
   a.sum_dt = sum_dt;
   a.sum_scale = sum_scale;
-  a.n = n; a.ih = ih; a.iw = iw; a.ic = ic; a.oh = oh; a.ow = ow;
-  a.kh = kh; a.kw = kw; a.sh = sh; a.sw = sw; a.ph = ph; a.pw = pw;
-  a.oc0 = oc0; a.oc0p = oc0p; a.oc1 = oc1; a.oc1p = oc1p;
+  a.oh = g.oh; a.ow = g.ow; a.kh = g.kh; a.kw = g.kw;
+  a.sh = g.sh; a.sw = g.sw; a.ph = g.ph; a.pw = g.pw;
+  a.oc0 = oc0; a.oc0p = oc0p; a.oc1p = fuse ? oc1p : 0;
+  a.out_oc = fuse ? oc1 : oc0;
   a.relu0 = relu0; a.relu1 = relu1; a.down0 = down0; a.down1 = down1;
   a.has_bias0 = has_bias0; a.has_bias1 = has_bias1;
-  pick_tiles(a);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fuse ? launch_dst<true>(a, dst_dt, s) : launch_dst<false>(a, dst_dt, s);
+  return fuse ? launch_dst<true>(maps, a, dst_dt, s)
+              : launch_dst<false>(maps, a, dst_dt, s);
 }
 
 extern "C" const char* df_error_string(int code) {

@@ -1,14 +1,13 @@
-// The dense conv's arguments and its K loop, shared by conv_fused_kernel
-// (conv.cu) and convpool_kernel (convpool.cu): the two differ only in which
-// output pixels a block's M rows are and in their epilogues.
+// The fused conv+pool kernel's arguments and its mma.sync K loop
+// (convpool_kernel, convpool.cu).
 //
 // Layouts (deepfusion_tpu_torch/ops/layout.py): the input is NHWC u8 with
-// ic a multiple of 16 (the wrappers pad other counts); w0 is int32 words
+// ic a multiple of 16 (the wrapper pads other counts); w0 is int32 words
 // [kh*kw][icp/4][oc0p], each word 4 s8 weights of 4 consecutive input
 // channels (byte b = channel 4k+b), icp = ic rounded up to 32, oc0p = oc
-// rounded up to 8, zero padded; w1 is [k1/4][oc1p] the same way, with k1 =
-// oc0p rounded up to 32. A word is exactly one register of an mma.sync
-// fragment: A = (pixel row, 4 channels), B = (4 channels, output channel).
+// rounded up to 8, zero padded. A word is exactly one register of an
+// mma.sync fragment: A = (pixel row, 4 channels), B = (4 channels, output
+// channel).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,19 +24,16 @@ struct ConvArgs {
   const int32_t* w0;
   const float* bias0;
   const float* scale0;
-  const int32_t* w1;
-  const float* bias1;
-  const float* scale1;
   void* dst;
   const void* sum;  // the sum operand, or null
   float sum_scale;
   int sum_dt;
   int n, ih, iw, ic, oh, ow, kh, kw, sh, sw, ph, pw;
-  int oc0, oc0p, oc1, oc1p;
-  int relu0, relu1, down0, down1, has_bias0, has_bias1;
+  int oc0, oc0p;
+  int relu0, down0, has_bias0;
   int wc;    // warps along the channels; 8 / wc along the pixels
   int kcw;   // K words per chunk of the conv: 8, 16 or 32
-  int k1;    // K of the fused 1x1: oc0p rounded up to 32
+  int k1;    // oc0p rounded up to 32: Smem (mma_sync.cuh) sizes rows by it
 };
 
 int round_up(int x, int m) { return (x + m - 1) / m * m; }

@@ -17,12 +17,12 @@
 // kernel: max commutes with the monotone saturation, and an integer dst's
 // four values are integers below 2^24, so their f32 sum is exact.
 //
-// What bounds it on the H100: int8 multiply-adds, as for conv.cu
+// What bounds it on the H100: int8 multiply-adds, as for every conv
 // (ResFusionNet's downsample conv is 1.2 G MAC at batch 8); it writes a
 // quarter of the conv's output bytes.
 //
-// Design: the dense conv kernel's machinery (conv_common.cuh: conv_pass)
-// with M ordered so that the four pixels of a window are four consecutive
+// Design: the mma.sync K loop of conv_common.cuh (conv_pass) with M
+// ordered so that the four pixels of a window are four consecutive
 // rows: M row 4q + e of a block is conv pixel (dy, dx) = (e >> 1, e & 1) of
 // the block's q-th window. Stride and padding stay in the copy's
 // addressing. In an mma.sync accumulator fragment, thread lane = 4g + t

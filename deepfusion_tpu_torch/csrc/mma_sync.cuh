@@ -1,12 +1,12 @@
-// Tensor-core building blocks shared by the mma.sync conv kernels (conv.cu,
-// convpool.cu, pair_conv.cu): u8 x s8 mma.sync m16n8k32, cp.async copies, the
-// shared-memory geometry of a block, and the chunked multiply over one
-// K chunk held in shared memory.
+// Tensor-core building blocks shared by the mma.sync conv kernels, the
+// fused conv+pool (convpool.cu) and the conv pair (pair_conv.cu): u8 x s8
+// mma.sync m16n8k32, cp.async copies, the shared-memory geometry of a
+// block, and the chunked multiply over one K chunk held in shared memory.
 //
 // A block has NT = 256 threads, 8 warps; each warp owns a 32 x 64 output
 // tile (MI x NI mma tiles of s32 accumulators in registers). K streams
 // through shared memory at most KCW int32 words (4*KCW input channels) at a
-// time, in two buffers. See conv.cu for the design these serve.
+// time, in two buffers, so the next chunk loads while this one multiplies.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -163,11 +163,6 @@ struct __align__(64) Maps {
   CUtensorMap b0[3], b1[3];
 };
 
-int pass_width(int ocp) {
-  const int w = ocp < 256 ? ocp : 256;
-  return w <= 32 ? 32 : w <= 64 ? 64 : w <= 128 ? 128 : 256;
-}
-
 // Split kpad bytes (a multiple of 32) into chunks of 128, 64 and 32.
 bool add_chunks(Chunk* c, int& n, int src, int kpad, int koff) {
   for (int l = 0; l < kpad;) {
@@ -300,20 +295,6 @@ struct Pix {
   int y, x;
   bool ok[2];
 };
-
-// requant_to_u8 (requant.cuh) with one conversion instead of three: ReLU,
-// then adding 1.5 * 2^23 rounds to an integer (half to even, or down with
-// __fadd_rd) exactly below 2^22, where the sum's low mantissa bits hold the
-// integer; from 2^22 on the sum's bits exceed 255 and the clamp saturates,
-// as it must. Bitwise requant_to_u8 for every int32 acc and finite bias and
-// scale.
-__device__ __forceinline__ uint32_t requant_u8(int32_t acc, float bias,
-                                               float scale, bool down) {
-  const float x =
-      fmaxf(__fmul_rn(__fadd_rn(__int2float_rn(acc), bias), scale), 0.0f);
-  const float y = down ? __fadd_rd(x, 12582912.0f) : __fadd_rn(x, 12582912.0f);
-  return uint32_t(min(int(__float_as_uint(y)) - 0x4B400000, 255));
-}
 
 // The epilogue's per-channel parameters, copied into shared memory once
 // per block by the consumers: corr0, bias0, scale0 over the oc0p lanes,
@@ -675,59 +656,6 @@ int launch(const Maps& maps, const KArgs& a, cudaStream_t stream) {
   if (e != cudaSuccess) return (int)e;
   packed_conv_kernel<MODE><<<a.p.blocks, NTH, a.p.smem, stream>>>(maps, a);
   return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------- tensor maps
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(f);
-  }
-  return fn;
-}
-
-// A u8 tensor map of `rank` dims (innermost first), strides in bytes of
-// dims 1.., boxes of box[] elements, swizzled to the box's inner width.
-bool encode(CUtensorMap* m, const void* ptr, int rank, const cuuint64_t* dims,
-            const cuuint64_t* strides, const cuuint32_t* box) {
-  EncodeTiled fn = encode_fn();
-  if (!fn) return false;
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle sw = box[0] == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : box[0] == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                               : CU_TENSOR_MAP_SWIZZLE_32B;
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(ptr),
-            dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The maps of a K-major weight matrix (rows x k bytes), boxes of 32, 64 and
-// 128 K bytes by nb rows.
-bool encode_weights(CUtensorMap* m, const void* w, int k, int rows, int nb) {
-  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)k};
-  for (int i = 0; i < 3; ++i) {
-    const cuuint32_t box[2] = {32u << i, (cuuint32_t)nb};
-    if (!encode(&m[i], w, 2, dims, strides, box)) return false;
-  }
-  return true;
 }
 
 }  // namespace

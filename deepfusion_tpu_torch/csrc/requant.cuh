@@ -142,3 +142,18 @@ __device__ __forceinline__ uint8_t requant_to_u8(int32_t acc, bool has_bias,
                                                  bool down) {
   return requant<DT_U8>(acc, has_bias, bias, scale, true, down);
 }
+
+// requant_to_u8 (with a bias; a missing one is +0.0, which changes no f32
+// value of an integer) in one conversion instead of three: ReLU, then
+// adding 1.5 * 2^23 rounds to an integer (half to even, or down with
+// __fadd_rd) exactly below 2^22, where the sum's low mantissa bits hold the
+// integer; from 2^22 on the sum's bits exceed 255 and the clamp saturates,
+// as it must. Bitwise requant_to_u8, and so requant<DT_U8>, for every int32
+// acc and finite bias and scale.
+__device__ __forceinline__ uint32_t requant_u8(int32_t acc, float bias,
+                                               float scale, bool down) {
+  const float x =
+      fmaxf(__fmul_rn(__fadd_rn(__int2float_rn(acc), bias), scale), 0.0f);
+  const float y = down ? __fadd_rd(x, 12582912.0f) : __fadd_rn(x, 12582912.0f);
+  return uint32_t(min(int(__float_as_uint(y)) - 0x4B400000, 255));
+}

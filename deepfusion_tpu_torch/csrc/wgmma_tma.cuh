@@ -1,6 +1,7 @@
-// Hopper building blocks of the packed conv kernel (packed_conv.cu): TMA
-// tensor copies completing on mbarriers, the shared-memory matrix
-// descriptors, and wgmma m64nNk32 with s32 accumulators in registers.
+// Hopper building blocks of the dense and the packed conv kernels (conv.cu,
+// packed_conv.cu): TMA tensor copies completing on mbarriers, the
+// shared-memory matrix descriptors, wgmma m64nNk32 with s32 accumulators in
+// registers, and the host's tensor-map encoding.
 //
 // A warpgroup (four consecutive warps) issues one wgmma on a 64-row A tile
 // and an N-column B tile, both read from shared memory through 64-bit
@@ -337,6 +338,72 @@ __device__ __forceinline__ void wgmma_step(int32_t (&acc)[128], uint64_t da,
       else wgmma_n32_s8(acc, da, db, scale_d);
       break;
   }
+}
+
+// The widest wgmma N of a pass over ocp output lanes: 32, 64, 128 or 256.
+inline int pass_width(int ocp) {
+  const int w = ocp < 256 ? ocp : 256;
+  return w <= 32 ? 32 : w <= 64 ? 64 : w <= 128 ? 128 : 256;
+}
+
+// ------------------------------------------------------ tensor maps (host)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so the library
+// needs no link to the driver library.
+inline EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                            &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// A u8 tensor map of `rank` <= 4 dims (innermost first), strides in bytes
+// of dims 1.., boxes of box[] elements taken every estrides[] elements
+// (null: every element; box[i] / estrides[i] are loaded), swizzled to the
+// box's inner width. Elements outside the tensor read as zeros.
+inline bool encode(CUtensorMap* m, const void* ptr, int rank,
+                   const cuuint64_t* dims, const cuuint64_t* strides,
+                   const cuuint32_t* box, const cuuint32_t* estrides = nullptr) {
+  EncodeTiled fn = encode_fn();
+  if (!fn) return false;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw = box[0] == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : box[0] == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(ptr),
+            dims, strides, box, estrides ? estrides : ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The maps of a K-major weight matrix (rows x k bytes), boxes of 32, 64 and
+// 128 K bytes by nb rows; rows past the matrix read as zero weights.
+inline bool encode_weights(CUtensorMap* m, const void* w, int k, int rows,
+                           int nb) {
+  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)k};
+  for (int i = 0; i < 3; ++i) {
+    const cuuint32_t box[2] = {32u << i, (cuuint32_t)nb};
+    if (!encode(&m[i], w, 2, dims, strides, box)) return false;
+  }
+  return true;
 }
 
 }  // namespace

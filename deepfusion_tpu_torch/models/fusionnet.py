@@ -99,7 +99,7 @@ class FusionNet(nn.Module):
     ``input_shape`` and ``example_input`` use."""
 
     def __init__(self, cfg: FusionNetConfig = FusionNetConfig(),
-                 device="cpu", params: Optional[dict] = None):
+                 device=None, params: Optional[dict] = None):
         super().__init__()
         self.cfg = cfg
         if params is None:
@@ -134,7 +134,7 @@ class FusionNet(nn.Module):
 
     @classmethod
     def from_numpy_params(cls, cfg: FusionNetConfig, params: dict,
-                          device="cpu") -> "FusionNet":
+                          device=None) -> "FusionNet":
         """Build from parameters given as numpy arrays, one dict per layer
         name in ``LAYERS``: ``wei``, ``bia``, ``conv0_scales``,
         ``conv0_relu``, ``dst_dt`` and, for the fused blocks, ``wei1``,

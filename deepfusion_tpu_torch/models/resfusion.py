@@ -56,7 +56,7 @@ class ResFusionNet(nn.Module):
     ``input_shape`` and ``example_input`` use."""
 
     def __init__(self, cfg: ResFusionNetConfig = ResFusionNetConfig(),
-                 device="cpu", params: Optional[dict] = None):
+                 device=None, params: Optional[dict] = None):
         super().__init__()
         self.cfg = cfg
         if params is None:
@@ -102,7 +102,7 @@ class ResFusionNet(nn.Module):
 
     @classmethod
     def from_numpy_params(cls, cfg: ResFusionNetConfig, params: dict,
-                          device="cpu") -> "ResFusionNet":
+                          device=None) -> "ResFusionNet":
         """Build from parameters given as numpy arrays, one dict per layer
         name in ``LAYERS``, with the keys of ``FusionNet.from_numpy_params``
         and, for block1, ``sum_dt`` and ``sum_scale``."""

@@ -61,7 +61,7 @@ class VGGFusion(nn.Module):
     ``input_shape`` and ``example_input`` use."""
 
     def __init__(self, cfg: VGGFusionConfig = VGGFusionConfig(),
-                 device="cpu", params: Optional[dict] = None):
+                 device=None, params: Optional[dict] = None):
         super().__init__()
         check(cfg.hw % (2 ** N_BLOCKS) == 0,
               "hw must be divisible by 2^n_blocks")
@@ -114,7 +114,7 @@ class VGGFusion(nn.Module):
 
     @classmethod
     def from_numpy_params(cls, cfg: VGGFusionConfig, params: dict,
-                          device="cpu") -> "VGGFusion":
+                          device=None) -> "VGGFusion":
         """Build from parameters given as numpy arrays, one dict per layer
         name in ``LAYERS``, with the keys of ``FusionNet.from_numpy_params``
         (no fused 1x1)."""

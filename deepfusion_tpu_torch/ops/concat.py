@@ -16,6 +16,7 @@ import torch
 from .. import _build
 from ..config import ConcatConfig
 from ..types import dtype
+from ..utils.device import as_tensor
 from ..utils.logger import check
 from .requant import relu_f32
 
@@ -58,15 +59,18 @@ def concat_cuda(srcs: Sequence[torch.Tensor], cfg: ConcatConfig):
     return out
 
 
-def concat(srcs: Sequence, post_relu: bool = False) -> torch.Tensor:
+def concat(srcs: Sequence, post_relu: bool = False, *,
+           device=None) -> torch.Tensor:
     """Concatenate NHWC tensors along channels, optionally fused with ReLU.
 
     Functional analogue of ``deepfusion::concat`` + ``op->submit()``
     (``include/deepfusion.h:116-118``). All inputs share dtype, device and
     batch/spatial dims; channel counts satisfy the reference's
-    block-divisibility rule (``ConcatConfig.make``).
+    block-divisibility rule (``ConcatConfig.make``). Numpy inputs go to
+    ``device``: by default the current CUDA device, ``"cpu"`` for the plain
+    PyTorch version.
     """
-    ts = [torch.as_tensor(s) for s in srcs]
+    ts = [as_tensor(s, device) for s in srcs]
     cfg = ConcatConfig.make([tuple(t.shape) for t in ts], ts[0].dtype,
                             post_relu)
     for t in ts:

@@ -1,18 +1,24 @@
 """INT8 conv(+ReLU)(+deep-fused conv1x1+ReLU): ``ConvOp`` and ``conv()``.
 
 The PyTorch counterpart of ``deepfusion_tpu/ops/conv.py``. A ``ConvOp`` packs
-its weights once (``ops/layout.py``) and holds them as buffers on its device.
-Calling it on a CUDA tensor launches ``conv_fused_kernel`` (``csrc/conv.cu``);
-on a CPU tensor it runs ``conv_plain``, the plain PyTorch version of the same
+its weights once (``ops/layout.py``) and holds them as buffers on its device
+(by default the current CUDA device, ``utils/device.py``), with the K-major
+copies the kernel's TMA reads derived from them. Calling it on a CUDA tensor
+launches ``conv_fused_kernel`` (``csrc/conv.cu``, wgmma on TMA tiles); on a
+CPU tensor it runs ``conv_plain``, the plain PyTorch version of the same
 function, which reads the same packed buffers. Nothing else selects the path.
 
-Stride and padding are handled in the kernel's addressing. The eltwise-sum
-post-op (``sum_src``, NHWC at the output's shape) joins the final stage's
-epilogue, fused or not. ``conv_fused_acc1`` stops the fused conv at its
-1x1 product and returns the raw s32 accumulator, the tensor-parallel local
-step (``parallel/shard.py``).
+Stride and padding are handled in the kernel's addressing (TMA's zero fill
+and element strides; the wrapper gathers strides above 8 away). The
+eltwise-sum post-op (``sum_src``, NHWC at the output's shape) joins the
+final stage's epilogue, fused or not. ``conv_fused_acc1`` stops the fused
+conv at its 1x1 product and returns the raw s32 accumulator, the
+tensor-parallel local step (``parallel/shard.py``). ``conv_plan`` reports
+the kernel's tiling for a call without launching it.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -22,6 +28,7 @@ from torch import nn
 from .. import _build
 from ..config import ConvConfig, replace_geometry
 from ..types import round_mode
+from ..utils.device import as_tensor, default_device
 from ..utils.logger import check, check_eq
 from ..utils.mathutil import conv_output_size, round_up
 from ..utils.persist import dump_config, load_config
@@ -29,6 +36,7 @@ from . import layout
 from .requant import requant, requant_to_u8, sum_term
 
 _ACC1 = 0  # df_conv's dst code of the raw 1x1 accumulator (csrc/conv.cu)
+_MAX_STRIDE = 8   # TMA's element stride: larger strides are gathered away
 
 
 def _operand_shapes(cfg: ConvConfig) -> dict:
@@ -72,7 +80,7 @@ class ConvOp(nn.Module):
     ``src/op_conv.h:34-96``)."""
 
     def __init__(self, cfg: ConvConfig, wei, bia=None, wei1x1=None,
-                 bia1x1=None, device="cpu"):
+                 bia1x1=None, device=None):
         super().__init__()
         check_eq(tuple(np.shape(wei)), (cfg.oc, cfg.ic, cfg.kh, cfg.kw),
                  "conv weight shape (OIHW)")
@@ -94,12 +102,21 @@ class ConvOp(nn.Module):
 
     def _set_operands(self, cfg: ConvConfig, ops: dict, device):
         self.cfg = cfg
+        device = default_device(device)
         for k, shape in _operand_shapes(cfg).items():
             check_eq(tuple(ops[k].shape), shape, f"packed operand {k}")
             t = ops[k]
             self.register_buffer(k, t if isinstance(t, torch.Tensor) else
                                  torch.as_tensor(np.asarray(t),
                                                  device=device))
+        # the kernel's B operands (ops/layout.py), derived from the words:
+        # not operands, so save/load and with_geometry keep their format;
+        # non-persistent buffers, so .to() moves them with the words
+        self.register_buffer("w0k", layout.dense_kmajor_weights(
+            self.w0, cfg.kh, cfg.kw), persistent=False)
+        self.register_buffer("w1k", layout.dense_kmajor_weights(
+            self.w1, 1, 1) if cfg.fuse_conv1x1 else None, persistent=False)
+        self._wmaps = None   # (device pointers, their encoded tensor maps)
 
     def with_geometry(self, **kw) -> "ConvOp":
         """The op at another geometry (``replace_geometry``: image and
@@ -135,7 +152,7 @@ class ConvOp(nn.Module):
         np.savez(path, __cfg__=dump_config(self.cfg), **arrs)
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "ConvOp":
+    def load(cls, path: str, device=None) -> "ConvOp":
         with np.load(path, allow_pickle=False) as data:
             cfg = load_config(data["__cfg__"], ConvConfig)
             ops = {k: data[k] for k in _operand_shapes(cfg)}
@@ -205,16 +222,95 @@ def conv_plain(op: ConvOp, src: torch.Tensor, sum_src=None,
                    cfg.conv1_round, cfg.dst_dt, st)
 
 
+def _gather_stride(x: torch.Tensor, dim: int, o: int, k: int, s: int,
+                   p: int) -> torch.Tensor:
+    """The input rows (dim 1) or columns (dim 2) that a stride-s conv of
+    kernel k and padding p reads, o * s - p + i for output o and tap i < k,
+    as rows o * k + i of a new input (zeros outside the image): a stride-k
+    conv without padding reads them exactly."""
+    n = x.shape[dim]
+    after = max(0, (o - 1) * s - p + k - n)
+    pad = [0, 0, 0, 0, 0, 0]
+    pad[2 * (3 - dim)], pad[2 * (3 - dim) + 1] = p, after
+    idx = (torch.arange(o)[:, None] * s + torch.arange(k)).reshape(-1)
+    return F.pad(x, pad).index_select(dim, idx.to(x.device))
+
+
+def _kernel_input(op: ConvOp, src: torch.Tensor):
+    """The input and geometry (ih, iw, ic, sh, sw, ph, pw) the kernel runs:
+    ic padded to 16 with zero channels (exact), strides above TMA's 8
+    gathered away (``_gather_stride``)."""
+    cfg = op.cfg
+    ih, iw, ic = cfg.ih, cfg.iw, cfg.ic
+    sh, sw, ph, pw = cfg.sh, cfg.sw, cfg.ph, cfg.pw
+    if ic % 16:
+        ic = round_up(ic, 16)
+        src = F.pad(src, (0, ic - cfg.ic))
+    if sh > _MAX_STRIDE:
+        check(cfg.kh <= _MAX_STRIDE, "stride and kernel height both above 8")
+        src = _gather_stride(src, 1, cfg.oh, cfg.kh, sh, ph)
+        ih, sh, ph = cfg.oh * cfg.kh, cfg.kh, 0
+    if sw > _MAX_STRIDE:
+        check(cfg.kw <= _MAX_STRIDE, "stride and kernel width both above 8")
+        src = _gather_stride(src, 2, cfg.ow, cfg.kw, sw, pw)
+        iw, sw, pw = cfg.ow * cfg.kw, cfg.kw, 0
+    return src, (ih, iw, ic, sh, sw, ph, pw)
+
+
+def _weight_maps(op: ConvOp):
+    """The TMA tensor maps of the op's K-major weights, encoded once for
+    their device pointers (``df_conv_weight_maps``)."""
+    w1k = op.w1k
+    key = (op.w0k.data_ptr(), None if w1k is None else w1k.data_ptr())
+    if op._wmaps is None or op._wmaps[0] != key:
+        buf = (ctypes.c_ubyte * (6 * 128))()
+        rc = _build.kernels().df_conv_weight_maps(
+            op.w0k.data_ptr(), op.w0k.shape[1], op.w0k.shape[0],
+            None if w1k is None else w1k.data_ptr(),
+            0 if w1k is None else w1k.shape[1],
+            0 if w1k is None else w1k.shape[0], buf)
+        _build.check(rc, "df_conv_weight_maps")
+        op._wmaps = (key, buf)
+    return op._wmaps[1]
+
+
+def _ocps(cfg: ConvConfig):
+    return (layout.conv_ocp(cfg.oc),
+            layout.conv_ocp(cfg.oc1x1) if cfg.fuse_conv1x1 else 0)
+
+
+def conv_plan(op: ConvOp, n: int, emit_acc1: bool = False) -> dict:
+    """The conv kernel's plan for a call at batch n, without launching
+    (``df_conv_plan``, the launcher's own planning): rows of M per tile
+    (128, or 64 with each consumer warpgroup on half the lanes: split), the
+    tile's output rows x columns, the tiles, the blocks (at most one per SM
+    of the H100's 132, each walking its share of the tiles), ring stages,
+    shared bytes, lanes per pass and passes of each stage, K chunks and
+    bytes per tap, and whether the 1x1 runs as a GEMM over the flattened
+    pixels."""
+    cfg = op.cfg
+    _, (ih, iw, ic, sh, sw, ph, pw) = _kernel_input(
+        op, torch.empty((0, cfg.ih, cfg.iw, cfg.ic), dtype=torch.uint8))
+    vals = [n, ih, iw, ic, cfg.oh, cfg.ow, cfg.kh, cfg.kw, sh, sw, ph, pw,
+            *_ocps(cfg), int(cfg.fuse_conv1x1),
+            _ACC1 if emit_acc1 else cfg.dst_dt.value]
+    keys = ("tile_m", "tile_rows", "tile_cols", "split", "tiles", "blocks",
+            "stages", "smem_bytes", "nb0", "nb1", "passes0", "passes1",
+            "chunks_per_tap", "k_per_tap", "gemm")
+    out = (ctypes.c_int * len(keys))()
+    rc = _build.kernels().df_conv_plan((ctypes.c_int * len(vals))(*vals),
+                                       out)
+    _build.check(rc, "df_conv_plan")
+    return dict(zip(keys, list(out)))
+
+
 def conv_cuda(op: ConvOp, src: torch.Tensor, sum_src=None,
               emit_acc1: bool = False) -> torch.Tensor:
     """Launch ``conv_fused_kernel`` on the current stream (with
     ``emit_acc1``, its raw 1x1 accumulator store)."""
     cfg = op.cfg
     check(src.is_cuda, "conv_cuda needs a CUDA tensor")
-    ic = cfg.ic
-    if ic % 16:   # the kernel copies 16 channels at a time; zeros are exact
-        ic = round_up(ic, 16)
-        src = F.pad(src, (0, ic - cfg.ic))
+    src, (ih, iw, ic, sh, sw, ph, pw) = _kernel_input(op, src)
     src = _build.aligned(src)
     if sum_src is not None:
         sum_src = _build.aligned(sum_src)
@@ -223,19 +319,17 @@ def conv_cuda(op: ConvOp, src: torch.Tensor, sum_src=None,
                       dtype=torch.int32 if emit_acc1 else cfg.dst_dt.torch,
                       device=src.device)
     fuse = cfg.fuse_conv1x1
-    oc1p = layout.conv_ocp(cfg.oc1x1) if fuse else 0
+    oc0p, oc1p = _ocps(cfg)
     with torch.cuda.device(src.device):
         rc = _build.kernels().df_conv(
-            src.data_ptr(), op.w0.data_ptr(), op.bias0.data_ptr(),
+            src.data_ptr(), _weight_maps(op), op.bias0.data_ptr(),
             op.scale0.data_ptr(),
-            op.w1.data_ptr() if fuse else None,
             op.bias1.data_ptr() if fuse else None,
             op.scale1.data_ptr() if fuse else None,
             out.data_ptr(),
             None if sum_src is None else sum_src.data_ptr(),
-            n, cfg.ih, cfg.iw, ic, cfg.oh, cfg.ow,
-            cfg.kh, cfg.kw, cfg.sh, cfg.sw, cfg.ph, cfg.pw,
-            cfg.oc, layout.conv_ocp(cfg.oc), cfg.oc1x1, oc1p,
+            n, ih, iw, ic, cfg.oh, cfg.ow, cfg.kh, cfg.kw, sh, sw, ph, pw,
+            cfg.oc, oc0p, cfg.oc1x1, oc1p,
             int(cfg.conv0_relu), int(cfg.conv1_relu),
             int(cfg.conv0_round == round_mode.down),
             int(cfg.conv1_round == round_mode.down),
@@ -253,15 +347,16 @@ def conv(src, wei, bia=None, stride=(1, 1), padding=(0, 0), *,
          conv0_round_mode=round_mode.nearest,
          wei1x1=None, bia1x1=None, conv1_relu=False, conv1_scales=(1.0,),
          conv1_round_mode=round_mode.nearest, groups=1,
-         sum_src=None, sum_scale=1.0):
+         sum_src=None, sum_scale=1.0, device=None):
     """Functional conv3x3(+relu)(+conv1x1+relu), NHWC u8 in.
 
     API parity with ``deepfusion::conv`` (``include/deepfusion.h:120-145``)
     and with the JAX package's ``conv()``. ``src`` is a tensor (the op runs
-    on its device) or a numpy array (run on the CPU); the weights and biases
-    are numpy arrays or CPU tensors.
+    on its device) or a numpy array, which goes to ``device``: by default
+    the current CUDA device, ``"cpu"`` for the plain PyTorch version. The
+    weights and biases are numpy arrays or CPU tensors.
     """
-    src = torch.as_tensor(src)
+    src = as_tensor(src, device)
     wei = np.asarray(wei)
     n, ih, iw, ic = src.shape
     oc, _, kh, kw = wei.shape

@@ -27,6 +27,7 @@ from torch import nn
 from .. import _build
 from ..config import ConvConfig, PoolConfig
 from ..types import dtype, round_mode
+from ..utils.device import as_tensor, default_device
 from ..utils.logger import check, check_eq
 from ..utils.mathutil import round_up
 from ..utils.persist import dump_configs, load_configs
@@ -50,7 +51,7 @@ class ConvPoolOp(nn.Module):
     """Pre-packed fused conv(+ReLU)(+sum) + 2x2/s2 pool (one kernel)."""
 
     def __init__(self, cfg: ConvConfig, pc: PoolConfig, wei, bia=None,
-                 device="cpu"):
+                 device=None):
         super().__init__()
         check(pool2_fusable(cfg, pc), "geometry not single-kernel fusable "
                                       "(see convpool.pool2_fusable)")
@@ -65,6 +66,7 @@ class ConvPoolOp(nn.Module):
 
     def _set_state(self, cfg: ConvConfig, pc: PoolConfig, ops: dict, device):
         self.cfg, self.pc = cfg, pc
+        device = default_device(device)
         for k, shape in _operand_shapes(cfg).items():
             check_eq(tuple(ops[k].shape), shape, f"packed operand {k}")
             self.register_buffer(k, torch.as_tensor(np.asarray(ops[k]),
@@ -76,7 +78,7 @@ class ConvPoolOp(nn.Module):
 
     def forward(self, src: torch.Tensor, sum_src=None) -> torch.Tensor:
         cfg = self.cfg
-        src = torch.as_tensor(src)
+        src = as_tensor(src, self.device)
         check_eq(src.dtype, torch.uint8, "convpool src dtype")
         check_eq(tuple(src.shape[1:]), (cfg.ih, cfg.iw, cfg.ic),
                  "convpool src shape (NHWC, any batch)")
@@ -93,7 +95,7 @@ class ConvPoolOp(nn.Module):
                  **arrs)
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "ConvPoolOp":
+    def load(cls, path: str, device=None) -> "ConvPoolOp":
         with np.load(path, allow_pickle=False) as data:
             cfgs = load_configs(data["__cfg__"], cfg=ConvConfig,
                                 pc=PoolConfig)

@@ -1,21 +1,24 @@
-"""Weight layouts of the conv kernel, and the epilogue vectors.
+"""Weight layouts of the conv kernels, and the epilogue vectors.
 
-The kernel (``csrc/conv.cu``) multiplies u8 activations by s8 weights on
-the tensor cores (``mma.sync`` m16n8k32), whose fragments hold 4 8-bit
-values of consecutive K (input channels) per register, so a weight matrix
-is stored as int32 words of 4 s8 values taken along the input channels:
+The kernels multiply u8 activations by s8 weights on the tensor cores. The
+operands (what ``save``/``load`` keep, and what the ``mma.sync`` kernels K9
+and K10 read: their fragments hold 4 8-bit values of consecutive K, input
+channels, per register) are int32 words of 4 s8 values taken along the
+input channels:
 
     pack_conv_weights: OIHW (oc, ic, kh, kw) -> int32 [kh*kw][icp/4][ocp]
         word [t, k, o] holds w[o, 4k+b, t // kw, t % kw] in byte b
     pack_1x1_weights:  (oc1, ic, 1, 1)       -> int32 [icp/4][ocp]
 
-with ``icp`` = ic rounded up to 32 (one mma k-step) for the conv and
+with ``icp`` = ic rounded up to 32 (one k-step) for the conv and
 ``fused_k(oc0p)``, the intermediate's ``oc0p`` channels rounded up to 32,
-for the 1x1, and ``ocp`` = oc rounded up to 8 (one mma n-tile). Padding is
+for the 1x1, and ``ocp`` = oc rounded up to 8 (one n-tile). Padding is
 zero.
 
-The dense kernel's zero padding is exact in the u8 domain, so it needs
-neither the JAX package's -128 shift of the activations nor its
+The dense conv kernel (``csrc/conv.cu``) runs wgmma, which takes 8-bit
+operands K-major only: ``dense_kmajor_weights`` derives its (N, K) int8
+matrices from the words. Its zero padding is exact in the u8 domain, so it
+needs neither the JAX package's -128 shift of the activations nor its
 correction term.
 
 The packed-domain conv (``ops/packed.py``) keeps the same word layouts with
@@ -51,8 +54,8 @@ import torch.nn.functional as F
 from ..config import ConvConfig
 from ..utils.mathutil import round_up
 
-IC_ALIGN = 32   # K of one mma.sync m16n8k32 step
-OC_ALIGN = 8    # N of one mma.sync m16n8k32 tile
+IC_ALIGN = 32   # K bytes of one tensor-core k-step (mma.sync or wgmma)
+OC_ALIGN = 8    # N granule of mma.sync and wgmma
 
 
 def conv_icp(ic: int) -> int:
@@ -135,6 +138,16 @@ def kmajor_weights(words: torch.Tensor, kh: int, kw: int,
         parts.append(F.pad(w[..., off:off + cp], (0, source_k(cp) - cp)))
         off += cp
     return torch.cat(parts, dim=-1).reshape(ocp, -1).contiguous()
+
+
+def dense_kmajor_weights(words: torch.Tensor, kh: int,
+                         kw: int) -> torch.Tensor:
+    """The dense conv kernel's B operand: int32 words [kh*kw][icp/4][ocp]
+    (``pack_conv_weights``) or [k1/4][ocp] (``pack_1x1_weights``, kh = kw
+    = 1) -> int8 (ocp, kh*kw*icp) on the words' device: row o holds output
+    channel o's weights, K tap by tap (t = ki*kw + kj), each tap's icp
+    channels, zero past ic (and past oc0 in the 1x1's k1)."""
+    return kmajor_weights(words, kh, kw, [words.shape[-2] * 4])
 
 
 def u8_shift_correction(wk: torch.Tensor) -> torch.Tensor:

@@ -46,6 +46,7 @@ from torch import nn
 from .. import _build
 from ..config import ConvConfig, replace_geometry
 from ..types import dtype, round_mode
+from ..utils.device import as_tensor
 from ..utils.logger import check, check_eq
 from ..utils.persist import dump_configs, load_configs
 from . import layout
@@ -116,7 +117,7 @@ class PackedConvPairOp(nn.Module):
     def __init__(self, cfg_a: ConvConfig, weights_a, cfg_b: ConvConfig,
                  weights_b, sin: PackedSpec = None, halo_out: int = None,
                  col_off_out: int = None, halo_mid: int = None,
-                 pool2: bool = False, device="cpu"):
+                 pool2: bool = False, device=None):
         super().__init__()
         if sin is None:
             sin = PackedSpec.make(cfg_a.ih, cfg_a.iw, cfg_a.ic,
@@ -205,7 +206,7 @@ class PackedConvPairOp(nn.Module):
         rows where they reach past the image) and layer b reads u8 0
         outside them. rows/row0_off: as ``PackedConvOp.forward``, a range
         of the returned array's rows from a row slice of the input."""
-        arr = torch.as_tensor(packed_arr)
+        arr = as_tensor(packed_arr, self.device)
         check_eq(arr.dtype, torch.int8, "packed pair input dtype")
         n = arr.shape[0]
         if rows is None and row0_off == 0:
@@ -251,7 +252,7 @@ class PackedConvPairOp(nn.Module):
             __pool2__=np.bool_(self.pool2), **arrs)
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "PackedConvPairOp":
+    def load(cls, path: str, device=None) -> "PackedConvPairOp":
         """Rebuild a saved op, re-running every check of the constructor
         (the JAX package's ``load`` skips them: ROADMAP C2)."""
         with np.load(path, allow_pickle=False) as data:

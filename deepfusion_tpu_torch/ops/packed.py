@@ -65,6 +65,7 @@ from torch import nn
 from .. import _build
 from ..config import ConvConfig, replace_geometry
 from ..types import dtype, round_mode
+from ..utils.device import as_tensor, default_device
 from ..utils.logger import check, check_eq
 from ..utils.persist import dump_configs, load_configs
 from . import layout
@@ -117,10 +118,11 @@ def _pooled_spec(s: PackedSpec) -> PackedSpec:
                       iwp=s.iwp // 2)
 
 
-def pack_image(src_u8, spec: PackedSpec) -> torch.Tensor:
-    """NHWC u8 (tensor on any device, or numpy) -> packed int8 array on the
-    same device (model-boundary cost only)."""
-    src = torch.as_tensor(src_u8)
+def pack_image(src_u8, spec: PackedSpec, device=None) -> torch.Tensor:
+    """NHWC u8 -> packed int8 array (model-boundary cost only): a tensor on
+    its own device, a numpy array on ``device`` (by default the current
+    CUDA device, ``utils/device.py``)."""
+    src = as_tensor(src_u8, device)
     n, h, w, c = src.shape
     check((h, w) == (spec.h, spec.w) and c == spec.c,
           "pack_image: shape does not match spec")
@@ -443,7 +445,7 @@ class PackedConvOp(nn.Module):
     def __init__(self, cfg: ConvConfig, wei, bia=None, wei1x1=None,
                  bia1x1=None, sin=None, col_off_out: int = None,
                  halo_out: int = None, sum_spec: PackedSpec = None,
-                 pool2: bool = False, device="cpu"):
+                 pool2: bool = False, device=None):
         super().__init__()
         check_eq(tuple(np.shape(wei)), (cfg.oc, cfg.ic, cfg.kh, cfg.kw),
                  "conv weight shape (OIHW)")
@@ -495,6 +497,7 @@ class PackedConvOp(nn.Module):
         self.sin = sins[0]
         self.sout = sout
         self.ssum = ssum
+        device = default_device(device)
         for k, shape in _operand_shapes(cfg).items():
             check_eq(tuple(ops[k].shape), shape, f"packed operand {k}")
             t = ops[k]
@@ -536,6 +539,7 @@ class PackedConvOp(nn.Module):
         the s2d grid first for a strided op."""
         check(len(self.sins) == 1,
               "pack_input only supports single-input ops")
+        src_u8 = as_tensor(src_u8, self.device)
         if self.cfg_orig is not None:
             src_u8 = layout.s2d_image_u8(self.cfg_orig, src_u8)
         return pack_image(src_u8, self.sin)
@@ -578,7 +582,7 @@ class PackedConvOp(nn.Module):
         ``t_range``/``row0_off`` in its row tiles)."""
         arrs = (tuple(packed_arr) if isinstance(packed_arr, (tuple, list))
                 else (packed_arr,))
-        arrs = tuple(torch.as_tensor(a) for a in arrs)
+        arrs = tuple(as_tensor(a, self.device) for a in arrs)
         check(len(arrs) == len(self.sins),
               "op expects one array per input spec")
         n = arrs[0].shape[0]
@@ -603,7 +607,7 @@ class PackedConvOp(nn.Module):
                   and not self.pool2,
                   "tp_packed_fused: single input, no sum post-op, no pool2")
         if sum_arr is not None:
-            sum_arr = torch.as_tensor(sum_arr)
+            sum_arr = as_tensor(sum_arr, self.device)
             check_eq(sum_arr.dtype, torch.int8, "packed sum operand dtype")
             check_eq(tuple(sum_arr.shape), self.ssum.array_shape(n),
                      "sum_arr does not match the sum spec")
@@ -637,7 +641,7 @@ class PackedConvOp(nn.Module):
                  __pool2__=np.bool_(self.pool2), **arrs)
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "PackedConvOp":
+    def load(cls, path: str, device=None) -> "PackedConvOp":
         with np.load(path, allow_pickle=False) as data:
             n_sins = int(data["__n_sins__"])
             present = set(json.loads(str(data["__cfg__"])))
@@ -891,14 +895,15 @@ def packed_conv_cuda(op: PackedConvOp, arrs, sum_arr=None, *,
 
 # -------------------------------------------- sharded packed images
 
-def pack_image_sharded(src_u8, spec_local: PackedSpec,
-                       n_shards: int) -> torch.Tensor:
+def pack_image_sharded(src_u8, spec_local: PackedSpec, n_shards: int,
+                       device=None) -> torch.Tensor:
     """NHWC u8 -> the sharded packed format: H split into n_shards equal
     slabs, each packed with ``spec_local`` (whose ``h`` is a shard's
-    height), joined on the flat-row dim, on the source's device. Split on
-    that dim, each shard is a valid packed image whose halo rows
-    ``parallel.shard.sp_packed`` fills from its neighbours."""
-    src = torch.as_tensor(src_u8)
+    height), joined on the flat-row dim, on the source's device (a numpy
+    source's as ``pack_image``). Split on that dim, each shard is a valid
+    packed image whose halo rows ``parallel.shard.sp_packed`` fills from
+    its neighbours."""
+    src = as_tensor(src_u8, device)
     check(src.shape[1] == spec_local.h * n_shards,
           "pack_image_sharded: H does not split into n_shards local specs")
     return torch.cat([pack_image(x, spec_local)

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from .. import _build
 from ..config import ConvConfig, PoolConfig
 from ..types import dtype, round_mode
+from ..utils.device import as_tensor
 from ..utils.logger import check, check_eq
 from ..utils.mathutil import conv_output_size
 from .requant import relu_f32, round_f32, saturate
@@ -105,10 +106,13 @@ def pool_cuda(x: torch.Tensor, pc: PoolConfig, dt: dtype) -> torch.Tensor:
 
 
 def pool(x, kind: str, kernel, stride, padding,
-         round=round_mode.nearest) -> torch.Tensor:
+         round=round_mode.nearest, *, device=None) -> torch.Tensor:
     """Standalone max / avg_inc / avg_exc pooling over NHWC (any supported
-    dtype); integer averages round with `round` and saturate."""
-    x = torch.as_tensor(x)
+    dtype); integer averages round with `round` and saturate. ``x`` is a
+    tensor (the pool runs on its device) or a numpy array, which goes to
+    ``device``: by default the current CUDA device, ``"cpu"`` for the plain
+    PyTorch version."""
+    x = as_tensor(x, device)
     check_eq(x.dim(), 4, "pool input must be NHWC")
     dt = dtype.from_any(x.dtype)
     pc = PoolConfig.make(kind, (x.shape[1], x.shape[2]), kernel, stride,
@@ -147,10 +151,12 @@ def sum_relu_cuda(a: torch.Tensor, b: torch.Tensor, dt: dtype,
     return out
 
 
-def eltwise_sum_relu(a, b, with_relu: bool = True) -> torch.Tensor:
+def eltwise_sum_relu(a, b, with_relu: bool = True, *,
+                     device=None) -> torch.Tensor:
     """Fused elementwise sum + ReLU (roadmap op, README.md:64-65): integer
-    dtypes add in wide integers and saturate back; f32 adds in f32."""
-    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    dtypes add in wide integers and saturate back; f32 adds in f32. Numpy
+    operands go to ``device`` (as ``pool``'s)."""
+    a, b = as_tensor(a, device), as_tensor(b, device)
     check_eq(tuple(a.shape), tuple(b.shape), "eltwise operand shapes")
     check_eq(a.dtype, b.dtype, "eltwise operand dtypes")
     check(a.device == b.device, "eltwise operands must share a device")
@@ -164,15 +170,17 @@ def conv_relu_pool(src, wei, bia, stride, padding, *, dst_dtype,
                    conv_scales=(1.0,), conv_relu=True,
                    conv_round_mode=round_mode.nearest,
                    pool_kind="max", pool_kernel=(2, 2), pool_stride=(2, 2),
-                   pool_padding=(0, 0), pool_round_mode=round_mode.nearest):
+                   pool_padding=(0, 0), pool_round_mode=round_mode.nearest,
+                   device=None):
     """Fused conv+ReLU+pooling, NHWC u8 in (``deepfusion_tpu/ops/pool.py:
     conv_relu_pool``): one ``convpool_kernel`` for the 2x2/s2 geometries
     ``pool2_fusable`` admits, the conv then the pool otherwise. ``src`` is a
-    tensor (the op runs on its device) or a numpy array (the CPU)."""
+    tensor (the op runs on its device) or a numpy array, which goes to
+    ``device`` (as ``pool``'s)."""
     from .conv import conv
     from .convpool import ConvPoolOp, pool2_fusable
 
-    src = torch.as_tensor(src)
+    src = as_tensor(src, device)
     wei = np.asarray(wei)
     n, ih, iw, ic = src.shape
     oc, _, kh, kw = wei.shape

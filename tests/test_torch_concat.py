@@ -29,7 +29,8 @@ def test_concat_matches_jax(dt, n_in, relu):
     size = 4 if dt in ("s32", "f32") else 1
     xs = [full_range(rng, (2, 3, 5, ic), dt) for ic in CHANNELS[n_in][size]]
     want = np.asarray(jconcat(xs, post_relu=relu))
-    got = tconcat([torch.from_numpy(x) for x in xs], post_relu=relu).numpy()
+    got = tconcat([torch.from_numpy(x) for x in xs], post_relu=relu,
+                  device="cpu").numpy()
     assert got.dtype == want.dtype and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
 
@@ -38,6 +39,7 @@ def test_concat_rejects_like_jax():
     a = np.zeros((1, 2, 2, 16), np.uint8)
     with pytest.raises(ValueError, match="share dtype"):
         tconcat([torch.from_numpy(a), torch.zeros((1, 2, 2, 16),
-                                                  dtype=torch.int8)])
+                                                  dtype=torch.int8)],
+                device="cpu")
     with pytest.raises(CheckError, match="not divisible"):
-        tconcat([torch.zeros((1, 2, 2, 8), dtype=torch.uint8)])
+        tconcat([torch.zeros((1, 2, 2, 8), dtype=torch.uint8)], device="cpu")

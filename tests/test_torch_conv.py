@@ -5,6 +5,13 @@ back from the kernel's packed layout) against ``deepfusion_tpu.ops.conv.conv``
 in Pallas interpret mode: 3x3 and 1x1, fused and unfused, all dst types,
 both round modes, every bias type, scalar and per-channel scales, on
 full-range u8 inputs and s8 weights (-128..127). Tolerance: bitwise.
+
+Also what the CUDA kernel's wrapper prepares on the CPU: the K-major
+weights its TMA reads (``layout.dense_kmajor_weights``) against the JAX
+package's packed weights and the port's own unpacking, with their zero
+padding; the gather that takes strides above TMA's 8 away; and the device
+rule (``utils/device.py``): without CUDA, no device means an error, never
+the CPU.
 """
 import numpy as np
 import pytest
@@ -87,15 +94,15 @@ def _case(name):
 def test_conv_matches_jax(name):
     src, wei, bia, stride, pad, kw = _case(name)
     want = np.asarray(jconv(src, wei, bia, stride, pad, **kw))
-    got = tconv(src, wei, bia, stride, pad, **kw).numpy()
+    got = tconv(src, wei, bia, stride, pad, **kw, device="cpu").numpy()
     assert got.dtype == want.dtype and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
 
 
 def test_conv_torch_input_and_numpy_input_agree():
     src, wei, bia, stride, pad, kw = _case("fused-u8-rne")
-    a = tconv(src, wei, bia, stride, pad, **kw)
-    b = tconv(torch.from_numpy(src), wei, bia, stride, pad, **kw)
+    a = tconv(src, wei, bia, stride, pad, **kw, device="cpu")
+    b = tconv(torch.from_numpy(src), wei, bia, stride, pad, **kw, device="cpu")
     assert torch.equal(a, b)
 
 
@@ -130,10 +137,10 @@ def test_save_load_roundtrip(tmp_path):
         conv0_round="down", wei1x1_shape=kw["wei1x1"].shape,
         bia1x1_dt=kw["bia1x1"].dtype, conv1_scales=kw["conv1_scales"],
         conv1_round="down")
-    op = ConvOp(cfg, wei, bia, kw["wei1x1"], kw["bia1x1"])
+    op = ConvOp(cfg, wei, bia, kw["wei1x1"], kw["bia1x1"], device="cpu")
     path = str(tmp_path / "op.npz")
     op.save(path)
-    op2 = ConvOp.load(path)
+    op2 = ConvOp.load(path, device="cpu")
     assert op2.cfg == op.cfg
     x = torch.from_numpy(src)
     assert torch.equal(op(x), op2(x))
@@ -157,7 +164,7 @@ def test_op_rejects_wrong_input():
     n, ih, iw, ic = src.shape
     cfg = ConvConfig.make((n, ih, iw, ic), wei.shape, None, stride, pad,
                           (n, ih, iw, wei.shape[0]), "s32")
-    op = ConvOp(cfg, wei)
+    op = ConvOp(cfg, wei, device="cpu")
     with pytest.raises(CheckError):
         op(torch.from_numpy(src).to(torch.int32))
     with pytest.raises(CheckError):
@@ -190,7 +197,7 @@ def test_conv_fused_acc1_matches_jax(name):
                   kw["bia1x1"])
     want = np.asarray(jacc1(jop.cfg, src, *jop._operands[:6]))
     op = ConvOp(ConvConfig.make(*args, **ckw), wei, bia, kw["wei1x1"],
-                kw["bia1x1"])
+                kw["bia1x1"], device="cpu")
     got = conv_fused_acc1(op, torch.from_numpy(src)).numpy()
     assert got.dtype == np.int32 and got.shape == (n, hw, hw, oc1)
     np.testing.assert_array_equal(got, want[..., :oc1])
@@ -205,7 +212,7 @@ def test_conv_fused_acc1_matches_jax(name):
                                else sc,
                                "wei1x1_shape": (oc1, oc // 2, 1, 1)})
         h = ConvOp(c, wei[sl], None if bia is None else bia[sl],
-                   kw["wei1x1"][:, sl])
+                   kw["wei1x1"][:, sl], device="cpu")
         halves.append(conv_fused_acc1(h, torch.from_numpy(src)))
     np.testing.assert_array_equal((halves[0] + halves[1]).numpy(), got)
 
@@ -217,4 +224,182 @@ def test_conv_fused_acc1_refuses_unfused():
     cfg = ConvConfig.make((n, hw, hw, ic), wei.shape, bia.dtype, stride,
                           pad, (n, hw, hw, wei.shape[0]), "u8")
     with pytest.raises(CheckError, match="needs the fused config"):
-        conv_fused_acc1(ConvOp(cfg, wei, bia), torch.from_numpy(src))
+        conv_fused_acc1(ConvOp(cfg, wei, bia, device="cpu"),
+                        torch.from_numpy(src))
+
+
+# ----------------------------- what the CUDA kernel's wrapper prepares
+
+@pytest.mark.parametrize("kh,kw,ic,oc", [(3, 3, 32, 128), (3, 3, 3, 20),
+                                         (1, 1, 256, 256), (5, 5, 48, 136),
+                                         (3, 3, 16, 8), (1, 1, 128, 1040)])
+def test_dense_kmajor_weights_match_jax(kh, kw, ic, oc):
+    """K1's B operand: row o holds output channel o's weights, K tap by
+    tap (ki, kj), each tap's icp channels; equal to the JAX package's
+    packed weights ((kw, kh, ic) rows) reordered, to the port's own
+    unpacking, and zero past ic and oc."""
+    import deepfusion_tpu.ops.layout as JL
+    rng = np.random.default_rng(kh * 1000 + ic + oc)
+    w = rng.integers(-128, 128, (oc, ic, kh, kw)).astype(np.int8)
+    icp, ocp = layout.conv_icp(ic), layout.conv_ocp(oc)
+    words = torch.from_numpy(layout.pack_conv_weights(w, icp, ocp))
+    got = layout.dense_kmajor_weights(words, kh, kw)
+    assert got.dtype == torch.int8 and got.shape == (ocp, kh * kw * icp)
+    want = JL.pack_conv_weights(w, icp, ocp).reshape(kw, kh, icp, ocp)
+    want = want.transpose(3, 1, 0, 2).reshape(ocp, kh * kw * icp)
+    np.testing.assert_array_equal(got.numpy(), want)
+    taps = got.reshape(ocp, kh, kw, icp)
+    unpacked = layout.unpack_weights(words, oc, ic, kh, kw)
+    assert torch.equal(taps[:oc, :, :, :ic], unpacked.permute(0, 2, 3, 1))
+    assert not taps[:, :, :, ic:].any() and not taps[oc:].any()
+
+
+@pytest.mark.parametrize("oc0,oc1", [(128, 128), (256, 128), (20, 40),
+                                     (1032, 40), (8, 72)])
+def test_dense_kmajor_1x1_weights_match_jax(oc0, oc1):
+    """The fused 1x1's B operand: (oc1p, k1), K the intermediate's k1 =
+    oc0p rounded up to 32 lanes, zero in [oc0, k1) and past oc1."""
+    import deepfusion_tpu.ops.layout as JL
+    rng = np.random.default_rng(oc0 + oc1)
+    w1 = rng.integers(-128, 128, (oc1, oc0, 1, 1)).astype(np.int8)
+    k1 = layout.fused_k(layout.conv_ocp(oc0))
+    oc1p = layout.conv_ocp(oc1)
+    words = torch.from_numpy(layout.pack_1x1_weights(w1, k1, oc1p))
+    got = layout.dense_kmajor_weights(words, 1, 1)
+    assert got.dtype == torch.int8 and got.shape == (oc1p, k1)
+    np.testing.assert_array_equal(got.numpy(),
+                                  JL.pack_1x1_weights(w1, k1, oc1p).T)
+    unpacked = layout.unpack_weights(words, oc1, oc0, 1, 1)
+    assert torch.equal(got[:oc1, :oc0], unpacked[:, :, 0, 0])
+    assert not got[:, oc0:].any() and not got[oc1:].any()
+
+
+@pytest.mark.parametrize("k,s,p,hw", [(1, 9, 0, 20), (3, 10, 1, 23),
+                                      (5, 12, 2, 30), ((3, 1), (9, 2),
+                                                       (1, 0), 19)])
+def test_strides_above_eight_are_gathered_exactly(k, s, p, hw):
+    """TMA steps at most 8 elements: for a larger stride the wrapper
+    gathers the rows (columns) each output reads, and a stride-k conv
+    without padding over them gives the same accumulator."""
+    from deepfusion_tpu_torch.ops.conv import _kernel_input, conv_acc
+    kh, kw = (k, k) if isinstance(k, int) else k
+    sh, sw = (s, s) if isinstance(s, int) else s
+    ph, pw = (p, p) if isinstance(p, int) else p
+    rng = np.random.default_rng(kh + sh + hw)
+    ic, oc, n = 20, 8, 2
+    oh, ow = (conv_output_size(hw, kh, sh, ph),
+              conv_output_size(hw, kw, sw, pw))
+    w = rng.integers(-128, 128, (oc, ic, kh, kw)).astype(np.int8)
+    cfg = ConvConfig.make((n, hw, hw, ic), w.shape, None, (sh, sw),
+                          (ph, pw), (n, oh, ow, oc), "s32")
+    op = ConvOp(cfg, w, device="cpu")
+    x = torch.from_numpy(rng.integers(0, 256, (n, hw, hw, ic),
+                                      dtype=np.uint8))
+    x2, (ih2, iw2, ic2, sh2, sw2, ph2, pw2) = _kernel_input(op, x)
+    assert max(sh2, sw2) <= 8 and ic2 % 16 == 0
+    assert tuple(x2.shape) == (n, ih2, iw2, ic2)
+    assert conv_output_size(ih2, kh, sh2, ph2) == oh
+    assert conv_output_size(iw2, kw, sw2, pw2) == ow
+    w2 = np.zeros((oc, ic2, kh, kw), np.int8)
+    w2[:, :ic] = w
+    got = conv_acc(x2, torch.from_numpy(w2), (sh2, sw2), (ph2, pw2))
+    want = conv_acc(x, torch.from_numpy(w), (sh, sw), (ph, pw))
+    assert torch.equal(got, want)
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _small_conv():
+    rng = np.random.default_rng(7)
+    w = rng.integers(-128, 128, (16, 16, 3, 3)).astype(np.int8)
+    cfg = ConvConfig.make((1, 6, 6, 16), w.shape, None, (1, 1), (1, 1),
+                          (1, 6, 6, 16), "u8")
+    return cfg, w
+
+
+@pytest.mark.parametrize("what", ["ConvOp", "ConvOp.load", "ConvPoolOp",
+                                  "PackedConvOp", "PackedConvPairOp",
+                                  "FusionNet", "ResFusionNet", "VGGFusion"])
+def test_no_device_without_cuda_raises(what, monkeypatch, tmp_path):
+    """The port runs on the card unless asked for the CPU: without CUDA a
+    constructor or load given no device raises, naming device="cpu", and
+    the same call with device="cpu" builds on the CPU."""
+    from deepfusion_tpu_torch.config import PoolConfig
+    from deepfusion_tpu_torch.models import (FusionNet, FusionNetConfig,
+                                             ResFusionNet,
+                                             ResFusionNetConfig, VGGFusion,
+                                             VGGFusionConfig)
+    from deepfusion_tpu_torch.ops.convpool import ConvPoolOp
+    from deepfusion_tpu_torch.ops.mega import PackedConvPairOp
+    from deepfusion_tpu_torch.ops.packed import PackedConvOp
+    cfg, w = _small_conv()
+    path = str(tmp_path / "op.npz")
+    ConvOp(cfg, w, device="cpu").save(path)
+    small = dict(batch=1, hw=8)
+    build = {
+        "ConvOp": lambda **d: ConvOp(cfg, w, **d),
+        "ConvOp.load": lambda **d: ConvOp.load(path, **d),
+        "ConvPoolOp": lambda **d: ConvPoolOp(
+            cfg, PoolConfig.make("max", (6, 6), (2, 2), (2, 2), (0, 0)), w,
+            **d),
+        "PackedConvOp": lambda **d: PackedConvOp(cfg, w, **d),
+        "PackedConvPairOp": lambda **d: PackedConvPairOp(cfg, (w,), cfg,
+                                                         (w,), **d),
+        "FusionNet": lambda **d: FusionNet(
+            FusionNetConfig(width=16, in_ch=8, num_classes=8, **small), **d),
+        "ResFusionNet": lambda **d: ResFusionNet(
+            ResFusionNetConfig(width=16, in_ch=8, num_classes=8, **small),
+            **d),
+        "VGGFusion": lambda **d: VGGFusion(
+            VGGFusionConfig(width=8, in_ch=8, num_classes=8, **small), **d),
+    }[what]
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        build()
+    built = build(device="cpu")
+    assert next(built.buffers()).device.type == "cpu"
+
+
+@pytest.mark.parametrize("fn", ["conv", "conv_relu_pool", "pool",
+                                "eltwise_sum_relu", "concat", "pack_image"])
+def test_numpy_input_without_device_needs_cuda(fn, monkeypatch):
+    """A functional entry point puts a numpy input on the current CUDA
+    device: without CUDA it raises unless device="cpu" is given; a tensor
+    input runs on its own device either way."""
+    from deepfusion_tpu_torch.ops.concat import concat
+    from deepfusion_tpu_torch.ops.packed import PackedSpec, pack_image
+    from deepfusion_tpu_torch.ops.pool import (conv_relu_pool,
+                                               eltwise_sum_relu, pool)
+    cfg, w = _small_conv()
+    x = np.random.default_rng(8).integers(0, 256, (1, 6, 6, 16),
+                                          dtype=np.uint8)
+    call = {
+        "conv": lambda a, **d: tconv(a, w, None, (1, 1), (1, 1),
+                                     dst_dtype="u8", **d),
+        "conv_relu_pool": lambda a, **d: conv_relu_pool(
+            a, w, None, (1, 1), (1, 1), dst_dtype="u8", **d),
+        "pool": lambda a, **d: pool(a, "max", (2, 2), (2, 2), (0, 0), **d),
+        "eltwise_sum_relu": lambda a, **d: eltwise_sum_relu(a, a, **d),
+        "concat": lambda a, **d: concat([a, a], **d),
+        "pack_image": lambda a, **d: pack_image(
+            a, PackedSpec.make(6, 6, 16, halo=1, col_off=1), **d),
+    }[fn]
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call(x)
+    got = call(x, device="cpu")
+    assert got.device.type == "cpu"
+    assert torch.equal(call(torch.from_numpy(x)), got)
+
+
+def test_numpy_conv_on_the_cpu_matches_jax(monkeypatch):
+    """conv() of a numpy input with device="cpu" is the JAX conv(), with
+    CUDA unavailable: nothing needs the card."""
+    _no_cuda(monkeypatch)
+    src, wei, bia, stride, pad, kw = _case("fused-u8-rne")
+    want = np.asarray(jconv(src, wei, bia, stride, pad, **kw))
+    got = tconv(src, wei, bia, stride, pad, **kw, device="cpu")
+    assert got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(), want)

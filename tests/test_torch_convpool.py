@@ -52,7 +52,7 @@ def _make(seed, dst, kind, r0, rp, sum_dt, stride, *, ic=16, oc=24, hw=8,
               sum_dt=sum_dt, sum_scale=0.75)
     pargs = (kind, (o, o), (2, 2), (2, 2), (0, 0), rp)
     top = ConvPoolOp(ConvConfig.make(*args, **kw), PoolConfig.make(*pargs),
-                     wei, bia)
+                     wei, bia, device="cpu")
     jop = JConvPoolOp(JConvConfig.make(*args, **kw), JPoolConfig.make(*pargs),
                       wei, bia)
     src = rng.integers(0, 256, (n, hw, hw, ic), dtype=np.uint8)
@@ -87,8 +87,8 @@ def _f32_sum_spec(top, src, sm):
     args = (src, wei.numpy(), top.bias0[:cfg.oc].numpy(), (cfg.sh, cfg.sw),
             (cfg.ph, cfg.pw))
     y = tconv(*args, conv0_relu=cfg.conv0_relu, sum_src=sm,
-              sum_scale=cfg.sum_scale, **kw).numpy()
-    y0 = tconv(*args, conv0_relu=False, **kw).numpy()
+              sum_scale=cfg.sum_scale, **kw, device="cpu").numpy()
+    y0 = tconv(*args, conv0_relu=False, **kw, device="cpu").numpy()
     st = sm * np.float32(cfg.sum_scale)
     n, h, w, c = y.shape
     x = y.reshape(n, h // 2, 2, w // 2, 2, c)
@@ -191,7 +191,7 @@ def test_conv_relu_pool_matches_jax(geometry):
               conv_relu=False, conv_round_mode="down", pool_kind="avg_exc",
               pool_kernel=pk, pool_stride=ps, pool_padding=pp,
               pool_round_mode="nearest")
-    got = conv_relu_pool(src, wei, bia, (1, 1), (1, 1), **kw)
+    got = conv_relu_pool(src, wei, bia, (1, 1), (1, 1), **kw, device="cpu")
     want = np.asarray(jconv_relu_pool(src, wei, bia, (1, 1), (1, 1), **kw))
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -201,7 +201,7 @@ def test_save_load_roundtrip(tmp_path):
                             hw=16)
     path = str(tmp_path / "cp.npz")
     top.save(path)
-    op2 = ConvPoolOp.load(path)
+    op2 = ConvPoolOp.load(path, device="cpu")
     assert (op2.cfg, op2.pc) == (top.cfg, top.pc)
     x, s = torch.from_numpy(src), torch.from_numpy(sm)
     assert torch.equal(top(x, s), op2(x, s))
@@ -214,7 +214,8 @@ def test_rejects_unfusable_and_bad_operands():
     with pytest.raises(CheckError, match="fusable"):
         ConvPoolOp(cfg, PoolConfig.make("avg_exc", (8, 8), (2, 2), (2, 2),
                                         (0, 0)), np.zeros((8, 16, 3, 3),
-                                                          np.int8))
+                                                          np.int8),
+                   device="cpu")
     with pytest.raises(ValueError, match="pass sum_src"):
         top(torch.from_numpy(src))
     with pytest.raises(CheckError, match="sum operand shape"):

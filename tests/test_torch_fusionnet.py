@@ -33,7 +33,7 @@ def jax_net():
 
 @pytest.fixture(scope="module")
 def net():
-    return FusionNet(FusionNetConfig(**SMALL))
+    return FusionNet(FusionNetConfig(**SMALL), device="cpu")
 
 
 def _jax_params_as_numpy(jnet) -> dict:
@@ -71,7 +71,8 @@ def test_same_seed_same_weights(jax_net, net):
 def test_from_numpy_params_matches_jax(jax_net):
     x = jax_net.example_input(np.random.default_rng(5))
     net2 = FusionNet.from_numpy_params(FusionNetConfig(**SMALL),
-                                       _jax_params_as_numpy(jax_net))
+                                       _jax_params_as_numpy(jax_net),
+                                       device="cpu")
     np.testing.assert_array_equal(net2(x).numpy(), np.asarray(jax_net(x)))
 
 
@@ -82,7 +83,7 @@ def test_full_width_matches_jax_golden_logits():
     golden = np.load(GOLDEN)
     cfg = FusionNetConfig()
     assert int(golden["model_seed"]) == cfg.seed
-    net = FusionNet(cfg)
+    net = FusionNet(cfg, device="cpu")
     x = net.example_input(np.random.default_rng(int(golden["input_seed"])))
     with torch.inference_mode():
         got = net(x).numpy()
@@ -129,7 +130,7 @@ def test_batch_server_refuses_a_callable_without_a_device():
         return x
     with pytest.raises(CheckError, match="names no device"):
         BatchServer(model, batch=2, input_shape=(3,))
-    net = FusionNet(FusionNetConfig(**SMALL))
+    net = FusionNet(FusionNetConfig(**SMALL), device="cpu")
     srv = BatchServer(net.packed_call, batch=2,
                       input_shape=net.input_shape[1:])
     assert srv._devices == [torch.device("cpu")]
@@ -138,7 +139,7 @@ def test_batch_server_refuses_a_callable_without_a_device():
 @pytest.mark.parametrize("seed", [0, 3])
 def test_packed_forward_matches_jax_packed_call(seed):
     jnet = JFusionNet(JConfig(**PACKED))
-    tnet = FusionNet(FusionNetConfig(**PACKED))
+    tnet = FusionNet(FusionNetConfig(**PACKED), device="cpu")
     x = tnet.example_input(np.random.default_rng(seed))
     want = np.asarray(jnet.jit_packed()(x))
     with torch.inference_mode():
@@ -149,7 +150,7 @@ def test_packed_forward_matches_jax_packed_call(seed):
 
 def test_packed_specs_match_jax_build_packed():
     jops = JFusionNet(JConfig(**PACKED)).build_packed()
-    tops = FusionNet(FusionNetConfig(**PACKED)).build_packed()
+    tops = FusionNet(FusionNetConfig(**PACKED), device="cpu").build_packed()
     for name, jop in jops.items():
         top = tops[name]
         assert [vars(s) for s in top.sins] == [vars(s) for s in jop.sins]
@@ -170,7 +171,7 @@ def test_packed_full_width_matches_jax_golden_logits():
     dense one in both packages)."""
     golden = np.load(GOLDEN)
     cfg = FusionNetConfig()
-    net = FusionNet(cfg)
+    net = FusionNet(cfg, device="cpu")
     x = net.example_input(np.random.default_rng(int(golden["input_seed"])))
     with torch.inference_mode():
         got = net.packed_module()(torch.from_numpy(x)).numpy()
@@ -213,5 +214,6 @@ def test_batch_server_stages_packed_batches_on_the_module_device(
     with BatchServer(mod, batch=2, input_shape=mod.input_shape[1:]) as srv:
         srv.submit(net.example_input()[0]).result(timeout=30)
     assert seen == [torch.device("meta")]
-    assert not hasattr(FusionNet(FusionNetConfig(**SMALL)).packed_call,
+    assert not hasattr(FusionNet(FusionNetConfig(**SMALL),
+                                 device="cpu").packed_call,
                        "device")

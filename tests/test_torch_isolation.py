@@ -68,17 +68,18 @@ def test_non_cpu_tensors_never_take_the_plain_path(op, monkeypatch):
     with pytest.raises((RuntimeError, ValueError, NotImplementedError)):
         if op == "conv":
             from deepfusion_tpu_torch.ops.conv import conv
-            conv(x, np.zeros((16, 16, 1, 1), np.int8), dst_dtype="u8")
+            conv(x, np.zeros((16, 16, 1, 1), np.int8), dst_dtype="u8",
+                 device="cpu")
         elif op == "concat":
-            concat([x, x], post_relu=True)
+            concat([x, x], post_relu=True, device="cpu")
         elif op == "pool":
-            pool(x, "max", (2, 2), (2, 2), (0, 0))
+            pool(x, "max", (2, 2), (2, 2), (0, 0), device="cpu")
         elif op == "sum_relu":
-            eltwise_sum_relu(x, x)
+            eltwise_sum_relu(x, x, device="cpu")
         elif op == "convpool":
             from deepfusion_tpu_torch.ops.pool import conv_relu_pool
             conv_relu_pool(x, np.zeros((16, 16, 3, 3), np.int8), None,
-                           (1, 1), (1, 1), dst_dtype="u8")
+                           (1, 1), (1, 1), dst_dtype="u8", device="cpu")
         elif op == "sharded":
             from deepfusion_tpu_torch.config import ConvConfig
             from deepfusion_tpu_torch.parallel import make_mesh, tp_fused_conv

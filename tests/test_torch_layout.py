@@ -71,7 +71,7 @@ def _build(name, seed=0):
                                       cp=None if isinstance(c, int) else c[1],
                                       halo=k // 2 + 1, col_off=k // 2 + 1)
                     for c in srcs)
-    op = T.PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sin)
+    op = T.PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sin, device="cpu")
     eff = wei
     if s > 1:   # the JAX package's own s2d weights, an independent source
         eff = JL.s2d_weights(JConvConfig.make(*args, **kw), wei)

@@ -29,7 +29,8 @@ def _pair(ca, cb, sin=None, **kw):
     """Port and JAX pairs of the layers ca, cb (each a _cfgs tuple)."""
     cfg_a, jcfg_a, *wa = ca
     cfg_b, jcfg_b, *wb = cb
-    top = TM.PackedConvPairOp(cfg_a, wa, cfg_b, wb, sin=sin, **kw)
+    top = TM.PackedConvPairOp(cfg_a, wa, cfg_b, wb, sin=sin, **kw,
+                              device="cpu")
     jop = JM.PackedConvPairOp(jcfg_a, wa, jcfg_b, wb,
                               sin=None if sin is None else jspec(sin), **kw)
     assert (jspec(top.sin), jspec(top.smid), jspec(top.sout)) == \
@@ -125,7 +126,7 @@ def test_pair_shallow_to_deep_halo():
     cb = _cfgs(1, 4, 32, 32, seed=15)
     sin = T.PackedSpec.make(4, 4, 32, halo=1, col_off=1, iwp=16)
     top = TM.PackedConvPairOp(ca[0], ca[2:], cb[0], cb[2:], sin=sin,
-                              halo_out=2, col_off_out=2)
+                              halo_out=2, col_off_out=2, device="cpu")
     j_a = J.PackedConvOp(ca[1], *ca[2:], sin=jspec(sin),
                          halo_out=top.smid.halo,
                          col_off_out=top.smid.col_off)
@@ -202,7 +203,7 @@ def test_pair_validation_matches_jax(case):
                 jspec(T.PackedSpec.make(12, 12, 32, iwp=24)))
         return
     with pytest.raises(CheckError) as e:
-        TM.PackedConvPairOp(ca[0], ca[2:], cb[0], cb[2:], **kw)
+        TM.PackedConvPairOp(ca[0], ca[2:], cb[0], cb[2:], **kw, device="cpu")
     with pytest.raises(JCheckError) as je:
         JM.PackedConvPairOp(ca[1], ca[2:], cb[1], cb[2:],
                             **{k: jspec(v) if k == "sin" else v
@@ -216,10 +217,11 @@ def test_pair_save_load_roundtrip(tmp_path, pool2):
     cb = _cfgs(1, 12, 32, 32, seed=25)
     sin = T.PackedSpec.make(12, 12, 32, halo=2, col_off=2, iwp=16)
     top = TM.PackedConvPairOp(ca[0], ca[2:], cb[0], cb[2:], sin=sin,
-                              halo_out=2, col_off_out=2, pool2=pool2)
+                              halo_out=2, col_off_out=2, pool2=pool2,
+                              device="cpu")
     path = str(tmp_path / "pair.npz")
     top.save(path)
-    back = TM.PackedConvPairOp.load(path)
+    back = TM.PackedConvPairOp.load(path, device="cpu")
     assert (back.cfg_a, back.cfg_b, back.sin, back.smid, back.sout,
             back.pool2) == (top.cfg_a, top.cfg_b, top.sin, top.smid,
                             top.sout, top.pool2)
@@ -236,7 +238,8 @@ def test_pair_load_rejects_tampered_geometry(tmp_path, field, value):
     cb = _cfgs(1, 12, 32, 32, oc1=32, seed=28)
     sin = T.PackedSpec.make(12, 12, 32, halo=2, col_off=2, iwp=16)
     top = TM.PackedConvPairOp(ca[0], ca[2:], cb[0], cb[2:], sin=sin,
-                              halo_out=2, col_off_out=2, pool2=True)
+                              halo_out=2, col_off_out=2, pool2=True,
+                              device="cpu")
     path = str(tmp_path / "pair.npz")
     top.save(path)
     data = dict(np.load(path, allow_pickle=False))
@@ -245,13 +248,13 @@ def test_pair_load_rejects_tampered_geometry(tmp_path, field, value):
     data["__cfg__"] = np.str_(json.dumps(cfgs))
     np.savez(path, **data)
     with pytest.raises(CheckError, match="maxpool2"):
-        TM.PackedConvPairOp.load(path)
+        TM.PackedConvPairOp.load(path, device="cpu")
 
 
 def test_pair_load_rejects_bad_pair_geometry(tmp_path):
     ca = _cfgs(1, 12, 32, 32, seed=29)
     cb = _cfgs(1, 12, 32, 32, seed=30)
-    top = TM.PackedConvPairOp(ca[0], ca[2:], cb[0], cb[2:])
+    top = TM.PackedConvPairOp(ca[0], ca[2:], cb[0], cb[2:], device="cpu")
     path = str(tmp_path / "pair.npz")
     top.save(path)
     data = dict(np.load(path, allow_pickle=False))
@@ -260,14 +263,14 @@ def test_pair_load_rejects_bad_pair_geometry(tmp_path):
     data["__cfg__"] = np.str_(json.dumps(cfgs))
     np.savez(path, **data)
     with pytest.raises(CheckError, match="input halo too small"):
-        TM.PackedConvPairOp.load(path)
+        TM.PackedConvPairOp.load(path, device="cpu")
 
 
 def test_pair_plain_is_the_two_packed_convs():
     """pair_conv_plain is op_b(op_a(x)) through the intermediate spec."""
     ca = _cfgs(2, 12, 32, 32, oc1=32, seed=31)
     cb = _cfgs(2, 12, 32, 32, seed=32)
-    top = TM.PackedConvPairOp(ca[0], ca[2:], cb[0], cb[2:])
+    top = TM.PackedConvPairOp(ca[0], ca[2:], cb[0], cb[2:], device="cpu")
     assert top.op_a.sout == top.smid and top.op_b.sin == top.smid
     x = torch.from_numpy(_input(top, 2, 33))
     assert torch.equal(top(x), top.op_b(top.op_a(x)))

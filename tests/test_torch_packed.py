@@ -67,14 +67,16 @@ def _run_both(cfgs, sins, col_off_out=None, halo_out=None, n=2, seed=0):
     (port output, JAX output) as numpy."""
     cfg, jcfg, wei, bia, wei1, bia1 = cfgs
     top = T.PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sins,
-                         col_off_out=col_off_out, halo_out=halo_out)
+                         col_off_out=col_off_out, halo_out=halo_out,
+                         device="cpu")
     jop = J.PackedConvOp(jcfg, wei, bia, wei1, bia1,
                          sin=tuple(jspec(s) for s in top.sins),
                          col_off_out=col_off_out, halo_out=halo_out)
     assert jspec(top.sout) == jop.sout
     rng = np.random.default_rng(seed)
     imgs = [_u8(rng, n, s) for s in top.sins]
-    got = top(tuple(T.pack_image(x, s) for x, s in zip(imgs, top.sins)))
+    got = top(tuple(T.pack_image(x, s, device="cpu")
+                    for x, s in zip(imgs, top.sins)))
     want = jop(tuple(J.pack_image(x, jspec(s))
                      for x, s in zip(imgs, top.sins)))
     return got.numpy(), np.asarray(want), top
@@ -84,7 +86,7 @@ def test_pack_unpack_matches_jax():
     rng = np.random.default_rng(1)
     spec = T.PackedSpec.make(13, 11, 40, halo=3, col_off=2)
     src = rng.integers(0, 256, (2, 13, 11, 40), dtype=np.uint8)
-    got = T.pack_image(src, spec)
+    got = T.pack_image(src, spec, device="cpu")
     want = J.pack_image(src, jspec(spec))
     assert got.dtype == torch.int8 and tuple(got.shape) == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
@@ -92,7 +94,8 @@ def test_pack_unpack_matches_jax():
     np.testing.assert_array_equal(T.unpack_image(want, spec).numpy(),
                                   J.unpack_image(want, jspec(spec)))
     # a tensor input packs on its own device and equals the numpy path
-    assert torch.equal(T.pack_image(torch.from_numpy(src), spec), got)
+    assert torch.equal(T.pack_image(torch.from_numpy(src), spec,
+                                    device="cpu"), got)
 
 
 def test_packed_spec_make_matches_jax():
@@ -127,7 +130,7 @@ def test_validation_matches_jax(case):
     elif case == "channels":
         sin = T.PackedSpec.make(13, 13, 64, halo=1, col_off=1)
     with pytest.raises(CheckError) as e:
-        T.PackedConvOp(cfg, wei, bia, sin=sin)
+        T.PackedConvOp(cfg, wei, bia, sin=sin, device="cpu")
     with pytest.raises(JCheckError) as je:
         J.PackedConvOp(jcfg, wei, bia,
                        sin=None if sin is None else jspec(sin))
@@ -209,14 +212,16 @@ def test_packed_conv_reads_pad_slots_as_stored():
     does, which is what the CUDA kernel is held to on the card."""
     cfg, jcfg, wei, bia, _, _ = _cfgs(1, 12, 32, 32, seed=3)
     sin = T.PackedSpec.make(12, 12, 32, halo=2, col_off=2)
-    top = T.PackedConvOp(cfg, wei, bia, sin=sin, col_off_out=2, halo_out=1)
+    top = T.PackedConvOp(cfg, wei, bia, sin=sin, col_off_out=2, halo_out=1,
+                         device="cpu")
     jop = J.PackedConvOp(jcfg, wei, bia, sin=jspec(sin), col_off_out=2,
                          halo_out=1)
     junk = np.random.default_rng(4).integers(
         -128, 128, sin.array_shape(1), dtype=np.int8)
     got = top(torch.from_numpy(junk)).numpy()
     np.testing.assert_array_equal(got, np.asarray(jop(junk)))
-    clean = top(T.pack_image(T.unpack_image(junk, sin), sin)).numpy()
+    clean = top(T.pack_image(T.unpack_image(junk, sin), sin,
+                             device="cpu")).numpy()
     assert not np.array_equal(got, clean)
 
 
@@ -226,7 +231,7 @@ def test_unported_features_raise(feature):
     t_range (TPU row tiles) has no counterpart: the port takes ``rows``,
     rows of the output array."""
     cfg, _, wei, bia, _, _ = _cfgs(1, 12, 32, 32)
-    op = T.PackedConvOp(cfg, wei, bia)
+    op = T.PackedConvOp(cfg, wei, bia, device="cpu")
     x = torch.full(op.sin.array_shape(1), -128, dtype=torch.int8)
     if feature == "emit_acc1":
         with pytest.raises(CheckError, match="emit_acc1 needs the fused"):
@@ -250,7 +255,8 @@ def _pool2_ops(fused, halo_out, rnd="nearest", sum_scale=None, seed=0):
         12, 12, 32, halo=halo_out + 1, col_off=2, iwp=16)
     kw = dict(col_off_out=2, halo_out=halo_out)
     ops = [T.PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sin, sum_spec=ssum,
-                          pool2=pool2, **kw) for pool2 in (True, False)]
+                          pool2=pool2, **kw,
+                          device="cpu") for pool2 in (True, False)]
     jop = J.PackedConvOp(jcfg, wei, bia, wei1, bia1, sin=jspec(sin),
                          sum_spec=None if ssum is None else jspec(ssum),
                          pool2=True, **kw)
@@ -261,11 +267,11 @@ def _pool2_ops(fused, halo_out, rnd="nearest", sum_scale=None, seed=0):
 def _pool2_check(top, jop, plain, seed):
     rng = np.random.default_rng(seed)
     img = _edge_u8(rng, (2, 12, 12, 32))
-    x = T.pack_image(img, top.sin)
+    x = T.pack_image(img, top.sin, device="cpu")
     kw, jkw = {}, {}
     if top.ssum is not None:
         res = _edge_u8(rng, (2, 12, 12, top.ssum.c))
-        kw = dict(sum_arr=T.pack_image(res, top.ssum))
+        kw = dict(sum_arr=T.pack_image(res, top.ssum, device="cpu"))
         jkw = dict(sum_arr=J.pack_image(res, jspec(top.ssum)))
     got = top(x, **kw)
     assert tuple(got.shape) == top.sout_pooled.array_shape(2)
@@ -300,9 +306,10 @@ def test_packed_conv_pool2_save_load(tmp_path):
     top, _, _ = _pool2_ops(True, 2, seed=60)
     path = str(tmp_path / "pp.npz")
     top.save(path)
-    back = T.PackedConvOp.load(path)
+    back = T.PackedConvOp.load(path, device="cpu")
     assert back.pool2 and back.sout_pooled == top.sout_pooled
-    x = T.pack_image(_u8(np.random.default_rng(3), 2, top.sin), top.sin)
+    x = T.pack_image(_u8(np.random.default_rng(3), 2, top.sin), top.sin,
+                     device="cpu")
     assert torch.equal(back(x), top(x))
     # a hand-edited checkpoint with a pool-illegal output fails at load
     data = dict(np.load(path, allow_pickle=False))
@@ -311,7 +318,7 @@ def test_packed_conv_pool2_save_load(tmp_path):
     data["__cfg__"] = np.str_(json.dumps(cfgs))
     np.savez(path, **data)
     with pytest.raises(CheckError, match="maxpool2"):
-        T.PackedConvOp.load(path)
+        T.PackedConvOp.load(path, device="cpu")
 
 
 def test_packed_conv_pool2_validation():
@@ -319,7 +326,7 @@ def test_packed_conv_pool2_validation():
     sin = T.PackedSpec.make(12, 12, 32, halo=2, col_off=2, iwp=16)
     with pytest.raises(CheckError, match="even halo and col_off"):
         T.PackedConvOp(cfg, wei, bia, sin=sin, col_off_out=1, halo_out=2,
-                       pool2=True)
+                       pool2=True, device="cpu")
 
 
 def _sum_op_pair(delta, rnd, fused, seed):
@@ -333,7 +340,7 @@ def _sum_op_pair(delta, rnd, fused, seed):
     ssum = T.PackedSpec.make(12, 12, out_c, halo=1 + delta, col_off=2,
                              iwp=sin.iwp)
     top = T.PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sin, col_off_out=2,
-                         halo_out=1, sum_spec=ssum)
+                         halo_out=1, sum_spec=ssum, device="cpu")
     jop = J.PackedConvOp(jcfg, wei, bia, wei1, bia1, sin=jspec(sin),
                          col_off_out=2, halo_out=1, sum_spec=jspec(ssum))
     assert jspec(top.sout) == jop.sout
@@ -351,8 +358,8 @@ def test_packed_conv_sum_matches_jax(delta, rnd, fused):
     rng = np.random.default_rng(delta + 2 * fused)
     img = _edge_u8(rng, (2, 12, 12, 32))
     res = _edge_u8(rng, (2, 12, 12, top.ssum.c))
-    got = top(T.pack_image(img, top.sin),
-              sum_arr=T.pack_image(res, top.ssum)).numpy()
+    got = top(T.pack_image(img, top.sin, device="cpu"),
+              sum_arr=T.pack_image(res, top.ssum, device="cpu")).numpy()
     want = jop(J.pack_image(img, jspec(top.sin)),
                sum_arr=J.pack_image(res, jspec(top.ssum)))
     np.testing.assert_array_equal(got, np.asarray(want))
@@ -366,13 +373,14 @@ def test_packed_sum_validation_matches_jax():
                         (shallow, "halo must cover")):
         with pytest.raises(CheckError, match=match):
             T.PackedConvOp(cfg, wei, bia, sin=sin, col_off_out=2,
-                           halo_out=1, sum_spec=ssum)
+                           halo_out=1, sum_spec=ssum, device="cpu")
         with pytest.raises(JCheckError, match=match):
             J.PackedConvOp(jcfg, wei, bia, sin=jspec(sin), col_off_out=2,
                            halo_out=1,
                            sum_spec=None if ssum is None else jspec(ssum))
     top, _ = _sum_op_pair(0, "nearest", False, seed=3)
-    x = T.pack_image(np.zeros((2, 12, 12, 32), np.uint8), top.sin)
+    x = T.pack_image(np.zeros((2, 12, 12, 32), np.uint8), top.sin,
+                     device="cpu")
     with pytest.raises(CheckError, match="pass sum_arr"):
         top(x)
 
@@ -386,7 +394,7 @@ def test_strided_pack_input_matches_jax(ic, hw, oc1):
     the same accumulator."""
     cfg, jcfg, wei, bia, wei1, bia1 = _cfgs(2, hw, ic, 32, oc1=oc1,
                                             stride=2, per_oc=True, seed=ic)
-    top = T.PackedConvOp(cfg, wei, bia, wei1, bia1)
+    top = T.PackedConvOp(cfg, wei, bia, wei1, bia1, device="cpu")
     jop = J.PackedConvOp(jcfg, wei, bia, wei1, bia1)
     assert (jspec(top.sin), jspec(top.sout)) == (jop.sin, jop.sout)
     assert top.cfg_orig == cfg and top.cfg.sh == 1 and top.cfg.ic == 4 * ic
@@ -419,17 +427,18 @@ def test_s2d_helpers_match_jax():
 
 def test_save_load_strided_and_sum_ops(tmp_path):
     cfg, _, wei, bia, _, _ = _cfgs(2, 13, 16, 32, stride=2, seed=5)
-    ops = [T.PackedConvOp(cfg, wei, bia), _sum_op_pair(1, "down", True, 6)[0]]
+    ops = [T.PackedConvOp(cfg, wei, bia,
+                          device="cpu"), _sum_op_pair(1, "down", True, 6)[0]]
     rng = np.random.default_rng(11)
     for i, op in enumerate(ops):
         path = str(tmp_path / f"op{i}.npz")
         op.save(path)
-        op2 = T.PackedConvOp.load(path)
+        op2 = T.PackedConvOp.load(path, device="cpu")
         assert (op2.cfg, op2.cfg_orig, op2.sins, op2.sout, op2.ssum) == \
             (op.cfg, op.cfg_orig, op.sins, op.sout, op.ssum)
-        x = T.pack_image(_u8(rng, 2, op.sin), op.sin)
+        x = T.pack_image(_u8(rng, 2, op.sin), op.sin, device="cpu")
         kw = {} if op.ssum is None else dict(
-            sum_arr=T.pack_image(_u8(rng, 2, op.ssum), op.ssum))
+            sum_arr=T.pack_image(_u8(rng, 2, op.ssum), op.ssum, device="cpu"))
         assert torch.equal(op(x, **kw), op2(x, **kw))
 
 
@@ -439,13 +448,13 @@ def test_save_load_roundtrip(tmp_path):
     sins = (T.PackedSpec.make(12, 12, 32, halo=2, col_off=2),
             T.PackedSpec.make(12, 12, 32, halo=2, col_off=2))
     op = T.PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sins, col_off_out=2,
-                        halo_out=1)
+                        halo_out=1, device="cpu")
     path = str(tmp_path / "pop.npz")
     op.save(path)
-    op2 = T.PackedConvOp.load(path)
+    op2 = T.PackedConvOp.load(path, device="cpu")
     assert (op2.cfg, op2.sins, op2.sout) == (op.cfg, op.sins, op.sout)
     rng = np.random.default_rng(2)
-    xs = tuple(T.pack_image(_u8(rng, 2, s), s) for s in sins)
+    xs = tuple(T.pack_image(_u8(rng, 2, s), s, device="cpu") for s in sins)
     assert torch.equal(op(xs), op2(xs))
 
 
@@ -456,7 +465,7 @@ def test_packed_concat_matches_jax():
     specs = [T.PackedSpec.make(8, 12, 32, halo=2, col_off=2),
              T.PackedSpec.make(8, 12, 40, halo=2, col_off=2)]
     imgs = [_u8(rng, 2, s) for s in specs]
-    got, gspec = T.packed_concat([T.pack_image(x, s)
+    got, gspec = T.packed_concat([T.pack_image(x, s, device="cpu")
                                   for x, s in zip(imgs, specs)], specs)
     want, wspec = J.packed_concat([J.pack_image(x, jspec(s))
                                    for x, s in zip(imgs, specs)],
@@ -464,7 +473,7 @@ def test_packed_concat_matches_jax():
     assert jspec(gspec) == wspec
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     with pytest.raises(CheckError):
-        T.packed_concat([T.pack_image(imgs[1], specs[1])] * 2,
+        T.packed_concat([T.pack_image(imgs[1], specs[1], device="cpu")] * 2,
                         [specs[1]] * 2)
 
 
@@ -480,8 +489,8 @@ def test_packed_sum_relu_matches_jax():
     rng = np.random.default_rng(6)
     spec = T.PackedSpec.make(6, 10, 32, halo=2, col_off=2)
     a, b = _edge_u8(rng, (2, 6, 10, 32)), _edge_u8(rng, (2, 6, 10, 32))
-    got = T.packed_sum_relu(T.pack_image(a, spec), T.pack_image(b, spec),
-                            spec)
+    got = T.packed_sum_relu(T.pack_image(a, spec, device="cpu"),
+                            T.pack_image(b, spec, device="cpu"), spec)
     want = J.packed_sum_relu(J.pack_image(a, jspec(spec)),
                              J.pack_image(b, jspec(spec)), jspec(spec))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -491,14 +500,15 @@ def test_packed_maxpool2_matches_jax():
     rng = np.random.default_rng(7)
     spec = T.PackedSpec.make(8, 12, 48, halo=2, col_off=2, iwp=16)
     src = _edge_u8(rng, (2, 8, 12, 48))
-    got, gspec = T.packed_maxpool2(T.pack_image(src, spec), spec)
+    got, gspec = T.packed_maxpool2(T.pack_image(src, spec, device="cpu"), spec)
     want, wspec = J.packed_maxpool2(J.pack_image(src, jspec(spec)),
                                     jspec(spec))
     assert jspec(gspec) == wspec
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     odd = T.PackedSpec.make(8, 12, 32, halo=2, col_off=1, iwp=16)
     with pytest.raises(CheckError, match="even halo and col_off"):
-        T.packed_maxpool2(T.pack_image(_u8(rng, 1, odd), odd), odd)
+        T.packed_maxpool2(T.pack_image(_u8(rng, 1, odd), odd,
+                                       device="cpu"), odd)
 
 
 @pytest.mark.parametrize("cs", [(64,), (32, 32), (32, 64, 32)])
@@ -510,8 +520,8 @@ def test_packed_sum_relu_maxpool2_matches_jax(cs):
     ys = [_edge_u8(rng, (2, 8, 12, c)) for c in cs]
     r = _edge_u8(rng, (2, 8, 12, sum(cs)))
     got, gspec = T.packed_sum_relu_maxpool2(
-        [T.pack_image(y, s) for y, s in zip(ys, yspecs)],
-        T.pack_image(r, rspec), yspecs, rspec)
+        [T.pack_image(y, s, device="cpu") for y, s in zip(ys, yspecs)],
+        T.pack_image(r, rspec, device="cpu"), yspecs, rspec)
     want, wspec = J.packed_sum_relu_maxpool2(
         [J.pack_image(y, jspec(s)) for y, s in zip(ys, yspecs)],
         J.pack_image(r, jspec(rspec)), [jspec(s) for s in yspecs],
@@ -526,7 +536,8 @@ def test_packed_global_avgpool_matches_jax(rnd):
     rng = np.random.default_rng(8)
     spec = T.PackedSpec.make(9, 13, 40, halo=3, col_off=2)
     x = rng.integers(0, 256, (3, 9, 13, 40), dtype=np.uint8)
-    got = T.packed_global_avgpool(T.pack_image(x, spec), spec, round=rnd)
+    got = T.packed_global_avgpool(T.pack_image(x, spec,
+                                               device="cpu"), spec, round=rnd)
     want = J.packed_global_avgpool(J.pack_image(x, jspec(spec)),
                                    jspec(spec), round=jround[rnd])
     assert got.dtype == torch.uint8 and tuple(got.shape) == (3, 1, 1, 40)
@@ -538,7 +549,7 @@ def test_repack_matches_jax():
     s1 = T.PackedSpec.make(5, 9, 24, halo=1, col_off=1)
     s2 = T.PackedSpec.make(5, 9, 24, cp=64, halo=3, col_off=4, iwp=24)
     src = _u8(rng, 2, s1)
-    got = T.repack(T.pack_image(src, s1), s1, s2)
+    got = T.repack(T.pack_image(src, s1, device="cpu"), s1, s2)
     want = J.repack(J.pack_image(src, jspec(s1)), jspec(s1), jspec(s2))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -550,7 +561,8 @@ def _acc1_ops(seed, per_oc):
                                             per_oc=per_oc, seed=seed)
     sin = T.PackedSpec.make(12, 12, 32, halo=2, col_off=2, iwp=16)
     kw = dict(halo_out=1, col_off_out=2)
-    return (T.PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sin, **kw),
+    return (T.PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sin, **kw,
+                           device="cpu"),
             J.PackedConvOp(jcfg, wei, bia, wei1, bia1, sin=jspec(sin), **kw))
 
 
@@ -586,7 +598,8 @@ def test_emit_acc1_refusals(what):
     ssum = T.PackedSpec.make(12, 12, 32, halo=2, col_off=2, iwp=16) \
         if what == "sum" else None
     op = T.PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sin, halo_out=2,
-                        col_off_out=2, sum_spec=ssum, pool2=what == "pool2")
+                        col_off_out=2, sum_spec=ssum, pool2=what == "pool2",
+                        device="cpu")
     xs = [torch.full(s.array_shape(1), -128, dtype=torch.int8)
           for s in op.sins]
     sm = None if ssum is None else torch.full(ssum.array_shape(1), -128,
@@ -607,7 +620,8 @@ def _range_op(halo_in, pool2, with_sum, n_in, seed=0):
     ssum = T.PackedSpec.make(12, 12, 32, halo=3, col_off=2, iwp=16) \
         if with_sum else None
     return T.PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sins, halo_out=2,
-                          col_off_out=2, sum_spec=ssum, pool2=pool2)
+                          col_off_out=2, sum_spec=ssum, pool2=pool2,
+                          device="cpu")
 
 
 @pytest.mark.parametrize("halo_in,pool2,with_sum,n_in",
@@ -620,10 +634,11 @@ def test_row_ranges_from_slices_stitch_to_the_output(halo_in, pool2,
     equal to it), joined, are the whole output bitwise."""
     op = _range_op(halo_in, pool2, with_sum, n_in)
     rng = np.random.default_rng(halo_in)
-    xs = [T.pack_image(torch.from_numpy(_edge_u8(rng, (2, 12, 12, s.c))), s)
+    xs = [T.pack_image(torch.from_numpy(_edge_u8(rng, (2, 12, 12, s.c))), s,
+                       device="cpu")
           for s in op.sins]
     sm = T.pack_image(torch.from_numpy(_edge_u8(rng, (2, 12, 12, 32))),
-                      op.ssum) if with_sum else None
+                      op.ssum, device="cpu") if with_sum else None
     want = op(xs if n_in > 1 else xs[0], sm)
     so, iwp = op.sout_final, op.sin.iwp
     cuts = [0, 1, 3, so.rows - 2, so.rows]
@@ -656,7 +671,7 @@ def test_reheight_matches_jax():
     ssum = T.PackedSpec.make(12, 12, 32, halo=3, col_off=2, iwp=16)
     kw = dict(halo_out=2, col_off_out=2, pool2=True)
     top = T.PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sin, sum_spec=ssum,
-                         **kw).reheight(6)
+                         **kw, device="cpu").reheight(6)
     jop = J.PackedConvOp(jcfg, wei, bia, wei1, bia1, sin=jspec(sin),
                          sum_spec=jspec(ssum), **kw).reheight(6)
     assert (jspec(top.sin), jspec(top.sout), jspec(top.ssum)) == \
@@ -677,7 +692,7 @@ def test_reheight_checks_match_jax(case):
     msg = {"strided": "reheight does not support s2d-lowered strided ops",
            "valid": "reheight requires oh == ih"}[case]
     with pytest.raises(CheckError, match=msg):
-        T.PackedConvOp(cfg, wei, bia).reheight(4)
+        T.PackedConvOp(cfg, wei, bia, device="cpu").reheight(4)
     with pytest.raises(JCheckError, match=msg):
         J.PackedConvOp(jcfg, wei, bia).reheight(4)
 
@@ -686,10 +701,10 @@ def test_pack_image_sharded_matches_jax():
     rng = np.random.default_rng(5)
     src = _edge_u8(rng, (2, 12, 10, 40))
     spec = T.PackedSpec.make(4, 10, 40, halo=2, col_off=2, iwp=16)
-    got = T.pack_image_sharded(torch.from_numpy(src), spec, 3)
+    got = T.pack_image_sharded(torch.from_numpy(src), spec, 3, device="cpu")
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(J.pack_image_sharded(src, jspec(spec), 3)))
     np.testing.assert_array_equal(
         T.unpack_image_sharded(got, spec, 3).numpy(), src)
     with pytest.raises(CheckError, match="does not split"):
-        T.pack_image_sharded(torch.from_numpy(src), spec, 2)
+        T.pack_image_sharded(torch.from_numpy(src), spec, 2, device="cpu")

@@ -103,20 +103,20 @@ def test_factorize_mesh_matches_jax():
 
 def test_dp_shard_conv_ops():
     cfg, _, src, wei, bia, wei1, bia1 = fused(mb=4)
-    op = ConvOp(cfg, wei, bia, wei1, bia1)
+    op = ConvOp(cfg, wei, bia, wei1, bia1, device="cpu")
     fn = dp_shard(op, cpu_mesh(dp=2))
     x = torch.from_numpy(src)
     assert torch.equal(fn(x), op(x))
     _shard_devices(fn, x)
     cfg, _, src, wei, bia, wei1, bia1 = fused(mb=4, sw=2, seed=1)
-    op = ConvOp(cfg, wei, bia, wei1, bia1)
+    op = ConvOp(cfg, wei, bia, wei1, bia1, device="cpu")
     assert torch.equal(dp_shard(op, cpu_mesh(dp=4))(torch.from_numpy(src)),
                        op(torch.from_numpy(src)))
 
 
 def test_dp_shard_conv_sum_and_convpool():
     cfg, _, src, wei, bia, wei1, bia1, sm = fused(mb=4, with_sum=True)
-    op = ConvOp(cfg, wei, bia, wei1, bia1)
+    op = ConvOp(cfg, wei, bia, wei1, bia1, device="cpu")
     x, s = torch.from_numpy(src), torch.from_numpy(sm)
     assert torch.equal(dp_shard(op, cpu_mesh(dp=2))(x, s), op(x, sum_src=s))
     rng = np.random.default_rng(3)
@@ -126,7 +126,8 @@ def test_dp_shard_conv_sum_and_convpool():
     pop = ConvPoolOp(c, PoolConfig.make("max", (8, 8), (2, 2), (2, 2),
                                         (0, 0)),
                      rng.integers(-128, 128, (32, 16, 3, 3)).astype(np.int8),
-                     rng.integers(-5000, 5000, (32,)).astype(np.int32))
+                     rng.integers(-5000, 5000, (32,)).astype(np.int32),
+                     device="cpu")
     x = torch.from_numpy(_edge_u8(rng, (4, 8, 8, 16)))
     assert torch.equal(dp_shard(pop, cpu_mesh(dp=2))(x), pop(x))
 
@@ -136,11 +137,14 @@ def test_dp_shard_packed_multi_input_sum_and_pair():
                                          sum_scale=0.75, per_oc=True)
     sins = (PackedSpec.make(8, 8, 32, halo=1, col_off=1),) * 2
     ssum = PackedSpec.make(8, 8, 32, halo=2, col_off=1)
-    op = PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sins, sum_spec=ssum)
+    op = PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sins, sum_spec=ssum,
+                      device="cpu")
     rng = np.random.default_rng(4)
-    xs = [pack_image(torch.from_numpy(_edge_u8(rng, (4, 8, 8, 32))), s)
+    xs = [pack_image(torch.from_numpy(_edge_u8(rng, (4, 8, 8, 32))), s,
+                     device="cpu")
           for s in sins]
-    s = pack_image(torch.from_numpy(_edge_u8(rng, (4, 8, 8, 32))), ssum)
+    s = pack_image(torch.from_numpy(_edge_u8(rng, (4, 8, 8, 32))), ssum,
+                   device="cpu")
     fn = dp_shard(op, cpu_mesh(dp=2))
     assert torch.equal(fn(xs, s), op(xs, s))
     _shard_devices(fn, xs, s)
@@ -148,15 +152,18 @@ def test_dp_shard_packed_multi_input_sum_and_pair():
     cb = _cfgs(4, 12, 32, 32, seed=2)
     sin = PackedSpec.make(12, 12, 32, halo=2, col_off=2, iwp=16)
     pair = PackedConvPairOp(ca[0], ca[2:], cb[0], cb[2:], sin=sin,
-                            halo_out=2, col_off_out=2, pool2=True)
-    x = pack_image(torch.from_numpy(_edge_u8(rng, (4, 12, 12, 32))), sin)
+                            halo_out=2, col_off_out=2, pool2=True,
+                            device="cpu")
+    x = pack_image(torch.from_numpy(_edge_u8(rng, (4, 12, 12, 32))), sin,
+                   device="cpu")
     assert torch.equal(dp_shard(pair, cpu_mesh(dp=2))(x), pair(x))
 
 
 def test_dp_shard_fail_fast():
     cfg, _, src, wei, bia, wei1, bia1 = fused(mb=3)
     with pytest.raises(CheckError, match="batch 3 not divisible by dp"):
-        dp_shard(ConvOp(cfg, wei, bia, wei1, bia1), cpu_mesh(dp=2))
+        dp_shard(ConvOp(cfg, wei, bia, wei1, bia1,
+                        device="cpu"), cpu_mesh(dp=2))
     with pytest.raises(CheckError, match="does not support Linear"):
         dp_shard(torch.nn.Linear(2, 2), cpu_mesh(dp=2))
 
@@ -167,7 +174,8 @@ def test_dp_shard_fail_fast():
 @pytest.mark.parametrize("wire", ["psum", "reduce_scatter"])
 def test_tp_fused_conv_bitwise(n, wire):
     cfg, _, src, wei, bia, wei1, bia1 = fused(oc=16 * n, seed=n)
-    want = ConvOp(cfg, wei, bia, wei1, bia1)(torch.from_numpy(src))
+    want = ConvOp(cfg, wei, bia, wei1, bia1,
+                  device="cpu")(torch.from_numpy(src))
     fn = tp_fused_conv(cfg, wei, bia, wei1, bia1, cpu_mesh(tp=n), wire=wire)
     assert torch.equal(fn(torch.from_numpy(src)), want)
     _shard_devices(fn, torch.from_numpy(src))
@@ -176,7 +184,8 @@ def test_tp_fused_conv_bitwise(n, wire):
 def test_tp_fused_conv_pads_the_scatter_lanes():
     """oc1x1 = 10 over 4 shards: the scatter pads the lanes to 12."""
     cfg, _, src, wei, bia, wei1, bia1 = fused(oc=32, oc1=10, seed=7)
-    want = ConvOp(cfg, wei, bia, wei1, bia1)(torch.from_numpy(src))
+    want = ConvOp(cfg, wei, bia, wei1, bia1,
+                  device="cpu")(torch.from_numpy(src))
     got = tp_fused_conv(cfg, wei, bia, wei1, bia1, cpu_mesh(tp=4))(
         torch.from_numpy(src))
     assert torch.equal(got, want)
@@ -204,10 +213,11 @@ def _packed_tp_op(n, oc1=40, seed=0):
                                             per_oc=True, seed=seed)
     sin = PackedSpec.make(10, 10, 32, halo=2, col_off=2, iwp=16)
     kw = dict(halo_out=1, col_off_out=2)
-    op = PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sin, **kw)
+    op = PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sin, **kw, device="cpu")
     jop = JPackedConvOp(jcfg, wei, bia, wei1, bia1, sin=jspec(sin), **kw)
     x = pack_image(torch.from_numpy(_edge_u8(np.random.default_rng(seed),
-                                             (2, 10, 10, 32))), sin)
+                                             (2, 10, 10, 32))), sin,
+                   device="cpu")
     return op, jop, x
 
 
@@ -244,7 +254,7 @@ def test_tp_fail_fast_matches_jax(case):
         if case == "sum" else None
     mk = dict(halo_out=2, col_off_out=2, pool2=case == "pool2")
     op = PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sins, sum_spec=ssum,
-                      **mk)
+                      **mk, device="cpu")
     jop = JPackedConvOp(jcfg, wei, bia, wei1, bia1,
                         sin=tuple(jspec(s) for s in sins),
                         sum_spec=None if ssum is None else jspec(ssum), **mk)
@@ -260,7 +270,7 @@ def test_tp_fail_fast_matches_jax(case):
            "wire": "unknown tp wire 'ring'",
            "oc": "oc 32", "type": "needs a PackedConvOp"}[case]
     if case == "type":
-        op, jop = ConvOp(fused()[0], *fused()[3:7]), object()
+        op, jop = ConvOp(fused()[0], *fused()[3:7], device="cpu"), object()
     with pytest.raises(CheckError, match=msg):
         tp_packed_fused(op, cpu_mesh(tp=n), **kw)
     with pytest.raises(JCheckError, match=msg):
@@ -277,7 +287,7 @@ def test_sp_conv_bitwise(n, ph, sw, with_sum):
     """SAME and VALID padding, strided W, the sum post-op."""
     got = fused(hw=16, ph=ph, sw=sw, with_sum=with_sum, seed=n + ph)
     cfg, _, src, wei, bia, wei1, bia1 = got[:7]
-    op = ConvOp(cfg, wei, bia, wei1, bia1)
+    op = ConvOp(cfg, wei, bia, wei1, bia1, device="cpu")
     x = torch.from_numpy(src)
     args = (x,) if not with_sum else (x, torch.from_numpy(got[7]))
     fn = sp_conv(op, cpu_mesh(sp=n))
@@ -288,7 +298,7 @@ def test_sp_conv_bitwise(n, ph, sw, with_sum):
 
 def test_sp_conv_dp_axis():
     cfg, _, src, wei, bia, wei1, bia1 = fused(mb=4, hw=12, seed=9)
-    op = ConvOp(cfg, wei, bia, wei1, bia1)
+    op = ConvOp(cfg, wei, bia, wei1, bia1, device="cpu")
     x = torch.from_numpy(src)
     fn = sp_conv(op, cpu_mesh(dp=2, sp=2), dp_axis="dp")
     assert torch.equal(fn(x), op(x))
@@ -298,7 +308,8 @@ def test_sp_conv_matches_jax():
     cfg, jcfg, src, wei, bia, wei1, bia1 = fused(hw=12, seed=12)
     want = np.asarray(JP.sp_conv(JConvOp(jcfg, wei, bia, wei1, bia1),
                                  jmesh(sp=2))(src))
-    got = sp_conv(ConvOp(cfg, wei, bia, wei1, bia1), cpu_mesh(sp=2))(
+    got = sp_conv(ConvOp(cfg, wei, bia, wei1, bia1,
+                         device="cpu"), cpu_mesh(sp=2))(
         torch.from_numpy(src))
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -310,9 +321,10 @@ def test_sp_conv_fail_fast_matches_jax():
                         (1, 1), (4, 12, 12, 32), "u8")
     msg = "sp_conv supports ConvOp \\(got ConvPoolOp\\)"
     with pytest.raises(CheckError, match=msg):
-        sp_conv(ConvPoolOp(c, pc, wei, bia), cpu_mesh(sp=2))
+        sp_conv(ConvPoolOp(c, pc, wei, bia, device="cpu"), cpu_mesh(sp=2))
     with pytest.raises(CheckError, match="ih 12 not divisible by sp"):
-        sp_conv(ConvOp(cfg, wei, bia, wei1, bia1), cpu_mesh(sp=5))
+        sp_conv(ConvOp(cfg, wei, bia, wei1, bia1,
+                       device="cpu"), cpu_mesh(sp=5))
     with pytest.raises(JCheckError, match="ih 12 not divisible by sp"):
         JP.sp_conv(JConvOp(jcfg, wei, bia, wei1, bia1), jmesh(sp=5))
 
@@ -325,22 +337,22 @@ def _sp_packed_check(op, n_shard, dp=1, seed=0, with_sum=False):
     imgs = [torch.from_numpy(_edge_u8(rng, (mb, s.h, s.w, s.c)))
             for s in (op.sins if isinstance(op, PackedConvOp)
                       else (op.sin,))]
-    xg = [pack_image(i, s) for i, s in zip(
+    xg = [pack_image(i, s, device="cpu") for i, s in zip(
         imgs, op.sins if isinstance(op, PackedConvOp) else (op.sin,))]
     sm = None
     args = []
     fn = sp_packed(op, cpu_mesh(dp=dp, sp=n_shard),
                    dp_axis="dp" if dp > 1 else None)
-    xs = [pack_image_sharded(i, s, n_shard)
+    xs = [pack_image_sharded(i, s, n_shard, device="cpu")
           for i, s in zip(imgs, fn.local_specs)]
     if with_sum:
         simg = torch.from_numpy(_edge_u8(rng, (mb, op.ssum.h, op.ssum.w,
                                                op.ssum.c)))
-        sm = pack_image(simg, op.ssum)
+        sm = pack_image(simg, op.ssum, device="cpu")
         from dataclasses import replace
         args = [pack_image_sharded(simg, replace(op.ssum,
                                                  h=op.ssum.h // n_shard),
-                                   n_shard)]
+                                   n_shard, device="cpu")]
     src = xg if len(xg) > 1 else xg[0]
     want = op(src, sm) if with_sum else op(src)
     want_img = unpack_image(want, op.sout_final)
@@ -358,7 +370,7 @@ def _conv_op(hw=16, halo=1, pool2=False, oc1=32, seed=0, iwp=None):
     sin = PackedSpec.make(hw, hw, 32, halo=halo, col_off=2, iwp=iwp)
     return PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sin,
                         halo_out=2 if pool2 else 1, col_off_out=2,
-                        pool2=pool2)
+                        pool2=pool2, device="cpu")
 
 
 @pytest.mark.parametrize("n,halo", [(2, 1), (4, 1), (2, 3), (4, 2)])
@@ -377,7 +389,8 @@ def test_sp_packed_sum_and_multi_input():
                                          sum_scale=0.75)
     sins = (PackedSpec.make(16, 16, 32, halo=1, col_off=1),) * 2
     ssum = PackedSpec.make(16, 16, 32, halo=2, col_off=1)
-    op = PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sins, sum_spec=ssum)
+    op = PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sins, sum_spec=ssum,
+                      device="cpu")
     for n in (2, 4):
         _sp_packed_check(op, n, seed=n, with_sum=True)
 
@@ -388,7 +401,7 @@ def _pair_op(hw=16, halo=4, pool2=True, seed=0, iwp=32):
     sin = PackedSpec.make(hw, hw, 32, halo=halo, col_off=2, iwp=iwp)
     return PackedConvPairOp(ca[0], ca[2:], cb[0], cb[2:], sin=sin,
                             halo_out=2 if pool2 else 1, col_off_out=2,
-                            pool2=pool2)
+                            pool2=pool2, device="cpu")
 
 
 @pytest.mark.parametrize("n,pool2", [(2, True), (4, True), (2, False)])
@@ -405,7 +418,7 @@ def test_sp_packed_pair_matches_jax():
     cb = _cfgs(2, 12, 32, 32, seed=2)
     sin = PackedSpec.make(12, 12, 32, halo=4, col_off=2, iwp=16)
     kw = dict(sin=sin, halo_out=2, col_off_out=2, pool2=True)
-    pair = PackedConvPairOp(ca[0], ca[2:], cb[0], cb[2:], **kw)
+    pair = PackedConvPairOp(ca[0], ca[2:], cb[0], cb[2:], **kw, device="cpu")
     from deepfusion_tpu.ops.mega import PackedConvPairOp as JPair
     jpair = JPair(ca[1], ca[2:], cb[1], cb[2:],
                   **{**kw, "sin": jspec(sin)})
@@ -414,7 +427,8 @@ def test_sp_packed_pair_matches_jax():
     assert jspec(fn.local_spec) == jfn.local_spec
     assert jspec(fn.local_out_spec) == jfn.local_out_spec
     img = _edge_u8(np.random.default_rng(8), (2, 12, 12, 32))
-    xs = pack_image_sharded(torch.from_numpy(img), fn.local_spec, 2)
+    xs = pack_image_sharded(torch.from_numpy(img), fn.local_spec, 2,
+                            device="cpu")
     jxs = np.asarray(jpack_sharded(img, jfn.local_spec, 2))
     np.testing.assert_array_equal(xs.numpy(), jxs)
     np.testing.assert_array_equal(fn(xs).numpy(), np.asarray(jfn(jxs)))
@@ -438,7 +452,8 @@ def test_sp_packed_fail_fast_matches_jax():
     with pytest.raises(CheckError, match="image height 16 not divisible"):
         sp_packed(_conv_op(), cpu_mesh(sp=3))
     with pytest.raises(CheckError, match="sp_packed supports"):
-        sp_packed(ConvOp(fused()[0], *fused()[3:7]), cpu_mesh(sp=2))
+        sp_packed(ConvOp(fused()[0], *fused()[3:7],
+                         device="cpu"), cpu_mesh(sp=2))
     with pytest.raises(CheckError, match="shard height 1 below"):
         sp_packed(_pair_op(hw=8, pool2=False, halo=3), cpu_mesh(sp=8))
 

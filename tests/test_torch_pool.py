@@ -58,7 +58,7 @@ def test_pool_matches_jax(name, dt):
                                  DTYPES.index(dt)])
     x = full_range(rng, shape, dt)
     want = np.asarray(jpool(x, kind, k, s, p, rnd))
-    got = tpool(torch.from_numpy(x), kind, k, s, p, rnd).numpy()
+    got = tpool(torch.from_numpy(x), kind, k, s, p, rnd, device="cpu").numpy()
     assert got.dtype == want.dtype and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
 
@@ -74,6 +74,7 @@ def test_eltwise_sum_relu_matches_jax(dt, relu):
         a.reshape(-1)[:2] = [info.max, info.min]
         b.reshape(-1)[:2] = [info.max, info.min]
     want = np.asarray(jsum(a, b, relu))
-    got = tsum(torch.from_numpy(a), torch.from_numpy(b), relu).numpy()
+    got = tsum(torch.from_numpy(a), torch.from_numpy(b), relu,
+               device="cpu").numpy()
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)

@@ -35,7 +35,7 @@ def jax_net():
 
 @pytest.fixture(scope="module")
 def net():
-    return ResFusionNet(ResFusionNetConfig(**SMALL))
+    return ResFusionNet(ResFusionNetConfig(**SMALL), device="cpu")
 
 
 def _jax_params_as_numpy(jnet) -> dict:
@@ -92,14 +92,15 @@ def test_forward_matches_jax(seed, jax_net, net):
 def test_from_numpy_params_matches_jax(jax_net):
     x = jax_net.example_input(np.random.default_rng(5))
     net2 = ResFusionNet.from_numpy_params(ResFusionNetConfig(**SMALL),
-                                          _jax_params_as_numpy(jax_net))
+                                          _jax_params_as_numpy(jax_net),
+                                          device="cpu")
     np.testing.assert_array_equal(net2(x).numpy(), np.asarray(jax_net(x)))
 
 
 @pytest.fixture(scope="module")
 def packed_nets():
     return (JResFusionNet(JConfig(**PACKED)),
-            ResFusionNet(ResFusionNetConfig(**PACKED)))
+            ResFusionNet(ResFusionNetConfig(**PACKED), device="cpu"))
 
 
 @pytest.mark.parametrize("seed", [0, 3])
@@ -144,7 +145,7 @@ def test_full_width_matches_jax_golden_logits():
     """ResFusionNetConfig() at its published width (batch 8, 64x64x32 in,
     width 128) against logits the JAX package's dense forward wrote
     (tests/data/make_resfusion_full_logits.py), on both forwards."""
-    net = ResFusionNet(ResFusionNetConfig())
+    net = ResFusionNet(ResFusionNetConfig(), device="cpu")
     golden, x = _golden_input(net)
     with torch.inference_mode():
         dense = net(x).numpy()

@@ -77,7 +77,7 @@ def _args(seed, dst, rnd, fused, sum_dt, *, stride=1, ic=16, hw=7,
 def _check(args):
     src, wei, bia, stride, pad, kw = args
     want = np.asarray(jconv(src, wei, bia, stride, pad, **kw))
-    got = tconv(src, wei, bia, stride, pad, **kw).numpy()
+    got = tconv(src, wei, bia, stride, pad, **kw, device="cpu").numpy()
     assert got.dtype == want.dtype and got.shape == want.shape
     if kw["dst_dtype"] != "f32":
         np.testing.assert_array_equal(got, want)
@@ -87,7 +87,7 @@ def _check(args):
     relu = kw["conv1_relu" if fused else "conv0_relu"]
     nosum = {k: v for k, v in kw.items() if k not in ("sum_src", "sum_scale")}
     nosum["conv1_relu" if fused else "conv0_relu"] = False
-    y0 = tconv(src, wei, bia, stride, pad, **nosum).numpy()
+    y0 = tconv(src, wei, bia, stride, pad, **nosum, device="cpu").numpy()
     st = kw["sum_src"].astype(np.float32) * np.float32(kw["sum_scale"])
     spec = y0 + st
     if relu:
@@ -138,10 +138,11 @@ def test_op_forward_with_sum_and_checks():
                           conv0_scales=kw["conv0_scales"], sum_dt="u8",
                           sum_scale=0.75)
     assert cfg.with_sum and cfg.sum_dt.name == "u8" and cfg.sum_scale == 0.75
-    op = ConvOp(cfg, wei, bia)
+    op = ConvOp(cfg, wei, bia, device="cpu")
     x, s = torch.from_numpy(src), torch.from_numpy(kw["sum_src"])
     np.testing.assert_array_equal(op(x, sum_src=s).numpy(),
-                                  tconv(src, wei, bia, stride, pad, **kw))
+                                  tconv(src, wei, bia, stride, pad, **kw,
+                                        device="cpu"))
     with pytest.raises(ValueError, match="pass sum_src"):
         op(x)
     with pytest.raises(CheckError, match="sum operand dtype"):
@@ -150,6 +151,6 @@ def test_op_forward_with_sum_and_checks():
         op(x, sum_src=s[:, 1:])
     plain = ConvOp(ConvConfig.make((n, hw, hw, ic), wei.shape, bia.dtype,
                                    stride, pad, (n, hw, hw, oc), "u8"),
-                   wei, bia)
+                   wei, bia, device="cpu")
     with pytest.raises(CheckError, match="no sum post-op"):
         plain(x, sum_src=s)

@@ -34,7 +34,7 @@ def jax_net():
 
 @pytest.fixture(scope="module")
 def net():
-    return VGGFusion(VGGFusionConfig(**SMALL))
+    return VGGFusion(VGGFusionConfig(**SMALL), device="cpu")
 
 
 def _jax_params_as_numpy(cfg: dict) -> dict:
@@ -106,7 +106,8 @@ def test_forward_matches_jax(path, seed, jax_net, net):
 def test_from_numpy_params_matches_jax(jax_net):
     x = jax_net.example_input(np.random.default_rng(5))
     net2 = VGGFusion.from_numpy_params(VGGFusionConfig(**SMALL),
-                                       _jax_params_as_numpy(SMALL))
+                                       _jax_params_as_numpy(SMALL),
+                                       device="cpu")
     with torch.inference_mode():
         np.testing.assert_array_equal(net2(x).numpy(),
                                       np.asarray(jax_net(x)))
@@ -126,7 +127,7 @@ def test_packed_specs_match_jax_build_packed(jax_net, net):
 
 @pytest.fixture(scope="module")
 def full_net():
-    return VGGFusion(VGGFusionConfig())
+    return VGGFusion(VGGFusionConfig(), device="cpu")
 
 
 @pytest.mark.parametrize("path", ["dense", "packed", "hybrid"])

@@ -5,7 +5,9 @@ trees of the repository on one card.
 
 Runs itself once per TREE, in the order given, each in its own process
 that imports ``deepfusion_tpu_torch`` from that tree (which builds its own
-kernels): K1 (``conv_cuda``) at FusionNet's layers, K5 (``packed_conv_cuda``)
+kernels): K1 (``conv_cuda``) at every dense layer of FusionNet, ResFusionNet
+and VGGFusion (the heads included; with the sums per model) and at
+bench.py's --dense shape, warm and cold, K5 (``packed_conv_cuda``)
 at FusionNet's and ResFusionNet's packed layers and at bench.py's default
 shape (8x126x126x256 -> 3x3:256 -> 1x1:256), K9 (``convpool_cuda``) at
 ResFusionNet's downsample and VGGFusion's three conv+pool layers, K10
@@ -13,9 +15,9 @@ ResFusionNet's downsample and VGGFusion's three conv+pool layers, K10
 model launches (FusionNet's 2x2 max pool and global average, ResFusionNet's
 and VGGFusion's global averages); full width, batch 8, inputs from seed 0.
 Each time is ``chip_smoke.device_ms``: the median of 3 ``torch.profiler``
-profiles of 50 calls (self device time per call, ms); K3 and the bench
-shape also cold (``chip_smoke.cold_device_ms``: the L2 evicted before every
-call). Entries ending in "host us" are the host's time per call of the
+profiles of 50 calls (self device time per call, ms); K1, K3 and the bench
+shapes also cold (``chip_smoke.cold_device_ms``: the L2 evicted before
+every call). Entries ending in "host us" are the host's time per call of the
 wrapper (a loop of 200 calls that the device keeps up with, no
 synchronisation inside; median of 5 loops, microseconds). Give the trees
 as parent, change, change, parent. Prints one JSON line per run, then the
@@ -77,11 +79,33 @@ def run_tree(tree):
     with torch.inference_mode():
         net = FusionNet(FusionNetConfig(), device=dev)
         rnet = ResFusionNet(ResFusionNetConfig(), device=dev)
-        for name in LAYERS:
-            op = getattr(net, name)
+        vnet = VGGFusion(VGGFusionConfig(), device=dev)
+        # K1 at every dense launch of the three forwards, warm and cold
+        k1 = [("FusionNet", n, getattr(net, n)) for n in LAYERS]
+        k1 += [("ResFusionNet", n, getattr(rnet, n))
+               for n in ("stem", "block1", "block2", "head")]
+        k1 += [("VGGFusion", f"block{b}_conv1", op)
+               for b, op in enumerate(vnet.conv1, 1)]
+        k1 += [("VGGFusion", "head", vnet.head)]
+        sums = {}
+        for model, name, op in k1:
             c = op.cfg
             x = cs.rand(rng, (c.bs, c.ih, c.iw, c.ic), u8, dev)
-            res[f"K1 FusionNet {name}"] = device_ms(lambda: K.conv_cuda(op, x))
+            sm = cs.rand(rng, (c.bs, c.oh, c.ow, c.out_oc), u8, dev) \
+                if c.with_sum else None
+            warm = device_ms(lambda: K.conv_cuda(op, x, sm))
+            cold = cold_ms(lambda: K.conv_cuda(op, x, sm))
+            res[f"K1 {model} {name}"] = warm
+            res[f"K1 {model} {name} cold"] = cold
+            group = "heads" if name == "head" else f"{model} dense"
+            for key, v in ((f"K1 sum {group}", warm),
+                           (f"K1 sum {group} cold", cold)):
+                sums[key] = sums.get(key, 0.0) + v
+            if (model, name) in (("FusionNet", "stem"),
+                                 ("FusionNet", "block2")):
+                res[f"K1 {model} {name} host us"] = host_us(
+                    lambda: K.conv_cuda(op, x, sm))
+        res.update(sums)
         for model in (net, rnet):
             n = model.cfg.batch
             for name, op in model.build_packed().items():
@@ -93,7 +117,6 @@ def run_tree(tree):
                 if model is net and name in ("stem", "res"):
                     res[f"K5 FusionNet {name} host us"] = host_us(
                         lambda: PK.packed_conv_cuda(op, arrs, sm))
-        vnet = VGGFusion(VGGFusionConfig(), device=dev)
         for b, pair in enumerate(vnet.build_packed(), 1):
             x = cs.packed_input(rng, pair.sin, vnet.cfg.batch, dev)
             res[f"K10 VGGFusion block{b}"] = device_ms(
@@ -137,6 +160,14 @@ def run_tree(tree):
             lambda: PK.packed_conv_cuda(fop, [fx]))
         res["K5 bench.py default cold"] = cold_ms(
             lambda: PK.packed_conv_cuda(fop, [fx]))
+        del fop, fx
+        # K1 at bench.py's --dense shape (the same layer, NHWC u8)
+        dop, _ = cs.flagship_dense(dev)
+        c = dop.cfg
+        dx = cs.rand(rng, (c.bs, c.ih, c.iw, c.ic), u8, dev)
+        res["K1 bench.py --dense"] = device_ms(lambda: K.conv_cuda(dop, dx))
+        res["K1 bench.py --dense cold"] = cold_ms(
+            lambda: K.conv_cuda(dop, dx))
     print(json.dumps({"tree": tree, "device_ms": res, "bench_macs": macs}),
           flush=True)
 
@@ -160,7 +191,7 @@ def main():
                                        zip(trees, meds))
         if len(meds) == 2:
             line += f" ratio={meds[1] / meds[0]:.4f}"
-        if layer.startswith("K5 bench.py"):
+        if layer.startswith(("K5 bench.py", "K1 bench.py")):
             line += " TOP/s " + " ".join(
                 f"{t}={2 * runs[0]['bench_macs'] / m / 1e9:.1f}"
                 for t, m in zip(trees, meds))
