@@ -4,9 +4,12 @@
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit, compute capability 9.0;
-  2. build: compile the CUDA kernels of deepfusion_tpu_torch/csrc; the
-     SASS of every instance of the dense conv kernel (K1) must issue wgmma
-     u8 x s8 on TMA-loaded tiles and no mma.sync; then the device rule:
+  2. build: compile the CUDA kernels of deepfusion_tpu_torch/csrc; no
+     function may issue mma.sync, and the SASS of every instance of the
+     dense conv kernel (K1), its pool mode (K9) and the conv pair (K10)
+     must issue wgmma on TMA-loaded tiles, and ptxas (-v) must not have
+     serialized the wgmma of K5, K9 or K10 (its note C7520); then the
+     device rule:
      FusionNet(cfg) and conv() on a numpy input, given no device, must run
      on cuda:0 through the kernels;
   3. parity: each kernel against its plain PyTorch version on the card,
@@ -71,6 +74,7 @@ import importlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -103,7 +107,7 @@ KERNEL_INFO = {
                         "deepfusion_tpu/ops/packed.py:746",
                         "deepfusion_tpu/ops/packed.py:645, "
                         "deepfusion_tpu/ops/packed.py:693"),
-    "convpool": ("deepfusion_tpu_torch/csrc/convpool.cu",
+    "convpool": ("deepfusion_tpu_torch/csrc/conv.cu",
                  "deepfusion_tpu/ops/convpool.py:104", None),
     "pair_conv": ("deepfusion_tpu_torch/csrc/pair_conv.cu",
                   "deepfusion_tpu/ops/mega.py:237", None),
@@ -359,17 +363,57 @@ def phase_device():
 
 def phase_build():
     from deepfusion_tpu_torch import _build
+    # ptxas -v: the build also writes ptxas's report (serialized_check)
+    os.environ["DEEPFUSION_DUMP_CODE"] = "1"
     t0 = time.perf_counter()
     _build.kernels()
     print(f"build: {_build.library_path().name} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     sass_check(_build.library_path())
+    serialized_check(_build.library_path().with_suffix(".ptxas.txt"))
+
+
+# The K1 instances that ptxas is known to serialize (C7520): the 1-byte
+# dsts, s8 (dtype code 3) and u8 (4), fused and not; the cause is open.
+K1_SERIALIZED = {f"conv_fused_kernelILb{f}ELi{d}E" for f in (0, 1)
+                 for d in (3, 4)}
+
+
+def serialized_check(report):
+    """ptxas's note C7520 ("wgmma.mma_async instructions are serialized"):
+    the function then waits out each wgmma before issuing the next. A lane
+    shuffle, or a __syncwarp in a loop whose exit depends on the
+    warpgroup, in K9's and K10's pool epilogues caused it. K5, K9 and K10
+    must carry no such note, and the K1 instances that carry it must be
+    exactly K1_SERIALIZED: a new one fails, and so does one that no longer
+    carries it (then the set is out of date)."""
+    from deepfusion_tpu_torch.utils.logger import check
+    text = open(report).read()
+    fns = set(re.findall(r"\(C7520\).*function '([^']+)'", text))
+    for kernel, name in (("K1", "conv_fused_kernel"), ("K5",
+                                                         "packed_conv_kernel"),
+                         ("K9", "convpool_kernel"),
+                         ("K10", "pair_conv_kernel")):
+        print(f"ptxas: {kernel} {name} instances with serialized wgmma "
+              f"(C7520): {sum(name in f for f in fns)}", flush=True)
+    k1 = {f for f in fns if "conv_fused_kernel" in f}
+    known = {k for k in K1_SERIALIZED if any(k in f for f in k1)}
+    unknown = sorted(f for f in k1 if not any(k in f for k in K1_SERIALIZED))
+    check(known == K1_SERIALIZED and not unknown,
+          f"K1 instances with C7520: {sorted(k1)}; expected exactly "
+          f"{sorted(K1_SERIALIZED)}")
+    bad = sorted(f for f in fns if "conv_fused_kernel" not in f)
+    check(not bad, f"ptxas serialized the wgmma of {bad}")
 
 
 def sass_check(lib):
-    """cuobjdump -sass of the built library: every conv_fused_kernel
-    instance (K1) issues wgmma u8 x s8 (IGMMA.64xNx32.U8.S8) on tiles that
-    TMA loads (UTMALDG), and no mma.sync (IMMA.16832)."""
+    """cuobjdump -sass of the built library: no function issues mma.sync
+    (IMMA.16832); every instance of the dense conv kernel (K1,
+    conv_fused_kernel, nine) and of its pool mode (K9, convpool_kernel,
+    four) issues wgmma u8 x s8 (IGMMA.64xNx32.U8.S8) only, and every
+    instance of the conv pair (K10, pair_conv_kernel, four) wgmma s8 x s8
+    (layer a's packed read) and u8 x s8 (layer b and the 1x1s), each on
+    tiles that TMA loads (UTMALDG)."""
     from deepfusion_tpu_torch._build import _nvcc
     from deepfusion_tpu_torch.utils.logger import check
     tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
@@ -386,16 +430,23 @@ def sass_check(lib):
                 f["igmma"].add(line.split("IGMMA.")[1].split()[0])
             f["utmaldg"] += "UTMALDG" in line
             f["imma"] += "IMMA.16832" in line
-    k1 = {k: v for k, v in funcs.items() if "conv_fused_kernel" in k}
-    check(len(k1) == 9, f"expected 9 conv_fused_kernel instances in the "
-                        f"SASS, found {len(k1)}")
-    for name, f in k1.items():
-        ok = (f["igmma"] and all(g.endswith(".U8.S8") for g in f["igmma"])
-              and f["utmaldg"] > 0 and f["imma"] == 0)
-        print(f"sass: {name[:72]} IGMMA {sorted(f['igmma'])} UTMALDG "
-              f"{f['utmaldg']} IMMA.16832 {f['imma']}", flush=True)
-        check(ok, f"{name}: K1 must issue IGMMA .U8.S8 on UTMALDG tiles and "
-                  "no IMMA.16832")
+    imma = sorted(k for k, f in funcs.items() if f["imma"])
+    check(not imma, f"functions issuing mma.sync (IMMA.16832): {imma}")
+    for kernel, name, count, types in (
+            ("K1", "conv_fused_kernel", 9, {"U8.S8"}),
+            ("K9", "convpool_kernel", 4, {"U8.S8"}),
+            ("K10", "pair_conv_kernel", 4, {"S8.S8", "U8.S8"})):
+        inst = {k: v for k, v in funcs.items() if name in k}
+        check(len(inst) == count, f"expected {count} {name} instances in the "
+                                  f"SASS, found {len(inst)}")
+        for fn, f in inst.items():
+            got = {g.split(".", 1)[1] for g in f["igmma"]}
+            print(f"sass: {kernel} {fn[:72]} IGMMA {sorted(f['igmma'])} "
+                  f"UTMALDG {f['utmaldg']} IMMA.16832 {f['imma']}",
+                  flush=True)
+            check(got == types and f["utmaldg"] > 0,
+                  f"{fn}: {kernel} must issue IGMMA {sorted(types)} on "
+                  "UTMALDG tiles")
 
 
 def phase_default_device(cfg):
@@ -626,6 +677,23 @@ def convpool_cases(dev):
     for dst, kind in (("u8", "max"), ("s8", "avg_exc"), ("s32", "max")):
         add(f"saturate {kind} {dst}", 1, 8, 64, 32, 1, dst, kind, "nearest",
             "nearest", None, scale=1e6 if dst == "s32" else 0.05)
+    # the tile edges of the wgmma kernel's pool mode (convpool_plan): lanes
+    # split over the grid at a block 3-sized layer, an odd tile count with
+    # a partial last tile, two passes of 256 lanes, strides above TMA's 8
+    # (gathered away), odd dst pitches
+    for dst, kind, sdt in (("u8", "max", None), ("f32", "avg_exc", "s32"),
+                           ("s8", "avg_exc", "u8")):
+        add(f"lane slices 14x14x64 -> 256 {kind} {dst} sum={sdt}", 1, 14,
+            64, 256, 1, dst, kind, "nearest", "down", sdt)
+        add(f"odd tiles 22x22 {kind} {dst} sum={sdt}", 1, 22, 32, 96, 1, dst,
+            kind, "down", "nearest", sdt)
+    for dst, kind in (("u8", "max"), ("f32", "avg_exc")):
+        add(f"oc 264 (two passes) {kind} {dst}", 2, 12, 32, 264, 1, dst, kind,
+            "nearest", "nearest", None)
+        add(f"stride 10 {kind} {dst}", 1, 40, 16, 24, 10, dst, kind,
+            "nearest", "nearest", "u8")
+        add(f"odd pitch oc 13 {kind} {dst}", 1, 16, 16, 13, 1, dst, kind,
+            "nearest", "down", "s32")
     return out
 
 
@@ -976,6 +1044,20 @@ def pair_cases(dev):
                                                 iwp=16),
         halo_out=2, col_off_out=2)
     add("oc 544 (two channel passes)", 1, 6, (32, 544), (544, 64))
+    # the wgmma kernel's tile edges (pair_conv_plan): a block 3-sized split
+    # tile, an odd tile count with partial last tiles in both directions,
+    # the wide tile (layer b's 32 lanes cannot split) with pool2, and a
+    # wide fused pair
+    add("block3-sized 14x14 128 -> 256 -> 256 pool2", 2, 14, (128, 256),
+        (256, 256), sin=PackedSpec.make(14, 14, 128, halo=2, col_off=2,
+                                        iwp=32),
+        halo_out=2, col_off_out=2, pool2=True)
+    add("odd tiles 20x20 split", 1, 20, (32, 64), (64, 64))
+    add("odd tiles 20x20 wide pool2", 1, 20, (32, 64), (64, 32),
+        sin=PackedSpec.make(20, 20, 32, halo=2, col_off=2, iwp=32),
+        halo_out=2, col_off_out=2, pool2=True)
+    add("wide fused 18x18 64 -> 64 -> 1x1 32 -> 32 -> 1x1 64", 2, 18,
+        (64, 64, 32), (32, 32, 64))
     return out
 
 
@@ -1476,6 +1558,33 @@ def print_conv_plan(label, op, n):
           f"k_per_tap={p['k_per_tap']}", flush=True)
 
 
+def print_convpool_plan(label, op, n):
+    """K9's plan for op at batch n (``convpool_plan``)."""
+    from deepfusion_tpu_torch.ops.convpool import convpool_plan
+    p = convpool_plan(op, n)
+    print(f"plan: convpool {label} tile_m={p['tile_m']} tile="
+          f"{p['tile_rows']}x{p['tile_cols']} split={p['split']} "
+          f"tiles={p['tiles']} lanes_per_pass={p['nb0']} passes="
+          f"{p['passes0']} items={p['items']} blocks={p['blocks']} (of 132 "
+          f"SMs) stages={p['stages']} smem_bytes={p['smem_bytes']} "
+          f"k_chunks_per_tap={p['chunks_per_tap']}", flush=True)
+
+
+def print_pair_plan(label, op, n):
+    """K10's plan for op at batch n (``pair_conv_plan``)."""
+    from deepfusion_tpu_torch.ops.mega import pair_conv_plan
+    p = pair_conv_plan(op, n)
+    print(f"plan: pair_conv {label} tile={p['tile_rows']}x{p['tile_cols']} "
+          f"split={p['split']} tiles={p['tiles']} blocks={p['blocks']} (of "
+          f"132 SMs) stages={p['stages']} smem_bytes={p['smem_bytes']} "
+          f"k_chunk={p['k_chunk']} window_pixels={p['window_pixels']} "
+          f"layer_a_blocks={p['layer_a_blocks']} layer_a_ratio="
+          f"{p['layer_a_ratio']:.4f} layer_b_junk_share="
+          f"{p['layer_b_junk_share']:.4f} executed_mac_ratio="
+          f"{p['executed_mac_ratio']:.4f}", flush=True)
+    return p
+
+
 def print_plan(label, op, n):
     """The packed conv kernel's plan for op at batch n
     (``packed_conv_plan``)."""
@@ -1611,6 +1720,7 @@ def resfusion_timings(rnet, dev, name_power, timed):
     n = rnet.cfg.batch
     c = rnet.down.cfg
     x = rand(rng, (c.bs, c.ih, c.iw, c.ic), u8, dev)
+    print_convpool_plan("ResFusionNet down", rnet.down, c.bs)
     timed("convpool", "ResFusionNet down (K9)",
           lambda: CP.convpool_cuda(rnet.down, x),
           lambda: CP.convpool_plain(rnet.down, x), reads=(x, rnet.down),
@@ -1626,8 +1736,10 @@ def resfusion_timings(rnet, dev, name_power, timed):
     check(torch.equal(composed(), CP.convpool_cuda(rnet.down, x)),
           "K9 differs from conv then pool at ResFusionNet's downsample")
     print(f"timing: ResFusionNet down as conv_fused + pool ms="
-          f"{cuda_ms(composed):.4f} device_ms={device_ms(composed):.4f} "
-          f"(bitwise equal to K9) card=\"{name_power}\"", flush=True)
+          f"{cuda_ms(composed):.4f} device_ms="
+          f"{device_ms(composed, profiles=3):.4f} cold_device_ms="
+          f"{cold_device_ms(composed):.4f} (bitwise equal to K9) "
+          f"card=\"{name_power}\"", flush=True)
     for name in ("stem", "block1", "block2", "head"):
         op = getattr(rnet, name)
         c = op.cfg
@@ -1699,13 +1811,31 @@ def vggfusion_timings(vnet, dev, name_power, timed):
         timed("conv_fused", f"VGGFusion {name}", lambda: K.conv_cuda(op, xi),
               lambda: K.conv_plain(op, xi), reads=(xi, op), ops=conv_ops(c),
               group="Vd" if name != "head" else "heads")
+    # K9 at each conv2+pool layer, beside the same layer as K1 then K3's
+    # 2x2 max pool (checked bitwise)
+    CP = importlib.import_module("deepfusion_tpu_torch.ops.convpool")
+    for b, op in enumerate(vnet.convpool2, 1):
+        c = op.cfg
+        xi = rand(rng, (c.bs, c.ih, c.iw, c.ic), dtype.u8, dev)
+        print_convpool_plan(f"VGGFusion block{b} conv2+pool", op, c.bs)
+        timed("convpool", f"VGGFusion block{b} conv2+pool (K9)",
+              lambda: CP.convpool_cuda(op, xi),
+              lambda: CP.convpool_plain(op, xi), reads=(xi, op),
+              ops=conv_ops(c))
+        p2 = vnet.params[f"block{b}_conv2"]
+        cop = K.ConvOp(c, p2["wei"], p2.get("bia"), device=dev)
+
+        def composed():
+            return P.pool_cuda(K.conv_cuda(cop, xi), op.pc, dtype.u8)
+        check(torch.equal(composed(), CP.convpool_cuda(op, xi)),
+              f"K9 differs from conv then pool at VGGFusion block{b}")
+        print(f"timing: VGGFusion block{b} conv2+pool as conv_fused + pool "
+              f"ms={cuda_ms(composed):.4f} device_ms="
+              f"{device_ms(composed, profiles=3):.4f} cold_device_ms="
+              f"{cold_device_ms(composed):.4f} (bitwise equal to K9) "
+              f"card=\"{name_power}\"", flush=True)
     for b, pair in enumerate(vnet.build_packed(), 1):
-        plan = M.pair_conv_plan(pair, n)
-        print(f"plan: VGGFusion block{b} pair_conv tile={plan['tile']} "
-              f"blocks={plan['blocks']} smem_bytes={plan['smem_bytes']} "
-              f"layer_a_pixels_ratio={plan['layer_a_ratio']:.4f} "
-              f"executed_mac_ratio={plan['executed_mac_ratio']:.4f}",
-              flush=True)
+        print_pair_plan(f"VGGFusion block{b}", pair, n)
         x = packed_input(rng, pair.sin, n, dev)
         timed("pair_conv", f"VGGFusion block{b}",
               lambda: M.pair_conv_cuda(pair, x),
@@ -1945,17 +2075,17 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
         px = packed_input(rng, pop.sin, pbatch, dev)
         parity.check("pair_conv", "bench.py --pair 8x126x126x256 fused x2",
                      M.pair_conv_cuda(pop, px), M.pair_conv_plain(pop, px))
-        plan = M.pair_conv_plan(pop, pbatch)
+        print_pair_plan("bench.py --pair", pop, pbatch)
         p_ms = cuda_ms(lambda: M.pair_conv_cuda(pop, px))
-        p_dev = device_ms(lambda: M.pair_conv_cuda(pop, px))
+        p_dev = device_ms(lambda: M.pair_conv_cuda(pop, px), profiles=3)
+        p_cold = cold_device_ms(lambda: M.pair_conv_cuda(pop, px))
         tops = 2 * pmacs / (p_dev * 1e-3) / 1e12
         print(f"timing: conv pair 8x126x126x256 -> (3x3:256 -> 1x1:256) x2 "
-              f"tile={plan['tile']} blocks={plan['blocks']} "
-              f"executed_mac_ratio={plan['executed_mac_ratio']:.4f} "
-              f"ms={p_ms:.4f} device_ms={p_dev:.4f} device_TOPs={tops:.1f} "
-              f"share_of_int8_peak={tops / H100_INT8_PEAK_TOPS:.4f} bitwise "
-              f"equal to its plain version; card=\"{name_power}\"",
-              flush=True)
+              f"ms={p_ms:.4f} device_ms={p_dev:.4f} cold_device_ms="
+              f"{p_cold:.4f} device_TOPs={tops:.1f} cold_device_TOPs="
+              f"{2 * pmacs / p_cold / 1e9:.1f} share_of_int8_peak="
+              f"{tops / H100_INT8_PEAK_TOPS:.4f} bitwise equal to its plain "
+              f"version; card=\"{name_power}\"", flush=True)
         del pop, px
 
     served_rate("FusionNet", {"dense": net, "packed": pm}, cfg.batch,

@@ -38,7 +38,7 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 _SIGNATURES = {
     "df_conv": [_P] * 8 + [_I] * 25 + [_F, _P],
-    "df_conv_weight_maps": [_P, _I, _I, _P, _I, _I, _P],
+    "df_conv_weight_maps": [_P, _I, _I, _P, _I, _I, _I, _P],
     "df_conv_plan": [ctypes.POINTER(_I)] * 2,
     "df_convpool": [_P] * 6 + [_I] * 21 + [_F, _P],
     "df_concat": [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(_I), _I,

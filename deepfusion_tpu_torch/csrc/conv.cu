@@ -1,13 +1,39 @@
 // conv_fused_kernel<FUSE, DST>: direct INT8 convolution with the
 // requantization epilogue and, when FUSE, the deep-fused 1x1 tail; wgmma on
-// tiles that TMA brings into shared memory.
+// tiles that TMA brings into shared memory. convpool_kernel<DST>: the same
+// kernel in pool mode, the conv (+ sum) followed by a 2x2/s2 pool in the
+// epilogue.
 //
 // Replaces deepfusion_tpu/ops/conv.py:_conv_kernel and
 // deepfusion_tpu/ops/conv.py:_conv_fused_kernel (launcher _conv_pallas),
 // with the eltwise-sum post-op and emit_acc1: with DST = DT_ACC the fused
 // kernel stores the raw s32 1x1 accumulator, NHWC (n, oh, ow, oc1), with no
 // bias, scale or requant (deepfusion_tpu/ops/conv.py:conv_fused_acc1, the
-// tensor-parallel local step).
+// tensor-parallel local step). In pool mode it replaces
+// deepfusion_tpu/ops/convpool.py:_convpool_kernel (launcher
+// _convpool_call).
+//
+// Pool mode, per pooled pixel (n, py, px) and channel o, with the four conv
+// pixels (2py + dy, 2px + dx) of its window:
+//   x_dydx = requant_presat(acc0 [, sum at the conv pixel]): f32 clipped to
+//            the dst's range, integral for integer dsts (requant.cuh)
+//   max:   y = max(max(x00, x10), max(x01, x11))
+//   avg:   y = (((x00 + x01) + x10) + x11) * 0.25f, rounded with the pool's
+//          round mode for integer dsts (f32 adds in that order)
+//   dst = saturate(y), the one cast
+// This is bitwise _requant_presat + the pool + saturate_to of the JAX
+// kernel: max commutes with the monotone saturation and is exact in any
+// order, and an integer dst's four values are integers below 2^24, so their
+// f32 sum is exact. dst is f32, s32, s8 or u8 (an s32 average is refused).
+// The tile is 8 pixels wide with even rows and origin, so a warp's 16 rows
+// of M are two image rows of 8 pixels: a thread's rows g and g + 8 are the
+// window's vertical pair, and its horizontal partner is the lane 4 away
+// (an exchange through shared memory: a shuffle would make ptxas serialize
+// the kernel's wgmma). Pool mode also splits the output lanes over the
+// grid where pixel tiles alone leave SMs idle (make_plan: work items are
+// (pixel tile, lane pass) pairs, and the pass may be narrower than a
+// wgmma's widest N); the weight maps then have boxes of at most 64 rows,
+// and a pass loads nb0 / 64 of them.
 //
 // What it computes, per output pixel p and channel o:
 //   acc0[p,o] = sum_{ki,kj,c} src_u8[n, y*sh-ph+ki, x*sw-pw+kj, c] * w0[o,c,ki,kj]
@@ -41,8 +67,11 @@
 //   slots with full/empty mbarriers; setmaxnreg moves registers from the
 //   producer warpgroup to the consumers (128 s32 accumulators each). At most
 //   one block runs on an SM, so the grid is at most 132 blocks, each walking
-//   the same number of tiles give or take one; the ring runs on from one
-//   tile into the next, so the next tile's loads overlap this epilogue.
+//   the same number of work items give or take one (an item is a tile with
+//   all its passes; in pool mode one pass of a tile); the ring runs on from
+//   one item into the next, so the next item's loads overlap this epilogue.
+//   Pool mode's lane split and stacked weight boxes are compiled into its
+//   own instances only (the POOL template).
 // * A by TMA, one box per tap and K chunk: the NHWC input as a 4-D tensor
 //   (c, x, y, n), the box (kc, tc, tr, 1) at (c0, x0*sw - pw + kj,
 //   y0*sh - ph + ki, n), every sw-th column and sh-th row (TMA's element
@@ -59,7 +88,8 @@
 //   (df_conv_weight_maps); the input's maps at every call (1.7 us each).
 // * K runs over (tap, the input's channels padded to a multiple of 32) in
 //   chunks of 128, 64 and 32 bytes, each chunk one A box and one B box
-//   swizzled to its width. wgmma multiplies u8 x s8 (.u8.s8).
+//   swizzled to its width; the plan holds the chunks' table (KChunks,
+//   wgmma_tma.cuh). wgmma multiplies u8 x s8 (.u8.s8).
 // * The fused intermediate (tm x k1 u8) stays in shared memory in the
 //   no-swizzle K-major layout the 1x1's wgmma reads; its channels
 //   [oc0, k1) are written as 0.
@@ -89,23 +119,9 @@ constexpr int SMEM_LIMIT = 232448;  // opt-in shared memory of a block
 constexpr int SMS = 132;            // the H100 SXM's SMs
 constexpr int MAX_BOX = 256;        // TMA box elements per dimension
 constexpr int MAX_ESTRIDE = 8;      // TMA element stride
+constexpr int MAX_CHUNKS = 32;      // K chunks of a tap or of the 1x1
 // The DST of the fused kernel's raw 1x1 accumulator store (not a dtype code)
 constexpr int DT_ACC = 0;
-
-// K chunks of k bytes (a multiple of 32): 128-byte chunks, then at most one
-// of 64 and one of 32. Chunk c is 32 << wcode bytes at offset koff.
-struct Chunk {
-  int wcode, koff;
-};
-__host__ __device__ __forceinline__ int chunk_count(int k) {
-  return k / 128 + (k % 128 >= 64) + (k % 64 == 32);
-}
-__host__ __device__ __forceinline__ Chunk chunk_at(int k, int c) {
-  const int full = k / 128;
-  if (c < full) return Chunk{2, 128 * c};
-  if (c == full && k % 128 >= 64) return Chunk{1, 128 * full};
-  return Chunk{0, k - 32};
-}
 
 // The conv's geometry as the kernel runs it (a 1x1 GEMM as one image of
 // one row of n*oh*ow pixels).
@@ -117,11 +133,15 @@ struct Geo {
 // The block plan, the same on host and device.
 struct Plan {
   int tm, tr, tc, split;         // rows of a tile, its tr x tc pixels
-  int tiles_x, tiles_y, tiles, blocks;  // blocks walk the tiles in turn
+  int tiles_x, tiles_y, tiles;
+  int items, blocks;             // blocks walk the work items in turn
   int nb0, nb1, npass0, npass1;  // lanes per pass and passes of each stage
+  int bh0;                       // rows of a w0 box: nb0 / bh0 boxes a pass
   int np0, np1;                  // lanes of the staged parameters
-  int kp, k1, nchunk0, nchunk1;  // K bytes per tap and of the 1x1, chunks
-  int slot_a, slot, stages, mid_off, stage_off, par_off, bar_off, smem;
+  int kp, k1;                    // K bytes per tap and of the 1x1
+  KChunks<MAX_CHUNKS> ch0, ch1;  // their K chunks
+  int slot_a, slot, stages, mid_off, stage_off, par_off, xchg_off, bar_off;
+  int smem;
 };
 
 struct KArgs {
@@ -137,6 +157,7 @@ struct KArgs {
   int oh, ow, kh, kw, sh, sw, ph, pw;
   int oc0, oc0p, oc1p, out_oc;  // out_oc: the dst's lanes and pitch
   int relu0, relu1, down0, down1, has_bias0, has_bias1;
+  int pool_avg, pool_down;      // pool mode: average (else max), its round
 };
 
 // Tensor maps: a[w] the input with boxes of 32 << w channels; b0[w], b1[w]
@@ -148,24 +169,23 @@ struct __align__(64) Maps {
 
 int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
+// pool: pool mode, whose tiles must keep the image's rows (never a GEMM).
 Geo geometry(int n, int ih, int iw, int ic, int oh, int ow, int kh, int kw,
-             int sh, int sw, int ph, int pw) {
+             int sh, int sw, int ph, int pw, bool pool) {
   const long long px = (long long)n * oh * ow;
-  if (kh == 1 && kw == 1 && sh == 1 && sw == 1 && ph == 0 && pw == 0 &&
-      px < (1LL << 31))
+  if (!pool && kh == 1 && kw == 1 && sh == 1 && sw == 1 && ph == 0 &&
+      pw == 0 && px < (1LL << 31))
     return Geo{1, 1, (int)px, ic, 1, (int)px, 1, 1, 1, 1, 0, 0, true};
   return Geo{n, ih, iw, ic, oh, ow, kh, kw, sh, sw, ph, pw, false};
 }
 
-// Ring slots, the intermediate, the staging rows, the parameters and the
-// barriers of a plan whose tiling is set; false if they do not fit.
-bool layout_smem(Plan& p, bool fuse, bool staged) {
-  int kc = 32;
-  for (int c = 0; c < p.nchunk0; ++c)
-    kc = std::max(kc, 32 << chunk_at(p.kp, c).wcode);
+// Ring slots, the intermediate, the staging rows, the parameters, pool
+// mode's exchange (a float4 per consumer thread) and the barriers of a plan
+// whose tiling is set; false if they do not fit.
+bool layout_smem(Plan& p, bool fuse, bool staged, bool pool) {
+  const int kc = p.ch0.widest();
   int b_bytes = p.nb0 * kc;
-  for (int c = 0; c < p.nchunk1; ++c)
-    b_bytes = std::max(b_bytes, p.nb1 * (32 << chunk_at(p.k1, c).wcode));
+  if (fuse) b_bytes = std::max(b_bytes, p.nb1 * p.ch1.widest());
   p.slot_a = round_up(p.tm * kc, 1024);  // b_bytes is a multiple of 1024
   p.slot = p.slot_a + b_bytes;
   const int mid = fuse ? p.tm * p.k1 : 0;
@@ -175,36 +195,49 @@ bool layout_smem(Plan& p, bool fuse, bool staged) {
   const bool in_mid = fuse && p.npass1 == 1 && nbf <= p.k1;
   const int stage = staged && !in_mid ? p.tm * nbf : 0;
   const int par = 8 * (p.np0 + p.np1);  // bias and scale per lane
-  const int fixed = 1024 + mid + stage + par + 2 * MAX_STAGES * 8;
+  const int xchg = pool ? 16 * 256 : 0;
+  const int fixed = 1024 + mid + stage + par + xchg + 2 * MAX_STAGES * 8;
   p.stages = std::min(MAX_STAGES, (SMEM_LIMIT - fixed) / p.slot);
   if (p.stages < 2) return false;
   p.mid_off = p.stages * p.slot;
   p.stage_off = in_mid ? p.mid_off : p.mid_off + mid;
   p.par_off = p.mid_off + mid + stage;
-  p.bar_off = p.par_off + par;
+  p.xchg_off = p.par_off + par;
+  p.bar_off = p.xchg_off + xchg;
   p.smem = 1024 + p.bar_off + 2 * p.stages * 8;
   return true;
 }
 
+// Work items: a tile with all its passes, or in pool mode one pass of a
+// tile.
+long long item_count(const Plan& p, long long tiles, bool pool) {
+  return pool ? tiles * p.npass0 : tiles;
+}
+
 // The tiling of one tile size tm: every tc with tr = the most rows that fit
 // (tr * tc a multiple of 8, the boxes within TMA's 256 elements); the plan
-// with the fewest waves of SMS tiles, then the fewest tiles, then the
-// fewest input pixels per output pixel. False if tm does not fit.
-bool tile_plan(Plan& q, const Geo& g, int tm, bool fuse, bool staged) {
+// with the fewest waves of SMS work items, then the fewest tiles, then the
+// fewest input pixels per output pixel. Pool mode takes tc = 8 and tr = tm
+// / 8 only (pool_store). False if tm does not fit.
+bool tile_plan(Plan& q, const Geo& g, int tm, bool fuse, bool staged,
+               bool pool) {
   q.tm = tm;
   q.split = tm == 64;
-  if (!layout_smem(q, fuse, staged)) return false;
+  if (!layout_smem(q, fuse, staged, pool)) return false;
   bool found = false;
   long long best[3] = {0, 0, 0};
-  for (int tc = 1; tc <= std::min(tm, std::min(g.ow, MAX_BOX / g.sw)); ++tc) {
+  const int tc_lo = pool ? 8 : 1;
+  const int tc_hi = pool ? 8 : std::min(tm, std::min(g.ow, MAX_BOX / g.sw));
+  for (int tc = tc_lo; tc <= tc_hi; ++tc) {
     int tr = std::min(tm / tc, MAX_BOX / g.sh);
     while (tr > 0 && (tr * tc) % 8) --tr;
-    if (tr == 0) continue;
+    if (tr == 0 || (pool && tr * tc != tm)) continue;
     const long long tx = (g.ow + tc - 1) / tc, ty = (g.oh + tr - 1) / tr;
     const long long tiles = (long long)g.n * tx * ty;
-    if (tiles >= (1LL << 31)) continue;
+    const long long items = item_count(q, tiles, pool);
+    if (items >= (1LL << 31)) continue;
     const long long key[3] = {
-        (tiles + SMS - 1) / SMS, tiles,
+        (items + SMS - 1) / SMS, tiles,
         1024LL * (tr + g.kh - 1) * (tc + g.kw - 1) / (tr * tc)};
     if (found && !std::lexicographical_compare(key, key + 3, best, best + 3))
       continue;
@@ -215,7 +248,45 @@ bool tile_plan(Plan& q, const Geo& g, int tm, bool fuse, bool staged) {
     q.tiles_x = (int)tx;
     q.tiles_y = (int)ty;
     q.tiles = (int)tiles;
+    q.items = (int)items;
   }
+  return found;
+}
+
+// Lanes per pass of a stage of ocp lanes with passes of nb: their count and
+// the lanes of the staged parameters.
+void set_passes(Plan& p, int ocp, int nb) {
+  p.nb0 = nb;
+  p.npass0 = (ocp + nb - 1) / nb;
+  p.np0 = p.npass0 * nb;
+}
+
+// Pool mode's plan: every tile size (128, or 64 split where each
+// warpgroup's half of a pass is at least 32 lanes) and every pass width
+// from the widest down to the weight box's bh0 rows; the plan whose waves
+// of work items times its widest wgmma N per warpgroup (at least 64: a
+// narrower wgmma is bound by its shared-memory reads) is least, then the
+// fewest items, then 128-pixel tiles. A narrower pass gives more items at
+// no cost in bytes: every pass reads the input's boxes again anyway.
+bool pool_plan(Plan& p, const Geo& g, int oc0p) {
+  const Plan base = p;
+  bool found = false;
+  long long best[3] = {0, 0, 0};
+  for (int tm = 128; tm >= 64; tm -= 64)
+    for (int nb = pass_width(oc0p); nb >= base.bh0; nb /= 2) {
+      const int nbw = tm == 64 ? nb / 2 : nb;
+      if (nbw < 32) continue;
+      Plan q = base;
+      set_passes(q, oc0p, nb);
+      if (!tile_plan(q, g, tm, false, false, true)) continue;
+      const long long key[3] = {(q.items + SMS - 1) / SMS * std::max(nbw, 64),
+                                q.items, tm == 64};
+      if (found && !std::lexicographical_compare(key, key + 3, best, best + 3))
+        continue;
+      found = true;
+      std::copy(key, key + 3, best);
+      p = q;
+    }
   return found;
 }
 
@@ -225,37 +296,42 @@ bool tile_plan(Plan& q, const Geo& g, int tm, bool fuse, bool staged) {
 // wgmma and reads the weights twice as often per pixel, so it pays only
 // where the last wave of 128-pixel tiles leaves many SMs idle.
 // staged: the dst is 1 byte (its epilogue stages through shared memory).
+// pool: pool mode (pool_plan; never fused), whose w0 boxes have bh0 rows.
 bool make_plan(Plan& p, const Geo& g, int oc0p, int oc1p, bool fuse,
-               bool staged) {
+               bool staged, bool pool, int bh0) {
   p = Plan{};
   p.kp = round_up(g.ic, 32);
-  p.nchunk0 = chunk_count(p.kp);
-  p.nb0 = pass_width(oc0p);
-  p.npass0 = (oc0p + p.nb0 - 1) / p.nb0;
-  p.np0 = p.npass0 * p.nb0;
+  if (!p.ch0.add(p.kp, 0)) return false;
+  p.bh0 = bh0;
+  set_passes(p, oc0p, pass_width(oc0p));
   if (fuse) {
     p.k1 = round_up(oc0p, 32);
-    p.nchunk1 = chunk_count(p.k1);
+    if (!p.ch1.add(p.k1, 0)) return false;
     p.nb1 = pass_width(oc1p);
     p.npass1 = (oc1p + p.nb1 - 1) / p.nb1;
     p.np1 = p.npass1 * p.nb1;
   }
   if ((long long)g.kh * g.kw * p.kp >= (1LL << 31)) return false;
   if (g.sh > MAX_ESTRIDE || g.sw > MAX_ESTRIDE) return false;
-  const bool can_split = p.nb0 >= 64 && (!fuse || p.nb1 >= 64);
-  Plan wide = p, split = p;
-  const bool has_wide = tile_plan(wide, g, 128, fuse, staged);
-  const bool has_split = can_split && tile_plan(split, g, 64, fuse, staged);
-  if (has_wide &&
-      !(has_split && 4LL * wide.tiles <
-                         3LL * SMS * ((wide.tiles + SMS - 1) / SMS)))
-    p = wide;
-  else if (has_split)
-    p = split;
-  else
-    return false;
-  const int per = (p.tiles + SMS - 1) / SMS;
-  p.blocks = (p.tiles + per - 1) / per;
+  if (pool) {
+    if (fuse || !pool_plan(p, g, oc0p)) return false;
+  } else {
+    const bool can_split = p.nb0 >= 64 && (!fuse || p.nb1 >= 64);
+    Plan wide = p, split = p;
+    const bool has_wide = tile_plan(wide, g, 128, fuse, staged, false);
+    const bool has_split =
+        can_split && tile_plan(split, g, 64, fuse, staged, false);
+    if (has_wide &&
+        !(has_split && 4LL * wide.items <
+                           3LL * SMS * ((wide.items + SMS - 1) / SMS)))
+      p = wide;
+    else if (has_split)
+      p = split;
+    else
+      return false;
+  }
+  const int per = (p.items + SMS - 1) / SMS;
+  p.blocks = (p.items + per - 1) / per;
   return true;
 }
 
@@ -266,6 +342,15 @@ struct Tile {
 __device__ __forceinline__ Tile tile_at(const Plan& p, int t) {
   return Tile{t / (p.tiles_x * p.tiles_y),
               p.tr * ((t / p.tiles_x) % p.tiles_y), p.tc * (t % p.tiles_x)};
+}
+// Work item w: its tile and its passes [ps0, ps1) of the first stage.
+struct Item {
+  int t, ps0, ps1;
+};
+template <bool POOL>
+__device__ __forceinline__ Item item_at(const Plan& p, int w) {
+  if constexpr (POOL) return Item{w / p.npass0, w % p.npass0, w % p.npass0 + 1};
+  return Item{w, 0, p.npass0};
 }
 // The flat NHWC pixel of row m of a tile, -1 if none.
 __device__ __forceinline__ long long pixel_of(const KArgs& a, const Tile& tl,
@@ -278,11 +363,14 @@ __device__ __forceinline__ long long pixel_of(const KArgs& a, const Tile& tl,
 }
 
 // ------------------------------------------------------------ producer
-// Every chunk of every tile of the block, in the order the consumers take
-// them: the ring runs on from one tile into the next.
+// Every chunk of every work item of the block, in the order the consumers
+// take them: the ring runs on from one item into the next. In pool mode a
+// pass's w0 rows come in nb0 / bh0 boxes, stacked: bh0 is a multiple of 8
+// rows, so the stack is the swizzled layout of one box of nb0 rows.
+template <bool FUSE, bool POOL>
 __device__ __forceinline__ void produce(const Maps& maps, const KArgs& a,
                                         uint8_t* smem, uint64_t* full,
-                                        uint64_t* empty, bool fuse) {
+                                        uint64_t* empty) {
   const Plan& p = a.p;
   int stage = 0;
   uint32_t phase = 0;
@@ -298,26 +386,34 @@ __device__ __forceinline__ void produce(const Maps& maps, const KArgs& a,
     }
   };
   const int box_px = p.tr * p.tc;
-  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
-    const Tile tl = tile_at(p, t);
-    for (int ps = 0; ps < p.npass0; ++ps)
+  for (int w = blockIdx.x; w < p.items; w += gridDim.x) {
+    const Item it = item_at<POOL>(p, w);
+    const Tile tl = tile_at(p, it.t);
+    for (int ps = it.ps0; ps < it.ps1; ++ps)
       for (int ki = 0; ki < a.kh; ++ki)
         for (int kj = 0; kj < a.kw; ++kj)
-          for (int c = 0; c < p.nchunk0; ++c) {
-            const Chunk ch = chunk_at(p.kp, c);
+          for (int c = 0; c < p.ch0.n; ++c) {
+            const KChunk ch = p.ch0.c[c];
             const int kc = 32 << ch.wcode;
+            const int kb = (ki * a.kw + kj) * p.kp + ch.koff;
             uint8_t* s = slot((box_px + p.nb0) * kc);
             tma_load_4d(s, &maps.a[ch.wcode], &full[stage], ch.koff,
                         tl.x0 * a.sw - a.pw + kj, tl.y0 * a.sh - a.ph + ki,
                         tl.nn);
-            tma_load_2d(s + p.slot_a, &maps.b0[ch.wcode], &full[stage],
-                        (ki * a.kw + kj) * p.kp + ch.koff, ps * p.nb0);
+            if constexpr (POOL) {
+              for (int r = 0; r < p.nb0; r += p.bh0)
+                tma_load_2d(s + p.slot_a + r * kc, &maps.b0[ch.wcode],
+                            &full[stage], kb, ps * p.nb0 + r);
+            } else {
+              tma_load_2d(s + p.slot_a, &maps.b0[ch.wcode], &full[stage], kb,
+                          ps * p.nb0);
+            }
             next();
           }
-    if (!fuse) continue;
+    if constexpr (!FUSE) continue;
     for (int ps = 0; ps < p.npass1; ++ps)
-      for (int c = 0; c < p.nchunk1; ++c) {
-        const Chunk ch = chunk_at(p.k1, c);
+      for (int c = 0; c < p.ch1.n; ++c) {
+        const KChunk ch = p.ch1.c[c];
         uint8_t* s = slot(p.nb1 * (32 << ch.wcode));
         tma_load_2d(s + p.slot_a, &maps.b1[ch.wcode], &full[stage], ch.koff,
                     ps * p.nb1);
@@ -507,8 +603,94 @@ __device__ __forceinline__ void write_final(
   }
 }
 
+// Pool mode's store of the warpgroup's pass: requant_presat each conv value
+// (with SUM joined with the sum operand at its conv pixel), pool the 2x2
+// window (rows h = 0, 1 in the thread, the odd column in the lane 4 away:
+// the tile is 8 pixels wide with even rows, tile_plan), saturate once, and
+// store from the window's even-column lane at the pooled pixel, two lanes
+// per store where the pitch oc is even. The f32 average adds in the JAX
+// order; an integer dst's values are exact integers, so any order is. The
+// lanes 4 apart swap their values through the warp's 32 float4s xw, not a
+// shuffle: a shuffle makes ptxas serialize every wgmma of the kernel.
+template <int DST, bool SUM>
+__device__ __forceinline__ void write_pool(const KArgs& a,
+                                           const int32_t (&acc)[128],
+                                           const float* bias,
+                                           const float* scale, int col0,
+                                           int nbw, const Tile& tl, int m0,
+                                           const long long (&pix)[2],
+                                           float4* xw) {
+  using T = typename dt_traits<DST>::T;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int oc = a.out_oc;
+  const int py = (tl.y0 + m0 / 8) >> 1, px = (tl.x0 + g) >> 1;
+  const long long q =
+      ((long long)tl.nn * (a.oh >> 1) + py) * (a.ow >> 1) + px;
+  const bool store = !(g & 1) && pix[0] >= 0;  // the window is in the image
+  T* dst = static_cast<T*>(a.dst);
+  // The loop's exit depends on nbw alone (col0 depends on the warpgroup, and
+  // a __syncwarp in a loop whose exit ptxas cannot prove uniform serializes
+  // the kernel's wgmma); lanes o >= oc read parameters inside the np0
+  // staged lanes and store nothing.
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    if (8 * j >= nbw) break;
+    const int o = col0 + 8 * j + 2 * t;
+    const float2 b = *reinterpret_cast<const float2*>(bias + o);
+    const float2 sc = *reinterpret_cast<const float2*>(scale + o);
+    float x[2][2];  // [e][h]: lane o + e of rows h
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float st = 0.0f;
+        if constexpr (SUM)
+          if (pix[h] >= 0 && o + e < oc)
+            st = load_sum(a.sum, (size_t)(pix[h] * oc + o + e), a.sum_dt,
+                          a.sum_scale);
+        x[e][h] = requant_presat<DST>(acc[4 * j + 2 * h + e], true,
+                                      e ? b.y : b.x, e ? sc.y : sc.x,
+                                      a.relu0, a.down0, SUM, st);
+      }
+    xw[lane] = make_float4(x[0][0], x[0][1], x[1][0], x[1][1]);
+    __syncwarp();
+    const float4 pp = xw[lane ^ 4];  // the window's other column
+    __syncwarp();
+    const float px0[2] = {pp.x, pp.z}, px1[2] = {pp.y, pp.w};
+    T v[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float y;
+      if (!a.pool_avg) {
+        y = fmaxf(fmaxf(x[e][0], x[e][1]), fmaxf(px0[e], px1[e]));
+      } else {
+        y = __fmul_rn(__fadd_rn(__fadd_rn(__fadd_rn(x[e][0], px0[e]),
+                                          x[e][1]),
+                                px1[e]),
+                      0.25f);
+        if constexpr (DST != DT_F32) y = round_f32(y, a.pool_down);
+      }
+      v[e] = saturate<DST>(y);
+    }
+    if (!store || o >= oc) continue;
+    const long long idx = q * oc + o;
+    if (oc % 2 == 0) {
+      if constexpr (DST == DT_F32)
+        *reinterpret_cast<float2*>(dst + idx) = make_float2(v[0], v[1]);
+      else if constexpr (DST == DT_S32)
+        *reinterpret_cast<int2*>(dst + idx) = make_int2(v[0], v[1]);
+      else
+        *reinterpret_cast<uint16_t*>(dst + idx) = static_cast<uint16_t>(
+            uint8_t(v[0]) | (uint16_t(uint8_t(v[1])) << 8));
+    } else {
+      dst[idx] = v[0];
+      if (o + 1 < oc) dst[idx + 1] = v[1];
+    }
+  }
+}
+
 // ------------------------------------------------------------ consumers
-template <bool FUSE, int DST>
+template <bool FUSE, int DST, bool POOL>
 __device__ __forceinline__ void consume(const KArgs& a, uint8_t* smem,
                                         uint64_t* full, uint64_t* empty) {
   constexpr bool STAGED = DST == DT_U8 || DST == DT_S8;
@@ -521,6 +703,8 @@ __device__ __forceinline__ void consume(const KArgs& a, uint8_t* smem,
   const int m0 = row0 + 16 * warp;       // the warp's rows of M
   uint8_t* mid = smem + p.mid_off;
   uint8_t* stg = smem + p.stage_off;  // the final stage's staging rows
+  float4* xw = reinterpret_cast<float4*>(smem + p.xchg_off) +
+               32 * (threadIdx.x >> 5);  // the warp's exchange (pool mode)
   // the per-channel parameters: bias0, scale0 over np0 lanes, then bias1,
   // scale1 over np1 lanes; lanes past oc0p / oc1p are never used
   float* par = reinterpret_cast<float*>(smem + p.par_off);
@@ -570,18 +754,19 @@ __device__ __forceinline__ void consume(const KArgs& a, uint8_t* smem,
   const int nbw1 = split ? p.nb1 / 2 : p.nb1;
   const int kst0 = split ? wg * nbw0 : 0;  // and their offset in the pass
   const int kst1 = split ? wg * nbw1 : 0;
-  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
-    const Tile tl = tile_at(p, t);
+  for (int w = blockIdx.x; w < p.items; w += gridDim.x) {
+    const Item it = item_at<POOL>(p, w);
+    const Tile tl = tile_at(p, it.t);
     long long pix[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) pix[h] = pixel_of(a, tl, m0 + g + 8 * h);
     const long long spix = pixel_of(a, tl, m0 + (lane & 15));
-    for (int ps = 0; ps < p.npass0; ++ps) {
+    for (int ps = it.ps0; ps < it.ps1; ++ps) {
       fence_regs(acc);
       bool first = true;
       for (int tap = 0; tap < ntaps; ++tap)
-        for (int c = 0; c < p.nchunk0; ++c) {
-          const int kc = 32 << chunk_at(p.kp, c).wcode;
+        for (int c = 0; c < p.ch0.n; ++c) {
+          const int kc = 32 << p.ch0.c[c].wcode;
           uint8_t* s = acquire();
           const uint32_t sa = smem_u32(s) + row0 * kc;
           const uint32_t sb = smem_u32(s + p.slot_a) + kst0 * kc;
@@ -605,10 +790,18 @@ __device__ __forceinline__ void consume(const KArgs& a, uint8_t* smem,
         // the last tile
         if (split && ps == 0) named_barrier(4, 256);
         write_mid(a, par, par + p.np0, mid, acc, col0, nbw0, m0);
-      } else {
-        if (col0 < a.out_oc)
-          write_final<DST>(a, acc, par, par + p.np0, a.relu0, a.down0, col0,
-                           nbw0, kst0, pix, spix, stg, m0);
+      } else if constexpr (POOL) {
+        // no test of col0 (it depends on the warpgroup) around the pool's
+        // __syncwarp: lanes past oc store nothing
+        if (a.sum)  // one uniform branch: the unrolled loop carries no test
+          write_pool<DST, true>(a, acc, par, par + p.np0, col0, nbw0, tl, m0,
+                                pix, xw);
+        else
+          write_pool<DST, false>(a, acc, par, par + p.np0, col0, nbw0, tl,
+                                 m0, pix, xw);
+      } else if (col0 < a.out_oc) {
+        write_final<DST>(a, acc, par, par + p.np0, a.relu0, a.down0, col0,
+                         nbw0, kst0, pix, spix, stg, m0);
       }
     }
     if constexpr (FUSE) {
@@ -618,8 +811,8 @@ __device__ __forceinline__ void consume(const KArgs& a, uint8_t* smem,
       for (int ps = 0; ps < p.npass1; ++ps) {
         fence_regs(acc);
         bool first = true;
-        for (int c = 0; c < p.nchunk1; ++c) {
-          const Chunk ch = chunk_at(p.k1, c);
+        for (int c = 0; c < p.ch1.n; ++c) {
+          const KChunk ch = p.ch1.c[c];
           const int kc = 32 << ch.wcode;
           const uint32_t sb = smem_u32(acquire() + p.slot_a) + kst1 * kc;
           wgmma_fence();
@@ -652,10 +845,9 @@ __device__ __forceinline__ void consume(const KArgs& a, uint8_t* smem,
   }
 }
 
-template <bool FUSE, int DST>
-__global__ void __launch_bounds__(NTH, 1)
-    conv_fused_kernel(const __grid_constant__ Maps maps,
-                      const __grid_constant__ KArgs a) {
+// The kernel body, shared by conv_fused_kernel and convpool_kernel.
+template <bool FUSE, int DST, bool POOL>
+__device__ __forceinline__ void run(const Maps& maps, const KArgs& a) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = smem_u32(smem_raw);
   uint8_t* smem = smem_raw + (((base + 1023) & ~1023u) - base);
@@ -672,21 +864,33 @@ __global__ void __launch_bounds__(NTH, 1)
   __syncthreads();
   if (threadIdx.x >= 256) {  // the producer warpgroup
     setmaxnreg_dec<40>();
-    if (threadIdx.x == 256) produce(maps, a, smem, full, empty, FUSE);
+    if (threadIdx.x == 256) produce<FUSE, POOL>(maps, a, smem, full, empty);
   } else {
     setmaxnreg_inc<232>();
-    consume<FUSE, DST>(a, smem, full, empty);
+    consume<FUSE, DST, POOL>(a, smem, full, empty);
   }
 }
 
 template <bool FUSE, int DST>
-int launch(const Maps& maps, const KArgs& a, cudaStream_t stream) {
+__global__ void __launch_bounds__(NTH, 1)
+    conv_fused_kernel(const __grid_constant__ Maps maps,
+                      const __grid_constant__ KArgs a) {
+  run<FUSE, DST, false>(maps, a);
+}
+
+template <int DST>
+__global__ void __launch_bounds__(NTH, 1)
+    convpool_kernel(const __grid_constant__ Maps maps,
+                    const __grid_constant__ KArgs a) {
+  run<false, DST, true>(maps, a);
+}
+
+template <class K>
+int launch(K kernel, const Maps& maps, const KArgs& a, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      conv_fused_kernel<FUSE, DST>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, a.p.smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.p.smem);
   if (e != cudaSuccess) return (int)e;
-  conv_fused_kernel<FUSE, DST><<<a.p.blocks, NTH, a.p.smem, stream>>>(maps,
-                                                                        a);
+  kernel<<<a.p.blocks, NTH, a.p.smem, stream>>>(maps, a);
   return (int)cudaGetLastError();
 }
 
@@ -695,28 +899,88 @@ int launch_dst(const Maps& maps, const KArgs& a, int dst_dt,
                cudaStream_t stream) {
   switch (dst_dt) {
     case DT_ACC:
-      if constexpr (FUSE) return launch<true, DT_ACC>(maps, a, stream);
+      if constexpr (FUSE)
+        return launch(conv_fused_kernel<true, DT_ACC>, maps, a, stream);
       return (int)cudaErrorInvalidValue;
-    case DT_F32: return launch<FUSE, DT_F32>(maps, a, stream);
-    case DT_S32: return launch<FUSE, DT_S32>(maps, a, stream);
-    case DT_S8: return launch<FUSE, DT_S8>(maps, a, stream);
-    case DT_U8: return launch<FUSE, DT_U8>(maps, a, stream);
+    case DT_F32: return launch(conv_fused_kernel<FUSE, DT_F32>, maps, a, stream);
+    case DT_S32: return launch(conv_fused_kernel<FUSE, DT_S32>, maps, a, stream);
+    case DT_S8: return launch(conv_fused_kernel<FUSE, DT_S8>, maps, a, stream);
+    case DT_U8: return launch(conv_fused_kernel<FUSE, DT_U8>, maps, a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int launch_pool(const Maps& maps, const KArgs& a, int dst_dt,
+                cudaStream_t stream) {
+  switch (dst_dt) {
+    case DT_F32: return launch(convpool_kernel<DT_F32>, maps, a, stream);
+    case DT_S32: return launch(convpool_kernel<DT_S32>, maps, a, stream);
+    case DT_S8: return launch(convpool_kernel<DT_S8>, maps, a, stream);
+    case DT_U8: return launch(convpool_kernel<DT_U8>, maps, a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 bool staged_dst(int dst_dt) { return dst_dt == DT_U8 || dst_dt == DT_S8; }
 
+// The rows of a w0 box: the pass width, or in pool mode at most 64, so the
+// plan may split the lanes over the grid (pool_plan).
+int box_rows(int oc0p, bool pool) {
+  return pool ? std::min(64, pass_width(oc0p)) : pass_width(oc0p);
+}
+
+// The checks, the plan and the maps shared by df_conv and df_convpool.
+int setup(KArgs& a, Maps& maps, const void* src, const void* wmaps,
+          const Geo& g, int oc0p, int oc1p, bool fuse, int dst_dt,
+          const void* sum, int sum_dt, bool pool) {
+  if (g.ic % 16 || g.ic <= 0 || oc0p % 8 || oc0p <= 0 ||
+      (fuse && (oc1p % 8 || oc1p <= 0)))
+    return (int)cudaErrorInvalidValue;
+  if (sum && sum_dt != DT_F32 && sum_dt != DT_S32 && sum_dt != DT_S8 &&
+      sum_dt != DT_U8)
+    return (int)cudaErrorInvalidValue;
+  if (g.sh < 1 || g.sw < 1 || g.sh > MAX_ESTRIDE || g.sw > MAX_ESTRIDE)
+    return (int)cudaErrorInvalidValue;
+  a = KArgs{};
+  if (!make_plan(a.p, g, oc0p, oc1p, fuse, staged_dst(dst_dt), pool,
+                 box_rows(oc0p, pool)))
+    return (int)cudaErrorInvalidValue;
+  memset(&maps, 0, sizeof(maps));
+  memcpy(maps.b0, wmaps, 3 * sizeof(CUtensorMap));
+  if (fuse)
+    memcpy(maps.b1, static_cast<const CUtensorMap*>(wmaps) + 3,
+           3 * sizeof(CUtensorMap));
+  const cuuint64_t c = (cuuint64_t)g.ic;
+  const cuuint64_t dims[4] = {c, (cuuint64_t)g.iw, (cuuint64_t)g.ih,
+                              (cuuint64_t)g.n};
+  const cuuint64_t strides[3] = {c, c * g.iw, c * g.iw * g.ih};
+  const cuuint32_t estrides[4] = {1, (cuuint32_t)g.sw, (cuuint32_t)g.sh, 1};
+  for (int w = 0; w < 3; ++w) {
+    const cuuint32_t box[4] = {32u << w, (cuuint32_t)(a.p.tc * g.sw),
+                               (cuuint32_t)(a.p.tr * g.sh), 1};
+    if (a.p.ch0.uses(w) &&
+        !encode(&maps.a[w], src, 4, dims, strides, box, estrides))
+      return (int)cudaErrorInvalidValue;
+  }
+  a.sum = sum;
+  a.sum_dt = sum_dt;
+  a.oh = g.oh; a.ow = g.ow; a.kh = g.kh; a.kw = g.kw;
+  a.sh = g.sh; a.sw = g.sw; a.ph = g.ph; a.pw = g.pw;
+  a.oc0p = oc0p; a.oc1p = fuse ? oc1p : 0;
+  return 0;
+}
+
 }  // namespace
 
 // The weight maps of an op, encoded once (ops/conv.py caches them): out[0,
 // 3) the maps of w0k (oc0p rows x k0 bytes), out[3, 6) those of w1k (oc1p
-// rows x k1 bytes) when w1k is not null. out holds 6 * 128 bytes.
+// rows x k1 bytes) when w1k is not null. out holds 6 * 128 bytes. pool: the
+// maps df_convpool reads (w0k's boxes of at most 64 rows).
 extern "C" int df_conv_weight_maps(const void* w0k, int k0, int oc0p,
                                    const void* w1k, int k1, int oc1p,
-                                   void* out) {
+                                   int pool, void* out) {
   CUtensorMap m[6] = {};
-  if (!encode_weights(m, w0k, k0, oc0p, pass_width(oc0p)) ||
+  if (!encode_weights(m, w0k, k0, oc0p, box_rows(oc0p, pool != 0)) ||
       (w1k && !encode_weights(m + 3, w1k, k1, oc1p, pass_width(oc1p))))
     return (int)cudaErrorInvalidValue;
   memcpy(out, m, sizeof(m));
@@ -724,20 +988,22 @@ extern "C" int df_conv_weight_maps(const void* w0k, int k0, int oc0p,
 }
 
 // in: n, ih, iw, ic, oh, ow, kh, kw, sh, sw, ph, pw, oc0p, oc1p, fuse,
-// dst_dt; out: tile rows of M, tile rows and columns of pixels, split,
-// tiles, blocks, stages, shared bytes, nb0, nb1, passes of each stage, K
-// chunks per tap, K bytes per tap, gemm (the 1x1 run as a GEMM). Returns
-// 0, or non-zero if the kernel cannot run the conv.
+// dst_dt, pool; out: tile rows of M, tile rows and columns of pixels,
+// split, tiles, blocks, stages, shared bytes, nb0, nb1, passes of each
+// stage, K chunks per tap, K bytes per tap, gemm (the 1x1 run as a GEMM),
+// work items. Returns 0, or non-zero if the kernel cannot run the conv.
 extern "C" int df_conv_plan(const int* in, int* out) {
+  const bool pool = in[16] != 0;
   const Geo g = geometry(in[0], in[1], in[2], in[3], in[4], in[5], in[6],
-                         in[7], in[8], in[9], in[10], in[11]);
+                         in[7], in[8], in[9], in[10], in[11], pool);
   Plan p;
-  if (!make_plan(p, g, in[12], in[13], in[14] != 0, staged_dst(in[15])))
+  if (!make_plan(p, g, in[12], in[13], in[14] != 0, staged_dst(in[15]), pool,
+                 box_rows(in[12], pool)))
     return (int)cudaErrorInvalidValue;
   const int v[] = {p.tm, p.tr, p.tc, p.split, p.tiles, p.blocks,
                    p.stages, p.smem, p.nb0, p.nb1, p.npass0, p.npass1,
-                   p.nchunk0, p.kp, g.gemm ? 1 : 0};
-  for (int i = 0; i < 15; ++i) out[i] = v[i];
+                   p.ch0.n, p.kp, g.gemm ? 1 : 0, p.items};
+  for (int i = 0; i < 16; ++i) out[i] = v[i];
   return 0;
 }
 
@@ -755,56 +1021,59 @@ extern "C" int df_conv(const void* src, const void* wmaps, const void* bias0,
                        int down1, int has_bias0, int has_bias1, int fuse,
                        int dst_dt, int sum_dt, float sum_scale,
                        void* stream) {
-  if (ic % 16 || ic <= 0 || oc0p % 8 || oc0p <= 0 ||
-      (fuse && (oc1p % 8 || oc1p <= 0)))
-    return (int)cudaErrorInvalidValue;
   if (dst_dt == DT_ACC && (!fuse || sum)) return (int)cudaErrorInvalidValue;
-  if (sum && sum_dt != DT_F32 && sum_dt != DT_S32 && sum_dt != DT_S8 &&
-      sum_dt != DT_U8)
-    return (int)cudaErrorInvalidValue;
-  if (sh < 1 || sw < 1 || sh > MAX_ESTRIDE || sw > MAX_ESTRIDE)
-    return (int)cudaErrorInvalidValue;
-  const Geo g = geometry(n, ih, iw, ic, oh, ow, kh, kw, sh, sw, ph, pw);
-  KArgs a = {};
-  if (!make_plan(a.p, g, oc0p, oc1p, fuse != 0, staged_dst(dst_dt)))
-    return (int)cudaErrorInvalidValue;
+  const Geo g =
+      geometry(n, ih, iw, ic, oh, ow, kh, kw, sh, sw, ph, pw, false);
+  KArgs a;
   Maps maps;
-  memset(&maps, 0, sizeof(maps));
-  memcpy(maps.b0, wmaps, 3 * sizeof(CUtensorMap));
-  if (fuse)
-    memcpy(maps.b1, static_cast<const CUtensorMap*>(wmaps) + 3,
-           3 * sizeof(CUtensorMap));
-  const cuuint64_t c = (cuuint64_t)g.ic;
-  const cuuint64_t dims[4] = {c, (cuuint64_t)g.iw, (cuuint64_t)g.ih,
-                              (cuuint64_t)g.n};
-  const cuuint64_t strides[3] = {c, c * g.iw, c * g.iw * g.ih};
-  const cuuint32_t estrides[4] = {1, (cuuint32_t)g.sw, (cuuint32_t)g.sh, 1};
-  for (int w = 0; w < 3; ++w) {
-    bool used = false;
-    for (int k = 0; k < a.p.nchunk0; ++k)
-      used |= chunk_at(a.p.kp, k).wcode == w;
-    const cuuint32_t box[4] = {32u << w, (cuuint32_t)(a.p.tc * g.sw),
-                               (cuuint32_t)(a.p.tr * g.sh), 1};
-    if (used && !encode(&maps.a[w], src, 4, dims, strides, box, estrides))
-      return (int)cudaErrorInvalidValue;
-  }
+  if (int e = setup(a, maps, src, wmaps, g, oc0p, oc1p, fuse != 0, dst_dt,
+                    sum, sum_dt, false))
+    return e;
   a.bias0 = static_cast<const float*>(bias0);
   a.scale0 = static_cast<const float*>(scale0);
   a.bias1 = static_cast<const float*>(bias1);
   a.scale1 = static_cast<const float*>(scale1);
   a.dst = dst;
-  a.sum = sum;
-  a.sum_dt = sum_dt;
   a.sum_scale = sum_scale;
-  a.oh = g.oh; a.ow = g.ow; a.kh = g.kh; a.kw = g.kw;
-  a.sh = g.sh; a.sw = g.sw; a.ph = g.ph; a.pw = g.pw;
-  a.oc0 = oc0; a.oc0p = oc0p; a.oc1p = fuse ? oc1p : 0;
+  a.oc0 = oc0;
   a.out_oc = fuse ? oc1 : oc0;
   a.relu0 = relu0; a.relu1 = relu1; a.down0 = down0; a.down1 = down1;
   a.has_bias0 = has_bias0; a.has_bias1 = has_bias1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return fuse ? launch_dst<true>(maps, a, dst_dt, s)
               : launch_dst<false>(maps, a, dst_dt, s);
+}
+
+// Pool mode: the conv (+ sum) then a 2x2/s2 pool (avg, else max, its
+// integer average rounded down when pool_down). dst: NHWC (n, oh / 2,
+// ow / 2, oc0) of dst_dt; sum: null, or the NHWC (n, oh, ow, oc0) sum
+// operand of sum_dt; wmaps: df_conv_weight_maps' maps with pool set. oh and
+// ow even; an s32 average is refused, as pool2_fusable refuses it.
+extern "C" int df_convpool(const void* src, const void* wmaps,
+                           const void* bias0, const void* scale0, void* dst,
+                           const void* sum, int n, int ih, int iw, int ic,
+                           int oh, int ow, int kh, int kw, int sh, int sw,
+                           int ph, int pw, int oc0, int oc0p, int relu0,
+                           int down0, int has_bias0, int dst_dt, int sum_dt,
+                           int avg, int pool_down, float sum_scale,
+                           void* stream) {
+  if (oh % 2 || ow % 2 || (avg && dst_dt == DT_S32))
+    return (int)cudaErrorInvalidValue;
+  const Geo g = geometry(n, ih, iw, ic, oh, ow, kh, kw, sh, sw, ph, pw, true);
+  KArgs a;
+  Maps maps;
+  if (int e = setup(a, maps, src, wmaps, g, oc0p, 0, false, dst_dt, sum,
+                    sum_dt, true))
+    return e;
+  a.bias0 = static_cast<const float*>(bias0);
+  a.scale0 = static_cast<const float*>(scale0);
+  a.dst = dst;
+  a.sum_scale = sum_scale;
+  a.oc0 = oc0;
+  a.out_oc = oc0;
+  a.relu0 = relu0; a.down0 = down0; a.has_bias0 = has_bias0;
+  a.pool_avg = avg; a.pool_down = pool_down;
+  return launch_pool(maps, a, dst_dt, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* df_error_string(int code) {

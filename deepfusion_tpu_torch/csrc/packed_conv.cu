@@ -121,20 +121,14 @@ constexpr int SMEM_LIMIT = 232448;  // opt-in shared memory of a block
 constexpr int SMS = 132;            // the H100 SXM's SMs
 constexpr int MODE_FUSE = 1, MODE_POOL = 2, MODE_RAW = 4;
 
-// One K chunk: kc = 32 << wcode bytes of source `src`'s lanes from lane0,
-// at K offset koff of the tap (of oc0p for the 1x1).
-struct Chunk {
-  int8_t src, wcode;
-  int16_t lane0, koff;
-};
-
 // The block plan, the same on host and device.
 struct Plan {
   int tiles_x, tiles_y, tiles, blocks;  // blocks walk the tiles in turn
   int nb0, nb1, npass0, npass1;  // lanes per pass and passes of each stage
   int kp;                        // K bytes per tap
-  int nchunk0, nchunk1;
-  Chunk chunk0[MAX_CHUNKS], chunk1[MAX_CHUNKS];
+  // K chunks (wgmma_tma.cuh): kc = 32 << wcode bytes of source src's lanes
+  // from lane0, at K offset koff of the tap (of oc0p for the 1x1, src -1)
+  KChunks<MAX_CHUNKS> ch0, ch1;
   int slot_a, slot, stages, mid_off, stage_off, par_off, bar_off, smem;
 };
 
@@ -163,17 +157,6 @@ struct __align__(64) Maps {
   CUtensorMap b0[3], b1[3];
 };
 
-// Split kpad bytes (a multiple of 32) into chunks of 128, 64 and 32.
-bool add_chunks(Chunk* c, int& n, int src, int kpad, int koff) {
-  for (int l = 0; l < kpad;) {
-    const int w = kpad - l >= 128 ? 2 : kpad - l >= 64 ? 1 : 0;
-    if (n == MAX_CHUNKS) return false;
-    c[n++] = Chunk{int8_t(src), int8_t(w), int16_t(l), int16_t(koff + l)};
-    l += 32 << w;
-  }
-  return true;
-}
-
 // staged: the final stage stores through shared memory (not pooled, not
 // the raw accumulator).
 bool make_plan(Plan& p, int n, int noy, int ow, int n_src, const int* cps,
@@ -191,22 +174,19 @@ bool make_plan(Plan& p, int n, int noy, int ow, int n_src, const int* cps,
   p.kp = 0;
   for (int s = 0; s < n_src; ++s) {
     const int kpad = (cps[s] + 31) / 32 * 32;
-    if (!add_chunks(p.chunk0, p.nchunk0, s, kpad, p.kp)) return false;
+    if (!p.ch0.add(kpad, p.kp, 128, s)) return false;
     p.kp += kpad;
   }
   if ((long long)kh * kw * p.kp >= (1LL << 31)) return false;
   p.nb0 = pass_width(oc0p);
   p.npass0 = (oc0p + p.nb0 - 1) / p.nb0;
-  int kc = 32;
-  for (int c = 0; c < p.nchunk0; ++c)
-    kc = std::max(kc, 32 << p.chunk0[c].wcode);
+  const int kc = p.ch0.widest();
   int b_bytes = p.nb0 * kc;
   if (fuse) {
-    if (!add_chunks(p.chunk1, p.nchunk1, -1, oc0p, 0)) return false;
+    if (!p.ch1.add(oc0p, 0, 128, -1)) return false;
     p.nb1 = pass_width(oc1p);
     p.npass1 = (oc1p + p.nb1 - 1) / p.nb1;
-    for (int c = 0; c < p.nchunk1; ++c)
-      b_bytes = std::max(b_bytes, p.nb1 * (32 << p.chunk1[c].wcode));
+    b_bytes = std::max(b_bytes, p.nb1 * p.ch1.widest());
   }
   p.slot_a = TM * kc;              // a multiple of 1024, as is b_bytes
   p.slot = p.slot_a + b_bytes;
@@ -266,8 +246,8 @@ __device__ __forceinline__ void produce(const Maps& maps, const KArgs& a,
     for (int ps = 0; ps < p.npass0; ++ps)
       for (int ki = 0; ki < a.kh; ++ki)
         for (int kj = 0; kj < a.kw; ++kj)
-          for (int c = 0; c < p.nchunk0; ++c) {
-            const Chunk ch = p.chunk0[c];
+          for (int c = 0; c < p.ch0.n; ++c) {
+            const KChunk ch = p.ch0.c[c];
             const int kc = 32 << ch.wcode;
             uint8_t* s = slot((TM + p.nb0) * kc);
             tma_load_4d(s, &maps.a[ch.src][ch.wcode], &full[stage], ch.lane0,
@@ -279,8 +259,8 @@ __device__ __forceinline__ void produce(const Maps& maps, const KArgs& a,
           }
     if (!fuse) continue;
     for (int ps = 0; ps < p.npass1; ++ps)
-      for (int c = 0; c < p.nchunk1; ++c) {
-        const Chunk ch = p.chunk1[c];
+      for (int c = 0; c < p.ch1.n; ++c) {
+        const KChunk ch = p.ch1.c[c];
         uint8_t* s = slot(p.nb1 * (32 << ch.wcode));
         tma_load_2d(s + p.slot_a, &maps.b1[ch.wcode], &full[stage], ch.koff,
                     ps * p.nb1);
@@ -545,8 +525,8 @@ __device__ __forceinline__ void consume(const KArgs& a, uint8_t* smem,
       fence_regs(acc);
       bool first = true;
       for (int tap = 0; tap < ntaps; ++tap)
-        for (int c = 0; c < p.nchunk0; ++c) {
-          const int kc = 32 << p.chunk0[c].wcode;
+        for (int c = 0; c < p.ch0.n; ++c) {
+          const int kc = 32 << p.ch0.c[c].wcode;
           uint8_t* s = acquire();
           const uint32_t sa = smem_u32(s) + wg * 64 * kc;
           const uint32_t sb = smem_u32(s + p.slot_a);
@@ -578,8 +558,8 @@ __device__ __forceinline__ void consume(const KArgs& a, uint8_t* smem,
       for (int ps = 0; ps < p.npass1; ++ps) {
         fence_regs(acc);
         bool first = true;
-        for (int c = 0; c < p.nchunk1; ++c) {
-          const Chunk ch = p.chunk1[c];
+        for (int c = 0; c < p.ch1.n; ++c) {
+          const KChunk ch = p.ch1.c[c];
           const int kc = 32 << ch.wcode;
           const uint32_t sb = smem_u32(acquire() + p.slot_a);
           wgmma_fence();
@@ -684,7 +664,7 @@ extern "C" int df_packed_plan(const int* in, int* out) {
                  in[11], in[12] != 0, in[13] == 0))
     return (int)cudaErrorInvalidValue;
   const int v[] = {TR, TC, p.blocks, p.stages, p.smem, p.nb0, p.nb1,
-                   p.npass0, p.npass1, p.nchunk0, p.kp, p.tiles};
+                   p.npass0, p.npass1, p.ch0.n, p.kp, p.tiles};
   for (int i = 0; i < 12; ++i) out[i] = v[i];
   return 0;
 }
@@ -746,11 +726,8 @@ extern "C" int df_packed_conv(
                                 (cuuint64_t)n};
     const cuuint64_t strides[3] = {cp, cp * iwp, cp * iwp * rows_in};
     for (int w = 0; w < 3; ++w) {
-      bool used = false;
-      for (int c = 0; c < a.p.nchunk0; ++c)
-        used |= a.p.chunk0[c].src == s && a.p.chunk0[c].wcode == w;
       const cuuint32_t box[4] = {32u << w, TC, TR, 1};
-      if (used && !encode(&maps.a[s][w], srcs[s], 4, dims, strides, box))
+      if (a.p.ch0.uses(w, s) && !encode(&maps.a[s][w], srcs[s], 4, dims, strides, box))
         return (int)cudaErrorInvalidValue;
     }
   }

@@ -1,13 +1,13 @@
-// Hopper building blocks of the dense and the packed conv kernels (conv.cu,
-// packed_conv.cu): TMA tensor copies completing on mbarriers, the
+// Hopper building blocks of the conv kernels (conv.cu, packed_conv.cu,
+// pair_conv.cu): TMA tensor copies completing on mbarriers, the
 // shared-memory matrix descriptors, wgmma m64nNk32 with s32 accumulators in
 // registers, and the host's tensor-map encoding.
 //
 // A warpgroup (four consecutive warps) issues one wgmma on a 64-row A tile
 // and an N-column B tile, both read from shared memory through 64-bit
 // descriptors. Its accumulator fragment has, per warp w of the group and
-// per n8 column block j, the mma.sync C layout: register 4j + 2h + e holds
-// row 16w + 8h + g, column 8j + 2t + e (g = lane / 4, t = lane % 4). So an
+// per n8 column block j: register 4j + 2h + e holds row 16w + 8h + g,
+// column 8j + 2t + e (g = lane / 4, t = lane % 4). So an
 // m64n256 accumulator is four m64n64 ones side by side, and the wrappers
 // below for N = 32, 64, 128 and 256 write into the first N / 2 registers of
 // one array.
@@ -18,7 +18,9 @@
 // its descriptor has SBO = 8 * kc and advances 32 bytes per k-step inside
 // the row. The no-swizzle layout (type 0) holds 8-row x 16-byte core
 // matrices: SBO is the stride between 8-row groups, LBO between the two
-// 16-byte halves of a 32-byte k-step.
+// 16-byte halves of a 32-byte k-step; a descriptor starts at any 16-byte
+// boundary, so the 8-row groups may sit at any stride (pair_conv.cu reads
+// layer b's A taps as shifted windows this way).
 #pragma once
 
 #include <cuda.h>
@@ -339,6 +341,46 @@ __device__ __forceinline__ void wgmma_step(int32_t (&acc)[128], uint64_t da,
       break;
   }
 }
+
+// K chunks, each one TMA box swizzled to its width: chunk c is 32 << wcode
+// bytes at K offset koff. The host fills a plan's table once per launch and
+// the kernels read it: no kernel computes a chunk's width or offset. src and
+// lane0 are the packed conv's (the chunk's source and its first lane
+// there); elsewhere they are 0 and koff.
+struct KChunk {
+  int8_t src, wcode;
+  int16_t lane0, koff;
+};
+template <int N>
+struct KChunks {
+  int n;
+  KChunk c[N];
+  // Append kpad bytes (a multiple of 32) of source src at K offset koff:
+  // chunks of cap = 128 (or 64, 32) bytes, then at most one of each
+  // narrower width. False if the table is full.
+  bool add(int kpad, int koff, int cap = 128, int src = 0) {
+    for (int l = 0; l < kpad;) {
+      int w = cap == 128 ? 2 : cap == 64 ? 1 : 0;
+      while (w > 0 && kpad - l < (32 << w)) --w;
+      if (n == N) return false;
+      c[n++] = KChunk{int8_t(src), int8_t(w), int16_t(l), int16_t(koff + l)};
+      l += 32 << w;
+    }
+    return true;
+  }
+  // The widest chunk's bytes (32 for an empty table).
+  int widest() const {
+    int w = 0;
+    for (int i = 0; i < n; ++i) w = w > c[i].wcode ? w : c[i].wcode;
+    return 32 << w;
+  }
+  // Whether a chunk has width code w (its input map is used).
+  bool uses(int w, int source = 0) const {
+    for (int i = 0; i < n; ++i)
+      if (c[i].wcode == w && c[i].src == source) return true;
+    return false;
+  }
+};
 
 // The widest wgmma N of a pass over ocp output lanes: 32, 64, 128 or 256.
 inline int pass_width(int ocp) {

@@ -236,7 +236,7 @@ def _gather_stride(x: torch.Tensor, dim: int, o: int, k: int, s: int,
     return F.pad(x, pad).index_select(dim, idx.to(x.device))
 
 
-def _kernel_input(op: ConvOp, src: torch.Tensor):
+def _kernel_input(op, src: torch.Tensor):
     """The input and geometry (ih, iw, ic, sh, sw, ph, pw) the kernel runs:
     ic padded to 16 with zero channels (exact), strides above TMA's 8
     gathered away (``_gather_stride``)."""
@@ -257,9 +257,10 @@ def _kernel_input(op: ConvOp, src: torch.Tensor):
     return src, (ih, iw, ic, sh, sw, ph, pw)
 
 
-def _weight_maps(op: ConvOp):
-    """The TMA tensor maps of the op's K-major weights, encoded once for
-    their device pointers (``df_conv_weight_maps``)."""
+def _weight_maps(op, pool: bool = False):
+    """The TMA tensor maps of the op's K-major weights (a ``ConvOp``, or
+    with ``pool`` a ``ConvPoolOp``, whose w0 boxes are at most 64 rows),
+    encoded once for their device pointers (``df_conv_weight_maps``)."""
     w1k = op.w1k
     key = (op.w0k.data_ptr(), None if w1k is None else w1k.data_ptr())
     if op._wmaps is None or op._wmaps[0] != key:
@@ -268,7 +269,7 @@ def _weight_maps(op: ConvOp):
             op.w0k.data_ptr(), op.w0k.shape[1], op.w0k.shape[0],
             None if w1k is None else w1k.data_ptr(),
             0 if w1k is None else w1k.shape[1],
-            0 if w1k is None else w1k.shape[0], buf)
+            0 if w1k is None else w1k.shape[0], int(pool), buf)
         _build.check(rc, "df_conv_weight_maps")
         op._wmaps = (key, buf)
     return op._wmaps[1]
@@ -279,24 +280,26 @@ def _ocps(cfg: ConvConfig):
             layout.conv_ocp(cfg.oc1x1) if cfg.fuse_conv1x1 else 0)
 
 
-def conv_plan(op: ConvOp, n: int, emit_acc1: bool = False) -> dict:
+def conv_plan(op, n: int, emit_acc1: bool = False,
+              pool: bool = False) -> dict:
     """The conv kernel's plan for a call at batch n, without launching
     (``df_conv_plan``, the launcher's own planning): rows of M per tile
     (128, or 64 with each consumer warpgroup on half the lanes: split), the
     tile's output rows x columns, the tiles, the blocks (at most one per SM
-    of the H100's 132, each walking its share of the tiles), ring stages,
-    shared bytes, lanes per pass and passes of each stage, K chunks and
-    bytes per tap, and whether the 1x1 runs as a GEMM over the flattened
-    pixels."""
+    of the H100's 132, each walking its share of the work items: a tile
+    with all its passes, in pool mode a pass of a tile), ring stages, shared
+    bytes, lanes per pass and passes of each stage, K chunks and bytes per
+    tap, whether the 1x1 runs as a GEMM over the flattened pixels, and the
+    work items. ``pool``: the plan of the pool mode (``ConvPoolOp``)."""
     cfg = op.cfg
     _, (ih, iw, ic, sh, sw, ph, pw) = _kernel_input(
         op, torch.empty((0, cfg.ih, cfg.iw, cfg.ic), dtype=torch.uint8))
     vals = [n, ih, iw, ic, cfg.oh, cfg.ow, cfg.kh, cfg.kw, sh, sw, ph, pw,
             *_ocps(cfg), int(cfg.fuse_conv1x1),
-            _ACC1 if emit_acc1 else cfg.dst_dt.value]
+            _ACC1 if emit_acc1 else cfg.dst_dt.value, int(pool)]
     keys = ("tile_m", "tile_rows", "tile_cols", "split", "tiles", "blocks",
             "stages", "smem_bytes", "nb0", "nb1", "passes0", "passes1",
-            "chunks_per_tap", "k_per_tap", "gemm")
+            "chunks_per_tap", "k_per_tap", "gemm", "items")
     out = (ctypes.c_int * len(keys))()
     rc = _build.kernels().df_conv_plan((ctypes.c_int * len(vals))(*vals),
                                        out)

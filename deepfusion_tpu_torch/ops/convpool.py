@@ -5,23 +5,26 @@ output is requantized to f32 values clipped to the dst's range
 (``requant_presat``), pooled in f32 (max, or the average with the pool's
 round mode) and cast once, so the result is bitwise ``pool(conv(...))``
 while the conv output never reaches device memory. Calling the op on a
-CUDA tensor launches ``convpool_kernel`` (``csrc/convpool.cu``); on a CPU
-tensor it runs ``convpool_plain``, the plain PyTorch version of the same
-function. Nothing else selects the path.
+CUDA tensor launches ``convpool_kernel``, the pool mode of the dense conv
+kernel (``csrc/conv.cu``: wgmma on TMA tiles, the pool in the epilogue);
+on a CPU tensor it runs ``convpool_plain``, the plain PyTorch version of
+the same function. Nothing else selects the path. The op derives the
+K-major copy of its weights that the kernel's TMA reads, as ``ConvOp``
+does, and ``convpool_plan`` reports the kernel's tiling for a call.
 
 Legality (``pool2_fusable``) is the JAX rule's semantic part: not fused
 with a 1x1, pool 2x2 / stride 2 / pad 0, even conv output h and w, and max
 or a dst other than s32 (an s32 average can leave f32's exact-integer
-range). Strided convs qualify; the kernel takes stride in its addressing.
-The JAX rule's VMEM clause (``_even_tile_unchunked``: a TPU row tile that
-fits unchunked) describes TPU tiling and has no counterpart here: the CUDA
-kernel's block holds whole 2x2 windows at every shape.
+range). Strided convs qualify; the kernel takes stride in its addressing (TMA's
+element strides; the wrapper gathers strides above 8 away, as for
+``ConvOp``). The JAX rule's VMEM clause (``_even_tile_unchunked``: a TPU
+row tile that fits unchunked) describes TPU tiling and has no counterpart
+here: the CUDA kernel's tiles hold whole 2x2 windows at every shape.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .. import _build
@@ -29,10 +32,10 @@ from ..config import ConvConfig, PoolConfig
 from ..types import dtype, round_mode
 from ..utils.device import as_tensor, default_device
 from ..utils.logger import check, check_eq
-from ..utils.mathutil import round_up
 from ..utils.persist import dump_configs, load_configs
 from . import layout
-from .conv import check_sum_src, conv_acc
+from .conv import (_kernel_input, _weight_maps, check_sum_src, conv_acc,
+                   conv_plan)
 from .requant import requant_presat, round_f32, saturate, sum_term
 
 _OPERAND_KEYS = ("w0", "bias0", "scale0")
@@ -71,6 +74,12 @@ class ConvPoolOp(nn.Module):
             check_eq(tuple(ops[k].shape), shape, f"packed operand {k}")
             self.register_buffer(k, torch.as_tensor(np.asarray(ops[k]),
                                                     device=device))
+        # the kernel's B operand, derived from the words as ConvOp derives
+        # it: a non-persistent buffer, so save/load keep the word format
+        self.register_buffer("w0k", layout.dense_kmajor_weights(
+            self.w0, cfg.kh, cfg.kw), persistent=False)
+        self.w1k = None
+        self._wmaps = None   # (device pointers, their encoded tensor maps)
 
     @property
     def device(self) -> torch.device:
@@ -135,15 +144,21 @@ def convpool_plain(op: ConvPoolOp, src: torch.Tensor,
     return saturate(y, cfg.dst_dt)
 
 
+def convpool_plan(op: ConvPoolOp, n: int) -> dict:
+    """The kernel's plan for a call at batch n, without launching
+    (``conv.conv_plan`` of the pool mode): the tile (8 pixels wide, 16 or 8
+    rows), lanes per pass and passes (a pass narrower than the widest wgmma
+    N splits the lanes over the grid), work items (tile x pass), blocks,
+    ring stages, shared bytes."""
+    return conv_plan(op, n, pool=True)
+
+
 def convpool_cuda(op: ConvPoolOp, src: torch.Tensor,
                   sum_src=None) -> torch.Tensor:
     """Launch ``convpool_kernel`` on the current stream."""
     cfg, pc = op.cfg, op.pc
     check(src.is_cuda, "convpool_cuda needs a CUDA tensor")
-    ic = cfg.ic
-    if ic % 16:   # the kernel copies 16 channels at a time; zeros are exact
-        ic = round_up(ic, 16)
-        src = F.pad(src, (0, ic - cfg.ic))
+    src, (ih, iw, ic, sh, sw, ph, pw) = _kernel_input(op, src)
     src = _build.aligned(src)
     if sum_src is not None:
         sum_src = _build.aligned(sum_src)
@@ -152,11 +167,11 @@ def convpool_cuda(op: ConvPoolOp, src: torch.Tensor,
                       dtype=cfg.dst_dt.torch, device=src.device)
     with torch.cuda.device(src.device):
         rc = _build.kernels().df_convpool(
-            src.data_ptr(), op.w0.data_ptr(), op.bias0.data_ptr(),
+            src.data_ptr(), _weight_maps(op, pool=True), op.bias0.data_ptr(),
             op.scale0.data_ptr(), out.data_ptr(),
             None if sum_src is None else sum_src.data_ptr(),
-            n, cfg.ih, cfg.iw, ic, cfg.oh, cfg.ow, cfg.kh, cfg.kw,
-            cfg.sh, cfg.sw, cfg.ph, cfg.pw, cfg.oc, layout.conv_ocp(cfg.oc),
+            n, ih, iw, ic, cfg.oh, cfg.ow, cfg.kh, cfg.kw,
+            sh, sw, ph, pw, cfg.oc, layout.conv_ocp(cfg.oc),
             int(cfg.conv0_relu), int(cfg.conv0_round == round_mode.down),
             int(cfg.conv0_with_bias), cfg.dst_dt.value,
             cfg.sum_dt.value if cfg.with_sum else 0, int(pc.kind != "max"),

@@ -1,10 +1,8 @@
 """Weight layouts of the conv kernels, and the epilogue vectors.
 
 The kernels multiply u8 activations by s8 weights on the tensor cores. The
-operands (what ``save``/``load`` keep, and what the ``mma.sync`` kernels K9
-and K10 read: their fragments hold 4 8-bit values of consecutive K, input
-channels, per register) are int32 words of 4 s8 values taken along the
-input channels:
+operands (what ``save``/``load`` keep, in the JAX package's layout) are
+int32 words of 4 s8 values taken along the input channels:
 
     pack_conv_weights: OIHW (oc, ic, kh, kw) -> int32 [kh*kw][icp/4][ocp]
         word [t, k, o] holds w[o, 4k+b, t // kw, t % kw] in byte b
@@ -15,16 +13,18 @@ with ``icp`` = ic rounded up to 32 (one k-step) for the conv and
 for the 1x1, and ``ocp`` = oc rounded up to 8 (one n-tile). Padding is
 zero.
 
-The dense conv kernel (``csrc/conv.cu``) runs wgmma, which takes 8-bit
-operands K-major only: ``dense_kmajor_weights`` derives its (N, K) int8
-matrices from the words. Its zero padding is exact in the u8 domain, so it
-needs neither the JAX package's -128 shift of the activations nor its
-correction term.
+The dense conv kernel (``csrc/conv.cu``, with its pool mode for
+``ConvPoolOp``) runs wgmma, which takes 8-bit operands K-major only:
+``dense_kmajor_weights`` derives its (N, K) int8 matrices from the words.
+Its zero padding is exact in the u8 domain, so it needs neither the JAX
+package's -128 shift of the activations nor its correction term.
 
-The packed-domain conv (``ops/packed.py``) keeps the same word layouts with
-wider padding: K is the sum of its sources' lanes (``conv_icp(ic)``, since
-every source but the last has ``cp == c``, OIHW with ic = c0 + c1 + ... is
-already in the lane order of the joined sources) and every N is
+The packed-domain conv (``ops/packed.py``, and the conv pair of
+``ops/mega.py``, which reads its two ``PackedConvOp``s' copies) keeps the
+same word layouts with wider padding: K is the sum of its sources' lanes
+(``conv_icp(ic)``, since every source but the last has ``cp == c``, OIHW
+with ic = c0 + c1 + ... is already in the lane order of the joined
+sources) and every N is
 ``packed_cp(oc)``, the lane count of the packed output
 (``deepfusion_tpu/ops/packed.py:_narrow_cfg``). Its kernel
 (``csrc/packed_conv.cu``) runs wgmma, which takes 8-bit operands K-major
@@ -54,8 +54,8 @@ import torch.nn.functional as F
 from ..config import ConvConfig
 from ..utils.mathutil import round_up
 
-IC_ALIGN = 32   # K bytes of one tensor-core k-step (mma.sync or wgmma)
-OC_ALIGN = 8    # N granule of mma.sync and wgmma
+IC_ALIGN = 32   # K bytes of one wgmma k-step
+OC_ALIGN = 8    # N granule of wgmma
 
 
 def conv_icp(ic: int) -> int:

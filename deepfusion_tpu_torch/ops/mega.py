@@ -9,7 +9,11 @@ The PyTorch counterpart of ``deepfusion_tpu/ops/mega.py``. One launch of
 so the layer boundary never reaches device memory: two convs share one read
 of the packed input and one write of the (pooled) packed output. With
 ``pool2`` this is VGGFusion's block, conv3x3+ReLU -> conv3x3+ReLU ->
-maxpool2, as one kernel.
+maxpool2, as one kernel. The kernel runs wgmma on TMA tiles: layer a as
+the packed conv kernel does, on a window of the intermediate kept in
+shared memory, and layer b with its A operand read from that window; its
+B operands and their tensor maps are the two ``PackedConvOp``s' own
+(``packed._weight_maps``).
 
 Semantics: the output equals ``op_b(op_a(x))`` for the two ``PackedConvOp``
 s with the pair's intermediate spec ``smid`` (then the fused pool), which is
@@ -52,7 +56,7 @@ from ..utils.persist import dump_configs, load_configs
 from . import layout
 from .packed import (PackedConvOp, PackedSpec, _embed, _operand_shapes,
                      _place, _pooled_spec, _rows_of, _stage_plain,
-                     check_slice, pack_image, row_plan,
+                     _weight_maps, check_slice, pack_image, row_plan,
                      validate_packed_maxpool2)
 
 
@@ -320,7 +324,8 @@ def pair_conv_plain(op: PackedConvPairOp, arr, *, rows=None,
 
 
 def _stage_ints(pop: PackedConvOp):
-    """One layer's ints as ``csrc/pair_conv.cu:make_stage`` reads them."""
+    """One layer's ints as ``csrc/pair_conv.cu:make_layer`` reads them (the
+    fifth, K bytes per tap, is the lanes of the layer's one input)."""
     cfg = pop.cfg
     fuse = cfg.fuse_conv1x1
     v = [cfg.kh, cfg.kw, cfg.ph, cfg.pw, layout.conv_icp(cfg.ic), cfg.oc,
@@ -333,10 +338,15 @@ def _stage_ints(pop: PackedConvOp):
 
 
 def _stage_ptrs(pop: PackedConvOp):
-    keys = ("w0", "bias0", "scale0") + (
-        ("w1", "bias1", "scale1") if pop.cfg.fuse_conv1x1 else ())
-    ptrs = [getattr(pop, k).data_ptr() for k in keys]
-    return (ctypes.c_void_p * 6)(*(ptrs + [None] * (6 - len(ptrs))))
+    """One layer's pointers as ``df_pair_conv`` reads them: corr0, bias0,
+    scale0, bias1, scale1 (null when not fused), the tensor maps of its
+    K-major weights."""
+    fuse = pop.cfg.fuse_conv1x1
+    ptrs = [pop.corr0.data_ptr(), pop.bias0.data_ptr(), pop.scale0.data_ptr(),
+            pop.bias1.data_ptr() if fuse else None,
+            pop.scale1.data_ptr() if fuse else None,
+            ctypes.cast(_weight_maps(pop), ctypes.c_void_p).value]
+    return (ctypes.c_void_p * 6)(*ptrs)
 
 
 def _geo_ints(op: PackedConvPairOp, n: int, rows_in=None, row0_off=0,
@@ -378,25 +388,36 @@ def pair_conv_cuda(op: PackedConvPairOp, arr, *, rows=None,
 
 
 def pair_conv_plan(op: PackedConvPairOp, n: int) -> dict:
-    """The tiling the kernel launches at batch n, as ``df_pair_plan`` (the
-    kernel's own tile choice and windows) reports it; needs the kernel
-    library and a card: the output tile, the number of blocks, the shared
-    memory of a block, and the MACs executed relative to the pair's own
-    (layer a recomputes each tile's halo of intermediate pixels)."""
-    res = (ctypes.c_int * 5)()
+    """The plan the kernel launches at batch n (the whole output), as
+    ``df_pair_plan`` (the launcher's own planning) reports it; needs the
+    kernel library: the output tile (tr x 8 pixels; split: 8 rows, each
+    consumer warpgroup on half of layer b's lanes), the tiles, the blocks
+    (at most one per SM of the H100's 132, each walking its share of the
+    tiles), ring stages, shared bytes, the widest K chunk, the window of
+    intermediate pixels layer a computes per tile and its m64 blocks; then
+    layer a's M rows per intermediate pixel (``layer_a_ratio``: the halo of
+    every tile and the last block's rows past the window), the share of
+    layer b's M rows that are no output pixel (tiles past the image's
+    edge), and the MACs executed relative to the pair's own."""
+    keys = ("tile_rows", "tile_cols", "split", "tiles", "blocks", "stages",
+            "smem_bytes", "k_chunk", "window_pixels", "layer_a_blocks")
+    res = (ctypes.c_int * len(keys))()
     rc = _build.kernels().df_pair_plan(_stage_ints(op.op_a),
                                        _stage_ints(op.op_b),
                                        _geo_ints(op, n), res)
     _build.check(rc, "pair_conv plan")
-    tr, tc, blocks, smem, mid = list(res)
+    plan = dict(zip(keys, list(res)))
     a, b = op.cfg_a, op.cfg_b
 
     def macs(cfg, pixels):
         m = cfg.kh * cfg.kw * cfg.ic * cfg.oc
         return pixels * (m + (cfg.oc * cfg.oc1x1 if cfg.fuse_conv1x1 else 0))
 
-    pair = macs(a, a.oh * a.ow) + macs(b, b.oh * b.ow)
-    done = macs(a, mid) + macs(b, b.oh * b.ow)
-    return dict(tile=(tr, tc), blocks=blocks, smem_bytes=smem,
-                layer_a_ratio=mid / (a.oh * a.ow),
-                executed_mac_ratio=done / pair)
+    rows_a = plan["tiles"] * plan["layer_a_blocks"] * 64
+    rows_b = plan["tiles"] * plan["tile_rows"] * plan["tile_cols"]
+    pair = macs(a, n * a.oh * a.ow) + macs(b, n * b.oh * b.ow)
+    plan.update(tile=(plan["tile_rows"], plan["tile_cols"]),
+                layer_a_ratio=rows_a / (n * a.oh * a.ow),
+                layer_b_junk_share=1 - n * b.oh * b.ow / rows_b,
+                executed_mac_ratio=(macs(a, rows_a) + macs(b, rows_b)) / pair)
+    return plan

@@ -10,18 +10,21 @@ and VGGFusion (the heads included; with the sums per model) and at
 bench.py's --dense shape, warm and cold, K5 (``packed_conv_cuda``)
 at FusionNet's and ResFusionNet's packed layers and at bench.py's default
 shape (8x126x126x256 -> 3x3:256 -> 1x1:256), K9 (``convpool_cuda``) at
-ResFusionNet's downsample and VGGFusion's three conv+pool layers, K10
-(``pair_conv_cuda``) at VGGFusion's blocks, K3 (``pool_cuda``) at its four
-model launches (FusionNet's 2x2 max pool and global average, ResFusionNet's
-and VGGFusion's global averages); full width, batch 8, inputs from seed 0.
-Each time is ``chip_smoke.device_ms``: the median of 3 ``torch.profiler``
-profiles of 50 calls (self device time per call, ms); K1, K3 and the bench
-shapes also cold (``chip_smoke.cold_device_ms``: the L2 evicted before
-every call). Entries ending in "host us" are the host's time per call of the
-wrapper (a loop of 200 calls that the device keeps up with, no
-synchronisation inside; median of 5 loops, microseconds). Give the trees
-as parent, change, change, parent. Prints one JSON line per run, then the
-median per tree of each entry and, for the bench shape, TOP/s.
+ResFusionNet's downsample and VGGFusion's three conv+pool layers (beside
+each, the same layer as K1 then K3's 2x2 max pool), K10
+(``pair_conv_cuda``) at VGGFusion's blocks (beside each, the block as K5's
+conv a then conv b with its fused pool) and at bench.py's --pair shape, K3
+(``pool_cuda``) at its four model launches (FusionNet's 2x2 max pool and
+global average, ResFusionNet's and VGGFusion's global averages); full
+width, batch 8, inputs from seed 0. Each time is ``chip_smoke.device_ms``:
+the median of 3 ``torch.profiler`` profiles of 50 calls (self device time
+per call, ms); K1, K3, K9, K10 and the bench shapes also cold
+(``chip_smoke.cold_device_ms``: the L2 evicted before every call).
+Entries ending in "host us" are the host's time per call of the wrapper (a
+loop of 200 calls that the device keeps up with, no synchronisation
+inside; median of 5 loops, microseconds). Give the trees as parent,
+change, change, parent. Prints one JSON line per run, then the median per
+tree of each entry and, for the bench shapes, TOP/s.
 """
 import json
 import os
@@ -121,12 +124,29 @@ def run_tree(tree):
             x = cs.packed_input(rng, pair.sin, vnet.cfg.batch, dev)
             res[f"K10 VGGFusion block{b}"] = device_ms(
                 lambda: M.pair_conv_cuda(pair, x))
-        for label, op in [("ResFusionNet down", rnet.down)] + [
-                (f"VGGFusion block{b} conv2+pool", op)
+            res[f"K10 VGGFusion block{b} cold"] = cold_ms(
+                lambda: M.pair_conv_cuda(pair, x))
+
+            def two():
+                return PK.packed_conv_cuda(pair.op_b, [PK.packed_conv_cuda(
+                    pair.op_a, [x])])
+            res[f"K5 + K5 pool2 VGGFusion block{b}"] = device_ms(two)
+            res[f"K5 + K5 pool2 VGGFusion block{b} cold"] = cold_ms(two)
+        for label, op, params in [("ResFusionNet down", rnet.down,
+                                   rnet.params["down"])] + [
+                (f"VGGFusion block{b} conv2+pool", op,
+                 vnet.params[f"block{b}_conv2"])
                 for b, op in enumerate(vnet.convpool2, 1)]:
             c = op.cfg
             x = cs.rand(rng, (c.bs, c.ih, c.iw, c.ic), u8, dev)
             res[f"K9 {label}"] = device_ms(lambda: CP.convpool_cuda(op, x))
+            res[f"K9 {label} cold"] = cold_ms(lambda: CP.convpool_cuda(op, x))
+            cop = K.ConvOp(c, params["wei"], params.get("bia"), device=dev)
+
+            def composed():
+                return P.pool_cuda(K.conv_cuda(cop, x), op.pc, u8)
+            res[f"K1 + K3 {label}"] = device_ms(composed)
+            res[f"K1 + K3 {label} cold"] = cold_ms(composed)
         # K3 at its model launches
         hw, w = net.cfg.hw, net.cfg.width
         r, v = rnet.block2.cfg, vnet.convpool2[-1].cfg
@@ -162,28 +182,37 @@ def run_tree(tree):
             lambda: PK.packed_conv_cuda(fop, [fx]))
         del fop, fx
         # K1 at bench.py's --dense shape (the same layer, NHWC u8)
-        dop, _ = cs.flagship_dense(dev)
+        dop, macs = cs.flagship_dense(dev)
         c = dop.cfg
         dx = cs.rand(rng, (c.bs, c.ih, c.iw, c.ic), u8, dev)
         res["K1 bench.py --dense"] = device_ms(lambda: K.conv_cuda(dop, dx))
         res["K1 bench.py --dense cold"] = cold_ms(
             lambda: K.conv_cuda(dop, dx))
-    print(json.dumps({"tree": tree, "device_ms": res, "bench_macs": macs}),
-          flush=True)
+        del dop, dx
+        # K10 at bench.py's --pair shape (two of its default layers)
+        pop, pb, pmacs = cs.flagship_pair(dev)
+        px = cs.packed_input(rng, pop.sin, pb, dev)
+        res["K10 bench.py --pair"] = device_ms(
+            lambda: M.pair_conv_cuda(pop, px))
+        res["K10 bench.py --pair cold"] = cold_ms(
+            lambda: M.pair_conv_cuda(pop, px))
+    print(json.dumps({"tree": tree, "device_ms": res, "bench_macs": macs,
+                      "pair_macs": pmacs}), flush=True)
 
 
 def main():
-    if len(sys.argv) == 3 and sys.argv[1] == "--run":
-        run_tree(sys.argv[2])
+    args = sys.argv[1:]
+    if args[:1] == ["--run"]:
+        run_tree(args[1])
         return
     runs = []
-    for tree in sys.argv[1:]:
+    for tree in args:
         out = subprocess.run([sys.executable, __file__, "--run", tree],
                              capture_output=True, text=True, check=True)
         line = out.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         runs.append(json.loads(line))
-    trees = list(dict.fromkeys(sys.argv[1:]))
+    trees = list(dict.fromkeys(args))
     for layer in runs[0]["device_ms"]:
         meds = [statistics.median(r["device_ms"][layer] for r in runs
                                   if r["tree"] == t) for t in trees]
@@ -191,9 +220,10 @@ def main():
                                        zip(trees, meds))
         if len(meds) == 2:
             line += f" ratio={meds[1] / meds[0]:.4f}"
-        if layer.startswith(("K5 bench.py", "K1 bench.py")):
+        if layer.startswith(("K5 bench.py", "K1 bench.py", "K10 bench.py")):
+            key = "pair_macs" if layer.startswith("K10") else "bench_macs"
             line += " TOP/s " + " ".join(
-                f"{t}={2 * runs[0]['bench_macs'] / m / 1e9:.1f}"
+                f"{t}={2 * runs[0][key] / m / 1e9:.1f}"
                 for t, m in zip(trees, meds))
         print(line)
 
