@@ -8,8 +8,9 @@ Phases, each printing its own lines:
      function may issue mma.sync, and the SASS of every instance of the
      dense conv kernel (K1), its pool mode (K9) and the conv pair (K10)
      must issue wgmma on TMA-loaded tiles, and ptxas (-v) must not have
-     serialized the wgmma of K5, K9 or K10 (its note C7520); then the
-     device rule:
+     serialized the wgmma of K5, K9 or K10 (its note C7520); a
+     _build.kernels() call after the first must return the same library
+     in at most 5 host microseconds; then the device rule:
      FusionNet(cfg) and conv() on a numpy input, given no device, must run
      on cuda:0 through the kernels;
   3. parity: each kernel against its plain PyTorch version on the card,
@@ -53,7 +54,9 @@ Phases, each printing its own lines:
      yardstick); each kernel's bound (the larger of its bytes over 3.35
      TB/s and its operations over the peak rate) and, where one PyTorch
      call computes the same function (torch.cat, a 2x2 amax), that call's
-     time;
+     time, and per call beside it in turns; the host microseconds of each
+     part of a launch (K7's) and a cProfile ranking of each forward's host
+     work;
   6. sharded: the parallel/ wrappers on meshes whose slots are all this
      card (tp_fused_conv and tp_packed_fused at tp 2 and 4, both wires;
      sp_conv at sp 2, 4 and dp 2 x sp 2; sp_packed on the packed conv at sp
@@ -361,16 +364,27 @@ def phase_device():
     return name_power
 
 
-def phase_build():
+def phase_build(name_power):
     from deepfusion_tpu_torch import _build
+    from deepfusion_tpu_torch.utils.logger import check
     # ptxas -v: the build also writes ptxas's report (serialized_check)
     os.environ["DEEPFUSION_DUMP_CODE"] = "1"
     t0 = time.perf_counter()
-    _build.kernels()
+    lib = _build.kernels()
     print(f"build: {_build.library_path().name} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     sass_check(_build.library_path())
     serialized_check(_build.library_path().with_suffix(".ptxas.txt"))
+    # every launch asks for the library: after the first call that must
+    # cost next to nothing (no hashing, no opening)
+    calls = 10000
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        check(_build.kernels() is lib, "kernels() opened the library again")
+    us = (time.perf_counter() - t0) / calls * 1e6
+    print(f"host: _build.kernels() {us:.4f} us per call after the first "
+          f"(mean of {calls} calls) card=\"{name_power}\"", flush=True)
+    check(us <= 5.0, f"_build.kernels() takes {us:.2f} us per call")
 
 
 # The K1 instances that ptxas is known to serialize (C7520): the 1-byte
@@ -1109,14 +1123,28 @@ def packed_parity(net, rnet, dev, par):
                 par.check("packed_sum_pool", what,
                           PK.packed_sum_pool_cuda(*args),
                           PK.packed_sum_pool_plain(*args))
-    # ResFusionNet's packed max pool after its downsample conv
+    # K7 alone: ResFusionNet's packed max pool after its downsample conv,
+    # at batch 8 and 1; rows whose two input rows exceed one block's chunk
+    # (32 KB): two column chunks, the last one short, and three; odd
+    # numbers of output rows
     ds = rnet.build_packed()["down"].sout
-    for junk in (False, True):
-        y = packed_input(rng, ds, rnet.cfg.batch, dev, junk)
-        args = ([y], None, True, ds.rows, ds.iwp)
-        par.check("packed_sum_pool", f"ResFusionNet down pool junk={junk}",
-                  PK.packed_sum_pool_cuda(*args),
-                  PK.packed_sum_pool_plain(*args))
+    cases = [("ResFusionNet down", ds, rnet.cfg.batch),
+             ("ResFusionNet down n=1", ds, 1),
+             ("2 chunks", PackedSpec.make(6, 70, 256, halo=2, col_off=2,
+                                          iwp=80), 2),
+             ("3 chunks", PackedSpec.make(4, 40, 1024, halo=2, col_off=2,
+                                          iwp=48), 1),
+             ("5 output rows", PackedSpec.make(6, 10, 64, halo=2, col_off=2,
+                                               iwp=16), 3),
+             ("9 output rows", PackedSpec.make(14, 20, 128, halo=2,
+                                               col_off=2, iwp=32), 2)]
+    for label, s, bn in cases:
+        for junk in (False, True):
+            y = packed_input(rng, s, bn, dev, junk)
+            args = ([y], None, True, s.rows, s.iwp)
+            par.check("packed_sum_pool", f"{label} pool junk={junk}",
+                      PK.packed_sum_pool_cuda(*args),
+                      PK.packed_sum_pool_plain(*args))
     # saturation edges: every (a, b) byte pair of -128, -1, 0, 127
     edge = torch.tensor([-128, -1, 0, 127], dtype=torch.int8)
     a = edge.repeat_interleave(4).repeat(16).reshape(1, 16, 16).to(dev)
@@ -1656,6 +1684,90 @@ def encode_host_us(arr, spec, name_power, calls=2000):
           flush=True)
 
 
+def per_call_in_turns(label, fns, name_power, rounds=2):
+    """Per-call CUDA-event ms of each fn in `fns` ({name: fn}): medians of
+    REPS calls, taken in turns (A, B, B, A per round); the mean per fn."""
+    ms = {k: [] for k in fns}
+    ks = list(fns)
+    for _ in range(rounds):
+        for k in ks + ks[::-1]:
+            ms[k].append(cuda_ms(fns[k]))
+    print(f"timing: {label} per call in turns " + " ".join(
+        f"{k.replace(' ', '_')}_ms={statistics.mean(v):.4f}"
+        for k, v in ms.items()) + f" card=\"{name_power}\"", flush=True)
+
+
+def launch_host_us(y, spec, name_power, calls=2000):
+    """Host microseconds of the parts of one launch through a wrapper, at
+    K7's launch on the packed array `y` (its spec `spec`): each part alone
+    in a loop of `calls` (the device keeps up), then the whole wrapper and
+    the whole op with its checks."""
+    from deepfusion_tpu_torch import _build
+    PK = importlib.import_module("deepfusion_tpu_torch.ops.packed")
+    lib = _build.kernels()
+    n, rows, iwp, cp = y.shape[0], spec.rows, spec.iwp, spec.cp
+    out = torch.empty((n, rows // 2 * (iwp // 2), cp), dtype=torch.int8,
+                      device=y.device)
+    ptrs = (ctypes.c_void_p * 1)(y.data_ptr())
+    cps = (ctypes.c_int * 1)(cp)
+    stream = _build.stream_of(y)
+
+    def device_ctx():
+        with torch.cuda.device(y.device):
+            pass
+    parts = {
+        "_build.kernels()": _build.kernels,
+        "torch.empty (the output)": lambda: torch.empty(
+            out.shape, dtype=torch.int8, device=y.device),
+        "_build.aligned (the input)": lambda: _build.aligned(y),
+        "torch.cuda.device (enter and exit)": device_ctx,
+        "_build.stream_of": lambda: _build.stream_of(y),
+        "ctypes call of df_packed_sum_pool (the launch)":
+            lambda: lib.df_packed_sum_pool(ptrs, cps, 1, None,
+                                           out.data_ptr(), n, rows, iwp, cp,
+                                           0, 1, stream),
+        "packed_sum_pool_cuda (the whole wrapper)":
+            lambda: PK.packed_sum_pool_cuda([y], None, True, rows, iwp),
+        "packed_maxpool2 (the op: checks and wrapper)":
+            lambda: PK.packed_maxpool2(y, spec),
+    }
+    for label, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        print(f"host: K7 launch part {label} {us:.3f} us per call (mean of "
+              f"{calls}) card=\"{name_power}\"", flush=True)
+
+
+def host_profile(name, fn, name_power, calls=50, top=8):
+    """The functions that take the host's time in fn(): cProfile over
+    `calls` calls, the top entries by their own time (cProfile's overhead
+    included, so a ranking more than a timing)."""
+    import cProfile
+    import pstats
+    fn()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    st = pstats.Stats(prof).stats
+    total = sum(v[2] for v in st.values())
+    print(f"host profile: {name} {total / calls * 1e6:.1f} us per call "
+          f"under cProfile card=\"{name_power}\"", flush=True)
+    for (f, line, func), (_, nc, tt, _, _) in sorted(
+            st.items(), key=lambda kv: -kv[1][2])[:top]:
+        print(f"host profile: {name} {os.path.basename(f)}:{line} {func} "
+              f"calls/call={nc / calls:g} self_us/call={tt / calls * 1e6:.1f}",
+              flush=True)
+
+
 def time_forwards(name, fwd, batch, name_power):
     """Per-call and device ms of each forward in `fwd` (taken in turns, as
     A, B, B, A) and the profiler's top device entries."""
@@ -1669,6 +1781,7 @@ def time_forwards(name, fwd, batch, name_power):
         print(f"timing: {name} {k} forward batch={batch} "
               f"ms={f_ms:.4f} device_ms={d_ms:.4f} device_busy_share="
               f"{d_ms / f_ms:.3f} card=\"{name_power}\"", flush=True)
+        host_profile(f"{name} {k} forward", fn, name_power, top=6)
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(REPS):
@@ -1774,13 +1887,20 @@ def resfusion_timings(rnet, dev, name_power, timed):
     y = packed_input(rng, ds, n, dev)
     inner = y.view(n, ds.rows, ds.iwp, ds.cp)[
         :, ds.halo:ds.halo + ds.h, ds.col_off:ds.col_off + ds.w]
-    timed("packed_sum_pool", "ResFusionNet down pool only (K7)",
-          lambda: PK.packed_sum_pool_cuda([y], None, True, ds.rows, ds.iwp),
+
+    def amax():
+        return inner.unflatten(1, (ds.h // 2, 2)).unflatten(
+            3, (ds.w // 2, 2)).amax(dim=(2, 4))
+
+    def k7():
+        return PK.packed_sum_pool_cuda([y], None, True, ds.rows, ds.iwp)
+    timed("packed_sum_pool", "ResFusionNet down pool only (K7)", k7,
           lambda: PK.packed_sum_pool_plain([y], None, True, ds.rows, ds.iwp),
           in_forward=False, reads=(n * ds.h * ds.w * ds.cp,),
-          ops=n * ds.h * ds.w * ds.cp, tensor=False,
-          library=lambda: inner.unflatten(1, (ds.h // 2, 2)).unflatten(
-              3, (ds.w // 2, 2)).amax(dim=(2, 4)))
+          ops=n * ds.h * ds.w * ds.cp, tensor=False, library=amax)
+    per_call_in_turns("packed_sum_pool ResFusionNet down pool only (K7)",
+                      {"kernel": k7, "2x2 amax": amax}, name_power)
+    launch_host_us(y, ds, name_power)
     xr = torch.from_numpy(rnet.example_input()).to(dev)
     pm = rnet.packed_module()
     time_forwards("ResFusionNet", {"dense": lambda: rnet(xr),
@@ -1961,6 +2081,9 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
         timed("concat_relu", "branch merge", lambda: C.concat_cuda(xs, ccfg),
               lambda: C.concat_plain(xs, ccfg), reads=xs, tensor=False,
               library=lambda: torch.cat(xs, dim=-1))
+        per_call_in_turns("concat_relu branch merge (K2)", {
+            "kernel": lambda: C.concat_cuda(xs, ccfg),
+            "torch.cat": lambda: torch.cat(xs, dim=-1)}, name_power)
         y = rand(rng, (n, hw, hw, 2 * w), u8, dev)
         r = rand(rng, (n, hw, hw, 2 * w), u8, dev)
         timed("sum_relu", "residual", lambda: P.sum_relu_cuda(y, r, u8, True),
@@ -1997,12 +2120,14 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
                                                rs.iwp), reads=(ys, rr),
               ops=2 * rr.numel(), tensor=False)
         y2 = torch.cat(ys, dim=-1)
-        for label, args in (("sum only (K6)", ([y2], rr, False)),
-                            ("pool only (K7)", ([y2], None, True))):
+        for label, args, reads in (
+                ("sum only (K6)", ([y2], rr, False), (y2, rr)),
+                ("pool only (K7)", ([y2], None, True), (y2,))):
             timed("packed_sum_pool", label,
                   lambda: PK.packed_sum_pool_cuda(*args, rs.rows, rs.iwp),
                   lambda: PK.packed_sum_pool_plain(*args, rs.rows, rs.iwp),
-                  in_forward=False)
+                  in_forward=False, reads=reads,
+                  ops=rr.numel() // (4 if args[2] else 1), tensor=False)
 
         # dense vs packed forward, in turns
         x = torch.from_numpy(net.example_input()).to(dev)
@@ -2121,7 +2246,7 @@ def main():
                                              VGGFusionConfig)
 
     name_power = phase_device()
-    phase_build()
+    phase_build(name_power)
     dev = torch.device("cuda:0")
     cfg = FusionNetConfig()
     net = phase_default_device(cfg)

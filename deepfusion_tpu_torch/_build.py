@@ -6,7 +6,10 @@ interface, ``_build/libdf_kernels-<hash>.so``, loaded with ``ctypes``. The
 name carries a hash of the sources and the flags, so an edit rebuilds; the
 library is written under a temporary name and moved into place with
 ``os.replace``, so a process never loads a half-written file. A failed
-build raises: there is no fallback to the plain PyTorch versions.
+build raises: there is no fallback to the plain PyTorch versions. The
+sources and the flags (``DEEPFUSION_DUMP_CODE``) are read once per process,
+at the first ``kernels()``, which also opens the library; every later call
+returns the library it opened, so a launch hashes and opens nothing.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check(rc, name)`` turns a non-zero code into an
@@ -16,7 +19,6 @@ and, for the modes the sharded wrappers use, per mode (``mode_counts``).
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
@@ -161,10 +163,25 @@ def _raise_if_failed(rc: int, cmd: list, err: str) -> None:
         raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{err}")
 
 
-@functools.cache
+_lib = None
+_lib_lock = threading.Lock()
+
+
 def kernels() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    lib = ctypes.CDLL(str(build()))
+    """The loaded kernel library. The process's first call, under a lock
+    (``BatchServer`` launches from its own thread), builds it if needed,
+    opens it and declares its entry points; every later call returns that
+    same object and reads no file."""
+    global _lib
+    if _lib is None:
+        with _lib_lock:
+            if _lib is None:
+                _lib = _open(build())
+    return _lib
+
+
+def _open(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -175,7 +192,8 @@ def kernels() -> ctypes.CDLL:
 
 
 def check(rc: int, name: str) -> None:
-    """Raise if a C entry point reported a CUDA error."""
+    """Raise if a C entry point reported a CUDA error (its message from
+    the library that launched it)."""
     if rc != 0:
         msg = kernels().df_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")

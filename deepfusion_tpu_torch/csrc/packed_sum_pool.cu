@@ -1,10 +1,11 @@
-// packed_sum_pool_kernel<SUM, POOL>: saturating residual sum and/or 2x2/s2
-// max pool of packed-domain images.
+// Saturating residual sum and/or 2x2/s2 max pool of packed-domain images.
 //
 // Replaces, in deepfusion_tpu/ops/packed.py:
-//   _sum_pool_kernel (launcher _sum_pool_call)   as <true, true>
-//   _packed_sum_kernel (launcher _packed_sum_call) as <true, false>
-//   _maxpool2_kernel (launcher _maxpool2_call)     as <false, true>
+//   _sum_pool_kernel (launcher _sum_pool_call)   as packed_sum_pool_kernel
+//                                                   <true, true>
+//   _packed_sum_kernel (launcher _packed_sum_call) as packed_sum_pool_kernel
+//                                                   <true, false>
+//   _maxpool2_kernel (launcher _maxpool2_call)     as packed_maxpool2_kernel
 //
 // What it computes over the WHOLE padded array (n, rows * iwp, cp), stored
 // bytes s = u8 ^ 0x80 (ops/packed.py):
@@ -18,17 +19,32 @@
 //
 // What bounds it on the H100: device-memory bytes, no reuse. The FusionNet
 // residual (batch 8) reads 2 x 7.9 MB and writes 2 MB; floor about 5.3 us at
-// 3.35 TB/s.
+// 3.35 TB/s. ResFusionNet's pool (batch 8) reads 1.8 MB and writes 0.44 MB,
+// so there a launch's fixed costs and one round trip to memory weigh as
+// much as the bytes.
 //
-// Design: one thread per 16-byte unit of the output, 16-byte loads and
-// stores. The sum XORs both operands to u8, adds with the byte-SIMD
-// saturating __vaddus4 and XORs back (__vaddss4 on the stored bytes would
-// give clip(y + r), not clip(y + r + 128)); the pool is __vmaxs4 on the
-// stored bytes, since the centering is monotone. Each 16-byte unit of the
-// joined operand is read straight from the input that holds its lanes, so
-// the join never exists in memory.
+// packed_sum_pool_kernel (the sums): one thread per 16-byte unit of the
+// output, 16-byte loads and stores. The sum XORs both operands to u8, adds
+// with the byte-SIMD saturating __vaddus4 and XORs back (__vaddss4 on the
+// stored bytes would give clip(y + r), not clip(y + r + 128)); the pool is
+// __vmaxs4 on the stored bytes, since the centering is monotone. Each
+// 16-byte unit of the joined operand is read straight from the input that
+// holds its lanes, so the join never exists in memory.
+//
+// packed_maxpool2_kernel (the pool alone, one input): one block per
+// (image, output row, column chunk). An output row's two input rows lie
+// next to each other in the array; a chunk is the whole row where both
+// rows hold at most POOL_BYTES (ResFusionNet: 12 KB, FusionNet's residual:
+// 32 KB), so the grid (n x rows / 2 x chunks: 144 blocks at ResFusionNet,
+// 240 at FusionNet's residual) covers the SMs and every thread has its
+// four 16-byte loads in flight at once. A thread's lane unit and first
+// column are fixed by its (x, y) index: its index math is a few 32-bit
+// adds, and the block's base offsets are computed once. Staging the rows
+// in shared memory with two 1-D bulk copies (the copy engine, one mbarrier)
+// ran 7-18% slower than these direct loads on the H100 (PERF.md §6).
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
@@ -101,6 +117,52 @@ __global__ void __launch_bounds__(NT) packed_sum_pool_kernel(SumPoolArgs a) {
   }
 }
 
+constexpr int POOL_BYTES = 32 << 10;   // both input rows of a chunk
+constexpr int POOL_NT = 256;
+
+// out (n, rows / 2 * iwp / 2, cp) = the 2x2/s2 max of y (n, rows * iwp,
+// cp); block (x: lane unit, y: output column), grid (chunk, output row,
+// image); a chunk is cc input columns (even) of both input rows.
+__global__ void __launch_bounds__(POOL_NT)
+    packed_maxpool2_kernel(const uint8_t* __restrict__ y,
+                           uint8_t* __restrict__ out, int rows, int iwp,
+                           int cp, int cc) {
+  const int c0 = blockIdx.x * cc;
+  const int ocols = min(cc, iwp - c0) / 2, upp = cp / 16;
+  const uint8_t* row0 =
+      y + (((size_t)blockIdx.z * rows + 2 * blockIdx.y) * iwp + c0) * cp;
+  const uint8_t* row1 = row0 + (size_t)iwp * cp;
+  uint4* dst = reinterpret_cast<uint4*>(
+      out + (((size_t)blockIdx.z * (rows / 2) + blockIdx.y) * (iwp / 2) +
+             c0 / 2) * cp);
+  for (int oc = threadIdx.y; oc < ocols; oc += blockDim.y) {
+    for (int u = threadIdx.x; u < upp; u += blockDim.x) {
+      const int off = 2 * oc * cp + 16 * u;
+      const uint4 a =
+          max4(__ldg(reinterpret_cast<const uint4*>(row0 + off)),
+               __ldg(reinterpret_cast<const uint4*>(row0 + off + cp)));
+      const uint4 b =
+          max4(__ldg(reinterpret_cast<const uint4*>(row1 + off)),
+               __ldg(reinterpret_cast<const uint4*>(row1 + off + cp)));
+      dst[oc * upp + u] = max4(a, b);
+    }
+  }
+}
+
+int launch_maxpool2(const uint8_t* y, uint8_t* out, int n, int rows, int iwp,
+                    int cp, cudaStream_t stream) {
+  if (n == 0 || rows == 0 || iwp == 0) return (int)cudaSuccess;
+  // the widest even column chunk whose two rows hold at most POOL_BYTES
+  const int cc = std::min(iwp, std::max(2, POOL_BYTES / (2 * cp)) & ~1);
+  const int chunks = (iwp + cc - 1) / cc;
+  if (rows / 2 > 65535 || n > 65535) return (int)cudaErrorInvalidValue;
+  const int tx = std::min(cp / 16, POOL_NT);
+  const int ty = std::max(1, std::min(cc / 2, POOL_NT / tx));
+  packed_maxpool2_kernel<<<dim3(chunks, rows / 2, n), dim3(tx, ty), 0,
+                           stream>>>(y, out, rows, iwp, cp, cc);
+  return (int)cudaGetLastError();
+}
+
 template <bool SUM, bool POOL>
 int launch(const SumPoolArgs& a, cudaStream_t stream) {
   const long long total = (long long)a.n * (POOL ? a.rows / 2 : a.rows) *
@@ -115,14 +177,16 @@ int launch(const SumPoolArgs& a, cudaStream_t stream) {
 }  // namespace
 
 // ys/y_cps: n_y inputs joined along the lanes (each lane count a multiple
-// of 16, summing to cp); r: the sum's right operand with cp lanes (null
-// without SUM); rows, iwp: the inputs' padded geometry.
+// of 16, summing to cp; one input for the pool alone); r: the sum's right
+// operand with cp lanes (null without sum); rows, iwp: the inputs' padded
+// geometry.
 extern "C" int df_packed_sum_pool(const void* const* ys, const int* y_cps,
                                   int n_y, const void* r, void* out, int n,
                                   int rows, int iwp, int cp, int sum,
                                   int pool, void* stream) {
   if (n_y < 1 || n_y > MAX_IN || cp <= 0 || cp % 16 || (!sum && !pool) ||
-      (sum && r == nullptr) || (pool && (rows % 2 || iwp % 2)))
+      (sum && r == nullptr) || (pool && (rows % 2 || iwp % 2)) ||
+      (!sum && n_y != 1))
     return (int)cudaErrorInvalidValue;
   SumPoolArgs a = {};
   int off = 0;
@@ -141,5 +205,5 @@ extern "C" int df_packed_sum_pool(const void* const* ys, const int* y_cps,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sum && pool) return launch<true, true>(a, s);
   if (sum) return launch<true, false>(a, s);
-  return launch<false, true>(a, s);
+  return launch_maxpool2(a.y[0], a.out, n, rows, iwp, cp, s);
 }

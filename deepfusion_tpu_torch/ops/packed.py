@@ -262,8 +262,11 @@ def packed_sum_pool_plain(ys, r, pool: bool, rows: int,
 
 def packed_sum_pool_cuda(ys, r, pool: bool, rows: int,
                          iwp: int) -> torch.Tensor:
-    """Launch ``packed_sum_pool_kernel`` on the current stream."""
+    """Launch on the current stream ``packed_maxpool2_kernel`` for the pool
+    alone (one input), else ``packed_sum_pool_kernel``."""
     check(len(ys) <= MAX_INPUTS, _TOO_MANY)
+    check(r is not None or len(ys) == 1,
+          "the packed pool without a sum takes one input")
     for y in ys:
         check(y.shape[-1] % LANE_UNIT == 0, _LANES)
     ys = [_build.aligned(y) for y in ys]

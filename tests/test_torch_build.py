@@ -3,12 +3,16 @@
 No CUDA here: these hold, on the CPU, what the kernels' C entry points
 expect of the Python side. Every argument list that ``_build`` declares
 must match the parameter count of the ``extern "C"`` function in
-``csrc/*.cu`` (ctypes would pass a misdeclared call silently), and the
-K-major weights that ``ConvPoolOp`` derives for the pool mode of the dense
-conv kernel must be ``ConvOp``'s and survive ``save``/``load``.
+``csrc/*.cu`` (ctypes would pass a misdeclared call silently), the library
+is built, opened and declared once per process however many threads ask
+for it, and the K-major weights that ``ConvPoolOp`` derives for the pool
+mode of the dense conv kernel must be ``ConvOp``'s and survive
+``save``/``load``.
 """
 import ctypes
 import re
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -110,3 +114,81 @@ def test_convpool_kmajor_weights_survive_save_load(tmp_path):
     assert set(dict(back.named_buffers())) == {"w0", "bias0", "scale0",
                                                "w0k"}
     assert set(back.state_dict()) == {"w0", "bias0", "scale0"}
+
+
+class _FakeFn:
+    """An entry point of the fake library; counts its declarations."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __setattr__(self, key, value):
+        if key == "argtypes":
+            self._lib.declared += 1
+        object.__setattr__(self, key, value)
+
+    def __call__(self, rc):
+        return b"fake error %d" % rc
+
+
+class _FakeLib:
+    def __init__(self):
+        self.declared = 0
+        self.fns = {}
+
+    def __getattr__(self, name):
+        return self.fns.setdefault(name, _FakeFn(self))
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    """_build with no library loaded yet, a build() that takes a while and
+    a ctypes.CDLL that hands out fake libraries, both counting their
+    calls."""
+    calls = {"build": 0, "open": 0, "libs": []}
+
+    def build():
+        calls["build"] += 1
+        time.sleep(0.05)   # long enough for a second thread to arrive
+        return _build.BUILD_DIR / "libdf_kernels-fake.so"
+
+    def cdll(path):
+        calls["open"] += 1
+        lib = _FakeLib()
+        calls["libs"].append(lib)
+        return lib
+
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "build", build)
+    monkeypatch.setattr(ctypes, "CDLL", cdll)
+    return calls
+
+
+def test_library_is_built_opened_and_declared_once(fake_library):
+    """Many kernels() calls, two threads among them asking at the same
+    moment, build, open and declare the library once and all get it."""
+    got, start = [], threading.Barrier(2)
+
+    def ask():
+        start.wait()
+        got.append(_build.kernels())
+    threads = [threading.Thread(target=ask) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    got += [_build.kernels() for _ in range(1000)]
+    assert fake_library["build"] == 1 and fake_library["open"] == 1
+    lib = fake_library["libs"][0]
+    assert all(g is lib for g in got)
+    assert lib.declared == len(_build._SIGNATURES) + 1   # + df_error_string
+
+
+def test_check_reports_through_the_loaded_library(fake_library):
+    lib = _build.kernels()
+    _build.check(0, "none")
+    with pytest.raises(RuntimeError,
+                       match=r"k7: CUDA error 9 \(fake error 9\)"):
+        _build.check(9, "k7")
+    assert _build.kernels() is lib
+    assert fake_library["build"] == 1 and fake_library["open"] == 1

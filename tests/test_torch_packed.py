@@ -511,6 +511,21 @@ def test_packed_maxpool2_matches_jax():
                                        device="cpu"), odd)
 
 
+def test_packed_maxpool2_at_resfusion_down_matches_jax():
+    """The one main-path launch of the pool alone: ResFusionNet's packed
+    forward pools its downsample conv's output (``down.sout``), here at
+    batch 1."""
+    rng = np.random.default_rng(11)
+    spec = T.PackedSpec.make(32, 32, 128, halo=2, col_off=2, iwp=48)
+    src = _edge_u8(rng, (1, 32, 32, 128))
+    got, gspec = T.packed_maxpool2(T.pack_image(src, spec, device="cpu"), spec)
+    want, wspec = J.packed_maxpool2(J.pack_image(src, jspec(spec)),
+                                    jspec(spec))
+    assert jspec(gspec) == wspec
+    assert tuple(got.shape) == (1, 18 * 24, 128)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("cs", [(64,), (32, 32), (32, 64, 32)])
 def test_packed_sum_relu_maxpool2_matches_jax(cs):
     rng = np.random.default_rng(len(cs))

@@ -19,7 +19,18 @@ global average, ResFusionNet's and VGGFusion's global averages); full
 width, batch 8, inputs from seed 0. Each time is ``chip_smoke.device_ms``:
 the median of 3 ``torch.profiler`` profiles of 50 calls (self device time
 per call, ms); K1, K3, K9, K10 and the bench shapes also cold
-(``chip_smoke.cold_device_ms``: the L2 evicted before every call).
+(``chip_smoke.cold_device_ms``: the L2 evicted before every call); K6,
+K7 and K8 (``packed_sum_pool_cuda``) at FusionNet's residual shape and K7
+at ResFusionNet's downsample, warm and cold, and K7's per-call ms beside
+the 2x2 ``amax`` of the packed interior view; then the seven model paths
+(FusionNet, ResFusionNet and VGGFusion dense and packed, VGGFusion
+hybrid): per-call ms (CUDA events around one call; the median and the
+least of 80 calls taken in turns), device ms, the ratio of device ms to
+the median (the device's busy share), and for the six
+served paths requests/s behind ``BatchServer`` (batch 8, bursts of 64,
+median of 3 taken in turns); and the host us of a ``_build.kernels()``
+call after the first (the mean of 10,000). K6, K7 and K8 are first
+checked bitwise against their plain version.
 Entries ending in "host us" are the host's time per call of the wrapper (a
 loop of 200 calls that the device keeps up with, no synchronisation
 inside; median of 5 loops, microseconds). Give the trees as parent,
@@ -76,6 +87,46 @@ def run_tree(tree):
             out.append((time.perf_counter() - t0) / calls * 1e6)
             torch.cuda.synchronize()
         return statistics.median(out)
+
+    def in_turns(fns, rounds=2, reps=20):
+        """Per-call CUDA-event ms of each fn ({key: fn}), single calls taken
+        in turns (reps of A, of B, ..., then of B, A, per round): for each
+        key its median over all its calls, and as "<key> min" the least
+        (the call the host's neighbours disturbed least)."""
+        ms = {k: [] for k in fns}
+        for fn in fns.values():
+            fn()
+        torch.cuda.synchronize()
+        for _ in range(rounds):
+            for k in list(fns) + list(fns)[::-1]:
+                for _ in range(reps):
+                    s = torch.cuda.Event(enable_timing=True)
+                    e = torch.cuda.Event(enable_timing=True)
+                    s.record()
+                    fns[k]()
+                    e.record()
+                    e.synchronize()
+                    ms[k].append(s.elapsed_time(e))
+        out = {k: statistics.median(v) for k, v in ms.items()}
+        out.update({f"{k} min": min(v) for k, v in ms.items()})
+        return out
+
+    def served_rates(paths, rounds=3):
+        """Requests/s behind BatchServer, bursts of 64 requests, each
+        path's median of `rounds` bursts taken in turns."""
+        from deepfusion_tpu_torch.serving import BatchServer
+        rps = {k: [] for k in paths}
+        for _ in range(rounds):
+            for k, (fn, batch, shape) in paths.items():
+                req = list(np.random.default_rng(3).integers(
+                    0, 256, (64,) + tuple(shape[1:]), dtype=np.uint8))
+                with BatchServer(fn, batch=batch,
+                                 input_shape=shape[1:]) as srv:
+                    t0 = time.perf_counter()
+                    for f in srv.submit_many(req):
+                        f.result(timeout=300)
+                    rps[k].append(len(req) / (time.perf_counter() - t0))
+        return {k: statistics.median(v) for k, v in rps.items()}
 
     u8 = dtype.u8
     res = {}
@@ -196,6 +247,74 @@ def run_tree(tree):
             lambda: M.pair_conv_cuda(pop, px))
         res["K10 bench.py --pair cold"] = cold_ms(
             lambda: M.pair_conv_cuda(pop, px))
+        del pop, px
+        # K6, K7 and K8 at FusionNet's residual shape, K7 at ResFusionNet's
+        # downsample (its one main-path launch), warm and cold, and K7's
+        # per-call ms beside the 2x2 amax it replaces
+        rng = np.random.default_rng(12)
+        pk = net.build_packed()
+        rs = pk["res"].sout
+        ys = [cs.packed_input(rng, sp, 8, dev)
+              for sp in (pk["block1"].sout, pk["branch"].sout)]
+        rr = cs.packed_input(rng, rs, 8, dev)
+        y2 = torch.cat(ys, dim=-1)
+        ds = rnet.build_packed()["down"].sout
+        yd = cs.packed_input(rng, ds, 8, dev)
+        inner = yd.view(8, ds.rows, ds.iwp, ds.cp)[
+            :, ds.halo:ds.halo + ds.h, ds.col_off:ds.col_off + ds.w]
+        for label, args in (
+                ("K8 FusionNet residual sum+pool",
+                 (ys, rr, True, rs.rows, rs.iwp)),
+                ("K6 FusionNet residual sum",
+                 ([y2], rr, False, rs.rows, rs.iwp)),
+                ("K7 FusionNet residual pool",
+                 ([y2], None, True, rs.rows, rs.iwp)),
+                ("K7 ResFusionNet down", ([yd], None, True, ds.rows,
+                                          ds.iwp))):
+            assert torch.equal(PK.packed_sum_pool_cuda(*args),
+                               PK.packed_sum_pool_plain(*args)), label
+            res[label] = device_ms(lambda: PK.packed_sum_pool_cuda(*args))
+            res[f"{label} cold"] = cold_ms(
+                lambda: PK.packed_sum_pool_cuda(*args))
+        res.update(in_turns({
+            "K7 ResFusionNet down per call ms":
+                lambda: PK.packed_sum_pool_cuda([yd], None, True, ds.rows,
+                                                ds.iwp),
+            "2x2 amax ResFusionNet down per call ms":
+                lambda: inner.unflatten(1, (ds.h // 2, 2)).unflatten(
+                    3, (ds.w // 2, 2)).amax(dim=(2, 4))}))
+        # the host's time of the library lookup every launch makes
+        from deepfusion_tpu_torch import _build
+        _build.kernels()
+        t0 = time.perf_counter()
+        for _ in range(10000):
+            _build.kernels()
+        res["_build.kernels() host us"] = (
+            (time.perf_counter() - t0) / 10000 * 1e6)
+        # the seven model paths: per-call ms (taken in turns), device ms,
+        # the busy share, and served requests/s (bursts in turns)
+        fwd, served = {}, {}
+        for model in (net, rnet, vnet):
+            name = type(model).__name__
+            xm = torch.from_numpy(model.example_input()).to(dev)
+            pm = model.packed_module()
+            fwd[f"{name} dense"] = lambda m=model, x=xm: m(x)
+            fwd[f"{name} packed"] = lambda m=pm, x=xm: m(x)
+            served[f"{name} dense"] = (model, model.cfg.batch,
+                                       model.input_shape)
+            served[f"{name} packed"] = (pm, model.cfg.batch,
+                                        model.input_shape)
+        fwd["VGGFusion hybrid"] = lambda x=xm: vnet.hybrid_call(x)
+        for k, v in in_turns(fwd).items():
+            res[f"{k.replace(' min', '')} forward per call "
+                f"{'min ' if k.endswith(' min') else ''}ms"] = v
+        for k, fn in fwd.items():
+            d = device_ms(fn)
+            res[f"{k} forward device ms"] = d
+            res[f"{k} forward busy share"] = d / res[
+                f"{k} forward per call ms"]
+    for k, v in served_rates(served).items():
+        res[f"{k} served requests/s"] = v
     print(json.dumps({"tree": tree, "device_ms": res, "bench_macs": macs,
                       "pair_macs": pmacs}), flush=True)
 
