@@ -10,7 +10,9 @@ Phases, each printing its own lines:
      must issue wgmma on TMA-loaded tiles, and ptxas (-v) must not have
      serialized the wgmma of K5, K9 or K10 (its note C7520); a
      _build.kernels() call after the first must return the same library
-     in at most 5 host microseconds; then the device rule:
+     in at most 5 host microseconds, and the library must have registered
+     its operator torch.ops.deepfusion_torch.concat_relu (K2's launch,
+     csrc/torch_ops.cpp); then the device rule:
      FusionNet(cfg) and conv() on a numpy input, given no device, must run
      on cuda:0 through the kernels;
   3. parity: each kernel against its plain PyTorch version on the card,
@@ -20,7 +22,10 @@ Phases, each printing its own lines:
      K1 also strides 2, 3 and above 8 with padding at both edges and odd
      output sizes, 1x1 GEMM tiles across images, ragged dst pitches, ic
      16, M below one tile, and the geometries of sp_conv's row slabs and
-     tp_fused_conv's weight slices; for the fused conv+pool both pools,
+     tp_fused_conv's weight slices; for K2 also a 16-byte-misaligned view,
+     non-contiguous inputs and 16 inputs, and the calls its op must refuse
+     (17 inputs, CPU tensors, mixed devices, a dtype mismatch); for the
+     fused conv+pool both pools,
      strides and sums; for the packed
      kernels also halo erosion, wide tap shifts, pad lanes, 1-3 inputs,
      the packed sum operand, the s2d stem, the fused 2x2 pool and random
@@ -55,7 +60,9 @@ Phases, each printing its own lines:
      TB/s and its operations over the peak rate) and, where one PyTorch
      call computes the same function (torch.cat, a 2x2 amax), that call's
      time, and per call beside it in turns; the host microseconds of each
-     part of a launch (K7's) and a cProfile ranking of each forward's host
+     part of a launch (K7's through ctypes; K2's through its registered op:
+     the op, its wrapper and concat() beside torch.cat, with and without
+     torch.inference_mode) and a cProfile ranking of each forward's host
      work;
   6. sharded: the parallel/ wrappers on meshes whose slots are all this
      card (tp_fused_conv and tp_packed_fused at tp 2 and 4, both wires;
@@ -385,6 +392,10 @@ def phase_build(name_power):
     print(f"host: _build.kernels() {us:.4f} us per call after the first "
           f"(mean of {calls} calls) card=\"{name_power}\"", flush=True)
     check(us <= 5.0, f"_build.kernels() takes {us:.2f} us per call")
+    check(hasattr(torch.ops.deepfusion_torch, "concat_relu"),
+          "the library registered no torch.ops.deepfusion_torch.concat_relu")
+    schema = torch.ops.deepfusion_torch.concat_relu.default._schema
+    print(f"build: registered {schema}", flush=True)
 
 
 # The K1 instances that ptxas is known to serialize (C7520): the 1-byte
@@ -711,6 +722,56 @@ def convpool_cases(dev):
     return out
 
 
+def concat_op_cases(rng, dev, par):
+    """K2 through its registered op at inputs the wrapper no longer
+    prepares in Python: a 16-byte-misaligned contiguous view, a channel
+    slice and a transposed view (non-contiguous), 16 inputs, each bitwise
+    against the plain version; then the calls the op must refuse: 17
+    inputs, a dtype mismatch and mixed devices in its own checks
+    (RuntimeError), CPU tensors in the dispatcher (no CPU kernel is
+    registered: NotImplementedError)."""
+    from deepfusion_tpu_torch.config import ConcatConfig
+    from deepfusion_tpu_torch.types import dtype
+    from deepfusion_tpu_torch.utils.logger import check
+    C = importlib.import_module("deepfusion_tpu_torch.ops.concat")
+    u8, s8 = dtype.u8, dtype.s8
+    nhw = (2, 5, 7)
+    numel = math.prod(nhw) * 64
+    mis = rand(rng, (numel + 16,), u8, dev)[1:1 + numel].view(nhw + (64,))
+    sliced = rand(rng, nhw + (96,), u8, dev)[..., 16:80]
+    tposed = rand(rng, (2, 7, 5, 32), s8, dev).transpose(1, 2)
+    check(mis.is_contiguous() and mis.data_ptr() % 16 != 0,
+          "the misaligned case must be a contiguous misaligned view")
+    check(not sliced.is_contiguous() and not tposed.is_contiguous(),
+          "the strided cases must be non-contiguous")
+    sixteen = [rand(rng, nhw + (16 * (1 + i % 3),), u8, dev)
+               for i in range(16)]
+    for label, xs, dt in (
+            ("misaligned view", [rand(rng, nhw + (32,), u8, dev), mis], u8),
+            ("channel slice", [sliced, rand(rng, nhw + (16,), u8, dev)], u8),
+            ("transposed view", [tposed, rand(rng, nhw + (64,), s8, dev)],
+             s8),
+            ("16 inputs", sixteen, u8)):
+        for relu in (False, True):
+            cfg = ConcatConfig.make([tuple(x.shape) for x in xs], dt, relu)
+            par.check("concat_relu", f"{label} {dt.name} relu={relu}",
+                      C.concat_cuda(xs, cfg), C.concat_plain(xs, cfg))
+    op = C.concat_op()
+    x = sixteen[0]
+    for label, args, error in (
+            ("17 inputs", sixteen + [x], RuntimeError),
+            ("a dtype mismatch", [x, x.to(torch.int8)], RuntimeError),
+            ("mixed devices", [x, x.cpu()], RuntimeError),
+            ("CPU tensors", [x.cpu(), x.cpu()], NotImplementedError)):
+        try:
+            op(args, True)
+        except error as e:
+            print(f"parity: concat_relu refused {label}: {type(e).__name__}"
+                  f" {str(e).splitlines()[0][:100]}", flush=True)
+        else:
+            raise AssertionError(f"concat_relu took {label}")
+
+
 def phase_parity(net, rnet, vnet, dev, sharded) -> Parity:
     from deepfusion_tpu_torch import _build
     from deepfusion_tpu_torch.config import ConcatConfig, PoolConfig
@@ -785,6 +846,7 @@ def phase_parity(net, rnet, vnet, dev, sharded) -> Parity:
         cfg = ConcatConfig.make([tuple(x.shape) for x in xs], dt, relu)
         par.check("concat_relu", f"{dt.name} {ics} relu={relu}",
                   C.concat_cuda(xs, cfg), C.concat_plain(xs, cfg))
+    concat_op_cases(rng, dev, par)
 
     # K3: FusionNet's two pools, ResFusionNet's and VGGFusion's global
     # averages (the last, 49 taps, on pool_kernel), then every dtype and kind
@@ -1743,6 +1805,78 @@ def launch_host_us(y, spec, name_power, calls=2000):
               f"{calls}) card=\"{name_power}\"", flush=True)
 
 
+def concat_host_us(shape, dev, name_power, calls=400, rounds=5):
+    """Host microseconds of K2's call through its registered op at the
+    branch merge's inputs (two u8 tensors of `shape`, made outside
+    inference mode), without and with torch.inference_mode (the Autograd
+    key's fallthrough): each part in a loop of `calls` calls (the device
+    keeps up), the parts in turns, `rounds` rounds; the median and the
+    least loop. The parts: the op's overload alone, concat_cuda (the op and
+    the launch count), concat() (its kept config, the per-tensor checks,
+    the choice of path); and beside them torch.cat on the same inputs,
+    the same ATen cat through the same torch.ops path as the op
+    (torch.ops.aten.cat.default: what that path costs a native op) and
+    torch.empty of the output (one allocation through PyTorch's own
+    binding). Then, under inference mode, torch.profiler's host events per
+    call of the op and of torch.cat (self CPU us; the profiler's own cost
+    included)."""
+    from deepfusion_tpu_torch.config import ConcatConfig
+    from deepfusion_tpu_torch.types import dtype
+    C = importlib.import_module("deepfusion_tpu_torch.ops.concat")
+    with torch.inference_mode(False):
+        rng = np.random.default_rng(10)
+        xs = [rand(rng, shape, dtype.u8, dev) for _ in range(2)]
+    cfg = ConcatConfig.make([shape] * 2, dtype.u8, True)
+    op = C.concat_op()
+    out_shape = shape[:3] + (2 * shape[3],)
+    parts = {
+        "the op (torch.ops overload)": lambda: op(xs, True),
+        "concat_cuda (op and count)": lambda: C.concat_cuda(xs, cfg),
+        "concat() (kept config)": lambda: C.concat(xs, post_relu=True),
+        "torch.cat": lambda: torch.cat(xs, dim=-1),
+        "torch.ops.aten.cat.default": lambda: torch.ops.aten.cat.default(
+            xs, -1),
+        "torch.empty (the output)": lambda: torch.empty(
+            out_shape, dtype=torch.uint8, device=dev),
+    }
+    for mode in (False, True):
+        with torch.inference_mode(mode):
+            us = {k: [] for k in parts}
+            for fn in parts.values():
+                fn()
+            torch.cuda.synchronize()
+            for _ in range(rounds):
+                for label, fn in parts.items():
+                    t0 = time.perf_counter()
+                    for _ in range(calls):
+                        fn()
+                    us[label].append((time.perf_counter() - t0) / calls * 1e6)
+                    torch.cuda.synchronize()
+            for label, v in us.items():
+                print(f"host: K2 call {label} inference_mode={mode} "
+                      f"{statistics.median(v):.3f} us per call (median of "
+                      f"{rounds} loops of {calls} in turns; least "
+                      f"{min(v):.3f}) card=\"{name_power}\"", flush=True)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        for label in ("the op (torch.ops overload)", "torch.cat"):
+            fn = parts[label]
+            fn()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            for e in sorted(prof.key_averages(),
+                            key=lambda e: -e.self_cpu_time_total)[:6]:
+                print(f"host: K2 call {label} profile {e.key[:48]} "
+                      f"calls/call={e.count / calls:g} self_cpu_us/call="
+                      f"{e.self_cpu_time_total / calls:.3f} cpu_us/call="
+                      f"{e.cpu_time_total / calls:.3f} card=\"{name_power}\"",
+                      flush=True)
+
+
 def host_profile(name, fn, name_power, calls=50, top=8):
     """The functions that take the host's time in fn(): cProfile over
     `calls` calls, the top entries by their own time (cProfile's overhead
@@ -2084,6 +2218,7 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
         per_call_in_turns("concat_relu branch merge (K2)", {
             "kernel": lambda: C.concat_cuda(xs, ccfg),
             "torch.cat": lambda: torch.cat(xs, dim=-1)}, name_power)
+        concat_host_us((n, hw, hw, w), dev, name_power)
         y = rand(rng, (n, hw, hw, 2 * w), u8, dev)
         r = rand(rng, (n, hw, hw, 2 * w), u8, dev)
         timed("sum_relu", "residual", lambda: P.sum_relu_cuda(y, r, u8, True),

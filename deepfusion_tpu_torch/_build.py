@@ -1,26 +1,39 @@
 """Build and load the package's CUDA kernels, and count their launches.
 
-``csrc/*.cu`` are compiled at first use by ``nvcc``, one process per source,
-all started together, and linked into one shared library with a plain C
-interface, ``_build/libdf_kernels-<hash>.so``, loaded with ``ctypes``. The
-name carries a hash of the sources and the flags, so an edit rebuilds; the
-library is written under a temporary name and moved into place with
-``os.replace``, so a process never loads a half-written file. A failed
-build raises: there is no fallback to the plain PyTorch versions. The
-sources and the flags (``DEEPFUSION_DUMP_CODE``) are read once per process,
-at the first ``kernels()``, which also opens the library; every later call
-returns the library it opened, so a launch hashes and opens nothing.
+``csrc/*.cu`` and ``csrc/torch_ops.cpp`` are compiled at first use by
+``nvcc``, one process per source, all started together, and linked into one
+shared library, ``_build/libdf_kernels-<hash>.so``. The ``.cu`` files keep
+out of PyTorch's headers and give the library a plain C interface, loaded
+with ``ctypes``. ``torch_ops.cpp`` registers the library's PyTorch
+operators (``torch.ops.deepfusion_torch``): it is compiled with PyTorch's
+include paths, the C++ standard the installed PyTorch builds its
+extensions with and its ``_GLIBCXX_USE_CXX11_ABI``, and the library is
+linked against libtorch. The name carries a hash of the sources, the
+flags, the PyTorch version, its ABI and its include paths, so an edit or
+another PyTorch rebuilds; the library is written under a temporary name and
+moved into place with ``os.replace``, so a process never loads a
+half-written file. A failed build or load raises: there is no fallback to
+the plain PyTorch versions. The sources and the flags
+(``DEEPFUSION_DUMP_CODE``) are read once per process, at the first
+``kernels()``, which also loads the library, first with
+``torch.ops.load_library`` (which runs its operator registrations), then
+with ``ctypes`` (the same ``dlopen`` handle); every later call returns the
+library it opened, so a launch hashes and opens nothing.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check(rc, name)`` turns a non-zero code into an
-exception. Each wrapper counts its launches per kernel (``launch_counts``)
-and, for the modes the sharded wrappers use, per mode (``mode_counts``).
+exception. A registered operator checks, allocates, takes the current
+stream and launches in C++, and raises itself. Each wrapper counts its
+launches per kernel (``launch_counts``) and, for the modes the sharded
+wrappers use, per mode (``mode_counts``).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import inspect
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -35,6 +48,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
                            "-fPIC", "-I/usr/local/cutlass/include")
+# the PyTorch libraries the operator registrations (torch_ops.cpp) call into
+TORCH_LIBS = ("torch", "torch_cpu", "torch_cuda", "c10", "c10_cuda")
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
@@ -43,8 +58,6 @@ _SIGNATURES = {
     "df_conv_weight_maps": [_P, _I, _I, _P, _I, _I, _I, _P],
     "df_conv_plan": [ctypes.POINTER(_I)] * 2,
     "df_convpool": [_P] * 6 + [_I] * 21 + [_F, _P],
-    "df_concat": [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(_I), _I,
-                  _P, _L, _I, _I, _P],
     "df_pool": [_P, _P] + [_I] * 15 + [_P],
     "df_sum_relu": [_P, _P, _P, _L, _I, _I, _P],
     "df_packed_conv": [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(_I),
@@ -98,33 +111,87 @@ def reset_launch_counts() -> None:
                 d[k] = 0
 
 
-def _nvcc() -> str:
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
+def _cuda_home() -> Path:
+    """$CUDA_HOME, else /usr/local/cuda, else the toolkit of the nvcc on
+    the PATH."""
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
     found = shutil.which("nvcc")
-    if found is None:
+    if not (home / "bin" / "nvcc").exists() and found is not None:
+        home = Path(found).parent.parent
+    return home
+
+
+def _nvcc() -> str:
+    nvcc = _cuda_home() / "bin" / "nvcc"
+    if not nvcc.exists():
         raise RuntimeError("nvcc not found: the CUDA kernels of "
                            "deepfusion_tpu_torch need the CUDA toolkit")
-    return found
+    return str(nvcc)
 
 
 def _flags() -> tuple:
     return NVCC_FLAGS + (("-Xptxas", "-v") if env.dump_code() else ())
 
 
+def _torch_cxx_std() -> str:
+    """The C++ standard the installed PyTorch compiles its own extensions
+    with (``torch.utils.cpp_extension``), which its headers need."""
+    from torch.utils import cpp_extension
+    found = re.findall(r"-std=c\+\+(\d\d)", inspect.getsource(cpp_extension))
+    return f"c++{max(found, default='17')}"
+
+
+def torch_flags() -> tuple:
+    """nvcc's flags for torch_ops.cpp, the one source that includes
+    PyTorch's headers: its standard, its ABI, its include paths and the
+    CUDA runtime's."""
+    from torch.utils import cpp_extension
+    incs = (*cpp_extension.include_paths(), str(_cuda_home() / "include"))
+    return (f"-std={_torch_cxx_std()}", "-O2", "-Xcompiler", "-fPIC",
+            f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}",
+            *(f"-I{p}" for p in incs))
+
+
+def torch_link_flags() -> tuple:
+    """The link's flags for libtorch: its directory, its libraries and an
+    rpath to them."""
+    from torch.utils import cpp_extension
+    lib = cpp_extension.library_paths()[0]
+    return (f"-L{lib}", *(f"-l{name}" for name in TORCH_LIBS), "-Xlinker",
+            f"-rpath={lib}")
+
+
+def compile_cmd(nvcc: str, src: Path, obj: Path) -> list:
+    """The nvcc command that compiles one source of csrc/ into `obj`."""
+    flags = torch_flags() if src.suffix == ".cpp" else _flags()
+    return [nvcc, *flags, "-c", "-o", str(obj), str(src)]
+
+
+def link_cmd(nvcc: str, objs, out: Path) -> list:
+    """The nvcc command that links the objects into the library."""
+    return [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out),
+            *[str(o) for o in objs], *torch_link_flags()]
+
+
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cpp"))
+
+
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(_flags()).encode())
-    for f in sorted(CSRC.glob("*.cu*")):
+    """Where the library for the current sources, flags and PyTorch
+    lives."""
+    h = hashlib.sha256(" ".join(_flags() + torch_flags() + torch_link_flags()
+                                + (torch.__version__,)).encode())
+    for f in sorted(CSRC.iterdir()):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"libdf_kernels-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the library unless it already exists: one
-    nvcc process per source, all running at once, then one link."""
+    """Compile csrc/*.cu and csrc/torch_ops.cpp into the library unless it
+    already exists: one nvcc process per source, all running at once, then
+    one link."""
     out = library_path()
     if out.exists():
         return out
@@ -136,17 +203,15 @@ def build() -> Path:
     try:
         nvcc = _nvcc()
         jobs = []
-        for f in sorted(CSRC.glob("*.cu")):
-            cmd = [nvcc, *_flags(), "-c", "-o", str(objs / f"{f.stem}.o"),
-                   str(f)]
+        for f in _sources():
+            cmd = compile_cmd(nvcc, f, objs / f"{f.stem}.o")
             jobs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
         logs = [proc.communicate()[1] for _, proc in jobs]
         for (cmd, proc), err in zip(jobs, logs):
             _raise_if_failed(proc.returncode, cmd, err)
-        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
-               *[str(o) for o in sorted(objs.glob("*.o"))]]
+        cmd = link_cmd(nvcc, sorted(objs.glob("*.o")), tmp)
         proc = subprocess.run(cmd, capture_output=True, text=True)
         _raise_if_failed(proc.returncode, cmd, proc.stderr)
         if env.dump_code():
@@ -170,8 +235,8 @@ _lib_lock = threading.Lock()
 def kernels() -> ctypes.CDLL:
     """The loaded kernel library. The process's first call, under a lock
     (``BatchServer`` launches from its own thread), builds it if needed,
-    opens it and declares its entry points; every later call returns that
-    same object and reads no file."""
+    loads it once (its operators registered, its entry points declared);
+    every later call returns that same object and reads no file."""
     global _lib
     if _lib is None:
         with _lib_lock:
@@ -181,6 +246,9 @@ def kernels() -> ctypes.CDLL:
 
 
 def _open(path: Path) -> ctypes.CDLL:
+    # registers torch.ops.deepfusion_torch; the CDLL below is the same
+    # dlopen handle, so the registrations run once
+    torch.ops.load_library(str(path))
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -3,6 +3,9 @@
 // Replaces deepfusion_tpu/ops/concat.py:_concat_kernel (launcher
 // _concat_call).
 //
+// Launched by the registered op deepfusion_torch::concat_relu
+// (torch_ops.cpp) through concat_relu_launch (concat.h).
+//
 // What bounds it on the H100: device-memory bytes. Every element is read
 // once and written once, so the floor is 2 x output bytes / 3.35 TB/s.
 //
@@ -18,17 +21,17 @@
 
 #include <cstdint>
 
+#include "concat.h"
 #include "requant.cuh"
 
 namespace {
 
-constexpr int MAX_IN = 16;
 constexpr int NT = 256;
 
 struct ConcatArgs {
-  const uint4* src[MAX_IN];
-  int units[MAX_IN];   // 16-byte units per pixel row of input i
-  int offset[MAX_IN];  // first unit of input i in the output row
+  const uint4* src[CONCAT_MAX_IN];
+  int units[CONCAT_MAX_IN];   // 16-byte units per pixel row of input i
+  int offset[CONCAT_MAX_IN];  // first unit of input i in the output row
   int out_units;
   int pixels;
   uint4* dst;
@@ -47,7 +50,8 @@ __device__ __forceinline__ uint32_t relu_word(uint32_t w) {
   }
 }
 
-// grid: (x blocks, n_in); df_concat refuses pixels * out_units >= 2^31.
+// grid: (x blocks, n_in); concat_relu_launch refuses
+// pixels * out_units >= 2^31.
 template <int DT>
 __global__ void __launch_bounds__(NT) concat_relu_kernel(ConcatArgs a,
                                                          int relu) {
@@ -71,23 +75,22 @@ __global__ void __launch_bounds__(NT) concat_relu_kernel(ConcatArgs a,
 
 }  // namespace
 
-// srcs, row_bytes: host arrays of n_in device pointers and row widths.
-extern "C" int df_concat(const void* const* srcs, const int* row_bytes,
-                         int n_in, void* dst, long long pixels, int relu,
-                         int dt, void* stream) {
-  if (n_in < 1 || n_in > MAX_IN) return (int)cudaErrorInvalidValue;
+cudaError_t concat_relu_launch(const void* const* srcs, const int* row_bytes,
+                               int n_in, void* dst, long long pixels,
+                               bool relu, int dt, cudaStream_t s) {
+  if (n_in < 1 || n_in > CONCAT_MAX_IN) return cudaErrorInvalidValue;
   ConcatArgs a;
   int off = 0;
   for (int i = 0; i < n_in; ++i) {
-    if (row_bytes[i] % 16) return (int)cudaErrorInvalidValue;
+    if (row_bytes[i] % 16) return cudaErrorInvalidValue;
     a.src[i] = static_cast<const uint4*>(srcs[i]);
     a.units[i] = row_bytes[i] / 16;
     a.offset[i] = off;
     off += a.units[i];
   }
   const long long total = pixels * off;
-  if (total >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  if (total == 0) return (int)cudaSuccess;
+  if (total >= (1LL << 31)) return cudaErrorInvalidValue;
+  if (total == 0) return cudaSuccess;
   a.out_units = off;
   a.pixels = (int)pixels;
   a.dst = static_cast<uint4*>(dst);
@@ -97,13 +100,13 @@ extern "C" int df_concat(const void* const* srcs, const int* row_bytes,
   long long bx = (pixels * widest + NT - 1) / NT;
   if (bx > 132 * 16) bx = 132 * 16;
   const dim3 grid((unsigned)bx, (unsigned)n_in);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int r = relu ? 1 : 0;
   switch (dt) {
-    case DT_F32: concat_relu_kernel<DT_F32><<<grid, NT, 0, s>>>(a, relu); break;
-    case DT_S32: concat_relu_kernel<DT_S32><<<grid, NT, 0, s>>>(a, relu); break;
-    case DT_S8: concat_relu_kernel<DT_S8><<<grid, NT, 0, s>>>(a, relu); break;
-    case DT_U8: concat_relu_kernel<DT_U8><<<grid, NT, 0, s>>>(a, relu); break;
-    default: return (int)cudaErrorInvalidValue;
+    case DT_F32: concat_relu_kernel<DT_F32><<<grid, NT, 0, s>>>(a, r); break;
+    case DT_S32: concat_relu_kernel<DT_S32><<<grid, NT, 0, s>>>(a, r); break;
+    case DT_S8: concat_relu_kernel<DT_S8><<<grid, NT, 0, s>>>(a, r); break;
+    case DT_U8: concat_relu_kernel<DT_U8><<<grid, NT, 0, s>>>(a, r); break;
+    default: return cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
 }

@@ -25,8 +25,7 @@
 #include <climits>
 #include <cstdint>
 
-// dtype codes: the values of deepfusion_tpu_torch.types.dtype
-enum : int { DT_F32 = 1, DT_S32 = 2, DT_S8 = 3, DT_U8 = 4 };
+#include "dtypes.h"
 
 template <int DT> struct dt_traits;
 template <> struct dt_traits<DT_F32> { using T = float; };

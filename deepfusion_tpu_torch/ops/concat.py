@@ -1,14 +1,16 @@
 """Concat(+ReLU) over NHWC channels.
 
 The PyTorch counterpart of ``deepfusion_tpu/ops/concat.py``. On CUDA tensors
-``concat`` launches ``concat_relu_kernel`` (``csrc/concat.cu``); on CPU
-tensors it runs ``concat_plain``. ReLU is true ReLU per dtype (the
-reference's lane quirks Q1/Q2 are not reproduced, ``ops/ref.py:23-27`` of the
-JAX package).
+``concat`` launches ``concat_relu_kernel`` (``csrc/concat.cu``) through the
+registered op ``torch.ops.deepfusion_torch.concat_relu``
+(``csrc/torch_ops.cpp``); on CPU tensors it runs ``concat_plain``. ReLU is
+true ReLU per dtype (the reference's lane quirks Q1/Q2 are not reproduced,
+``ops/ref.py:23-27`` of the JAX package). ``concat()`` keeps its config per
+shapes, dtype and ReLU, so a model's repeated call rebuilds none.
 """
 from __future__ import annotations
 
-import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -19,8 +21,6 @@ from ..types import dtype
 from ..utils.device import as_tensor
 from ..utils.logger import check
 from .requant import relu_f32
-
-MAX_INPUTS = 16  # csrc/concat.cu MAX_IN
 
 
 def relu(x: torch.Tensor, dt: dtype) -> torch.Tensor:
@@ -39,24 +39,30 @@ def concat_plain(srcs: Sequence[torch.Tensor], cfg: ConcatConfig):
     return relu(out, cfg.dt) if cfg.with_relu else out
 
 
+@functools.cache
+def concat_op():
+    """The registered op's overload, looked up once the kernel library
+    (which registers it) is loaded."""
+    _build.kernels()
+    return torch.ops.deepfusion_torch.concat_relu.default
+
+
 def concat_cuda(srcs: Sequence[torch.Tensor], cfg: ConcatConfig):
-    """Launch ``concat_relu_kernel`` on the current stream."""
-    check(len(srcs) <= MAX_INPUTS,
-          f"the concat kernel takes at most {MAX_INPUTS} inputs")
-    srcs = [_build.aligned(s) for s in srcs]
-    dev = srcs[0].device
-    out = torch.empty((cfg.bs, cfg.h, cfg.w, cfg.oc), dtype=cfg.dt.torch,
-                      device=dev)
-    ptrs = (ctypes.c_void_p * len(srcs))(*[s.data_ptr() for s in srcs])
-    widths = (ctypes.c_int * len(srcs))(*[ic * cfg.dt.size for ic in cfg.ics])
-    with torch.cuda.device(dev):
-        rc = _build.kernels().df_concat(
-            ptrs, widths, len(srcs), out.data_ptr(),
-            cfg.bs * cfg.h * cfg.w, int(cfg.with_relu), cfg.dt.value,
-            _build.stream_of(out))
-    _build.check(rc, "concat_relu_kernel")
+    """Launch ``concat_relu_kernel`` on the current stream through the
+    registered op, which checks the inputs (1-16, one dtype, device, N, H
+    and W, rows of 16-byte multiples), makes them contiguous and aligned,
+    allocates the output and launches, all in C++."""
+    out = concat_op()(srcs, cfg.with_relu)
     _build.count_launch("concat_relu")
     return out
+
+
+@functools.lru_cache(maxsize=64)
+def _config(shapes: tuple, dt: torch.dtype,
+            with_relu: bool) -> ConcatConfig:
+    """``ConcatConfig.make``, once per shapes, dtype and ReLU; a call that
+    fails raises again next time (``lru_cache`` keeps no exception)."""
+    return ConcatConfig.make(list(shapes), dt, with_relu)
 
 
 def concat(srcs: Sequence, post_relu: bool = False, *,
@@ -71,8 +77,8 @@ def concat(srcs: Sequence, post_relu: bool = False, *,
     PyTorch version.
     """
     ts = [as_tensor(s, device) for s in srcs]
-    cfg = ConcatConfig.make([tuple(t.shape) for t in ts], ts[0].dtype,
-                            post_relu)
+    cfg = _config(tuple(tuple(t.shape) for t in ts), ts[0].dtype,
+                  bool(post_relu))
     for t in ts:
         if t.dtype != ts[0].dtype:
             raise ValueError("concat inputs must share dtype "

@@ -22,8 +22,11 @@ per call, ms); K1, K3, K9, K10 and the bench shapes also cold
 (``chip_smoke.cold_device_ms``: the L2 evicted before every call); K6,
 K7 and K8 (``packed_sum_pool_cuda``) at FusionNet's residual shape and K7
 at ResFusionNet's downsample, warm and cold, and K7's per-call ms beside
-the 2x2 ``amax`` of the packed interior view; then the seven model paths
-(FusionNet, ResFusionNet and VGGFusion dense and packed, VGGFusion
+the 2x2 ``amax`` of the packed interior view; K2 (``concat_cuda``) at
+FusionNet's branch merge (two 8x56x56x128 u8 inputs, ReLU), warm and cold,
+its per-call ms beside ``torch.cat``'s (taken in turns) and the host us of
+``concat_cuda``, of ``concat()`` and of ``torch.cat``; then the seven model
+paths (FusionNet, ResFusionNet and VGGFusion dense and packed, VGGFusion
 hybrid): per-call ms (CUDA events around one call; the median and the
 least of 80 calls taken in turns), device ms, the ratio of device ms to
 the median (the device's busy share), and for the six
@@ -283,6 +286,24 @@ def run_tree(tree):
             "2x2 amax ResFusionNet down per call ms":
                 lambda: inner.unflatten(1, (ds.h // 2, 2)).unflatten(
                     3, (ds.w // 2, 2)).amax(dim=(2, 4))}))
+        # K2 at FusionNet's branch merge
+        from deepfusion_tpu_torch.config import ConcatConfig
+        C = importlib.import_module("deepfusion_tpu_torch.ops.concat")
+        xs = [cs.rand(rng, (8, hw, hw, w), u8, dev) for _ in range(2)]
+        ccfg = ConcatConfig.make([tuple(x.shape) for x in xs], u8, True)
+        assert torch.equal(C.concat_cuda(xs, ccfg), C.concat_plain(xs, ccfg))
+        label = "FusionNet branch merge"
+        res[f"K2 {label}"] = device_ms(lambda: C.concat_cuda(xs, ccfg))
+        res[f"K2 {label} cold"] = cold_ms(lambda: C.concat_cuda(xs, ccfg))
+        res[f"K2 {label} host us"] = host_us(lambda: C.concat_cuda(xs, ccfg))
+        res[f"K2 concat() {label} host us"] = host_us(
+            lambda: C.concat(xs, post_relu=True))
+        res[f"torch.cat {label} host us"] = host_us(
+            lambda: torch.cat(xs, dim=-1))
+        res.update(in_turns({
+            f"K2 {label} per call ms": lambda: C.concat_cuda(xs, ccfg),
+            f"torch.cat {label} per call ms":
+                lambda: torch.cat(xs, dim=-1)}))
         # the host's time of the library lookup every launch makes
         from deepfusion_tpu_torch import _build
         _build.kernels()
