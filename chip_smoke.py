@@ -23,13 +23,18 @@ Phases, each printing its own lines:
      output sizes, 1x1 GEMM tiles across images, ragged dst pitches, ic
      16, M below one tile, and the geometries of sp_conv's row slabs and
      tp_fused_conv's weight slices; for K2 also a 16-byte-misaligned view,
-     non-contiguous inputs and 16 inputs, and the calls its op must refuse
-     (17 inputs, CPU tensors, mixed devices, a dtype mismatch); for the
-     fused conv+pool both pools,
-     strides and sums; for the packed
+     non-contiguous inputs, 16 inputs, 17 and 40 inputs in every dtype
+     (the wrapper's launch count held against the kernel launches that
+     torch.profiler traces in the call), and the calls its op must refuse
+     (CPU tensors, mixed devices, a dtype mismatch); for the fused
+     conv+pool both pools, strides and sums; for the packed
      kernels also halo erosion, wide tap shifts, pad lanes, 1-3 inputs,
      the packed sum operand, the s2d stem, the fused 2x2 pool and random
-     bytes in the pad slots; for the conv pair every fused combination
+     bytes in the pad slots, and the input counts and lane widths the
+     kernels take only joined (C13: five inputs, 8 + 24 lanes, six mixed
+     widths; the packed sum/pool with five and with narrow inputs, narrow
+     lanes padded; at 8x28x28 and at FusionNet's 8x56x56 and widths); for
+     the conv pair every fused combination
      with and without the pool, a channel change, round-down per-oc
      scales, deeper and shallower input halos, and bench.py's --pair
      shape); then the kernel modes of the sharded path: K1b's and K5's raw
@@ -43,8 +48,12 @@ Phases, each printing its own lines:
      answer 20 requests through the dense forward, then 20 through the
      packed forward; VGGFusion's hybrid forward runs the golden batch; each
      answer must equal the model's plain dense forward on the CPU bitwise
-     (and the JAX package's golden logits where stored), and every kernel
-     of each path must have been launched in that path's run;
+     (and the JAX package's golden logits where stored), every kernel
+     of each path must have been launched in that path's run, and each
+     forward must launch what FORWARD_LAUNCHES says; then FusionNet,
+     built on the CPU and batch-split by dp_shard over two slots that are
+     both this card, answers 16 requests behind BatchServer at batch 16,
+     checked the same way;
   5. timings: CUDA-event medians and profiler device times of each kernel
      and its plain version at the models' shapes, the kernel warm (inputs
      reused) and cold (the L2 evicted before every call), every K1 launch
@@ -73,7 +82,15 @@ Phases, each printing its own lines:
      counts to 0 and reading them, every kernel and mode of the path
      launched; then each result bitwise equal to the single-device call;
      then each wrapper's time against the single-device call (one card
-     runs the shards in turn: the cost of sharding, not scaling).
+     runs the shards in turn: the cost of sharding, not scaling); the
+     launches must equal SHARDED_LAUNCHES;
+  7. object API: device_capabilities(), distributed.initialize() as a
+     single-process no-op, then one chain of submits on cuda:0 from
+     host-filled memory (concat -> fused conv -> max pool -> eltwise sum)
+     with DEEPFUSION_PROFILE=1: every result a CUDA tensor, every kernel
+     of the chain launched, a profile line per submit, the result bitwise
+     the functional ops' on the CPU; then each submit's host time against
+     its functional call's, in turns.
 
 Any failure raises and exits non-zero; nothing is caught. The line before
 the last is the per-kernel JSON summary, the last line the device JSON.
@@ -133,6 +150,25 @@ PATH_KERNELS = {
     ("VGGFusion", "packed"): ("pair_conv", "conv_fused"),
     ("VGGFusion", "hybrid"): ("pair_conv", "conv_fused", "convpool", "pool"),
 }
+# launches of one forward of each served model path, and of phase 6's
+# sharded calls: what the kernels' launch paths have made since they
+# settled; a change to a model's launches must change these deliberately
+FORWARD_LAUNCHES = {
+    "FusionNet dense": {"conv_fused": 6, "concat_relu": 1, "pool": 2,
+                        "sum_relu": 1},
+    "FusionNet packed": {"conv_fused": 1, "packed_conv": 5,
+                         "packed_sum_pool": 1},
+    "ResFusionNet dense": {"conv_fused": 4, "pool": 1, "convpool": 1},
+    "ResFusionNet packed": {"conv_fused": 1, "packed_conv": 4,
+                            "packed_sum_pool": 1},
+    "VGGFusion dense": {"conv_fused": 4, "pool": 1, "convpool": 3},
+    "VGGFusion packed": {"conv_fused": 1, "pair_conv": 3},
+    # two shards of one forward each per served batch
+    "FusionNet dense dp=2 split": {"conv_fused": 12, "concat_relu": 2,
+                                   "pool": 4, "sum_relu": 2},
+}
+SHARDED_LAUNCHES = {"conv_fused": 58, "packed_conv": 32, "convpool": 2,
+                    "pair_conv": 38}
 # three_stage_plan in phase 6: bench.py's scaling-plan widths (64
 # channels, bench.py:673-678) at hw 128, batch 8 per dp shard
 PLAN = dict(mb=16, hw=128, c=64)
@@ -208,6 +244,18 @@ def kernel_profile(fn, reps):
         torch.cuda.synchronize()
     return {e.key: e.self_device_time_total for e in prof.key_averages()
             if e.self_device_time_total > 0}
+
+
+def kernel_launches(fn, name):
+    """(fn()'s result, the launches of device kernels whose name holds
+    `name` that torch.profiler traced in that call)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum(e.count for e in prof.key_averages()
+                    if name in e.key and e.self_device_time_total > 0)
 
 
 def cold_device_ms(fn, reps=REPS, profiles=3, tries=3):
@@ -725,14 +773,17 @@ def convpool_cases(dev):
 def concat_op_cases(rng, dev, par):
     """K2 through its registered op at inputs the wrapper no longer
     prepares in Python: a 16-byte-misaligned contiguous view, a channel
-    slice and a transposed view (non-contiguous), 16 inputs, each bitwise
-    against the plain version; then the calls the op must refuse: 17
-    inputs, a dtype mismatch and mixed devices in its own checks
-    (RuntimeError), CPU tensors in the dispatcher (no CPU kernel is
-    registered: NotImplementedError)."""
+    slice and a transposed view (non-contiguous), 16 inputs, and more
+    inputs than one launch takes (17 and 40: one launch per group of 16,
+    each writing its columns of the one output), in every dtype, each
+    bitwise against the plain version; then the calls the op must refuse:
+    a dtype mismatch and mixed devices in its own checks (RuntimeError),
+    CPU tensors in the dispatcher (no CPU kernel is registered:
+    NotImplementedError)."""
+    from deepfusion_tpu_torch import _build
     from deepfusion_tpu_torch.config import ConcatConfig
     from deepfusion_tpu_torch.types import dtype
-    from deepfusion_tpu_torch.utils.logger import check
+    from deepfusion_tpu_torch.utils.logger import check, check_eq
     C = importlib.import_module("deepfusion_tpu_torch.ops.concat")
     u8, s8 = dtype.u8, dtype.s8
     nhw = (2, 5, 7)
@@ -746,20 +797,38 @@ def concat_op_cases(rng, dev, par):
           "the strided cases must be non-contiguous")
     sixteen = [rand(rng, nhw + (16 * (1 + i % 3),), u8, dev)
                for i in range(16)]
-    for label, xs, dt in (
-            ("misaligned view", [rand(rng, nhw + (32,), u8, dev), mis], u8),
-            ("channel slice", [sliced, rand(rng, nhw + (16,), u8, dev)], u8),
-            ("transposed view", [tposed, rand(rng, nhw + (64,), s8, dev)],
-             s8),
-            ("16 inputs", sixteen, u8)):
+    cases = [("misaligned view", [rand(rng, nhw + (32,), u8, dev), mis], u8),
+             ("channel slice", [sliced, rand(rng, nhw + (16,), u8, dev)], u8),
+             ("transposed view", [tposed, rand(rng, nhw + (64,), s8, dev)],
+              s8),
+             ("16 inputs", sixteen, u8)]
+    for dt in (dtype.u8, dtype.s8, dtype.s32, dtype.f32):
+        unit = 16 // dt.size
+        for n_in in (17, 40):
+            cases.append((f"{n_in} inputs", [
+                rand(rng, nhw + (unit * (1 + i % 3),), dt, dev)
+                for i in range(n_in)], dt))
+    for label, xs, dt in cases:
         for relu in (False, True):
             cfg = ConcatConfig.make([tuple(x.shape) for x in xs], dt, relu)
+            before = _build.launch_counts()["concat_relu"]
+            got, traced = kernel_launches(lambda: C.concat_cuda(xs, cfg),
+                                          "concat_relu_kernel")
+            launches = _build.launch_counts()["concat_relu"] - before
+            check_eq(launches, traced, f"K2's count for {len(xs)} inputs "
+                     f"against the kernel launches torch.profiler traced")
+            check(launches >= -(-len(xs) // 16),
+                  f"K2 took {len(xs)} inputs in {launches} launches")
             par.check("concat_relu", f"{label} {dt.name} relu={relu}",
-                      C.concat_cuda(xs, cfg), C.concat_plain(xs, cfg))
+                      got, C.concat_plain(xs, cfg))
+            if len(xs) > 16 and relu:
+                print(f"parity: concat_relu {label} {dt.name}: {launches} "
+                      f"launches per call (torch.profiler traced "
+                      f"{traced}), bitwise equal to the plain version",
+                      flush=True)
     op = C.concat_op()
     x = sixteen[0]
     for label, args, error in (
-            ("17 inputs", sixteen + [x], RuntimeError),
             ("a dtype mismatch", [x, x.to(torch.int8)], RuntimeError),
             ("mixed devices", [x, x.cpu()], RuntimeError),
             ("CPU tensors", [x.cpu(), x.cpu()], NotImplementedError)):
@@ -1060,6 +1129,52 @@ def packed_conv_cases(dev):
     for oc1 in (None, 40):
         add(f"5x5 pool2 fused={oc1 is not None}", 12, [32], 64, k=5,
             oc1=oc1, halo_in=3, halo_out=2, iwp=16, pool2=True, junk=True)
+    # C13: more inputs than the kernel takes and lane widths no multiple
+    # of 16, joined into the kernel's inputs (ops/packed.py kernel_groups)
+    add("C13 five inputs of 32", 28, [32] * 5, 64, n=8, junk=True)
+    add("C13 fused five inputs of 32", 28, [32] * 5, 64, oc1=64, n=8)
+    add("C13 8 + 24 lanes", 28, [(8, 8), (24, 24)], 64, n=8, junk=True)
+    add("C13 six mixed widths", 28, [(8, 8), (8, 8), (16, 16), (32, 32),
+                                     (24, 24), (8, 8)], 64, n=8)
+    add("C13 fused six mixed widths", 28, [(8, 8), (8, 8), (16, 16),
+                                           (32, 32), (16, 16), (8, 16)],
+        72, oc1=40, n=8, junk=True)
+    # the same at FusionNet's batch, side and widths (8 x 56 x 56, 128
+    # output lanes), where the join's bytes weigh against the kernel's
+    add("C13 56x56 five inputs of 64", 56, [64] * 5, 128, n=8, junk=True)
+    add("C13 56x56 fused 8 + 120 lanes", 56, [(8, 8), (120, 120)], 128,
+        oc1=128, n=8, junk=True)
+    add("C13 56x56 six mixed widths", 56, [(8, 8), (8, 8), (16, 16),
+                                           (32, 32), (64, 64), (128, 128)],
+        128, n=8)
+    return out
+
+
+def c13_sum_pool_cases():
+    """(label, left input specs, right operand spec, batch) of the packed
+    sum/pool at input counts and widths the kernel does not take as they
+    are (C13): joined, and narrow lanes padded to 16 with -128."""
+    from deepfusion_tpu_torch.ops.packed import PackedSpec
+    out = []
+    for label, hw, cs, rcp in (
+            ("C13 five inputs of 32", 28, [32] * 5, None),
+            ("C13 narrow 8 + 24", 28, [8, 24], None),
+            ("C13 one input of 8 lanes", 28, [8], 8),
+            ("C13 six narrow, 64 lanes", 28, [8, 8, 16, 8, 8, 8], 64),
+            # FusionNet's batch, side and residual width (256 lanes)
+            ("C13 56x56 five inputs, 256 lanes", 56, [64, 64, 64, 32, 32],
+             None),
+            ("C13 56x56 six mixed, 256 lanes", 56, [8, 8, 16, 32, 64, 128],
+             None),
+            ("C13 56x56 narrow 8 + 120", 56, [8, 120], None)):
+        rcp = rcp or sum(cs)
+        cps = cs[:-1] + [rcp - sum(cs[:-1])]
+        iwp = 32 if hw == 28 else None  # None: PackedSpec's own pitch
+        ys = [PackedSpec.make(hw, hw, c, cp=cp, halo=2, col_off=2, iwp=iwp)
+              for c, cp in zip(cs, cps)]
+        out.append((label, ys, PackedSpec.make(hw, hw, sum(cs), cp=rcp,
+                                               halo=2, col_off=2, iwp=iwp),
+                    8))
     return out
 
 
@@ -1173,6 +1288,7 @@ def packed_parity(net, rnet, dev, par):
               for c in cs]
         cases.append((f"{cs}", ys, PackedSpec.make(
             6, 10, sum(cs), halo=2, col_off=2, iwp=16), 2))
+    cases += c13_sum_pool_cases()
     for label, ys_s, rs, bn in cases:
         for junk in (False, True):
             ys = [packed_input(rng, s, bn, dev, junk) for s in ys_s]
@@ -1522,16 +1638,19 @@ def slice_requests(net, golden_path):
     return reqs, want, golden
 
 
-def phase_slice(model, cfg, path, kernels, reqs, want, golden) -> dict:
-    """Serve reqs through `model` behind BatchServer; every kernel of the
-    path must launch in this run, and every answer must be bitwise right.
-    `path` names the model and the forward."""
+def phase_slice(model, cfg, path, kernels, reqs, want, golden,
+                batch=None) -> dict:
+    """Serve reqs through `model` behind BatchServer at `batch` (default
+    the model's); every kernel of the path must launch in this run, every
+    answer must be bitwise right, and each forward must launch what
+    FORWARD_LAUNCHES says (where it names the path). `path` names the
+    model and the forward."""
     from deepfusion_tpu_torch import _build
     from deepfusion_tpu_torch.serving import BatchServer
     from deepfusion_tpu_torch.utils.logger import check, check_eq
     _build.reset_launch_counts()
-    srv = BatchServer(model, batch=cfg.batch,
-                      input_shape=model.input_shape[1:])
+    srv = BatchServer(model, batch=batch or cfg.batch,
+                      input_shape=reqs[0].shape)
     with srv:
         outs = [f.result(timeout=300) for f in srv.submit_many(reqs)]
     counts = _build.launch_counts()
@@ -1542,6 +1661,13 @@ def phase_slice(model, cfg, path, kernels, reqs, want, golden) -> dict:
     for k in kernels:
         check(counts[k] > 0,
               f"kernel {k} was not launched on the {path} path")
+    per_forward = FORWARD_LAUNCHES.get(path)
+    if per_forward is not None:
+        flushes = srv.stats["flushes"]
+        got = {k: v / flushes for k, v in counts.items() if v}
+        check_eq(got, per_forward, f"{path}: launches per forward")
+        print(f"slice: {path} path: launches per forward {per_forward}, "
+              f"as before", flush=True)
 
     got = np.stack(outs)
     check_eq(got.shape, (len(reqs), cfg.num_classes), "served logits shape")
@@ -1587,6 +1713,155 @@ def phase_hybrid(vnet, golden_path) -> dict:
           f"logits: max_abs_err {np.abs(got - golden['logits']).max()}")
     print("slice: VGGFusion hybrid path: logits bitwise equal to the JAX "
           "package's golden logits", flush=True)
+    return counts
+
+
+def phase_dp_served(golden_path) -> dict:
+    """FusionNet(FusionNetConfig()), built on the CPU, batch-split by
+    dp_shard over a mesh of two slots that are both this card (each slot a
+    copy of the model moved to cuda:0, its ops' tensor maps encoded anew),
+    served behind BatchServer at twice the model's batch: 16 requests,
+    bitwise against the CPU plain dense forward and the golden logits."""
+    from deepfusion_tpu_torch.models import FusionNet, FusionNetConfig
+    from deepfusion_tpu_torch.parallel import dp_shard, make_mesh
+    from deepfusion_tpu_torch.utils.logger import check, check_eq
+    cfg = FusionNetConfig()
+    cpu_net = FusionNet(cfg, device="cpu")
+    fwd = dp_shard(cpu_net, make_mesh(dp=2, devices=["cuda:0", "cuda:0"]))
+    check_eq(fwd.device, torch.device("cuda:0"), "dp-split callable device")
+    check(cpu_net.device == torch.device("cpu"),
+          "dp_shard must copy the model, not move it")
+    reqs, want, golden = slice_requests(cpu_net, golden_path)
+    return phase_slice(fwd, cfg, "FusionNet dense dp=2 split", PATH_KERNELS[
+        ("FusionNet", "dense")], reqs[:16], want[:16], golden,
+        batch=2 * cfg.batch)
+
+
+def phase_object_api(dev, name_power) -> dict:
+    """Phase 7: one chain of object-API submits on cuda:0 from host-filled
+    memory (concat -> fused conv -> max pool -> eltwise sum) at FusionNet's
+    widths: each result a CUDA tensor, every kernel of the chain launched,
+    the result bitwise the functional ops' on the CPU; with
+    DEEPFUSION_PROFILE=1 the submits' log lines; then each submit's host
+    time against its functional call's, in turns; the device's
+    capabilities and the single-process distributed init."""
+    import logging
+
+    import deepfusion_tpu_torch as df
+    from deepfusion_tpu_torch import _build
+    from deepfusion_tpu_torch.ops.concat import concat
+    from deepfusion_tpu_torch.ops.conv import ConvOp
+    from deepfusion_tpu_torch.ops.pool import eltwise_sum_relu, pool
+    from deepfusion_tpu_torch.parallel import distributed
+    from deepfusion_tpu_torch.utils.logger import check, check_eq
+    print(f"api: device_capabilities() {df.device_capabilities()}",
+          flush=True)
+    distributed.initialize()
+    check(not torch.distributed.is_initialized(),
+          "initialize() of one process must be a no-op")
+    print(f"api: distributed.initialize() single-process no-op; "
+          f"local_batch_slice(16)={distributed.local_batch_slice(16)} "
+          f"global_devices_mesh_shape()="
+          f"{distributed.global_devices_mesh_shape()}", flush=True)
+
+    n, hw, w = 8, 56, 64
+    rng = np.random.default_rng(21)
+    a = df.memory([n, w, hw, hw], df.format.nhwc, df.u8).fill_random(rng)
+    b = df.memory([n, w, hw, hw], df.format.nhwc, df.u8).fill_random(rng)
+    mid = df.memory([n, 2 * w, hw, hw], df.format.nhwc, df.u8)
+    wei = df.memory([2 * w, 2 * w, 3, 3], df.format.OIhw4i16o4i, df.s8)
+    wei.data = rng.integers(-128, 128, (2 * w, 2 * w, 3, 3)).astype(np.int8)
+    wei1 = df.memory([w, 2 * w, 1, 1], df.format.OIhw4i16o4i, df.s8)
+    wei1.data = rng.integers(-128, 128, (w, 2 * w, 1, 1)).astype(np.int8)
+    bia = df.memory([2 * w], df.format.x, df.s32)
+    bia.data = rng.integers(-5000, 5000, (2 * w,)).astype(np.int32)
+    fused = df.memory([n, w, hw, hw], df.format.nhwc, df.u8)
+    pooled = df.memory([n, w, hw // 2, hw // 2], df.format.nhwc, df.u8)
+    res = df.memory([n, w, hw // 2, hw // 2], df.format.nhwc,
+                    df.u8).fill_random(rng)
+    out = df.memory([n, w, hw // 2, hw // 2], df.format.nhwc, df.u8)
+    host = {k: m.numpy().copy() for k, m in (("a", a), ("b", b),
+                                             ("res", res))}
+    sc0, sc1 = (1.0 / (9 * 2 * w * 60),), (1.0 / (2 * w * 60),)
+    ops = [("concat", df.concat([a, b], mid, post_relu=True)),
+           ("conv", df.conv(mid, wei, bia, (1, 1), (1, 1), wei1, None,
+                            fused, True, sc0, "nearest", True, sc1)),
+           ("pool", df.pool(fused, pooled, "max", (2, 2), (2, 2), (0, 0))),
+           ("eltwise", df.eltwise_sum_relu(pooled, res, out))]
+    for name, o in ops:
+        check_eq(o.device, dev, f"object API {name} op device")
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+    keep = Keep()
+    log = logging.getLogger("deepfusion_tpu_torch")
+    log.addHandler(keep)
+    os.environ["DEEPFUSION_PROFILE"] = "1"
+    _build.reset_launch_counts()
+    try:
+        with torch.inference_mode():
+            for _, o in ops:
+                o.submit()
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["DEEPFUSION_PROFILE"]
+        log.removeHandler(keep)
+    counts = _build.launch_counts()
+    print(f"api: chain concat -> fused conv -> pool -> eltwise sum on "
+          f"{dev}: launches {counts}", flush=True)
+    for k in ("concat_relu", "conv_fused", "pool", "sum_relu"):
+        check(counts[k] > 0, f"the object API chain did not launch {k}")
+    for m, what in ((a, "a"), (mid, "mid"), (fused, "fused"),
+                    (pooled, "pooled"), (out, "out")):
+        check(isinstance(m.data, torch.Tensor) and m.data.device == dev,
+              f"object API memory {what} must hold a tensor on {dev}")
+    for _, o in ops:
+        check(any(f"{o.name()} infer" in r and r.endswith(" ms")
+                  for r in records),
+              f"no profile line of the {o.name()} submit: {records}")
+    for r in records:
+        print(f"api: profile log: {r}", flush=True)
+    with torch.inference_mode():
+        cpu = torch.device("cpu")
+        cop = ConvOp(ops[1][1]._impl.cfg, wei.numpy(), bia.numpy(),
+                     wei1.numpy(), None, device=cpu)
+        m = concat([torch.from_numpy(host["a"]), torch.from_numpy(host["b"])],
+                   post_relu=True)
+        want = eltwise_sum_relu(pool(cop(m), "max", (2, 2), (2, 2), (0, 0)),
+                                torch.from_numpy(host["res"]))
+    check(torch.equal(out.data.cpu(), want),
+          "object API chain on the card differs from the functional ops "
+          "on the CPU")
+    print("api: chain result bitwise equal to the functional ops on the CPU",
+          flush=True)
+    # host time per submit against the functional call on the same tensors
+    fns = {"concat": lambda: concat([a.data, b.data], True),
+           "conv": lambda: ops[1][1]._impl(mid.data),
+           "pool": lambda: pool(fused.data, "max", (2, 2), (2, 2), (0, 0)),
+           "eltwise": lambda: eltwise_sum_relu(pooled.data, res.data)}
+    with torch.inference_mode():
+        for name, o in ops:
+            us = {"submit": [], "functional": []}
+            calls = 200
+            for _ in range(3):
+                for k, fn in (("submit", o.submit), ("functional", fns[name]),
+                              ("functional", fns[name]), ("submit",
+                                                          o.submit)):
+                    fn()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(calls):
+                        fn()
+                    us[k].append((time.perf_counter() - t0) / calls * 1e6)
+                    torch.cuda.synchronize()
+            sub, fun = (statistics.median(us[k]) for k in us)
+            print(f"api: host {name} submit_us={sub:.3f} "
+                  f"functional_us={fun:.3f} overhead_us={sub - fun:.3f} "
+                  f"(medians of 6 loops of {calls} in turns; the queue "
+                  f"may fill, so a host time above the device time "
+                  f"includes the wait) card=\"{name_power}\"", flush=True)
     return counts
 
 
@@ -1900,6 +2175,15 @@ def host_profile(name, fn, name_power, calls=50, top=8):
         print(f"host profile: {name} {os.path.basename(f)}:{line} {func} "
               f"calls/call={nc / calls:g} self_us/call={tt / calls * 1e6:.1f}",
               flush=True)
+
+
+def join_timing(label, fn, name_power):
+    """Per-call and device ms of the join a C13 call makes before its
+    kernel (the lane joins of kernel_groups, a narrow group's pad lanes):
+    what the join adds to the kernel's time."""
+    print(f"timing: {label} the join alone ms={cuda_ms(fn):.4f} "
+          f"device_ms={device_ms(fn):.4f} card=\"{name_power}\"",
+          flush=True)
 
 
 def time_forwards(name, fwd, batch, name_power):
@@ -2219,6 +2503,22 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
             "kernel": lambda: C.concat_cuda(xs, ccfg),
             "torch.cat": lambda: torch.cat(xs, dim=-1)}, name_power)
         concat_host_us((n, hw, hw, w), dev, name_power)
+        # more inputs than one launch takes: one launch per group of 16
+        for n_in in (17, 40):
+            xs_m = [rand(rng, (n, hw, hw, 16 * (1 + i % 3)), u8, dev)
+                    for i in range(n_in)]
+            cfg_m = ConcatConfig.make([tuple(x.shape) for x in xs_m], u8,
+                                      True)
+            label = f"{n_in} inputs ({-(-n_in // 16)} launches per call)"
+            timed("concat_relu", label,
+                  lambda: C.concat_cuda(xs_m, cfg_m),
+                  lambda: C.concat_plain(xs_m, cfg_m), in_forward=False,
+                  reads=xs_m, tensor=False,
+                  library=lambda: torch.cat(xs_m, dim=-1))
+            per_call_in_turns(f"concat_relu {label} (K2)", {
+                "kernel": lambda: C.concat_cuda(xs_m, cfg_m),
+                "torch.cat": lambda: torch.cat(xs_m, dim=-1)}, name_power)
+        del xs_m
         y = rand(rng, (n, hw, hw, 2 * w), u8, dev)
         r = rand(rng, (n, hw, hw, 2 * w), u8, dev)
         timed("sum_relu", "residual", lambda: P.sum_relu_cuda(y, r, u8, True),
@@ -2263,6 +2563,43 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
                   lambda: PK.packed_sum_pool_plain(*args, rs.rows, rs.iwp),
                   in_forward=False, reads=reads,
                   ops=rr.numel() // (4 if args[2] else 1), tensor=False)
+
+        # C13 shapes at FusionNet's size: the join of the kernel's inputs
+        # (kernel_groups) and the kernel, against the bound of the
+        # unjoined inputs (the 28x28 cases, bounds under 1 us, time only
+        # a launch's fixed cost, so only their parity runs)
+        for label, op, bn, _ in packed_conv_cases(dev):
+            if not label.startswith("C13 56x56"):
+                continue
+            arrs = [packed_input(rng, s, bn, dev) for s in op.sins]
+            print(f"timing: packed_conv {label}: inputs of "
+                  f"{[s.cp for s in op.sins]} lanes, the kernel's of "
+                  f"{[s.cp for s in op.kernel_sins]}", flush=True)
+            timed("packed_conv", f"{label} (join + kernel)",
+                  lambda: PK.packed_conv_cuda(op, arrs),
+                  lambda: PK.packed_conv_plain(op, arrs), in_forward=False,
+                  reads=(packed_reads(op, bn), op), ops=conv_ops(op.cfg, bn))
+            join_timing(f"packed_conv {label}",
+                        lambda: PK.join_groups(arrs, op.kernel_groups),
+                        name_power)
+        for label, ys_s, rs, bn in c13_sum_pool_cases():
+            if not label.startswith("C13 56x56"):
+                continue
+            ys = [packed_input(rng, s, bn, dev) for s in ys_s]
+            rr = packed_input(rng, rs, bn, dev)
+            timed("packed_sum_pool", f"{label} sum+pool (K8, join + "
+                  f"kernel)",
+                  lambda: PK.packed_sum_pool_cuda(ys, rr, True, rs.rows,
+                                                  rs.iwp),
+                  lambda: PK.packed_sum_pool_plain(ys, rr, True, rs.rows,
+                                                   rs.iwp), in_forward=False,
+                  reads=(ys, rr), ops=2 * rr.numel(), tensor=False)
+            pad = -rs.cp % PK.LANE_UNIT
+            join_timing(f"packed_sum_pool {label}", lambda: (
+                PK.join_groups(ys, PK.kernel_groups([s.cp for s in ys_s]),
+                               pad),
+                torch.nn.functional.pad(rr, (0, pad), value=-128)
+                if pad else rr), name_power)
 
         # dense vs packed forward, in turns
         x = torch.from_numpy(net.example_input()).to(dev)
@@ -2380,6 +2717,7 @@ def main():
                                              ResFusionNetConfig, VGGFusion,
                                              VGGFusionConfig)
 
+    from deepfusion_tpu_torch.utils.logger import check_eq
     name_power = phase_device()
     phase_build(name_power)
     dev = torch.device("cuda:0")
@@ -2405,12 +2743,18 @@ def main():
                               PATH_KERNELS[(name, path)], reqs, want, golden)
             for k in KERNEL_INFO:
                 counts[k] += got[k]
-    got = phase_hybrid(vnet, GOLDEN["VGGFusion"])
-    for k in KERNEL_INFO:
-        counts[k] += got[k]
+    for got in (phase_hybrid(vnet, GOLDEN["VGGFusion"]),
+                phase_dp_served(GOLDEN["FusionNet"])):
+        for k in KERNEL_INFO:
+            counts[k] += got[k]
     rows = phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
                          counts)
     got = phase_sharded(sharded, name_power)
+    check_eq({k: v for k, v in got.items() if v}, SHARDED_LAUNCHES,
+             "launches of phase 6's sharded calls")
+    for row in rows:
+        row["launches"] += got[row["name"]]
+    got = phase_object_api(dev, name_power)
     for row in rows:
         row["launches"] += got[row["name"]]
     print(name_power)

@@ -16,10 +16,21 @@ fused conv+pool kernel), ``ops.pool.conv_relu_pool`` and
 ``models.ResFusionNet``; VGGFusion's serving paths (``ops.mega``, the conv
 pair in one kernel, and ``models.VGGFusion``); and the sharded path
 ``parallel`` (dp / tp / sp wrappers over a mesh of torch devices, and
-``parallel.plan.three_stage_plan``).
+``parallel.plan.three_stage_plan``, and ``parallel.distributed``, the
+process group over ``torch.distributed``).
+
+Two API layers, as in the JAX package:
+  * functional: ``deepfusion_tpu_torch.ops.concat/conv/pool/...`` over
+    torch tensors;
+  * object (reference parity): ``deepfusion_tpu_torch.memory`` + the
+    factories ``concat()/conv()/pool()/eltwise_sum_relu()``, which return
+    ops with ``submit()`` (``api.py``, ``include/deepfusion.h:105-145``).
 """
 from . import config, ops, serving, types, utils  # noqa: F401
-from .config import ConcatConfig, ConvConfig, PoolConfig  # noqa: F401
-from .types import dtype, f32, format, round_mode, s8, s32, u8  # noqa: F401
+from .api import concat, conv, eltwise_sum_relu, op, pool  # noqa: F401
+from .config import (ConcatConfig, ConvConfig, PoolConfig,  # noqa: F401
+                     device_capabilities)
+from .types import (dtype, f32, format, memory, round_mode, s8,  # noqa: F401
+                    s32, u8)
 
 __version__ = "0.1.0"

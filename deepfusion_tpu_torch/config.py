@@ -12,10 +12,31 @@ import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from .types import dtype, round_mode
+from .utils.device import default_device
 from .utils.logger import CheckError, check, check_eq
 from .utils.mathutil import conv_output_size, one_of, pool_output_size
+
+
+def device_capabilities(device=None) -> dict:
+    """Probe the device the port runs on (by default the current CUDA
+    device; ``"cpu"`` for the plain versions), the analogue of the
+    reference's ``mayiuse`` CPUID checks (``src/jit_generator.h:45-117``)
+    and of the JAX package's probe. ``int8_native``: the device has int8
+    tensor cores (compute capability 8.0 or later). The JAX probe's
+    ``lanes`` is the TPU's vector width and has no counterpart here."""
+    dev = default_device(device)
+    if dev.type != "cuda":
+        return {"platform": "cpu", "device_kind": "cpu", "num_devices": 1,
+                "int8_native": False, "sm_count": 0, "capability": None}
+    p = torch.cuda.get_device_properties(dev)
+    return {"platform": "gpu", "device_kind": p.name,
+            "num_devices": torch.cuda.device_count(),
+            "int8_native": (p.major, p.minor) >= (8, 0),
+            "sm_count": p.multi_processor_count,
+            "capability": (p.major, p.minor)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +139,14 @@ class ConvConfig:
     @property
     def conv1_with_bias(self) -> bool:
         return self.bia1x1_dt is not None
+
+    @property
+    def conv0_multi_oc_scale(self) -> bool:
+        return len(self.conv0_scales) > 1
+
+    @property
+    def conv1_multi_oc_scale(self) -> bool:
+        return len(self.conv1_scales) > 1
 
     @property
     def out_oc(self) -> int:

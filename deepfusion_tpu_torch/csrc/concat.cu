@@ -11,7 +11,10 @@
 //
 // Design: one pass. Grid row y copies input y: its threads walk the input's
 // 16-byte units in order (contiguous reads), apply the ReLU on 32-bit lanes
-// and store each unit at its pixel's row offset in the output. ConcatConfig's
+// and store each unit at its pixel's row offset in the output. More than
+// CONCAT_MAX_IN inputs take one launch per group of that many, each
+// writing its group's columns of every output row (the input offsets count
+// from the start of the whole row, and the row stride is the whole row). ConcatConfig's
 // legality (channels divisible by 16 for
 // 1-byte types, by 4 for 4-byte types) makes every input row a multiple of
 // 16 bytes, and the wrapper hands in 16-byte-aligned tensors, so no unit
@@ -50,7 +53,7 @@ __device__ __forceinline__ uint32_t relu_word(uint32_t w) {
   }
 }
 
-// grid: (x blocks, n_in); concat_relu_launch refuses
+// grid: (x blocks, inputs of the group); concat_relu_launch refuses
 // pixels * out_units >= 2^31.
 template <int DT>
 __global__ void __launch_bounds__(NT) concat_relu_kernel(ConcatArgs a,
@@ -77,36 +80,53 @@ __global__ void __launch_bounds__(NT) concat_relu_kernel(ConcatArgs a,
 
 cudaError_t concat_relu_launch(const void* const* srcs, const int* row_bytes,
                                int n_in, void* dst, long long pixels,
-                               bool relu, int dt, cudaStream_t s) {
-  if (n_in < 1 || n_in > CONCAT_MAX_IN) return cudaErrorInvalidValue;
-  ConcatArgs a;
-  int off = 0;
+                               bool relu, int dt, cudaStream_t s,
+                               int* launches) {
+  *launches = 0;
+  if (n_in < 1) return cudaErrorInvalidValue;
+  if (dt != DT_F32 && dt != DT_S32 && dt != DT_S8 && dt != DT_U8)
+    return cudaErrorInvalidValue;
+  long long out_units = 0;
   for (int i = 0; i < n_in; ++i) {
     if (row_bytes[i] % 16) return cudaErrorInvalidValue;
-    a.src[i] = static_cast<const uint4*>(srcs[i]);
-    a.units[i] = row_bytes[i] / 16;
-    a.offset[i] = off;
-    off += a.units[i];
+    out_units += row_bytes[i] / 16;
   }
-  const long long total = pixels * off;
+  const long long total = pixels * out_units;
   if (total >= (1LL << 31)) return cudaErrorInvalidValue;
   if (total == 0) return cudaSuccess;
-  a.out_units = off;
-  a.pixels = (int)pixels;
-  a.dst = static_cast<uint4*>(dst);
-  // enough blocks for the widest input; narrower ones loop less
-  int widest = 0;
-  for (int i = 0; i < n_in; ++i) widest = a.units[i] > widest ? a.units[i] : widest;
-  long long bx = (pixels * widest + NT - 1) / NT;
-  if (bx > 132 * 16) bx = 132 * 16;
-  const dim3 grid((unsigned)bx, (unsigned)n_in);
   const int r = relu ? 1 : 0;
-  switch (dt) {
-    case DT_F32: concat_relu_kernel<DT_F32><<<grid, NT, 0, s>>>(a, r); break;
-    case DT_S32: concat_relu_kernel<DT_S32><<<grid, NT, 0, s>>>(a, r); break;
-    case DT_S8: concat_relu_kernel<DT_S8><<<grid, NT, 0, s>>>(a, r); break;
-    case DT_U8: concat_relu_kernel<DT_U8><<<grid, NT, 0, s>>>(a, r); break;
-    default: return cudaErrorInvalidValue;
+  // one launch per group of up to CONCAT_MAX_IN inputs: each input's
+  // offset is its first unit in the whole output row, and every launch
+  // strides the output by the whole row
+  int base = 0;
+  for (int g0 = 0; g0 < n_in; g0 += CONCAT_MAX_IN) {
+    const int n = n_in - g0 < CONCAT_MAX_IN ? n_in - g0 : CONCAT_MAX_IN;
+    ConcatArgs a;
+    a.out_units = (int)out_units;
+    a.pixels = (int)pixels;
+    a.dst = static_cast<uint4*>(dst);
+    int widest = 0;  // enough blocks for the widest input; narrower ones
+                     // loop less
+    for (int i = 0; i < n; ++i) {
+      a.src[i] = static_cast<const uint4*>(srcs[g0 + i]);
+      a.units[i] = row_bytes[g0 + i] / 16;
+      a.offset[i] = base;
+      base += a.units[i];
+      widest = a.units[i] > widest ? a.units[i] : widest;
+    }
+    if (widest == 0) continue;
+    long long bx = (pixels * widest + NT - 1) / NT;
+    if (bx > 132 * 16) bx = 132 * 16;
+    const dim3 grid((unsigned)bx, (unsigned)n);
+    switch (dt) {
+      case DT_F32: concat_relu_kernel<DT_F32><<<grid, NT, 0, s>>>(a, r); break;
+      case DT_S32: concat_relu_kernel<DT_S32><<<grid, NT, 0, s>>>(a, r); break;
+      case DT_S8: concat_relu_kernel<DT_S8><<<grid, NT, 0, s>>>(a, r); break;
+      default: concat_relu_kernel<DT_U8><<<grid, NT, 0, s>>>(a, r); break;
+    }
+    ++*launches;
+    const cudaError_t rc = cudaGetLastError();
+    if (rc != cudaSuccess) return rc;
   }
-  return cudaGetLastError();
+  return cudaSuccess;
 }

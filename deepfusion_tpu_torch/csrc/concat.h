@@ -7,13 +7,19 @@
 
 #include "dtypes.h"
 
+// Inputs of one launch of concat_relu_kernel; concat_relu_launch launches
+// once per group of up to this many inputs.
 constexpr int CONCAT_MAX_IN = 16;
 
-// srcs, row_bytes: host arrays of n_in device pointers (16-byte aligned,
-// rows contiguous) and of their pixel rows' widths in bytes (multiples of
-// 16); dst: pixels rows of sum(row_bytes) bytes; dt: a DT_* code. Launches
-// on `stream` and returns cudaGetLastError(), or cudaErrorInvalidValue for
-// arguments the kernel does not take.
+// srcs, row_bytes: host arrays of n_in >= 1 device pointers (16-byte
+// aligned, rows contiguous) and of their pixel rows' widths in bytes
+// (multiples of 16); dst: pixels rows of sum(row_bytes) bytes; dt: a DT_*
+// code. Launches on `stream` once per group of up to CONCAT_MAX_IN inputs
+// that holds any bytes, each writing its own columns of every output row,
+// and returns cudaGetLastError() after the last, or cudaErrorInvalidValue
+// for arguments the kernel does not take. *launches: the kernel launches
+// it made (0 for an empty output), set on every return.
 cudaError_t concat_relu_launch(const void* const* srcs, const int* row_bytes,
                                int n_in, void* dst, long long pixels,
-                               bool relu, int dt, cudaStream_t stream);
+                               bool relu, int dt, cudaStream_t stream,
+                               int* launches);

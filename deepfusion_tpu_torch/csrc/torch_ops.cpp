@@ -1,9 +1,12 @@
 // The kernel library's PyTorch operators, registered with the dispatcher
 // when the library is loaded (torch.ops.load_library, _build.kernels()).
 //
-//   deepfusion_torch::concat_relu(Tensor[] srcs, bool relu) -> Tensor
+//   deepfusion_torch::concat_relu(Tensor[] srcs, bool relu) -> (Tensor, int)
 //     launches concat_relu_kernel (concat.cu) through concat_relu_launch
-//     (concat.h): NHWC channel concat with an optional true ReLU.
+//     (concat.h): NHWC channel concat with an optional true ReLU, of any
+//     number of inputs (one launch per group of CONCAT_MAX_IN). Returns the
+//     output and the kernel launches the launcher made, which the Python
+//     wrapper adds to its launch count.
 //
 // Host code only, the one source of the library that includes PyTorch's
 // headers: the .cu files keep out of them. _build.py compiles it with
@@ -21,6 +24,8 @@
 #include <torch/library.h>
 
 #include <cstdint>
+#include <tuple>
+#include <vector>
 
 #include "concat.h"
 
@@ -36,10 +41,10 @@ int dt_code(at::ScalarType t) {
   }
 }
 
-at::Tensor concat_relu(at::TensorList srcs, bool relu) {
+std::tuple<at::Tensor, int64_t> concat_relu(at::TensorList srcs,
+                                             bool relu) {
   const int64_t n_in = static_cast<int64_t>(srcs.size());
-  TORCH_CHECK(n_in >= 1 && n_in <= CONCAT_MAX_IN, "concat_relu takes 1 to ",
-              CONCAT_MAX_IN, " inputs, got ", n_in);
+  TORCH_CHECK(n_in >= 1, "concat_relu takes at least one input");
   const at::Tensor& s0 = srcs[0];
   const int dt = dt_code(s0.scalar_type());
   TORCH_CHECK(dt != 0, "concat_relu takes u8, s8, s32 or f32 tensors, got ",
@@ -47,9 +52,9 @@ at::Tensor concat_relu(at::TensorList srcs, bool relu) {
   TORCH_CHECK(s0.dim() == 4, "concat_relu inputs must be NHWC, input 0 is ",
               s0.sizes());
   // contiguous and 16-byte aligned, as the kernel's vector loads need
-  at::Tensor ins[CONCAT_MAX_IN];
-  const void* ptrs[CONCAT_MAX_IN];
-  int row_bytes[CONCAT_MAX_IN];
+  std::vector<at::Tensor> ins(n_in);
+  std::vector<const void*> ptrs(n_in);
+  std::vector<int> row_bytes(n_in);
   const int64_t elem = s0.element_size();
   int64_t oc = 0;
   for (int64_t i = 0; i < n_in; ++i) {
@@ -82,18 +87,20 @@ at::Tensor concat_relu(at::TensorList srcs, bool relu) {
   c10::cuda::CUDAGuard guard(s0.device());
   at::Tensor out =
       at::empty({s0.size(0), s0.size(1), s0.size(2), oc}, s0.options());
+  int launches = 0;
   const cudaError_t rc = concat_relu_launch(
-      ptrs, row_bytes, static_cast<int>(n_in), out.data_ptr(), pixels, relu,
-      dt, c10::cuda::getCurrentCUDAStream().stream());
+      ptrs.data(), row_bytes.data(), static_cast<int>(n_in), out.data_ptr(),
+      pixels, relu, dt, c10::cuda::getCurrentCUDAStream().stream(),
+      &launches);
   TORCH_CHECK(rc == cudaSuccess, "concat_relu_kernel: CUDA error ",
               static_cast<int>(rc), " (", cudaGetErrorString(rc), ")");
-  return out;
+  return {out, launches};
 }
 
 }  // namespace
 
 TORCH_LIBRARY(deepfusion_torch, m) {
-  m.def("concat_relu(Tensor[] srcs, bool relu) -> Tensor");
+  m.def("concat_relu(Tensor[] srcs, bool relu) -> (Tensor, int)");
 }
 
 TORCH_LIBRARY_IMPL(deepfusion_torch, CUDA, m) {

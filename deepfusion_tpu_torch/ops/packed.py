@@ -21,7 +21,12 @@ On CUDA tensors ``PackedConvOp`` launches ``packed_conv_kernel``
 they run ``packed_conv_plain`` and ``packed_sum_pool_plain``, which read the
 packed arrays themselves (stored ^ 0x80 as u8, pad slots included), so each
 is the same function as its kernel even where a pad slot does not hold
--128. Nothing else selects the path.
+-128. Nothing else selects the path. The kernels take at most
+``MAX_INPUTS`` inputs of multiples of ``LANE_UNIT`` lanes; the JAX package
+takes any count and width, so before a launch the wrappers join groups of
+consecutive inputs (``kernel_groups``, ``join_groups``: plain lane
+concatenation, the glue the JAX package also writes in ``jnp``). Inputs
+that fit, as on every path of the three models, launch as they are.
 
 The conv takes the packed eltwise-sum operand (``sum_spec``/``sum_arr``):
 a packed image of the output's image, columns and lanes whose halo may be
@@ -73,9 +78,6 @@ from .requant import requant_to_u8, round_f32, saturate, sum_term
 
 MAX_INPUTS = 4  # csrc/packed_dst.cuh MAX_SRC, csrc/packed_sum_pool.cu MAX_IN
 LANE_UNIT = 16  # both kernels move 16 lanes (bytes) at a time
-_TOO_MANY = "the packed kernels join at most 4 inputs"
-_LANES = ("the packed kernels move 16 lanes at a time: every input's cp "
-          "must be a multiple of 16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,13 +227,8 @@ def packed_concat(arrs, specs, post_relu: bool = True):
     for s in specs[:-1]:
         check(s.cp == s.c, "packed_concat: non-final input has pad lanes "
                            "(cp > c) which would split the output image")
-    s0, sl = specs[0], specs[-1]
-    ctot = sum(s.c for s in specs)
-    spec = PackedSpec(h=s0.h, w=s0.w, c=ctot,
-                      cp=ctot - sl.c + sl.cp, halo=s0.halo,
-                      col_off=s0.col_off, iwp=s0.iwp)
     out = torch.cat([torch.as_tensor(a) for a in arrs], dim=-1)
-    return out, spec
+    return out, joined_spec(specs)
 
 
 def repack(arr, sin: PackedSpec, sout: PackedSpec) -> torch.Tensor:
@@ -240,6 +237,48 @@ def repack(arr, sin: PackedSpec, sout: PackedSpec) -> torch.Tensor:
     check((sin.h, sin.w, sin.c) == (sout.h, sout.w, sout.c),
           "repack cannot change the logical image")
     return pack_image(unpack_image(arr, sin), sout)
+
+
+def kernel_groups(cps) -> list:
+    """The packed kernels' inputs as index ranges of consecutive inputs of
+    ``cps`` lanes each: at most ``MAX_INPUTS`` groups, each of a multiple
+    of ``LANE_UNIT`` lanes but perhaps the last (which its caller pads).
+    Inputs the kernels take as they are (at most ``MAX_INPUTS``, each of a
+    multiple of ``LANE_UNIT`` lanes) make one group each. A group of
+    several inputs is their lane join (``join_groups``): the JAX package
+    takes any count and width, and every input but the last has ``cp ==
+    c``, so the join keeps the channel order."""
+    groups, start, width = [], 0, 0
+    for i, cp in enumerate(cps):
+        width += cp
+        if width % LANE_UNIT == 0:
+            groups.append(range(start, i + 1))
+            start, width = i + 1, 0
+    if start < len(cps):
+        groups.append(range(start, len(cps)))
+    if len(groups) > MAX_INPUTS:
+        groups[MAX_INPUTS - 1:] = [range(groups[MAX_INPUTS - 1].start,
+                                         len(cps))]
+    return groups
+
+
+def join_groups(arrs, groups, pad: int = 0) -> list:
+    """The kernel's inputs: each group's lane join (the input itself for a
+    group of one, no copy), and ``pad`` lanes of -128 (u8 zero) after the
+    last."""
+    out = [arrs[g.start] if len(g) == 1
+           else torch.cat([arrs[i] for i in g], dim=-1) for g in groups]
+    if pad:
+        out[-1] = F.pad(out[-1], (0, pad), value=-128)
+    return out
+
+
+def joined_spec(specs) -> PackedSpec:
+    """The spec of the lane join of packed images of ``specs``."""
+    s0, sl = specs[0], specs[-1]
+    ctot = sum(s.c for s in specs)
+    return PackedSpec(h=s0.h, w=s0.w, c=ctot, cp=ctot - sl.c + sl.cp,
+                      halo=s0.halo, col_off=s0.col_off, iwp=s0.iwp)
 
 
 # ------------------------------------------------ K6/K7/K8: sum and pool
@@ -263,17 +302,19 @@ def packed_sum_pool_plain(ys, r, pool: bool, rows: int,
 def packed_sum_pool_cuda(ys, r, pool: bool, rows: int,
                          iwp: int) -> torch.Tensor:
     """Launch on the current stream ``packed_maxpool2_kernel`` for the pool
-    alone (one input), else ``packed_sum_pool_kernel``."""
-    check(len(ys) <= MAX_INPUTS, _TOO_MANY)
+    alone (one input), else ``packed_sum_pool_kernel``. The inputs go in
+    as ``kernel_groups`` joins them; lanes past a multiple of 16 are padded
+    with -128 (in r too) and cut from the result."""
     check(r is not None or len(ys) == 1,
           "the packed pool without a sum takes one input")
-    for y in ys:
-        check(y.shape[-1] % LANE_UNIT == 0, _LANES)
+    cp_all = sum(y.shape[-1] for y in ys)
+    pad = -cp_all % LANE_UNIT
+    ys = join_groups(ys, kernel_groups([y.shape[-1] for y in ys]), pad)
     ys = [_build.aligned(y) for y in ys]
     if r is not None:
-        r = _build.aligned(r)
+        r = _build.aligned(F.pad(r, (0, pad), value=-128) if pad else r)
     n = ys[0].shape[0]
-    cp = sum(y.shape[-1] for y in ys)
+    cp = cp_all + pad
     rows_o, iwp_o = (rows // 2, iwp // 2) if pool else (rows, iwp)
     out = torch.empty((n, rows_o * iwp_o, cp), dtype=torch.int8,
                       device=ys[0].device)
@@ -286,7 +327,7 @@ def packed_sum_pool_cuda(ys, r, pool: bool, rows: int,
             _build.stream_of(out))
     _build.check(rc, "packed_sum_pool_kernel")
     _build.count_launch("packed_sum_pool")
-    return out
+    return out[..., :cp_all].contiguous() if pad else out
 
 
 def _sum_pool(ys, r, pool: bool, rows: int, iwp: int) -> torch.Tensor:
@@ -498,6 +539,11 @@ class PackedConvOp(nn.Module):
         self.cfg_orig = cfg_orig
         self.sins = sins
         self.sin = sins[0]
+        # the kernel's inputs (kernel_groups), derived once: the lane joins
+        # of groups of sins, whose K lanes the weights and maps below follow
+        self.kernel_groups = kernel_groups([s.cp for s in sins])
+        self.kernel_sins = tuple(joined_spec(sins[g.start:g.stop])
+                                 for g in self.kernel_groups)
         self.sout = sout
         self.ssum = ssum
         device = default_device(device)
@@ -512,7 +558,7 @@ class PackedConvOp(nn.Module):
         # are not operands, so save/load and reheight keep their format;
         # non-persistent buffers, so .to() moves them with the words
         w0k = layout.kmajor_weights(self.w0, cfg.kh, cfg.kw,
-                                    [s.cp for s in sins])
+                                    [s.cp for s in self.kernel_sins])
         derived = {"w0k": w0k, "corr0": layout.u8_shift_correction(w0k),
                    "w1k": layout.kmajor_weights(
                        self.w1, 1, 1, [layout.packed_cp(cfg.oc)])
@@ -831,9 +877,10 @@ def packed_conv_plan(op: PackedConvOp, n: int, rows=None) -> dict:
     own planning)."""
     cfg = op.cfg
     _, _, oy0, oy1 = op._row_plan(rows)
-    cps = [s.cp for s in op.sins] + [0] * (MAX_INPUTS - len(op.sins))
+    ks = op.kernel_sins
+    cps = [s.cp for s in ks] + [0] * (MAX_INPUTS - len(ks))
     fuse = cfg.fuse_conv1x1
-    vals = [n, oy1 - oy0, cfg.ow, len(op.sins), *cps, cfg.kh, cfg.kw,
+    vals = [n, oy1 - oy0, cfg.ow, len(ks), *cps, cfg.kh, cfg.kw,
             layout.packed_cp(cfg.oc),
             layout.packed_cp(cfg.oc1x1) if fuse else 0, int(fuse),
             int(op.pool2)]
@@ -850,13 +897,12 @@ def packed_conv_plan(op: PackedConvOp, n: int, rows=None) -> dict:
 def packed_conv_cuda(op: PackedConvOp, arrs, sum_arr=None, *,
                      emit_acc1: bool = False, rows=None,
                      row0_off: int = 0) -> torch.Tensor:
-    """Launch ``packed_conv_kernel`` on the current stream."""
+    """Launch ``packed_conv_kernel`` on the current stream, on the inputs
+    joined as ``op.kernel_groups`` says (the inputs themselves where each
+    group holds one)."""
     cfg, sin, sout, ss = op.cfg, op.sin, op.sout, op.ssum
-    check(len(arrs) <= MAX_INPUTS, _TOO_MANY)
-    for s in op.sins:
-        check(s.cp % LANE_UNIT == 0, _LANES)
     u0, u1, oy0, oy1 = op._row_plan(rows)
-    arrs = [_build.aligned(a) for a in arrs]
+    arrs = [_build.aligned(a) for a in join_groups(arrs, op.kernel_groups)]
     if sum_arr is not None:
         sum_arr = _build.aligned(sum_arr)
     n = arrs[0].shape[0]
@@ -869,7 +915,7 @@ def packed_conv_cuda(op: PackedConvOp, arrs, sum_arr=None, *,
         return out.fill_(0 if emit_acc1 else -128)
     fuse = cfg.fuse_conv1x1
     ptrs = (ctypes.c_void_p * len(arrs))(*[a.data_ptr() for a in arrs])
-    cps = (ctypes.c_int * len(arrs))(*[s.cp for s in op.sins])
+    cps = (ctypes.c_int * len(arrs))(*[s.cp for s in op.kernel_sins])
     with torch.cuda.device(out.device):
         rc = _build.kernels().df_packed_conv(
             ptrs, cps, len(arrs), op.corr0.data_ptr(), op.bias0.data_ptr(),

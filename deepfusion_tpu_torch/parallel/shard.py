@@ -32,6 +32,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..config import ConvConfig
 from ..ops import layout
@@ -91,11 +92,14 @@ def ppermute(parts, devices, perm):
 
 # ------------------------------------------------------------- helpers
 
-def _wrapper(split, local, join, n_in: int = 1, has_sum: bool = False):
+def _wrapper(split, local, join, device, n_in: int = 1,
+             has_sum: bool = False):
     """The sharded callable ``fn(src, sum_src=None)``: ``src`` one tensor
     or n_in of them, ``sum_src`` exactly when the op has a sum operand;
     ``fn = join(local(split(*inputs)))``, and ``fn.shards`` returns the
-    per-shard outputs, each on its device."""
+    per-shard outputs, each on its device. ``fn.device`` is ``device``,
+    where ``join`` lands (the first slot's), so that ``BatchServer``
+    (``serving.model_device``) serves ``fn`` as it serves a model."""
     def inputs(src, sum_src):
         check((sum_src is not None) == has_sum,
               "pass sum_src exactly when the op has a sum post-op")
@@ -109,42 +113,62 @@ def _wrapper(split, local, join, n_in: int = 1, has_sum: bool = False):
 
     run.shards = lambda src, sum_src=None: local(split(*inputs(src,
                                                               sum_src)))
+    run.device = torch.device(device)
     return run
 
 
 def _on(op, dev):
-    """op, or a copy of it on dev."""
+    """op (or model), or a copy of it on dev: ``.to`` moves its buffers,
+    and each op's cached tensor maps, keyed by its buffers' pointers, are
+    encoded again for the copy's."""
     return op if op.device == torch.device(dev) else \
         copy.deepcopy(op).to(dev)
 
 
 # ------------------------------------------------------------------ DP
 
+_OP_FAMILIES = (ConvOp, ConvPoolOp, PackedConvOp, PackedConvPairOp)
+
+
 def dp_shard(op, mesh: Mesh, axis: str = "dp"):
-    """Wrap an op so the batch dim is sharded over `axis`.
+    """Wrap an op or a model so the batch dim is sharded over `axis`.
 
     Every repeated-submission op family: ``ConvOp`` (strided and sum
     post-op configs included), ``ConvPoolOp``, ``PackedConvOp``
     (multi-input branch merges and packed sum operands included) and
-    ``PackedConvPairOp``. Weights are replicated; no collectives. The
+    ``PackedConvPairOp``; and a model: an ``nn.Module`` with a ``device``
+    and a one-input ``forward`` of any batch (``FusionNet``,
+    ``ResFusionNet``, ``VGGFusion`` or their ``packed_module()``), the
+    JAX package's ``shard_map`` of ``net.__call__`` over ``dp``. Weights
+    are replicated, a copy on each slot's device; no collectives. The
     returned callable takes the op's arguments (``src`` and, for sum
-    configs, ``sum_src``), each split on the batch dim.
+    configs, ``sum_src``), each split on the batch dim into equal shards,
+    and carries ``device`` (the first slot's), so ``BatchServer`` serves
+    it.
     """
-    check(isinstance(op, (ConvOp, ConvPoolOp, PackedConvOp,
-                          PackedConvPairOp)),
-          f"dp_shard does not support {type(op).__name__}")
-    is_pair = isinstance(op, PackedConvPairOp)
-    cfg = op.cfg_a if is_pair else op.cfg
+    model = not isinstance(op, _OP_FAMILIES)
+    check(not model or (isinstance(op, nn.Module)
+                        and getattr(op, "device", None) is not None),
+          f"dp_shard does not support {type(op).__name__}: an op of "
+          f"{', '.join(c.__name__ for c in _OP_FAMILIES)} or a model (an "
+          "nn.Module with a device and a one-input forward)")
     n_shard = mesh.shape[axis]
-    check(cfg.bs % n_shard == 0, f"batch {cfg.bs} not divisible by {axis}")
+    is_pair = isinstance(op, PackedConvPairOp)
     packed = isinstance(op, PackedConvOp) or is_pair
-    n_in = len(op.sins) if isinstance(op, PackedConvOp) else 1
-    has_sum = False if is_pair else (
-        op.ssum is not None if packed else cfg.with_sum)
+    n_in, has_sum = 1, False
+    if not model:
+        cfg = op.cfg_a if is_pair else op.cfg
+        check(cfg.bs % n_shard == 0,
+              f"batch {cfg.bs} not divisible by {axis}")
+        n_in = len(op.sins) if isinstance(op, PackedConvOp) else 1
+        has_sum = False if is_pair else (
+            op.ssum is not None if packed else cfg.with_sum)
     devs = [mesh.device(**{axis: i}) for i in range(n_shard)]
     ops = [_on(op, d) for d in devs]
 
     def split(*args):
+        check(args[0].shape[0] % n_shard == 0,
+              f"batch {args[0].shape[0]} not divisible by {axis}")
         return list(zip(*[[_to(c, d) for c, d in zip(a.chunk(n_shard), devs)]
                           for a in args]))
 
@@ -162,7 +186,7 @@ def dp_shard(op, mesh: Mesh, axis: str = "dp"):
     def join(outs):
         return torch.cat([_to(o, devs[0]) for o in outs], dim=0)
 
-    return _wrapper(split, local, join, n_in, has_sum)
+    return _wrapper(split, local, join, devs[0], n_in, has_sum)
 
 
 # ------------------------------------------------------------------ TP
@@ -271,7 +295,7 @@ def tp_fused_conv(cfg: ConvConfig, wei, bia, wei1x1, bia1x1, mesh: Mesh,
         outs = _tp_collect(accs, devs, lanes, wire, finish)
         return [o[..., :cfg.oc1x1] for o in outs]
 
-    return _wrapper(split, local, lambda outs: outs[0])
+    return _wrapper(split, local, lambda outs: outs[0], devs[0])
 
 
 def tp_packed_fused(op, mesh: Mesh, axis: str = "tp",
@@ -336,7 +360,7 @@ def tp_packed_fused(op, mesh: Mesh, axis: str = "tp",
         outs = _tp_collect(accs, devs, lanes, wire, finish)
         return [o[..., :cp1] for o in outs]
 
-    return _wrapper(split, local, lambda outs: outs[0])
+    return _wrapper(split, local, lambda outs: outs[0], devs[0])
 
 
 # ------------------------------------------------------------------ SP
@@ -376,7 +400,7 @@ def _sp_wrapper(mesh, axis, dp_axis, bs, run_row, n_in=1, has_sum=False,
                          for row in outs], dim=0)
         return out if out_rows is None else out[:, :out_rows]
 
-    return _wrapper(split, local, join, n_in, has_sum)
+    return _wrapper(split, local, join, grid[0][0], n_in, has_sum)
 
 
 def sp_conv(conv_op, mesh: Mesh, axis: str = "sp",

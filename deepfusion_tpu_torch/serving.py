@@ -10,8 +10,9 @@ The worker turns the stacked numpy batch into a u8 tensor on the model's
 device, runs the model under ``torch.inference_mode()`` (which is
 thread-local, so the worker enters it itself) and copies the result back to
 a numpy array. The device is the model's ``device`` attribute (such as
-``FusionNet.device``) or, for a bound method, its object's; a model with
-neither is refused, so no batch lands on the CPU by default.
+``FusionNet.device``, or a ``parallel`` wrapper's first slot, as for a
+``dp_shard``-split model) or, for a bound method, its object's; a model
+with neither is refused, so no batch lands on the CPU by default.
 """
 from __future__ import annotations
 
@@ -36,8 +37,8 @@ def model_device(fn) -> torch.device:
             return torch.device(dev)
     raise CheckError(
         f"{fn!r} names no device: serve a module with a `device` "
-        "attribute (such as FusionNet.packed_module()) or a bound method "
-        "of one")
+        "attribute (such as FusionNet.packed_module() or a dp_shard-split "
+        "model) or a bound method of one")
 
 
 class BatchServer:

@@ -2,10 +2,13 @@
 
 Reference parity: ``util/scaffold.cc:56-82``. ``DEEPFUSION_DUMP_CODE`` keeps
 the compiler's register and shared-memory report (``nvcc -Xptxas -v``) of
-the kernel build beside the built library. ``DEEPFUSION_PROFILE`` asks for
-per-submit timing, which the object API's ``submit()`` reports (that API is
-not ported yet). Neither changes which path an op takes: a CPU tensor runs
-the plain PyTorch version, a CUDA tensor runs the kernel.
+the kernel build beside the built library (``_build.py``): that report
+takes the place of the JAX package's dump of lowered code
+(``maybe_dump_lowered``, not ported). ``DEEPFUSION_PROFILE`` asks for
+per-submit timing, which the object API's ``op.submit()`` logs
+(``utils/profiler.py:submit_timer``). Neither changes which path an op
+takes: a CPU tensor runs the plain PyTorch version, a CUDA tensor runs the
+kernel.
 """
 from __future__ import annotations
 

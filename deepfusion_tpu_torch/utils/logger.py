@@ -9,6 +9,7 @@ import inspect
 import logging
 import os
 import sys
+import time
 
 _logger = logging.getLogger("deepfusion_tpu_torch")
 if not _logger.handlers:
@@ -28,9 +29,24 @@ def info(fmt, *args):
     _logger.info("%s %s", _loc(), (fmt % args) if args else fmt)
 
 
+def warning(fmt, *args):
+    _logger.warning("%s %s", _loc(), (fmt % args) if args else fmt)
+
+
+def debug(fmt, *args):
+    _logger.debug("%s %s", _loc(), (fmt % args) if args else fmt)
+
+
 class CheckError(ValueError):
     """Raised by the check* validators (reference: fatal exit at
     util/log.h:38-42)."""
+
+
+def error_and_exit(fmt, *args):
+    """Log the error and raise ``CheckError`` (the reference exits)."""
+    msg = (fmt % args) if args else str(fmt)
+    _logger.error("%s %s", _loc(), msg)
+    raise CheckError(msg)
 
 
 def check(cond, msg="check failed"):
@@ -41,3 +57,33 @@ def check(cond, msg="check failed"):
 def check_eq(a, b, msg=""):
     if not a == b:
         raise CheckError(f"check_eq failed: {a!r} != {b!r} {msg}")
+
+
+def check_ne(a, b, msg=""):
+    if a == b:
+        raise CheckError(f"check_ne failed: {a!r} == {b!r} {msg}")
+
+
+def check_lt(a, b, msg=""):
+    if not a < b:
+        raise CheckError(f"check_lt failed: {a!r} >= {b!r} {msg}")
+
+
+def check_le(a, b, msg=""):
+    if not a <= b:
+        raise CheckError(f"check_le failed: {a!r} > {b!r} {msg}")
+
+
+def check_gt(a, b, msg=""):
+    if not a > b:
+        raise CheckError(f"check_gt failed: {a!r} <= {b!r} {msg}")
+
+
+def check_ge(a, b, msg=""):
+    if not a >= b:
+        raise CheckError(f"check_ge failed: {a!r} < {b!r} {msg}")
+
+
+def get_current_ms() -> float:
+    """Wall clock in ms (reference: ``util/deepfusion_utils.h:257-261``)."""
+    return time.perf_counter() * 1e3

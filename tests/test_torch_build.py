@@ -251,17 +251,19 @@ def test_concat_relu_schema_takes_what_concat_cuda_passes(monkeypatch):
     """The schema registered in torch_ops.cpp, defined here with a CPU
     kernel that records its arguments, bound by the dispatcher to the call
     that concat_cuda makes: same namespace and name, the inputs as the
-    Tensor[] and cfg.with_relu as the bool."""
+    Tensor[] and cfg.with_relu as the bool; the launches the op returns
+    are what concat_cuda adds to K2's count, and nothing else."""
     schema = re.search(r'm\.def\("([^"]+)"\)', _torch_ops_source()).group(1)
     parsed = torch._C.parse_schema(schema)
     assert [str(a.type) for a in parsed.arguments] == ["List[Tensor]",
                                                        "bool"]
-    assert [str(r.type) for r in parsed.returns] == ["Tensor"]
+    assert [str(r.type) for r in parsed.returns] == ["Tensor", "int"]
     seen = []
 
     def cpu_kernel(srcs, relu):
         seen.append((list(srcs), relu))
-        return torch.cat(srcs, dim=-1)
+        # a launch count no formula of the inputs gives
+        return torch.cat(srcs, dim=-1), 3 + len(seen)
 
     monkeypatch.setattr(_build, "kernels", lambda: None)
     concat_op.cache_clear()
@@ -276,7 +278,10 @@ def test_concat_relu_schema_takes_what_concat_cuda_passes(monkeypatch):
             for relu in (True, False):
                 cfg = ConcatConfig.make([tuple(x.shape) for x in xs],
                                         torch.uint8, relu)
+                before = _build.launch_counts()["concat_relu"]
                 got = concat_cuda(xs, cfg)
+                assert _build.launch_counts()["concat_relu"] - before == \
+                    3 + len(seen)
                 assert torch.equal(got, concat_plain(xs, cfg))
                 srcs, flag = seen[-1]
                 assert flag is relu

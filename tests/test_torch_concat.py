@@ -1,7 +1,8 @@
 """Concat(+ReLU) of the PyTorch port vs the JAX package, bitwise.
 
-1-3 inputs in all four dtypes, with and without the true ReLU, on
-full-range data (saturation edges included), against
+1-3 inputs, and 17 and 40 (more than one kernel launch takes), in all
+four dtypes, with and without the true ReLU, on full-range data
+(saturation edges included), against
 ``deepfusion_tpu.ops.concat`` in Pallas interpret mode; the config that
 ``concat()`` keeps per shapes, dtype and ReLU, and its checks, which raise
 the JAX package's errors on every call.
@@ -124,3 +125,21 @@ def test_same_shapes_as_u8_then_s8_match_jax(relu):
                       device="cpu").numpy()
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("n_in", [17, 40])
+@pytest.mark.parametrize("relu", [True, False])
+def test_concat_many_inputs_match_jax(dt, n_in, relu):
+    """More inputs than one launch of the kernel takes (16): the JAX
+    package sets no count, and the port computes every count (on the card
+    one launch per group of 16 inputs into the one output)."""
+    rng = np.random.default_rng([DTYPES.index(dt), n_in, relu, 17])
+    unit = 4 if dt in ("s32", "f32") else 16
+    xs = [full_range(rng, (1, 2, 3, unit * (1 + i % 3)), dt)
+          for i in range(n_in)]
+    want = np.asarray(jconcat(xs, post_relu=relu))
+    got = tconcat([torch.from_numpy(x) for x in xs], post_relu=relu,
+                  device="cpu").numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)

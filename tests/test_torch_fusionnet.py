@@ -217,3 +217,27 @@ def test_batch_server_stages_packed_batches_on_the_module_device(
     assert not hasattr(FusionNet(FusionNetConfig(**SMALL),
                                  device="cpu").packed_call,
                        "device")
+
+
+def test_batch_server_over_dp_sharded_model():
+    """The JAX package's ``test_server_over_sharded_model``: a FusionNet
+    built at the per-shard batch 1, batch-split over a dp=2 mesh
+    (``dp_shard`` of the model, one copy per slot, here both the CPU) and
+    served at batch 2; bitwise against the per-example forward, and
+    against the JAX package's forward of the same weights."""
+    from deepfusion_tpu_torch.parallel import dp_shard, make_mesh
+    cfg = dict(batch=1, hw=28, in_ch=32, width=64, num_classes=16)
+    net = FusionNet(FusionNetConfig(**cfg), device="cpu")
+    fwd = dp_shard(net, make_mesh(dp=2, devices=["cpu", "cpu"]))
+    assert fwd.device == torch.device("cpu")
+    x0, x1 = (net.example_input(np.random.default_rng(i))[0]
+              for i in range(2))
+    with torch.inference_mode():
+        want = np.stack([net(x[None]).numpy()[0] for x in (x0, x1)])
+    with BatchServer(fwd, batch=2, input_shape=net.input_shape[1:]) as srv:
+        outs = [f.result(timeout=120) for f in (srv.submit(x0),
+                                                 srv.submit(x1))]
+    np.testing.assert_array_equal(np.stack(outs), want)
+    jnet = JFusionNet(JConfig(**cfg))   # runs its batch of 1
+    np.testing.assert_array_equal(
+        np.concatenate([np.asarray(jnet(x[None])) for x in (x0, x1)]), want)

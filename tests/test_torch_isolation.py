@@ -34,6 +34,9 @@ MODULES = [
     "deepfusion_tpu_torch.parallel.mesh",
     "deepfusion_tpu_torch.parallel.shard",
     "deepfusion_tpu_torch.parallel.plan",
+    "deepfusion_tpu_torch.api", "deepfusion_tpu_torch.utils.profiler",
+    "deepfusion_tpu_torch.utils.device",
+    "deepfusion_tpu_torch.parallel.distributed",
 ]
 
 
@@ -56,7 +59,8 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("op", ["conv", "concat", "pool", "sum_relu",
                                 "packed_conv", "packed_sum_pool",
-                                "convpool", "pair_conv", "sharded"])
+                                "convpool", "pair_conv", "sharded",
+                                "object_api", "packed_conv_grouped"])
 def test_non_cpu_tensors_never_take_the_plain_path(op, monkeypatch):
     """On a tensor that is not on the CPU each op goes to its kernel
     wrapper; with no kernel library to be had, it raises."""
@@ -90,6 +94,28 @@ def test_non_cpu_tensors_never_take_the_plain_path(op, monkeypatch):
             fn = tp_fused_conv(cfg, w, None, w[:, :, :1, :1], None,
                                make_mesh(tp=2, devices=["meta"] * 2))
             fn(x)
+        elif op == "object_api":
+            # host data, an op built for another device: uploaded there,
+            # then the kernel wrapper (never the plain version)
+            import deepfusion_tpu_torch as df
+            a = df.memory([1, 16, 4, 4], df.format.nhwc, df.u8)
+            dst = df.memory([1, 32, 4, 4], df.format.nhwc, df.u8)
+            df.concat([a, a], dst, post_relu=True, device="meta").submit()
+        elif op == "packed_conv_grouped":
+            # five inputs of 8 lanes: joined into the kernel's inputs, then
+            # the kernel wrapper
+            from deepfusion_tpu_torch.config import ConvConfig
+            from deepfusion_tpu_torch.ops.packed import (PackedConvOp,
+                                                         PackedSpec)
+            cfg = ConvConfig.make((1, 4, 4, 40), (16, 40, 1, 1), None,
+                                  (1, 1), (0, 0), (1, 4, 4, 16), "u8")
+            sins = tuple(PackedSpec.make(4, 4, 8, cp=8) for _ in range(4)) \
+                + (PackedSpec.make(4, 4, 8, cp=32),)
+            pop = PackedConvOp(cfg, np.zeros((16, 40, 1, 1), np.int8),
+                               sin=sins, device="meta")
+            assert len(pop.kernel_sins) == 3
+            pop(tuple(torch.zeros(s.array_shape(1), dtype=torch.int8,
+                                  device="meta") for s in sins))
         elif op == "pair_conv":
             from deepfusion_tpu_torch.config import ConvConfig
             from deepfusion_tpu_torch.ops.mega import PackedConvPairOp

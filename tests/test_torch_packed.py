@@ -723,3 +723,131 @@ def test_pack_image_sharded_matches_jax():
         T.unpack_image_sharded(got, spec, 3).numpy(), src)
     with pytest.raises(CheckError, match="does not split"):
         T.pack_image_sharded(torch.from_numpy(src), spec, 2, device="cpu")
+
+
+# ---------------------------------------------------- any count and width
+# The JAX package takes any number of packed inputs of any lane width
+# (every input but the last with cp == c); the kernels take at most
+# MAX_INPUTS of multiples of 16 lanes, so the port joins groups of
+# consecutive inputs (kernel_groups) before a launch.
+
+GROUP_CASES = {
+    "fit": ([32, 64, 16, 48], [[0], [1], [2], [3]]),
+    "one narrow": ([8], [[0]]),
+    "8 + 24": ([8, 24], [[0, 1]]),
+    "five of 32": ([32] * 5, [[0], [1], [2], [3, 4]]),
+    "six mixed": ([8, 8, 16, 32, 24, 8], [[0, 1], [2], [3], [4, 5]]),
+    "nine, narrow tail": ([16] * 8 + [8], [[0], [1], [2],
+                                           [3, 4, 5, 6, 7, 8]]),
+}
+
+
+@pytest.mark.parametrize("label", sorted(GROUP_CASES))
+def test_kernel_groups(label):
+    cps, want = GROUP_CASES[label]
+    groups = T.kernel_groups(cps)
+    assert [list(g) for g in groups] == want
+    assert len(groups) <= T.MAX_INPUTS
+    widths = [sum(cps[i] for i in g) for g in groups]
+    assert all(w % T.LANE_UNIT == 0 for w in widths[:-1])
+
+
+# (channels of each input, cp of the last), every other cp == c
+MANY_CONV_CASES = {
+    "five inputs of 32": ((32, 32, 32, 32, 32), None),
+    "8 + 24 lanes": ((8, 24), None),
+    "six mixed widths": ((8, 8, 16, 32, 24, 8), None),
+    "six mixed, fused": ((8, 8, 16, 32, 16, 8), 16),
+}
+
+
+@pytest.mark.parametrize("label", sorted(MANY_CONV_CASES))
+def test_packed_conv_any_inputs_matches_jax(label):
+    """Inputs the kernel does not take as they are (more than 4, or lane
+    widths no multiple of 16): bitwise against the JAX package, and the
+    plain version on the kernel's grouped, joined inputs (the op's
+    derived ``kernel_sins``) equals it too; an op built on the joined
+    specs has the same K-major weights."""
+    cs, last_cp = MANY_CONV_CASES[label]
+    fused = "fused" in label
+    ic = sum(cs)
+    cps = list(cs[:-1]) + [last_cp or cs[-1]]
+    specs = tuple(T.PackedSpec.make(10, 10, c, cp=cp, halo=2, col_off=1)
+                  for c, cp in zip(cs, cps))
+    cfgs = _cfgs(2, 10, ic, 48, oc1=40 if fused else None, seed=ic)
+    got, want, op = _run_both(cfgs, specs, halo_out=1)
+    np.testing.assert_array_equal(got, want)
+    assert len(op.kernel_sins) <= T.MAX_INPUTS
+    assert all(s.cp % T.LANE_UNIT == 0 for s in op.kernel_sins)
+    assert sum(s.cp for s in op.kernel_sins) == sum(s.cp for s in op.sins)
+    rng = np.random.default_rng(ic)
+    arrs = [T.pack_image(_u8(rng, 2, s), s, device="cpu") for s in op.sins]
+    whole = op(tuple(arrs))
+    joined = T.join_groups(arrs, op.kernel_groups)
+    assert [tuple(a.shape) for a in joined] == \
+        [s.array_shape(2) for s in op.kernel_sins]
+    assert torch.equal(T.packed_conv_plain(op, joined), whole)
+    cfg, _, wei, bia, wei1, bia1 = cfgs
+    jop = T.PackedConvOp(cfg, wei, bia, wei1, bia1, sin=op.kernel_sins,
+                         halo_out=1, device="cpu")
+    assert torch.equal(jop.w0k, op.w0k) and torch.equal(jop.corr0, op.corr0)
+    assert torch.equal(jop(tuple(joined)), whole)
+
+
+# (channels of each left input, cp of the last, cp of r)
+MANY_SUM_POOL_CASES = {
+    "five inputs": ((32, 32, 32, 32, 32), None),
+    "narrow 8 + 24": ((8, 24), None),
+    "narrow 8 + 8, 16 lanes": ((8, 8), None),
+    "one input of 8 lanes": ((8,), None),
+    "six narrow, padded to 64": ((8, 8, 16, 8, 8, 8), 64),
+}
+
+
+@pytest.mark.parametrize("label", sorted(MANY_SUM_POOL_CASES))
+def test_packed_sum_relu_maxpool2_any_inputs_matches_jax(label):
+    """K8 at input counts and widths the kernel does not take as they are:
+    bitwise against the JAX package, and the plain version on the joined
+    inputs (and -128 pad lanes to a multiple of 16, cut from the result)
+    equals it."""
+    cs, rcp = MANY_SUM_POOL_CASES[label]
+    rng = np.random.default_rng([len(cs), sum(cs)])
+    ctot = sum(cs)
+    rcp = rcp or ctot
+    cps = list(cs[:-1]) + [rcp - sum(cs[:-1])]
+    yspecs = [T.PackedSpec.make(8, 12, c, cp=cp, halo=2, col_off=2, iwp=16)
+              for c, cp in zip(cs, cps)]
+    rspec = T.PackedSpec.make(8, 12, ctot, cp=rcp, halo=2, col_off=2, iwp=16)
+    ys = [T.pack_image(_edge_u8(rng, (2, 8, 12, c)), s, device="cpu")
+          for c, s in zip(cs, yspecs)]
+    r = T.pack_image(_edge_u8(rng, (2, 8, 12, ctot)), rspec, device="cpu")
+    got, gspec = T.packed_sum_relu_maxpool2(ys, r, yspecs, rspec)
+    want, wspec = J.packed_sum_relu_maxpool2(
+        [y.numpy() for y in ys], r.numpy(), [jspec(s) for s in yspecs],
+        jspec(rspec))
+    assert jspec(gspec) == wspec
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    groups = T.kernel_groups(cps)
+    pad = -rcp % T.LANE_UNIT
+    joined = T.join_groups(ys, groups, pad)
+    assert len(joined) <= T.MAX_INPUTS
+    assert all(a.shape[-1] % T.LANE_UNIT == 0 for a in joined)
+    plain = T.packed_sum_pool_plain(
+        joined, torch.nn.functional.pad(r, (0, pad), value=-128), True,
+        rspec.rows, rspec.iwp)
+    assert torch.equal(plain[..., :rcp], got)
+
+
+def test_packed_maxpool2_and_sum_relu_of_narrow_lanes_match_jax():
+    """K7 and K6 on an image of 8 lanes (padded to 16 for the kernel)."""
+    rng = np.random.default_rng(8)
+    spec = T.PackedSpec.make(8, 12, 8, cp=8, halo=2, col_off=2, iwp=16)
+    a, b = (T.pack_image(_edge_u8(rng, (2, 8, 12, 8)), spec, device="cpu")
+            for _ in range(2))
+    got, gspec = T.packed_maxpool2(a, spec)
+    want, wspec = J.packed_maxpool2(a.numpy(), jspec(spec))
+    assert jspec(gspec) == wspec
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    got = T.packed_sum_relu(a, b, spec)
+    want = J.packed_sum_relu(a.numpy(), b.numpy(), jspec(spec))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
