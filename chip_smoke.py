@@ -54,6 +54,17 @@ Phases, each printing its own lines:
      built on the CPU and batch-split by dp_shard over two slots that are
      both this card, answers 16 requests behind BatchServer at batch 16,
      checked the same way;
+ 4b. graphs: each model's jit() and jit_packed() (one CUDA graph per
+     input shape, models/graphed.py) at full width, batch 8: the first
+     call captures; one replay must launch what FORWARD_LAUNCHES says, by
+     the launch counters and by the kernels torch.profiler traces; a
+     first result must survive a second call; batch 3 must capture a
+     second graph; every answer, and 20 requests served behind
+     BatchServer, bitwise equal to the CPU plain dense forward and the
+     golden logits; then eager against graphed in turns: per-call and
+     device ms, busy share and served requests/s ("timing: <model> <path>
+     eager|graphed" lines); last, a graph must refuse a call once its
+     model moved to the CPU, and once it moved back;
   5. timings: CUDA-event medians and profiler device times of each kernel
      and its plain version at the models' shapes, the kernel warm (inputs
      reused) and cold (the L2 evicted before every call), every K1 launch
@@ -1639,12 +1650,12 @@ def slice_requests(net, golden_path):
 
 
 def phase_slice(model, cfg, path, kernels, reqs, want, golden,
-                batch=None) -> dict:
+                batch=None, tag="slice") -> dict:
     """Serve reqs through `model` behind BatchServer at `batch` (default
     the model's); every kernel of the path must launch in this run, every
     answer must be bitwise right, and each forward must launch what
     FORWARD_LAUNCHES says (where it names the path). `path` names the
-    model and the forward."""
+    model and the forward, `tag` the phase that prints."""
     from deepfusion_tpu_torch import _build
     from deepfusion_tpu_torch.serving import BatchServer
     from deepfusion_tpu_torch.utils.logger import check, check_eq
@@ -1654,7 +1665,7 @@ def phase_slice(model, cfg, path, kernels, reqs, want, golden,
     with srv:
         outs = [f.result(timeout=300) for f in srv.submit_many(reqs)]
     counts = _build.launch_counts()
-    print(f"slice: {path} path: {len(reqs)} requests served in "
+    print(f"{tag}: {path} path: {len(reqs)} requests served in "
           f"{srv.stats['flushes']} flushes ({srv.stats['padded_rows']} "
           f"padded rows); launches {counts}", flush=True)
     check_eq(srv.stats["requests"], len(reqs), "served requests")
@@ -1666,7 +1677,7 @@ def phase_slice(model, cfg, path, kernels, reqs, want, golden,
         flushes = srv.stats["flushes"]
         got = {k: v / flushes for k, v in counts.items() if v}
         check_eq(got, per_forward, f"{path}: launches per forward")
-        print(f"slice: {path} path: launches per forward {per_forward}, "
+        print(f"{tag}: {path} path: launches per forward {per_forward}, "
               f"as before", flush=True)
 
     got = np.stack(outs)
@@ -1683,7 +1694,7 @@ def phase_slice(model, cfg, path, kernels, reqs, want, golden,
               f"logits: max_abs_err "
               f"{np.abs(got[:cfg.batch] - golden['logits']).max()}")
         msg += " and to the JAX package's golden logits"
-    print(f"slice: {path} path: {len(reqs)} served answers {msg}",
+    print(f"{tag}: {path} path: {len(reqs)} served answers {msg}",
           flush=True)
     return counts
 
@@ -1735,6 +1746,147 @@ def phase_dp_served(golden_path) -> dict:
     return phase_slice(fwd, cfg, "FusionNet dense dp=2 split", PATH_KERNELS[
         ("FusionNet", "dense")], reqs[:16], want[:16], golden,
         batch=2 * cfg.batch)
+
+
+# the device kernels behind each counted wrapper, by the name torch.profiler
+# gives them (K3's three, K6-K8's two)
+TRACED = {"conv_fused": "conv_fused", "concat_relu": "concat_relu",
+          "pool": "pool", "pool_vec": "pool", "pool_split": "pool",
+          "sum_relu": "sum_relu", "packed_conv": "packed_conv",
+          "packed_sum_pool": "packed_sum_pool",
+          "packed_maxpool2": "packed_sum_pool", "convpool": "convpool",
+          "pair_conv": "pair_conv"}
+TRACED_RE = re.compile(r"(?<![A-Za-z_])(%s)_kernel" % "|".join(TRACED))
+TRACE_TRIES = 3
+
+
+def traced_launches(fn) -> dict:
+    """{counted kernel: launches} of the package's device kernels that
+    torch.profiler traces in one call of fn(), the call after a warm-up
+    call (a trace can miss the device work that starts right after it
+    does: a replay's input copy and first kernel, PERF.md §7)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA],
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                             repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    out = {}
+    for e in prof.key_averages():
+        m = TRACED_RE.search(e.key)
+        if m and e.self_device_time_total > 0:
+            k = TRACED[m.group(1)]
+            out[k] = out.get(k, 0) + e.count
+    return out
+
+
+def phase_graphs(slices, dev, name_power) -> dict:
+    """Phase 4b: each model's jit() and jit_packed() (a CUDA graph per
+    input shape) at full width, batch 8. Per callable: the first call
+    captures; one replay launches what FORWARD_LAUNCHES says, by the
+    counters and by torch.profiler's trace; 20 requests behind
+    BatchServer, bitwise against the CPU plain dense forward and the
+    golden logits; a first result unchanged by a later call; batch 3
+    captures a second graph and answers right; then eager against graphed
+    in turns (per call, device, busy share, served requests/s). Last, a
+    graph must refuse to replay once its model's weights moved. `slices`
+    is [(model, reqs, want, golden)]. Returns the launch counts of the
+    served runs."""
+    from deepfusion_tpu_torch import _build
+    from deepfusion_tpu_torch.utils.logger import CheckError, check, check_eq
+    counts = dict.fromkeys(KERNEL_INFO, 0)
+    for model, reqs, want, golden in slices:
+        name, n = type(model).__name__, model.cfg.batch
+        for path, method, eager in (("dense", "jit", model),
+                                    ("packed", "jit_packed",
+                                     model.packed_module())):
+            label = f"{name} {path}"
+            g = getattr(model, method)()
+            check_eq(g.device, dev, f"{label} {method}() device")
+            check_eq(g.input_shape, model.input_shape,
+                     f"{label} {method}() input_shape")
+            x = torch.from_numpy(np.stack(reqs[:n])).to(dev)
+            x2 = torch.from_numpy(np.stack(reqs[n:2 * n])).to(dev)
+            first = g(x)
+            check_eq(g.captures, 1, f"{label}: graphs after the first call")
+            kept = first.clone()
+            want_l = FORWARD_LAUNCHES[label]
+            _build.reset_launch_counts()
+            g(x)
+            by_count = {k: v for k, v in _build.launch_counts().items() if v}
+            check_eq(by_count, want_l,
+                     f"{label} {method}(): counted launches per replay")
+            # a profile may drop a kernel's record (PERF.md §7), never add
+            # one: up to TRACE_TRIES profiles, none tracing more than the
+            # forward's launches, one tracing all of them
+            for tries in range(1, TRACE_TRIES + 1):
+                traced = traced_launches(lambda: g(x))
+                check(all(v <= want_l.get(k, 0) for k, v in traced.items()),
+                      f"{label} {method}(): one replay traced {traced}, more "
+                      f"than {want_l}")
+                if traced == want_l:
+                    break
+                print(f"graphs: {label} {method}(): profile {tries} traced "
+                      f"{traced}, fewer than {want_l}", flush=True)
+            check_eq(traced, want_l,
+                     f"{label} {method}(): traced launches per replay in "
+                     f"{TRACE_TRIES} profiles")
+            print(f"graphs: {label} {method}(): one replay launched "
+                  f"{traced} (torch.profiler, profile {tries}) and counted "
+                  f"{by_count}, as FORWARD_LAUNCHES says", flush=True)
+            second = g(x2)
+            torch.cuda.synchronize()
+            check(torch.equal(first, kept), f"{label}: a later call changed "
+                                            "a returned result")
+            check(np.array_equal(first.cpu().numpy(), want[:n])
+                  and np.array_equal(second.cpu().numpy(), want[n:2 * n]),
+                  f"{label} {method}(): logits differ from the CPU plain "
+                  "dense forward")
+            small = g(x[:3])
+            check_eq(g.captures, 2, f"{label}: graphs after a batch of 3")
+            check(np.array_equal(small.cpu().numpy(), want[:3]),
+                  f"{label} {method}(): batch 3 differs from the CPU plain "
+                  "dense forward")
+            print(f"graphs: {label} {method}(): a first result unchanged by "
+                  "a second call; batch 3 captured a second graph; all "
+                  "bitwise equal to the CPU plain dense forward", flush=True)
+            got = phase_slice(g, model.cfg, label, PATH_KERNELS[(name, path)],
+                              reqs, want, golden, tag="graphs")
+            for k in KERNEL_INFO:
+                counts[k] += got[k]
+            with torch.inference_mode():
+                time_forwards(label, {"eager": lambda: eager(x),
+                                      "graphed": lambda: g(x)}, n,
+                              name_power)
+            served_rate(label, {"eager": eager, "graphed": g}, n,
+                        model.input_shape, name_power)
+            del g, first, kept, second, small
+    # a graph bakes in the weights' addresses: once they move, it raises
+    model, reqs, want, _ = slices[1]
+    x = torch.from_numpy(np.stack(reqs[:model.cfg.batch])).to(dev)
+    g = model.jit()
+    g(x)
+
+    def refused(moved):
+        try:
+            g(x)
+        except CheckError as e:
+            print(f"graphs: {type(model).__name__} jit() refused a call "
+                  f"after the model moved {moved}: {e}", flush=True)
+        else:
+            raise RuntimeError(f"a graph ran after its model moved {moved}")
+
+    model.to("cpu")
+    refused("to the CPU")
+    model.to(dev)
+    refused("to the CPU and back")
+    check(np.array_equal(model.jit()(x).cpu().numpy(),
+                         want[:model.cfg.batch]),
+          "jit() after the move differs from the CPU plain dense forward")
+    return counts
 
 
 def phase_object_api(dev, name_power) -> dict:
@@ -2732,10 +2884,12 @@ def main():
     with torch.inference_mode():
         parity = phase_parity(net, rnet, vnet, dev, sharded)
     counts = dict.fromkeys(KERNEL_INFO, 0)
+    slices = []
     for model, golden_path in ((net, GOLDEN["FusionNet"]),
                                (rnet, GOLDEN["ResFusionNet"]),
                                (vnet, GOLDEN["VGGFusion"])):
         reqs, want, golden = slice_requests(model, golden_path)
+        slices.append((model, reqs, want, golden))
         name = type(model).__name__
         for path, served in (("dense", model),
                              ("packed", model.packed_module())):
@@ -2744,7 +2898,8 @@ def main():
             for k in KERNEL_INFO:
                 counts[k] += got[k]
     for got in (phase_hybrid(vnet, GOLDEN["VGGFusion"]),
-                phase_dp_served(GOLDEN["FusionNet"])):
+                phase_dp_served(GOLDEN["FusionNet"]),
+                phase_graphs(slices, dev, name_power)):
         for k in KERNEL_INFO:
             counts[k] += got[k]
     rows = phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,

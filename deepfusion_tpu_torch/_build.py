@@ -25,7 +25,8 @@ Every C entry point launches on the stream it is given and returns
 exception. A registered operator checks, allocates, takes the current
 stream and launches in C++, and raises itself. Each wrapper counts its
 launches per kernel (``launch_counts``) and, for the modes the sharded
-wrappers use, per mode (``mode_counts``).
+wrappers use, per mode (``mode_counts``); ``snapshot_counts`` and
+``add_counts`` move a captured forward's counts to its replays.
 """
 from __future__ import annotations
 
@@ -109,6 +110,25 @@ def reset_launch_counts() -> None:
         for d in (_counts, _modes):
             for k in d:
                 d[k] = 0
+
+
+def snapshot_counts() -> dict:
+    """Every launch and mode count in one dict (kernel names and
+    ``kernel.mode`` names never collide): the base of a delta that
+    ``add_counts`` can take out or put back."""
+    with _counts_lock:
+        return {**_counts, **_modes}
+
+
+def add_counts(delta: dict, times: int = 1) -> None:
+    """Add `times` x `delta` (a difference of two ``snapshot_counts``) to
+    the counts. A CUDA graph runs its wrappers' ``count_launch`` once, at
+    capture, when the card runs nothing: the graphed callable takes that
+    delta out after the capture (``times=-1``) and puts it back at every
+    replay, so the counts keep saying what ran on the card."""
+    with _counts_lock:
+        for k, v in delta.items():
+            (_counts if k in _counts else _modes)[k] += v * times
 
 
 def _cuda_home() -> Path:

@@ -9,7 +9,9 @@ by the JAX package cross over with ``FusionNet.from_numpy_params``.
 
 ``packed_call`` is the same forward with every activation in the packed
 domain (``ops/packed.py``), bitwise equal to the dense one;
-``packed_module()`` wraps it for ``serving.BatchServer``.
+``packed_module()`` wraps it for ``serving.BatchServer``; ``jit()`` and
+``jit_packed()`` are the two forwards as compiled callables (one CUDA graph
+per input shape, ``models/graphed.py``).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from ..ops.packed import (PackedConvOp, PackedSpec, pack_image,
                           packed_global_avgpool, packed_sum_relu_maxpool2)
 from ..ops.pool import eltwise_sum_relu, pool
 from ..utils.mathutil import conv_output_size
+from .graphed import GraphedForward
 
 LAYERS = ("stem", "block1", "branch", "res", "block2", "head")
 
@@ -167,6 +170,13 @@ class FusionNet(nn.Module):
         logits = self.head(y)                       # (n,1,1,classes) f32
         return logits.reshape(logits.shape[0], -1)
 
+    def jit(self) -> GraphedForward:
+        """The dense forward as a compiled callable (the JAX package's
+        ``FusionNet.jit``): on the card one CUDA graph per input shape,
+        replayed per call (``models/graphed.py``); on the CPU the forward
+        itself."""
+        return GraphedForward(self.forward)
+
     # ------------------------------------------ packed-domain forward path
 
     def build_packed(self) -> nn.ModuleDict:
@@ -230,9 +240,15 @@ class FusionNet(nn.Module):
         logits = self.head(y)
         return logits.reshape(logits.shape[0], -1)
 
+    def jit_packed(self) -> GraphedForward:
+        """The packed forward as a compiled callable (the JAX package's
+        ``FusionNet.jit_packed``), as ``jit()``."""
+        self.build_packed()
+        return GraphedForward(self.packed_call)
+
     def packed_module(self) -> "PackedFusionNet":
-        """The packed forward as a module to serve (the counterpart of the
-        JAX package's ``FusionNet.jit_packed``)."""
+        """The packed forward as a module to serve eagerly (``jit_packed()``
+        is its compiled callable)."""
         self.build_packed()
         return PackedFusionNet(self)
 

@@ -13,7 +13,8 @@ package cross over with ``ResFusionNet.from_numpy_params``.
 domain, bitwise equal to the dense one: the stem runs on the s2d grid, the
 residual joins block1's epilogue as a packed sum operand, the downsample is
 a packed conv and the packed 2x2 max pool. ``packed_module()`` wraps it for
-``serving.BatchServer``.
+``serving.BatchServer``; ``jit()`` and ``jit_packed()`` are the two forwards
+as compiled callables (``models/graphed.py``).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from ..ops.packed import (PackedConvOp, PackedSpec, packed_global_avgpool,
 from ..ops.pool import pool
 from ..utils.logger import check
 from .fusionnet import PackedFusionNet, _conv_config, _mkconv
+from .graphed import GraphedForward
 
 LAYERS = ("stem", "block1", "down", "block2", "head")
 
@@ -130,6 +132,13 @@ class ResFusionNet(nn.Module):
         logits = self.head(y)                       # (n,1,1,classes) f32
         return logits.reshape(logits.shape[0], -1)
 
+    def jit(self) -> GraphedForward:
+        """The dense forward as a compiled callable (the JAX package's
+        ``ResFusionNet.jit``): on the card one CUDA graph per input shape,
+        replayed per call (``models/graphed.py``); on the CPU the forward
+        itself."""
+        return GraphedForward(self.forward)
+
     # ------------------------------------------ packed-domain forward path
 
     def build_packed(self) -> nn.ModuleDict:
@@ -182,8 +191,14 @@ class ResFusionNet(nn.Module):
         logits = self.head(y)
         return logits.reshape(logits.shape[0], -1)
 
+    def jit_packed(self) -> GraphedForward:
+        """The packed forward as a compiled callable (the JAX package's
+        ``ResFusionNet.jit_packed``), as ``jit()``."""
+        self.build_packed()
+        return GraphedForward(self.packed_call)
+
     def packed_module(self) -> PackedFusionNet:
-        """The packed forward as a module to serve (the counterpart of the
-        JAX package's ``ResFusionNet.jit_packed``)."""
+        """The packed forward as a module to serve eagerly (``jit_packed()``
+        is its compiled callable)."""
         self.build_packed()
         return PackedFusionNet(self)

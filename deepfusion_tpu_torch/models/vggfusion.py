@@ -17,7 +17,10 @@ Three forwards, bitwise equal:
 * ``hybrid_call``: the first (largest) block on the pair kernel, one
   ``unpack_image`` at the seam, the dense tail.
 
-``packed_module()`` wraps ``packed_call`` for ``serving.BatchServer``.
+``packed_module()`` wraps ``packed_call`` for ``serving.BatchServer``;
+``jit()`` and ``jit_packed()`` are the dense and packed forwards as compiled
+callables (``models/graphed.py``); the hybrid forward has none, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from ..ops.pool import pool
 from ..utils.logger import check
 from ..utils.mathutil import round_up
 from .fusionnet import PackedFusionNet, _conv_config, _mkconv
+from .graphed import GraphedForward
 
 N_BLOCKS = 3
 LAYERS = tuple(f"block{b}_conv{i}" for b in range(1, N_BLOCKS + 1)
@@ -145,6 +149,13 @@ class VGGFusion(nn.Module):
         return self._tail(torch.as_tensor(x_u8, device=self.device),
                           range(N_BLOCKS))
 
+    def jit(self) -> GraphedForward:
+        """The dense forward as a compiled callable (the JAX package's
+        ``VGGFusion.jit``): on the card one CUDA graph per input shape,
+        replayed per call (``models/graphed.py``); on the CPU the forward
+        itself."""
+        return GraphedForward(self.forward)
+
     # ------------------------------------------------ packed (pair) forward
 
     def build_packed(self) -> nn.ModuleList:
@@ -193,8 +204,14 @@ class VGGFusion(nn.Module):
         y = unpack_image(pairs[0](x), pairs[0].sout_pooled)
         return self._tail(y.contiguous(), range(1, N_BLOCKS))
 
+    def jit_packed(self) -> GraphedForward:
+        """The packed forward as a compiled callable (the JAX package's
+        ``VGGFusion.jit_packed``), as ``jit()``."""
+        self.build_packed()
+        return GraphedForward(self.packed_call)
+
     def packed_module(self) -> PackedFusionNet:
-        """The packed forward as a module to serve (the counterpart of the
-        JAX package's ``VGGFusion.jit_packed``)."""
+        """The packed forward as a module to serve eagerly (``jit_packed()``
+        is its compiled callable)."""
         self.build_packed()
         return PackedFusionNet(self)

@@ -232,8 +232,11 @@ def _gather_stride(x: torch.Tensor, dim: int, o: int, k: int, s: int,
     after = max(0, (o - 1) * s - p + k - n)
     pad = [0, 0, 0, 0, 0, 0]
     pad[2 * (3 - dim)], pad[2 * (3 - dim) + 1] = p, after
-    idx = (torch.arange(o)[:, None] * s + torch.arange(k)).reshape(-1)
-    return F.pad(x, pad).index_select(dim, idx.to(x.device))
+    # built on x's device: no host-to-device copy, so a CUDA graph can
+    # capture the call
+    idx = (torch.arange(o, device=x.device)[:, None] * s
+           + torch.arange(k, device=x.device)).reshape(-1)
+    return F.pad(x, pad).index_select(dim, idx)
 
 
 def _kernel_input(op, src: torch.Tensor):

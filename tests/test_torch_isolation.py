@@ -30,6 +30,7 @@ MODULES = [
     "deepfusion_tpu_torch.models.fusionnet",
     "deepfusion_tpu_torch.models.resfusion",
     "deepfusion_tpu_torch.models.vggfusion",
+    "deepfusion_tpu_torch.models.graphed",
     "deepfusion_tpu_torch.serving", "deepfusion_tpu_torch.parallel",
     "deepfusion_tpu_torch.parallel.mesh",
     "deepfusion_tpu_torch.parallel.shard",
