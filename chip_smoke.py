@@ -10,9 +10,11 @@ Phases, each printing its own lines:
      must issue wgmma on TMA-loaded tiles, and ptxas (-v) must not have
      serialized the wgmma of K5, K9 or K10 (its note C7520); a
      _build.kernels() call after the first must return the same library
-     in at most 5 host microseconds, and the library must have registered
-     its operator torch.ops.deepfusion_torch.concat_relu (K2's launch,
-     csrc/torch_ops.cpp); then the device rule:
+     in at most 5 host microseconds; the library must have registered
+     every operator of torch.ops.deepfusion_torch that the wrappers call
+     (csrc/*.cpp: one per launch entry point, a CUDA kernel and no CPU
+     kernel for each op that takes a tensor) and export no C entry point
+     (no dynamic symbol df_*); then the device rule:
      FusionNet(cfg) and conv() on a numpy input, given no device, must run
      on cuda:0 through the kernels;
   3. parity: each kernel against its plain PyTorch version on the card,
@@ -80,10 +82,11 @@ Phases, each printing its own lines:
      TB/s and its operations over the peak rate) and, where one PyTorch
      call computes the same function (torch.cat, a 2x2 amax), that call's
      time, and per call beside it in turns; the host microseconds of each
-     part of a launch (K7's through ctypes; K2's through its registered op:
-     the op, its wrapper and concat() beside torch.cat, with and without
-     torch.inference_mode) and a cProfile ranking of each forward's host
-     work;
+     part of a launch through its registered op (K7's and K1's at
+     FusionNet's stem: the op lookup, the op, the wrapper and the module's
+     call; K2's: the op, its wrapper and concat() beside torch.cat, with
+     and without torch.inference_mode) and a cProfile ranking of each
+     forward's host work;
   6. sharded: the parallel/ wrappers on meshes whose slots are all this
      card (tp_fused_conv and tp_packed_fused at tp 2 and 4, both wires;
      sp_conv at sp 2, 4 and dp 2 x sp 2; sp_packed on the packed conv at sp
@@ -451,10 +454,42 @@ def phase_build(name_power):
     print(f"host: _build.kernels() {us:.4f} us per call after the first "
           f"(mean of {calls} calls) card=\"{name_power}\"", flush=True)
     check(us <= 5.0, f"_build.kernels() takes {us:.2f} us per call")
-    check(hasattr(torch.ops.deepfusion_torch, "concat_relu"),
-          "the library registered no torch.ops.deepfusion_torch.concat_relu")
-    schema = torch.ops.deepfusion_torch.concat_relu.default._schema
-    print(f"build: registered {schema}", flush=True)
+    ops_check(_build.library_path())
+
+
+# every op of torch.ops.deepfusion_torch that the wrappers call
+OPS = ("concat_relu", "pool", "sum_relu", "conv_fused", "convpool",
+       "conv_weight_maps", "conv_plan", "packed_conv", "packed_weight_maps",
+       "packed_plan", "packed_sum_pool", "pair_conv", "pair_plan")
+
+
+def ops_check(lib):
+    """The library's registered operators: each op the wrappers call
+    resolves, one that takes a tensor has a CUDA kernel and no CPU one (a
+    CPU tensor raises in the dispatcher), a plan (ints alone) one kernel for
+    every backend; and the library exports no C entry point (the ctypes
+    binding's df_* functions are gone)."""
+    from deepfusion_tpu_torch import _build
+    from deepfusion_tpu_torch.utils.logger import check
+    has = torch._C._dispatch_has_kernel_for_dispatch_key
+    for name in OPS:
+        schema = _build.op(name)._schema
+        qual = f"deepfusion_torch::{name}"
+        if any("Tensor" in str(a.type) for a in schema.arguments):
+            check(has(qual, "CUDA") and not has(qual, "CPU"),
+                  f"{qual}: needs a CUDA kernel and no CPU kernel")
+        else:
+            check(has(qual, "CompositeExplicitAutograd"),
+                  f"{qual}: needs a kernel for every backend")
+        print(f"build: registered {schema}", flush=True)
+    syms = subprocess.run(["nm", "-D", "--defined-only", str(lib)],
+                          capture_output=True, text=True,
+                          check=True).stdout.split()
+    check(len(syms) > 100, f"nm -D listed {len(syms)} words")
+    exported = sorted(w for w in syms if w.startswith("df_"))
+    check(not exported, f"the library exports C entry points {exported}")
+    print(f"build: {len(OPS)} ops resolve; no df_* symbol among the "
+          f"library's {len(syms) // 3} dynamic symbols", flush=True)
 
 
 # The K1 instances that ptxas is known to serialize (C7520): the 1-byte
@@ -837,7 +872,7 @@ def concat_op_cases(rng, dev, par):
                       f"launches per call (torch.profiler traced "
                       f"{traced}), bitwise equal to the plain version",
                       flush=True)
-    op = C.concat_op()
+    op = _build.op("concat_relu")
     x = sixteen[0]
     for label, args, error in (
             ("a dtype mismatch", [x, x.to(torch.int8)], RuntimeError),
@@ -2186,40 +2221,10 @@ def per_call_in_turns(label, fns, name_power, rounds=2):
         for k, v in ms.items()) + f" card=\"{name_power}\"", flush=True)
 
 
-def launch_host_us(y, spec, name_power, calls=2000):
-    """Host microseconds of the parts of one launch through a wrapper, at
-    K7's launch on the packed array `y` (its spec `spec`): each part alone
-    in a loop of `calls` (the device keeps up), then the whole wrapper and
-    the whole op with its checks."""
-    from deepfusion_tpu_torch import _build
-    PK = importlib.import_module("deepfusion_tpu_torch.ops.packed")
-    lib = _build.kernels()
-    n, rows, iwp, cp = y.shape[0], spec.rows, spec.iwp, spec.cp
-    out = torch.empty((n, rows // 2 * (iwp // 2), cp), dtype=torch.int8,
-                      device=y.device)
-    ptrs = (ctypes.c_void_p * 1)(y.data_ptr())
-    cps = (ctypes.c_int * 1)(cp)
-    stream = _build.stream_of(y)
-
-    def device_ctx():
-        with torch.cuda.device(y.device):
-            pass
-    parts = {
-        "_build.kernels()": _build.kernels,
-        "torch.empty (the output)": lambda: torch.empty(
-            out.shape, dtype=torch.int8, device=y.device),
-        "_build.aligned (the input)": lambda: _build.aligned(y),
-        "torch.cuda.device (enter and exit)": device_ctx,
-        "_build.stream_of": lambda: _build.stream_of(y),
-        "ctypes call of df_packed_sum_pool (the launch)":
-            lambda: lib.df_packed_sum_pool(ptrs, cps, 1, None,
-                                           out.data_ptr(), n, rows, iwp, cp,
-                                           0, 1, stream),
-        "packed_sum_pool_cuda (the whole wrapper)":
-            lambda: PK.packed_sum_pool_cuda([y], None, True, rows, iwp),
-        "packed_maxpool2 (the op: checks and wrapper)":
-            lambda: PK.packed_maxpool2(y, spec),
-    }
+def host_parts(kernel, parts, name_power, calls=2000):
+    """Host microseconds of each part of one launch (`parts`: {label:
+    fn}), each alone in a loop of `calls` calls that the device keeps up
+    with, no synchronisation inside the loop."""
     for label, fn in parts.items():
         fn()
         torch.cuda.synchronize()
@@ -2228,8 +2233,57 @@ def launch_host_us(y, spec, name_power, calls=2000):
             fn()
         us = (time.perf_counter() - t0) / calls * 1e6
         torch.cuda.synchronize()
-        print(f"host: K7 launch part {label} {us:.3f} us per call (mean of "
-              f"{calls}) card=\"{name_power}\"", flush=True)
+        print(f"host: {kernel} launch part {label} {us:.3f} us per call "
+              f"(mean of {calls}) card=\"{name_power}\"", flush=True)
+
+
+def launch_host_us(y, spec, name_power):
+    """Host microseconds of the parts of K7's launch on the packed array
+    `y` (its spec `spec`): the op's lookup, the registered op alone (its
+    checks, alignment, allocation, device guard, stream and launch in C++),
+    the whole wrapper, and the functional op with its checks; beside them
+    torch.empty of the output (one allocation through PyTorch's own
+    binding)."""
+    from deepfusion_tpu_torch import _build
+    PK = importlib.import_module("deepfusion_tpu_torch.ops.packed")
+    rows, iwp = spec.rows, spec.iwp
+    op = _build.op("packed_sum_pool")
+    shape = (y.shape[0], rows // 2 * (iwp // 2), spec.cp)
+    host_parts("K7", {
+        "_build.op lookup": lambda: _build.op("packed_sum_pool"),
+        "torch.empty (the output)": lambda: torch.empty(
+            shape, dtype=torch.int8, device=y.device),
+        "the op (torch.ops overload: checks, allocation, launch)":
+            lambda: op([y], None, rows, iwp, True),
+        "packed_sum_pool_cuda (the whole wrapper)":
+            lambda: PK.packed_sum_pool_cuda([y], None, True, rows, iwp),
+        "packed_maxpool2 (the op: checks and wrapper)":
+            lambda: PK.packed_maxpool2(y, spec)}, name_power)
+
+
+def conv_host_us(conv_op, x, name_power):
+    """Host microseconds of the parts of K1's launch by the ConvOp
+    `conv_op` on `x`: the op's lookup, the kept weight maps, the registered
+    op alone, the whole wrapper (conv_cuda) and the module's call (its
+    checks, then the wrapper)."""
+    from deepfusion_tpu_torch import _build
+    K = importlib.import_module("deepfusion_tpu_torch.ops.conv")
+    op = _build.op("conv_fused")
+    c = conv_op.cfg
+    fuse = c.fuse_conv1x1
+    maps = K._weight_maps(conv_op)
+    args = (x, maps, conv_op.bias0, conv_op.scale0,
+            conv_op.bias1 if fuse else None,
+            conv_op.scale1 if fuse else None, None, conv_op._geo,
+            c.sum_scale, False)
+    host_parts("K1", {
+        "_build.op lookup": lambda: _build.op("conv_fused"),
+        "_weight_maps (kept per op)": lambda: K._weight_maps(conv_op),
+        "the op (torch.ops overload: checks, allocation, launch)":
+            lambda: op(*args),
+        "conv_cuda (the whole wrapper)": lambda: K.conv_cuda(conv_op, x),
+        "ConvOp call (checks and wrapper)": lambda: conv_op(x)},
+        name_power)
 
 
 def concat_host_us(shape, dev, name_power, calls=400, rounds=5):
@@ -2247,6 +2301,7 @@ def concat_host_us(shape, dev, name_power, calls=400, rounds=5):
     binding). Then, under inference mode, torch.profiler's host events per
     call of the op and of torch.cat (self CPU us; the profiler's own cost
     included)."""
+    from deepfusion_tpu_torch import _build
     from deepfusion_tpu_torch.config import ConcatConfig
     from deepfusion_tpu_torch.types import dtype
     C = importlib.import_module("deepfusion_tpu_torch.ops.concat")
@@ -2254,7 +2309,7 @@ def concat_host_us(shape, dev, name_power, calls=400, rounds=5):
         rng = np.random.default_rng(10)
         xs = [rand(rng, shape, dtype.u8, dev) for _ in range(2)]
     cfg = ConcatConfig.make([shape] * 2, dtype.u8, True)
-    op = C.concat_op()
+    op = _build.op("concat_relu")
     out_shape = shape[:3] + (2 * shape[3],)
     parts = {
         "the op (torch.ops overload)": lambda: op(xs, True),
@@ -2641,6 +2696,8 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
             c = op.cfg
             x = rand(rng, (c.bs, c.ih, c.iw, c.ic), u8, dev)
             print_conv_plan(f"FusionNet {name}", op, c.bs)
+            if name == "stem":
+                conv_host_us(op, x, name_power)
             timed("conv_fused", f"FusionNet {name}",
                   lambda: K.conv_cuda(op, x), lambda: K.conv_plain(op, x),
                   reads=(x, op), ops=conv_ops(c),

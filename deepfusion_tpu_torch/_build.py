@@ -1,36 +1,34 @@
 """Build and load the package's CUDA kernels, and count their launches.
 
-``csrc/*.cu`` and ``csrc/torch_ops.cpp`` are compiled at first use by
-``nvcc``, one process per source, all started together, and linked into one
-shared library, ``_build/libdf_kernels-<hash>.so``. The ``.cu`` files keep
-out of PyTorch's headers and give the library a plain C interface, loaded
-with ``ctypes``. ``torch_ops.cpp`` registers the library's PyTorch
-operators (``torch.ops.deepfusion_torch``): it is compiled with PyTorch's
-include paths, the C++ standard the installed PyTorch builds its
-extensions with and its ``_GLIBCXX_USE_CXX11_ABI``, and the library is
-linked against libtorch. The name carries a hash of the sources, the
-flags, the PyTorch version, its ABI and its include paths, so an edit or
-another PyTorch rebuilds; the library is written under a temporary name and
-moved into place with ``os.replace``, so a process never loads a
-half-written file. A failed build or load raises: there is no fallback to
-the plain PyTorch versions. The sources and the flags
-(``DEEPFUSION_DUMP_CODE``) are read once per process, at the first
-``kernels()``, which also loads the library, first with
-``torch.ops.load_library`` (which runs its operator registrations), then
-with ``ctypes`` (the same ``dlopen`` handle); every later call returns the
-library it opened, so a launch hashes and opens nothing.
+``csrc/*.cu`` and ``csrc/*.cpp`` are compiled at first use by ``nvcc``, one
+process per source, all started together, and linked into one shared
+library, ``_build/libdf_kernels-<hash>.so``. The ``.cu`` files keep out of
+PyTorch's headers: each kernel family has a plain C++ launcher, declared in
+its ``csrc/*.h``. The ``.cpp`` files register the library's PyTorch
+operators (``torch.ops.deepfusion_torch``), one per launch entry point,
+which call those launchers: they are compiled with PyTorch's include paths,
+the C++ standard the installed PyTorch builds its extensions with and its
+``_GLIBCXX_USE_CXX11_ABI``, and the library is linked against libtorch. The
+name carries a hash of the sources, the flags, the PyTorch version, its ABI
+and its include paths, so an edit or another PyTorch rebuilds; the library
+is written under a temporary name and moved into place with ``os.replace``,
+so a process never loads a half-written file. A failed build or load
+raises: there is no fallback to the plain PyTorch versions. The sources and
+the flags (``DEEPFUSION_DUMP_CODE``) are read once per process, at the first
+``kernels()``, which also loads the library with ``torch.ops.load_library``
+(which runs its operator registrations); every later call returns the path
+it loaded, so a launch hashes and opens nothing.
 
-Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; ``check(rc, name)`` turns a non-zero code into an
-exception. A registered operator checks, allocates, takes the current
-stream and launches in C++, and raises itself. Each wrapper counts its
-launches per kernel (``launch_counts``) and, for the modes the sharded
-wrappers use, per mode (``mode_counts``); ``snapshot_counts`` and
-``add_counts`` move a captured forward's counts to its replays.
+An operator checks its arguments, allocates its output, guards the device,
+takes the current stream and launches in C++, and raises itself; ``op``
+looks one up once. Each wrapper counts its launches per kernel
+(``launch_counts``) and, for the modes the sharded wrappers use, per mode
+(``mode_counts``); ``snapshot_counts`` and ``add_counts`` move a captured
+forward's counts to its replays.
 """
 from __future__ import annotations
 
-import ctypes
+import functools
 import hashlib
 import inspect
 import os
@@ -49,30 +47,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
                            "-fPIC", "-I/usr/local/cutlass/include")
-# the PyTorch libraries the operator registrations (torch_ops.cpp) call into
+# the PyTorch libraries the operator registrations (csrc/*.cpp) call into
 TORCH_LIBS = ("torch", "torch_cpu", "torch_cuda", "c10", "c10_cuda")
-
-_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                  ctypes.c_float)
-_SIGNATURES = {
-    "df_conv": [_P] * 8 + [_I] * 25 + [_F, _P],
-    "df_conv_weight_maps": [_P, _I, _I, _P, _I, _I, _I, _P],
-    "df_conv_plan": [ctypes.POINTER(_I)] * 2,
-    "df_convpool": [_P] * 6 + [_I] * 21 + [_F, _P],
-    "df_pool": [_P, _P] + [_I] * 15 + [_P],
-    "df_sum_relu": [_P, _P, _P, _L, _I, _I, _P],
-    "df_packed_conv": [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(_I),
-                       _I] + [_P] * 8 + [_I] * 29 + [_F, _P],
-    "df_packed_weight_maps": [_P, _I, _I, _P, _I, _P],
-    "df_packed_plan": [ctypes.POINTER(_I)] * 2,
-    "df_packed_sum_pool": [ctypes.POINTER(ctypes.c_void_p),
-                           ctypes.POINTER(_I), _I, _P, _P] + [_I] * 6 + [_P],
-    "df_pair_conv": [_P, ctypes.POINTER(ctypes.c_void_p),
-                     ctypes.POINTER(ctypes.c_void_p), _P,
-                     ctypes.POINTER(_I), ctypes.POINTER(_I),
-                     ctypes.POINTER(_I), _P],
-    "df_pair_plan": [ctypes.POINTER(_I)] * 4,
-}
 
 KERNELS = ("conv_fused", "concat_relu", "pool", "sum_relu", "packed_conv",
            "packed_sum_pool", "convpool", "pair_conv")
@@ -162,7 +138,7 @@ def _torch_cxx_std() -> str:
 
 
 def torch_flags() -> tuple:
-    """nvcc's flags for torch_ops.cpp, the one source that includes
+    """nvcc's flags for the .cpp sources, the only ones that include
     PyTorch's headers: its standard, its ABI, its include paths and the
     CUDA runtime's."""
     from torch.utils import cpp_extension
@@ -209,7 +185,7 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu and csrc/torch_ops.cpp into the library unless it
+    """Compile csrc/*.cu and csrc/*.cpp into the library unless it
     already exists: one nvcc process per source, all running at once, then
     one link."""
     out = library_path()
@@ -252,47 +228,24 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def kernels() -> ctypes.CDLL:
-    """The loaded kernel library. The process's first call, under a lock
-    (``BatchServer`` launches from its own thread), builds it if needed,
-    loads it once (its operators registered, its entry points declared);
-    every later call returns that same object and reads no file."""
+def kernels() -> Path:
+    """The loaded kernel library's path. The process's first call, under a
+    lock (``BatchServer`` launches from its own thread), builds the library
+    if needed and loads it once, which registers its operators; every later
+    call returns that same path and reads no file."""
     global _lib
     if _lib is None:
         with _lib_lock:
             if _lib is None:
-                _lib = _open(build())
+                path = build()
+                torch.ops.load_library(str(path))
+                _lib = path
     return _lib
 
 
-def _open(path: Path) -> ctypes.CDLL:
-    # registers torch.ops.deepfusion_torch; the CDLL below is the same
-    # dlopen handle, so the registrations run once
-    torch.ops.load_library(str(path))
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.df_error_string.argtypes = [ctypes.c_int]
-    lib.df_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def check(rc: int, name: str) -> None:
-    """Raise if a C entry point reported a CUDA error (its message from
-    the library that launched it)."""
-    if rc != 0:
-        msg = kernels().df_error_string(rc).decode()
-        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
-
-
-def aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous and 16-byte aligned, as the kernels' vector loads need."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-def stream_of(t: torch.Tensor) -> int:
-    """The raw current CUDA stream of `t`'s device, read in this thread."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+@functools.cache
+def op(name: str):
+    """The default overload of ``torch.ops.deepfusion_torch.<name>``,
+    looked up once the kernel library (which registers it) is loaded."""
+    kernels()
+    return getattr(torch.ops.deepfusion_torch, name).default

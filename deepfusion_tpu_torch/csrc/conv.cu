@@ -85,7 +85,7 @@
 //   once (ops/layout.py:dense_kmajor_weights): oc0p rows x kh*kw*icp bytes
 //   and oc1p rows x k1 bytes. Rows past oc0p (oc1p) up to the pass width
 //   read TMA's zero fill. Their tensor maps are encoded once per op
-//   (df_conv_weight_maps); the input's maps at every call (1.7 us each).
+//   (conv_weight_maps); the input's maps at every call (1.7 us each).
 // * K runs over (tap, the input's channels padded to a multiple of 32) in
 //   chunks of 128, 64 and 32 bytes, each chunk one A box and one B box
 //   swizzled to its width; the plan holds the chunks' table (KChunks,
@@ -108,6 +108,7 @@
 #include <cstdint>
 #include <cstring>
 
+#include "conv.h"
 #include "requant.cuh"
 #include "wgmma_tma.cuh"
 
@@ -120,8 +121,6 @@ constexpr int SMS = 132;            // the H100 SXM's SMs
 constexpr int MAX_BOX = 256;        // TMA box elements per dimension
 constexpr int MAX_ESTRIDE = 8;      // TMA element stride
 constexpr int MAX_CHUNKS = 32;      // K chunks of a tap or of the 1x1
-// The DST of the fused kernel's raw 1x1 accumulator store (not a dtype code)
-constexpr int DT_ACC = 0;
 
 // The conv's geometry as the kernel runs it (a 1x1 GEMM as one image of
 // one row of n*oh*ow pixels).
@@ -929,7 +928,8 @@ int box_rows(int oc0p, bool pool) {
   return pool ? std::min(64, pass_width(oc0p)) : pass_width(oc0p);
 }
 
-// The checks, the plan and the maps shared by df_conv and df_convpool.
+// The checks, the plan and the maps shared by conv_fused_launch and
+// convpool_launch.
 int setup(KArgs& a, Maps& maps, const void* src, const void* wmaps,
           const Geo& g, int oc0p, int oc1p, bool fuse, int dst_dt,
           const void* sum, int sum_dt, bool pool) {
@@ -948,7 +948,8 @@ int setup(KArgs& a, Maps& maps, const void* src, const void* wmaps,
   memset(&maps, 0, sizeof(maps));
   memcpy(maps.b0, wmaps, 3 * sizeof(CUtensorMap));
   if (fuse)
-    memcpy(maps.b1, static_cast<const CUtensorMap*>(wmaps) + 3,
+    memcpy(maps.b1,
+           static_cast<const char*>(wmaps) + 3 * sizeof(CUtensorMap),
            3 * sizeof(CUtensorMap));
   const cuuint64_t c = (cuuint64_t)g.ic;
   const cuuint64_t dims[4] = {c, (cuuint64_t)g.iw, (cuuint64_t)g.ih,
@@ -972,63 +973,49 @@ int setup(KArgs& a, Maps& maps, const void* src, const void* wmaps,
 
 }  // namespace
 
-// The weight maps of an op, encoded once (ops/conv.py caches them): out[0,
-// 3) the maps of w0k (oc0p rows x k0 bytes), out[3, 6) those of w1k (oc1p
-// rows x k1 bytes) when w1k is not null. out holds 6 * 128 bytes. pool: the
-// maps df_convpool reads (w0k's boxes of at most 64 rows).
-extern "C" int df_conv_weight_maps(const void* w0k, int k0, int oc0p,
-                                   const void* w1k, int k1, int oc1p,
-                                   int pool, void* out) {
+cudaError_t conv_weight_maps(const void* w0k, int k0, int oc0p,
+                             const void* w1k, int k1, int oc1p, bool pool,
+                             void* out) {
   CUtensorMap m[6] = {};
-  if (!encode_weights(m, w0k, k0, oc0p, box_rows(oc0p, pool != 0)) ||
+  if (!encode_weights(m, w0k, k0, oc0p, box_rows(oc0p, pool)) ||
       (w1k && !encode_weights(m + 3, w1k, k1, oc1p, pass_width(oc1p))))
-    return (int)cudaErrorInvalidValue;
+    return cudaErrorInvalidValue;
   memcpy(out, m, sizeof(m));
-  return (int)cudaSuccess;
+  return cudaSuccess;
 }
 
-// in: n, ih, iw, ic, oh, ow, kh, kw, sh, sw, ph, pw, oc0p, oc1p, fuse,
-// dst_dt, pool; out: tile rows of M, tile rows and columns of pixels,
-// split, tiles, blocks, stages, shared bytes, nb0, nb1, passes of each
-// stage, K chunks per tap, K bytes per tap, gemm (the 1x1 run as a GEMM),
-// work items. Returns 0, or non-zero if the kernel cannot run the conv.
-extern "C" int df_conv_plan(const int* in, int* out) {
+cudaError_t conv_plan(const int* in, int* out) {
   const bool pool = in[16] != 0;
   const Geo g = geometry(in[0], in[1], in[2], in[3], in[4], in[5], in[6],
                          in[7], in[8], in[9], in[10], in[11], pool);
   Plan p;
   if (!make_plan(p, g, in[12], in[13], in[14] != 0, staged_dst(in[15]), pool,
                  box_rows(in[12], pool)))
-    return (int)cudaErrorInvalidValue;
-  const int v[] = {p.tm, p.tr, p.tc, p.split, p.tiles, p.blocks,
-                   p.stages, p.smem, p.nb0, p.nb1, p.npass0, p.npass1,
-                   p.ch0.n, p.kp, g.gemm ? 1 : 0, p.items};
-  for (int i = 0; i < 16; ++i) out[i] = v[i];
-  return 0;
+    return cudaErrorInvalidValue;
+  const int v[CONV_PLAN_OUT] = {p.tm, p.tr, p.tc, p.split, p.tiles,
+                                p.blocks, p.stages, p.smem, p.nb0, p.nb1,
+                                p.npass0, p.npass1, p.ch0.n, p.kp,
+                                g.gemm ? 1 : 0, p.items};
+  memcpy(out, v, sizeof(v));
+  return cudaSuccess;
 }
 
-// src: NHWC u8, ic a multiple of 16; wmaps: df_conv_weight_maps' maps of
-// the op's K-major weights; bias/scale: f32 over oc0p (oc1p) lanes. sum:
-// null, or the NHWC sum operand of sum_dt (the dst dtype codes). dst_dt 0
-// (fused only): dst is the raw s32 1x1 accumulator, (n, oh, ow, oc1) int32,
-// and bias1, scale1, relu1, down1 and sum are not read. Strides 1..8.
-extern "C" int df_conv(const void* src, const void* wmaps, const void* bias0,
-                       const void* scale0, const void* bias1,
-                       const void* scale1, void* dst, const void* sum, int n,
-                       int ih, int iw, int ic, int oh, int ow, int kh, int kw,
-                       int sh, int sw, int ph, int pw, int oc0, int oc0p,
-                       int oc1, int oc1p, int relu0, int relu1, int down0,
-                       int down1, int has_bias0, int has_bias1, int fuse,
-                       int dst_dt, int sum_dt, float sum_scale,
-                       void* stream) {
-  if (dst_dt == DT_ACC && (!fuse || sum)) return (int)cudaErrorInvalidValue;
+cudaError_t conv_fused_launch(
+    const void* src, const void* wmaps, const void* bias0,
+    const void* scale0, const void* bias1, const void* scale1, void* dst,
+    const void* sum, int n, int ih, int iw, int ic, int oh, int ow, int kh,
+    int kw, int sh, int sw, int ph, int pw, int oc0, int oc0p, int oc1,
+    int oc1p, int relu0, int relu1, int down0, int down1, int has_bias0,
+    int has_bias1, int fuse, int dst_dt, int sum_dt, float sum_scale,
+    cudaStream_t stream) {
+  if (dst_dt == DT_ACC && (!fuse || sum)) return cudaErrorInvalidValue;
   const Geo g =
       geometry(n, ih, iw, ic, oh, ow, kh, kw, sh, sw, ph, pw, false);
   KArgs a;
   Maps maps;
   if (int e = setup(a, maps, src, wmaps, g, oc0p, oc1p, fuse != 0, dst_dt,
                     sum, sum_dt, false))
-    return e;
+    return static_cast<cudaError_t>(e);
   a.bias0 = static_cast<const float*>(bias0);
   a.scale0 = static_cast<const float*>(scale0);
   a.bias1 = static_cast<const float*>(bias1);
@@ -1039,32 +1026,26 @@ extern "C" int df_conv(const void* src, const void* wmaps, const void* bias0,
   a.out_oc = fuse ? oc1 : oc0;
   a.relu0 = relu0; a.relu1 = relu1; a.down0 = down0; a.down1 = down1;
   a.has_bias0 = has_bias0; a.has_bias1 = has_bias1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fuse ? launch_dst<true>(maps, a, dst_dt, s)
-              : launch_dst<false>(maps, a, dst_dt, s);
+  return static_cast<cudaError_t>(
+      fuse ? launch_dst<true>(maps, a, dst_dt, stream)
+           : launch_dst<false>(maps, a, dst_dt, stream));
 }
 
-// Pool mode: the conv (+ sum) then a 2x2/s2 pool (avg, else max, its
-// integer average rounded down when pool_down). dst: NHWC (n, oh / 2,
-// ow / 2, oc0) of dst_dt; sum: null, or the NHWC (n, oh, ow, oc0) sum
-// operand of sum_dt; wmaps: df_conv_weight_maps' maps with pool set. oh and
-// ow even; an s32 average is refused, as pool2_fusable refuses it.
-extern "C" int df_convpool(const void* src, const void* wmaps,
-                           const void* bias0, const void* scale0, void* dst,
-                           const void* sum, int n, int ih, int iw, int ic,
-                           int oh, int ow, int kh, int kw, int sh, int sw,
-                           int ph, int pw, int oc0, int oc0p, int relu0,
-                           int down0, int has_bias0, int dst_dt, int sum_dt,
-                           int avg, int pool_down, float sum_scale,
-                           void* stream) {
+cudaError_t convpool_launch(
+    const void* src, const void* wmaps, const void* bias0,
+    const void* scale0, void* dst, const void* sum, int n, int ih, int iw,
+    int ic, int oh, int ow, int kh, int kw, int sh, int sw, int ph, int pw,
+    int oc0, int oc0p, int relu0, int down0, int has_bias0, int dst_dt,
+    int sum_dt, int avg, int pool_down, float sum_scale,
+    cudaStream_t stream) {
   if (oh % 2 || ow % 2 || (avg && dst_dt == DT_S32))
-    return (int)cudaErrorInvalidValue;
+    return cudaErrorInvalidValue;
   const Geo g = geometry(n, ih, iw, ic, oh, ow, kh, kw, sh, sw, ph, pw, true);
   KArgs a;
   Maps maps;
   if (int e = setup(a, maps, src, wmaps, g, oc0p, 0, false, dst_dt, sum,
                     sum_dt, true))
-    return e;
+    return static_cast<cudaError_t>(e);
   a.bias0 = static_cast<const float*>(bias0);
   a.scale0 = static_cast<const float*>(scale0);
   a.dst = dst;
@@ -1073,9 +1054,6 @@ extern "C" int df_convpool(const void* src, const void* wmaps,
   a.out_oc = oc0;
   a.relu0 = relu0; a.down0 = down0; a.has_bias0 = has_bias0;
   a.pool_avg = avg; a.pool_down = pool_down;
-  return launch_pool(maps, a, dst_dt, static_cast<cudaStream_t>(stream));
+  return static_cast<cudaError_t>(launch_pool(maps, a, dst_dt, stream));
 }
 
-extern "C" const char* df_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

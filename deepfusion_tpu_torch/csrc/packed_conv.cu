@@ -83,7 +83,7 @@
 // * B by TMA from K-major copies of the weights that PackedConvOp derives
 //   once (ops/layout.py:kmajor_weights): N rows x K bytes in the kernel's K
 //   order. Their tensor maps are encoded once per op
-//   (df_packed_weight_maps); the activations' maps are encoded per call.
+//   (packed_weight_maps); the activations' maps are encoded per call.
 //   cuTensorMapEncodeTiled is reached through cudaGetDriverEntryPoint, so
 //   the library needs no link to the driver library.
 // * The fused intermediate (M x oc0p u8) stays in shared memory in the
@@ -107,6 +107,7 @@
 #include <cstdint>
 #include <cstring>
 
+#include "packed_conv.h"
 #include "packed_dst.cuh"
 #include "requant.cuh"
 #include "wgmma_tma.cuh"
@@ -640,48 +641,31 @@ int launch(const Maps& maps, const KArgs& a, cudaStream_t stream) {
 
 }  // namespace
 
-// The weight maps of an op, encoded once (ops/packed.py caches them):
-// out[0, 3) the maps of w0k (oc0p rows x k0 bytes, the kernel's K order),
-// out[3, 6) those of w1k (oc1p rows x oc0p bytes) when w1k is not null.
-// out holds 6 * 128 bytes.
-extern "C" int df_packed_weight_maps(const void* w0k, int k0, int oc0p,
-                                     const void* w1k, int oc1p, void* out) {
+static_assert(PACKED_MAX_SRC == MAX_SRC, "packed_conv.h and packed_dst.cuh");
+
+cudaError_t packed_weight_maps(const void* w0k, int k0, int oc0p,
+                               const void* w1k, int oc1p, void* out) {
   CUtensorMap m[6] = {};
   if (!encode_weights(m, w0k, k0, oc0p, pass_width(oc0p)) ||
       (w1k && !encode_weights(m + 3, w1k, oc0p, oc1p, pass_width(oc1p))))
-    return (int)cudaErrorInvalidValue;
+    return cudaErrorInvalidValue;
   memcpy(out, m, sizeof(m));
-  return (int)cudaSuccess;
+  return cudaSuccess;
 }
 
-// in: n, noy, ow, n_src, cp[0..3], kh, kw, oc0p, oc1p, fuse, pool2; out:
-// the tile rows and columns, blocks, stages, shared bytes, nb0, nb1,
-// passes of each stage, K chunks per tap, K bytes per tap, tiles. Returns
-// 0, or non-zero if the kernel cannot run the op.
-extern "C" int df_packed_plan(const int* in, int* out) {
+cudaError_t packed_plan(const int* in, int* out) {
   Plan p;
   if (!make_plan(p, in[0], in[1], in[2], in[3], in + 4, in[8], in[9], in[10],
                  in[11], in[12] != 0, in[13] == 0))
-    return (int)cudaErrorInvalidValue;
-  const int v[] = {TR, TC, p.blocks, p.stages, p.smem, p.nb0, p.nb1,
-                   p.npass0, p.npass1, p.ch0.n, p.kp, p.tiles};
-  for (int i = 0; i < 12; ++i) out[i] = v[i];
-  return 0;
+    return cudaErrorInvalidValue;
+  const int v[PACKED_PLAN_OUT] = {TR, TC, p.blocks, p.stages, p.smem, p.nb0,
+                                  p.nb1, p.npass0, p.npass1, p.ch0.n, p.kp,
+                                  p.tiles};
+  memcpy(out, v, sizeof(v));
+  return cudaSuccess;
 }
 
-// srcs/src_cps: n_src input arrays and their lane counts (each a multiple
-// of 16, summing to icp, a multiple of 32); corr0 [oc0p] s32, 128 * sum(w0)
-// per channel; wmaps: df_packed_weight_maps' maps of the op's K-major
-// weights; the output lane count is oc0p unfused, oc1p fused.
-// sum: null, or a packed array of rows_sum rows with the output's iwp,
-// col_off and lanes and halo_sum >= halo_out. pool2: the output is the
-// pooled spec (rows_out / 2 rows of iwp / 2, halo_out / 2, col_off_out / 2);
-// oh, ow, halo_out, col_off_out and iwp must then be even. raw (fused, no
-// pool, no sum): dst is s32, the raw 1x1 accumulator. Row range: the image
-// rows [oy0, oy0 + noy) (noy >= 1; both even with pool2) are computed;
-// rows_out/halo_out describe the rows of dst (halo_out re-based, may be
-// negative) and rows_in/halo_in the input slice (halo_in re-based).
-extern "C" int df_packed_conv(
+cudaError_t packed_conv_launch(
     const void* const* srcs, const int* src_cps, int n_src, const void* corr0,
     const void* bias0, const void* scale0, const void* bias1,
     const void* scale1, const void* wmaps, void* dst, const void* sum, int n,
@@ -689,36 +673,38 @@ extern "C" int df_packed_conv(
     int halo_out, int col_off_out, int oh, int ow, int kh, int kw, int ph,
     int pw, int oc0, int oc0p, int oc1, int oc1p, int down0, int down1,
     int has_bias0, int has_bias1, int fuse, int rows_sum, int halo_sum,
-    int pool2, int raw, int oy0, int noy, float sum_scale, void* stream) {
+    int pool2, int raw, int oy0, int noy, float sum_scale,
+    cudaStream_t stream) {
   if (n_src < 1 || n_src > MAX_SRC || oc0p % 32 || oc0p <= 0 ||
       (fuse && (oc1p % 32 || oc1p <= 0)))
-    return (int)cudaErrorInvalidValue;
+    return cudaErrorInvalidValue;
   if (pool2 && (oh % 2 || ow % 2 || halo_out % 2 || col_off_out % 2 ||
                 iwp % 16 || oy0 % 2 || noy % 2))
-    return (int)cudaErrorInvalidValue;
-  if (raw && (!fuse || pool2 || sum)) return (int)cudaErrorInvalidValue;
-  if (noy < 1 || oy0 < 0 || oy0 + noy > oh) return (int)cudaErrorInvalidValue;
+    return cudaErrorInvalidValue;
+  if (raw && (!fuse || pool2 || sum)) return cudaErrorInvalidValue;
+  if (noy < 1 || oy0 < 0 || oy0 + noy > oh) return cudaErrorInvalidValue;
   // every flat slot index must fit an int
   if ((long long)n * rows_in * iwp >= (1LL << 31) ||
       (long long)n * rows_out * iwp >= (1LL << 31) ||
       (sum && ((long long)n * rows_sum * iwp >= (1LL << 31) ||
                halo_sum < halo_out || rows_sum - halo_sum < oh)))
-    return (int)cudaErrorInvalidValue;
+    return cudaErrorInvalidValue;
   int icp = 0;
   for (int s = 0; s < n_src; ++s) {
-    if (src_cps[s] <= 0 || src_cps[s] % 16) return (int)cudaErrorInvalidValue;
+    if (src_cps[s] <= 0 || src_cps[s] % 16) return cudaErrorInvalidValue;
     icp += src_cps[s];
   }
-  if (icp % 32) return (int)cudaErrorInvalidValue;
+  if (icp % 32) return cudaErrorInvalidValue;
   KArgs a = {};
   if (!make_plan(a.p, n, noy, ow, n_src, src_cps, kh, kw, oc0p, oc1p,
                  fuse != 0, !pool2 && !raw))
-    return (int)cudaErrorInvalidValue;
+    return cudaErrorInvalidValue;
   Maps maps;
   memset(&maps, 0, sizeof(maps));
   memcpy(maps.b0, wmaps, 3 * sizeof(CUtensorMap));
   if (fuse)
-    memcpy(maps.b1, static_cast<const CUtensorMap*>(wmaps) + 3,
+    memcpy(maps.b1,
+           static_cast<const char*>(wmaps) + 3 * sizeof(CUtensorMap),
            3 * sizeof(CUtensorMap));
   for (int s = 0; s < n_src; ++s) {
     const cuuint64_t cp = (cuuint64_t)src_cps[s];
@@ -728,7 +714,7 @@ extern "C" int df_packed_conv(
     for (int w = 0; w < 3; ++w) {
       const cuuint32_t box[4] = {32u << w, TC, TR, 1};
       if (a.p.ch0.uses(w, s) && !encode(&maps.a[s][w], srcs[s], 4, dims, strides, box))
-        return (int)cudaErrorInvalidValue;
+        return cudaErrorInvalidValue;
     }
   }
   a.corr0 = static_cast<const int32_t*>(corr0);
@@ -753,10 +739,14 @@ extern "C" int df_packed_conv(
   a.down0 = down0; a.down1 = down1;
   a.has_bias0 = has_bias0; a.has_bias1 = has_bias1;
   a.oy0 = oy0; a.noy = noy;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (raw) return launch<MODE_FUSE | MODE_RAW>(maps, a, s);
-  if (pool2)
-    return fuse ? launch<MODE_FUSE | MODE_POOL>(maps, a, s)
-                : launch<MODE_POOL>(maps, a, s);
-  return fuse ? launch<MODE_FUSE>(maps, a, s) : launch<0>(maps, a, s);
+  int e;
+  if (raw)
+    e = launch<MODE_FUSE | MODE_RAW>(maps, a, stream);
+  else if (pool2)
+    e = fuse ? launch<MODE_FUSE | MODE_POOL>(maps, a, stream)
+             : launch<MODE_POOL>(maps, a, stream);
+  else
+    e = fuse ? launch<MODE_FUSE>(maps, a, stream)
+             : launch<0>(maps, a, stream);
+  return static_cast<cudaError_t>(e);
 }

@@ -47,6 +47,8 @@
 #include <algorithm>
 #include <cstdint>
 
+#include "packed_sum_pool.h"
+
 namespace {
 
 constexpr int NT = 256;
@@ -176,34 +178,36 @@ int launch(const SumPoolArgs& a, cudaStream_t stream) {
 
 }  // namespace
 
-// ys/y_cps: n_y inputs joined along the lanes (each lane count a multiple
-// of 16, summing to cp; one input for the pool alone); r: the sum's right
-// operand with cp lanes (null without sum); rows, iwp: the inputs' padded
-// geometry.
-extern "C" int df_packed_sum_pool(const void* const* ys, const int* y_cps,
-                                  int n_y, const void* r, void* out, int n,
-                                  int rows, int iwp, int cp, int sum,
-                                  int pool, void* stream) {
+static_assert(SUM_POOL_MAX_IN == MAX_IN, "packed_sum_pool.h");
+
+cudaError_t packed_sum_pool_launch(const void* const* ys, const int* y_cps,
+                                   int n_y, const void* r, void* out, int n,
+                                   int rows, int iwp, int cp, bool sum,
+                                   bool pool, cudaStream_t stream) {
   if (n_y < 1 || n_y > MAX_IN || cp <= 0 || cp % 16 || (!sum && !pool) ||
       (sum && r == nullptr) || (pool && (rows % 2 || iwp % 2)) ||
       (!sum && n_y != 1))
-    return (int)cudaErrorInvalidValue;
+    return cudaErrorInvalidValue;
   SumPoolArgs a = {};
   int off = 0;
   for (int s = 0; s < n_y; ++s) {
-    if (y_cps[s] <= 0 || y_cps[s] % 16) return (int)cudaErrorInvalidValue;
+    if (y_cps[s] <= 0 || y_cps[s] % 16) return cudaErrorInvalidValue;
     a.y[s] = static_cast<const uint8_t*>(ys[s]);
     a.y_cp[s] = y_cps[s];
     a.y_off[s] = off;
     off += y_cps[s];
   }
-  if (off != cp) return (int)cudaErrorInvalidValue;
+  if (off != cp) return cudaErrorInvalidValue;
   a.n_y = n_y;
   a.r = static_cast<const uint8_t*>(r);
   a.out = static_cast<uint8_t*>(out);
   a.n = n; a.rows = rows; a.iwp = iwp; a.cp = cp;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sum && pool) return launch<true, true>(a, s);
-  if (sum) return launch<true, false>(a, s);
-  return launch_maxpool2(a.y[0], a.out, n, rows, iwp, cp, s);
+  int e;
+  if (sum && pool)
+    e = launch<true, true>(a, stream);
+  else if (sum)
+    e = launch<true, false>(a, stream);
+  else
+    e = launch_maxpool2(a.y[0], a.out, n, rows, iwp, cp, stream);
+  return static_cast<cudaError_t>(e);
 }

@@ -83,6 +83,7 @@
 #include <cstring>
 
 #include "packed_dst.cuh"
+#include "pair_conv.h"
 #include "requant.cuh"
 #include "wgmma_tma.cuh"
 
@@ -807,26 +808,23 @@ int make_args(KArgs& a, const void* const* ops_a, const void* const* ops_b,
 
 }  // namespace
 
-// src: the packed input (rows_in rows of iwp slots of ia's kp lanes);
-// ops_a/ops_b: each layer's six pointers corr0 (layer b's is not read),
-// bias0, scale0, bias1, scale1, wmaps (PackedConvOp's: the 6 maps of its
-// K-major weights, df_packed_weight_maps); ia/ib: each layer's 14 ints
-// (make_layer); geo: 17 ints (make_args). dst: the packed output (rows of
-// it), pooled when pool2.
-extern "C" int df_pair_conv(const void* src, const void* const* ops_a,
-                            const void* const* ops_b, void* dst,
-                            const int* ia, const int* ib, const int* geo,
-                            void* stream) {
+cudaError_t pair_conv_launch(const void* src, const void* const* ops_a,
+                             const void* const* ops_b, void* dst,
+                             const int* ia, const int* ib, const int* geo,
+                             cudaStream_t stream) {
   KArgs a;
-  if (int e = make_args(a, ops_a, ops_b, dst, ia, ib, geo)) return e;
+  if (int e = make_args(a, ops_a, ops_b, dst, ia, ib, geo))
+    return static_cast<cudaError_t>(e);
   Maps maps;
   memset(&maps, 0, sizeof(maps));
-  const CUtensorMap* wa = static_cast<const CUtensorMap*>(ops_a[5]);
-  const CUtensorMap* wb = static_cast<const CUtensorMap*>(ops_b[5]);
-  memcpy(maps.wa0, wa, 3 * sizeof(CUtensorMap));
-  memcpy(maps.wb0, wb, 3 * sizeof(CUtensorMap));
-  if (a.la.fuse) memcpy(maps.wa1, wa + 3, 3 * sizeof(CUtensorMap));
-  if (a.lb.fuse) memcpy(maps.wb1, wb + 3, 3 * sizeof(CUtensorMap));
+  // each layer's six maps, copied byte for byte from the host buffer
+  constexpr size_t MAP3 = 3 * sizeof(CUtensorMap);
+  const char* wa = static_cast<const char*>(ops_a[5]);
+  const char* wb = static_cast<const char*>(ops_b[5]);
+  memcpy(maps.wa0, wa, MAP3);
+  memcpy(maps.wb0, wb, MAP3);
+  if (a.la.fuse) memcpy(maps.wa1, wa + MAP3, MAP3);
+  if (a.lb.fuse) memcpy(maps.wb1, wb + MAP3, MAP3);
   const cuuint64_t cp = (cuuint64_t)a.la.kp;
   const cuuint64_t dims[4] = {cp, (cuuint64_t)a.iwp, (cuuint64_t)geo[2],
                               (cuuint64_t)geo[0]};
@@ -835,28 +833,27 @@ extern "C" int df_pair_conv(const void* src, const void* const* ops_a,
     const cuuint32_t box[4] = {32u << w, (cuuint32_t)a.p.mc,
                                (cuuint32_t)a.p.mr, 1};
     if (a.la.ch0.uses(w) && !encode(&maps.a[w], src, 4, dims, strides, box))
-      return (int)cudaErrorInvalidValue;
+      return cudaErrorInvalidValue;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int e;
   if (a.la.fuse)
-    return a.lb.fuse ? launch<true, true>(maps, a, s)
-                     : launch<true, false>(maps, a, s);
-  return a.lb.fuse ? launch<false, true>(maps, a, s)
-                   : launch<false, false>(maps, a, s);
+    e = a.lb.fuse ? launch<true, true>(maps, a, stream)
+                  : launch<true, false>(maps, a, stream);
+  else
+    e = a.lb.fuse ? launch<false, true>(maps, a, stream)
+                  : launch<false, false>(maps, a, stream);
+  return static_cast<cudaError_t>(e);
 }
 
-// The plan df_pair_conv would launch, for the record: out = the output
-// tile's rows and columns, split, tiles, blocks, ring stages, shared bytes,
-// the widest K chunk, the window's pixels (layer a's M rows of a tile),
-// layer a's m64 blocks per tile. No launch.
-extern "C" int df_pair_plan(const int* ia, const int* ib, const int* geo,
-                            int* out) {
-  const void* none[6] = {};
+cudaError_t pair_plan(const int* ia, const int* ib, const int* geo,
+                      int* out) {
+  const void* none[PAIR_LAYER_PTRS] = {};
   KArgs a;
-  if (int e = make_args(a, none, none, nullptr, ia, ib, geo)) return e;
+  if (int e = make_args(a, none, none, nullptr, ia, ib, geo))
+    return static_cast<cudaError_t>(e);
   const Plan& p = a.p;
-  const int v[] = {p.tr, TC, p.split, p.tiles, p.blocks, p.stages,
-                   p.smem, p.kcap, p.ma, p.mblk};
-  for (int i = 0; i < 10; ++i) out[i] = v[i];
-  return 0;
+  const int v[PAIR_PLAN_OUT] = {p.tr, TC, p.split, p.tiles, p.blocks,
+                                p.stages, p.smem, p.kcap, p.ma, p.mblk};
+  memcpy(out, v, sizeof(v));
+  return cudaSuccess;
 }

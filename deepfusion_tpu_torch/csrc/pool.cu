@@ -51,6 +51,7 @@
 #include <climits>
 #include <cstdint>
 
+#include "pool.h"
 #include "requant.cuh"
 
 namespace cg = cooperative_groups;
@@ -389,22 +390,24 @@ int launch_kind(const PoolArgs& a, int kind, cudaStream_t s) {
 
 }  // namespace
 
-extern "C" int df_pool(const void* x, void* out, int n, int ih, int iw, int c, int oh, int ow, int kh, int kw,
-                       int sh, int sw, int ph, int pw, int kind, int down,
-                       int dt, void* stream) {
-  if ((long long)n * oh * ow * c == 0) return (int)cudaSuccess;
+cudaError_t pool_launch(const void* x, void* out, int n, int ih, int iw,
+                        int c, int oh, int ow, int kh, int kw, int sh, int sw,
+                        int ph, int pw, int kind, int down, int dt,
+                        cudaStream_t stream) {
+  if ((long long)n * oh * ow * c == 0) return cudaSuccess;
   PoolArgs a = {};
   a.x = x;
   a.out = out;
   a.n = n; a.ih = ih; a.iw = iw; a.c = c; a.oh = oh; a.ow = ow;
   a.kh = kh; a.kw = kw; a.sh = sh; a.sw = sw; a.ph = ph; a.pw = pw;
   a.down = down;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int e;
   switch (dt) {
-    case DT_F32: return launch_kind<DT_F32>(a, kind, s);
-    case DT_S32: return launch_kind<DT_S32>(a, kind, s);
-    case DT_S8: return launch_kind<DT_S8>(a, kind, s);
-    case DT_U8: return launch_kind<DT_U8>(a, kind, s);
-    default: return (int)cudaErrorInvalidValue;
+    case DT_F32: e = launch_kind<DT_F32>(a, kind, stream); break;
+    case DT_S32: e = launch_kind<DT_S32>(a, kind, stream); break;
+    case DT_S8: e = launch_kind<DT_S8>(a, kind, stream); break;
+    case DT_U8: e = launch_kind<DT_U8>(a, kind, stream); break;
+    default: e = (int)cudaErrorInvalidValue;
   }
+  return static_cast<cudaError_t>(e);
 }

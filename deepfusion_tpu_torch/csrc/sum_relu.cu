@@ -17,6 +17,7 @@
 #include <climits>
 #include <cstdint>
 
+#include "pool.h"
 #include "requant.cuh"
 
 namespace {
@@ -93,22 +94,24 @@ __global__ void __launch_bounds__(NT) sum_relu_kernel(
 
 }  // namespace
 
-extern "C" int df_sum_relu(const void* a, const void* b, void* out,
-                           long long nbytes, int relu, int dt, void* stream) {
-  if (nbytes == 0) return (int)cudaSuccess;
+cudaError_t sum_relu_launch(const void* a, const void* b, void* out,
+                            long long nbytes, bool relu, int dt,
+                            cudaStream_t s) {
+  if (nbytes == 0) return cudaSuccess;
   long long blocks = (nbytes / 16 + NT - 1) / NT;
   if (blocks < 1) blocks = 1;
   if (blocks > 132 * 32) blocks = 132 * 32;
   const uint8_t* pa = static_cast<const uint8_t*>(a);
   const uint8_t* pb = static_cast<const uint8_t*>(b);
   uint8_t* po = static_cast<uint8_t*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int r = relu ? 1 : 0;
+  const unsigned g = (unsigned)blocks;
   switch (dt) {
-    case DT_F32: sum_relu_kernel<DT_F32><<<(unsigned)blocks, NT, 0, s>>>(pa, pb, po, nbytes, relu); break;
-    case DT_S32: sum_relu_kernel<DT_S32><<<(unsigned)blocks, NT, 0, s>>>(pa, pb, po, nbytes, relu); break;
-    case DT_S8: sum_relu_kernel<DT_S8><<<(unsigned)blocks, NT, 0, s>>>(pa, pb, po, nbytes, relu); break;
-    case DT_U8: sum_relu_kernel<DT_U8><<<(unsigned)blocks, NT, 0, s>>>(pa, pb, po, nbytes, relu); break;
-    default: return (int)cudaErrorInvalidValue;
+    case DT_F32: sum_relu_kernel<DT_F32><<<g, NT, 0, s>>>(pa, pb, po, nbytes, r); break;
+    case DT_S32: sum_relu_kernel<DT_S32><<<g, NT, 0, s>>>(pa, pb, po, nbytes, r); break;
+    case DT_S8: sum_relu_kernel<DT_S8><<<g, NT, 0, s>>>(pa, pb, po, nbytes, r); break;
+    case DT_U8: sum_relu_kernel<DT_U8><<<g, NT, 0, s>>>(pa, pb, po, nbytes, r); break;
+    default: return cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
 }

@@ -1,5 +1,8 @@
 // The kernel library's PyTorch operators, registered with the dispatcher
 // when the library is loaded (torch.ops.load_library, _build.kernels()).
+// This file declares the namespace (TORCH_LIBRARY) and its small kernels;
+// ops_conv.cpp and ops_packed.cpp add the conv and packed-domain families
+// (TORCH_LIBRARY_FRAGMENT).
 //
 //   deepfusion_torch::concat_relu(Tensor[] srcs, bool relu) -> (Tensor, int)
 //     launches concat_relu_kernel (concat.cu) through concat_relu_launch
@@ -7,42 +10,45 @@
 //     number of inputs (one launch per group of CONCAT_MAX_IN). Returns the
 //     output and the kernel launches the launcher made, which the Python
 //     wrapper adds to its launch count.
+//   deepfusion_torch::pool(Tensor x, int[] geo) -> Tensor
+//     launches pool.cu's kernels through pool_launch (pool.h): max /
+//     avg_inc / avg_exc pooling of NHWC x; geo = ih, iw, oh, ow, kh, kw, sh,
+//     sw, ph, pw, kind, down (ops/pool.py:_pool_geo).
+//   deepfusion_torch::sum_relu(Tensor a, Tensor b, bool relu) -> Tensor
+//     launches sum_relu_kernel (sum_relu.cu) through sum_relu_launch
+//     (pool.h): a + b (+ ReLU), saturating for integers.
 //
-// Host code only, the one source of the library that includes PyTorch's
-// headers: the .cu files keep out of them. _build.py compiles it with
-// PyTorch's include paths and the ABI torch was built with, and links the
-// library against libtorch. The checks, the alignment copy, the device
-// guard, the output's allocation, the stream lookup and the launch all run
-// here, behind the dispatcher, so a call pays none of them in Python.
+// Host code only: the .cu files keep out of PyTorch's headers, and this
+// side reaches them through their launchers' headers. _build.py compiles
+// every .cpp of csrc/ with PyTorch's include paths and the ABI torch was
+// built with, and links the library against libtorch. The checks, the
+// alignment copy, the device guard, the output's allocation, the stream
+// lookup and the launch all run here, behind the dispatcher, so a call pays
+// none of them in Python.
 //
-// Only a CUDA kernel is registered: a CPU tensor raises in the dispatcher.
-// The plain version for the CPU is ops/concat.py:concat_plain.
-#include <ATen/core/Tensor.h>
+// Only CUDA kernels are registered: a CPU tensor raises in the dispatcher.
+// The plain versions for the CPU are ops/concat.py:concat_plain and
+// ops/pool.py:pool_plain and sum_relu_plain.
 #include <ATen/ops/empty.h>
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
 #include <torch/library.h>
 
-#include <cstdint>
 #include <tuple>
-#include <vector>
 
 #include "concat.h"
+#include "pool.h"
+#include "torch_ops.h"
 
 namespace {
 
-int dt_code(at::ScalarType t) {
-  switch (t) {
-    case at::kFloat: return DT_F32;
-    case at::kInt: return DT_S32;
-    case at::kChar: return DT_S8;
-    case at::kByte: return DT_U8;
-    default: return 0;
-  }
-}
+using df_ops::aligned;
+using df_ops::check_launch;
+using df_ops::dt_code;
+using df_ops::narrow;
 
-std::tuple<at::Tensor, int64_t> concat_relu(at::TensorList srcs,
-                                             bool relu) {
+std::tuple<at::Tensor, int64_t> concat_relu_op(at::TensorList srcs,
+                                                bool relu) {
   const int64_t n_in = static_cast<int64_t>(srcs.size());
   TORCH_CHECK(n_in >= 1, "concat_relu takes at least one input");
   const at::Tensor& s0 = srcs[0];
@@ -51,7 +57,6 @@ std::tuple<at::Tensor, int64_t> concat_relu(at::TensorList srcs,
               s0.scalar_type());
   TORCH_CHECK(s0.dim() == 4, "concat_relu inputs must be NHWC, input 0 is ",
               s0.sizes());
-  // contiguous and 16-byte aligned, as the kernel's vector loads need
   std::vector<at::Tensor> ins(n_in);
   std::vector<const void*> ptrs(n_in);
   std::vector<int> row_bytes(n_in);
@@ -72,10 +77,7 @@ std::tuple<at::Tensor, int64_t> concat_relu(at::TensorList srcs,
     TORCH_CHECK(s.size(3) * elem % 16 == 0, "concat_relu: input ", i,
                 "'s pixel rows are ", s.size(3) * elem,
                 " bytes, not a multiple of 16");
-    ins[i] = s.contiguous();
-    if (reinterpret_cast<uintptr_t>(ins[i].data_ptr()) % 16 != 0) {
-      ins[i] = ins[i].clone(at::MemoryFormat::Contiguous);
-    }
+    ins[i] = aligned(s);
     ptrs[i] = ins[i].data_ptr();
     row_bytes[i] = static_cast<int>(s.size(3) * elem);
     oc += s.size(3);
@@ -88,21 +90,72 @@ std::tuple<at::Tensor, int64_t> concat_relu(at::TensorList srcs,
   at::Tensor out =
       at::empty({s0.size(0), s0.size(1), s0.size(2), oc}, s0.options());
   int launches = 0;
-  const cudaError_t rc = concat_relu_launch(
-      ptrs.data(), row_bytes.data(), static_cast<int>(n_in), out.data_ptr(),
-      pixels, relu, dt, c10::cuda::getCurrentCUDAStream().stream(),
-      &launches);
-  TORCH_CHECK(rc == cudaSuccess, "concat_relu_kernel: CUDA error ",
-              static_cast<int>(rc), " (", cudaGetErrorString(rc), ")");
+  check_launch(concat_relu_launch(
+                   ptrs.data(), row_bytes.data(), static_cast<int>(n_in),
+                   out.data_ptr(), pixels, relu, dt,
+                   c10::cuda::getCurrentCUDAStream().stream(), &launches),
+               "concat_relu_kernel");
   return {out, launches};
+}
+
+// ops/pool.py:_pool_geo's order
+enum PoolGeo { P_IH, P_IW, P_OH, P_OW, P_KH, P_KW, P_SH, P_SW, P_PH, P_PW,
+               P_KIND, P_DOWN, POOL_GEO_INTS };
+
+at::Tensor pool_op(const at::Tensor& x, at::IntArrayRef geo) {
+  const auto g = narrow(geo, POOL_GEO_INTS, "pool", "geo");
+  const int dt = dt_code(x.scalar_type());
+  TORCH_CHECK(dt != 0, "pool takes u8, s8, s32 or f32 tensors, got ",
+              x.scalar_type());
+  df_ops::check_tensor(x, x.device(), x.scalar_type(), 4, "pool", "x");
+  TORCH_CHECK(x.size(1) == g[P_IH] && x.size(2) == g[P_IW],
+              "pool: x is ", x.sizes(), ", the config's image ", g[P_IH],
+              " x ", g[P_IW]);
+  const int n = narrow(x.size(0), "pool", "batch");
+  const int c = narrow(x.size(3), "pool", "channels");
+  const at::Tensor xa = aligned(x);
+  c10::cuda::CUDAGuard guard(x.device());
+  at::Tensor out = at::empty({n, g[P_OH], g[P_OW], c}, x.options());
+  check_launch(pool_launch(xa.data_ptr(), out.data_ptr(), n, g[P_IH],
+                           g[P_IW], c, g[P_OH], g[P_OW], g[P_KH], g[P_KW],
+                           g[P_SH], g[P_SW], g[P_PH], g[P_PW], g[P_KIND],
+                           g[P_DOWN], dt,
+                           c10::cuda::getCurrentCUDAStream().stream()),
+               "pool_kernel");
+  return out;
+}
+
+at::Tensor sum_relu_op(const at::Tensor& a, const at::Tensor& b,
+                       bool relu) {
+  const int dt = dt_code(a.scalar_type());
+  TORCH_CHECK(dt != 0, "sum_relu takes u8, s8, s32 or f32 tensors, got ",
+              a.scalar_type());
+  TORCH_CHECK(a.is_cuda(), "sum_relu: a must be a CUDA tensor, it is on ",
+              a.device());
+  df_ops::check_tensor(b, a.device(), a.scalar_type(), a.dim(), "sum_relu",
+                       "b");
+  TORCH_CHECK(a.sizes() == b.sizes(), "sum_relu: a is ", a.sizes(),
+              ", b ", b.sizes());
+  const at::Tensor aa = aligned(a), ba = aligned(b);
+  c10::cuda::CUDAGuard guard(a.device());
+  at::Tensor out = at::empty(a.sizes(), a.options());
+  check_launch(sum_relu_launch(aa.data_ptr(), ba.data_ptr(), out.data_ptr(),
+                               a.numel() * a.element_size(), relu, dt,
+                               c10::cuda::getCurrentCUDAStream().stream()),
+               "sum_relu_kernel");
+  return out;
 }
 
 }  // namespace
 
 TORCH_LIBRARY(deepfusion_torch, m) {
   m.def("concat_relu(Tensor[] srcs, bool relu) -> (Tensor, int)");
+  m.def("pool(Tensor x, int[] geo) -> Tensor");
+  m.def("sum_relu(Tensor a, Tensor b, bool relu) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(deepfusion_torch, CUDA, m) {
-  m.impl("concat_relu", &concat_relu);
+  m.impl("concat_relu", &concat_relu_op);
+  m.impl("pool", &pool_op);
+  m.impl("sum_relu", &sum_relu_op);
 }

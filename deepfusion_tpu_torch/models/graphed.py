@@ -5,7 +5,8 @@ The PyTorch counterpart of the JAX package's ``jax.jit(net.__call__)`` and
 ResFusionNet and VGGFusion). ``jax.jit`` traces a forward once per input
 shape and replays the compiled program; ``GraphedForward`` captures the
 forward in a CUDA graph once per input shape and dtype and replays it, so a
-call skips the wrappers' host work (checks, allocations, ctypes launches).
+call skips the wrappers' host work (checks, allocations, the ops' launch
+paths).
 
 A first call at a shape, on the card: a static input on the model's device
 takes the caller's input; the forward runs twice on a side stream (this

@@ -39,14 +39,6 @@ def concat_plain(srcs: Sequence[torch.Tensor], cfg: ConcatConfig):
     return relu(out, cfg.dt) if cfg.with_relu else out
 
 
-@functools.cache
-def concat_op():
-    """The registered op's overload, looked up once the kernel library
-    (which registers it) is loaded."""
-    _build.kernels()
-    return torch.ops.deepfusion_torch.concat_relu.default
-
-
 def concat_cuda(srcs: Sequence[torch.Tensor], cfg: ConcatConfig):
     """Launch ``concat_relu_kernel`` on the current stream through the
     registered op, which checks the inputs (at least one, one dtype,
@@ -54,7 +46,7 @@ def concat_cuda(srcs: Sequence[torch.Tensor], cfg: ConcatConfig):
     and aligned, allocates the output and launches the kernel once per
     group of up to 16 inputs, all in C++. The op returns the launches it
     made, and each of them is counted."""
-    out, launches = concat_op()(srcs, cfg.with_relu)
+    out, launches = _build.op("concat_relu")(srcs, cfg.with_relu)
     for _ in range(launches):
         _build.count_launch("concat_relu")
     return out

@@ -18,8 +18,6 @@ the kernel's tiling for a call without launching it.
 """
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -35,7 +33,7 @@ from ..utils.persist import dump_config, load_config
 from . import layout
 from .requant import requant, requant_to_u8, sum_term
 
-_ACC1 = 0  # df_conv's dst code of the raw 1x1 accumulator (csrc/conv.cu)
+_ACC1 = 0  # the dst code of the raw 1x1 accumulator (csrc/conv.h DT_ACC)
 _MAX_STRIDE = 8   # TMA's element stride: larger strides are gathered away
 
 
@@ -117,6 +115,7 @@ class ConvOp(nn.Module):
         self.register_buffer("w1k", layout.dense_kmajor_weights(
             self.w1, 1, 1) if cfg.fuse_conv1x1 else None, persistent=False)
         self._wmaps = None   # (device pointers, their encoded tensor maps)
+        self._geo = conv_geo(cfg)
 
     def with_geometry(self, **kw) -> "ConvOp":
         """The op at another geometry (``replace_geometry``: image and
@@ -239,43 +238,31 @@ def _gather_stride(x: torch.Tensor, dim: int, o: int, k: int, s: int,
     return F.pad(x, pad).index_select(dim, idx)
 
 
-def _kernel_input(op, src: torch.Tensor):
-    """The input and geometry (ih, iw, ic, sh, sw, ph, pw) the kernel runs:
-    ic padded to 16 with zero channels (exact), strides above TMA's 8
-    gathered away (``_gather_stride``)."""
-    cfg = op.cfg
-    ih, iw, ic = cfg.ih, cfg.iw, cfg.ic
+def _kernel_geometry(cfg: ConvConfig) -> tuple:
+    """The geometry (ih, iw, ic, sh, sw, ph, pw) the kernel runs: ic padded
+    to 16 with zero channels (exact), strides above TMA's 8 gathered away
+    (``_kernel_src``)."""
+    ih, iw, ic = cfg.ih, cfg.iw, round_up(cfg.ic, 16)
     sh, sw, ph, pw = cfg.sh, cfg.sw, cfg.ph, cfg.pw
-    if ic % 16:
-        ic = round_up(ic, 16)
-        src = F.pad(src, (0, ic - cfg.ic))
     if sh > _MAX_STRIDE:
         check(cfg.kh <= _MAX_STRIDE, "stride and kernel height both above 8")
-        src = _gather_stride(src, 1, cfg.oh, cfg.kh, sh, ph)
         ih, sh, ph = cfg.oh * cfg.kh, cfg.kh, 0
     if sw > _MAX_STRIDE:
         check(cfg.kw <= _MAX_STRIDE, "stride and kernel width both above 8")
-        src = _gather_stride(src, 2, cfg.ow, cfg.kw, sw, pw)
         iw, sw, pw = cfg.ow * cfg.kw, cfg.kw, 0
-    return src, (ih, iw, ic, sh, sw, ph, pw)
+    return ih, iw, ic, sh, sw, ph, pw
 
 
-def _weight_maps(op, pool: bool = False):
-    """The TMA tensor maps of the op's K-major weights (a ``ConvOp``, or
-    with ``pool`` a ``ConvPoolOp``, whose w0 boxes are at most 64 rows),
-    encoded once for their device pointers (``df_conv_weight_maps``)."""
-    w1k = op.w1k
-    key = (op.w0k.data_ptr(), None if w1k is None else w1k.data_ptr())
-    if op._wmaps is None or op._wmaps[0] != key:
-        buf = (ctypes.c_ubyte * (6 * 128))()
-        rc = _build.kernels().df_conv_weight_maps(
-            op.w0k.data_ptr(), op.w0k.shape[1], op.w0k.shape[0],
-            None if w1k is None else w1k.data_ptr(),
-            0 if w1k is None else w1k.shape[1],
-            0 if w1k is None else w1k.shape[0], int(pool), buf)
-        _build.check(rc, "df_conv_weight_maps")
-        op._wmaps = (key, buf)
-    return op._wmaps[1]
+def _kernel_src(cfg: ConvConfig, src: torch.Tensor) -> torch.Tensor:
+    """The input of ``_kernel_geometry``: ic padded to 16 with zero
+    channels, strides above 8 gathered (``_gather_stride``)."""
+    if cfg.ic % 16:
+        src = F.pad(src, (0, round_up(cfg.ic, 16) - cfg.ic))
+    if cfg.sh > _MAX_STRIDE:
+        src = _gather_stride(src, 1, cfg.oh, cfg.kh, cfg.sh, cfg.ph)
+    if cfg.sw > _MAX_STRIDE:
+        src = _gather_stride(src, 2, cfg.ow, cfg.kw, cfg.sw, cfg.pw)
+    return src
 
 
 def _ocps(cfg: ConvConfig):
@@ -283,67 +270,70 @@ def _ocps(cfg: ConvConfig):
             layout.conv_ocp(cfg.oc1x1) if cfg.fuse_conv1x1 else 0)
 
 
+def conv_geo(cfg: ConvConfig) -> tuple:
+    """The op's ints as ``torch.ops.deepfusion_torch.conv_fused`` takes
+    them (``csrc/ops_conv.cpp``, ``ConvGeo``), computed once per op: the
+    kernel's geometry, channels and lanes, the epilogue's flags, the dst
+    and sum dtype codes."""
+    oc0p, oc1p = _ocps(cfg)
+    ih, iw, ic, sh, sw, ph, pw = _kernel_geometry(cfg)
+    return (ih, iw, ic, cfg.oh, cfg.ow, cfg.kh, cfg.kw, sh, sw, ph, pw,
+            cfg.oc, oc0p, cfg.oc1x1, oc1p, int(cfg.conv0_relu),
+            int(cfg.conv1_relu), int(cfg.conv0_round == round_mode.down),
+            int(cfg.conv1_round == round_mode.down),
+            int(cfg.conv0_with_bias), int(cfg.conv1_with_bias),
+            int(cfg.fuse_conv1x1), cfg.dst_dt.value,
+            cfg.sum_dt.value if cfg.with_sum else 0)
+
+
+def _weight_maps(op, pool: bool = False) -> torch.Tensor:
+    """The TMA tensor maps of the op's K-major weights (a ``ConvOp``, or
+    with ``pool`` a ``ConvPoolOp``, whose w0 boxes are at most 64 rows), a
+    CPU uint8 tensor (6, 128) encoded once for their device pointers
+    (``torch.ops.deepfusion_torch.conv_weight_maps``); a copy of the op on
+    other buffers (``dp_shard``) encodes its own."""
+    w1k = op.w1k
+    key = (op.w0k.data_ptr(), None if w1k is None else w1k.data_ptr())
+    if op._wmaps is None or op._wmaps[0] != key:
+        op._wmaps = (key, _build.op("conv_weight_maps")(op.w0k, w1k, pool))
+    return op._wmaps[1]
+
+
 def conv_plan(op, n: int, emit_acc1: bool = False,
               pool: bool = False) -> dict:
     """The conv kernel's plan for a call at batch n, without launching
-    (``df_conv_plan``, the launcher's own planning): rows of M per tile
-    (128, or 64 with each consumer warpgroup on half the lanes: split), the
-    tile's output rows x columns, the tiles, the blocks (at most one per SM
-    of the H100's 132, each walking its share of the work items: a tile
-    with all its passes, in pool mode a pass of a tile), ring stages, shared
-    bytes, lanes per pass and passes of each stage, K chunks and bytes per
-    tap, whether the 1x1 runs as a GEMM over the flattened pixels, and the
-    work items. ``pool``: the plan of the pool mode (``ConvPoolOp``)."""
+    (``torch.ops.deepfusion_torch.conv_plan``, the launcher's own
+    planning): rows of M per tile (128, or 64 with each consumer warpgroup
+    on half the lanes: split), the tile's output rows x columns, the tiles,
+    the blocks (at most one per SM of the H100's 132, each walking its
+    share of the work items: a tile with all its passes, in pool mode a
+    pass of a tile), ring stages, shared bytes, lanes per pass and passes
+    of each stage, K chunks and bytes per tap, whether the 1x1 runs as a
+    GEMM over the flattened pixels, and the work items. ``pool``: the plan
+    of the pool mode (``ConvPoolOp``)."""
     cfg = op.cfg
-    _, (ih, iw, ic, sh, sw, ph, pw) = _kernel_input(
-        op, torch.empty((0, cfg.ih, cfg.iw, cfg.ic), dtype=torch.uint8))
+    ih, iw, ic, sh, sw, ph, pw = _kernel_geometry(cfg)
     vals = [n, ih, iw, ic, cfg.oh, cfg.ow, cfg.kh, cfg.kw, sh, sw, ph, pw,
             *_ocps(cfg), int(cfg.fuse_conv1x1),
             _ACC1 if emit_acc1 else cfg.dst_dt.value, int(pool)]
     keys = ("tile_m", "tile_rows", "tile_cols", "split", "tiles", "blocks",
             "stages", "smem_bytes", "nb0", "nb1", "passes0", "passes1",
             "chunks_per_tap", "k_per_tap", "gemm", "items")
-    out = (ctypes.c_int * len(keys))()
-    rc = _build.kernels().df_conv_plan((ctypes.c_int * len(vals))(*vals),
-                                       out)
-    _build.check(rc, "df_conv_plan")
-    return dict(zip(keys, list(out)))
+    return dict(zip(keys, _build.op("conv_plan")(vals)))
 
 
 def conv_cuda(op: ConvOp, src: torch.Tensor, sum_src=None,
               emit_acc1: bool = False) -> torch.Tensor:
     """Launch ``conv_fused_kernel`` on the current stream (with
-    ``emit_acc1``, its raw 1x1 accumulator store)."""
+    ``emit_acc1``, its raw 1x1 accumulator store) through
+    ``torch.ops.deepfusion_torch.conv_fused``, which checks the arguments,
+    aligns the inputs, allocates the output and launches in C++."""
     cfg = op.cfg
-    check(src.is_cuda, "conv_cuda needs a CUDA tensor")
-    src, (ih, iw, ic, sh, sw, ph, pw) = _kernel_input(op, src)
-    src = _build.aligned(src)
-    if sum_src is not None:
-        sum_src = _build.aligned(sum_src)
-    n = src.shape[0]
-    out = torch.empty((n, cfg.oh, cfg.ow, cfg.out_oc),
-                      dtype=torch.int32 if emit_acc1 else cfg.dst_dt.torch,
-                      device=src.device)
     fuse = cfg.fuse_conv1x1
-    oc0p, oc1p = _ocps(cfg)
-    with torch.cuda.device(src.device):
-        rc = _build.kernels().df_conv(
-            src.data_ptr(), _weight_maps(op), op.bias0.data_ptr(),
-            op.scale0.data_ptr(),
-            op.bias1.data_ptr() if fuse else None,
-            op.scale1.data_ptr() if fuse else None,
-            out.data_ptr(),
-            None if sum_src is None else sum_src.data_ptr(),
-            n, ih, iw, ic, cfg.oh, cfg.ow, cfg.kh, cfg.kw, sh, sw, ph, pw,
-            cfg.oc, oc0p, cfg.oc1x1, oc1p,
-            int(cfg.conv0_relu), int(cfg.conv1_relu),
-            int(cfg.conv0_round == round_mode.down),
-            int(cfg.conv1_round == round_mode.down),
-            int(cfg.conv0_with_bias), int(cfg.conv1_with_bias),
-            int(fuse), _ACC1 if emit_acc1 else cfg.dst_dt.value,
-            cfg.sum_dt.value if cfg.with_sum else 0, cfg.sum_scale,
-            _build.stream_of(src))
-    _build.check(rc, "conv_fused_kernel")
+    out = _build.op("conv_fused")(
+        _kernel_src(cfg, src), _weight_maps(op), op.bias0, op.scale0,
+        op.bias1 if fuse else None, op.scale1 if fuse else None, sum_src,
+        op._geo, cfg.sum_scale, emit_acc1)
     _build.count_launch("conv_fused", *(("acc1",) if emit_acc1 else ()))
     return out
 

@@ -34,8 +34,8 @@ from ..utils.device import as_tensor, default_device
 from ..utils.logger import check, check_eq
 from ..utils.persist import dump_configs, load_configs
 from . import layout
-from .conv import (_kernel_input, _weight_maps, check_sum_src, conv_acc,
-                   conv_plan)
+from .conv import (_kernel_geometry, _kernel_src, _weight_maps,
+                   check_sum_src, conv_acc, conv_plan)
 from .requant import requant_presat, round_f32, saturate, sum_term
 
 _OPERAND_KEYS = ("w0", "bias0", "scale0")
@@ -80,6 +80,7 @@ class ConvPoolOp(nn.Module):
             self.w0, cfg.kh, cfg.kw), persistent=False)
         self.w1k = None
         self._wmaps = None   # (device pointers, their encoded tensor maps)
+        self._geo = convpool_geo(cfg, pc)
 
     @property
     def device(self) -> torch.device:
@@ -153,30 +154,27 @@ def convpool_plan(op: ConvPoolOp, n: int) -> dict:
     return conv_plan(op, n, pool=True)
 
 
-def convpool_cuda(op: ConvPoolOp, src: torch.Tensor,
-                  sum_src=None) -> torch.Tensor:
-    """Launch ``convpool_kernel`` on the current stream."""
-    cfg, pc = op.cfg, op.pc
-    check(src.is_cuda, "convpool_cuda needs a CUDA tensor")
-    src, (ih, iw, ic, sh, sw, ph, pw) = _kernel_input(op, src)
-    src = _build.aligned(src)
-    if sum_src is not None:
-        sum_src = _build.aligned(sum_src)
-    n = src.shape[0]
-    out = torch.empty((n, cfg.oh // 2, cfg.ow // 2, cfg.oc),
-                      dtype=cfg.dst_dt.torch, device=src.device)
-    with torch.cuda.device(src.device):
-        rc = _build.kernels().df_convpool(
-            src.data_ptr(), _weight_maps(op, pool=True), op.bias0.data_ptr(),
-            op.scale0.data_ptr(), out.data_ptr(),
-            None if sum_src is None else sum_src.data_ptr(),
-            n, ih, iw, ic, cfg.oh, cfg.ow, cfg.kh, cfg.kw,
-            sh, sw, ph, pw, cfg.oc, layout.conv_ocp(cfg.oc),
-            int(cfg.conv0_relu), int(cfg.conv0_round == round_mode.down),
+def convpool_geo(cfg: ConvConfig, pc: PoolConfig) -> tuple:
+    """The op's ints as ``torch.ops.deepfusion_torch.convpool`` takes them
+    (``csrc/ops_conv.cpp``, ``ConvPoolGeo``), computed once per op: the
+    kernel's geometry, channels and lanes, the epilogue's flags, the dst and
+    sum dtype codes, the pool's kind and round mode."""
+    ih, iw, ic, sh, sw, ph, pw = _kernel_geometry(cfg)
+    return (ih, iw, ic, cfg.oh, cfg.ow, cfg.kh, cfg.kw, sh, sw, ph, pw,
+            cfg.oc, layout.conv_ocp(cfg.oc), int(cfg.conv0_relu),
+            int(cfg.conv0_round == round_mode.down),
             int(cfg.conv0_with_bias), cfg.dst_dt.value,
             cfg.sum_dt.value if cfg.with_sum else 0, int(pc.kind != "max"),
-            int(pc.round == round_mode.down), cfg.sum_scale,
-            _build.stream_of(src))
-    _build.check(rc, "convpool_kernel")
+            int(pc.round == round_mode.down))
+
+
+def convpool_cuda(op: ConvPoolOp, src: torch.Tensor,
+                  sum_src=None) -> torch.Tensor:
+    """Launch ``convpool_kernel`` on the current stream through
+    ``torch.ops.deepfusion_torch.convpool``, which checks the arguments,
+    aligns the inputs, allocates the output and launches in C++."""
+    out = _build.op("convpool")(
+        _kernel_src(op.cfg, src), _weight_maps(op, pool=True), op.bias0,
+        op.scale0, sum_src, op._geo, op.cfg.sum_scale)
     _build.count_launch("convpool")
     return out

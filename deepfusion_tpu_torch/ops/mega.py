@@ -40,7 +40,6 @@ in rows where the JAX package counts row tiles and passes ``offs``), and
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import numpy as np
@@ -161,6 +160,8 @@ class PackedConvPairOp(nn.Module):
         self.cfg_a, self.cfg_b = cfg_a, cfg_b
         self.sin, self.smid, self.sout = sin, smid, sout
         self.pool2 = bool(pool2)
+        self._layers = (_layer_ints(cfg_a), _layer_ints(cfg_b))
+        self._geo = pair_geo(self)
         return dataclasses.replace(smid, halo=max(smid.halo, cfg_b.ph))
 
     @property
@@ -323,64 +324,60 @@ def pair_conv_plain(op: PackedConvPairOp, arr, *, rows=None,
                     rows)
 
 
-def _stage_ints(pop: PackedConvOp):
+def _layer_ints(cfg: ConvConfig) -> tuple:
     """One layer's ints as ``csrc/pair_conv.cu:make_layer`` reads them (the
     fifth, K bytes per tap, is the lanes of the layer's one input)."""
-    cfg = pop.cfg
     fuse = cfg.fuse_conv1x1
-    v = [cfg.kh, cfg.kw, cfg.ph, cfg.pw, layout.conv_icp(cfg.ic), cfg.oc,
-         layout.packed_cp(cfg.oc), cfg.oc1x1,
-         layout.packed_cp(cfg.oc1x1) if fuse else 0,
-         int(cfg.conv0_round == round_mode.down),
-         int(cfg.conv1_round == round_mode.down),
-         int(cfg.conv0_with_bias), int(cfg.conv1_with_bias), int(fuse)]
-    return (ctypes.c_int * len(v))(*v)
+    return (cfg.kh, cfg.kw, cfg.ph, cfg.pw, layout.conv_icp(cfg.ic), cfg.oc,
+            layout.packed_cp(cfg.oc), cfg.oc1x1,
+            layout.packed_cp(cfg.oc1x1) if fuse else 0,
+            int(cfg.conv0_round == round_mode.down),
+            int(cfg.conv1_round == round_mode.down),
+            int(cfg.conv0_with_bias), int(cfg.conv1_with_bias), int(fuse))
 
 
-def _stage_ptrs(pop: PackedConvOp):
-    """One layer's pointers as ``df_pair_conv`` reads them: corr0, bias0,
-    scale0, bias1, scale1 (null when not fused), the tensor maps of its
-    K-major weights."""
-    fuse = pop.cfg.fuse_conv1x1
-    ptrs = [pop.corr0.data_ptr(), pop.bias0.data_ptr(), pop.scale0.data_ptr(),
-            pop.bias1.data_ptr() if fuse else None,
-            pop.scale1.data_ptr() if fuse else None,
-            ctypes.cast(_weight_maps(pop), ctypes.c_void_p).value]
-    return (ctypes.c_void_p * 6)(*ptrs)
+def pair_geo(op: PackedConvPairOp) -> tuple:
+    """The pair's ints as ``torch.ops.deepfusion_torch.pair_conv`` takes
+    them (``csrc/ops_packed.cpp``, ``PairGeo``), computed once per op: the
+    specs' row stride and columns, the intermediate's and the output's
+    image sizes, the fused pool."""
+    a, b = op.cfg_a, op.cfg_b
+    return (op.sin.iwp, op.sin.col_off, a.oh, a.ow, b.oh, b.ow,
+            op.sout.col_off, int(op.pool2))
 
 
-def _geo_ints(op: PackedConvPairOp, n: int, rows_in=None, row0_off=0,
-              rows=None, mid_bounds=None):
-    """``csrc/pair_conv.cu:make_args``'s 17 ints: the input slice's rows
-    and the output range's, their halos re-based."""
-    sin, sout = op.sin, op.sout
-    u0, u1, oy0, oy1 = op._row_plan(rows)
+def _pair_rows(op: PackedConvPairOp, plan, row0_off: int = 0,
+               mid_bounds=None) -> tuple:
+    """What depends on the call (``PairRows``), from the range's
+    ``_row_plan``: the input slice's halo, the output range's rows and halo
+    (both re-based), its first image row and row count, and the
+    intermediate's bounds."""
+    u0, u1, oy0, oy1 = plan
     lo, hi = op._bounds(mid_bounds)
-    v = [n, sin.iwp, sin.rows if rows_in is None else rows_in,
-         sin.halo - row0_off, sin.col_off, op.cfg_a.oh, op.cfg_a.ow,
-         op.cfg_b.oh, op.cfg_b.ow, u1 - u0, sout.halo - u0, sout.col_off,
-         int(op.pool2), oy0, oy1 - oy0, lo, hi]
-    return (ctypes.c_int * len(v))(*v)
+    return (op.sin.halo - row0_off, u1 - u0, op.sout.halo - u0, oy0,
+            oy1 - oy0, lo, hi)
 
 
 def pair_conv_cuda(op: PackedConvPairOp, arr, *, rows=None,
                    row0_off: int = 0, mid_bounds=None) -> torch.Tensor:
-    """Launch ``pair_conv_kernel`` on the current stream."""
-    arr = _build.aligned(arr)
-    n = arr.shape[0]
+    """Launch ``pair_conv_kernel`` on the current stream through
+    ``torch.ops.deepfusion_torch.pair_conv``, which checks, aligns,
+    allocates and launches in C++."""
     so = op.sout_final
-    u0, u1, oy0, oy1 = op._row_plan(rows)
-    out = torch.empty((n, (u1 - u0) // (2 if op.pool2 else 1) * so.iwp,
-                       so.cp), dtype=torch.int8, device=arr.device)
+    plan = op._row_plan(rows)
+    u0, u1, oy0, oy1 = plan
     if oy1 == oy0:   # a range of pad rows only: nothing to compute
-        return out.fill_(-128)
-    with torch.cuda.device(out.device):
-        rc = _build.kernels().df_pair_conv(
-            arr.data_ptr(), _stage_ptrs(op.op_a), _stage_ptrs(op.op_b),
-            out.data_ptr(), _stage_ints(op.op_a), _stage_ints(op.op_b),
-            _geo_ints(op, n, arr.shape[1] // op.sin.iwp, row0_off, rows,
-                      mid_bounds), _build.stream_of(out))
-    _build.check(rc, "pair_conv_kernel")
+        return torch.full((arr.shape[0], (u1 - u0) // (2 if op.pool2 else 1)
+                           * so.iwp, so.cp), -128, dtype=torch.int8,
+                          device=arr.device)
+    a, b = op.op_a, op.op_b
+    fa, fb = a.cfg.fuse_conv1x1, b.cfg.fuse_conv1x1
+    out = _build.op("pair_conv")(
+        arr, a.corr0, a.bias0, a.scale0, a.bias1 if fa else None,
+        a.scale1 if fa else None, _weight_maps(a), b.bias0, b.scale0,
+        b.bias1 if fb else None, b.scale1 if fb else None, _weight_maps(b),
+        op._layers[0], op._layers[1], op._geo,
+        _pair_rows(op, plan, row0_off, mid_bounds))
     modes = (("rows",) if rows is not None or row0_off else ()) + (
         ("bounds",) if mid_bounds is not None else ())
     _build.count_launch("pair_conv", *modes)
@@ -389,24 +386,26 @@ def pair_conv_cuda(op: PackedConvPairOp, arr, *, rows=None,
 
 def pair_conv_plan(op: PackedConvPairOp, n: int) -> dict:
     """The plan the kernel launches at batch n (the whole output), as
-    ``df_pair_plan`` (the launcher's own planning) reports it; needs the
-    kernel library: the output tile (tr x 8 pixels; split: 8 rows, each
-    consumer warpgroup on half of layer b's lanes), the tiles, the blocks
-    (at most one per SM of the H100's 132, each walking its share of the
-    tiles), ring stages, shared bytes, the widest K chunk, the window of
-    intermediate pixels layer a computes per tile and its m64 blocks; then
-    layer a's M rows per intermediate pixel (``layer_a_ratio``: the halo of
-    every tile and the last block's rows past the window), the share of
-    layer b's M rows that are no output pixel (tiles past the image's
-    edge), and the MACs executed relative to the pair's own."""
+    ``torch.ops.deepfusion_torch.pair_plan`` (the launcher's own planning)
+    reports it; needs the kernel library: the output tile (tr x 8 pixels;
+    split: 8 rows, each consumer warpgroup on half of layer b's lanes), the
+    tiles, the blocks (at most one per SM of the H100's 132, each walking
+    its share of the tiles), ring stages, shared bytes, the widest K chunk,
+    the window of intermediate pixels layer a computes per tile and its m64
+    blocks; then layer a's M rows per intermediate pixel
+    (``layer_a_ratio``: the halo of every tile and the last block's rows
+    past the window), the share of layer b's M rows that are no output
+    pixel (tiles past the image's edge), and the MACs executed relative to
+    the pair's own."""
+    iwp, col_in, mh, mw, oh, ow, col_out, pool2 = op._geo
+    halo_in, rows_out, halo_out, oy0, noy, lo, hi = _pair_rows(
+        op, op._row_plan(None))
+    # the whole geometry in pair_conv.cu:make_args's order
+    geo = (n, iwp, op.sin.rows, halo_in, col_in, mh, mw, oh, ow, rows_out,
+           halo_out, col_out, pool2, oy0, noy, lo, hi)
     keys = ("tile_rows", "tile_cols", "split", "tiles", "blocks", "stages",
             "smem_bytes", "k_chunk", "window_pixels", "layer_a_blocks")
-    res = (ctypes.c_int * len(keys))()
-    rc = _build.kernels().df_pair_plan(_stage_ints(op.op_a),
-                                       _stage_ints(op.op_b),
-                                       _geo_ints(op, n), res)
-    _build.check(rc, "pair_conv plan")
-    plan = dict(zip(keys, list(res)))
+    plan = dict(zip(keys, _build.op("pair_plan")(*op._layers, geo)))
     a, b = op.cfg_a, op.cfg_b
 
     def macs(cfg, pixels):

@@ -58,7 +58,6 @@ input.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import json
 
@@ -302,30 +301,19 @@ def packed_sum_pool_plain(ys, r, pool: bool, rows: int,
 def packed_sum_pool_cuda(ys, r, pool: bool, rows: int,
                          iwp: int) -> torch.Tensor:
     """Launch on the current stream ``packed_maxpool2_kernel`` for the pool
-    alone (one input), else ``packed_sum_pool_kernel``. The inputs go in
-    as ``kernel_groups`` joins them; lanes past a multiple of 16 are padded
-    with -128 (in r too) and cut from the result."""
+    alone (one input), else ``packed_sum_pool_kernel``, through
+    ``torch.ops.deepfusion_torch.packed_sum_pool``, which checks, aligns,
+    allocates and launches in C++. The inputs go in as ``kernel_groups``
+    joins them; lanes past a multiple of 16 are padded with -128 (in r too)
+    and cut from the result."""
     check(r is not None or len(ys) == 1,
           "the packed pool without a sum takes one input")
     cp_all = sum(y.shape[-1] for y in ys)
     pad = -cp_all % LANE_UNIT
     ys = join_groups(ys, kernel_groups([y.shape[-1] for y in ys]), pad)
-    ys = [_build.aligned(y) for y in ys]
-    if r is not None:
-        r = _build.aligned(F.pad(r, (0, pad), value=-128) if pad else r)
-    n = ys[0].shape[0]
-    cp = cp_all + pad
-    rows_o, iwp_o = (rows // 2, iwp // 2) if pool else (rows, iwp)
-    out = torch.empty((n, rows_o * iwp_o, cp), dtype=torch.int8,
-                      device=ys[0].device)
-    ptrs = (ctypes.c_void_p * len(ys))(*[y.data_ptr() for y in ys])
-    cps = (ctypes.c_int * len(ys))(*[y.shape[-1] for y in ys])
-    with torch.cuda.device(out.device):
-        rc = _build.kernels().df_packed_sum_pool(
-            ptrs, cps, len(ys), None if r is None else r.data_ptr(),
-            out.data_ptr(), n, rows, iwp, cp, int(r is not None), int(pool),
-            _build.stream_of(out))
-    _build.check(rc, "packed_sum_pool_kernel")
+    if r is not None and pad:
+        r = F.pad(r, (0, pad), value=-128)
+    out = _build.op("packed_sum_pool")(ys, r, rows, iwp, pool)
     _build.count_launch("packed_sum_pool")
     return out[..., :cp_all].contiguous() if pad else out
 
@@ -566,6 +554,8 @@ class PackedConvOp(nn.Module):
         for k, t in derived.items():
             self.register_buffer(k, t, persistent=False)
         self._wmaps = None   # (device pointers, their encoded tensor maps)
+        self._cps = tuple(s.cp for s in self.kernel_sins)
+        self._geo = packed_geo(self)
 
     @property
     def device(self) -> torch.device:
@@ -852,20 +842,33 @@ def packed_conv_plain(op: PackedConvOp, arrs, sum_arr=None, *,
                     so, rows)
 
 
-def _weight_maps(op: PackedConvOp):
-    """The TMA tensor maps of the op's K-major weights, encoded once for
-    their device pointers (``df_packed_weight_maps``)."""
+def _weight_maps(op: PackedConvOp) -> torch.Tensor:
+    """The TMA tensor maps of the op's K-major weights, a CPU uint8 tensor
+    (6, 128) encoded once for their device pointers
+    (``torch.ops.deepfusion_torch.packed_weight_maps``); a copy of the op on
+    other buffers (``dp_shard``) encodes its own."""
     w1k = op.w1k
     key = (op.w0k.data_ptr(), None if w1k is None else w1k.data_ptr())
     if op._wmaps is None or op._wmaps[0] != key:
-        buf = (ctypes.c_ubyte * (6 * 128))()
-        rc = _build.kernels().df_packed_weight_maps(
-            op.w0k.data_ptr(), op.w0k.shape[1], op.w0k.shape[0],
-            None if w1k is None else w1k.data_ptr(),
-            0 if w1k is None else w1k.shape[0], buf)
-        _build.check(rc, "df_packed_weight_maps")
-        op._wmaps = (key, buf)
+        op._wmaps = (key, _build.op("packed_weight_maps")(op.w0k, w1k))
     return op._wmaps[1]
+
+
+def packed_geo(op: PackedConvOp) -> tuple:
+    """The op's ints as ``torch.ops.deepfusion_torch.packed_conv`` takes
+    them (``csrc/ops_packed.cpp``, ``PackedGeo``), computed once per op:
+    the specs' geometry, the conv's, channels and lanes, the epilogue's
+    flags, the sum operand's rows and halo, the fused pool."""
+    cfg, sin, sout, ss = op.cfg, op.sin, op.sout, op.ssum
+    fuse = cfg.fuse_conv1x1
+    return (sin.iwp, sin.col_off, sout.col_off, cfg.oh, cfg.ow, cfg.kh,
+            cfg.kw, cfg.ph, cfg.pw, cfg.oc, layout.packed_cp(cfg.oc),
+            cfg.oc1x1, layout.packed_cp(cfg.oc1x1) if fuse else 0,
+            int(cfg.conv0_round == round_mode.down),
+            int(cfg.conv1_round == round_mode.down),
+            int(cfg.conv0_with_bias), int(cfg.conv1_with_bias), int(fuse),
+            0 if ss is None else ss.rows, 0 if ss is None else ss.halo,
+            int(op.pool2))
 
 
 def packed_conv_plan(op: PackedConvOp, n: int, rows=None) -> dict:
@@ -873,8 +876,9 @@ def packed_conv_plan(op: PackedConvOp, n: int, rows=None) -> dict:
     ``rows``), without launching: its output tile, the tiles, the blocks
     (at most one per SM of the H100's 132, each walking its share of the
     tiles), ring stages, shared bytes, lanes per pass and passes of each
-    stage, K chunks and bytes per tap (``df_packed_plan``, the launcher's
-    own planning)."""
+    stage, K chunks and bytes per tap
+    (``torch.ops.deepfusion_torch.packed_plan``, the launcher's own
+    planning)."""
     cfg = op.cfg
     _, _, oy0, oy1 = op._row_plan(rows)
     ks = op.kernel_sins
@@ -887,11 +891,7 @@ def packed_conv_plan(op: PackedConvOp, n: int, rows=None) -> dict:
     keys = ("tile_rows", "tile_cols", "blocks", "stages", "smem_bytes",
             "nb0", "nb1", "passes0", "passes1", "chunks_per_tap",
             "k_per_tap", "tiles")
-    out = (ctypes.c_int * len(keys))()
-    rc = _build.kernels().df_packed_plan((ctypes.c_int * len(vals))(*vals),
-                                         out)
-    _build.check(rc, "df_packed_plan")
-    return dict(zip(keys, list(out)))
+    return dict(zip(keys, _build.op("packed_plan")(vals)))
 
 
 def packed_conv_cuda(op: PackedConvOp, arrs, sum_arr=None, *,
@@ -899,43 +899,27 @@ def packed_conv_cuda(op: PackedConvOp, arrs, sum_arr=None, *,
                      row0_off: int = 0) -> torch.Tensor:
     """Launch ``packed_conv_kernel`` on the current stream, on the inputs
     joined as ``op.kernel_groups`` says (the inputs themselves where each
-    group holds one)."""
-    cfg, sin, sout, ss = op.cfg, op.sin, op.sout, op.ssum
+    group holds one), through ``torch.ops.deepfusion_torch.packed_conv``,
+    which checks, aligns, allocates and launches in C++. Only the output's
+    row range and the input slice depend on the call."""
+    cfg = op.cfg
     u0, u1, oy0, oy1 = op._row_plan(rows)
-    arrs = [_build.aligned(a) for a in join_groups(arrs, op.kernel_groups)]
-    if sum_arr is not None:
-        sum_arr = _build.aligned(sum_arr)
-    n = arrs[0].shape[0]
-    so = op.sout_final
-    nrows = (u1 - u0) // (2 if op.pool2 else 1)
-    out = torch.empty((n, nrows * so.iwp, so.cp),
-                      dtype=torch.int32 if emit_acc1 else torch.int8,
-                      device=arrs[0].device)
     if oy1 == oy0:   # a range of pad rows only: nothing to compute
-        return out.fill_(0 if emit_acc1 else -128)
+        so = op.sout_final
+        nrows = (u1 - u0) // (2 if op.pool2 else 1)
+        return torch.full((arrs[0].shape[0], nrows * so.iwp, so.cp),
+                          0 if emit_acc1 else -128,
+                          dtype=torch.int32 if emit_acc1 else torch.int8,
+                          device=arrs[0].device)
+    if len(arrs) != len(op.kernel_groups):
+        arrs = join_groups(arrs, op.kernel_groups)
     fuse = cfg.fuse_conv1x1
-    ptrs = (ctypes.c_void_p * len(arrs))(*[a.data_ptr() for a in arrs])
-    cps = (ctypes.c_int * len(arrs))(*[s.cp for s in op.kernel_sins])
-    with torch.cuda.device(out.device):
-        rc = _build.kernels().df_packed_conv(
-            ptrs, cps, len(arrs), op.corr0.data_ptr(), op.bias0.data_ptr(),
-            op.scale0.data_ptr(),
-            op.bias1.data_ptr() if fuse else None,
-            op.scale1.data_ptr() if fuse else None,
-            _weight_maps(op), out.data_ptr(),
-            None if sum_arr is None else sum_arr.data_ptr(),
-            n, arrs[0].shape[1] // sin.iwp, sin.iwp, sin.halo - row0_off,
-            sin.col_off, u1 - u0, sout.halo - u0, sout.col_off, cfg.oh,
-            cfg.ow, cfg.kh, cfg.kw, cfg.ph, cfg.pw, cfg.oc,
-            layout.packed_cp(cfg.oc), cfg.oc1x1,
-            layout.packed_cp(cfg.oc1x1) if fuse else 0,
-            int(cfg.conv0_round == round_mode.down),
-            int(cfg.conv1_round == round_mode.down),
-            int(cfg.conv0_with_bias), int(cfg.conv1_with_bias), int(fuse),
-            0 if ss is None else ss.rows, 0 if ss is None else ss.halo,
-            int(op.pool2), int(emit_acc1), oy0, oy1 - oy0, cfg.sum_scale,
-            _build.stream_of(out))
-    _build.check(rc, "packed_conv_kernel")
+    out = _build.op("packed_conv")(
+        arrs, op._cps, op.corr0, op.bias0, op.scale0,
+        op.bias1 if fuse else None, op.scale1 if fuse else None,
+        _weight_maps(op), sum_arr, op._geo,
+        (op.sin.halo - row0_off, u1 - u0, op.sout.halo - u0, oy0, oy1 - oy0),
+        emit_acc1, cfg.sum_scale)
     modes = (("acc1",) if emit_acc1 else ()) + (
         ("rows",) if rows is not None or row0_off else ())
     _build.count_launch("packed_conv", *modes)

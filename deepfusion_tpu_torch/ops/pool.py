@@ -89,18 +89,19 @@ def pool_plain(x: torch.Tensor, pc: PoolConfig, dt: dtype) -> torch.Tensor:
     return saturate(round_f32(val, pc.round), dt)
 
 
+def _pool_geo(pc: PoolConfig) -> tuple:
+    """The pool's ints as ``torch.ops.deepfusion_torch.pool`` takes them
+    (``csrc/torch_ops.cpp``, ``PoolGeo``)."""
+    return (pc.ih, pc.iw, pc.oh, pc.ow, pc.kh, pc.kw, pc.sh, pc.sw, pc.ph,
+            pc.pw, _POOL_KINDS[pc.kind], int(pc.round == round_mode.down))
+
+
 def pool_cuda(x: torch.Tensor, pc: PoolConfig, dt: dtype) -> torch.Tensor:
-    """Launch ``pool_kernel`` on the current stream."""
-    x = _build.aligned(x)
-    n, _, _, c = x.shape
-    out = torch.empty((n, pc.oh, pc.ow, c), dtype=dt.torch, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _build.kernels().df_pool(
-            x.data_ptr(), out.data_ptr(), n, pc.ih, pc.iw, c, pc.oh, pc.ow, pc.kh, pc.kw, pc.sh, pc.sw,
-            pc.ph, pc.pw, _POOL_KINDS[pc.kind],
-            int(pc.round == round_mode.down), dt.value,
-            _build.stream_of(x))
-    _build.check(rc, "pool_kernel")
+    """Launch ``pool_kernel`` (or its vector or cluster-split kind) on the
+    current stream through ``torch.ops.deepfusion_torch.pool``, which
+    checks, aligns, allocates and launches in C++; the output has x's
+    dtype, ``dt``."""
+    out = _build.op("pool")(x, _pool_geo(pc))
     _build.count_launch("pool")
     return out
 
@@ -138,15 +139,10 @@ def sum_relu_plain(a: torch.Tensor, b: torch.Tensor, dt: dtype,
 
 def sum_relu_cuda(a: torch.Tensor, b: torch.Tensor, dt: dtype,
                   with_relu: bool) -> torch.Tensor:
-    """Launch ``sum_relu_kernel`` on the current stream."""
-    a, b = _build.aligned(a), _build.aligned(b)
-    out = torch.empty_like(a)
-    with torch.cuda.device(a.device):
-        rc = _build.kernels().df_sum_relu(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            a.numel() * dt.size, int(with_relu), dt.value,
-            _build.stream_of(a))
-    _build.check(rc, "sum_relu_kernel")
+    """Launch ``sum_relu_kernel`` on the current stream through
+    ``torch.ops.deepfusion_torch.sum_relu``, which checks, aligns,
+    allocates and launches in C++; ``dt`` is the operands' dtype."""
+    out = _build.op("sum_relu")(a, b, with_relu)
     _build.count_launch("sum_relu")
     return out
 

@@ -1,19 +1,23 @@
 """The boundaries of the kernel library, and the operands it is given.
 
-No CUDA here: these hold, on the CPU, what the kernels' C entry points and
-the library's registered operators expect of the Python side. Every
-argument list that ``_build`` declares must match the parameter count of
-the ``extern "C"`` function in ``csrc/*.cu`` (ctypes would pass a
-misdeclared call silently); the schema that ``csrc/torch_ops.cpp``
-registers must take the arguments its wrapper passes; the one source that
-includes PyTorch's headers must be compiled with PyTorch's ABI, include
+No CUDA here: these hold, on the CPU, what the library's registered
+operators expect of the Python side. Every schema that ``csrc/*.cpp``
+registers (``m.def``) is defined here with a CPU kernel that records its
+arguments and bound by the dispatcher to the call that its real wrapper
+makes, argument by argument against the configuration (the ints of an
+``int[]`` in the order of the C++ enum that reads them); the C++ function
+that each ``m.impl`` names must take the schema's arguments, by name, in
+the same order and of matching kinds; each op has one kernel, CUDA where it
+takes a tensor, and no C entry point or ``ctypes`` is left. The sources
+that include PyTorch's headers must be compiled with PyTorch's ABI, include
 paths and libraries, and the library rebuilt for another PyTorch; the
-library is built, loaded and declared once per process however many
-threads ask for it; and the K-major weights that ``ConvPoolOp`` derives for
-the pool mode of the dense conv kernel must be ``ConvOp``'s and survive
+library is built and loaded once per process however many threads ask for
+it; and the K-major weights that ``ConvPoolOp`` derives for the pool mode
+of the dense conv kernel must be ``ConvOp``'s and survive
 ``save``/``load``.
 """
-import ctypes
+import ast
+import importlib
 import inspect
 import re
 import threading
@@ -25,68 +29,18 @@ import pytest
 import torch
 from torch.utils import cpp_extension
 
+import deepfusion_tpu_torch
 from deepfusion_tpu_torch import _build
 from deepfusion_tpu_torch.config import ConcatConfig, ConvConfig, PoolConfig
-from deepfusion_tpu_torch.ops.concat import (concat_cuda, concat_op,
-                                             concat_plain)
+from deepfusion_tpu_torch.ops import layout
+from deepfusion_tpu_torch.ops.concat import concat_cuda, concat_plain
 from deepfusion_tpu_torch.ops.conv import ConvOp
 from deepfusion_tpu_torch.ops.convpool import ConvPoolOp
+from deepfusion_tpu_torch.types import dtype, round_mode
 
-
-def _c_params(name: str):
-    """The parameter list of `extern "C" int name(...)` in csrc/*.cu, one
-    string per parameter; None if no source defines it."""
-    found = []
-    for f in sorted(_build.CSRC.glob("*.cu")):
-        src = f.read_text()
-        for m in re.finditer(r'extern "C" int ' + re.escape(name) + r"\(",
-                             src):
-            depth, i = 1, m.end()
-            while depth:
-                depth += {"(": 1, ")": -1}.get(src[i], 0)
-                i += 1
-            body = " ".join(src[m.end():i - 1].split())
-            found.append([p.strip() for p in body.split(",") if p.strip()])
-    assert len(found) <= 1, f"{name} defined {len(found)} times"
-    return found[0] if found else None
-
-
-@pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
-def test_signature_matches_the_c_entry_point(name):
-    params = _c_params(name)
-    assert params is not None, f'no extern "C" int {name}( in csrc/*.cu'
-    assert len(params) == len(_build._SIGNATURES[name]), (name, params)
-
-
-def _ctype_of(param: str):
-    """The ctypes type a C parameter must be passed as."""
-    if "*" in param:
-        return "pointer"
-    kind = param.rsplit(" ", 1)[0].replace("const ", "")
-    return {"int": ctypes.c_int, "long long": ctypes.c_longlong,
-            "float": ctypes.c_float}[kind]
-
-
-@pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
-def test_argument_types_match_the_c_parameters(name):
-    """Pointers as pointers (a ctypes int would cut them to 32 bits), ints,
-    64-bit ints and floats as themselves."""
-    for param, arg in zip(_c_params(name), _build._SIGNATURES[name]):
-        want = _ctype_of(param)
-        if want == "pointer":
-            assert arg is ctypes.c_void_p or issubclass(
-                arg, ctypes._Pointer), (name, param, arg)
-        else:
-            assert arg is want, (name, param, arg)
-
-
-def test_every_c_entry_point_is_declared():
-    """Each extern "C" function of the library but the error string has
-    its argument types in _build._SIGNATURES."""
-    names = set()
-    for f in _build.CSRC.glob("*.cu"):
-        names |= set(re.findall(r'extern "C" int (\w+)\(', f.read_text()))
-    assert names == set(_build._SIGNATURES)
+# the op modules (ops/__init__ exports functions named conv and pool)
+C, CP, M, P, PL = (importlib.import_module(f"deepfusion_tpu_torch.ops.{m}")
+                   for m in ("conv", "convpool", "mega", "packed", "pool"))
 
 
 def _pool_case(oc, ic, k, dst="u8", kind="max"):
@@ -125,64 +79,29 @@ def test_convpool_kmajor_weights_survive_save_load(tmp_path):
     assert set(back.state_dict()) == {"w0", "bias0", "scale0"}
 
 
-class _FakeFn:
-    """An entry point of the fake library; counts its declarations."""
-
-    def __init__(self, lib):
-        self._lib = lib
-
-    def __setattr__(self, key, value):
-        if key == "argtypes":
-            self._lib.declared += 1
-        object.__setattr__(self, key, value)
-
-    def __call__(self, rc):
-        return b"fake error %d" % rc
-
-
-class _FakeLib:
-    def __init__(self):
-        self.declared = 0
-        self.fns = {}
-
-    def __getattr__(self, name):
-        return self.fns.setdefault(name, _FakeFn(self))
-
-
 @pytest.fixture
 def fake_library(monkeypatch):
-    """_build with no library loaded yet, a build() that takes a while, a
-    torch.ops.load_library that registers nothing and a ctypes.CDLL that
-    hands out fake libraries, all counting their calls (`order`: "load"
-    and "open" as they came)."""
-    calls = {"build": 0, "load": 0, "open": 0, "libs": [], "order": []}
+    """_build with no library loaded yet, a build() that takes a while and
+    a torch.ops.load_library that registers nothing, both counting their
+    calls (`loaded`: the paths loaded, in order)."""
+    calls = {"build": 0, "loaded": []}
 
     def build():
         calls["build"] += 1
         time.sleep(0.05)   # long enough for a second thread to arrive
         return _build.BUILD_DIR / "libdf_kernels-fake.so"
 
-    def load_library(path):
-        calls["load"] += 1
-        calls["order"].append(("load", path))
-
-    def cdll(path):
-        calls["open"] += 1
-        calls["order"].append(("open", path))
-        lib = _FakeLib()
-        calls["libs"].append(lib)
-        return lib
-
     monkeypatch.setattr(_build, "_lib", None)
     monkeypatch.setattr(_build, "build", build)
-    monkeypatch.setattr(torch.ops, "load_library", load_library)
-    monkeypatch.setattr(ctypes, "CDLL", cdll)
+    monkeypatch.setattr(torch.ops, "load_library",
+                        lambda path: calls["loaded"].append(path))
     return calls
 
 
 def test_library_is_built_opened_and_declared_once(fake_library):
     """Many kernels() calls, two threads among them asking at the same
-    moment, build, open and declare the library once and all get it."""
+    moment, build the library and load it (its operators registered) once,
+    and all get its path."""
     got, start = [], threading.Barrier(2)
 
     def ask():
@@ -194,57 +113,498 @@ def test_library_is_built_opened_and_declared_once(fake_library):
     for t in threads:
         t.join()
     got += [_build.kernels() for _ in range(1000)]
-    assert fake_library["build"] == 1 and fake_library["open"] == 1
-    lib = fake_library["libs"][0]
-    assert all(g is lib for g in got)
-    assert lib.declared == len(_build._SIGNATURES) + 1   # + df_error_string
+    path = _build.BUILD_DIR / "libdf_kernels-fake.so"
+    assert fake_library["build"] == 1
+    assert fake_library["loaded"] == [str(path)]
+    assert all(g is got[0] for g in got) and got[0] == path
 
 
-def test_ops_library_is_loaded_once_before_ctypes_opens_it(fake_library):
-    """Two threads' first kernels() load the library's operators exactly
-    once, before ctypes opens the same file (one dlopen handle, so
-    TORCH_LIBRARY registers once)."""
-    start = threading.Barrier(2)
+# ---------------------------------------------- the registered operators
 
-    def ask():
-        start.wait()
-        _build.kernels()
-    threads = [threading.Thread(target=ask) for _ in range(2)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    _build.kernels()
-    path = str(_build.BUILD_DIR / "libdf_kernels-fake.so")
-    assert fake_library["load"] == 1
-    assert fake_library["order"] == [("load", path), ("open", path)]
+# every op of torch.ops.deepfusion_torch, as the wrappers call them
+OPS = ("concat_relu", "pool", "sum_relu", "conv_fused", "convpool",
+       "conv_weight_maps", "conv_plan", "packed_conv", "packed_weight_maps",
+       "packed_plan", "packed_sum_pool", "pair_conv", "pair_plan")
 
 
-def test_check_reports_through_the_loaded_library(fake_library):
-    lib = _build.kernels()
-    _build.check(0, "none")
-    with pytest.raises(RuntimeError,
-                       match=r"k7: CUDA error 9 \(fake error 9\)"):
-        _build.check(9, "k7")
-    assert _build.kernels() is lib
-    assert fake_library["build"] == 1 and fake_library["open"] == 1
+def _cpp_sources() -> dict:
+    return {f.name: f.read_text() for f in sorted(_build.CSRC.glob("*.cpp"))}
 
 
-def _torch_ops_source() -> str:
-    return (_build.CSRC / "torch_ops.cpp").read_text()
+def _schemas() -> dict:
+    """Every ``m.def`` of csrc/*.cpp, its adjacent string literals joined:
+    op name -> schema."""
+    out = {}
+    for src in _cpp_sources().values():
+        for m in re.finditer(r'm\.def\(((?:\s*"[^"]*")+)\s*\);', src):
+            schema = "".join(re.findall(r'"([^"]*)"', m.group(1)))
+            assert schema.split("(")[0] not in out, schema
+            out[schema.split("(")[0]] = schema
+    return out
+
+
+def _impls() -> list:
+    """Every ``m.impl`` of csrc/*.cpp: (dispatch key, op, C++ function)."""
+    out = []
+    for src in _cpp_sources().values():
+        for blk in re.finditer(r"TORCH_LIBRARY_IMPL\(deepfusion_torch, "
+                               r"(\w+), m\) \{(.*?)\n\}", src, re.S):
+            out += [(blk.group(1), name, fn) for name, fn in re.findall(
+                r'm\.impl\("(\w+)", &(\w+)\);', blk.group(2))]
+    return out
+
+
+def _takes_tensors(schema) -> bool:
+    return any("Tensor" in str(a.type) for a in schema.arguments)
+
+
+def _kernel_key(name: str) -> str:
+    """The dispatch key of an op's one kernel: CUDA where it takes a tensor;
+    an op of ints alone has no backend to dispatch on."""
+    parsed = torch._C.parse_schema(_schemas()[name])
+    return "CUDA" if _takes_tensors(parsed) else "CompositeExplicitAutograd"
 
 
 def test_torch_ops_registers_what_the_wrappers_call():
-    """One namespace, the schema of each op, and a CUDA kernel (and no
-    other) for each: what ``torch.ops.deepfusion_torch.<op>`` names."""
-    src = _torch_ops_source()
-    assert re.findall(r"TORCH_LIBRARY\((\w+), m\)", src) == [
-        "deepfusion_torch"]
-    assert re.findall(r"TORCH_LIBRARY_IMPL\((\w+), (\w+), m\)", src) == [
-        ("deepfusion_torch", "CUDA")]
-    defs = re.findall(r'm\.def\("(\w+)\(', src)
-    impls = re.findall(r'm\.impl\("(\w+)"', src)
-    assert defs == impls == ["concat_relu"]
+    """One namespace, declared once (torch_ops.cpp) and added to by the
+    other sources, the schema of each op the wrappers call and nothing
+    else: what ``torch.ops.deepfusion_torch.<op>`` names."""
+    srcs = _cpp_sources()
+    libs = {name: re.findall(r"TORCH_LIBRARY\((\w+), m\)", src)
+            for name, src in srcs.items()}
+    assert libs.pop("torch_ops.cpp") == ["deepfusion_torch"]
+    assert all(v == [] for v in libs.values())
+    for name, src in srcs.items():
+        if name != "torch_ops.cpp" and "m.def(" in src:
+            assert re.findall(r"TORCH_LIBRARY_FRAGMENT\((\w+), m\)",
+                              src) == ["deepfusion_torch"]
+    assert sorted(_schemas()) == sorted(OPS)
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_every_op_has_one_kernel(name):
+    """Exactly one ``m.impl`` per op: a CUDA kernel for an op that takes a
+    tensor (a CPU tensor raises in the dispatcher: no CPU kernel is
+    registered, no path falls back), CompositeExplicitAutograd for a plan
+    (ints in, ints out)."""
+    impls = [(key, fn) for key, op, fn in _impls() if op == name]
+    assert [key for key, _ in impls] == [_kernel_key(name)]
+
+
+def test_no_c_entry_point_is_left():
+    """The kernels are reached through their ops alone: no source of csrc/
+    exports a C function."""
+    for f in sorted(_build.CSRC.iterdir()):
+        assert 'extern "C"' not in f.read_text(), f.name
+
+
+def test_no_module_imports_ctypes():
+    root = Path(deepfusion_tpu_torch.__file__).parent
+    for f in sorted(root.rglob("*.py")):
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(n.split(".")[0] == "ctypes" for n in names), f
+
+
+# the C++ type of each schema type, for arguments and for returns
+_CPP_ARG = {"Tensor": "const at::Tensor&",
+            "Optional[Tensor]": "const std::optional<at::Tensor>&",
+            "List[Tensor]": "at::TensorList", "List[int]": "at::IntArrayRef",
+            "int": "int64_t", "float": "double", "bool": "bool"}
+_CPP_RETURN = {("Tensor",): "at::Tensor",
+               ("List[int]",): "std::vector<int64_t>",
+               ("Tensor", "int"): "std::tuple<at::Tensor, int64_t>"}
+
+
+def _cpp_function(fn: str):
+    """(return type, [(type, name), ...]) of the definition of the C++
+    function `fn` in csrc/*.cpp."""
+    found = []
+    for src in _cpp_sources().values():
+        for m in re.finditer(r"^(\S[^\n(]*?)\s+" + re.escape(fn) + r"\(",
+                             src, re.M):
+            depth, i = 1, m.end()
+            while depth:
+                depth += {"(": 1, ")": -1}.get(src[i], 0)
+                i += 1
+            params = " ".join(src[m.end():i - 1].split())
+            found.append((m.group(1).strip(), [
+                tuple(p.strip().rsplit(" ", 1)) for p in params.split(",")]))
+    assert len(found) == 1, (fn, found)
+    return found[0]
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_cpp_function_takes_the_schema_arguments(name):
+    """The C++ function that ``m.impl`` binds takes the schema's arguments
+    in the same order, under the same names and of the kinds the
+    dispatcher unboxes them to (a schema float is a double, an int an
+    int64_t), and returns the schema's returns."""
+    parsed = torch._C.parse_schema(_schemas()[name])
+    (fn,) = [fn for _, op, fn in _impls() if op == name]
+    ret, params = _cpp_function(fn)
+    assert [(_CPP_ARG[str(a.type)], a.name) for a in parsed.arguments] == \
+        params
+    assert _CPP_RETURN[tuple(str(r.type) for r in parsed.returns)] == ret
+
+
+def _enum_fields(enum: str) -> list:
+    """The fields of the C++ enum `enum` of csrc/*.cpp, which name the ints
+    of an int[] argument in order: each name lower-cased without its
+    prefix, the count (``..._INTS``) left out."""
+    for src in _cpp_sources().values():
+        m = re.search(r"enum " + enum + r" \{([^}]*)\};", src)
+        if m:
+            names = [n.strip() for n in m.group(1).split(",") if n.strip()]
+            return [n.split("_", 1)[1].lower() for n in names
+                    if not n.endswith("_INTS")]
+    raise AssertionError(f"no enum {enum} in csrc/*.cpp")
+
+
+# the enum that orders each int[] argument of the launch ops
+ENUMS = {("pool", "geo"): "PoolGeo", ("conv_fused", "geo"): "ConvGeo",
+         ("convpool", "geo"): "ConvPoolGeo",
+         ("packed_conv", "geo"): "PackedGeo",
+         ("packed_conv", "rows"): "PackedRows",
+         ("pair_conv", "layer_a"): "PairLayer",
+         ("pair_conv", "layer_b"): "PairLayer",
+         ("pair_conv", "geo"): "PairGeo", ("pair_conv", "rows"): "PairRows"}
+
+
+@pytest.fixture
+def recorded_ops(monkeypatch):
+    """Every schema of csrc/*.cpp defined with a kernel (CPU, or for a plan
+    CompositeExplicitAutograd) that records its arguments by name and what
+    it returned: op name -> [{"args": {...}, "out": ...}, ...]. The
+    wrappers find these ops as they find the library's."""
+    calls = {name: [] for name in OPS}
+    monkeypatch.setattr(_build, "kernels", lambda: None)
+    _build.op.cache_clear()
+
+    def kernel(name, parsed):
+        def run(*args):
+            if name.endswith("_plan"):
+                out = list(range(100, 120))
+            elif name.endswith("_weight_maps"):
+                out = torch.zeros((6, 128), dtype=torch.uint8)
+            else:
+                out = torch.empty(0)
+            rec = {"args": dict(zip([a.name for a in parsed.arguments],
+                                    args)), "out": out}
+            calls[name].append(rec)
+            return (out, 1) if name == "concat_relu" else out
+        return run
+
+    try:
+        with torch.library._scoped_library("deepfusion_torch", "DEF") as lib:
+            for name, schema in _schemas().items():
+                parsed = torch._C.parse_schema(schema)
+                lib.define(schema)
+                lib.impl(name, kernel(name, parsed),
+                         "CPU" if _takes_tensors(parsed)
+                         else "CompositeExplicitAutograd")
+            yield calls
+    finally:
+        _build.op.cache_clear()
+
+
+def _u8(rng, shape):
+    return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
+
+
+def _s8(rng, shape):
+    return torch.from_numpy(rng.integers(-128, 128, shape, dtype=np.int8))
+
+
+# The cases below give neighbouring ints of each int[] different values
+# where the op allows it, so that two fields read in each other's place
+# show.
+
+def _fused_conv():
+    """A fused conv with every flag away from its default: ic 20 (padded to
+    32), a 3x5 kernel, strides (2, 1), conv0 round-down with bias, conv1
+    without, s8 dst, an s32 sum operand."""
+    rng = np.random.default_rng(21)
+    w = rng.integers(-128, 128, (20, 20, 3, 5)).astype(np.int8)
+    w1 = rng.integers(-128, 128, (36, 20, 1, 1)).astype(np.int8)
+    b = rng.integers(-500, 500, (20,)).astype(np.int32)
+    cfg = ConvConfig.make((2, 9, 8, 20), w.shape, b.dtype, (2, 1), (1, 0),
+                          (2, 5, 4, 36), "s8", conv0_relu=True,
+                          conv0_scales=(1 / 3000,), conv0_round="down",
+                          wei1x1_shape=w1.shape, conv1_scales=(1 / 700,),
+                          sum_dt="s32", sum_scale=0.375)
+    return ConvOp(cfg, w, b, w1, device="cpu"), rng
+
+
+def _packed_conv():
+    """A fused packed conv of two inputs (32 and 16 channels), a 3x5
+    kernel, conv0 round-down with bias, conv1 without, a u8 sum operand of
+    a deeper halo than the output's."""
+    rng = np.random.default_rng(22)
+    w = rng.integers(-128, 128, (40, 48, 3, 5)).astype(np.int8)
+    w1 = rng.integers(-128, 128, (24, 40, 1, 1)).astype(np.int8)
+    b = rng.integers(-500, 500, (40,)).astype(np.int32)
+    cfg = ConvConfig.make((2, 6, 5, 48), w.shape, b.dtype, (1, 1), (1, 2),
+                          (2, 6, 5, 24), "u8", conv0_relu=True,
+                          conv0_scales=(1 / 3000,), conv0_round="down",
+                          wei1x1_shape=w1.shape, conv1_scales=(1 / 500,),
+                          sum_dt="u8", sum_scale=0.375)
+    sins = (P.PackedSpec.make(6, 5, 32, halo=2, col_off=2, iwp=16),
+            P.PackedSpec.make(6, 5, 16, halo=2, col_off=2, iwp=16))
+    ssum = P.PackedSpec.make(6, 5, 24, halo=2, col_off=3, iwp=16)
+    return P.PackedConvOp(cfg, w, b, w1, None, sin=sins, col_off_out=3,
+                          halo_out=1, sum_spec=ssum, device="cpu"), rng
+
+
+def _pair():
+    """A pair with a fused layer a (3x5, a round-down 1x1 with bias) and an
+    unfused 1x3 layer b without padding rows or bias, with the fused 2x2
+    pool."""
+    rng = np.random.default_rng(23)
+    ca = ConvConfig.make((2, 8, 10, 32), (40, 32, 3, 5), np.int32, (1, 1),
+                         (1, 2), (2, 8, 10, 48), "u8", conv0_relu=True,
+                         conv0_scales=(1 / 3000,), wei1x1_shape=(48, 40, 1, 1),
+                         bia1x1_dt=np.int32, conv1_scales=(1 / 700,),
+                         conv1_round="down")
+    cb = ConvConfig.make((2, 8, 10, 48), (24, 48, 1, 3), None, (1, 1), (0, 1),
+                         (2, 8, 10, 24), "u8", conv0_relu=True,
+                         conv0_scales=(1 / 3000,))
+    wa = (rng.integers(-128, 128, (40, 32, 3, 5)).astype(np.int8),
+          rng.integers(-500, 500, (40,)).astype(np.int32),
+          rng.integers(-128, 128, (48, 40, 1, 1)).astype(np.int8),
+          rng.integers(-9, 9, (48,)).astype(np.int32))
+    wb = (rng.integers(-128, 128, (24, 48, 1, 3)).astype(np.int8),)
+    sin = P.PackedSpec.make(8, 10, 32, halo=3, col_off=2, iwp=16)
+    return M.PackedConvPairOp(ca, wa, cb, wb, sin=sin, halo_out=2,
+                              col_off_out=2, pool2=True, device="cpu"), rng
+
+
+def _maps_of(calls, name, w0k):
+    """What the weight-maps op returned for the weights w0k."""
+    (rec,) = [r for r in calls[name] if r["args"]["w0k"] is w0k]
+    return rec["out"]
+
+
+def _case_concat_relu(calls):
+    rng = np.random.default_rng(1)
+    xs = [_u8(rng, (2, 3, 5, c)) for c in (16, 48)]
+    concat_cuda(xs, ConcatConfig.make([tuple(x.shape) for x in xs],
+                                      torch.uint8, True))
+    return {"srcs": xs, "relu": True}
+
+
+def _case_pool(calls):
+    x = _s8(np.random.default_rng(2), (2, 9, 7, 32))
+    pc = PoolConfig.make("avg_exc", (9, 7), (5, 4), (2, 3), (2, 1),
+                         round_mode.down)
+    PL.pool_cuda(x, pc, dtype.s8)
+    return {"x": x, "geo": dict(ih=9, iw=7, oh=5, ow=3, kh=5, kw=4, sh=2,
+                                sw=3, ph=2, pw=1, kind=2, down=1)}
+
+
+def _case_sum_relu(calls):
+    rng = np.random.default_rng(3)
+    a, b = (torch.from_numpy(rng.integers(-9, 9, (2, 3, 4, 8),
+                                          dtype=np.int32)) for _ in "ab")
+    PL.sum_relu_cuda(a, b, dtype.s32, False)
+    return {"a": a, "b": b, "relu": False}
+
+
+def _case_conv_fused(calls):
+    op, rng = _fused_conv()
+    x = _u8(rng, (2, 9, 8, 20))
+    s = torch.from_numpy(rng.integers(-99, 99, (2, 5, 4, 36), dtype=np.int32))
+    C.conv_cuda(op, x, s)
+    return {"src": torch.nn.functional.pad(x, (0, 12)),
+            "wmaps": _maps_of(calls, "conv_weight_maps", op.w0k),
+            "bias0": op.bias0, "scale0": op.scale0, "bias1": op.bias1,
+            "scale1": op.scale1, "sum_src": s,
+            "geo": dict(ih=9, iw=8, ic=32, oh=5, ow=4, kh=3, kw=5, sh=2,
+                        sw=1, ph=1, pw=0, oc0=20, oc0p=layout.conv_ocp(20),
+                        oc1=36, oc1p=layout.conv_ocp(36), relu0=1, relu1=0,
+                        down0=1, down1=0, has_bias0=1, has_bias1=0, fuse=1,
+                        dst_dt=dtype.s8.value, sum_dt=dtype.s32.value),
+            "sum_scale": 0.375, "emit_acc1": False}
+
+
+def _case_convpool(calls):
+    rng = np.random.default_rng(4)
+    w = rng.integers(-128, 128, (36, 24, 5, 3)).astype(np.int8)
+    b = rng.integers(-500, 500, (36,)).astype(np.int32)
+    cfg = ConvConfig.make((2, 14, 12, 24), w.shape, b.dtype, (1, 2), (0, 1),
+                          (2, 10, 6, 36), "u8", conv0_relu=True,
+                          conv0_scales=(1 / 3000,), sum_dt="s8",
+                          sum_scale=0.5)
+    pc = PoolConfig.make("avg_inc", (10, 6), (2, 2), (2, 2), (0, 0),
+                         round_mode.down)
+    op = ConvPoolOp(cfg, pc, w, b, device="cpu")
+    x, s = _u8(rng, (2, 14, 12, 24)), _s8(rng, (2, 10, 6, 36))
+    CP.convpool_cuda(op, x, s)
+    (maps,) = calls["conv_weight_maps"]
+    assert maps["args"]["pool"] is True
+    return {"src": torch.nn.functional.pad(x, (0, 8)), "wmaps": maps["out"],
+            "bias0": op.bias0, "scale0": op.scale0, "sum_src": s,
+            "geo": dict(ih=14, iw=12, ic=32, oh=10, ow=6, kh=5, kw=3, sh=1,
+                        sw=2, ph=0, pw=1, oc0=36, oc0p=layout.conv_ocp(36),
+                        relu0=1, down0=0, has_bias0=1,
+                        dst_dt=dtype.u8.value, sum_dt=dtype.s8.value, avg=1,
+                        pool_down=1),
+            "sum_scale": 0.5}
+
+
+def _case_conv_weight_maps(calls):
+    """Encoded once per op: a second launch reuses the maps."""
+    op, _ = _fused_conv()
+    first = C._weight_maps(op)
+    assert C._weight_maps(op) is first and len(calls["conv_weight_maps"]) == 1
+    return {"w0k": op.w0k, "w1k": op.w1k, "pool": False}
+
+
+def _case_conv_plan(calls):
+    op, _ = _fused_conv()
+    plan = C.conv_plan(op, 3, emit_acc1=True)
+    assert plan["tile_m"] == 100 and plan["items"] == 115
+    return {"geo": [3, 9, 8, 32, 5, 4, 3, 5, 2, 1, 1, 0,
+                    layout.conv_ocp(20), layout.conv_ocp(36), 1, 0, 0]}
+
+
+def _case_packed_conv(calls):
+    """A row range of the output from a row slice of the inputs."""
+    op, rng = _packed_conv()
+    xs = [_s8(rng, s.array_shape(2))[:, 16:] for s in op.sins]
+    s = _s8(rng, op.ssum.array_shape(2))
+    P.packed_conv_cuda(op, xs, s, rows=(2, 5), row0_off=1)
+    # output array rows [2, 5) of a spec with halo 1: image rows [1, 4)
+    return {"srcs": xs, "cps": [32, 32], "corr0": op.corr0,
+            "bias0": op.bias0, "scale0": op.scale0, "bias1": op.bias1,
+            "scale1": op.scale1,
+            "wmaps": _maps_of(calls, "packed_weight_maps", op.w0k),
+            "sum": s,
+            "geo": dict(iwp=16, col_off_in=2, col_off_out=3, oh=6, ow=5,
+                        kh=3, kw=5, ph=1, pw=2, oc0=40,
+                        oc0p=layout.packed_cp(40), oc1=24,
+                        oc1p=layout.packed_cp(24), down0=1, down1=0,
+                        has_bias0=1, has_bias1=0, fuse=1, rows_sum=10,
+                        halo_sum=2, pool2=0),
+            "rows": dict(halo_in=1, rows_out=3, halo_out=-1, oy0=1, noy=3),
+            "raw": False, "sum_scale": 0.375}
+
+
+def _case_packed_weight_maps(calls):
+    op, _ = _packed_conv()
+    first = P._weight_maps(op)
+    assert P._weight_maps(op) is first
+    assert len(calls["packed_weight_maps"]) == 1
+    return {"w0k": op.w0k, "w1k": op.w1k}
+
+
+def _case_packed_plan(calls):
+    op, _ = _packed_conv()
+    plan = P.packed_conv_plan(op, 3)
+    assert plan["tile_rows"] == 100 and plan["tiles"] == 111
+    return {"geo": [3, 6, 5, 2, 32, 32, 0, 0, 3, 5, layout.packed_cp(40),
+                    layout.packed_cp(24), 1, 0]}
+
+
+def _case_packed_sum_pool(calls):
+    rng = np.random.default_rng(5)
+    ys = [_s8(rng, (2, 10 * 16, c)) for c in (32, 16)]
+    r = _s8(rng, (2, 10 * 16, 48))
+    P.packed_sum_pool_cuda(ys, r, True, 10, 16)
+    return {"ys": ys, "r": r, "rows": 10, "iwp": 16, "pool": True}
+
+
+def _layer(cfg, kp):
+    fuse = cfg.fuse_conv1x1
+    return dict(kh=cfg.kh, kw=cfg.kw, ph=cfg.ph, pw=cfg.pw, kp=kp,
+                oc0=cfg.oc, oc0p=layout.packed_cp(cfg.oc), oc1=cfg.oc1x1,
+                oc1p=layout.packed_cp(cfg.oc1x1) if fuse else 0,
+                down0=0, down1=int(fuse), has_bias0=int(cfg.conv0_with_bias),
+                has_bias1=int(fuse), fuse=int(fuse))
+
+
+def _case_pair_conv(calls):
+    """A row range of the output from a row slice of the input, inside
+    widened intermediate bounds."""
+    op, rng = _pair()
+    x = _s8(rng, op.sin.array_shape(2))[:, 16:]
+    M.pair_conv_cuda(op, x, rows=(2, 4), row0_off=1, mid_bounds=(1, 7))
+    a, b = op.op_a, op.op_b
+    # pooled output rows [2, 4) of a pooled spec with halo 1: unpooled array
+    # rows [4, 8), image rows [2, 6)
+    return {"src": x, "corr0_a": a.corr0, "bias0_a": a.bias0,
+            "scale0_a": a.scale0, "bias1_a": a.bias1, "scale1_a": a.scale1,
+            "wmaps_a": _maps_of(calls, "packed_weight_maps", a.w0k),
+            "bias0_b": b.bias0, "scale0_b": b.scale0, "bias1_b": None,
+            "scale1_b": None,
+            "wmaps_b": _maps_of(calls, "packed_weight_maps", b.w0k),
+            "layer_a": _layer(op.cfg_a, 32), "layer_b": _layer(op.cfg_b, 64),
+            "geo": dict(iwp=16, col_off_in=2, mh=8, mw=10, oh=8, ow=10,
+                        col_off_out=2, pool2=1),
+            "rows": dict(halo_in=2, rows_out=4, halo_out=-2, oy0=2, noy=4,
+                         mlo=1, mhi=7)}
+
+
+def _case_pair_plan(calls):
+    op, _ = _pair()
+    order = _enum_fields("PairLayer")
+    plan = M.pair_conv_plan(op, 3)
+    assert plan["tile_rows"] == 100 and plan["layer_a_blocks"] == 109
+    return {"layer_a": [_layer(op.cfg_a, 32)[f] for f in order],
+            "layer_b": [_layer(op.cfg_b, 64)[f] for f in order],
+            "geo": [3, 16, 14, 3, 2, 8, 10, 8, 10, 12, 2, 2, 1, 0, 8, 0, 8]}
+
+
+def _assert_passed(name, arg, got, want):
+    what = f"{name}({arg})"
+    if isinstance(want, dict):
+        fields = _enum_fields(ENUMS[name, arg])
+        assert sorted(fields) == sorted(want), what
+        want = [want[f] for f in fields]
+    if want is None:
+        assert got is None, what
+    elif isinstance(want, torch.Tensor):
+        assert isinstance(got, torch.Tensor) and got.dtype == want.dtype, what
+        assert torch.equal(got, want), what
+    elif isinstance(want, (list, tuple)) and isinstance(want[0],
+                                                        torch.Tensor):
+        assert len(got) == len(want), what
+        for g, w in zip(got, want):
+            _assert_passed(name, arg, g, w)
+    elif isinstance(want, (list, tuple)):
+        assert list(got) == list(want), what
+    else:
+        assert type(got) is type(want) and got == want, what
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_wrapper_passes_the_config_to_the_schema(name, recorded_ops):
+    """Each op's schema (as csrc/*.cpp registers it), defined here with a
+    CPU kernel that records its arguments, bound by the dispatcher to the
+    call that the op's real wrapper makes on CPU tensors: every argument,
+    name by name, is the config's value (an int[]'s ints in the order of
+    the C++ enum that reads them), the buffers the op's own, one launch
+    counted per launch op."""
+    before = _build.launch_counts()
+    want = globals()[f"_case_{name}"](recorded_ops)
+    rec = recorded_ops[name][-1]["args"]
+    parsed = torch._C.parse_schema(_schemas()[name])
+    assert [a.name for a in parsed.arguments] == list(want)
+    for arg in parsed.arguments:
+        _assert_passed(name, arg.name, rec[arg.name], want[arg.name])
+    counted = {k: v - before[k] for k, v in _build.launch_counts().items()
+               if v != before[k]}
+    kernel = {"conv_fused": "conv_fused", "convpool": "convpool",
+              "pool": "pool", "sum_relu": "sum_relu",
+              "packed_conv": "packed_conv", "concat_relu": "concat_relu",
+              "packed_sum_pool": "packed_sum_pool",
+              "pair_conv": "pair_conv"}.get(name)
+    assert counted == ({kernel: 1} if kernel else {})
 
 
 def test_concat_relu_schema_takes_what_concat_cuda_passes(monkeypatch):
@@ -253,7 +613,7 @@ def test_concat_relu_schema_takes_what_concat_cuda_passes(monkeypatch):
     that concat_cuda makes: same namespace and name, the inputs as the
     Tensor[] and cfg.with_relu as the bool; the launches the op returns
     are what concat_cuda adds to K2's count, and nothing else."""
-    schema = re.search(r'm\.def\("([^"]+)"\)', _torch_ops_source()).group(1)
+    schema = _schemas()["concat_relu"]
     parsed = torch._C.parse_schema(schema)
     assert [str(a.type) for a in parsed.arguments] == ["List[Tensor]",
                                                        "bool"]
@@ -266,7 +626,7 @@ def test_concat_relu_schema_takes_what_concat_cuda_passes(monkeypatch):
         return torch.cat(srcs, dim=-1), 3 + len(seen)
 
     monkeypatch.setattr(_build, "kernels", lambda: None)
-    concat_op.cache_clear()
+    _build.op.cache_clear()
     try:
         with torch.library._scoped_library("deepfusion_torch", "DEF") as lib:
             lib.define(schema)
@@ -288,7 +648,7 @@ def test_concat_relu_schema_takes_what_concat_cuda_passes(monkeypatch):
                 assert len(srcs) == 2 and all(
                     a.data_ptr() == b.data_ptr() for a, b in zip(srcs, xs))
     finally:
-        concat_op.cache_clear()
+        _build.op.cache_clear()
 
 
 def test_torch_ops_compile_command_carries_torch_abi_and_headers():
@@ -333,8 +693,8 @@ def test_link_command_links_libtorch():
 def test_every_source_is_compiled():
     names = {f.name for f in _build._sources()}
     assert "torch_ops.cpp" in names
-    assert names == {f.name for f in _build.CSRC.glob("*.cu")} | {
-        "torch_ops.cpp"}
+    assert names == {f.name for f in _build.CSRC.glob("*.cu")} | set(
+        _cpp_sources())
 
 
 def test_library_path_tracks_the_installed_torch(monkeypatch):

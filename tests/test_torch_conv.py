@@ -281,7 +281,8 @@ def test_strides_above_eight_are_gathered_exactly(k, s, p, hw):
     """TMA steps at most 8 elements: for a larger stride the wrapper
     gathers the rows (columns) each output reads, and a stride-k conv
     without padding over them gives the same accumulator."""
-    from deepfusion_tpu_torch.ops.conv import _kernel_input, conv_acc
+    from deepfusion_tpu_torch.ops.conv import (_kernel_geometry, _kernel_src,
+                                               conv_acc)
     kh, kw = (k, k) if isinstance(k, int) else k
     sh, sw = (s, s) if isinstance(s, int) else s
     ph, pw = (p, p) if isinstance(p, int) else p
@@ -292,10 +293,10 @@ def test_strides_above_eight_are_gathered_exactly(k, s, p, hw):
     w = rng.integers(-128, 128, (oc, ic, kh, kw)).astype(np.int8)
     cfg = ConvConfig.make((n, hw, hw, ic), w.shape, None, (sh, sw),
                           (ph, pw), (n, oh, ow, oc), "s32")
-    op = ConvOp(cfg, w, device="cpu")
     x = torch.from_numpy(rng.integers(0, 256, (n, hw, hw, ic),
                                       dtype=np.uint8))
-    x2, (ih2, iw2, ic2, sh2, sw2, ph2, pw2) = _kernel_input(op, x)
+    x2 = _kernel_src(cfg, x)
+    ih2, iw2, ic2, sh2, sw2, ph2, pw2 = _kernel_geometry(cfg)
     assert max(sh2, sw2) <= 8 and ic2 % 16 == 0
     assert tuple(x2.shape) == (n, ih2, iw2, ic2)
     assert conv_output_size(ih2, kh, sh2, ph2) == oh

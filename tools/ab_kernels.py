@@ -25,7 +25,11 @@ at ResFusionNet's downsample, warm and cold, and K7's per-call ms beside
 the 2x2 ``amax`` of the packed interior view; K2 (``concat_cuda``) at
 FusionNet's branch merge (two 8x56x56x128 u8 inputs, ReLU), warm and cold,
 its per-call ms beside ``torch.cat``'s (taken in turns) and the host us of
-``concat_cuda``, of ``concat()`` and of ``torch.cat``; then the seven model
+``concat_cuda``, of ``concat()`` and of ``torch.cat``; the host us of the
+other wrappers at one launch each (K1 at FusionNet's stem and block2, K3's
+max pool, K4 at FusionNet's residual sum, with its device time, K5 at
+FusionNet's stem and residual, K7 and K9 at ResFusionNet's downsample, K10
+at VGGFusion's block 1); then the seven model
 paths (FusionNet, ResFusionNet and VGGFusion dense and packed, VGGFusion
 hybrid): per-call ms (CUDA events around one call; the median and the
 least of 80 calls taken in turns), device ms, the ratio of device ms to
@@ -180,6 +184,9 @@ def run_tree(tree):
                 lambda: M.pair_conv_cuda(pair, x))
             res[f"K10 VGGFusion block{b} cold"] = cold_ms(
                 lambda: M.pair_conv_cuda(pair, x))
+            if b == 1:
+                res["K10 VGGFusion block1 host us"] = host_us(
+                    lambda: M.pair_conv_cuda(pair, x))
 
             def two():
                 return PK.packed_conv_cuda(pair.op_b, [PK.packed_conv_cuda(
@@ -195,6 +202,9 @@ def run_tree(tree):
             x = cs.rand(rng, (c.bs, c.ih, c.iw, c.ic), u8, dev)
             res[f"K9 {label}"] = device_ms(lambda: CP.convpool_cuda(op, x))
             res[f"K9 {label} cold"] = cold_ms(lambda: CP.convpool_cuda(op, x))
+            if label == "ResFusionNet down":
+                res[f"K9 {label} host us"] = host_us(
+                    lambda: CP.convpool_cuda(op, x))
             cop = K.ConvOp(c, params["wei"], params.get("bia"), device=dev)
 
             def composed():
@@ -279,6 +289,15 @@ def run_tree(tree):
             res[label] = device_ms(lambda: PK.packed_sum_pool_cuda(*args))
             res[f"{label} cold"] = cold_ms(
                 lambda: PK.packed_sum_pool_cuda(*args))
+        res["K7 ResFusionNet down host us"] = host_us(
+            lambda: PK.packed_sum_pool_cuda([yd], None, True, ds.rows,
+                                            ds.iwp))
+        # K4 at FusionNet's residual sum (dense), two 8x56x56x256 u8
+        ya, yb = (cs.rand(rng, (8, hw, hw, 2 * w), u8, dev) for _ in "ab")
+        res["K4 FusionNet residual"] = device_ms(
+            lambda: P.sum_relu_cuda(ya, yb, u8, True))
+        res["K4 FusionNet residual host us"] = host_us(
+            lambda: P.sum_relu_cuda(ya, yb, u8, True))
         res.update(in_turns({
             "K7 ResFusionNet down per call ms":
                 lambda: PK.packed_sum_pool_cuda([yd], None, True, ds.rows,
