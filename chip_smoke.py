@@ -1,6 +1,7 @@
 """Drive the PyTorch port's main path once on one NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase-6b [nccl|gloo]    # phases 1, 2 and 6b
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit, compute capability 9.0;
@@ -98,6 +99,23 @@ Phases, each printing its own lines:
      then each wrapper's time against the single-device call (one card
      runs the shards in turn: the cost of sharding, not scaling); the
      launches must equal SHARDED_LAUNCHES;
+ 6b. across processes: two worker processes of this script (``--worker``)
+     join one process group, over NCCL where there is a card per rank,
+     else over gloo with both ranks on cuda:0 (the bytes then cross
+     through host memory, and the times are not a multi-card run's); each
+     rank first holds psum, psum_scatter, all_gather and ppermute of int32
+     and uint8 parts on the card against one process's, then runs, on its
+     block of each global input, dp_shard of FusionNet(FusionNetConfig())
+     at global batch 16 (its own 8 images) and of VGGFusion's block-1
+     ConvPoolOp, sp_conv, tp_fused_conv and tp_packed_fused (both wires)
+     and sp_packed at bench.py's scaling layer, sp_packed of VGGFusion's
+     block 1 and 2 pairs, and three_stage_plan at phase 6's widths on a
+     (1, 2, 2) mesh of two slots per rank, between setting the launch
+     counts to 0 and reading them (conv_fused, packed_conv, pair_conv and
+     convpool must have launched on each rank); then each part bitwise
+     equal to its block of the single-device call on the card, then each
+     call's ms beside the single-device call's and the bytes its
+     collectives moved between the ranks;
   7. object API: device_capabilities(), distributed.initialize() as a
      single-process no-op, then one chain of submits on cuda:0 from
      host-filled memory (concat -> fused conv -> max pool -> eltwise sum)
@@ -116,6 +134,7 @@ import json
 import math
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -1663,6 +1682,268 @@ def phase_sharded(cases, name_power):
     return counts
 
 
+# ------------------------------------------------------- 6b: across processes
+
+PROCESS_WORLD = 2
+PROCESS_TIMEOUT_S = 600       # each worker's own limit
+PROCESS_KERNELS = ("conv_fused", "packed_conv", "pair_conv", "convpool")
+
+
+def block_of(full, meta):
+    """The block (r0, r1, n_dp, c0, c1, n_sp) of a whole array: batch rows
+    [r0, r1) of n_dp equal parts by dim-1 rows [c0, c1) of n_sp."""
+    r0, r1, n_dp, c0, c1, n_sp = meta
+    b, d = full.shape[0] // n_dp, full.shape[1] // n_sp
+    return full[r0 * b:r1 * b, c0 * d:c1 * d]
+
+
+def process_collectives(dev):
+    """Each collective of parallel/shard.py on int32 and uint8 parts on the
+    card, between this rank's slot and the other's, against the same
+    collective over both parts in this process (a mesh of two slots on
+    this card)."""
+    from deepfusion_tpu_torch.parallel import make_mesh
+    from deepfusion_tpu_torch.parallel.shard import (all_gather, ppermute,
+                                                     psum, psum_scatter)
+    from deepfusion_tpu_torch.utils.logger import check
+    n = PROCESS_WORLD
+    line = make_mesh(tp=n).line("tp")
+    local = make_mesh(tp=n, devices=[dev] * n).line("tp")
+    rng = np.random.default_rng(30)
+    for dt in (torch.int32, torch.uint8):
+        parts = [rand(rng, (2, 3, 4, 8), dtype_of(dt), dev).permute(
+            3, 2, 1, 0) for _ in range(n)]
+        mine = [parts[i] for i in line.mine]
+
+        def run(ps, ln):
+            return {"psum": psum(ps, ln), "psum_scatter": psum_scatter(
+                ps, ln, 3), "all_gather": all_gather(ps, ln, 3),
+                "ppermute": ppermute(ps, ln, [(i, (i + 1) % n)
+                                              for i in range(n)])()}
+        got, want = run(mine, line), run(parts, local)
+        for k, outs in got.items():
+            for i, g in zip(line.mine, outs):
+                check(g.device == dev and torch.equal(g, want[k][i]),
+                      f"{k} of {dt} across processes differs from one "
+                      "process's")
+    print(f"processes: psum, psum_scatter, all_gather, ppermute of int32 "
+          f"and uint8 on {dev} across the ranks equal one process's",
+          flush=True)
+
+
+def dtype_of(dt):
+    from deepfusion_tpu_torch.types import dtype
+    return dtype.s32 if dt == torch.int32 else dtype.u8
+
+
+def process_cases(dev, vnet):
+    """Phase 6b's cases on meshes that span the ranks: (label, sharded call,
+    its global inputs, this rank's block of them, the single-device call
+    of the whole, how to read a part back as the dense result, the mesh).
+    One slot per rank, except three_stage_plan (two slots per rank, both
+    this card)."""
+    from deepfusion_tpu_torch.models import FusionNet, FusionNetConfig
+    from deepfusion_tpu_torch.ops.conv import ConvOp
+    from deepfusion_tpu_torch.ops.packed import (PackedConvOp, pack_image,
+                                                 pack_image_sharded,
+                                                 unpack_image,
+                                                 unpack_image_sharded)
+    from deepfusion_tpu_torch.parallel import (dp_shard, make_mesh, sp_conv,
+                                               sp_packed, tp_fused_conv,
+                                               tp_packed_fused)
+    from deepfusion_tpu_torch.parallel.plan import three_stage_plan
+    from deepfusion_tpu_torch.types import dtype
+    n = PROCESS_WORLD
+    whole = (0, 1, 1, 0, 1, 1)
+    cases = []
+
+    def dp_case(label, op, x):
+        mesh = make_mesh(dp=n)
+        line = mesh.line("dp", **mesh.home("dp"))
+        cases.append((label, dp_shard(op, mesh), [x],
+                      (line.mine[0], line.mine[-1] + 1, n, 0, 1, 1),
+                      lambda: op(x), None, mesh))
+
+    def sp_block(fn, mesh):
+        (r0, r1), (c0, c1) = fn.block
+        return (r0, r1, mesh.shape["dp"], c0, c1, mesh.shape["sp"])
+
+    net = FusionNet(FusionNetConfig(), device=dev)
+    x16 = torch.from_numpy(np.concatenate([net.example_input(
+        np.random.default_rng(s)) for s in (0, 1)])).to(dev)
+    dp_case("dp_shard FusionNet dp=2, global batch 16", net, x16)
+    cp = vnet.convpool2[0]
+    u8 = rand(np.random.default_rng(19),
+              (vnet.cfg.batch, cp.cfg.ih, cp.cfg.iw, cp.cfg.ic), dtype.u8, dev)
+    dp_case("dp_shard ConvPoolOp dp=2", cp, u8)
+    cfg, w, x = scaling_layer(dev)
+    op = ConvOp(cfg, *w, device=dev)
+    pop = PackedConvOp(cfg, *w, device=dev)
+    px = pack_image(x, pop.sin)
+    mesh = make_mesh(sp=n)
+    fn = sp_conv(op, mesh)
+    cases.append((f"sp_conv sp={n}", fn, [x], sp_block(fn, mesh),
+                  lambda: op(x), None, mesh))
+    for wire in ("psum", "reduce_scatter"):
+        mesh = make_mesh(tp=n)
+        cases.append((f"tp_fused_conv tp={n} {wire}",
+                      tp_fused_conv(cfg, *w, mesh, wire=wire), [x], whole,
+                      lambda: op(x), None, mesh))
+        mesh = make_mesh(tp=n)
+        cases.append((f"tp_packed_fused tp={n} {wire}",
+                      tp_packed_fused(pop, mesh, wire=wire), [px], whole,
+                      lambda: pop(px), None, mesh))
+
+    def sp_case(label, pk, img):
+        mesh = make_mesh(sp=n)
+        fn = sp_packed(pk, mesh)
+        meta = sp_block(fn, mesh)
+        g = pk.pack_input(img)
+        cases.append((label, fn, [pack_image_sharded(img, fn.local_spec, n)],
+                      meta, lambda: unpack_image(pk(g), pk.sout_final),
+                      lambda a: unpack_image_sharded(
+                          a, fn.local_out_spec, meta[4] - meta[3]), mesh))
+    sp_case(f"sp_packed packed conv sp={n}", pop, x)
+    rng = np.random.default_rng(20)
+    for b in (1, 2):
+        pr = vgg_pair(vnet, b, dev)
+        img = torch.from_numpy(rng.integers(
+            0, 256, (vnet.cfg.batch, pr.sin.h, pr.sin.w, pr.sin.c),
+            dtype=np.uint8)).to(dev)
+        sp_case(f"sp_packed VGGFusion block{b} pair pool2 sp={n}", pr, img)
+    mb, hw, c = PLAN["mb"], PLAN["hw"], PLAN["c"]
+    mesh = make_mesh(1, n, 2, local_devices=[dev, dev])
+    step = three_stage_plan(mesh, mb, hw, c, c, c,
+                            rng=np.random.default_rng(0))[0]
+    single = three_stage_plan(make_mesh(devices=[dev]), mb, hw, c, c, c,
+                              rng=np.random.default_rng(0))[0]
+    src = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (mb, hw, hw, c), dtype=np.uint8)).to(dev)
+    (r0, r1), (c0, c1) = step.block
+    cases.append((f"three_stage_plan {(mb, hw, hw, c)} mesh (1, {n}, 2), "
+                  "two slots per rank", step, [src],
+                  (r0, r1, 1, c0, c1, n), lambda: single(src), None, mesh))
+    return cases
+
+
+def process_worker(rank: int, world: int, port: int, backend: str):
+    """One rank of phase 6b: join the group, check the collectives, run the
+    sharded calls on its block of each input between setting the launch
+    counts to 0 and reading them, then hold each output against its block
+    of the single-device call on this card, then time both. Prints
+    ``PROCESSES_OK <rank> <launch counts>`` last."""
+    import torch.distributed as dist
+
+    from deepfusion_tpu_torch import _build
+    from deepfusion_tpu_torch.models import VGGFusion, VGGFusionConfig
+    from deepfusion_tpu_torch.parallel import distributed
+    from deepfusion_tpu_torch.utils.logger import check
+    distributed.initialize(f"localhost:{port}", world, rank, backend=backend,
+                           timeout_s=PROCESS_TIMEOUT_S)
+    dev = distributed.local_devices()[1][0]
+    torch.cuda.set_device(dev)
+    name_power = card()
+    print(f"rank {rank} of {world} over {dist.get_backend()} on {dev} "
+          f"({torch.cuda.get_device_name(dev)})", flush=True)
+    process_collectives(dev)
+    vnet = VGGFusion(VGGFusionConfig(), device=dev)
+    vnet.build_packed()
+    cases = process_cases(dev, vnet)
+    _build.reset_launch_counts()
+    got, wire = [], []
+    with torch.inference_mode():
+        for label, fn, xs, meta, _, _, mesh in cases:
+            mesh.wire_bytes = 0
+            got.append(fn(*[block_of(a, meta) for a in xs]))
+            wire.append(mesh.wire_bytes)
+        torch.cuda.synchronize()
+    counts, modes = _build.launch_counts(), _build.mode_counts()
+    print(f"launches of the sharded calls {counts}; modes {modes}",
+          flush=True)
+    for k in PROCESS_KERNELS:
+        check(counts[k] > 0, f"kernel {k} was not launched on rank {rank}")
+    with torch.inference_mode():
+        for (label, fn, xs, meta, single, dense, _), g, b in zip(
+                cases, got, wire):
+            want = block_of(single(), meta)
+            g = g if dense is None else dense(g)
+            torch.cuda.synchronize()
+            check(g.device == dev and torch.equal(g, want),
+                  f"{label}: rank {rank}'s part differs from its block of "
+                  "the single-device call")
+            print(f"{label}: part {tuple(g.shape)} (block {meta}) bitwise "
+                  f"equal to the single-device call's; wire bytes {b}",
+                  flush=True)
+    del got
+    with torch.inference_mode():
+        for label, fn, xs, meta, single, _, _ in cases:
+            part = [block_of(a, meta) for a in xs]
+            t_s = cuda_ms(lambda: fn(*part), reps=3, warmup=1)
+            t_1 = cuda_ms(single, reps=3, warmup=1)
+            print(f"timing: processes {label} rank={rank} ms={t_s:.4f} "
+                  f"single_device_ms={t_1:.4f} wire={dist.get_backend()} "
+                  f"card=\"{name_power}\"", flush=True)
+    dist.destroy_process_group()
+    print(f"PROCESSES_OK {rank} {json.dumps(counts)}", flush=True)
+
+
+def phase_processes(name_power, backend=None) -> dict:
+    """Phase 6b: two worker processes of this script (``--worker RANK WORLD
+    PORT BACKEND``), each with its own time limit, rank r on cuda:(r modulo
+    the cards), over ``backend``: by default NCCL where there is a card per
+    rank, else gloo (both ranks on cuda:0). A worker that fails, outlives
+    its limit or prints no OK line fails the phase. Returns the ranks'
+    launch counts, summed."""
+    import tempfile
+
+    from deepfusion_tpu_torch.utils.logger import check
+    world, cards = PROCESS_WORLD, torch.cuda.device_count()
+    backend = backend or ("nccl" if cards >= world else "gloo")
+    print(f"processes: {world} ranks over {backend} on "
+          f"{[f'cuda:{r % cards}' for r in range(world)]}"
+          + (": the bytes cross through host memory" if backend == "gloo"
+             else "")
+          + ("; the ranks share a card: the times are not a multi-card "
+             "run's" if cards < world else "")
+          + f" card=\"{name_power}\"", flush=True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    logs = [tempfile.TemporaryFile("w+") for _ in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--worker", str(r),
+         str(world), str(port), backend], stdout=logs[r],
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    # a rank that fails leaves the other waiting in a collective: stop it
+    deadline = time.monotonic() + PROCESS_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs) and not any(
+                p.poll() for p in procs) and time.monotonic() < deadline:
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    counts = dict.fromkeys(KERNEL_INFO, 0)
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        lines = log.read().splitlines()
+        log.close()
+        for line in lines:
+            print(f"processes: rank {r}: {line}", flush=True)
+        check(p.returncode == 0,
+              f"phase 6b: rank {r} exited with {p.returncode}")
+        ok = [ln for ln in lines if ln.startswith(f"PROCESSES_OK {r} ")]
+        check(bool(ok), f"phase 6b: rank {r} printed no OK line")
+        got = json.loads(ok[-1].split(" ", 2)[2])
+        for k in counts:
+            counts[k] += got[k]
+    print(f"processes: launches of both ranks' sharded calls {counts}",
+          flush=True)
+    return counts
+
+
 def slice_requests(net, golden_path):
     """20 requests (the golden input's 8 first, where stored), the plain
     dense forward's logits for them on the CPU (the same model, built on
@@ -2918,10 +3199,20 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
 
 
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == "--worker":
+        rank, world, port = (int(a) for a in sys.argv[2:5])
+        return process_worker(rank, world, port, sys.argv[5])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA H100", file=sys.stderr)
         sys.exit(1)
+    if len(sys.argv) > 1 and sys.argv[1] == "--phase-6b":
+        # phases 1, 2 and 6b alone, over the wire named after the flag
+        name_power = phase_device()
+        phase_build(name_power)
+        phase_processes(name_power, *sys.argv[2:3])
+        print(name_power)
+        return
     from deepfusion_tpu_torch.models import (FusionNetConfig, ResFusionNet,
                                              ResFusionNetConfig, VGGFusion,
                                              VGGFusionConfig)
@@ -2964,6 +3255,9 @@ def main():
     got = phase_sharded(sharded, name_power)
     check_eq({k: v for k, v in got.items() if v}, SHARDED_LAUNCHES,
              "launches of phase 6's sharded calls")
+    for row in rows:
+        row["launches"] += got[row["name"]]
+    got = phase_processes(name_power)
     for row in rows:
         row["launches"] += got[row["name"]]
     got = phase_object_api(dev, name_power)

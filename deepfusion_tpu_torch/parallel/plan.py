@@ -12,6 +12,14 @@ same weights from the same seeded draws:
            (``PackedConvPairOp`` under ``shard.sp_packed``), fed by
            ``pack_image_sharded`` and unpacked to a dense u8 image at the
            end, so the plan's output does not depend on the mesh's shape.
+
+On a mesh that spans processes each process passes its block of the input
+(the batch rows of its dp rows by the H rows of its sp shards, as
+``shard.sp_conv`` takes it) and gets its block of the output. Between the
+stages the plan reshards as XLA does for the JAX plan: stage 1's block is
+all-gathered over the processes of its sp line (``gathered``), so that
+stage 2 runs on every H row of the process's batch rows, and stage 3 takes
+the process's sp shards of stage 2's output.
 """
 from __future__ import annotations
 
@@ -30,12 +38,16 @@ from .shard import sp_conv, sp_packed, tp_fused_conv
 def three_stage_plan(mesh, mb: int, hw: int, ic: int, oc: int, oc1: int,
                      rng=None, magnitude: int = 10):
     """Build the composed plan at the given shape, its ops on the device of
-    the mesh's first slot.
+    this process's first slot of the mesh.
 
     Returns ``(step, pair, cfg2)``: ``step(src_u8_nhwc)`` -> the dense u8
-    (mb, hw/2, hw/2, oc1) output; ``pair``, the stage-3 op; ``cfg2``, the
-    stage-2 config (for ``tp_wire_bytes``). Shape legality: ``mb % dp ==
-    0``, ``hw % (2*sp) == 0``, ``oc % tp == 0``.
+    (mb, hw/2, hw/2, oc1) output (on a mesh that spans processes, this
+    process's block of input and output, ``step.block``: its dp rows and
+    sp shards, as ``shard._sp_wrapper`` gives them); ``pair``, the stage-3
+    op; ``cfg2``, the stage-2 config (for ``tp_wire_bytes``). Shape legality:
+    ``mb % dp == 0``, ``hw % (2*sp) == 0``, ``oc % tp == 0``; across
+    processes, a tp line that spans processes needs dp == 1, so that every
+    process of the line holds the same batch rows.
     """
     rng = rng or np.random.default_rng(0)
     dp, sp, tp = (mesh.shape[a] for a in ("dp", "sp", "tp"))
@@ -43,8 +55,10 @@ def three_stage_plan(mesh, mb: int, hw: int, ic: int, oc: int, oc1: int,
     check(hw % max(2 * sp, 2) == 0,
           f"hw {hw} must be divisible by 2*sp (sp shards + pool2)")
     check(oc % tp == 0, f"oc {oc} not divisible by tp={tp}")
+    check(dp == 1 or mesh.line("tp", **mesh.home("tp")).group is None,
+          "three_stage_plan: a tp line that spans processes needs dp == 1")
     m = magnitude
-    dev = mesh.device()
+    dev = mesh.device(**mesh.home())
 
     wei = rng.integers(-m, m + 1, (oc, ic, 3, 3)).astype(np.int8)
     bia = rng.integers(-m, m + 1, (oc,)).astype(np.int32)
@@ -84,12 +98,14 @@ def three_stage_plan(mesh, mb: int, hw: int, ic: int, oc: int, oc1: int,
                             sin=sin3, halo_out=2, col_off_out=2,
                             pool2=True, device=dev)
     stage3 = sp_packed(pair, mesh, axis="sp", dp_axis="dp")
+    (c0, c1), h_l = stage3.block[1], hw // sp
 
     def step(s):
-        y = stage2(stage1(s))
-        z = stage3(pack_image_sharded(y, stage3.local_spec, sp))
+        y = stage2(stage1.gathered(s))[:, c0 * h_l:c1 * h_l]
+        z = stage3(pack_image_sharded(y, stage3.local_spec, c1 - c0))
         # unpack the sharded pooled output to a dense u8 image, the same
         # for every mesh shape
-        return unpack_image_sharded(z, stage3.local_out_spec, sp)
+        return unpack_image_sharded(z, stage3.local_out_spec, c1 - c0)
 
+    step.block = stage3.block
     return step, pair, cfg2
