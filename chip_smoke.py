@@ -26,7 +26,9 @@ Phases, each printing its own lines:
      output sizes, 1x1 GEMM tiles across images, ragged dst pitches, ic
      16, M below one tile, and the geometries of sp_conv's row slabs and
      tp_fused_conv's weight slices; for K2 also a 16-byte-misaligned view,
-     non-contiguous inputs, 16 inputs, 17 and 40 inputs in every dtype
+     non-contiguous inputs, 16 inputs, 17 and 40 inputs in every dtype in
+     one launch each, 130 inputs in two, a pixel row wider than a block,
+     and the reference's three s8 shape sets at batch 4 in every dtype
      (the wrapper's launch count held against the kernel launches that
      torch.profiler traces in the call), and the calls its op must refuse
      (CPU tensors, mixed devices, a dtype mismatch); for the fused
@@ -34,10 +36,12 @@ Phases, each printing its own lines:
      kernels also halo erosion, wide tap shifts, pad lanes, 1-3 inputs,
      the packed sum operand, the s2d stem, the fused 2x2 pool and random
      bytes in the pad slots, and the input counts and lane widths the
-     kernels take only joined (C13: five inputs, 8 + 24 lanes, six mixed
-     widths; the packed sum/pool with five and with narrow inputs, narrow
-     lanes padded; at 8x28x28 and at FusionNet's 8x56x56 and widths); for
-     the conv pair every fused combination
+     conv takes only joined (C13: five inputs, 8 + 24 lanes, six mixed
+     widths, at 8x28x28 and at FusionNet's 8x56x56 and widths); the
+     packed sum/pool (K6, K8) takes them as they are, in one launch with
+     no other kernel in the call (five inputs, narrow ones, six mixed,
+     8 + 120 lanes, lanes no multiple of 16 or of 4; 130 inputs in two
+     launches); for the conv pair every fused combination
      with and without the pool, a channel change, round-down per-oc
      scales, deeper and shallower input halos, and bench.py's --pair
      shape); then the kernel modes of the sharded path: K1b's and K5's raw
@@ -86,7 +90,11 @@ Phases, each printing its own lines:
      part of a launch through its registered op (K7's and K1's at
      FusionNet's stem: the op lookup, the op, the wrapper and the module's
      call; K2's: the op, its wrapper and concat() beside torch.cat, with
-     and without torch.inference_mode) and a cProfile ranking of each
+     and without torch.inference_mode), K2 at 17 and 40 inputs and at the
+     reference's three s8 sets (batch 4) beside torch.cat, K6 and K8 at
+     FusionNet's residual and at the C13 shapes, the empty kernel's time
+     (the floor of a launch: through its registered op and in a loop of
+     launches from C++, 1,000 calls each) and a cProfile ranking of each
      forward's host work;
   6. sharded: the parallel/ wrappers on meshes whose slots are all this
      card (tp_fused_conv and tp_packed_fused at tp 2 and 4, both wires;
@@ -209,6 +217,10 @@ H100_INT8_PEAK_TOPS = 1979.0   # dense, NVIDIA data sheet, SXM at 700 W
 H100_CORE_TOPS = 67.0          # f32 outside the tensor cores, same sheet
 H100_HBM_TBS = 3.35            # HBM3 bytes/s, same sheet
 L2_EVICT_BYTES = 128 << 20     # read between cold calls: 2.56x the 50 MB L2
+# the reference's three concat shape sets, side: channels of its four
+# inputs (bench.py:450-451, from its benchmark/bench_concat.cc:226-242)
+CONCAT_SETS = {244: (128, 256, 128, 256), 64: (64, 96, 64, 96),
+               9: (16, 64, 16, 64)}
 
 
 def card() -> str:
@@ -279,16 +291,38 @@ def kernel_profile(fn, reps):
             if e.self_device_time_total > 0}
 
 
-def kernel_launches(fn, name):
-    """(fn()'s result, the launches of device kernels whose name holds
-    `name` that torch.profiler traced in that call)."""
+def kernel_counts(fn):
+    """(fn()'s result, {device kernel name: launches} that torch.profiler
+    traced in that call)."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    return out, sum(e.count for e in prof.key_averages()
-                    if name in e.key and e.self_device_time_total > 0)
+    return out, {e.key: e.count for e in prof.key_averages()
+                 if e.self_device_time_total > 0}
+
+
+def counted_and_traced(fn, counter, match):
+    """(fn()'s result, the launches of `counter` that the package counted in
+    the call, {device kernel name: launches} that torch.profiler traced in
+    it). A profile may drop a kernel's record (PERF.md §7), never add one:
+    up to TRACE_TRIES calls, each under its own profile, until one traces
+    as many launches of kernels whose name holds `match` as it counted."""
+    from deepfusion_tpu_torch import _build
+    from deepfusion_tpu_torch.utils.logger import check
+    for tries in range(1, TRACE_TRIES + 1):
+        before = _build.launch_counts()[counter]
+        out, ran = kernel_counts(fn)
+        launches = _build.launch_counts()[counter] - before
+        traced = sum(v for k, v in ran.items() if match in k)
+        check(traced <= launches, f"{counter}: a call traced {traced} "
+              f"launches of {match}, more than the {launches} it counted")
+        if traced == launches:
+            break
+        print(f"parity: {counter}: profile {tries} traced {traced} of the "
+              f"{launches} launches counted", flush=True)
+    return out, launches, ran
 
 
 def cold_device_ms(fn, reps=REPS, profiles=3, tries=3):
@@ -479,7 +513,8 @@ def phase_build(name_power):
 # every op of torch.ops.deepfusion_torch that the wrappers call
 OPS = ("concat_relu", "pool", "sum_relu", "conv_fused", "convpool",
        "conv_weight_maps", "conv_plan", "packed_conv", "packed_weight_maps",
-       "packed_plan", "packed_sum_pool", "pair_conv", "pair_plan")
+       "packed_plan", "packed_sum_pool", "pair_conv", "pair_plan",
+       "empty_launches")
 
 
 def ops_check(lib):
@@ -838,10 +873,14 @@ def convpool_cases(dev):
 def concat_op_cases(rng, dev, par):
     """K2 through its registered op at inputs the wrapper no longer
     prepares in Python: a 16-byte-misaligned contiguous view, a channel
-    slice and a transposed view (non-contiguous), 16 inputs, and more
-    inputs than one launch takes (17 and 40: one launch per group of 16,
-    each writing its columns of the one output), in every dtype, each
-    bitwise against the plain version; then the calls the op must refuse:
+    slice and a transposed view (non-contiguous), 16 inputs, 17 and 40
+    inputs in every dtype (one launch each), 130 inputs (two launches, one
+    per group of 128, each writing its columns of the one output), a pixel
+    row wider than a block (two inputs of 8,208 u8 channels: each thread
+    loops over the row's columns), and the reference's three shape sets at batch 4 in
+    every dtype, each bitwise against the plain version with ReLU on and
+    off, its launches by the launcher's count and by torch.profiler's
+    trace; then the calls the op must refuse:
     a dtype mismatch and mixed devices in its own checks (RuntimeError),
     CPU tensors in the dispatcher (no CPU kernel is registered:
     NotImplementedError)."""
@@ -873,20 +912,29 @@ def concat_op_cases(rng, dev, par):
             cases.append((f"{n_in} inputs", [
                 rand(rng, nhw + (unit * (1 + i % 3),), dt, dev)
                 for i in range(n_in)], dt))
+        for hw, chans in CONCAT_SETS.items():
+            cases.append((f"reference {hw}x{hw}", [
+                rand(rng, (4, hw, hw, c), dt, dev) for c in chans], dt))
+    cases += [("130 inputs", [rand(rng, nhw + (16,), u8, dev)
+                              for _ in range(130)], u8),
+              ("a row wider than a block",
+               [rand(rng, (2, 3, 5, 8208), u8, dev) for _ in range(2)], u8)]
     for label, xs, dt in cases:
         for relu in (False, True):
             cfg = ConcatConfig.make([tuple(x.shape) for x in xs], dt, relu)
-            before = _build.launch_counts()["concat_relu"]
-            got, traced = kernel_launches(lambda: C.concat_cuda(xs, cfg),
-                                          "concat_relu_kernel")
-            launches = _build.launch_counts()["concat_relu"] - before
+            got, launches, ran = counted_and_traced(
+                lambda: C.concat_cuda(xs, cfg), "concat_relu",
+                "concat_relu_kernel")
+            traced = sum(v for k, v in ran.items()
+                         if "concat_relu_kernel" in k)
             check_eq(launches, traced, f"K2's count for {len(xs)} inputs "
                      f"against the kernel launches torch.profiler traced")
-            check(launches >= -(-len(xs) // 16),
-                  f"K2 took {len(xs)} inputs in {launches} launches")
+            check_eq(launches, -(-len(xs) // 128),
+                     f"K2's launches for {len(xs)} inputs")
             par.check("concat_relu", f"{label} {dt.name} relu={relu}",
                       got, C.concat_plain(xs, cfg))
-            if len(xs) > 16 and relu:
+            if relu and (len(xs) > 16 or label.startswith(("reference",
+                                                             "a row"))):
                 print(f"parity: concat_relu {label} {dt.name}: {launches} "
                       f"launches per call (torch.profiler traced "
                       f"{traced}), bitwise equal to the plain version",
@@ -1217,8 +1265,10 @@ def packed_conv_cases(dev):
 
 def c13_sum_pool_cases():
     """(label, left input specs, right operand spec, batch) of the packed
-    sum/pool at input counts and widths the kernel does not take as they
-    are (C13): joined, and narrow lanes padded to 16 with -128."""
+    sum/pool at input counts and lane widths that the JAX package takes
+    (C13), which the kernel takes as they are: more than four inputs,
+    lanes no multiple of 16 (of 8, of 4: the kernel's element narrows),
+    130 inputs (one launch per group of 128)."""
     from deepfusion_tpu_torch.ops.packed import PackedSpec
     out = []
     for label, hw, cs, rcp in (
@@ -1226,6 +1276,10 @@ def c13_sum_pool_cases():
             ("C13 narrow 8 + 24", 28, [8, 24], None),
             ("C13 one input of 8 lanes", 28, [8], 8),
             ("C13 six narrow, 64 lanes", 28, [8, 8, 16, 8, 8, 8], 64),
+            ("C13 8 + 32, 40 lanes", 28, [8, 32], None),
+            ("C13 word lanes 4 + 12", 28, [4, 12], None),
+            ("C13 odd lanes 3 + 5", 28, [3, 5], None),
+            ("C13 130 inputs of 8", 28, [8] * 130, None),
             # FusionNet's batch, side and residual width (256 lanes)
             ("C13 56x56 five inputs, 256 lanes", 56, [64, 64, 64, 32, 32],
              None),
@@ -1324,6 +1378,7 @@ def packed_parity(net, rnet, dev, par):
     edges."""
     from deepfusion_tpu_torch.ops import packed as PK
     from deepfusion_tpu_torch.ops.packed import PackedSpec
+    from deepfusion_tpu_torch.utils.logger import check, check_eq
     rng = np.random.default_rng(6)
     P = net.build_packed()
     n = net.cfg.batch
@@ -1363,9 +1418,29 @@ def packed_parity(net, rnet, dev, par):
                     continue
                 what = f"{label} junk={junk} sum={sum_} pool={pool}"
                 args = (ys, rr if sum_ else None, pool, rs.rows, rs.iwp)
-                par.check("packed_sum_pool", what,
-                          PK.packed_sum_pool_cuda(*args),
+                if not sum_:
+                    par.check("packed_sum_pool", what,
+                              PK.packed_sum_pool_cuda(*args),
+                              PK.packed_sum_pool_plain(*args))
+                    continue
+                # the sums: the inputs as they are, one launch per group of
+                # 128 inputs and no other kernel (no join, no pad) in the call
+                got, launches, ran = counted_and_traced(
+                    lambda: PK.packed_sum_pool_cuda(*args), "packed_sum_pool",
+                    "packed_sum_pool_kernel")
+                check(all("packed_sum_pool_kernel" in k for k in ran),
+                      f"packed_sum_pool {what}: other kernels ran in the "
+                      f"call: {sorted(ran)}")
+                check_eq((launches, sum(ran.values())),
+                         (-(-len(ys) // 128),) * 2,
+                         f"packed_sum_pool {what}: launches by the count "
+                         f"and by torch.profiler")
+                par.check("packed_sum_pool", what, got,
                           PK.packed_sum_pool_plain(*args))
+                if label.startswith("C13") and junk:
+                    print(f"parity: packed_sum_pool {what}: {launches} "
+                          f"launch(es), no other kernel traced, bitwise "
+                          f"equal to the plain version", flush=True)
     # K7 alone: ResFusionNet's packed max pool after its downsample conv,
     # at batch 8 and 1; rows whose two input rows exceed one block's chunk
     # (32 KB): two column chunks, the last one short, and three; odd
@@ -2665,10 +2740,31 @@ def host_profile(name, fn, name_power, calls=50, top=8):
               flush=True)
 
 
+def empty_kernel_floor(name_power, calls=1000):
+    """The floor of a launch on this card: a kernel that does nothing
+    (csrc/empty.cu) launched `calls` times through its registered op from
+    Python, one launch a call, then once with `calls` launches made back to
+    back by the op's C++ loop ("raw": no Python, no dispatcher between
+    launches); CUDA events around each loop, warm, the median of 3 loops;
+    beside them torch.profiler's device time of one empty kernel."""
+    from deepfusion_tpu_torch import _build
+    op = _build.op("empty_launches")
+    loops = {"through the op": lambda: [op(1) for _ in range(calls)],
+             "raw": lambda: op(calls)}
+    for label, fn in loops.items():
+        ms = cuda_ms(fn, reps=3, warmup=1) / calls
+        print(f"timing: empty kernel {label} ms={ms:.5f} per launch "
+              f"(median of 3 loops of {calls}, CUDA events) "
+              f"card=\"{name_power}\"", flush=True)
+    print(f"timing: empty kernel device_ms="
+          f"{device_ms(lambda: op(1), reps=calls):.5f} per launch "
+          f"(torch.profiler) card=\"{name_power}\"", flush=True)
+
+
 def join_timing(label, fn, name_power):
-    """Per-call and device ms of the join a C13 call makes before its
-    kernel (the lane joins of kernel_groups, a narrow group's pad lanes):
-    what the join adds to the kernel's time."""
+    """Per-call and device ms of the join a C13 call of the packed conv
+    makes before its kernel (the lane joins of kernel_groups): what the
+    join adds to the kernel's time."""
     print(f"timing: {label} the join alone ms={cuda_ms(fn):.4f} "
           f"device_ms={device_ms(fn):.4f} card=\"{name_power}\"",
           flush=True)
@@ -2942,16 +3038,16 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
         """Time a kernel and its plain version, the kernel warm (inputs
         reused, so they may sit in the L2) and cold (``cold_device_ms``);
         its bound from the bytes it must move (reads, each once, and its
-        output) and its operations; the library call's time where there is
-        one."""
+        output) and its operations; the library call's time, warm and
+        cold, where there is one."""
         t = (cuda_ms(fn_kernel), cuda_ms(fn_plain), device_ms(fn_kernel),
              device_ms(fn_plain))
         cold = cold_device_ms(fn_kernel)
         nb = nbytes(reads, fn_kernel())
         b_ms, b_by = bound_ms(nb, ops, tensor)
         nan = float("nan")
-        lib = (nan, nan) if library is None else (cuda_ms(library),
-                                                  device_ms(library))
+        lib = (nan, nan, nan) if library is None else (
+            cuda_ms(library), device_ms(library), cold_device_ms(library))
         if in_forward:
             parts = t + (b_ms, bound_ms(nb, 0)[0], bound_ms(0, ops, tensor)[0],
                          lib[0], cold)
@@ -2961,11 +3057,12 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
             for i, v in enumerate((t[2], cold, b_ms, 1)):
                 groups[group][i] += v
         print(f"timing: {kernel} {label} ms={t[0]:.4f} plain_ms={t[1]:.4f} "
-              f"device_ms={t[2]:.4f} cold_device_ms={cold:.4f} "
+              f"device_ms={t[2]:.5f} cold_device_ms={cold:.5f} "
               f"plain_device_ms={t[3]:.4f} "
-              f"bound_ms={b_ms:.4f} bound_by={b_by} bytes={nb} ops={ops:.4g} "
+              f"bound_ms={b_ms:.5f} bound_by={b_by} bytes={nb} ops={ops:.4g} "
               f"cold_share={b_ms / cold:.4f} "
-              f"library_ms={lib[0]:.4f} library_device_ms={lib[1]:.4f} "
+              f"library_ms={lib[0]:.4f} library_device_ms={lib[1]:.5f} "
+              f"library_cold_device_ms={lib[2]:.5f} "
               f"card=\"{name_power}\"",
               flush=True)
 
@@ -2993,13 +3090,18 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
             "kernel": lambda: C.concat_cuda(xs, ccfg),
             "torch.cat": lambda: torch.cat(xs, dim=-1)}, name_power)
         concat_host_us((n, hw, hw, w), dev, name_power)
-        # more inputs than one launch takes: one launch per group of 16
-        for n_in in (17, 40):
-            xs_m = [rand(rng, (n, hw, hw, 16 * (1 + i % 3)), u8, dev)
-                    for i in range(n_in)]
-            cfg_m = ConcatConfig.make([tuple(x.shape) for x in xs_m], u8,
-                                      True)
-            label = f"{n_in} inputs ({-(-n_in // 16)} launches per call)"
+        # many narrow inputs (one launch each), then the reference's three
+        # s8 sets at batch 4 (bench.py --op concat; torch.cat beside them
+        # does no ReLU; the 9x9 set's bound is a few ns: it times a launch)
+        many = [(f"{n_in} inputs (1 launch per call)", u8,
+                 [(n, hw, hw, 16 * (1 + i % 3)) for i in range(n_in)])
+                for n_in in (17, 40)]
+        many += [(f"reference {s}x{s} s8 batch 4", dtype.s8,
+                  [(4, s, s, c) for c in chans])
+                 for s, chans in CONCAT_SETS.items()]
+        for label, dt_m, shapes in many:
+            xs_m = [rand(rng, s, dt_m, dev) for s in shapes]
+            cfg_m = ConcatConfig.make(shapes, dt_m, True)
             timed("concat_relu", label,
                   lambda: C.concat_cuda(xs_m, cfg_m),
                   lambda: C.concat_plain(xs_m, cfg_m), in_forward=False,
@@ -3054,8 +3156,8 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
                   in_forward=False, reads=reads,
                   ops=rr.numel() // (4 if args[2] else 1), tensor=False)
 
-        # C13 shapes at FusionNet's size: the join of the kernel's inputs
-        # (kernel_groups) and the kernel, against the bound of the
+        # C13 shapes at FusionNet's size: the packed conv's join of its
+        # inputs (kernel_groups) and the kernel, against the bound of the
         # unjoined inputs (the 28x28 cases, bounds under 1 us, time only
         # a launch's fixed cost, so only their parity runs)
         for label, op, bn, _ in packed_conv_cases(dev):
@@ -3072,24 +3174,19 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
             join_timing(f"packed_conv {label}",
                         lambda: PK.join_groups(arrs, op.kernel_groups),
                         name_power)
+        # the packed sum/pool at them: the inputs as they are, one launch
         for label, ys_s, rs, bn in c13_sum_pool_cases():
             if not label.startswith("C13 56x56"):
                 continue
             ys = [packed_input(rng, s, bn, dev) for s in ys_s]
             rr = packed_input(rng, rs, bn, dev)
-            timed("packed_sum_pool", f"{label} sum+pool (K8, join + "
-                  f"kernel)",
+            timed("packed_sum_pool", f"{label} sum+pool (K8)",
                   lambda: PK.packed_sum_pool_cuda(ys, rr, True, rs.rows,
                                                   rs.iwp),
                   lambda: PK.packed_sum_pool_plain(ys, rr, True, rs.rows,
                                                    rs.iwp), in_forward=False,
                   reads=(ys, rr), ops=2 * rr.numel(), tensor=False)
-            pad = -rs.cp % PK.LANE_UNIT
-            join_timing(f"packed_sum_pool {label}", lambda: (
-                PK.join_groups(ys, PK.kernel_groups([s.cp for s in ys_s]),
-                               pad),
-                torch.nn.functional.pad(rr, (0, pad), value=-128)
-                if pad else rr), name_power)
+        empty_kernel_floor(name_power)
 
         # dense vs packed forward, in turns
         x = torch.from_numpy(net.example_input()).to(dev)

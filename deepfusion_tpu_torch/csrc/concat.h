@@ -7,9 +7,10 @@
 
 #include "dtypes.h"
 
-// Inputs of one launch of concat_relu_kernel; concat_relu_launch launches
-// once per group of up to this many inputs.
-constexpr int CONCAT_MAX_IN = 16;
+// Inputs of one launch of concat_relu_kernel (its input table, 16 bytes an
+// input, is a kernel parameter); concat_relu_launch launches once per group
+// of up to this many inputs.
+constexpr int CONCAT_MAX_IN = 128;
 
 // srcs, row_bytes: host arrays of n_in >= 1 device pointers (16-byte
 // aligned, rows contiguous) and of their pixel rows' widths in bytes

@@ -13,10 +13,12 @@
 //   packed_plan(int[] geo) -> int[]
 //     the plan packed_conv_launch would run, no launch;
 //   packed_sum_pool(Tensor[] ys, Tensor? r, int rows, int iwp, bool pool)
-//       -> Tensor
+//       -> (Tensor, int)
 //     launches packed_maxpool2_kernel (the pool alone) or
-//     packed_sum_pool_kernel (packed_sum_pool.cu) through
-//     packed_sum_pool_launch;
+//     packed_sum_pool_kernel (packed_sum_pool.cu, any count of inputs of
+//     any lanes, one launch per group of SUM_POOL_MAX_IN) through
+//     packed_sum_pool_launch; returns the output and the kernel launches
+//     it made, which the Python wrapper adds to its launch count;
 //   pair_conv(Tensor src, Tensor corr0_a, Tensor bias0_a, Tensor scale0_a,
 //             Tensor? bias1_a, Tensor? scale1_a, Tensor wmaps_a,
 //             Tensor bias0_b, Tensor scale0_b, Tensor? bias1_b,
@@ -176,13 +178,12 @@ std::vector<int64_t> packed_plan_op(at::IntArrayRef geo) {
   return std::vector<int64_t>(out, out + PACKED_PLAN_OUT);
 }
 
-at::Tensor packed_sum_pool_op(at::TensorList ys,
-                              const std::optional<at::Tensor>& r,
-                              int64_t rows, int64_t iwp, bool pool) {
+std::tuple<at::Tensor, int64_t> packed_sum_pool_op(
+    at::TensorList ys, const std::optional<at::Tensor>& r, int64_t rows,
+    int64_t iwp, bool pool) {
   const char* op = "packed_sum_pool";
   const int n_y = static_cast<int>(ys.size());
-  TORCH_CHECK(n_y >= 1 && n_y <= SUM_POOL_MAX_IN, op, " takes 1 to ",
-              SUM_POOL_MAX_IN, " inputs, got ", n_y);
+  TORCH_CHECK(n_y >= 1, op, " takes at least one input");
   const at::Tensor& y0 = ys[0];
   TORCH_CHECK(y0.is_cuda(), op, ": ys[0] must be a CUDA tensor, it is on ",
               y0.device());
@@ -209,14 +210,15 @@ at::Tensor packed_sum_pool_op(at::TensorList ys,
   c10::cuda::CUDAGuard guard(dev);
   at::Tensor out = at::empty(
       {n, pool ? rows / 2 * (iwp / 2) : slots, cp}, y0.options());
+  int launches = 0;
   check_launch(
       packed_sum_pool_launch(
           ptrs.data(), cps.data(), n_y, ra.defined() ? ra.data_ptr() : nullptr,
           out.data_ptr(), narrow(n, op, "batch"), narrow(rows, op, "rows"),
           narrow(iwp, op, "iwp"), narrow(cp, op, "lanes"), r.has_value(),
-          pool, c10::cuda::getCurrentCUDAStream().stream()),
+          pool, c10::cuda::getCurrentCUDAStream().stream(), &launches),
       "packed_sum_pool_kernel");
-  return out;
+  return {out, launches};
 }
 
 // ops/mega.py:_layer_ints's order (pair_conv.cu: make_layer)
@@ -307,7 +309,7 @@ TORCH_LIBRARY_FRAGMENT(deepfusion_torch, m) {
   m.def("packed_weight_maps(Tensor w0k, Tensor? w1k) -> Tensor");
   m.def("packed_plan(int[] geo) -> int[]");
   m.def("packed_sum_pool(Tensor[] ys, Tensor? r, int rows, int iwp, "
-        "bool pool) -> Tensor");
+        "bool pool) -> (Tensor, int)");
   m.def("pair_conv(Tensor src, Tensor corr0_a, Tensor bias0_a, "
         "Tensor scale0_a, Tensor? bias1_a, Tensor? scale1_a, "
         "Tensor wmaps_a, Tensor bias0_b, Tensor scale0_b, Tensor? bias1_b, "

@@ -17,6 +17,11 @@
 //   deepfusion_torch::sum_relu(Tensor a, Tensor b, bool relu) -> Tensor
 //     launches sum_relu_kernel (sum_relu.cu) through sum_relu_launch
 //     (pool.h): a + b (+ ReLU), saturating for integers.
+//   deepfusion_torch::empty_launches(int calls) -> int
+//     launches empty_kernel (empty.cu), which does nothing, `calls` times
+//     on the current device's current stream and returns the count: the
+//     floor of a launch, through the op and in a loop in C++ (chip_smoke).
+//     No tensor, so one kernel for every backend.
 //
 // Host code only: the .cu files keep out of PyTorch's headers, and this
 // side reaches them through their launchers' headers. _build.py compiles
@@ -37,6 +42,7 @@
 #include <tuple>
 
 #include "concat.h"
+#include "empty.h"
 #include "pool.h"
 #include "torch_ops.h"
 
@@ -146,16 +152,29 @@ at::Tensor sum_relu_op(const at::Tensor& a, const at::Tensor& b,
   return out;
 }
 
+int64_t empty_launches_op(int64_t calls) {
+  check_launch(empty_launch(narrow(calls, "empty_launches", "calls"),
+                            c10::cuda::getCurrentCUDAStream().stream()),
+               "empty_kernel");
+  return calls;
+}
+
 }  // namespace
 
 TORCH_LIBRARY(deepfusion_torch, m) {
   m.def("concat_relu(Tensor[] srcs, bool relu) -> (Tensor, int)");
   m.def("pool(Tensor x, int[] geo) -> Tensor");
   m.def("sum_relu(Tensor a, Tensor b, bool relu) -> Tensor");
+  m.def("empty_launches(int calls) -> int");
 }
 
 TORCH_LIBRARY_IMPL(deepfusion_torch, CUDA, m) {
   m.impl("concat_relu", &concat_relu_op);
   m.impl("pool", &pool_op);
   m.impl("sum_relu", &sum_relu_op);
+}
+
+// no tensor argument, so no backend to dispatch on: one kernel for all
+TORCH_LIBRARY_IMPL(deepfusion_torch, CompositeExplicitAutograd, m) {
+  m.impl("empty_launches", &empty_launches_op);
 }

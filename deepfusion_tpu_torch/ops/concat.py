@@ -43,9 +43,9 @@ def concat_cuda(srcs: Sequence[torch.Tensor], cfg: ConcatConfig):
     """Launch ``concat_relu_kernel`` on the current stream through the
     registered op, which checks the inputs (at least one, one dtype,
     device, N, H and W, rows of 16-byte multiples), makes them contiguous
-    and aligned, allocates the output and launches the kernel once per
-    group of up to 16 inputs, all in C++. The op returns the launches it
-    made, and each of them is counted."""
+    and aligned, allocates the output and launches the kernel once for up
+    to 128 inputs (once per group of 128 beyond), all in C++. The op
+    returns the launches it made, and each of them is counted."""
     out, launches = _build.op("concat_relu")(srcs, cfg.with_relu)
     for _ in range(launches):
         _build.count_launch("concat_relu")

@@ -17,16 +17,21 @@ offset its consumer needs, so activations cross no relayout between layers;
 
 On CUDA tensors ``PackedConvOp`` launches ``packed_conv_kernel``
 (``csrc/packed_conv.cu``) and the residual sum and 2x2 max pool launch
-``packed_sum_pool_kernel`` (``csrc/packed_sum_pool.cu``). On CPU tensors
+``packed_sum_pool_kernel`` or, for the pool alone,
+``packed_maxpool2_kernel`` (``csrc/packed_sum_pool.cu``). On CPU tensors
 they run ``packed_conv_plain`` and ``packed_sum_pool_plain``, which read the
 packed arrays themselves (stored ^ 0x80 as u8, pad slots included), so each
 is the same function as its kernel even where a pad slot does not hold
--128. Nothing else selects the path. The kernels take at most
-``MAX_INPUTS`` inputs of multiples of ``LANE_UNIT`` lanes; the JAX package
-takes any count and width, so before a launch the wrappers join groups of
-consecutive inputs (``kernel_groups``, ``join_groups``: plain lane
-concatenation, the glue the JAX package also writes in ``jnp``). Inputs
-that fit, as on every path of the three models, launch as they are.
+-128. Nothing else selects the path. The sum/pool kernel takes any count of
+inputs of any lane widths and reads each lane group straight from the
+input that holds it, so the join never exists in memory, as in the JAX
+kernel's body. The packed conv takes at most ``MAX_INPUTS``
+inputs of multiples of ``LANE_UNIT`` lanes; the JAX package takes any
+count and width, so before its launch the op joins groups of consecutive
+inputs (``kernel_groups``, ``join_groups``: plain lane concatenation, the
+glue the JAX package also writes in ``jnp``). Inputs that fit, as on every
+path of the three models, launch as they are. The pool alone pads lanes
+to a multiple of ``LANE_UNIT``.
 
 The conv takes the packed eltwise-sum operand (``sum_spec``/``sum_arr``):
 a packed image of the output's image, columns and lanes whose halo may be
@@ -75,8 +80,8 @@ from ..utils.persist import dump_configs, load_configs
 from . import layout
 from .requant import requant_to_u8, round_f32, saturate, sum_term
 
-MAX_INPUTS = 4  # csrc/packed_dst.cuh MAX_SRC, csrc/packed_sum_pool.cu MAX_IN
-LANE_UNIT = 16  # both kernels move 16 lanes (bytes) at a time
+MAX_INPUTS = 4  # csrc/packed_dst.cuh MAX_SRC: the packed conv's inputs
+LANE_UNIT = 16  # the conv and the pool alone move 16 lanes at a time
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,11 +244,11 @@ def repack(arr, sin: PackedSpec, sout: PackedSpec) -> torch.Tensor:
 
 
 def kernel_groups(cps) -> list:
-    """The packed kernels' inputs as index ranges of consecutive inputs of
-    ``cps`` lanes each: at most ``MAX_INPUTS`` groups, each of a multiple
-    of ``LANE_UNIT`` lanes but perhaps the last (which its caller pads).
-    Inputs the kernels take as they are (at most ``MAX_INPUTS``, each of a
-    multiple of ``LANE_UNIT`` lanes) make one group each. A group of
+    """The packed conv kernel's inputs as index ranges of consecutive
+    inputs of ``cps`` lanes each: at most ``MAX_INPUTS`` groups, each of a
+    multiple of ``LANE_UNIT`` lanes but perhaps the last. Inputs the kernel
+    takes as they are (at most ``MAX_INPUTS``, each of a multiple of
+    ``LANE_UNIT`` lanes) make one group each. A group of
     several inputs is their lane join (``join_groups``): the JAX package
     takes any count and width, and every input but the last has ``cp ==
     c``, so the join keeps the channel order."""
@@ -261,15 +266,11 @@ def kernel_groups(cps) -> list:
     return groups
 
 
-def join_groups(arrs, groups, pad: int = 0) -> list:
-    """The kernel's inputs: each group's lane join (the input itself for a
-    group of one, no copy), and ``pad`` lanes of -128 (u8 zero) after the
-    last."""
-    out = [arrs[g.start] if len(g) == 1
-           else torch.cat([arrs[i] for i in g], dim=-1) for g in groups]
-    if pad:
-        out[-1] = F.pad(out[-1], (0, pad), value=-128)
-    return out
+def join_groups(arrs, groups) -> list:
+    """The packed conv kernel's inputs: each group's lane join (the input
+    itself for a group of one, no copy)."""
+    return [arrs[g.start] if len(g) == 1
+            else torch.cat([arrs[i] for i in g], dim=-1) for g in groups]
 
 
 def joined_spec(specs) -> PackedSpec:
@@ -300,22 +301,30 @@ def packed_sum_pool_plain(ys, r, pool: bool, rows: int,
 
 def packed_sum_pool_cuda(ys, r, pool: bool, rows: int,
                          iwp: int) -> torch.Tensor:
-    """Launch on the current stream ``packed_maxpool2_kernel`` for the pool
-    alone (one input), else ``packed_sum_pool_kernel``, through
-    ``torch.ops.deepfusion_torch.packed_sum_pool``, which checks, aligns,
-    allocates and launches in C++. The inputs go in as ``kernel_groups``
-    joins them; lanes past a multiple of 16 are padded with -128 (in r too)
-    and cut from the result."""
+    """Launch on the current stream ``packed_sum_pool_kernel`` (the sums,
+    with or without the pool) or ``packed_maxpool2_kernel`` (the pool
+    alone, one input) through ``torch.ops.deepfusion_torch.packed_sum_pool``,
+    which checks, aligns, allocates and launches in C++. The sums take the
+    inputs as they are, any count and lane widths: the kernel reads each
+    lane group from its input. The pool alone moves 16 lanes at a time: an
+    input of narrower lanes is padded with -128 and the pad cut from the
+    result. The op returns the launches it made, and each is counted."""
     check(r is not None or len(ys) == 1,
           "the packed pool without a sum takes one input")
-    cp_all = sum(y.shape[-1] for y in ys)
-    pad = -cp_all % LANE_UNIT
-    ys = join_groups(ys, kernel_groups([y.shape[-1] for y in ys]), pad)
-    if r is not None and pad:
-        r = F.pad(r, (0, pad), value=-128)
-    out = _build.op("packed_sum_pool")(ys, r, rows, iwp, pool)
-    _build.count_launch("packed_sum_pool")
-    return out[..., :cp_all].contiguous() if pad else out
+    check(r is not None or pool, "the packed sum/pool needs r or the pool")
+    op = _build.op("packed_sum_pool")
+    if r is not None:
+        out, launches = op(list(ys), r, rows, iwp, pool)
+    else:
+        cp = ys[0].shape[-1]
+        pad = -cp % LANE_UNIT
+        y = F.pad(ys[0], (0, pad), value=-128) if pad else ys[0]
+        out, launches = op([y], None, rows, iwp, pool)
+        if pad:
+            out = out[..., :cp].contiguous()
+    for _ in range(launches):
+        _build.count_launch("packed_sum_pool")
+    return out
 
 
 def _sum_pool(ys, r, pool: bool, rows: int, iwp: int) -> torch.Tensor:

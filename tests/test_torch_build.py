@@ -37,6 +37,7 @@ from deepfusion_tpu_torch.ops.concat import concat_cuda, concat_plain
 from deepfusion_tpu_torch.ops.conv import ConvOp
 from deepfusion_tpu_torch.ops.convpool import ConvPoolOp
 from deepfusion_tpu_torch.types import dtype, round_mode
+from deepfusion_tpu_torch.utils.logger import CheckError
 
 # the op modules (ops/__init__ exports functions named conv and pool)
 C, CP, M, P, PL = (importlib.import_module(f"deepfusion_tpu_torch.ops.{m}")
@@ -121,10 +122,12 @@ def test_library_is_built_opened_and_declared_once(fake_library):
 
 # ---------------------------------------------- the registered operators
 
-# every op of torch.ops.deepfusion_torch, as the wrappers call them
+# every op of torch.ops.deepfusion_torch, as the wrappers call them (and
+# empty_launches, the floor of a launch that chip_smoke.py times)
 OPS = ("concat_relu", "pool", "sum_relu", "conv_fused", "convpool",
        "conv_weight_maps", "conv_plan", "packed_conv", "packed_weight_maps",
-       "packed_plan", "packed_sum_pool", "pair_conv", "pair_plan")
+       "packed_plan", "packed_sum_pool", "pair_conv", "pair_plan",
+       "empty_launches")
 
 
 def _cpp_sources() -> dict:
@@ -217,7 +220,7 @@ _CPP_ARG = {"Tensor": "const at::Tensor&",
             "List[Tensor]": "at::TensorList", "List[int]": "at::IntArrayRef",
             "int": "int64_t", "float": "double", "bool": "bool"}
 _CPP_RETURN = {("Tensor",): "at::Tensor",
-               ("List[int]",): "std::vector<int64_t>",
+               ("List[int]",): "std::vector<int64_t>", ("int",): "int64_t",
                ("Tensor", "int"): "std::tuple<at::Tensor, int64_t>"}
 
 
@@ -292,12 +295,15 @@ def recorded_ops(monkeypatch):
                 out = list(range(100, 120))
             elif name.endswith("_weight_maps"):
                 out = torch.zeros((6, 128), dtype=torch.uint8)
+            elif name == "empty_launches":
+                out = args[0]
             else:
                 out = torch.empty(0)
             rec = {"args": dict(zip([a.name for a in parsed.arguments],
                                     args)), "out": out}
             calls[name].append(rec)
-            return (out, 1) if name == "concat_relu" else out
+            return (out, 1) if name in ("concat_relu", "packed_sum_pool") \
+                else out
         return run
 
     try:
@@ -519,6 +525,11 @@ def _case_packed_sum_pool(calls):
     return {"ys": ys, "r": r, "rows": 10, "iwp": 16, "pool": True}
 
 
+def _case_empty_launches(calls):
+    assert _build.op("empty_launches")(3) == 3
+    return {"calls": 3}
+
+
 def _layer(cfg, kp):
     fuse = cfg.fuse_conv1x1
     return dict(kh=cfg.kh, kw=cfg.kw, ph=cfg.ph, pw=cfg.pw, kp=kp,
@@ -649,6 +660,75 @@ def test_concat_relu_schema_takes_what_concat_cuda_passes(monkeypatch):
                     a.data_ptr() == b.data_ptr() for a, b in zip(srcs, xs))
     finally:
         _build.op.cache_clear()
+
+
+@pytest.mark.parametrize("n_in", [2, 17, 40, 130])
+def test_concat_cuda_hands_the_op_every_input_in_one_call(n_in,
+                                                          recorded_ops):
+    """However many inputs there are, concat_cuda makes one call of the
+    op with all of them, as they are and in order: the launcher, not the
+    wrapper, decides how many launches they take."""
+    rng = np.random.default_rng(n_in)
+    xs = [_u8(rng, (1, 2, 3, 16 * (1 + i % 3))) for i in range(n_in)]
+    cfg = ConcatConfig.make([tuple(x.shape) for x in xs], torch.uint8, True)
+    concat_cuda(xs, cfg)
+    calls = recorded_ops["concat_relu"]
+    assert len(calls) == 1
+    srcs = calls[0]["args"]["srcs"]
+    assert len(srcs) == n_in and all(
+        a.data_ptr() == b.data_ptr() and a.shape == b.shape
+        for a, b in zip(srcs, xs))
+
+
+# (lane widths of the left inputs, lanes of r)
+UNJOINED_SUM_POOL = {
+    "five inputs of 32": ((32,) * 5, 160),
+    "8 + 24 lanes": ((8, 24), 32),
+    "six mixed widths": ((8, 8, 16, 32, 64, 128), 256),
+    "r of 40 lanes": ((8, 32), 40),
+}
+
+
+@pytest.mark.parametrize("pool", [True, False])
+@pytest.mark.parametrize("label", sorted(UNJOINED_SUM_POOL))
+def test_packed_sum_pool_hands_the_op_its_inputs_unjoined(label, pool,
+                                                          recorded_ops):
+    """The sums take any count of inputs of any lane widths: the wrapper
+    hands the op its inputs and r as they are (no lane join, no pad
+    lanes) in one call, and counts one launch."""
+    cps, rcp = UNJOINED_SUM_POOL[label]
+    rng = np.random.default_rng(rcp)
+    ys = [_s8(rng, (2, 4 * 16, c)) for c in cps]
+    r = _s8(rng, (2, 4 * 16, rcp))
+    before = _build.launch_counts()["packed_sum_pool"]
+    P.packed_sum_pool_cuda(ys, r, pool, 4, 16)
+    assert _build.launch_counts()["packed_sum_pool"] - before == 1
+    calls = recorded_ops["packed_sum_pool"]
+    assert len(calls) == 1
+    args = calls[0]["args"]
+    assert len(args["ys"]) == len(ys) and all(
+        a.data_ptr() == b.data_ptr() and a.shape == b.shape
+        for a, b in zip(args["ys"], ys))
+    assert args["r"].data_ptr() == r.data_ptr() and args["r"].shape == r.shape
+    assert (args["rows"], args["iwp"], args["pool"]) == (4, 16, pool)
+
+
+@pytest.mark.parametrize("cp", [16, 8])
+def test_packed_pool_alone_hands_the_op_pool_and_refuses_neither(
+        cp, recorded_ops):
+    """Without r the wrapper hands the op the pool (narrow lanes padded to
+    16) and one launch; a call that asks for neither the sum nor the pool
+    is refused before the op."""
+    y = _s8(np.random.default_rng(cp), (2, 4 * 16, cp))
+    P.packed_sum_pool_cuda([y], None, True, 4, 16)
+    calls = recorded_ops["packed_sum_pool"]
+    assert len(calls) == 1
+    args = calls[0]["args"]
+    assert args["r"] is None and args["pool"] is True
+    assert len(args["ys"]) == 1 and args["ys"][0].shape == (2, 64, 16)
+    with pytest.raises(CheckError, match="needs r or the pool"):
+        P.packed_sum_pool_cuda([y], None, False, 4, 16)
+    assert len(calls) == 1
 
 
 def test_torch_ops_compile_command_carries_torch_abi_and_headers():

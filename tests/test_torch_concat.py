@@ -1,7 +1,7 @@
 """Concat(+ReLU) of the PyTorch port vs the JAX package, bitwise.
 
-1-3 inputs, and 17 and 40 (more than one kernel launch takes), in all
-four dtypes, with and without the true ReLU, on full-range data
+1-3 inputs, 17 and 40, and the reference's three shape sets, in all four
+dtypes, with and without the true ReLU, on full-range data
 (saturation edges included), against
 ``deepfusion_tpu.ops.concat`` in Pallas interpret mode; the config that
 ``concat()`` keeps per shapes, dtype and ReLU, and its checks, which raise
@@ -131,15 +131,34 @@ def test_same_shapes_as_u8_then_s8_match_jax(relu):
 @pytest.mark.parametrize("n_in", [17, 40])
 @pytest.mark.parametrize("relu", [True, False])
 def test_concat_many_inputs_match_jax(dt, n_in, relu):
-    """More inputs than one launch of the kernel takes (16): the JAX
-    package sets no count, and the port computes every count (on the card
-    one launch per group of 16 inputs into the one output)."""
+    """Many narrow inputs: the JAX package sets no count, and the port
+    computes every count (on the card in one launch)."""
     rng = np.random.default_rng([DTYPES.index(dt), n_in, relu, 17])
     unit = 4 if dt in ("s32", "f32") else 16
     xs = [full_range(rng, (1, 2, 3, unit * (1 + i % 3)), dt)
           for i in range(n_in)]
     want = np.asarray(jconcat(xs, post_relu=relu))
     got = tconcat([torch.from_numpy(x) for x in xs], post_relu=relu,
+                  device="cpu").numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+# the reference's three default shape sets (bench.py:450-451, from its
+# benchmark/bench_concat.cc:226-242), at batch 1
+REFERENCE_SETS = {244: (128, 256, 128, 256), 64: (64, 96, 64, 96),
+                  9: (16, 64, 16, 64)}
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("hw", sorted(REFERENCE_SETS))
+def test_concat_reference_sets_match_jax(hw, dt):
+    """Four inputs with ReLU at the reference benchmark's shapes (its s8
+    sets, here in every dtype the channel rule allows)."""
+    rng = np.random.default_rng([hw, DTYPES.index(dt)])
+    xs = [full_range(rng, (1, hw, hw, c), dt) for c in REFERENCE_SETS[hw]]
+    want = np.asarray(jconcat(xs, post_relu=True))
+    got = tconcat([torch.from_numpy(x) for x in xs], post_relu=True,
                   device="cpu").numpy()
     assert got.dtype == want.dtype and got.shape == want.shape
     np.testing.assert_array_equal(got, want)

@@ -727,9 +727,10 @@ def test_pack_image_sharded_matches_jax():
 
 # ---------------------------------------------------- any count and width
 # The JAX package takes any number of packed inputs of any lane width
-# (every input but the last with cp == c); the kernels take at most
-# MAX_INPUTS of multiples of 16 lanes, so the port joins groups of
-# consecutive inputs (kernel_groups) before a launch.
+# (every input but the last with cp == c). The sum/pool kernel takes them
+# as they are; the packed conv takes at most MAX_INPUTS of multiples of 16
+# lanes, so the port joins groups of consecutive inputs (kernel_groups)
+# before its launch.
 
 GROUP_CASES = {
     "fit": ([32, 64, 16, 48], [[0], [1], [2], [3]]),
@@ -794,22 +795,25 @@ def test_packed_conv_any_inputs_matches_jax(label):
     assert torch.equal(jop(tuple(joined)), whole)
 
 
-# (channels of each left input, cp of the last, cp of r)
+# (channels of each left input, cp of r)
 MANY_SUM_POOL_CASES = {
     "five inputs": ((32, 32, 32, 32, 32), None),
     "narrow 8 + 24": ((8, 24), None),
     "narrow 8 + 8, 16 lanes": ((8, 8), None),
     "one input of 8 lanes": ((8,), None),
     "six narrow, padded to 64": ((8, 8, 16, 8, 8, 8), 64),
+    "six mixed widths": ((8, 8, 16, 32, 64, 128), None),
+    "r of 40 lanes": ((8, 32), None),
 }
 
 
 @pytest.mark.parametrize("label", sorted(MANY_SUM_POOL_CASES))
 def test_packed_sum_relu_maxpool2_any_inputs_matches_jax(label):
-    """K8 at input counts and widths the kernel does not take as they are:
-    bitwise against the JAX package, and the plain version on the joined
-    inputs (and -128 pad lanes to a multiple of 16, cut from the result)
-    equals it."""
+    """K8 at any input count and lane widths: bitwise against the JAX
+    package; the plain version on the inputs as they are (the operands
+    the kernel takes: no join, no pad lanes) equals it, and without the
+    pool (K6's sum of the lane join) equals the JAX sum of the joined
+    image."""
     cs, rcp = MANY_SUM_POOL_CASES[label]
     rng = np.random.default_rng([len(cs), sum(cs)])
     ctot = sum(cs)
@@ -827,19 +831,17 @@ def test_packed_sum_relu_maxpool2_any_inputs_matches_jax(label):
         jspec(rspec))
     assert jspec(gspec) == wspec
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    groups = T.kernel_groups(cps)
-    pad = -rcp % T.LANE_UNIT
-    joined = T.join_groups(ys, groups, pad)
-    assert len(joined) <= T.MAX_INPUTS
-    assert all(a.shape[-1] % T.LANE_UNIT == 0 for a in joined)
-    plain = T.packed_sum_pool_plain(
-        joined, torch.nn.functional.pad(r, (0, pad), value=-128), True,
-        rspec.rows, rspec.iwp)
-    assert torch.equal(plain[..., :rcp], got)
+    plain = T.packed_sum_pool_plain(ys, r, True, rspec.rows, rspec.iwp)
+    assert torch.equal(plain, got)
+    summed = T.packed_sum_pool_plain(ys, r, False, rspec.rows, rspec.iwp)
+    want = J.packed_sum_relu(np.concatenate([y.numpy() for y in ys], -1),
+                             r.numpy(), jspec(rspec))
+    np.testing.assert_array_equal(summed.numpy(), np.asarray(want))
 
 
 def test_packed_maxpool2_and_sum_relu_of_narrow_lanes_match_jax():
-    """K7 and K6 on an image of 8 lanes (padded to 16 for the kernel)."""
+    """K7 (its input padded to 16 lanes for the kernel) and K6 on an image
+    of 8 lanes."""
     rng = np.random.default_rng(8)
     spec = T.PackedSpec.make(8, 12, 8, cp=8, halo=2, col_off=2, iwp=16)
     a, b = (T.pack_image(_edge_u8(rng, (2, 8, 12, 8)), spec, device="cpu")
