@@ -28,6 +28,13 @@ Launch counts (``_build.count_launch``) run in Python, so under a graph
 they would run once, at capture, when the card runs nothing: the capture's
 counts are taken out (``counted``) and put back at every replay, and the
 counts keep saying what ran on the card.
+
+While a ``torch.profiler`` records (``utils/profiler.py``), every call
+records a ``model.replay`` span (the host's part of a call: the lock, the
+capture lookup, the input copy's and the replay's enqueue, the output's
+clone; on the CPU the forward itself) and every capture a
+``model.capture`` span with the input's ``shape`` and ``dtype``, so a
+graph built again mid-run shows in a trace. Off, each costs one flag read.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ import torch
 
 from .. import _build
 from ..utils.logger import check
+from ..utils.profiler import span
 
 WARMUP = 2   # eager forwards on a side stream before a capture
 _MOVED = ("the model's weights moved since its graph was captured: call "
@@ -112,26 +120,28 @@ class GraphedForward:
         return len(self._captures)
 
     def __call__(self, x) -> torch.Tensor:
-        if self.device.type == "cpu":
-            check(not self._captures, _MOVED)
-            with torch.inference_mode():
-                return self._fn(x)
-        x = torch.as_tensor(x)
-        with self._lock:
-            cap = self._captures.get((tuple(x.shape), x.dtype))
-            if cap is None:
-                cap = self._capture(x)
-            check(self._first_buffer() is cap.anchor, _MOVED)
-            with torch.inference_mode():
-                cap.static_in.copy_(x)
-                cap.graph.replay()
-            _build.add_counts(cap.delta)
-            return cap.static_out.clone()
+        with span("model.replay"):
+            if self.device.type == "cpu":
+                check(not self._captures, _MOVED)
+                with torch.inference_mode():
+                    return self._fn(x)
+            x = torch.as_tensor(x)
+            with self._lock:
+                cap = self._captures.get((tuple(x.shape), x.dtype))
+                if cap is None:
+                    cap = self._capture(x)
+                check(self._first_buffer() is cap.anchor, _MOVED)
+                with torch.inference_mode():
+                    cap.static_in.copy_(x)
+                    cap.graph.replay()
+                _build.add_counts(cap.delta)
+                return cap.static_out.clone()
 
     def _capture(self, x: torch.Tensor) -> _Capture:
         dev = self.device
-        with _capture_lock(dev), torch.cuda.device(dev), \
-                torch.inference_mode():
+        with span("model.capture", shape=tuple(x.shape),
+                  dtype=str(x.dtype)), _capture_lock(dev), \
+                torch.cuda.device(dev), torch.inference_mode():
             static_in = torch.empty(x.shape, dtype=x.dtype, device=dev)
             static_in.copy_(x)
             side = torch.cuda.Stream(dev)

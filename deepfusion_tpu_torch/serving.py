@@ -13,6 +13,14 @@ a numpy array. The device is the model's ``device`` attribute (such as
 ``FusionNet.device``, or a ``parallel`` wrapper's first slot, as for a
 ``dp_shard``-split model) or, for a bound method, its object's; a model
 with neither is refused, so no batch lands on the CPU by default.
+
+While a ``torch.profiler`` records (``utils/profiler.py``: ``device_trace``
+writes a file), each flush records the spans ``serve.flush`` (from the wait
+for its first request to its last result) over ``serve.wait``,
+``serve.gather``, ``serve.stack``, ``serve.h2d``, ``serve.forward``,
+``serve.d2h`` and ``serve.resolve``, in the worker's thread, and every
+request enqueued meanwhile a ``serve.request`` record (enqueued, picked up,
+resolved; its flush as parent). Off, each site costs one flag read.
 """
 from __future__ import annotations
 
@@ -24,8 +32,10 @@ from typing import Callable, Sequence, Union
 import numpy as np
 import torch
 
+from .utils import profiler
 from .utils.logger import CheckError, check, info
 from .utils.mathutil import balance211
+from .utils.profiler import span
 
 
 def model_device(fn) -> torch.device:
@@ -91,7 +101,10 @@ class BatchServer:
         check(tuple(x.shape) == self._in_shape,
               f"request shape {x.shape} != {self._in_shape}")
         fut: Future = Future()
-        self._qs[replica].put((x, fut))
+        # while tracing: [request id, enqueued], to which pick-up is added
+        stamp = [profiler.new_id(), profiler.now_ns()] \
+            if profiler.tracing() else None
+        self._qs[replica].put((x, fut, stamp))
         with self._stats_lock:
             self.stats["requests"] += 1
             self.stats["per_replica"][replica] += 1
@@ -128,19 +141,31 @@ class BatchServer:
 
     # ---------------------------------------------------------- worker
 
+    @staticmethod
+    def _take(q, timeout: float):
+        item = q.get(timeout=timeout)
+        if item[2] is not None:
+            item[2].append(profiler.now_ns())
+        return item
+
     def _gather(self, q):
-        """Collect up to `batch` requests, waiting at most max_delay for
-        stragglers after the first arrival."""
+        """Collect up to `batch` requests: wait for the first (looking for
+        a stop every 50 ms; empty only once the server stops), then at most
+        max_delay for each straggler."""
         items = []
-        try:
-            items.append(q.get(timeout=0.05))
-        except queue.Empty:
-            return items
-        while len(items) < self._batch:
-            try:
-                items.append(q.get(timeout=self._delay))
-            except queue.Empty:
-                break
+        with span("serve.wait"):
+            while not items:
+                try:
+                    items.append(self._take(q, 0.05))
+                except queue.Empty:
+                    if self._stop.is_set():
+                        return items
+        with span("serve.gather"):
+            while len(items) < self._batch:
+                try:
+                    items.append(self._take(q, self._delay))
+                except queue.Empty:
+                    break
         return items
 
     def _run(self, replica: int):
@@ -148,25 +173,44 @@ class BatchServer:
         device = self._devices[replica]
         with torch.inference_mode():
             while not self._stop.is_set() or not q.empty():
-                items = self._gather(q)
-                if not items:
-                    continue
-                xs = np.stack([x for x, _ in items])
-                pad = self._batch - len(items)
-                if pad:
-                    xs = np.concatenate(
-                        [xs, np.zeros((pad,) + self._in_shape,
-                                      self._in_dtype)])
-                try:
-                    out = fn(torch.from_numpy(xs).to(device)).cpu().numpy()
-                except Exception as e:  # propagate to all waiters
-                    for _, fut in items:
-                        fut.set_exception(e)
-                    continue
-                with self._stats_lock:
-                    self.stats["flushes"] += 1
-                    self.stats["padded_rows"] += pad
-                for i, (_, fut) in enumerate(items):
-                    fut.set_result(out[i])
+                with span("serve.flush", replica=replica) as flush:
+                    items = self._gather(q)
+                    if not items:       # stopped with nothing queued
+                        flush.discard()
+                        continue
+                    if flush:
+                        flush.attrs.update(rows=len(items),
+                                           pad=self._batch - len(items),
+                                           depth=q.qsize())
+                    self._flush(fn, device, items, flush.id)
         if replica == 0:
             info("batch server drained: %s", self.stats)
+
+    def _flush(self, fn, device, items: list, flush_id):
+        with span("serve.stack"):
+            xs = np.stack([x for x, _, _ in items])
+            pad = self._batch - len(items)
+            if pad:
+                xs = np.concatenate(
+                    [xs, np.zeros((pad,) + self._in_shape, self._in_dtype)])
+        try:
+            with span("serve.h2d"):
+                x = torch.from_numpy(xs).to(device)
+            with span("serve.forward"):
+                y = fn(x)
+            with span("serve.d2h"):
+                out = y.cpu().numpy()
+        except Exception as e:  # propagate to all waiters
+            for _, fut, _ in items:
+                fut.set_exception(e)
+            return
+        with span("serve.resolve"):
+            with self._stats_lock:
+                self.stats["flushes"] += 1
+                self.stats["padded_rows"] += pad
+            for i, (_, fut, stamp) in enumerate(items):
+                fut.set_result(out[i])
+                if stamp is not None:
+                    profiler.record("serve.request", stamp[1],
+                                    profiler.now_ns(), stamp[0], flush_id,
+                                    picked=stamp[2])
