@@ -34,8 +34,11 @@ Phases, each printing its own lines:
      (CPU tensors, mixed devices, a dtype mismatch); for the fused
      conv+pool both pools, strides and sums; for the packed
      kernels also halo erosion, wide tap shifts, pad lanes, 1-3 inputs,
-     the packed sum operand, the s2d stem, the fused 2x2 pool and random
-     bytes in the pad slots, and the input counts and lane widths the
+     the packed sum operand, the s2d stem, the fused 2x2 pool, the
+     residual merge and pool (merge_pool: FusionNet's res, chunks of 64
+     and 32 bytes, three inputs, two lane passes, tile edges, a deeper
+     halo) and random bytes in the pad slots, and the input counts and
+     lane widths the
      conv takes only joined (C13: five inputs, 8 + 24 lanes, six mixed
      widths, at 8x28x28 and at FusionNet's 8x56x56 and widths); the
      packed sum/pool (K6, K8) takes them as they are, in one launch with
@@ -74,7 +77,10 @@ Phases, each printing its own lines:
      model moved to the CPU, and once it moved back;
   5. timings: CUDA-event medians and profiler device times of each kernel
      and its plain version at the models' shapes, the kernel warm (inputs
-     reused) and cold (the L2 evicted before every call), every K1 launch
+     reused) and cold (the L2 evicted before every call), FusionNet's res
+     with merge_pool at batch 8 and 256 (there first held against its
+     plain version) beside the pair it replaced (the res conv's
+     full-resolution output, then K8), every K1 launch
      of every forward with its plan (conv_plan) and its sums per model,
      the packed conv's plan (tile, tiles, blocks, stages, shared bytes) at
      each layer, the conv pair per VGGFusion block against the same block as
@@ -183,7 +189,7 @@ KERNEL_INFO = {
 # the kernels each served path launches (the packed heads are dense convs)
 PATH_KERNELS = {
     ("FusionNet", "dense"): ("conv_fused", "concat_relu", "pool", "sum_relu"),
-    ("FusionNet", "packed"): ("packed_conv", "packed_sum_pool", "conv_fused"),
+    ("FusionNet", "packed"): ("packed_conv", "conv_fused"),
     ("ResFusionNet", "dense"): ("conv_fused", "convpool", "pool"),
     ("ResFusionNet", "packed"): ("packed_conv", "packed_sum_pool",
                                  "conv_fused"),
@@ -197,8 +203,7 @@ PATH_KERNELS = {
 FORWARD_LAUNCHES = {
     "FusionNet dense": {"conv_fused": 6, "concat_relu": 1, "pool": 2,
                         "sum_relu": 1},
-    "FusionNet packed": {"conv_fused": 1, "packed_conv": 5,
-                         "packed_sum_pool": 1},
+    "FusionNet packed": {"conv_fused": 1, "packed_conv": 5},
     "ResFusionNet dense": {"conv_fused": 4, "pool": 1, "convpool": 1},
     "ResFusionNet packed": {"conv_fused": 1, "packed_conv": 4,
                             "packed_sum_pool": 1},
@@ -210,6 +215,10 @@ FORWARD_LAUNCHES = {
 }
 SHARDED_LAUNCHES = {"conv_fused": 58, "packed_conv": 32, "convpool": 2,
                     "pair_conv": 38}
+# the kernel modes of the sharded path (packed_conv.merge_pool is
+# FusionNet's packed forward's, never a shard's)
+SHARDED_MODES = ("conv_fused.acc1", "packed_conv.acc1", "packed_conv.rows",
+                 "pair_conv.rows", "pair_conv.bounds")
 # three_stage_plan in phase 6: bench.py's scaling-plan widths (64
 # channels, bench.py:673-678) at hw 128, batch 8 per dp shard
 PLAN = dict(mb=16, hw=128, c=64)
@@ -1135,7 +1144,7 @@ def packed_conv_cases(dev):
     def add(label, hw, cs, oc, k=3, *, oc1=None, bias=True, per_oc=True,
             rnd="nearest", halo_in=2, halo_out=1, off_in=2, off_out=2,
             iwp=None, n=2, junk=False, sum_halo=None, sum_scale=1.0,
-            pool2=False):
+            pool2=False, merge_pool=False, sc=None):
         # hw: side or (h, w); cs: channels per input, or (c, cp)
         h, w = (hw, hw) if isinstance(hw, int) else hw
         cs = [(c, None) if isinstance(c, int) else c for c in cs]
@@ -1144,7 +1153,7 @@ def packed_conv_cases(dev):
         wei = rng.integers(-128, 128, (oc, ic, k, k)).astype(np.int8)
         bia = rng.integers(-5000, 5000, (oc,)).astype(np.int32) \
             if bias else None
-        sc = 1.0 / (k * k * ic * 60)
+        sc = sc or 1.0 / (k * k * ic * 60)
         sc0 = (rng.uniform(0.5, 1.5, oc) * sc).astype(np.float32) \
             if per_oc else (sc,)
         kw = {}
@@ -1174,7 +1183,8 @@ def packed_conv_cases(dev):
             halo=sum_halo, col_off=off_out, iwp=sins[0].iwp)
         op = PackedConvOp(cfg, wei, bia, wei1, bia1, sin=sins,
                           col_off_out=off_out, halo_out=halo_out,
-                          sum_spec=ssum, pool2=pool2, device=dev)
+                          sum_spec=ssum, pool2=pool2, merge_pool=merge_pool,
+                          device=dev)
         out.append((label, op, n, junk))
 
     for rnd in ("nearest", "down"):
@@ -1242,6 +1252,27 @@ def packed_conv_cases(dev):
     for oc1 in (None, 40):
         add(f"5x5 pool2 fused={oc1 is not None}", 12, [32], 64, k=5,
             oc1=oc1, halo_in=3, halo_out=2, iwp=16, pool2=True, junk=True)
+    # the residual merge and pool (merge_pool: a 1x1 whose output lanes are
+    # its inputs', their geometry kept): FusionNet's widths, chunks of 64
+    # and 32 bytes (their swizzles), three inputs, two lane passes, tile
+    # edges, a deeper halo; scales that clamp at both ends and saturate
+    for junk in (False, True):
+        add(f"merge_pool 128 + 128 junk={junk}", 12, [128, 128], 256, k=1,
+            halo_in=2, halo_out=2, iwp=16, merge_pool=True, sc=1 / 300,
+            junk=junk)
+    add("merge_pool 96 + 32", 12, [96, 32], 128, k=1, halo_in=2,
+        halo_out=2, iwp=16, merge_pool=True, sc=1 / 300, junk=True)
+    add("merge_pool 32 + 64 + 32", 12, [32, 64, 32], 128, k=1, halo_in=2,
+        halo_out=2, iwp=16, merge_pool=True, sc=1 / 300, junk=True)
+    add("merge_pool 256 + 128 (two lane passes)", 12, [256, 128], 384,
+        k=1, halo_in=2, halo_out=2, iwp=16, merge_pool=True, sc=1 / 300,
+        junk=True)
+    add("merge_pool tile edges 22x10 batch 3", (22, 10), [64, 64], 128,
+        k=1, halo_in=2, halo_out=2, iwp=16, n=3, merge_pool=True,
+        sc=1 / 300, junk=True)
+    add("merge_pool halo 4 col_off 4", 12, [64], 64, k=1, halo_in=4,
+        halo_out=4, off_in=4, off_out=4, iwp=32, merge_pool=True,
+        sc=1 / 300, junk=True)
     # C13: more inputs than the kernel takes and lane widths no multiple
     # of 16, joined into the kernel's inputs (ops/packed.py kernel_groups)
     add("C13 five inputs of 32", 28, [32] * 5, 64, n=8, junk=True)
@@ -1734,8 +1765,9 @@ def phase_sharded(cases, name_power):
     print(f"sharded: launches of the sharded calls {counts}; modes {modes}",
           flush=True)
     for k in _build.MODES:
-        check(modes[k] > 0, f"kernel mode {k} was not launched on the "
-                            "sharded path")
+        check((modes[k] > 0) == (k in SHARDED_MODES),
+              f"kernel mode {k}: launched {modes[k]} times on the sharded "
+              "path")
     for k in ("conv_fused", "packed_conv", "pair_conv", "convpool"):
         check(counts[k] > 0, f"kernel {k} was not launched on the sharded "
                              "path")
@@ -3012,6 +3044,62 @@ def vggfusion_timings(vnet, dev, name_power, timed):
     return {"dense": vnet, "packed": pm}
 
 
+def merge_pool_timings(net, dev, name_power, parity, batches=(8, 256)):
+    """FusionNet's residual conv with the merge and pool in its epilogue
+    (K5 merge_pool, one launch) against the pair it replaced, the conv
+    writing the full-resolution residual and K8 summing and pooling it, and
+    against the same conv with the pool alone (the merge's floor), at batch
+    8 and 256: each part's device ms warm and cold and its bound (bytes:
+    the inputs read once, the output written); at batch 256 first the
+    merged kernel against its plain version, bitwise."""
+    from deepfusion_tpu_torch.ops.packed import PackedConvOp
+    PK = importlib.import_module("deepfusion_tpu_torch.ops.packed")
+    rng = np.random.default_rng(19)
+    res = net.build_packed()["res"]
+    p = net.params["res"]
+    old = PackedConvOp(res.cfg, p["wei"], p["bia"], sin=res.sins,
+                       col_off_out=res.sout.col_off,
+                       halo_out=res.sout.halo, device=dev)
+    floor = PackedConvOp(res.cfg, p["wei"], p["bia"], sin=res.sins,
+                         col_off_out=res.sout.col_off,
+                         halo_out=res.sout.halo, pool2=True, device=dev)
+    rs = old.sout
+    for bn in batches:
+        xs = [packed_input(rng, s, bn, dev) for s in res.sins]
+        if bn != net.cfg.batch:
+            parity.check("packed_conv",
+                         f"FusionNet res merge_pool batch {bn}",
+                         PK.packed_conv_cuda(res, xs),
+                         PK.packed_conv_plain(res, xs))
+        r = PK.packed_conv_cuda(old, xs)
+
+        def k8(r):
+            return PK.packed_sum_pool_cuda(xs, r, True, rs.rows, rs.iwp)
+        parts = {
+            "merge_pool (one launch)": (
+                lambda: PK.packed_conv_cuda(res, xs), (packed_reads(res, bn),)),
+            "res conv with the pool alone (no merge)": (
+                lambda: PK.packed_conv_cuda(floor, xs),
+                (packed_reads(floor, bn),)),
+            "res conv, full-resolution output": (
+                lambda: PK.packed_conv_cuda(old, xs), (packed_reads(old, bn),)),
+            "K8 sum+pool": (lambda: k8(r), (xs, r)),
+            "res conv + K8 (the pair replaced)": (
+                lambda: k8(PK.packed_conv_cuda(old, xs)),
+                (packed_reads(old, bn), 2 * r.numel(), xs))}
+        ops = conv_ops(res.cfg, bn)
+        for label, (fn, reads) in parts.items():
+            warm, cold = device_ms(fn, profiles=3), cold_device_ms(fn)
+            b_ms, b_by = bound_ms(nbytes(reads, fn()),
+                                  0 if label.startswith("K8") else ops)
+            print(f"timing: merge_pool FusionNet res batch {bn}: {label} "
+                  f"device_ms={warm:.5f} cold_device_ms={cold:.5f} "
+                  f"bound_ms={b_ms:.5f} bound_by={b_by} "
+                  f"cold_share={b_ms / cold:.4f} card=\"{name_power}\"",
+                  flush=True)
+        del xs, r
+
+
 def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
                   counts) -> list:
     """Phase 5; returns the kernels' JSON rows (sums over the calls one
@@ -3030,6 +3118,7 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
     # operations-bound ms, library ms (nan once a call has none), cold
     # device ms
     per = {k: [0.0] * 9 for k in KERNEL_INFO}
+    in_forwards = set()   # the kernels some timed forward call launches
     # K1's launches per forward: warm, cold and bound ms and launches
     groups = {g: [0.0, 0.0, 0.0, 0] for g in ("Fd", "Rd", "Vd", "heads")}
 
@@ -3049,6 +3138,7 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
         lib = (nan, nan, nan) if library is None else (
             cuda_ms(library), device_ms(library), cold_device_ms(library))
         if in_forward:
+            in_forwards.add(kernel)
             parts = t + (b_ms, bound_ms(nb, 0)[0], bound_ms(0, ops, tensor)[0],
                          lib[0], cold)
             for i, v in enumerate(parts):
@@ -3144,8 +3234,9 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
         timed("packed_sum_pool", "residual sum+pool (K8)",
               lambda: PK.packed_sum_pool_cuda(ys, rr, True, rs.rows, rs.iwp),
               lambda: PK.packed_sum_pool_plain(ys, rr, True, rs.rows,
-                                               rs.iwp), reads=(ys, rr),
-              ops=2 * rr.numel(), tensor=False)
+                                               rs.iwp), in_forward=False,
+              reads=(ys, rr), ops=2 * rr.numel(), tensor=False)
+        merge_pool_timings(net, dev, name_power, parity)
         y2 = torch.cat(ys, dim=-1)
         for label, args, reads in (
                 ("sum only (K6)", ([y2], rr, False), (y2, rr)),
@@ -3281,12 +3372,14 @@ def phase_timings(net, cfg, rnet, vnet, dev, name_power, parity,
 
     rows = []
     for k, (src, replaces, also) in KERNEL_INFO.items():
-        p = per[k]
+        # not measured (None) where no timed forward call launches it
+        p = per[k] if k in in_forwards else [float("nan")] * 9
         row = {"name": k, "route": "cuda", "source": src,
                "replaces": replaces, "launches": counts[k],
                "max_abs_err": parity.err[k], "ms": _num(p[0]),
                "plain_ms": _num(p[1]), "bound_ms": _num(p[4]),
-               "bound_by": "operations" if p[6] > p[5] else "bytes",
+               "bound_by": None if k not in in_forwards
+               else "operations" if p[6] > p[5] else "bytes",
                "library_ms": _num(p[7]), "device_ms": _num(p[2]),
                "cold_device_ms": _num(p[8]), "plain_device_ms": _num(p[3])}
         if also:

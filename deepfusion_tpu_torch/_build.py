@@ -22,9 +22,9 @@ it loaded, so a launch hashes and opens nothing.
 An operator checks its arguments, allocates its output, guards the device,
 takes the current stream and launches in C++, and raises itself; ``op``
 looks one up once. Each wrapper counts its launches per kernel
-(``launch_counts``) and, for the modes the sharded wrappers use, per mode
-(``mode_counts``); ``snapshot_counts`` and ``add_counts`` move a captured
-forward's counts to its replays.
+(``launch_counts``) and, for the modes the sharded wrappers use and the
+packed conv's merge_pool, per mode (``mode_counts``); ``snapshot_counts``
+and ``add_counts`` move a captured forward's counts to its replays.
 """
 from __future__ import annotations
 
@@ -53,9 +53,10 @@ TORCH_LIBS = ("torch", "torch_cpu", "torch_cuda", "c10", "c10_cuda")
 KERNELS = ("conv_fused", "concat_relu", "pool", "sum_relu", "packed_conv",
            "packed_sum_pool", "convpool", "pair_conv")
 # kernel modes counted on their own: the raw 1x1 accumulator (emit_acc1),
-# an output row range (or input row slice), the widened intermediate bounds
+# an output row range (or input row slice), the widened intermediate
+# bounds, the packed conv's residual merge and pool (merge_pool)
 MODES = ("conv_fused.acc1", "packed_conv.acc1", "packed_conv.rows",
-         "pair_conv.rows", "pair_conv.bounds")
+         "pair_conv.rows", "pair_conv.bounds", "packed_conv.merge_pool")
 
 _counts_lock = threading.Lock()
 _counts = dict.fromkeys(KERNELS, 0)

@@ -57,7 +57,7 @@ using df_ops::narrow;
 enum PackedGeo { K_IWP, K_COL_OFF_IN, K_COL_OFF_OUT, K_OH, K_OW, K_KH, K_KW,
                  K_PH, K_PW, K_OC0, K_OC0P, K_OC1, K_OC1P, K_DOWN0, K_DOWN1,
                  K_HAS_BIAS0, K_HAS_BIAS1, K_FUSE, K_ROWS_SUM, K_HALO_SUM,
-                 K_POOL2, PACKED_GEO_INTS };
+                 K_POOL2, K_MERGE_POOL, PACKED_GEO_INTS };
 // the call's rows, ops/packed.py:packed_conv_cuda's order
 enum PackedRows { R_HALO_IN, R_ROWS_OUT, R_HALO_OUT, R_OY0, R_NOY,
                   PACKED_ROWS_INTS };
@@ -144,7 +144,8 @@ at::Tensor packed_conv_op(at::TensorList srcs, at::IntArrayRef cps,
           g[K_OH], g[K_OW], g[K_KH], g[K_KW], g[K_PH], g[K_PW], g[K_OC0],
           g[K_OC0P], g[K_OC1], g[K_OC1P], g[K_DOWN0], g[K_DOWN1],
           g[K_HAS_BIAS0], g[K_HAS_BIAS1], g[K_FUSE], g[K_ROWS_SUM],
-          g[K_HALO_SUM], g[K_POOL2], raw ? 1 : 0, r[R_OY0], r[R_NOY],
+          g[K_HALO_SUM], g[K_POOL2], g[K_MERGE_POOL], raw ? 1 : 0,
+          r[R_OY0], r[R_NOY],
           static_cast<float>(sum_scale),
           c10::cuda::getCurrentCUDAStream().stream()),
       "packed_conv_kernel");

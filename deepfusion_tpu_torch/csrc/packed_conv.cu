@@ -28,6 +28,16 @@
 // With pool2 the output is the 2x2/s2 max of those u8 values (the sum
 // joined first, at full resolution), stored ^ 0x80 at the pooled spec's
 // slot (halo_out / 2 + y / 2, col_off_out / 2 + x / 2) of rows iwp / 2 wide.
+// With merge (a pooled, unfused 1x1 with no padding whose output lanes are
+// its joined input lanes: FusionNet's residual conv) the residual sum joins
+// before the pool, after the clamp:
+//   v = min(requant_to_u8(acc0) + u8(src[halo_in + y, col_off_in + x, o]),
+//           255)
+// (lanes >= oc: the input byte alone), and the output is the 2x2/s2 max of
+// v: bitwise packed_sum_relu_maxpool2 of the inputs and the conv's output.
+// The input byte is read from the A tile in shared memory, which holds
+// exactly those pixels and lanes: the pass keeps its ring slots until its
+// epilogue has read them.
 // With RAW (fused, no pool, no sum: the tensor-parallel local step) the
 // output is an s32 array of the output spec holding acc1 = mid . w1 at
 // image slots (pad lanes 0: their w1 columns are 0) and 0 elsewhere.
@@ -120,7 +130,7 @@ constexpr int MAX_CHUNKS = 16;      // K chunks per tap or 1x1
 constexpr int MAX_STAGES = 8;
 constexpr int SMEM_LIMIT = 232448;  // opt-in shared memory of a block
 constexpr int SMS = 132;            // the H100 SXM's SMs
-constexpr int MODE_FUSE = 1, MODE_POOL = 2, MODE_RAW = 4;
+constexpr int MODE_FUSE = 1, MODE_POOL = 2, MODE_RAW = 4, MODE_MERGE = 8;
 
 // The block plan, the same on host and device.
 struct Plan {
@@ -159,9 +169,11 @@ struct __align__(64) Maps {
 };
 
 // staged: the final stage stores through shared memory (not pooled, not
-// the raw accumulator).
+// the raw accumulator). merge: a pass holds its chunks' slots until its
+// epilogue, so the ring must hold them all.
 bool make_plan(Plan& p, int n, int noy, int ow, int n_src, const int* cps,
-               int kh, int kw, int oc0p, int oc1p, bool fuse, bool staged) {
+               int kh, int kw, int oc0p, int oc1p, bool fuse, bool staged,
+               bool merge) {
   p = Plan{};
   p.tiles_x = (ow + TC - 1) / TC;
   p.tiles_y = (noy + TR - 1) / TR;
@@ -201,7 +213,7 @@ bool make_plan(Plan& p, int n, int noy, int ow, int n_src, const int* cps,
   const int par = (3 * oc0p + (fuse ? 2 * oc1p : 0)) * 4;
   const int fixed = 1024 + mid + stage + par + 2 * MAX_STAGES * 8;
   p.stages = std::min(MAX_STAGES, (SMEM_LIMIT - fixed) / p.slot);
-  if (p.stages < 2) return false;
+  if (p.stages < 2 || (merge && p.stages < kh * kw * p.ch0.n)) return false;
   p.mid_off = p.stages * p.slot;
   p.stage_off = in_mid ? p.mid_off : p.mid_off + mid;
   p.par_off = p.mid_off + mid + stage;
@@ -350,6 +362,105 @@ __device__ __forceinline__ void requant_pass(
   }
 }
 
+// requant_pass for MERGE (no sum, lim the output's lanes): each value
+// joined after the clamp by the input's byte of its lane and row,
+// min(u + s, 255) (lanes >= oc: the byte alone). The input's lanes o, o + 1
+// at the thread's rows m0 + g and + 8 come from the A tile of the K chunk
+// that holds them (a merge conv's K offset of a lane is the lane, and its
+// chunks hold whole 32-lane groups): chunk c of the pass sits in ring slot
+// s0 + c modulo the stages, where TMA wrote byte (r, k) of a kc-byte row at
+// r * kc + k, the 16-byte unit's index XOR-ed with bits 7 and up of that
+// offset (the 32-, 64- and 128-byte swizzles), which for k < kc are those
+// of r * kc: one XOR per row and chunk. Returns the max of the two rows
+// (the pool's vertical pair): the 16-bit half j % 2 of q[j / 2] holds lanes
+// n0 + 8j + 2t and + 1.
+__device__ __forceinline__ void requant_merge(
+    const KArgs& a, const int32_t (&acc)[128], const int32_t* corr,
+    const float* bias, const float* scale, bool down, int n0, int nb,
+    int oc, const uint8_t* ring, int s0, int m0, uint32_t (&q)[16]) {
+  const Plan& p = a.p;
+  const int t = threadIdx.x & 3, m = m0 + ((threadIdx.x & 31) >> 2);
+  // the chunk of lanes n0 + 8j: index, first lane past it, its first lane,
+  // and the thread's rows m, m + 8 of its A tile with their swizzle
+  int c = -1, end = 0, koff = 0;
+  const uint8_t* row[2] = {ring, ring};
+  int swz[2] = {0, 0};
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    if (8 * j >= nb || n0 + 8 * j >= a.out.cp) break;  // warp-uniform
+    const int o = n0 + 8 * j + 2 * t;
+    if ((j & 3) == 0) {
+      while (n0 + 8 * j >= end) {   // warp-uniform
+        const KChunk ch = p.ch0.c[++c];
+        const int kc = 32 << ch.wcode;
+        koff = ch.koff;
+        end = koff + kc;
+        const uint8_t* slot =
+            ring + (s0 + c < p.stages ? s0 + c : s0 + c - p.stages) * p.slot;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          row[h] = slot + (m + 8 * h) * kc;
+          swz[h] = (((m + 8 * h) * kc >> 7) & (kc / 16 - 1)) << 4;
+        }
+      }
+    }
+    const float2 b = *reinterpret_cast<const float2*>(bias + o);
+    const float2 sc = *reinterpret_cast<const float2*>(scale + o);
+    const int2 cr = *reinterpret_cast<const int2*>(corr + o);
+    // each row's two stored bytes: s8 values, u8 = s8 + 128
+    uint32_t in[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      in[h] =
+          *reinterpret_cast<const uint16_t*>(row[h] + ((o - koff) ^ swz[h]));
+    uint32_t v = 0;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      uint32_t u[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int s = int(int8_t(in[h] >> (8 * e))) + 128;
+        u[h] = o + e >= oc
+                   ? uint32_t(s)
+                   : requant_u8(acc[4 * j + 2 * h + e] + (e ? cr.y : cr.x),
+                                e ? b.y : b.x, e ? sc.y : sc.x, down, s);
+      }
+      v |= max(u[0], u[1]) << (8 * e);
+    }
+    q[j >> 1] = (j & 1) ? q[j >> 1] | (v << 16) : v;
+  }
+}
+
+// The merge conv's store of the warpgroup's pass: requant_merge's maxima
+// of the vertical pairs, then the max with the horizontal partner (the
+// lane 4 away), XOR 0x80, at the pooled slot, four lanes per 32-bit word:
+// two per 16-bit store.
+__device__ __forceinline__ void write_merge(const KArgs& a, const Params& pr,
+                                            const int32_t (&acc)[128],
+                                            int n0, int nb, int nn,
+                                            const Pix& px,
+                                            const uint8_t* ring, int s0,
+                                            int m0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const PackedDst& d = a.out;
+  uint32_t q[16];
+  requant_merge(a, acc, pr.corr0, pr.bias0, pr.scale0, a.down0, n0, nb,
+                a.oc0, ring, s0, m0, q);
+  uint8_t* dst = d.dst + (size_t)((nn * d.rows + d.halo + px.y / 2) * d.iwp +
+                                  d.col_off + px.x / 2) * d.cp + n0 + 2 * t;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    if (16 * i >= nb || n0 + 16 * i >= d.cp) break;  // warp-uniform
+    const uint32_t w =
+        __vmaxu4(q[i], __shfl_xor_sync(0xffffffffu, q[i], 4)) ^ CENTER4;
+    if (!(g & 1) && px.ok[0]) {
+      *reinterpret_cast<uint16_t*>(dst + 16 * i) = static_cast<uint16_t>(w);
+      *reinterpret_cast<uint16_t*>(dst + 16 * i + 8) =
+          static_cast<uint16_t>(w >> 16);
+    }
+  }
+}
+
 // Store q's bytes (XOR-ed with x) in the no-swizzle K-major layout of the
 // fused intermediate: byte (m, k) at (k / 16) * TM * 16 + m * 16 + k % 16,
 // rows m0 + g and m0 + g + 8, lanes k = 8j + 2t - n0 of the pass.
@@ -481,7 +592,7 @@ template <int MODE>
 __device__ __forceinline__ void consume(const KArgs& a, uint8_t* smem,
                                         uint64_t* full, uint64_t* empty) {
   constexpr bool FUSE = MODE & MODE_FUSE, POOL = MODE & MODE_POOL,
-                 RAW = MODE & MODE_RAW;
+                 RAW = MODE & MODE_RAW, MERGE = MODE & MODE_MERGE;
   const Plan& p = a.p;
   const int wg = threadIdx.x >> 7;            // 0 or 1: rows 64 wg + [0, 64)
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
@@ -525,6 +636,7 @@ __device__ __forceinline__ void consume(const KArgs& a, uint8_t* smem,
     for (int ps = 0; ps < p.npass0; ++ps) {
       fence_regs(acc);
       bool first = true;
+      const int s0 = stage;   // the ring slot of the pass's first chunk
       for (int tap = 0; tap < ntaps; ++tap)
         for (int c = 0; c < p.ch0.n; ++c) {
           const int kc = 32 << p.ch0.c[c].wcode;
@@ -539,18 +651,22 @@ __device__ __forceinline__ void consume(const KArgs& a, uint8_t* smem,
           wgmma_commit();
           advance();
           wgmma_wait<1>();        // the previous chunk is done with its slot
-          if (!first) release();
+          if (!first && !MERGE) release();
           first = false;
         }
       wgmma_wait<0>();
       fence_regs(acc);
-      release();
+      if constexpr (!MERGE) release();
       const int n0 = ps * p.nb0;
-      if constexpr (FUSE)
+      if constexpr (FUSE) {
         write_mid(a, pr, mid, acc, n0, p.nb0, m0, px);
-      else
+      } else if constexpr (MERGE) {
+        write_merge(a, pr, acc, n0, p.nb0, nn, px, smem, s0, m0);
+        for (int i = 0; i < ntaps * p.ch0.n; ++i) release();
+      } else {
         write_final<POOL>(a, acc, pr.corr0, pr.bias0, pr.scale0, a.down0, n0,
                           p.nb0, a.oc0, nn, px, stg, m0);
+      }
     }
     if constexpr (FUSE) {
       fence_async_shared();   // the intermediate, for wgmma
@@ -656,7 +772,7 @@ cudaError_t packed_weight_maps(const void* w0k, int k0, int oc0p,
 cudaError_t packed_plan(const int* in, int* out) {
   Plan p;
   if (!make_plan(p, in[0], in[1], in[2], in[3], in + 4, in[8], in[9], in[10],
-                 in[11], in[12] != 0, in[13] == 0))
+                 in[11], in[12] != 0, in[13] == 0, in[14] != 0))
     return cudaErrorInvalidValue;
   const int v[PACKED_PLAN_OUT] = {TR, TC, p.blocks, p.stages, p.smem, p.nb0,
                                   p.nb1, p.npass0, p.npass1, p.ch0.n, p.kp,
@@ -673,7 +789,7 @@ cudaError_t packed_conv_launch(
     int halo_out, int col_off_out, int oh, int ow, int kh, int kw, int ph,
     int pw, int oc0, int oc0p, int oc1, int oc1p, int down0, int down1,
     int has_bias0, int has_bias1, int fuse, int rows_sum, int halo_sum,
-    int pool2, int raw, int oy0, int noy, float sum_scale,
+    int pool2, int merge, int raw, int oy0, int noy, float sum_scale,
     cudaStream_t stream) {
   if (n_src < 1 || n_src > MAX_SRC || oc0p % 32 || oc0p <= 0 ||
       (fuse && (oc1p % 32 || oc1p <= 0)))
@@ -695,9 +811,17 @@ cudaError_t packed_conv_launch(
     icp += src_cps[s];
   }
   if (icp % 32) return cudaErrorInvalidValue;
+  // merge: K offset o is lane o of the joined input and of the output
+  if (merge) {
+    if (!pool2 || fuse || raw || sum || kh != 1 || kw != 1 || ph || pw ||
+        icp != oc0p)
+      return cudaErrorInvalidValue;
+    for (int s = 0; s < n_src; ++s)
+      if (src_cps[s] % 32) return cudaErrorInvalidValue;
+  }
   KArgs a = {};
   if (!make_plan(a.p, n, noy, ow, n_src, src_cps, kh, kw, oc0p, oc1p,
-                 fuse != 0, !pool2 && !raw))
+                 fuse != 0, !pool2 && !raw, merge != 0))
     return cudaErrorInvalidValue;
   Maps maps;
   memset(&maps, 0, sizeof(maps));
@@ -742,6 +866,8 @@ cudaError_t packed_conv_launch(
   int e;
   if (raw)
     e = launch<MODE_FUSE | MODE_RAW>(maps, a, stream);
+  else if (merge)
+    e = launch<MODE_POOL | MODE_MERGE>(maps, a, stream);
   else if (pool2)
     e = fuse ? launch<MODE_FUSE | MODE_POOL>(maps, a, stream)
              : launch<MODE_POOL>(maps, a, stream);

@@ -12,7 +12,7 @@ constexpr int PACKED_MAX_SRC = 4;
 // Bytes of the six tensor maps packed_weight_maps writes (6 x 128).
 constexpr int PACKED_WMAPS_BYTES = 6 * 128;
 // Ints packed_plan reads and writes.
-constexpr int PACKED_PLAN_IN = 14;
+constexpr int PACKED_PLAN_IN = 15;
 constexpr int PACKED_PLAN_OUT = 12;
 
 // The weight maps of an op, encoded once (ops/packed.py caches them):
@@ -22,7 +22,8 @@ constexpr int PACKED_PLAN_OUT = 12;
 cudaError_t packed_weight_maps(const void* w0k, int k0, int oc0p,
                                const void* w1k, int oc1p, void* out);
 
-// in: n, noy, ow, n_src, cp[0..3], kh, kw, oc0p, oc1p, fuse, pool2; out:
+// in: n, noy, ow, n_src, cp[0..3], kh, kw, oc0p, oc1p, fuse, pool2,
+// merge; out:
 // the tile rows and columns, blocks, stages, shared bytes, nb0, nb1,
 // passes of each stage, K chunks per tap, K bytes per tap, tiles. Returns
 // cudaErrorInvalidValue if the kernel cannot run the op. Launches nothing.
@@ -35,7 +36,11 @@ cudaError_t packed_plan(const int* in, int* out);
 // sum: null, or a packed array of rows_sum rows with the output's iwp,
 // col_off and lanes and halo_sum >= halo_out. pool2: the output is the
 // pooled spec (rows_out / 2 rows of iwp / 2, halo_out / 2, col_off_out / 2);
-// oh, ow, halo_out, col_off_out and iwp must then be even. raw (fused, no
+// oh, ow, halo_out, col_off_out and iwp must then be even. merge (with
+// pool2; an unfused 1x1 with no padding, no sum, every input's lanes a
+// multiple of 32 and their sum oc0p): the input's lane o at each pixel
+// joins the clamped u8 value of channel o by a saturating add before the
+// pool (packed_conv.cu). raw (fused, no
 // pool, no sum): dst is s32, the raw 1x1 accumulator. Row range: the image
 // rows [oy0, oy0 + noy) (noy >= 1; both even with pool2) are computed;
 // rows_out/halo_out describe the rows of dst (halo_out re-based, may be
@@ -50,5 +55,5 @@ cudaError_t packed_conv_launch(
     int halo_out, int col_off_out, int oh, int ow, int kh, int kw, int ph,
     int pw, int oc0, int oc0p, int oc1, int oc1p, int down0, int down1,
     int has_bias0, int has_bias1, int fuse, int rows_sum, int halo_sum,
-    int pool2, int raw, int oy0, int noy, float sum_scale,
+    int pool2, int merge, int raw, int oy0, int noy, float sum_scale,
     cudaStream_t stream);

@@ -148,11 +148,14 @@ __device__ __forceinline__ uint8_t requant_to_u8(int32_t acc, bool has_bias,
 // __fadd_rd) exactly below 2^22, where the sum's low mantissa bits hold the
 // integer; from 2^22 on the sum's bits exceed 255 and the clamp saturates,
 // as it must. Bitwise requant_to_u8, and so requant<DT_U8>, for every int32
-// acc and finite bias and scale.
+// acc and finite bias and scale. With plus (0..255) it is the saturating sum
+// min(requant_to_u8 + plus, 255), in the same clamp: the integer before the
+// clamp is never negative.
 __device__ __forceinline__ uint32_t requant_u8(int32_t acc, float bias,
-                                               float scale, bool down) {
+                                               float scale, bool down,
+                                               int plus = 0) {
   const float x =
       fmaxf(__fmul_rn(__fadd_rn(__int2float_rn(acc), bias), scale), 0.0f);
   const float y = down ? __fadd_rd(x, 12582912.0f) : __fadd_rn(x, 12582912.0f);
-  return uint32_t(min(int(__float_as_uint(y)) - 0x4B400000, 255));
+  return uint32_t(min(int(__float_as_uint(y)) - 0x4B400000 + plus, 255));
 }

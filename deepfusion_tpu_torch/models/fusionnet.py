@@ -27,7 +27,7 @@ from ..ops import layout
 from ..ops.concat import concat
 from ..ops.conv import ConvOp
 from ..ops.packed import (PackedConvOp, PackedSpec, pack_image,
-                          packed_global_avgpool, packed_sum_relu_maxpool2)
+                          packed_global_avgpool)
 from ..ops.pool import eltwise_sum_relu, pool
 from ..utils.mathutil import conv_output_size
 from .graphed import GraphedForward
@@ -187,15 +187,15 @@ class FusionNet(nn.Module):
         boundary pack of the input image."""
         if self._packed is not None:
             return self._packed
-        hw, c, w = self.cfg.hw, self.cfg.in_ch, self.cfg.width
+        hw, c = self.cfg.hw, self.cfg.in_ch
 
-        def op(name, sin, col_off_out, halo_out):
+        def op(name, sin, col_off_out, halo_out, merge_pool=False):
             p = self.params[name]
             return PackedConvOp(
                 _conv_config(self.cfg.batch, self._in_hw[name], p),
                 p["wei"], p.get("bia"), p.get("wei1"), p.get("bia1"),
                 sin=sin, col_off_out=col_off_out, halo_out=halo_out,
-                device=self.device)
+                merge_pool=merge_pool, device=self.device)
 
         # Halo budget (erosion scheme): each 3x3 conv consumes one halo row
         # (halo_out = halo_in - ph), so every tap of an image pixel reads
@@ -208,12 +208,12 @@ class FusionNet(nn.Module):
         block1 = op("block1", stem.sout, 2, 2)
         branch = op("branch", stem.sout, 2, 2)
         # concat-free branch merge: the 1x1 residual conv reads both
-        # branches as K segments, and the fused sum+pool joins them, so the
-        # 2w-channel concat never exists in memory
-        res = op("res", (block1.sout, branch.sout), 2, 2)
-        pool_spec = PackedSpec(h=hw // 2, w=hw // 2, c=2 * w, cp=2 * w,
-                               halo=1, col_off=1, iwp=sin0.iwp // 2)
-        block2 = op("block2", pool_spec, 1, 0)
+        # branches as K segments, and its epilogue adds them to its own
+        # output and pools (merge_pool), so neither the 2w-channel concat
+        # nor the full-resolution residual exists in memory; the JAX
+        # package writes the residual and joins it in a second kernel
+        res = op("res", (block1.sout, branch.sout), 2, 2, merge_pool=True)
+        block2 = op("block2", res.sout_final, 1, 0)
         self._packed = nn.ModuleDict(dict(stem=stem, block1=block1,
                                           branch=branch, res=res,
                                           block2=block2))
@@ -230,9 +230,7 @@ class FusionNet(nn.Module):
         x = P["stem"](x)
         a = P["block1"](x)
         b = P["branch"](x)
-        r = P["res"]((a, b))
-        y, _ = packed_sum_relu_maxpool2(
-            (a, b), r, (P["block1"].sout, P["branch"].sout), P["res"].sout)
+        y = P["res"]((a, b))    # relu(a|b + res(a|b)), 2x2 max-pooled
         y = P["block2"](y)
         # global avg pool straight off the packed array: the -128 fill
         # makes non-image slots contribute 0 to the u8 sum

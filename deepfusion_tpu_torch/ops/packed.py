@@ -49,6 +49,15 @@ op returns the pooled image at ``sout_pooled``, the max of the final u8
 values (after the sum operand joins, at full resolution), as the JAX
 package pools the clamped values before the byte pack.
 
+``merge_pool=True`` fuses a residual merge and the pool into the epilogue
+of a stride-1 unfused 1x1 conv whose output lanes are its joined input
+lanes and whose output has its inputs' geometry (FusionNet's residual
+conv): the op returns, at ``sout_pooled``,
+``packed_sum_relu_maxpool2(inputs, conv(inputs))``. The kernel adds each
+pixel's input byte, which its A tile already holds, to the clamped u8
+value (``validate_merge_pool``). The JAX package has no such fusion: it
+runs the conv, then ``packed_sum_relu_maxpool2``.
+
 For the sharded wrappers (``parallel/shard.py``) the conv also returns its
 raw 1x1 accumulator (``emit_acc1``), computes a range of output rows from
 a row slice of its input (``rows``/``row0_off``, in rows where the JAX
@@ -203,6 +212,29 @@ def validate_packed_conv(cfg: ConvConfig, sins, sout: PackedSpec,
     # a tap past the row's end would read the next row's first slots
     check(margin >= cfg.pw, "input right margin too small for the padding")
     check(sin.iwp == sout.iwp, "packed conv needs iwp_in == iwp_out")
+
+
+def validate_merge_pool(cfg: ConvConfig, sins, sout: PackedSpec,
+                        kernel_cps, ssum=None, cfg_orig=None):
+    """Legality of ``merge_pool``: a stride-1 1x1 conv with no padding,
+    not fused, no sum operand, whose output has its inputs' image geometry
+    and as many channels and lanes as their join, each kernel input a
+    multiple of 32 lanes (so the kernel's K offset of a lane is the lane),
+    and whose output takes the 2x2 pool."""
+    check(cfg_orig is None and cfg.sh == 1 and cfg.sw == 1,
+          "merge_pool needs a stride-1 conv")
+    check((cfg.kh, cfg.kw, cfg.ph, cfg.pw) == (1, 1, 0, 0),
+          "merge_pool needs a 1x1 conv without padding")
+    check(not cfg.fuse_conv1x1, "merge_pool needs an unfused conv")
+    check(ssum is None, "merge_pool takes no sum operand")
+    check(cfg.out_oc == sum(s.c for s in sins)
+          and sout.cp == sum(s.cp for s in sins),
+          "merge_pool needs the output's channels and lanes to be the "
+          "joined inputs'")
+    _same_image_geometry(list(sins) + [sout])
+    check(all(cp % 32 == 0 for cp in kernel_cps),
+          "merge_pool needs each kernel input's lanes a multiple of 32")
+    validate_packed_maxpool2(sout)
 
 
 def _same_image_geometry(specs):
@@ -478,7 +510,11 @@ class PackedConvOp(nn.Module):
     consumer (default: ``max(pw, 1)`` and the input's halo). ``sum_spec``
     adds the sum post-op (pass ``sum_arr`` to each call). ``pool2`` fuses
     the 2x2/s2 max pool: the op then returns an array of ``sout_pooled``,
-    and ``sout`` must satisfy ``validate_packed_maxpool2``. A strided
+    and ``sout`` must satisfy ``validate_packed_maxpool2``.
+    ``merge_pool`` fuses the residual merge and the pool (module
+    docstring, ``validate_merge_pool``): the op returns, at
+    ``sout_pooled``, the inputs' lane join plus its output, saturated,
+    2x2-pooled; it implies ``pool2``. A strided
     ``cfg`` runs on the s2d grid: ``sin`` then describes the packed s2d
     image, which ``pack_input`` makes from a dense one.
     """
@@ -486,7 +522,8 @@ class PackedConvOp(nn.Module):
     def __init__(self, cfg: ConvConfig, wei, bia=None, wei1x1=None,
                  bia1x1=None, sin=None, col_off_out: int = None,
                  halo_out: int = None, sum_spec: PackedSpec = None,
-                 pool2: bool = False, device=None):
+                 pool2: bool = False, merge_pool: bool = False,
+                 device=None):
         super().__init__()
         check_eq(tuple(np.shape(wei)), (cfg.oc, cfg.ic, cfg.kh, cfg.kw),
                  "conv weight shape (OIHW)")
@@ -522,25 +559,31 @@ class PackedConvOp(nn.Module):
                        scale1=layout.widen_scales(cfg.conv1_scales,
                                                   cfg.oc1x1, n1))
         self._set_state(cfg, sins, sout, ops, device, cfg_orig, sum_spec,
-                        pool2)
+                        pool2, merge_pool)
 
     def _set_state(self, cfg, sins, sout, ops: dict, device, cfg_orig=None,
-                   ssum=None, pool2=False):
+                   ssum=None, pool2=False, merge_pool=False):
         """The constructor's checks and state, shared with ``load``."""
         validate_packed_conv(cfg, sins, sout, ssum)
-        if pool2:
+        # the kernel's inputs (kernel_groups): the lane joins of groups of
+        # sins, whose K lanes the weights and maps below follow
+        groups = kernel_groups([s.cp for s in sins])
+        kernel_sins = tuple(joined_spec(sins[g.start:g.stop])
+                            for g in groups)
+        if merge_pool:
+            validate_merge_pool(cfg, sins, sout,
+                                [s.cp for s in kernel_sins], ssum, cfg_orig)
+        elif pool2:
             # the halved result must itself be a valid packed image
             validate_packed_maxpool2(sout)
-        self.pool2 = bool(pool2)
+        self.merge_pool = bool(merge_pool)
+        self.pool2 = bool(pool2 or merge_pool)
         self.cfg = cfg
         self.cfg_orig = cfg_orig
         self.sins = sins
         self.sin = sins[0]
-        # the kernel's inputs (kernel_groups), derived once: the lane joins
-        # of groups of sins, whose K lanes the weights and maps below follow
-        self.kernel_groups = kernel_groups([s.cp for s in sins])
-        self.kernel_sins = tuple(joined_spec(sins[g.start:g.stop])
-                                 for g in self.kernel_groups)
+        self.kernel_groups = groups
+        self.kernel_sins = kernel_sins
         self.sout = sout
         self.ssum = ssum
         device = default_device(device)
@@ -610,7 +653,8 @@ class PackedConvOp(nn.Module):
             dataclasses.replace(self.sout, h=h),
             {k: getattr(self, k) for k in _operand_shapes(cfg)}, self.device,
             ssum=None if self.ssum is None
-            else dataclasses.replace(self.ssum, h=h), pool2=self.pool2)
+            else dataclasses.replace(self.ssum, h=h), pool2=self.pool2,
+            merge_pool=self.merge_pool)
         return op
 
     def forward(self, packed_arr, sum_arr=None, *, emit_acc1: bool = False,
@@ -674,7 +718,7 @@ class PackedConvOp(nn.Module):
 
     def save(self, path: str):
         """Save the packed operands, the config (and a strided op's original
-        config) and the specs to .npz."""
+        config), the specs and the fused epilogue's flags to .npz."""
         specs = {"cfg": self.cfg, "sout": self.sout}
         for i, s in enumerate(self.sins):
             specs[f"sin{i}"] = s
@@ -686,7 +730,8 @@ class PackedConvOp(nn.Module):
                 for k in _operand_shapes(self.cfg)}
         np.savez(path, __cfg__=dump_configs(**specs),
                  __n_sins__=np.int64(len(self.sins)),
-                 __pool2__=np.bool_(self.pool2), **arrs)
+                 __pool2__=np.bool_(self.pool2),
+                 __merge_pool__=np.bool_(self.merge_pool), **arrs)
 
     @classmethod
     def load(cls, path: str, device=None) -> "PackedConvOp":
@@ -703,12 +748,14 @@ class PackedConvOp(nn.Module):
             cfgs = load_configs(data["__cfg__"], **classes)
             ops = {k: data[k] for k in _operand_shapes(cfgs["cfg"])}
             pool2 = "__pool2__" in data and bool(data["__pool2__"])
+            merge_pool = ("__merge_pool__" in data
+                          and bool(data["__merge_pool__"]))
         op = cls.__new__(cls)
         nn.Module.__init__(op)
         op._set_state(cfgs["cfg"], tuple(cfgs[f"sin{i}"]
                                          for i in range(n_sins)),
                       cfgs["sout"], ops, device, cfgs.get("cfg_orig"),
-                      cfgs.get("ssum"), pool2)
+                      cfgs.get("ssum"), pool2, merge_pool)
         return op
 
 
@@ -819,6 +866,9 @@ def packed_conv_plain(op: PackedConvOp, arrs, sum_arr=None, *,
     its image pixels and lanes < c, as stored. Writes image pixels at
     (halo_out + y, col_off_out + x) and -128 everywhere else; with pool2
     the 2x2/s2 max of the u8 values first, at the pooled spec; with
+    merge_pool ``packed_sum_pool_plain`` (sum and pool) of the joined
+    inputs' image pixels, every lane as stored, and the conv's output
+    (-128 in lanes >= oc), at the pooled spec; with
     emit_acc1 the raw 1x1 accumulator and 0 elsewhere. rows/row0_off as in
     ``PackedConvOp.forward``, computed without its range plan: the input
     slices go to row row0_off of whole input arrays (u8 0 around them),
@@ -841,13 +891,28 @@ def packed_conv_plain(op: PackedConvOp, arrs, sum_arr=None, *,
                        sin.col_off - cfg.pw, cfg.oh, cfg.ow, sum_rounded,
                        emit_acc1)
     row = op.sout.halo
-    if op.pool2:
+    lanes = op.sout.cp if emit_acc1 else cfg.out_oc
+    if op.merge_pool:
+        # the image pixels as packed arrays of their own (no halo, no
+        # margins): the conv's output r, -128 in lanes >= oc, and the
+        # joined inputs' y, every lane as stored; their sum, pooled
+        lanes = op.sout.cp
+        r = torch.full((n, cfg.oh * cfg.ow, lanes), -128, dtype=torch.int8,
+                       device=val.device)
+        r[..., :cfg.out_oc] = (val ^ 0x80).view(torch.int8).reshape(
+            n, -1, cfg.out_oc)
+        y = (u[:, sin.halo:sin.halo + cfg.oh,
+               sin.col_off:sin.col_off + cfg.ow] ^ 0x80).reshape(r.shape)
+        val = packed_sum_pool_plain([y.view(torch.int8)], r, True, cfg.oh,
+                                    cfg.ow).view(torch.uint8).reshape(
+            n, cfg.oh // 2, cfg.ow // 2, lanes) ^ 0x80
+        row //= 2
+    elif op.pool2:
         val = val.reshape(n, cfg.oh // 2, 2, cfg.ow // 2, 2,
                           cfg.out_oc).amax(dim=(2, 4))
         row //= 2
     so = op.sout_final
-    return _rows_of(_place(val, so, so.rows, row,
-                           so.cp if emit_acc1 else cfg.out_oc, emit_acc1),
+    return _rows_of(_place(val, so, so.rows, row, lanes, emit_acc1),
                     so, rows)
 
 
@@ -867,7 +932,7 @@ def packed_geo(op: PackedConvOp) -> tuple:
     """The op's ints as ``torch.ops.deepfusion_torch.packed_conv`` takes
     them (``csrc/ops_packed.cpp``, ``PackedGeo``), computed once per op:
     the specs' geometry, the conv's, channels and lanes, the epilogue's
-    flags, the sum operand's rows and halo, the fused pool."""
+    flags, the sum operand's rows and halo, the fused pool and merge."""
     cfg, sin, sout, ss = op.cfg, op.sin, op.sout, op.ssum
     fuse = cfg.fuse_conv1x1
     return (sin.iwp, sin.col_off, sout.col_off, cfg.oh, cfg.ow, cfg.kh,
@@ -877,7 +942,7 @@ def packed_geo(op: PackedConvOp) -> tuple:
             int(cfg.conv1_round == round_mode.down),
             int(cfg.conv0_with_bias), int(cfg.conv1_with_bias), int(fuse),
             0 if ss is None else ss.rows, 0 if ss is None else ss.halo,
-            int(op.pool2))
+            int(op.pool2), int(op.merge_pool))
 
 
 def packed_conv_plan(op: PackedConvOp, n: int, rows=None) -> dict:
@@ -896,7 +961,7 @@ def packed_conv_plan(op: PackedConvOp, n: int, rows=None) -> dict:
     vals = [n, oy1 - oy0, cfg.ow, len(ks), *cps, cfg.kh, cfg.kw,
             layout.packed_cp(cfg.oc),
             layout.packed_cp(cfg.oc1x1) if fuse else 0, int(fuse),
-            int(op.pool2)]
+            int(op.pool2), int(op.merge_pool)]
     keys = ("tile_rows", "tile_cols", "blocks", "stages", "smem_bytes",
             "nb0", "nb1", "passes0", "passes1", "chunks_per_tap",
             "k_per_tap", "tiles")
@@ -930,7 +995,8 @@ def packed_conv_cuda(op: PackedConvOp, arrs, sum_arr=None, *,
         (op.sin.halo - row0_off, u1 - u0, op.sout.halo - u0, oy0, oy1 - oy0),
         emit_acc1, cfg.sum_scale)
     modes = (("acc1",) if emit_acc1 else ()) + (
-        ("rows",) if rows is not None or row0_off else ())
+        ("rows",) if rows is not None or row0_off else ()) + (
+        ("merge_pool",) if op.merge_pool else ())
     _build.count_launch("packed_conv", *modes)
     return out
 

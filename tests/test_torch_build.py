@@ -496,7 +496,7 @@ def _case_packed_conv(calls):
                         oc0p=layout.packed_cp(40), oc1=24,
                         oc1p=layout.packed_cp(24), down0=1, down1=0,
                         has_bias0=1, has_bias1=0, fuse=1, rows_sum=10,
-                        halo_sum=2, pool2=0),
+                        halo_sum=2, pool2=0, merge_pool=0),
             "rows": dict(halo_in=1, rows_out=3, halo_out=-1, oy0=1, noy=3),
             "raw": False, "sum_scale": 0.375}
 
@@ -514,7 +514,7 @@ def _case_packed_plan(calls):
     plan = P.packed_conv_plan(op, 3)
     assert plan["tile_rows"] == 100 and plan["tiles"] == 111
     return {"geo": [3, 6, 5, 2, 32, 32, 0, 0, 3, 5, layout.packed_cp(40),
-                    layout.packed_cp(24), 1, 0]}
+                    layout.packed_cp(24), 1, 0, 0]}
 
 
 def _case_packed_sum_pool(calls):

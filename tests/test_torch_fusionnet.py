@@ -155,6 +155,43 @@ def test_packed_specs_match_jax_build_packed():
         top = tops[name]
         assert [vars(s) for s in top.sins] == [vars(s) for s in jop.sins]
         assert vars(top.sout) == vars(jop.sout)
+    # the residual conv returns the pooled residual sum: the spec of the
+    # JAX package's packed_sum_relu_maxpool2 output, block2's input
+    assert vars(tops["res"].sout_final) == vars(jops["block2"].sins[0])
+
+
+def test_packed_forward_launches_through_the_wrappers(monkeypatch):
+    """One packed forward through the kernels' wrappers launches the
+    packed conv five times, once with merge_pool (the residual sum and
+    pool in the residual conv's epilogue), and the packed sum/pool kernel
+    never, and still gives the dense forward's logits. Here on CPU
+    tensors: each registered op is stood in by its kernel's plain
+    version."""
+    from deepfusion_tpu_torch import _build
+    from deepfusion_tpu_torch.ops import packed as T
+    tnet = FusionNet(FusionNetConfig(**PACKED), device="cpu")
+    by_corr = {id(op.corr0): op for op in tnet.build_packed().values()}
+    conv_plain = T.packed_conv_plain
+    fakes = {
+        "packed_weight_maps": lambda w0k, w1k: torch.zeros(
+            (6, 128), dtype=torch.uint8),
+        "packed_conv": lambda arrs, cps, corr0, *rest: conv_plain(
+            by_corr[id(corr0)], arrs, rest[5]),
+        "packed_sum_pool": lambda ys, r, rows, iwp, pool: (
+            T.packed_sum_pool_plain(ys, r, pool, rows, iwp), 1)}
+    monkeypatch.setattr(_build, "op", fakes.__getitem__)
+    monkeypatch.setattr(T, "packed_conv_plain", T.packed_conv_cuda)
+    monkeypatch.setattr(T, "_sum_pool", T.packed_sum_pool_cuda)
+    x = tnet.example_input(np.random.default_rng(5))
+    _build.reset_launch_counts()
+    with torch.inference_mode():
+        got = tnet.packed_call(x)
+    counts, modes = _build.launch_counts(), _build.mode_counts()
+    _build.reset_launch_counts()
+    assert counts["packed_conv"] == 5 and counts["packed_sum_pool"] == 0
+    assert modes["packed_conv.merge_pool"] == 1
+    with torch.inference_mode():
+        assert torch.equal(got, tnet(x))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

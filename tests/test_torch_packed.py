@@ -329,6 +329,104 @@ def test_packed_conv_pool2_validation():
                        pool2=True, device="cpu")
 
 
+# ------------------ K5's residual merge and 2x2 pool (merge_pool)
+
+def _merge_ops(cs, k=1, oc=None, oc1=None, stride=1, merge_pool=True,
+               sum_scale=None, seed=0):
+    """A packed conv over inputs of cs lanes (8x8 images, halo 2, col_off
+    2), its output placed alike, scales that drive round(x) well below 0
+    and above 255."""
+    rng = np.random.default_rng(seed)
+    ic = sum(cs)
+    oc = oc or ic
+    wei = rng.integers(-128, 128, (oc, ic, k, k)).astype(np.int8)
+    bia = rng.integers(-20000, 20000, (oc,)).astype(np.int32)
+    kw = dict(conv0_relu=True, conv0_scales=(1.0 / 300,))
+    if sum_scale is not None:
+        kw.update(sum_dt="u8", sum_scale=sum_scale)
+    wei1 = None
+    if oc1 is not None:
+        wei1 = rng.integers(-128, 128, (oc1, oc, 1, 1)).astype(np.int8)
+        kw.update(wei1x1_shape=wei1.shape, conv1_relu=True,
+                  conv1_scales=(1.0 / 300,))
+    o = conv_output_size(8, k, stride, k // 2)
+    cfg = ConvConfig.make((2, 8, 8, ic), wei.shape, bia.dtype,
+                          (stride, stride), (k // 2, k // 2),
+                          (2, o, o, oc1 or oc), "u8", **kw)
+    sins = None if stride > 1 else tuple(
+        T.PackedSpec.make(8, 8, c, halo=2, col_off=2, iwp=16) for c in cs)
+    ssum = None if sum_scale is None else T.PackedSpec.make(
+        8, 8, ic, halo=2, col_off=2, iwp=16)
+    return T.PackedConvOp(cfg, wei, bia, wei1, None, sin=sins,
+                          col_off_out=2, halo_out=2, sum_spec=ssum,
+                          merge_pool=merge_pool, device="cpu")
+
+
+MERGE_REFUSALS = {"3x3": (dict(k=3), "1x1"),
+                  "fused": (dict(oc1=64), "unfused"),
+                  "strided": (dict(cs=(64,), stride=2), "stride-1"),
+                  "lane mismatch": (dict(oc=32), "channels and lanes")}
+
+
+@pytest.mark.parametrize("case", ["FusionNet res", "saturating"]
+                         + sorted(MERGE_REFUSALS))
+def test_packed_conv_merge_pool(case):
+    """merge_pool is bitwise packed_sum_relu_maxpool2 of the inputs and the
+    unmerged conv's output: at FusionNet's residual conv, and where round(x)
+    falls below 0 and above 255 and the sum saturates, which tells its
+    clamp-then-add order from the conv sum post-op's add-then-clamp. A 3x3,
+    fused, strided or lane-mismatched conv is refused."""
+    if case in MERGE_REFUSALS:
+        kw, match = MERGE_REFUSALS[case]
+        with pytest.raises(CheckError, match=match):
+            _merge_ops(**{"cs": (32, 32), **kw})
+        return
+    if case == "FusionNet res":
+        from deepfusion_tpu_torch.models import FusionNet, FusionNetConfig
+        net = FusionNet(FusionNetConfig(batch=2), device="cpu")
+        top = net.build_packed()["res"]
+        p = net.params["res"]
+        plain = T.PackedConvOp(top.cfg, p["wei"], p["bia"], sin=top.sins,
+                               col_off_out=2, halo_out=2, device="cpu")
+    else:
+        top = _merge_ops((32, 32))
+        plain = _merge_ops((32, 32), merge_pool=False)
+    assert top.merge_pool and top.pool2 and not plain.pool2
+    rng = np.random.default_rng(11)
+    xs = [T.pack_image(_edge_u8(rng, (2, s.h, s.w, s.c)), s, device="cpu")
+          for s in top.sins]
+    got = top(xs)
+    r = plain(xs)
+    want, wspec = T.packed_sum_relu_maxpool2(xs, r, top.sins, plain.sout)
+    assert wspec == top.sout_final == top.sout_pooled
+    assert torch.equal(got, want)
+    if case == "saturating":
+        ru = T.unpack_image(r, plain.sout).to(torch.int32)
+        su = T.unpack_image(torch.cat(xs, dim=-1),
+                            T.joined_spec(top.sins)).to(torch.int32)
+        assert (ru == 0).any() and (ru == 255).any()
+        assert ((ru + su > 255) & (ru < 255) & (su < 255)).any()
+        # the sum post-op joins the input before the clamp: another result
+        sop = _merge_ops((32, 32), merge_pool=False, sum_scale=1.0)
+        other, _ = T.packed_maxpool2(sop(xs, sum_arr=torch.cat(xs, dim=-1)),
+                                     sop.sout)
+        assert not torch.equal(got, other)
+
+
+def test_packed_conv_merge_pool_save_load_reheight(tmp_path):
+    top = _merge_ops((32, 32), seed=3)
+    path = str(tmp_path / "merge.npz")
+    top.save(path)
+    back = T.PackedConvOp.load(path, device="cpu")
+    assert back.merge_pool and back.sout_final == top.sout_final
+    rng = np.random.default_rng(4)
+    xs = [T.pack_image(_edge_u8(rng, (2, 8, 8, s.c)), s, device="cpu")
+          for s in top.sins]
+    assert torch.equal(back(xs), top(xs))
+    half = top.reheight(4)
+    assert half.merge_pool and half.sout_final.h == 2
+
+
 def _sum_op_pair(delta, rnd, fused, seed):
     """Port and JAX ops with a packed sum operand whose halo is the
     output's plus delta."""

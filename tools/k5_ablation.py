@@ -15,12 +15,14 @@ An edit whose text is no longer in the source stops the script, so the
 variants follow the kernel or fail loudly.
 
 Variants:
-  no_epilogue       write_mid, write_out and write_acc return at once
+  no_epilogue       write_mid, write_out, write_acc and write_merge
+                    return at once
   no_wgmma          wgmma_step issues nothing
   no_a_loads        the producer loads no activation box
   no_b_loads        the producer loads no 3x3 weight box
   trivial_requant   a byte of the accumulator instead of the requant, no
-                    parameter loads; every store as in the kernel
+                    parameter loads; every store as in the kernel (the
+                    merge instance keeps its requant)
   no_global_stores  the final stage stages and reads back, stores nothing
 """
 import json
@@ -43,7 +45,12 @@ VARIANTS = {
          "int nn, const Pix& px, uint8_t* stage, int m0) {\n"
          "  if (n0 >= 0) return;\n"),
         (CU, "int nb, int nn, const Pix& px) {\n",
-         "int nb, int nn, const Pix& px) {\n  if (n0 >= 0) return;\n")],
+         "int nb, int nn, const Pix& px) {\n  if (n0 >= 0) return;\n"),
+        (CU, "const uint8_t* ring, int s0,\n"
+             "                                            int m0) {\n",
+         "const uint8_t* ring, int s0,\n"
+         "                                            int m0) {\n"
+         "  if (n0 >= 0) return;\n")],
     "no_wgmma": [
         (WG, "int nb, int scale_d) {\n  switch (nb) {",
          "int nb, int scale_d) {\n  if (nb > 0) return;\n  switch (nb) {")],
