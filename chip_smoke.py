@@ -19,8 +19,10 @@ Phases, each printing its own lines:
      FusionNet(cfg) and conv() on a numpy input, given no device, must run
      on cuda:0 through the kernels;
   3. parity: each kernel against its plain PyTorch version on the card,
-     bitwise, at every FusionNet, ResFusionNet and VGGFusion full-width
-     layer shape and extra cases (every dtype, both round modes,
+     bitwise, at every FusionNet, ResFusionNet, VGGFusion and ResNet-50
+     full-width layer shape (ResNet-50: every conv on full-range inputs
+     and sum operands, its two pools, then one eager forward with each K1
+     launch held against its plain version) and extra cases (every dtype, both round modes,
      saturation edges, the conv sum post-op with every operand dtype; for
      K1 also strides 2, 3 and above 8 with padding at both edges and odd
      output sizes, 1x1 GEMM tiles across images, ragged dst pitches, ic
@@ -53,10 +55,11 @@ Phases, each printing its own lines:
      every call of phase 6 and its single-device call once, each kernel
      launch inside them held against its plain version on the same inputs
      (the shapes, slices, ranges and bounds the wrappers give the kernels);
-  4. slice: FusionNet(FusionNetConfig()), ResFusionNet(ResFusionNetConfig())
-     and VGGFusion(VGGFusionConfig()) on the card behind BatchServer each
-     answer 20 requests through the dense forward, then 20 through the
-     packed forward; VGGFusion's hybrid forward runs the golden batch; each
+  4. slice: FusionNet(FusionNetConfig()), ResFusionNet(ResFusionNetConfig()),
+     VGGFusion(VGGFusionConfig()) and ResNet50(ResNet50Config()) on the
+     card behind BatchServer each answer 20 requests through the dense
+     forward, then 20 through the packed forward (ResNet-50 has none);
+     VGGFusion's hybrid forward runs the golden batch; each
      answer must equal the model's plain dense forward on the CPU bitwise
      (and the JAX package's golden logits where stored), every kernel
      of each path must have been launched in that path's run, and each
@@ -64,8 +67,9 @@ Phases, each printing its own lines:
      built on the CPU and batch-split by dp_shard over two slots that are
      both this card, answers 16 requests behind BatchServer at batch 16,
      checked the same way;
- 4b. graphs: each model's jit() and jit_packed() (one CUDA graph per
-     input shape, models/graphed.py) at full width, batch 8: the first
+ 4b. graphs: each model's jit() and jit_packed() (ResNet-50: jit() alone;
+     one CUDA graph per input shape, models/graphed.py) at full width,
+     batch 8: the first
      call captures; one replay must launch what FORWARD_LAUNCHES says, by
      the launch counters and by the kernels torch.profiler traces; a
      first result must survive a second call; batch 3 must capture a
@@ -73,8 +77,8 @@ Phases, each printing its own lines:
      BatchServer, bitwise equal to the CPU plain dense forward and the
      golden logits; then eager against graphed in turns: per-call and
      device ms, busy share and served requests/s ("timing: <model> <path>
-     eager|graphed" lines); last, a graph must refuse a call once its
-     model moved to the CPU, and once it moved back;
+     eager|graphed" lines); last, the last model's graph must refuse a
+     call once its model moved to the CPU, and once it moved back;
   5. timings: CUDA-event medians and profiler device times of each kernel
      and its plain version at the models' shapes, the kernel warm (inputs
      reused) and cold (the L2 evicted before every call), FusionNet's res
@@ -196,6 +200,7 @@ PATH_KERNELS = {
     ("VGGFusion", "dense"): ("conv_fused", "convpool", "pool"),
     ("VGGFusion", "packed"): ("pair_conv", "conv_fused"),
     ("VGGFusion", "hybrid"): ("pair_conv", "conv_fused", "convpool", "pool"),
+    ("ResNet50", "dense"): ("conv_fused", "pool"),
 }
 # launches of one forward of each served model path, and of phase 6's
 # sharded calls: what the kernels' launch paths have made since they
@@ -209,6 +214,9 @@ FORWARD_LAUNCHES = {
                             "packed_sum_pool": 1},
     "VGGFusion dense": {"conv_fused": 4, "pool": 1, "convpool": 3},
     "VGGFusion packed": {"conv_fused": 1, "pair_conv": 3},
+    # the stem, 16 reduces, 4 projections, 16 fused blocks and the head;
+    # the max pool and the global average
+    "ResNet50 dense": {"conv_fused": 38, "pool": 2},
     # two shards of one forward each per served batch
     "FusionNet dense dp=2 split": {"conv_fused": 12, "concat_relu": 2,
                                    "pool": 4, "sum_relu": 2},
@@ -963,7 +971,7 @@ def concat_op_cases(rng, dev, par):
             raise AssertionError(f"concat_relu took {label}")
 
 
-def phase_parity(net, rnet, vnet, dev, sharded) -> Parity:
+def phase_parity(net, rnet, vnet, r50, dev, sharded) -> Parity:
     from deepfusion_tpu_torch import _build
     from deepfusion_tpu_torch.config import ConcatConfig, PoolConfig
     from deepfusion_tpu_torch.models.fusionnet import LAYERS
@@ -1110,6 +1118,7 @@ def phase_parity(net, rnet, vnet, dev, sharded) -> Parity:
     pair_parity(vnet, dev, par)
     acc1_parity(net, dev, par)
     range_parity(vnet, dev, par)
+    resnet50_parity(r50, dev, par)
     sharded_parity(sharded, par)
     for k in KERNEL_INFO:
         print(f"parity: {k} bitwise equal to its plain version in "
@@ -1118,6 +1127,59 @@ def phase_parity(net, rnet, vnet, dev, sharded) -> Parity:
         print(f"parity: mode {m} launched {c} times, each launch held "
               "against its plain version", flush=True)
     return par
+
+
+def resnet50_parity(r50, dev, par):
+    """K1 at every conv of ResNet50(ResNet50Config()) (224x224, its batch)
+    on full-range random inputs and sum operands: the 7x7/s2 stem on 3
+    channels (padded to 16 by the wrapper), the 1x1 reduces over 64-2048
+    channels, the 1x1 projections to s8 at strides 1 and 2, the 16 fused
+    3x3 + 1x1 expands with the u8 (identity) or s8 (projection) sum at
+    strides 1 and 2, up to a 512-lane intermediate and 2048 output lanes,
+    and the f32 head; K3 at its floor-mode 3x3/s2/p1 max pool (112 -> 56)
+    and its 7x7x2048 global average; then one eager forward on the
+    model's example input with every K1 launch held against its plain
+    version (the calibrated activations and the real shortcuts)."""
+    from deepfusion_tpu_torch.config import PoolConfig
+    from deepfusion_tpu_torch.types import dtype
+    from deepfusion_tpu_torch.utils.logger import check_eq
+    K = importlib.import_module("deepfusion_tpu_torch.ops.conv")
+    P = importlib.import_module("deepfusion_tpu_torch.ops.pool")
+    rng = np.random.default_rng(50)
+    u8 = dtype.u8
+    for name, op in r50.convs.items():
+        c = op.cfg
+        x = rand(rng, (c.bs, c.ih, c.iw, c.ic), u8, dev)
+        sm = rand(rng, (c.bs, c.oh, c.ow, c.out_oc), c.sum_dt, dev) \
+            if c.with_sum else None
+        what = f"ResNet50 {name}" + (f" sum {c.sum_dt.name}" if sm is not None
+                                     else "")
+        par.check("conv_fused", what, K.conv_cuda(op, x, sm),
+                  K.conv_plain(op, x, sm))
+    stem = r50.convs["stem"].cfg
+    last = list(r50.convs.values())[-2].cfg      # the last fused block
+    for what, shape, kind, k, s, p in (
+            ("ResNet50 max pool", (stem.bs, stem.oh, stem.ow, stem.oc), "max",
+             (3, 3), (2, 2), (1, 1)),
+            ("ResNet50 global avg", (last.bs, last.oh, last.ow, last.out_oc),
+             "avg_exc", (last.oh, last.ow), (last.oh, last.ow), (0, 0))):
+        x = rand(rng, shape, u8, dev)
+        pc = PoolConfig.make(kind, shape[1:3], k, s, p, ceil_mode=False)
+        got = P.pool_cuda(x, pc, u8)
+        check_eq(tuple(got.shape[1:3]), (shape[1] // s[0], shape[2] // s[1]),
+                 f"{what}: floor-mode output size")
+        par.check("pool", what, got, P.pool_plain(x, pc, u8))
+    x = torch.from_numpy(r50.example_input()).to(dev)
+    before = par.cases["conv_fused"]
+    with held_against_plain(par, "ResNet50 eager forward"):
+        r50(x)
+    check_eq(par.cases["conv_fused"] - before, len(r50.convs),
+             "ResNet50 eager forward: K1 launches held against the plain "
+             "version")
+    print(f"parity: ResNet50 {len(r50.convs)} convs on full-range inputs, "
+          f"its two pools and one eager forward's {len(r50.convs)} K1 "
+          f"launches at batch {stem.bs}, bitwise equal to the plain "
+          "versions", flush=True)
 
 
 def packed_input(rng, spec, n, dev, junk=False):
@@ -2059,7 +2121,7 @@ def slice_requests(net, golden_path):
     cfg = net.cfg
     reqs = []
     golden = None
-    if os.path.exists(golden_path):
+    if golden_path is not None and os.path.exists(golden_path):
         golden = np.load(golden_path)
         check_eq(int(golden["model_seed"]), cfg.seed, "golden model seed")
         reqs += list(net.example_input(
@@ -2214,8 +2276,9 @@ def phase_graphs(slices, dev, name_power) -> dict:
     BatchServer, bitwise against the CPU plain dense forward and the
     golden logits; a first result unchanged by a later call; batch 3
     captures a second graph and answers right; then eager against graphed
-    in turns (per call, device, busy share, served requests/s). Last, a
-    graph must refuse to replay once its model's weights moved. `slices`
+    in turns (per call, device, busy share, served requests/s). A model
+    without jit_packed() runs jit() alone. Last, the last model's graph
+    must refuse to replay once its weights moved. `slices`
     is [(model, reqs, want, golden)]. Returns the launch counts of the
     served runs."""
     from deepfusion_tpu_torch import _build
@@ -2223,9 +2286,10 @@ def phase_graphs(slices, dev, name_power) -> dict:
     counts = dict.fromkeys(KERNEL_INFO, 0)
     for model, reqs, want, golden in slices:
         name, n = type(model).__name__, model.cfg.batch
-        for path, method, eager in (("dense", "jit", model),
-                                    ("packed", "jit_packed",
-                                     model.packed_module())):
+        paths = [("dense", "jit", model)]
+        if hasattr(model, "jit_packed"):
+            paths.append(("packed", "jit_packed", model.packed_module()))
+        for path, method, eager in paths:
             label = f"{name} {path}"
             g = getattr(model, method)()
             check_eq(g.device, dev, f"{label} {method}() device")
@@ -2288,7 +2352,7 @@ def phase_graphs(slices, dev, name_power) -> dict:
                         model.input_shape, name_power)
             del g, first, kept, second, small
     # a graph bakes in the weights' addresses: once they move, it raises
-    model, reqs, want, _ = slices[1]
+    model, reqs, want, _ = slices[-1]
     x = torch.from_numpy(np.stack(reqs[:model.cfg.batch])).to(dev)
     g = model.jit()
     g(x)
@@ -3404,7 +3468,8 @@ def main():
         print(name_power)
         return
     from deepfusion_tpu_torch.models import (FusionNetConfig, ResFusionNet,
-                                             ResFusionNetConfig, VGGFusion,
+                                             ResFusionNetConfig, ResNet50,
+                                             ResNet50Config, VGGFusion,
                                              VGGFusionConfig)
 
     from deepfusion_tpu_torch.utils.logger import check_eq
@@ -3418,19 +3483,20 @@ def main():
     rnet.build_packed()
     vnet = VGGFusion(VGGFusionConfig(), device=dev)
     vnet.build_packed()
+    r50 = ResNet50(ResNet50Config(), device=dev)
     sharded = sharded_cases(vnet, dev)
     with torch.inference_mode():
-        parity = phase_parity(net, rnet, vnet, dev, sharded)
+        parity = phase_parity(net, rnet, vnet, r50, dev, sharded)
     counts = dict.fromkeys(KERNEL_INFO, 0)
     slices = []
-    for model, golden_path in ((net, GOLDEN["FusionNet"]),
-                               (rnet, GOLDEN["ResFusionNet"]),
-                               (vnet, GOLDEN["VGGFusion"])):
-        reqs, want, golden = slice_requests(model, golden_path)
-        slices.append((model, reqs, want, golden))
+    for model in (net, rnet, vnet, r50):
         name = type(model).__name__
-        for path, served in (("dense", model),
-                             ("packed", model.packed_module())):
+        reqs, want, golden = slice_requests(model, GOLDEN.get(name))
+        slices.append((model, reqs, want, golden))
+        paths = [("dense", model)]
+        if hasattr(model, "packed_module"):
+            paths.append(("packed", model.packed_module()))
+        for path, served in paths:
             got = phase_slice(served, model.cfg, f"{name} {path}",
                               PATH_KERNELS[(name, path)], reqs, want, golden)
             for k in KERNEL_INFO:

@@ -262,15 +262,20 @@ class PoolConfig:
 
     @staticmethod
     def make(kind, in_hw, kernel, stride, padding,
-             round=round_mode.nearest) -> "PoolConfig":
+             round=round_mode.nearest, ceil_mode=True) -> "PoolConfig":
+        """Validate and build. ``ceil_mode`` (the reference's rule) keeps a
+        last window that starts inside the padded image; without it the
+        output size is the conv's floor rule (torch's ``MaxPool2d``
+        default, which ResNet's 3x3/s2/p1 stem pool assumes)."""
         check(kind in ("max", "avg_inc", "avg_exc"),
               f"unknown pooling kind {kind}")
         ih, iw = in_hw
         kh, kw = kernel
         sh, sw = stride
         ph, pw = padding
-        oh = pool_output_size(ih, kh, sh, ph)
-        ow = pool_output_size(iw, kw, sw, pw)
+        size = pool_output_size if ceil_mode else conv_output_size
+        oh = size(ih, kh, sh, ph)
+        ow = size(iw, kw, sw, pw)
         pb = max(ph, (oh - 1) * sh + kh - ih - ph)
         pr = max(pw, (ow - 1) * sw + kw - iw - pw)
         return PoolConfig(kind=kind, kh=kh, kw=kw, ph=ph, pw=pw, sh=sh, sw=sw,

@@ -1,3 +1,4 @@
 from .fusionnet import FusionNet, FusionNetConfig, PackedFusionNet  # noqa: F401
 from .resfusion import ResFusionNet, ResFusionNetConfig  # noqa: F401
+from .resnet50 import ResNet50, ResNet50Config  # noqa: F401
 from .vggfusion import VGGFusion, VGGFusionConfig  # noqa: F401

@@ -107,17 +107,19 @@ def pool_cuda(x: torch.Tensor, pc: PoolConfig, dt: dtype) -> torch.Tensor:
 
 
 def pool(x, kind: str, kernel, stride, padding,
-         round=round_mode.nearest, *, device=None) -> torch.Tensor:
+         round=round_mode.nearest, *, ceil_mode=True,
+         device=None) -> torch.Tensor:
     """Standalone max / avg_inc / avg_exc pooling over NHWC (any supported
-    dtype); integer averages round with `round` and saturate. ``x`` is a
-    tensor (the pool runs on its device) or a numpy array, which goes to
-    ``device``: by default the current CUDA device, ``"cpu"`` for the plain
-    PyTorch version."""
+    dtype); integer averages round with `round` and saturate. The output
+    size is ceil mode's, or the floor rule's without ``ceil_mode``
+    (``PoolConfig.make``). ``x`` is a tensor (the pool runs on its device)
+    or a numpy array, which goes to ``device``: by default the current CUDA
+    device, ``"cpu"`` for the plain PyTorch version."""
     x = as_tensor(x, device)
     check_eq(x.dim(), 4, "pool input must be NHWC")
     dt = dtype.from_any(x.dtype)
     pc = PoolConfig.make(kind, (x.shape[1], x.shape[2]), kernel, stride,
-                         padding, round)
+                         padding, round, ceil_mode)
     if x.device.type == "cpu":
         return pool_plain(x, pc, dt)
     return pool_cuda(x, pc, dt)

@@ -30,7 +30,9 @@ recorded whole, even if the profiler stops first. The program's spans:
   when the worker took it; its id is the request's, its parent the flush);
 * ``models/graphed.py``'s ``GraphedForward``: ``model.replay`` around each
   call and ``model.capture`` (attrs ``shape``, ``dtype``) around a graph's
-  capture.
+  capture;
+* ``models/resnet50.py``'s forward: ``model.layer`` (attrs ``name``,
+  ``kind``) around each layer, in an eager forward or a graph's capture.
 
 The JAX package's ``maybe_dump_lowered`` (lowered XLA text) is not ported:
 ``DEEPFUSION_DUMP_CODE`` keeps ptxas's report of the kernel build instead
@@ -215,10 +217,11 @@ class _Span:
         self._keep = False
 
 
-def span(name: str, **attrs):
+def span(name: str, /, **attrs):
     """A context manager over a stretch of host work, recorded as the
     module says while ``tracing()``; otherwise a false no-op whose ``id``
-    is None. Compute costly attrs only under ``if s:``."""
+    is None. Compute costly attrs only under ``if s:``. An attr may be
+    called ``name`` too (``model.layer``'s)."""
     if not tracing():
         return _OFF
     return _Span(name, attrs)

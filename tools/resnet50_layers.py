@@ -1,0 +1,119 @@
+"""Where an eager ResNet-50 v1.5 forward's device time goes, by layer kind.
+
+    python3 tools/resnet50_layers.py [--batch 256] [--out resnet50_layers.json]
+
+Runs eager forwards at ``--batch`` on cuda:0 under ``torch.profiler``;
+each kernel's device time is given to the ``model.layer`` span whose host
+range launched it (the launch's correlation id), then summed per forward
+by the span's kind (stem, maxpool, reduce, proj, fused, avgpool, head), by
+layer and by kernel name. Writes the split as one JSON object to ``--out``
+and prints it; kernels no span launched are counted as unattributed.
+(Kernel parity at the model's shapes is ``chip_smoke.py``'s; the graphed
+forward's time is the benchmark cell's ``model.forward_ms``.)
+"""
+import argparse
+import bisect
+import json
+import os
+import subprocess
+import sys
+import tempfile
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from deepfusion_tpu_torch.models import ResNet50, ResNet50Config  # noqa: E402
+from deepfusion_tpu_torch.utils import profiler  # noqa: E402
+
+
+def split(net: ResNet50, x: torch.Tensor, forwards: int = 3) -> dict:
+    """Per forward: device ms by layer kind, layer and kernel name, from
+    the ``model.layer`` spans that launched each kernel."""
+    with torch.inference_mode():
+        net(x)
+        torch.cuda.synchronize()
+        profiler.clear_spans()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(forwards):
+                net(x)
+            torch.cuda.synchronize()
+    recs = sorted((r for r in profiler.spans() if r.name == "model.layer"),
+                  key=lambda r: r.start_ns)
+    profiler.clear_spans()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    spans = sorted((e for e in events if e.get("ph") == "X"
+                    and e.get("name") == "model.layer"
+                    and e.get("cat") != "gpu_user_annotation"),
+                   key=lambda e: e["ts"])
+    if len(spans) != len(recs):
+        raise RuntimeError(f"{len(spans)} model.layer ranges in the trace, "
+                           f"{len(recs)} records")
+    starts = [s["ts"] for s in spans]
+    launch_span = {}
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if e.get("cat") != "cuda_runtime" or corr is None:
+            continue
+        i = bisect.bisect_right(starts, e["ts"]) - 1
+        if i >= 0 and e["ts"] <= spans[i]["ts"] + spans[i]["dur"]:
+            launch_span[corr] = i
+    by_kind, by_kernel, by_layer = (defaultdict(float) for _ in range(3))
+    unattributed = total = 0.0
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy",
+                                                      "gpu_memset"):
+            continue
+        d = e["dur"] / 1e3 / forwards     # ms per forward
+        total += d
+        i = launch_span.get((e.get("args") or {}).get("correlation"))
+        if i is None:
+            unattributed += d
+            continue
+        attrs = recs[i].attrs
+        by_kind[attrs["kind"]] += d
+        by_layer[attrs["name"]] += d
+        by_kernel[f"{attrs['kind']}: {e['name'][:70]}"] += d
+    return {"forwards": forwards, "device_ms_per_forward": total,
+            "unattributed_ms": unattributed, "by_kind_ms": dict(by_kind),
+            "by_kernel_ms": dict(by_kernel), "by_layer_ms": dict(by_layer)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--out", default="resnet50_layers.json")
+    args = ap.parse_args()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    net = ResNet50(ResNet50Config(batch=args.batch, seed=13),
+                   device="cuda:0")
+    x = torch.from_numpy(net.example_input()).cuda()
+    out = dict(card=card, torch=torch.__version__, batch=args.batch,
+               **split(net, x))
+    print("split:", json.dumps({k: v for k, v in out.items()
+                                if k not in ("by_kernel_ms", "by_layer_ms")}),
+          flush=True)
+    for k, v in sorted(out["by_kernel_ms"].items(), key=lambda kv: -kv[1]):
+        print(f"kernel: {v:.4f} ms  {k}")
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
