@@ -23,7 +23,9 @@ Phases, each printing its own lines:
      full-width layer shape (ResNet-50: every conv on full-range inputs
      and sum operands, its two pools, then one eager forward with each K1
      launch held against its plain version) and extra cases (every dtype, both round modes,
-     saturation edges, the conv sum post-op with every operand dtype; for
+     saturation edges, the conv sum post-op with every operand dtype, the
+     1-byte sum read as tiles at ResNet-50's fused shapes, every model
+     op's conv_plan against the plans recorded before that read; for
      K1 also strides 2, 3 and above 8 with padding at both edges and odd
      output sizes, 1x1 GEMM tiles across images, ragged dst pitches, ic
      16, M below one tile, and the geometries of sp_conv's row slabs and
@@ -223,6 +225,14 @@ FORWARD_LAUNCHES = {
 }
 SHARDED_LAUNCHES = {"conv_fused": 58, "packed_conv": 32, "convpool": 2,
                     "pair_conv": 38}
+# K1 launches a forward that read the sum operand as tiles (the mode
+# conv_fused.sum_tile, ops/conv.py: tiled_sum): ResNet-50's 16 fused blocks
+# and ResFusionNet's block1; every other served path none
+FORWARD_SUM_TILES = {"ResNet50 dense": 16, "ResFusionNet dense": 1}
+# conv_plan of every dense conv op of the four models at batch 8 and 256
+# ("<model> <module> <batch>"), as the launcher planned them before the
+# sum operand was read as tiles: a plan may add keys, never change these
+CONV_PLANS = os.path.join(ROOT, "tests", "data", "conv_plans.json")
 # the kernel modes of the sharded path (packed_conv.merge_pool is
 # FusionNet's packed forward's, never a shard's)
 SHARDED_MODES = ("conv_fused.acc1", "packed_conv.acc1", "packed_conv.rows",
@@ -781,6 +791,31 @@ def conv_cases(dev):
         add(f"sum saturate {sdt} -> {dst}", 1, 8, 64, 32, 3, 1, 1, dst,
             relu=False, scale=1e6 if dst == "s32" else 0.05, sum_dt=sdt,
             sum_scale=3.0)
+    # the sum operand read as tiles (ops/conv.py: tiled_sum): ResNet-50's
+    # fused blocks at each stage's widths, batch 2 (split plans), with the
+    # u8 (identity) and the s8 (projection, stride 2 from stage 2) shortcut,
+    # 1-8 passes of 256 lanes; stage 1 at batch 4 (128-pixel tiles); odd
+    # output sizes at stride 2 (tiles across the image's edge); sum_scale
+    # != 1 in both round modes; an s8 dst; the staging rows in the
+    # intermediate's (one pass of 32 lanes); and a pitch oc1 no multiple of
+    # 16, which keeps the per-value read
+    for st, (hw, w) in enumerate(((56, 64), (28, 128), (14, 256), (7, 512)),
+                                 1):
+        for sdt, s in (("u8", 1), ("s8", 2 if st > 1 else 1)):
+            add(f"tiled sum {sdt} ResNet-50 stage {st} stride {s}", 2,
+                hw * s, w, w, 3, s, 1, "u8", oc1=4 * w, sum_dt=sdt)
+    add("tiled sum u8 ResNet-50 stage 1 batch 4", 4, 56, 64, 64, 3, 1, 1,
+        "u8", oc1=256, sum_dt="u8")
+    add("tiled sum s8 stride 2 13 -> 7 sum_scale 0.75", 2, 13, 64, 64, 3,
+        2, 1, "u8", oc1=256, sum_dt="s8", sum_scale=0.75)
+    add("tiled sum u8 stride 2 27 -> 14 down sum_scale 1.5", 3, 27, 32, 48,
+        3, 2, 1, "u8", oc1=528, rnd="down", sum_dt="u8", sum_scale=1.5)
+    add("tiled sum s8 -> s8 dst", 2, 10, 32, 64, 3, 1, 1, "s8", oc1=96,
+        relu=False, sum_dt="s8", sum_scale=0.5)
+    add("tiled sum u8 in the intermediate's rows", 2, 9, 32, 64, 3, 1, 1,
+        "u8", oc1=32, sum_dt="u8")
+    add("per-value sum u8 oc1 264 (pitch no multiple of 16)", 2, 12, 32, 64,
+        3, 1, 1, "u8", oc1=264, sum_dt="u8")
     return out
 
 
@@ -971,8 +1006,39 @@ def concat_op_cases(rng, dev, par):
             raise AssertionError(f"concat_relu took {label}")
 
 
+def plan_check(models):
+    """conv_plan of every dense conv op of the models (FusionNet,
+    ResFusionNet, VGGFusion and ResNet-50 at their default configs) at
+    batch 8 and 256 against CONV_PLANS, key for key; the key the tiled sum
+    added, sum_tile_bytes, is tile_m x nb1 where the op reads its sum as
+    tiles (tiled_sum) and 0 everywhere else."""
+    from deepfusion_tpu_torch.ops.conv import ConvOp, conv_plan, tiled_sum
+    from deepfusion_tpu_torch.ops.convpool import ConvPoolOp
+    from deepfusion_tpu_torch.utils.logger import check_eq
+    with open(CONV_PLANS) as f:
+        want = json.load(f)
+    seen = 0
+    for model in models:
+        for name, op in model.named_modules():
+            if not isinstance(op, (ConvOp, ConvPoolOp)):
+                continue
+            for n in (8, 256):
+                key = f"{type(model).__name__} {name} {n}"
+                got = conv_plan(op, n, pool=isinstance(op, ConvPoolOp))
+                tile = got.pop("sum_tile_bytes")
+                check_eq(got, want[key], f"{key}: conv_plan")
+                check_eq(tile, got["tile_m"] * got["nb1"]
+                         if tiled_sum(op.cfg) else 0,
+                         f"{key}: conv_plan's sum_tile_bytes")
+                seen += 1
+    check_eq(seen, len(want), "plans checked")
+    print(f"plans: conv_plan of {seen} (op, batch) pairs of the four models "
+          "equal the recorded plans key for key", flush=True)
+
+
 def phase_parity(net, rnet, vnet, r50, dev, sharded) -> Parity:
     from deepfusion_tpu_torch import _build
+    from deepfusion_tpu_torch.utils.logger import check, check_eq
     from deepfusion_tpu_torch.config import ConcatConfig, PoolConfig
     from deepfusion_tpu_torch.models.fusionnet import LAYERS
     C = importlib.import_module("deepfusion_tpu_torch.ops.concat")
@@ -1006,9 +1072,20 @@ def phase_parity(net, rnet, vnet, r50, dev, sharded) -> Parity:
         x = rand(rng, (cfg.bs, cfg.ih, cfg.iw, cfg.ic), u8, dev)
         par.check("conv_fused", f"VGGFusion {name}", K.conv_cuda(op, x),
                   K.conv_plain(op, x))
+    tiled = []
     for label, op, x, sm in conv_cases(dev):
         par.check("conv_fused", label, K.conv_cuda(op, x, sm),
                   K.conv_plain(op, x, sm))
+        plan = K.conv_plan(op, op.cfg.bs)
+        check_eq(plan["sum_tile_bytes"] > 0, K.tiled_sum(op.cfg),
+                 f"{label}: the plan's sum tile against tiled_sum")
+        if plan["sum_tile_bytes"]:
+            tiled.append((plan["split"], plan["passes1"]))
+    check(len({sp for sp, _ in tiled}) == 2 and max(n for _, n in tiled) > 1,
+          f"the tiled sum cases must run split and whole tiles and more "
+          f"than one 1x1 pass: {tiled}")
+    print(f"parity: {len(tiled)} K1 cases read the sum as tiles (split, 1x1 "
+          f"passes: {sorted(set(tiled))})", flush=True)
     for label, op in k1_geometry_cases(net, dev):
         cfg = op.cfg
         x = rand(rng, (cfg.bs, cfg.ih, cfg.iw, cfg.ic), u8, dev)
@@ -2150,6 +2227,7 @@ def phase_slice(model, cfg, path, kernels, reqs, want, golden,
     with srv:
         outs = [f.result(timeout=300) for f in srv.submit_many(reqs)]
     counts = _build.launch_counts()
+    tiles = _build.mode_counts()["conv_fused.sum_tile"]
     print(f"{tag}: {path} path: {len(reqs)} requests served in "
           f"{srv.stats['flushes']} flushes ({srv.stats['padded_rows']} "
           f"padded rows); launches {counts}", flush=True)
@@ -2164,6 +2242,11 @@ def phase_slice(model, cfg, path, kernels, reqs, want, golden,
         check_eq(got, per_forward, f"{path}: launches per forward")
         print(f"{tag}: {path} path: launches per forward {per_forward}, "
               f"as before", flush=True)
+    want_tiles = FORWARD_SUM_TILES.get(path, 0)
+    check_eq(tiles, want_tiles * srv.stats["flushes"],
+             f"{path}: K1 launches that read the sum as tiles")
+    print(f"{tag}: {path} path: {want_tiles} K1 launches a forward read the "
+          "sum operand as tiles", flush=True)
 
     got = np.stack(outs)
     check_eq(got.shape, (len(reqs), cfg.num_classes), "served logits shape")
@@ -3484,6 +3567,7 @@ def main():
     vnet = VGGFusion(VGGFusionConfig(), device=dev)
     vnet.build_packed()
     r50 = ResNet50(ResNet50Config(), device=dev)
+    plan_check((net, rnet, vnet, r50))
     sharded = sharded_cases(vnet, dev)
     with torch.inference_mode():
         parity = phase_parity(net, rnet, vnet, r50, dev, sharded)

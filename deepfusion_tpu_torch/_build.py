@@ -54,9 +54,11 @@ KERNELS = ("conv_fused", "concat_relu", "pool", "sum_relu", "packed_conv",
            "packed_sum_pool", "convpool", "pair_conv")
 # kernel modes counted on their own: the raw 1x1 accumulator (emit_acc1),
 # an output row range (or input row slice), the widened intermediate
-# bounds, the packed conv's residual merge and pool (merge_pool)
+# bounds, the packed conv's residual merge and pool (merge_pool), the
+# dense conv's sum operand read as tiles (ops/conv.py: tiled_sum)
 MODES = ("conv_fused.acc1", "packed_conv.acc1", "packed_conv.rows",
-         "pair_conv.rows", "pair_conv.bounds", "packed_conv.merge_pool")
+         "pair_conv.rows", "pair_conv.bounds", "packed_conv.merge_pool",
+         "conv_fused.sum_tile")
 
 _counts_lock = threading.Lock()
 _counts = dict.fromkeys(KERNELS, 0)

@@ -46,7 +46,15 @@
 // f32; the final stage's epilogue reads it at the output pixel and joins it
 // in the JAX package's order (requant.cuh: requant_sum). Whether there is
 // one is a uniform branch around the epilogue, and its dtype a switch
-// inside it, so it adds no kernel instantiations.
+// inside it, so it adds no kernel instantiations. The fused kernel with a
+// 1-byte dst reads a 1-byte sum whose pitch is a multiple of 16 bytes as
+// whole tiles (tiled_sum): each warp copies its rows and lanes of a pass
+// into the staging rows with 16-byte cp.async, issued as soon as those rows
+// are free (before the tile's 3x3 for the first pass, after the previous
+// pass's store for the others), so the copy lands under the wgmma; the
+// epilogue waits once and reads each value where its result will be
+// staged. Every other sum (4-byte dsts, s32/f32 sums, a ragged pitch, the
+// unfused kernel, pool mode) is read a value at a time (load_sum).
 //
 // What bounds it on the H100: int8 multiply-adds. At FusionNet's full width
 // a forward is about 11 G MACs against a few MB of activations, and
@@ -157,6 +165,7 @@ struct KArgs {
   int oc0, oc0p, oc1p, out_oc;  // out_oc: the dst's lanes and pitch
   int relu0, relu1, down0, down1, has_bias0, has_bias1;
   int pool_avg, pool_down;      // pool mode: average (else max), its round
+  int sum_tile;  // the fused final stage reads the sum as tiles (tiled_sum)
 };
 
 // Tensor maps: a[w] the input with boxes of 32 << w channels; b0[w], b1[w]
@@ -425,6 +434,35 @@ __device__ __forceinline__ void produce(const Maps& maps, const KArgs& a,
 // A thread's accumulator registers of a pass: for n8 block j, register
 // 4j + 2h + e holds row m0 + g + 8h (h = 0, 1), lane col0 + 8j + 2t + e.
 
+// How the final stage reads the sum operand: none, a value at a time from
+// global memory (load_sum), or from the tile that sum_tile_load copied
+// into the staging rows.
+enum SumRead { SUM_NONE, SUM_GLOBAL, SUM_TILE };
+
+// The sum operand's bytes of the warp's rows m0 + [0, 16) and its lanes
+// col0 + [0, nbw) of a pass, copied into the staging rows `stage` where the
+// pass's results will be staged (K-major, column kst + the lane's offset):
+// lane i takes row i % 16 of granule i / 16, as write_bytes' store does, so
+// each 32-byte sector is read whole by two lanes. 16-byte cp.async: the
+// copy holds no registers and completes at write_bytes' wait. oc is a
+// multiple of 16 (tiled_sum).
+__device__ __forceinline__ void sum_tile_load(const KArgs& a, int col0,
+                                              int nbw, int kst,
+                                              long long spix, uint8_t* stage,
+                                              int m0) {
+  const int lane = threadIdx.x & 31;
+  const int oc = a.out_oc, tm = a.p.tm;
+  if (spix < 0 || col0 >= oc) return;
+  const int ng = min(nbw, oc - col0) / 16;  // granules
+  const uint8_t* src = static_cast<const uint8_t*>(a.sum) + spix * oc + col0;
+  const uint32_t s =
+      smem_u32(stage + (kst >> 4) * (tm * 16) + (m0 + (lane & 15)) * 16);
+  for (int gi = lane >> 4; gi < ng; gi += 2)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     s + gi * (tm * 16)),
+                 "l"(src + 16 * gi) : "memory");
+}
+
 // Requantize the warpgroup's pass (lanes col0 + [0, nbw)) to plain u8 into
 // the intermediate's K-major layout, byte (m, k) at (k / 16) * tm * 16 +
 // m * 16 + k % 16; lanes in [oc0, k1) as 0.
@@ -474,30 +512,50 @@ __device__ __forceinline__ typename dt_traits<DST>::T final_value(
 // 2t of the pass, the warp's rows m0 + [0, 16)) and store them 16 bytes a
 // lane: lane i takes row i % 16 of granule i / 16, so a warp's shared loads
 // meet no bank conflict and each global store fills 32-byte sectors. A
-// pitch oc that is no multiple of 16 stores byte by byte.
-template <int DST, bool SUM>
+// pitch oc that is no multiple of 16 stores byte by byte. With SUM_TILE
+// each value's sum byte sits where its result will be staged
+// (sum_tile_load): the warp waits for its copies, then each thread reads
+// its byte pairs before it writes any.
+template <int DST, int SUM>
 __device__ __forceinline__ void write_bytes(
     const KArgs& a, const int32_t (&acc)[128], const float* bias,
     const float* scale, bool relu, bool down, int col0, int nbw, int kst,
     const long long (&pix)[2], long long spix, uint8_t* stage, int m0) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int oc = a.out_oc, tm = a.p.tm;
+  const bool sum_s8 = a.sum_dt == DT_S8;
+  if constexpr (SUM == SUM_TILE) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncwarp();  // the warp's copies, made by other lanes
+  }
   uint32_t q[2][16];
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
     if (8 * j >= nbw || col0 + 8 * j >= oc) break;  // warp-uniform
     const int o = col0 + 8 * j + 2 * t;
+    const int k = kst + 8 * j + 2 * t;
     const float2 b = *reinterpret_cast<const float2*>(bias + o);
     const float2 sc = *reinterpret_cast<const float2*>(scale + o);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
+      uint32_t sv = 0;  // the two sum bytes (SUM_TILE)
+      if constexpr (SUM == SUM_TILE)
+        sv = *reinterpret_cast<const uint16_t*>(
+            stage + (k >> 4) * (tm * 16) + (m0 + g + 8 * h) * 16 + (k & 15));
       uint32_t v = 0;
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        if (o + e >= oc || (SUM && pix[h] < 0)) continue;
-        const uint8_t u = static_cast<uint8_t>(final_value<DST, SUM>(
-            a, acc[4 * j + 2 * h + e], e ? b.y : b.x, e ? sc.y : sc.x, relu,
-            down, pix[h] * oc + o + e));
+        if (o + e >= oc || (SUM != SUM_NONE && pix[h] < 0)) continue;
+        const int32_t x = acc[4 * j + 2 * h + e];
+        const float be = e ? b.y : b.x, se = e ? sc.y : sc.x;
+        uint8_t u;
+        if constexpr (SUM == SUM_TILE)
+          u = static_cast<uint8_t>(requant_sum<DST>(
+              x, true, be, se, relu, down,
+              byte_sum(uint8_t(sv >> (8 * e)), sum_s8, a.sum_scale)));
+        else
+          u = static_cast<uint8_t>(final_value<DST, SUM == SUM_GLOBAL>(
+              a, x, be, se, relu, down, pix[h] * oc + o + e));
         v |= uint32_t(u) << (8 * e);
       }
       q[h][j >> 1] = (j & 1) ? q[h][j >> 1] | (v << 16) : v;
@@ -579,18 +637,23 @@ __device__ __forceinline__ void write_words(
   }
 }
 
-template <int DST>
+// TILE: the fused kernel's 1x1 stage, the only one that reads a sum tile.
+template <int DST, bool TILE>
 __device__ __forceinline__ void write_final(
     const KArgs& a, const int32_t (&acc)[128], const float* bias,
     const float* scale, bool relu, bool down, int col0, int nbw, int kst,
     const long long (&pix)[2], long long spix, uint8_t* stage, int m0) {
   if constexpr (DST == DT_U8 || DST == DT_S8) {
-    if (a.sum)  // one uniform branch: the unrolled loops carry no test
-      write_bytes<DST, true>(a, acc, bias, scale, relu, down, col0, nbw, kst,
-                             pix, spix, stage, m0);
+    // uniform branches: the unrolled loops carry no test
+    if (TILE && a.sum_tile)
+      write_bytes<DST, SUM_TILE>(a, acc, bias, scale, relu, down, col0, nbw,
+                                 kst, pix, spix, stage, m0);
+    else if (a.sum)
+      write_bytes<DST, SUM_GLOBAL>(a, acc, bias, scale, relu, down, col0,
+                                   nbw, kst, pix, spix, stage, m0);
     else
-      write_bytes<DST, false>(a, acc, bias, scale, relu, down, col0, nbw,
-                              kst, pix, spix, stage, m0);
+      write_bytes<DST, SUM_NONE>(a, acc, bias, scale, relu, down, col0, nbw,
+                                 kst, pix, spix, stage, m0);
   } else if constexpr (DST == DT_ACC) {
     write_words<DST, false>(a, acc, bias, scale, relu, down, col0, nbw, pix);
   } else {
@@ -760,6 +823,12 @@ __device__ __forceinline__ void consume(const KArgs& a, uint8_t* smem,
 #pragma unroll
     for (int h = 0; h < 2; ++h) pix[h] = pixel_of(a, tl, m0 + g + 8 * h);
     const long long spix = pixel_of(a, tl, m0 + (lane & 15));
+    // the staging rows are the intermediate's: a sum tile may come in only
+    // once the pass's 1x1 has read them
+    const bool tile = FUSE && STAGED && a.sum_tile;
+    const bool tile_in_mid = tile && p.stage_off == p.mid_off;
+    if (tile && !tile_in_mid)  // the first 1x1 pass's, under the 3x3
+      sum_tile_load(a, kst1, nbw1, kst1, spix, stg, m0);
     for (int ps = it.ps0; ps < it.ps1; ++ps) {
       fence_regs(acc);
       bool first = true;
@@ -799,8 +868,8 @@ __device__ __forceinline__ void consume(const KArgs& a, uint8_t* smem,
           write_pool<DST, false>(a, acc, par, par + p.np0, col0, nbw0, tl,
                                  m0, pix, xw);
       } else if (col0 < a.out_oc) {
-        write_final<DST>(a, acc, par, par + p.np0, a.relu0, a.down0, col0,
-                         nbw0, kst0, pix, spix, stg, m0);
+        write_final<DST, false>(a, acc, par, par + p.np0, a.relu0, a.down0,
+                                col0, nbw0, kst0, pix, spix, stg, m0);
       }
     }
     if constexpr (FUSE) {
@@ -836,9 +905,14 @@ __device__ __forceinline__ void consume(const KArgs& a, uint8_t* smem,
         // the staging rows may be the intermediate's: every warp that
         // reads them is past its last read
         if (STAGED && p.stage_off == p.mid_off) sync_rows();
+        if (tile_in_mid) sum_tile_load(a, col0, nbw1, kst1, spix, stg, m0);
         if (col0 < a.out_oc)
-          write_final<DST>(a, acc, par1, par1 + p.np1, a.relu1, a.down1,
-                           col0, nbw1, kst1, pix, spix, stg, m0);
+          write_final<DST, true>(a, acc, par1, par1 + p.np1, a.relu1,
+                                 a.down1, col0, nbw1, kst1, pix, spix, stg,
+                                 m0);
+        // the next pass's sum tile, under its 1x1
+        if (tile && !tile_in_mid && ps + 1 < p.npass1)
+          sum_tile_load(a, col0 + p.nb1, nbw1, kst1, spix, stg, m0);
       }
     }
   }
@@ -922,6 +996,15 @@ int launch_pool(const Maps& maps, const KArgs& a, int dst_dt,
 
 bool staged_dst(int dst_dt) { return dst_dt == DT_U8 || dst_dt == DT_S8; }
 
+// Whether the fused kernel's final stage reads the sum operand as whole
+// tiles (sum_tile_load): a 1-byte sum (sum_dt u8 or s8; 0 is none) into a
+// 1-byte dst of out_oc lanes, a multiple of 16 (16-byte copies). What the
+// call shows decides, nothing else.
+bool tiled_sum(bool fuse, int dst_dt, int sum_dt, int out_oc) {
+  return fuse && staged_dst(dst_dt) && (sum_dt == DT_U8 || sum_dt == DT_S8) &&
+         out_oc % 16 == 0;
+}
+
 // The rows of a w0 box: the pass width, or in pool mode at most 64, so the
 // plan may split the lanes over the grid (pool_plan).
 int box_rows(int oc0p, bool pool) {
@@ -992,10 +1075,13 @@ cudaError_t conv_plan(const int* in, int* out) {
   if (!make_plan(p, g, in[12], in[13], in[14] != 0, staged_dst(in[15]), pool,
                  box_rows(in[12], pool)))
     return cudaErrorInvalidValue;
+  // the staging rows each 1x1 pass's sum tile takes (no memory of its own)
+  const int sum_tile =
+      tiled_sum(in[14] != 0, in[15], in[17], in[18]) ? p.tm * p.nb1 : 0;
   const int v[CONV_PLAN_OUT] = {p.tm, p.tr, p.tc, p.split, p.tiles,
                                 p.blocks, p.stages, p.smem, p.nb0, p.nb1,
                                 p.npass0, p.npass1, p.ch0.n, p.kp,
-                                g.gemm ? 1 : 0, p.items};
+                                g.gemm ? 1 : 0, p.items, sum_tile};
   memcpy(out, v, sizeof(v));
   return cudaSuccess;
 }
@@ -1024,6 +1110,7 @@ cudaError_t conv_fused_launch(
   a.sum_scale = sum_scale;
   a.oc0 = oc0;
   a.out_oc = fuse ? oc1 : oc0;
+  a.sum_tile = sum && tiled_sum(fuse != 0, dst_dt, sum_dt, a.out_oc);
   a.relu0 = relu0; a.relu1 = relu1; a.down0 = down0; a.down1 = down1;
   a.has_bias0 = has_bias0; a.has_bias1 = has_bias1;
   return static_cast<cudaError_t>(

@@ -97,6 +97,14 @@ __device__ __forceinline__ float load_sum(const void* src, size_t idx,
   return __fmul_rn(v, scale);
 }
 
+// A 1-byte element of the sum operand already read (s8 if s8, else u8),
+// times sum_scale: load_sum's arithmetic on it (the byte widens exactly
+// first, so one conversion serves both dtypes).
+__device__ __forceinline__ float byte_sum(uint8_t b, bool s8, float scale) {
+  const int v = s8 ? int(static_cast<int8_t>(b)) : int(b);
+  return __fmul_rn(__int2float_rn(v), scale);
+}
+
 // requant with the sum post-op: the f32 value before the final cast,
 // already clipped to the dst's range (integral for integer dsts)
 // (deepfusion_tpu/ops/convpool.py:_requant_presat).

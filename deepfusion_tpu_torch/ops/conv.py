@@ -116,6 +116,7 @@ class ConvOp(nn.Module):
             self.w1, 1, 1) if cfg.fuse_conv1x1 else None, persistent=False)
         self._wmaps = None   # (device pointers, their encoded tensor maps)
         self._geo = conv_geo(cfg)
+        self._sum_tile = tiled_sum(cfg)
 
     def with_geometry(self, **kw) -> "ConvOp":
         """The op at another geometry (``replace_geometry``: image and
@@ -286,6 +287,17 @@ def conv_geo(cfg: ConvConfig) -> tuple:
             cfg.sum_dt.value if cfg.with_sum else 0)
 
 
+def tiled_sum(cfg: ConvConfig) -> bool:
+    """Whether the kernel's final stage reads the sum operand as whole tiles
+    copied into shared memory, not a value at a time from device memory
+    (``csrc/conv.cu``: ``tiled_sum``, from what the call shows): the fused
+    conv with a 1-byte sum operand into a 1-byte dst whose pitch is a
+    multiple of 16 bytes. The launches that do are counted as the mode
+    ``conv_fused.sum_tile``."""
+    return bool(cfg.fuse_conv1x1 and cfg.with_sum and cfg.dst_dt.size == 1
+                and cfg.sum_dt.size == 1 and cfg.out_oc % 16 == 0)
+
+
 def _weight_maps(op, pool: bool = False) -> torch.Tensor:
     """The TMA tensor maps of the op's K-major weights (a ``ConvOp``, or
     with ``pool`` a ``ConvPoolOp``, whose w0 boxes are at most 64 rows), a
@@ -309,16 +321,19 @@ def conv_plan(op, n: int, emit_acc1: bool = False,
     share of the work items: a tile with all its passes, in pool mode a
     pass of a tile), ring stages, shared bytes, lanes per pass and passes
     of each stage, K chunks and bytes per tap, whether the 1x1 runs as a
-    GEMM over the flattened pixels, and the work items. ``pool``: the plan
+    GEMM over the flattened pixels, the work items, and the bytes of the
+    staging rows that take each 1x1 pass's sum tile (``tiled_sum``; 0
+    where the sum, if any, is read a value at a time). ``pool``: the plan
     of the pool mode (``ConvPoolOp``)."""
     cfg = op.cfg
     ih, iw, ic, sh, sw, ph, pw = _kernel_geometry(cfg)
     vals = [n, ih, iw, ic, cfg.oh, cfg.ow, cfg.kh, cfg.kw, sh, sw, ph, pw,
             *_ocps(cfg), int(cfg.fuse_conv1x1),
-            _ACC1 if emit_acc1 else cfg.dst_dt.value, int(pool)]
+            _ACC1 if emit_acc1 else cfg.dst_dt.value, int(pool),
+            cfg.sum_dt.value if cfg.with_sum else 0, cfg.out_oc]
     keys = ("tile_m", "tile_rows", "tile_cols", "split", "tiles", "blocks",
             "stages", "smem_bytes", "nb0", "nb1", "passes0", "passes1",
-            "chunks_per_tap", "k_per_tap", "gemm", "items")
+            "chunks_per_tap", "k_per_tap", "gemm", "items", "sum_tile_bytes")
     return dict(zip(keys, _build.op("conv_plan")(vals)))
 
 
@@ -334,7 +349,8 @@ def conv_cuda(op: ConvOp, src: torch.Tensor, sum_src=None,
         _kernel_src(cfg, src), _weight_maps(op), op.bias0, op.scale0,
         op.bias1 if fuse else None, op.scale1 if fuse else None, sum_src,
         op._geo, cfg.sum_scale, emit_acc1)
-    _build.count_launch("conv_fused", *(("acc1",) if emit_acc1 else ()))
+    _build.count_launch("conv_fused", *(
+        ("acc1",) if emit_acc1 else ("sum_tile",) if op._sum_tile else ()))
     return out
 
 

@@ -476,7 +476,8 @@ def _case_conv_plan(calls):
     plan = C.conv_plan(op, 3, emit_acc1=True)
     assert plan["tile_m"] == 100 and plan["items"] == 115
     return {"geo": [3, 9, 8, 32, 5, 4, 3, 5, 2, 1, 1, 0,
-                    layout.conv_ocp(20), layout.conv_ocp(36), 1, 0, 0]}
+                    layout.conv_ocp(20), layout.conv_ocp(36), 1, 0, 0,
+                    dtype.s32.value, 36]}
 
 
 def _case_packed_conv(calls):
@@ -792,3 +793,47 @@ def test_library_path_tracks_the_installed_torch(monkeypatch):
     monkeypatch.setattr(cpp_extension, "include_paths",
                         lambda *a, **k: ["/elsewhere/include"])
     assert _build.library_path() != base
+
+
+def _tiled_case(sum_dt, dst, oc1):
+    """A small conv (3x3, 32 lanes; fused with a 1x1 of oc1 lanes where
+    oc1 is set) into dst, with a sum operand of sum_dt or none."""
+    rng = np.random.default_rng(23)
+    oc = oc1 or 32
+    w = rng.integers(-128, 128, (32, 16, 3, 3)).astype(np.int8)
+    w1 = rng.integers(-128, 128, (oc1, 32, 1, 1)).astype(np.int8) \
+        if oc1 else None
+    cfg = ConvConfig.make((2, 6, 6, 16), w.shape, None, (1, 1), (1, 1),
+                          (2, 6, 6, oc), dst, conv0_scales=(1 / 3000,),
+                          wei1x1_shape=None if w1 is None else w1.shape,
+                          sum_dt=sum_dt)
+    op = ConvOp(cfg, w, None, w1, device="cpu")
+    s = None if sum_dt is None else torch.zeros(
+        (2, 6, 6, oc), dtype=dtype.from_any(sum_dt).torch)
+    return op, _u8(rng, (2, 6, 6, 16)), s
+
+
+@pytest.mark.parametrize("sum_dt, dst, oc1, tiled", [
+    ("u8", "u8", 32, True), ("s8", "s8", 48, True), ("s8", "u8", 256, True),
+    ("s32", "u8", 32, False), ("f32", "s8", 32, False),
+    ("u8", "u8", 40, False), ("u8", "s32", 32, False),
+    ("u8", "f32", 32, False), ("u8", "u8", None, False),
+    (None, "u8", 32, False)])
+def test_conv_cuda_counts_the_tiled_sum_mode(recorded_ops, sum_dt, dst, oc1,
+                                            tiled):
+    """The launches that read the sum operand as tiles are those of the
+    fused conv with a 1-byte sum into a 1-byte dst whose pitch is a
+    multiple of 16 (csrc/conv.cu: tiled_sum), counted as the mode
+    conv_fused.sum_tile beside the launch; the plan is asked with the
+    sum's dtype code and the dst's lanes."""
+    op, x, s = _tiled_case(sum_dt, dst, oc1)
+    assert C.tiled_sum(op.cfg) is tiled
+    _build.reset_launch_counts()
+    C.conv_cuda(op, x, s)
+    assert _build.launch_counts()["conv_fused"] == 1
+    assert _build.mode_counts()["conv_fused.sum_tile"] == int(tiled)
+    _build.reset_launch_counts()
+    C.conv_plan(op, 2)
+    (rec,) = recorded_ops["conv_plan"]
+    assert list(rec["args"]["geo"][-2:]) == [
+        0 if sum_dt is None else dtype.from_any(sum_dt).value, oc1 or 32]

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from deepfusion_tpu_torch.config import PoolConfig
 from deepfusion_tpu_torch.models import ResNet50, ResNet50Config
 from deepfusion_tpu_torch.models.resnet50 import layer_plan
+from deepfusion_tpu_torch.ops.conv import ConvOp, tiled_sum
 from deepfusion_tpu_torch.ops.pool import pool
 from deepfusion_tpu_torch.utils import profiler
 from portbench import counts, harness, spec, weights
@@ -223,3 +224,15 @@ def test_the_fused_block_roofline_reader():
     run = _record(ops)
     run.trace = None
     assert read(run) is None
+
+
+def test_the_fused_blocks_read_their_shortcut_as_tiles():
+    """Each of the 16 fused blocks (a u8 or s8 shortcut into a u8 dst of
+    256-2048 lanes) takes the kernel's tiled sum read; no other conv
+    does."""
+    net = ResNet50(ResNet50Config(**SMALL), device="cpu")
+    tiled = [n for n, op in net.convs.items() if tiled_sum(op.cfg)]
+    assert tiled == [l.name for l in layer_plan(net.cfg)
+                     if l.kind == "fused"]
+    assert len(tiled) == 16 and all(isinstance(net.convs[n], ConvOp)
+                                    for n in tiled)
