@@ -794,7 +794,10 @@ def conv_cases(dev):
     # the sum operand read as tiles (ops/conv.py: tiled_sum): ResNet-50's
     # fused blocks at each stage's widths, batch 2 (split plans), with the
     # u8 (identity) and the s8 (projection, stride 2 from stage 2) shortcut,
-    # 1-8 passes of 256 lanes; stage 1 at batch 4 (128-pixel tiles); odd
+    # 1-8 passes of 256 lanes; stage 1 at batch 4 (128-pixel tiles); stages
+    # 2-4 at the offline cell's batch 256, whose plans take whole tiles
+    # over 2, 4 and 8 passes (each next pass's copy after the previous
+    # pass's store, stage 4's first before a 2-stage ring's 3x3); odd
     # output sizes at stride 2 (tiles across the image's edge); sum_scale
     # != 1 in both round modes; an s8 dst; the staging rows in the
     # intermediate's (one pass of 32 lanes); and a pitch oc1 no multiple of
@@ -806,6 +809,10 @@ def conv_cases(dev):
                 hw * s, w, w, 3, s, 1, "u8", oc1=4 * w, sum_dt=sdt)
     add("tiled sum u8 ResNet-50 stage 1 batch 4", 4, 56, 64, 64, 3, 1, 1,
         "u8", oc1=256, sum_dt="u8")
+    for st, hw, w, sdt, s in ((2, 56, 128, "s8", 2), (3, 14, 256, "u8", 1),
+                              (4, 14, 512, "s8", 2)):
+        add(f"tiled sum {sdt} ResNet-50 stage {st} stride {s} batch 256",
+            256, hw, w, w, 3, s, 1, "u8", oc1=4 * w, sum_dt=sdt)
     add("tiled sum s8 stride 2 13 -> 7 sum_scale 0.75", 2, 13, 64, 64, 3,
         2, 1, "u8", oc1=256, sum_dt="s8", sum_scale=0.75)
     add("tiled sum u8 stride 2 27 -> 14 down sum_scale 1.5", 3, 27, 32, 48,
@@ -1009,10 +1016,8 @@ def concat_op_cases(rng, dev, par):
 def plan_check(models):
     """conv_plan of every dense conv op of the models (FusionNet,
     ResFusionNet, VGGFusion and ResNet-50 at their default configs) at
-    batch 8 and 256 against CONV_PLANS, key for key; the key the tiled sum
-    added, sum_tile_bytes, is tile_m x nb1 where the op reads its sum as
-    tiles (tiled_sum) and 0 everywhere else."""
-    from deepfusion_tpu_torch.ops.conv import ConvOp, conv_plan, tiled_sum
+    batch 8 and 256 against CONV_PLANS, key for key."""
+    from deepfusion_tpu_torch.ops.conv import ConvOp, conv_plan
     from deepfusion_tpu_torch.ops.convpool import ConvPoolOp
     from deepfusion_tpu_torch.utils.logger import check_eq
     with open(CONV_PLANS) as f:
@@ -1025,11 +1030,7 @@ def plan_check(models):
             for n in (8, 256):
                 key = f"{type(model).__name__} {name} {n}"
                 got = conv_plan(op, n, pool=isinstance(op, ConvPoolOp))
-                tile = got.pop("sum_tile_bytes")
                 check_eq(got, want[key], f"{key}: conv_plan")
-                check_eq(tile, got["tile_m"] * got["nb1"]
-                         if tiled_sum(op.cfg) else 0,
-                         f"{key}: conv_plan's sum_tile_bytes")
                 seen += 1
     check_eq(seen, len(want), "plans checked")
     print(f"plans: conv_plan of {seen} (op, batch) pairs of the four models "
@@ -1076,14 +1077,12 @@ def phase_parity(net, rnet, vnet, r50, dev, sharded) -> Parity:
     for label, op, x, sm in conv_cases(dev):
         par.check("conv_fused", label, K.conv_cuda(op, x, sm),
                   K.conv_plain(op, x, sm))
-        plan = K.conv_plan(op, op.cfg.bs)
-        check_eq(plan["sum_tile_bytes"] > 0, K.tiled_sum(op.cfg),
-                 f"{label}: the plan's sum tile against tiled_sum")
-        if plan["sum_tile_bytes"]:
+        if K.tiled_sum(op.cfg):
+            plan = K.conv_plan(op, op.cfg.bs)
             tiled.append((plan["split"], plan["passes1"]))
-    check(len({sp for sp, _ in tiled}) == 2 and max(n for _, n in tiled) > 1,
-          f"the tiled sum cases must run split and whole tiles and more "
-          f"than one 1x1 pass: {tiled}")
+    check({sp for sp, n in tiled if n > 1} == {0, 1},
+          f"the tiled sum cases must run split and whole tiles, each over "
+          f"more than one 1x1 pass: {tiled}")
     print(f"parity: {len(tiled)} K1 cases read the sum as tiles (split, 1x1 "
           f"passes: {sorted(set(tiled))})", flush=True)
     for label, op in k1_geometry_cases(net, dev):

@@ -165,7 +165,6 @@ struct KArgs {
   int oc0, oc0p, oc1p, out_oc;  // out_oc: the dst's lanes and pitch
   int relu0, relu1, down0, down1, has_bias0, has_bias1;
   int pool_avg, pool_down;      // pool mode: average (else max), its round
-  int sum_tile;  // the fused final stage reads the sum as tiles (tiled_sum)
 };
 
 // Tensor maps: a[w] the input with boxes of 32 << w channels; b0[w], b1[w]
@@ -439,6 +438,15 @@ __device__ __forceinline__ void produce(const Maps& maps, const KArgs& a,
 // into the staging rows.
 enum SumRead { SUM_NONE, SUM_GLOBAL, SUM_TILE };
 
+// Whether the fused kernel's final stage, into a 1-byte dst, reads the sum
+// operand as whole tiles (sum_tile_load): a 1-byte sum (u8 or s8) whose
+// pitch out_oc is a multiple of 16 (16-byte copies). What the call shows
+// decides, nothing else (ops/conv.py: tiled_sum counts these launches).
+__device__ __forceinline__ bool tiled_sum(const KArgs& a) {
+  return a.sum && (a.sum_dt == DT_U8 || a.sum_dt == DT_S8) &&
+         a.out_oc % 16 == 0;
+}
+
 // The sum operand's bytes of the warp's rows m0 + [0, 16) and its lanes
 // col0 + [0, nbw) of a pass, copied into the staging rows `stage` where the
 // pass's results will be staged (K-major, column kst + the lane's offset):
@@ -637,15 +645,16 @@ __device__ __forceinline__ void write_words(
   }
 }
 
-// TILE: the fused kernel's 1x1 stage, the only one that reads a sum tile.
-template <int DST, bool TILE>
+// tile: the sum operand was copied into the staging rows (tiled_sum).
+template <int DST>
 __device__ __forceinline__ void write_final(
     const KArgs& a, const int32_t (&acc)[128], const float* bias,
     const float* scale, bool relu, bool down, int col0, int nbw, int kst,
-    const long long (&pix)[2], long long spix, uint8_t* stage, int m0) {
+    const long long (&pix)[2], long long spix, uint8_t* stage, int m0,
+    bool tile) {
   if constexpr (DST == DT_U8 || DST == DT_S8) {
     // uniform branches: the unrolled loops carry no test
-    if (TILE && a.sum_tile)
+    if (tile)
       write_bytes<DST, SUM_TILE>(a, acc, bias, scale, relu, down, col0, nbw,
                                  kst, pix, spix, stage, m0);
     else if (a.sum)
@@ -825,7 +834,7 @@ __device__ __forceinline__ void consume(const KArgs& a, uint8_t* smem,
     const long long spix = pixel_of(a, tl, m0 + (lane & 15));
     // the staging rows are the intermediate's: a sum tile may come in only
     // once the pass's 1x1 has read them
-    const bool tile = FUSE && STAGED && a.sum_tile;
+    const bool tile = FUSE && STAGED && tiled_sum(a);
     const bool tile_in_mid = tile && p.stage_off == p.mid_off;
     if (tile && !tile_in_mid)  // the first 1x1 pass's, under the 3x3
       sum_tile_load(a, kst1, nbw1, kst1, spix, stg, m0);
@@ -868,8 +877,8 @@ __device__ __forceinline__ void consume(const KArgs& a, uint8_t* smem,
           write_pool<DST, false>(a, acc, par, par + p.np0, col0, nbw0, tl,
                                  m0, pix, xw);
       } else if (col0 < a.out_oc) {
-        write_final<DST, false>(a, acc, par, par + p.np0, a.relu0, a.down0,
-                                col0, nbw0, kst0, pix, spix, stg, m0);
+        write_final<DST>(a, acc, par, par + p.np0, a.relu0, a.down0, col0,
+                         nbw0, kst0, pix, spix, stg, m0, false);
       }
     }
     if constexpr (FUSE) {
@@ -907,9 +916,8 @@ __device__ __forceinline__ void consume(const KArgs& a, uint8_t* smem,
         if (STAGED && p.stage_off == p.mid_off) sync_rows();
         if (tile_in_mid) sum_tile_load(a, col0, nbw1, kst1, spix, stg, m0);
         if (col0 < a.out_oc)
-          write_final<DST, true>(a, acc, par1, par1 + p.np1, a.relu1,
-                                 a.down1, col0, nbw1, kst1, pix, spix, stg,
-                                 m0);
+          write_final<DST>(a, acc, par1, par1 + p.np1, a.relu1, a.down1,
+                           col0, nbw1, kst1, pix, spix, stg, m0, tile);
         // the next pass's sum tile, under its 1x1
         if (tile && !tile_in_mid && ps + 1 < p.npass1)
           sum_tile_load(a, col0 + p.nb1, nbw1, kst1, spix, stg, m0);
@@ -996,15 +1004,6 @@ int launch_pool(const Maps& maps, const KArgs& a, int dst_dt,
 
 bool staged_dst(int dst_dt) { return dst_dt == DT_U8 || dst_dt == DT_S8; }
 
-// Whether the fused kernel's final stage reads the sum operand as whole
-// tiles (sum_tile_load): a 1-byte sum (sum_dt u8 or s8; 0 is none) into a
-// 1-byte dst of out_oc lanes, a multiple of 16 (16-byte copies). What the
-// call shows decides, nothing else.
-bool tiled_sum(bool fuse, int dst_dt, int sum_dt, int out_oc) {
-  return fuse && staged_dst(dst_dt) && (sum_dt == DT_U8 || sum_dt == DT_S8) &&
-         out_oc % 16 == 0;
-}
-
 // The rows of a w0 box: the pass width, or in pool mode at most 64, so the
 // plan may split the lanes over the grid (pool_plan).
 int box_rows(int oc0p, bool pool) {
@@ -1075,13 +1074,10 @@ cudaError_t conv_plan(const int* in, int* out) {
   if (!make_plan(p, g, in[12], in[13], in[14] != 0, staged_dst(in[15]), pool,
                  box_rows(in[12], pool)))
     return cudaErrorInvalidValue;
-  // the staging rows each 1x1 pass's sum tile takes (no memory of its own)
-  const int sum_tile =
-      tiled_sum(in[14] != 0, in[15], in[17], in[18]) ? p.tm * p.nb1 : 0;
   const int v[CONV_PLAN_OUT] = {p.tm, p.tr, p.tc, p.split, p.tiles,
                                 p.blocks, p.stages, p.smem, p.nb0, p.nb1,
                                 p.npass0, p.npass1, p.ch0.n, p.kp,
-                                g.gemm ? 1 : 0, p.items, sum_tile};
+                                g.gemm ? 1 : 0, p.items};
   memcpy(out, v, sizeof(v));
   return cudaSuccess;
 }
@@ -1110,7 +1106,6 @@ cudaError_t conv_fused_launch(
   a.sum_scale = sum_scale;
   a.oc0 = oc0;
   a.out_oc = fuse ? oc1 : oc0;
-  a.sum_tile = sum && tiled_sum(fuse != 0, dst_dt, sum_dt, a.out_oc);
   a.relu0 = relu0; a.relu1 = relu1; a.down0 = down0; a.down1 = down1;
   a.has_bias0 = has_bias0; a.has_bias1 = has_bias1;
   return static_cast<cudaError_t>(

@@ -15,8 +15,8 @@ constexpr int DT_ACC = 0;
 // Bytes of the six tensor maps conv_weight_maps writes (6 x 128).
 constexpr int CONV_WMAPS_BYTES = 6 * 128;
 // Ints conv_plan reads and writes.
-constexpr int CONV_PLAN_IN = 19;
-constexpr int CONV_PLAN_OUT = 17;
+constexpr int CONV_PLAN_IN = 17;
+constexpr int CONV_PLAN_OUT = 16;
 
 // The weight maps of an op, encoded once (ops/conv.py caches them): out[0,
 // 3) the maps of w0k (oc0p rows x k0 bytes), out[3, 6) those of w1k (oc1p
@@ -27,13 +27,11 @@ cudaError_t conv_weight_maps(const void* w0k, int k0, int oc0p,
                              void* out);
 
 // in: n, ih, iw, ic, oh, ow, kh, kw, sh, sw, ph, pw, oc0p, oc1p, fuse,
-// dst_dt, pool, sum_dt (0: no sum operand), the dst's lanes; out: tile rows
-// of M, tile rows and columns of pixels, split, tiles, blocks, stages,
-// shared bytes, nb0, nb1, passes of each stage, K chunks per tap, K bytes
-// per tap, gemm (the 1x1 run as a GEMM), work items, the bytes of the
-// staging rows that take each 1x1 pass's sum tile (0 where the sum, if any,
-// is read a value at a time). Returns cudaErrorInvalidValue if the kernel
-// cannot run the conv. Launches nothing.
+// dst_dt, pool; out: tile rows of M, tile rows and columns of pixels,
+// split, tiles, blocks, stages, shared bytes, nb0, nb1, passes of each
+// stage, K chunks per tap, K bytes per tap, gemm (the 1x1 run as a GEMM),
+// work items. Returns cudaErrorInvalidValue if the kernel cannot run the
+// conv. Launches nothing.
 cudaError_t conv_plan(const int* in, int* out);
 
 // src: NHWC u8, ic a multiple of 16; wmaps: conv_weight_maps' maps of the

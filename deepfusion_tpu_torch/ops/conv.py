@@ -290,7 +290,8 @@ def conv_geo(cfg: ConvConfig) -> tuple:
 def tiled_sum(cfg: ConvConfig) -> bool:
     """Whether the kernel's final stage reads the sum operand as whole tiles
     copied into shared memory, not a value at a time from device memory
-    (``csrc/conv.cu``: ``tiled_sum``, from what the call shows): the fused
+    (the kernel decides it from what the call shows, ``csrc/conv.cu``:
+    ``tiled_sum``; this is its host side, for the launch count): the fused
     conv with a 1-byte sum operand into a 1-byte dst whose pitch is a
     multiple of 16 bytes. The launches that do are counted as the mode
     ``conv_fused.sum_tile``."""
@@ -321,19 +322,16 @@ def conv_plan(op, n: int, emit_acc1: bool = False,
     share of the work items: a tile with all its passes, in pool mode a
     pass of a tile), ring stages, shared bytes, lanes per pass and passes
     of each stage, K chunks and bytes per tap, whether the 1x1 runs as a
-    GEMM over the flattened pixels, the work items, and the bytes of the
-    staging rows that take each 1x1 pass's sum tile (``tiled_sum``; 0
-    where the sum, if any, is read a value at a time). ``pool``: the plan
+    GEMM over the flattened pixels, and the work items. ``pool``: the plan
     of the pool mode (``ConvPoolOp``)."""
     cfg = op.cfg
     ih, iw, ic, sh, sw, ph, pw = _kernel_geometry(cfg)
     vals = [n, ih, iw, ic, cfg.oh, cfg.ow, cfg.kh, cfg.kw, sh, sw, ph, pw,
             *_ocps(cfg), int(cfg.fuse_conv1x1),
-            _ACC1 if emit_acc1 else cfg.dst_dt.value, int(pool),
-            cfg.sum_dt.value if cfg.with_sum else 0, cfg.out_oc]
+            _ACC1 if emit_acc1 else cfg.dst_dt.value, int(pool)]
     keys = ("tile_m", "tile_rows", "tile_cols", "split", "tiles", "blocks",
             "stages", "smem_bytes", "nb0", "nb1", "passes0", "passes1",
-            "chunks_per_tap", "k_per_tap", "gemm", "items", "sum_tile_bytes")
+            "chunks_per_tap", "k_per_tap", "gemm", "items")
     return dict(zip(keys, _build.op("conv_plan")(vals)))
 
 

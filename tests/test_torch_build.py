@@ -476,8 +476,7 @@ def _case_conv_plan(calls):
     plan = C.conv_plan(op, 3, emit_acc1=True)
     assert plan["tile_m"] == 100 and plan["items"] == 115
     return {"geo": [3, 9, 8, 32, 5, 4, 3, 5, 2, 1, 1, 0,
-                    layout.conv_ocp(20), layout.conv_ocp(36), 1, 0, 0,
-                    dtype.s32.value, 36]}
+                    layout.conv_ocp(20), layout.conv_ocp(36), 1, 0, 0]}
 
 
 def _case_packed_conv(calls):
@@ -824,16 +823,14 @@ def test_conv_cuda_counts_the_tiled_sum_mode(recorded_ops, sum_dt, dst, oc1,
     """The launches that read the sum operand as tiles are those of the
     fused conv with a 1-byte sum into a 1-byte dst whose pitch is a
     multiple of 16 (csrc/conv.cu: tiled_sum), counted as the mode
-    conv_fused.sum_tile beside the launch; the plan is asked with the
-    sum's dtype code and the dst's lanes."""
+    conv_fused.sum_tile beside the launch; the launch passes the sum's
+    dtype code, from which the kernel decides the same."""
     op, x, s = _tiled_case(sum_dt, dst, oc1)
     assert C.tiled_sum(op.cfg) is tiled
     _build.reset_launch_counts()
     C.conv_cuda(op, x, s)
     assert _build.launch_counts()["conv_fused"] == 1
     assert _build.mode_counts()["conv_fused.sum_tile"] == int(tiled)
-    _build.reset_launch_counts()
-    C.conv_plan(op, 2)
-    (rec,) = recorded_ops["conv_plan"]
-    assert list(rec["args"]["geo"][-2:]) == [
-        0 if sum_dt is None else dtype.from_any(sum_dt).value, oc1 or 32]
+    (rec,) = recorded_ops["conv_fused"]
+    assert rec["args"]["geo"][-1] == (
+        0 if sum_dt is None else dtype.from_any(sum_dt).value)

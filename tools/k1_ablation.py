@@ -4,18 +4,12 @@ against copies of itself with one part taken out, on one card.
 
     python3 tools/k1_ablation.py [--dir DIR]
 
-Copies this checkout's deepfusion_tpu_torch into DIR/<variant> (default
-chip_checkout/k1_ablation, which .gitignore lists), applies each variant's
-source edits, builds every tree at once, then times ``conv_cuda`` of the
-checkout and of every variant, each tree in its own process, in turns: the
-checkout, the variants, the variants in reverse, the checkout. Each time is
-``chip_smoke.device_ms`` (median of 3 profiles of 30 calls) at batch 256 of
-ResNet50(ResNet50Config()) fused layers: one identity block of each stage
-(a u8 shortcut) and stage 2's first block (stride 2, the projection's s8
-shortcut), on full-range inputs and sum operands. A variant computes wrong
-values: only its time means anything. An edit whose text is no longer in
-the source stops the script, so the variants follow the kernel or fail
-loudly.
+Times ``conv_cuda`` (``chip_smoke.device_ms``: median of 3 profiles of 30
+calls) at batch 256 of ResNet50(ResNet50Config()) fused layers: one
+identity block of each stage (a u8 shortcut) and stage 2's first block
+(stride 2, the projection's s8 shortcut), on full-range inputs and sum
+operands, in the checkout and in a copy per variant under DIR (default
+chip_checkout/k1_ablation), in turns (tools/ablation.py).
 
 Variants:
   no_sum_load   the sum operand is never read: load_sum returns its scale,
@@ -26,14 +20,12 @@ Variants:
 """
 import json
 import os
-import shutil
-import statistics
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402  (this checkout's; imports no package)
+import ablation  # noqa: E402  (tools/ablation.py: the shared driver)
 
 CU, RQ, WG = "conv.cu", "requant.cuh", "wgmma_tma.cuh"
 LAYERS = ("s1b2_fused", "s2b1_fused", "s2b2_fused", "s3b2_fused",
@@ -65,33 +57,6 @@ VARIANTS = {
 }
 
 
-def make_tree(base, name, edits):
-    tree = os.path.join(base, name)
-    pkg = os.path.join(tree, "deepfusion_tpu_torch")
-    shutil.rmtree(tree, ignore_errors=True)
-    shutil.copytree(os.path.join(ROOT, "deepfusion_tpu_torch"), pkg,
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    for fname, old, new in edits:
-        path = os.path.join(pkg, "csrc", fname)
-        with open(path) as f:
-            src = f.read()
-        if old not in src:
-            sys.exit(f"{name}: the edit's text is not in {fname}: {old!r}")
-        with open(path, "w") as f:
-            f.write(src.replace(old, new))
-    return tree
-
-
-def build_all(trees):
-    """Build every tree's kernels at once, each in its own process."""
-    code = "from deepfusion_tpu_torch import _build; _build.kernels()"
-    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=t)
-             for t in trees]
-    for p in procs:
-        if p.wait():
-            sys.exit(f"a build failed (exit {p.returncode})")
-
-
 def run_tree(tree):
     sys.path.insert(0, os.path.abspath(tree))
     import importlib
@@ -116,32 +81,6 @@ def run_tree(tree):
     print(json.dumps({"tree": tree, "device_ms": res}), flush=True)
 
 
-def main():
-    if len(sys.argv) == 3 and sys.argv[1] == "--run":
-        run_tree(sys.argv[2])
-        return
-    base = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--dir" \
-        else os.path.join(ROOT, "chip_checkout", "k1_ablation")
-    trees = {"kernel": ROOT}
-    trees.update({name: make_tree(base, name, edits)
-                  for name, edits in VARIANTS.items()})
-    build_all(trees.values())
-    order = list(trees) + list(trees)[::-1]
-    runs = {}
-    for name in order:
-        out = subprocess.run([sys.executable, __file__, "--run",
-                              trees[name]], capture_output=True, text=True,
-                             check=True)
-        line = out.stdout.strip().splitlines()[-1]
-        print(line, flush=True)
-        runs.setdefault(name, []).append(json.loads(line)["device_ms"])
-    print(f"card: {cs.card()}")
-    for entry in runs["kernel"][0]:
-        meds = {n: statistics.median(r[entry] for r in rs)
-                for n, rs in runs.items()}
-        print(f"{entry}: " + " ".join(
-            f"{n}={m:.5f}({m / meds['kernel']:.3f})" for n, m in meds.items()))
-
-
 if __name__ == "__main__":
-    main()
+    ablation.main(__file__, VARIANTS, run_tree,
+                  os.path.join(ROOT, "chip_checkout", "k1_ablation"))

@@ -3,16 +3,10 @@ the kernel against copies of itself with one part taken out, on one card.
 
     python3 tools/k5_ablation.py [--dir DIR]
 
-Copies this checkout's deepfusion_tpu_torch into DIR/<variant> (default
-chip_checkout/ablation, which .gitignore lists), applies each variant's
-source edits, then times ``packed_conv_cuda`` of the checkout and of every
-variant, each tree in its own process (building its own kernels), in turns:
-the checkout, the variants, the variants in reverse, the checkout. Each
-time is ``chip_smoke.device_ms`` (median of 3 profiles of 30 calls) at
-bench.py's default shape and at FusionNet's and ResFusionNet's packed
-layers. A variant computes wrong values: only its time means anything.
-An edit whose text is no longer in the source stops the script, so the
-variants follow the kernel or fail loudly.
+Times ``packed_conv_cuda`` (``chip_smoke.device_ms``: median of 3
+profiles of 30 calls) at bench.py's default shape and at FusionNet's and
+ResFusionNet's packed layers, in the checkout and in a copy per variant
+under DIR (default chip_checkout/ablation), in turns (tools/ablation.py).
 
 Variants:
   no_epilogue       write_mid, write_out, write_acc and write_merge
@@ -27,14 +21,12 @@ Variants:
 """
 import json
 import os
-import shutil
-import statistics
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402  (this checkout's; imports no package)
+import ablation  # noqa: E402  (tools/ablation.py: the shared driver)
 
 CU, WG = "packed_conv.cu", "wgmma_tma.cuh"
 VARIANTS = {
@@ -81,23 +73,6 @@ VARIANTS = {
 }
 
 
-def make_tree(base, name, edits):
-    tree = os.path.join(base, name)
-    pkg = os.path.join(tree, "deepfusion_tpu_torch")
-    shutil.rmtree(tree, ignore_errors=True)
-    shutil.copytree(os.path.join(ROOT, "deepfusion_tpu_torch"), pkg,
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    for fname, old, new in edits:
-        path = os.path.join(pkg, "csrc", fname)
-        with open(path) as f:
-            src = f.read()
-        if old not in src:
-            sys.exit(f"{name}: the edit's text is not in {fname}: {old!r}")
-        with open(path, "w") as f:
-            f.write(src.replace(old, new))
-    return tree
-
-
 def run_tree(tree):
     sys.path.insert(0, os.path.abspath(tree))
     import importlib
@@ -129,31 +104,6 @@ def run_tree(tree):
     print(json.dumps({"tree": tree, "device_ms": res}), flush=True)
 
 
-def main():
-    if len(sys.argv) == 3 and sys.argv[1] == "--run":
-        run_tree(sys.argv[2])
-        return
-    base = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--dir" \
-        else os.path.join(ROOT, "chip_checkout", "ablation")
-    trees = {"kernel": ROOT}
-    trees.update({name: make_tree(base, name, edits)
-                  for name, edits in VARIANTS.items()})
-    order = list(trees) + list(trees)[::-1]
-    runs = {}
-    for name in order:
-        out = subprocess.run([sys.executable, __file__, "--run",
-                              trees[name]], capture_output=True, text=True,
-                             check=True)
-        line = out.stdout.strip().splitlines()[-1]
-        print(line, flush=True)
-        runs.setdefault(name, []).append(json.loads(line)["device_ms"])
-    print(f"card: {cs.card()}")
-    for entry in runs["kernel"][0]:
-        meds = {n: statistics.median(r[entry] for r in rs)
-                for n, rs in runs.items()}
-        print(f"{entry}: " + " ".join(
-            f"{n}={m:.5f}({m / meds['kernel']:.3f})" for n, m in meds.items()))
-
-
 if __name__ == "__main__":
-    main()
+    ablation.main(__file__, VARIANTS, run_tree,
+                  os.path.join(ROOT, "chip_checkout", "ablation"))
