@@ -30,8 +30,8 @@
 // A version that staged each input's slice of the tile in shared memory
 // first, then stored the tile from there (16-byte loads, or 1-D bulk
 // copies on an mbarrier), ran its block's phases one after the other and
-// was slower at FusionNet's branch merge; tools/stage_ab.py builds both and
-// times them against this one on the card (PERF.md §6).
+// was slower at FusionNet's branch merge (PERF.md §6, K2; the variants
+// lived in tools/stage_variants/concat_staged.cu until commit c5dd817).
 //
 // ConcatConfig's legality (channels divisible by 16 for 1-byte types, by 4
 // for 4-byte types) makes every input row a multiple of 16 bytes, and the

@@ -1,7 +1,7 @@
 // empty_kernel: a kernel that does nothing, the floor under every launch.
 //
 // Replaces no TPU kernel: it measures what a launch costs on the card
-// before any work (chip_smoke.py phase 5 times it through its registered
+// before any work (tools/kernel_times.py times it through its registered
 // op, deepfusion_torch::empty_launches in torch_ops.cpp, once per call and
 // in one loop of launches from C++). One block of 32 threads.
 #include <cuda_runtime.h>

@@ -46,8 +46,8 @@
 // A version that stages the tile's runs of every input and of r in shared
 // memory first (the join built there, byte exact), sums from there into a
 // staged output tile and stores it as 16-byte units
-// (tools/stage_variants/packed_sum_staged.cu; tools/stage_ab.py builds it
-// and times it against this one) ran 1.60-1.84x this kernel's time warm
+// (tools/stage_variants/packed_sum_staged.cu until commit c5dd817) ran
+// 1.60-1.84x this kernel's time warm
 // and 1.31-1.46x cold at FusionNet's residual (K8 and K6) and the three
 // C13 shapes at 56x56 on an H100 (NVIDIA H100 80GB HBM3, 700.00 W;
 // PERF.md §6): a block's phases (stage, sum, store) run one after the

@@ -20,7 +20,8 @@
 //   deepfusion_torch::empty_launches(int calls) -> int
 //     launches empty_kernel (empty.cu), which does nothing, `calls` times
 //     on the current device's current stream and returns the count: the
-//     floor of a launch, through the op and in a loop in C++ (chip_smoke).
+//     floor of a launch, through the op and in a loop in C++
+//     (tools/kernel_times.py).
 //     No tensor, so one kernel for every backend.
 //
 // Host code only: the .cu files keep out of PyTorch's headers, and this

@@ -123,7 +123,7 @@ def test_library_is_built_opened_and_declared_once(fake_library):
 # ---------------------------------------------- the registered operators
 
 # every op of torch.ops.deepfusion_torch, as the wrappers call them (and
-# empty_launches, the floor of a launch that chip_smoke.py times)
+# empty_launches, the floor of a launch that tools/kernel_times.py times)
 OPS = ("concat_relu", "pool", "sum_relu", "conv_fused", "convpool",
        "conv_weight_maps", "conv_plan", "packed_conv", "packed_weight_maps",
        "packed_plan", "packed_sum_pool", "pair_conv", "pair_plan",

@@ -2,14 +2,14 @@
 DST> in csrc/conv.cu) spends its time at ResNet-50's bottlenecks: the kernel
 against copies of itself with one part taken out, on one card.
 
-    python3 tools/k1_ablation.py [--dir DIR]
+    python3 tools/k1_ablation.py
 
-Times ``conv_cuda`` (``chip_smoke.device_ms``: median of 3 profiles of 30
+Times ``conv_cuda`` (``oncard.device_ms``: median of 3 profiles of 30
 calls) at batch 256 of ResNet50(ResNet50Config()) fused layers: one
 identity block of each stage (a u8 shortcut) and stage 2's first block
 (stride 2, the projection's s8 shortcut), on full-range inputs and sum
-operands, in the checkout and in a copy per variant under DIR (default
-chip_checkout/k1_ablation), in turns (tools/ablation.py).
+operands, in the checkout and in a copy per variant under
+chip_checkout/k1_ablation/, in turns (``oncard.run_trees``).
 
 Variants:
   no_sum_load   the sum operand is never read: load_sum returns its scale,
@@ -18,14 +18,7 @@ Variants:
   no_epilogue   write_mid, write_bytes and write_words return at once
   no_wgmma      wgmma_step issues nothing
 """
-import json
-import os
-import sys
-
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-import chip_smoke as cs  # noqa: E402  (this checkout's; imports no package)
-import ablation  # noqa: E402  (tools/ablation.py: the shared driver)
+import oncard
 
 CU, RQ, WG = "conv.cu", "requant.cuh", "wgmma_tma.cuh"
 LAYERS = ("s1b2_fused", "s2b1_fused", "s2b2_fused", "s3b2_fused",
@@ -58,7 +51,7 @@ VARIANTS = {
 
 
 def run_tree(tree):
-    sys.path.insert(0, os.path.abspath(tree))
+    """{layer: device ms} at the package first on sys.path (the tree's)."""
     import importlib
 
     import numpy as np
@@ -74,13 +67,13 @@ def run_tree(tree):
         for name in LAYERS:
             op = net.convs[name]
             c = op.cfg
-            x = cs.rand(rng, (BATCH, c.ih, c.iw, c.ic), dtype.u8, dev)
-            sm = cs.rand(rng, (BATCH, c.oh, c.ow, c.out_oc), c.sum_dt, dev)
-            res[f"{name} sum {c.sum_dt.name}"] = cs.device_ms(
+            x = oncard.rand(rng, (BATCH, c.ih, c.iw, c.ic), dtype.u8, dev)
+            sm = oncard.rand(rng, (BATCH, c.oh, c.ow, c.out_oc), c.sum_dt, dev)
+            res[f"{name} sum {c.sum_dt.name}"] = oncard.device_ms(
                 lambda: K.conv_cuda(op, x, sm), reps=30, profiles=3)
-    print(json.dumps({"tree": tree, "device_ms": res}), flush=True)
+    return res
 
 
 if __name__ == "__main__":
-    ablation.main(__file__, VARIANTS, run_tree,
-                  os.path.join(ROOT, "chip_checkout", "k1_ablation"))
+    oncard.run_trees("k1_ablation",
+                     oncard.variant_trees("k1_ablation", VARIANTS))

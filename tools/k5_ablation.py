@@ -1,12 +1,12 @@
 """Where the packed conv kernel (K5, csrc/packed_conv.cu) spends its time:
 the kernel against copies of itself with one part taken out, on one card.
 
-    python3 tools/k5_ablation.py [--dir DIR]
+    python3 tools/k5_ablation.py
 
-Times ``packed_conv_cuda`` (``chip_smoke.device_ms``: median of 3
-profiles of 30 calls) at bench.py's default shape and at FusionNet's and
+Times ``packed_conv_cuda`` (``oncard.device_ms``: median of 3 profiles
+of 30 calls) at bench.py's default shape and at FusionNet's and
 ResFusionNet's packed layers, in the checkout and in a copy per variant
-under DIR (default chip_checkout/ablation), in turns (tools/ablation.py).
+under chip_checkout/k5_ablation/, in turns (``oncard.run_trees``).
 
 Variants:
   no_epilogue       write_mid, write_out, write_acc and write_merge
@@ -19,14 +19,7 @@ Variants:
                     merge instance keeps its requant)
   no_global_stores  the final stage stages and reads back, stores nothing
 """
-import json
-import os
-import sys
-
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-import chip_smoke as cs  # noqa: E402  (this checkout's; imports no package)
-import ablation  # noqa: E402  (tools/ablation.py: the shared driver)
+import oncard
 
 CU, WG = "packed_conv.cu", "wgmma_tma.cuh"
 VARIANTS = {
@@ -74,7 +67,7 @@ VARIANTS = {
 
 
 def run_tree(tree):
-    sys.path.insert(0, os.path.abspath(tree))
+    """{layer: device ms} at the package first on sys.path (the tree's)."""
     import importlib
 
     import numpy as np
@@ -86,24 +79,24 @@ def run_tree(tree):
     rng = np.random.default_rng(0)
     res = {}
     with torch.inference_mode():
-        fop, fb, _ = cs.flagship_op(dev)
-        fx = cs.packed_input(rng, fop.sin, fb, dev)
-        res["bench.py default"] = cs.device_ms(
+        fop, fb, _ = oncard.flagship_op(dev)
+        fx = oncard.packed_input(rng, fop.sin, fb, dev)
+        res["bench.py default"] = oncard.device_ms(
             lambda: PK.packed_conv_cuda(fop, [fx]), reps=30, profiles=3)
         del fop, fx
         for model in (FusionNet(FusionNetConfig(), device=dev),
                       ResFusionNet(ResFusionNetConfig(), device=dev)):
             n = model.cfg.batch
             for name, op in model.build_packed().items():
-                arrs = [cs.packed_input(rng, s, n, dev) for s in op.sins]
-                sm = None if op.ssum is None else cs.packed_input(
+                arrs = [oncard.packed_input(rng, s, n, dev) for s in op.sins]
+                sm = None if op.ssum is None else oncard.packed_input(
                     rng, op.ssum, n, dev)
-                res[f"{type(model).__name__} {name}"] = cs.device_ms(
+                res[f"{type(model).__name__} {name}"] = oncard.device_ms(
                     lambda: PK.packed_conv_cuda(op, arrs, sm), reps=30,
                     profiles=3)
-    print(json.dumps({"tree": tree, "device_ms": res}), flush=True)
+    return res
 
 
 if __name__ == "__main__":
-    ablation.main(__file__, VARIANTS, run_tree,
-                  os.path.join(ROOT, "chip_checkout", "ablation"))
+    oncard.run_trees("k5_ablation",
+                     oncard.variant_trees("k5_ablation", VARIANTS))

@@ -15,7 +15,6 @@ import argparse
 import bisect
 import json
 import os
-import subprocess
 import sys
 import tempfile
 from collections import defaultdict
@@ -26,6 +25,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+import oncard  # noqa: E402
 from deepfusion_tpu_torch.models import ResNet50, ResNet50Config  # noqa: E402
 from deepfusion_tpu_torch.utils import profiler  # noqa: E402
 
@@ -96,13 +96,10 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--out", default="resnet50_layers.json")
     args = ap.parse_args()
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
     net = ResNet50(ResNet50Config(batch=args.batch, seed=13),
                    device="cuda:0")
     x = torch.from_numpy(net.example_input()).cuda()
-    out = dict(card=card, torch=torch.__version__, batch=args.batch,
+    out = dict(card=oncard.card(), torch=torch.__version__, batch=args.batch,
                **split(net, x))
     print("split:", json.dumps({k: v for k, v in out.items()
                                 if k not in ("by_kernel_ms", "by_layer_ms")}),
