@@ -166,6 +166,7 @@ KERNEL_INFO = {
     "packed_sum_pool": "deepfusion_tpu_torch/csrc/packed_sum_pool.cu",
     "convpool": "deepfusion_tpu_torch/csrc/conv.cu",
     "pair_conv": "deepfusion_tpu_torch/csrc/pair_conv.cu",
+    "unfold_cols": "deepfusion_tpu_torch/csrc/unfold.cu",
 }
 # the kernels each served path launches (the packed heads are dense convs)
 PATH_KERNELS = {
@@ -177,7 +178,7 @@ PATH_KERNELS = {
     ("VGGFusion", "dense"): ("conv_fused", "convpool", "pool"),
     ("VGGFusion", "packed"): ("pair_conv", "conv_fused"),
     ("VGGFusion", "hybrid"): ("pair_conv", "conv_fused", "convpool", "pool"),
-    ("ResNet50", "dense"): ("conv_fused", "pool"),
+    ("ResNet50", "dense"): ("conv_fused", "pool", "unfold_cols"),
 }
 # launches of one forward of each served model path, and of phase 6's
 # sharded calls: what the kernels' launch paths have made since they
@@ -192,8 +193,8 @@ FORWARD_LAUNCHES = {
     "VGGFusion dense": {"conv_fused": 4, "pool": 1, "convpool": 3},
     "VGGFusion packed": {"conv_fused": 1, "pair_conv": 3},
     # the stem, 16 reduces, 4 projections, 16 fused blocks and the head;
-    # the max pool and the global average
-    "ResNet50 dense": {"conv_fused": 38, "pool": 2},
+    # the max pool and the global average; the stem's input unfolded
+    "ResNet50 dense": {"conv_fused": 38, "pool": 2, "unfold_cols": 1},
     # two shards of one forward each per served batch
     "FusionNet dense dp=2 split": {"conv_fused": 12, "concat_relu": 2,
                                    "pool": 4, "sum_relu": 2},
@@ -204,6 +205,10 @@ SHARDED_LAUNCHES = {"conv_fused": 58, "packed_conv": 32, "convpool": 2,
 # conv_fused.sum_tile, ops/conv.py: tiled_sum): ResNet-50's 16 fused blocks
 # and ResFusionNet's block1; every other served path none
 FORWARD_SUM_TILES = {"ResNet50 dense": 16, "ResFusionNet dense": 1}
+# K1 launches a forward over a narrow input's column taps folded into its
+# channels (the mode conv_fused.unfold, ops/conv.py: unfold_cols):
+# ResNet-50's stem; every other served path none
+FORWARD_UNFOLDS = {"ResNet50 dense": 1}
 # conv_plan of every dense conv op of the four models at batch 8 and 256
 # ("<model> <module> <batch>"), as the launcher planned them before the
 # sum operand was read as tiles: a plan may add keys, never change these
@@ -353,7 +358,7 @@ def phase_build(name_power):
 OPS = ("concat_relu", "pool", "sum_relu", "conv_fused", "convpool",
        "conv_weight_maps", "conv_plan", "packed_conv", "packed_weight_maps",
        "packed_plan", "packed_sum_pool", "pair_conv", "pair_plan",
-       "empty_launches")
+       "empty_launches", "unfold_cols")
 
 
 def ops_check(lib):
@@ -1021,14 +1026,18 @@ def phase_parity(net, rnet, vnet, r50, dev, sharded) -> Parity:
 def resnet50_parity(r50, dev, par):
     """K1 at every conv of ResNet50(ResNet50Config()) (224x224, its batch)
     on full-range random inputs and sum operands: the 7x7/s2 stem on 3
-    channels (padded to 16 by the wrapper), the 1x1 reduces over 64-2048
+    channels (a 7x1 conv over its seven column taps folded into 32
+    channels by the unfold kernel), the 1x1 reduces over 64-2048
     channels, the 1x1 projections to s8 at strides 1 and 2, the 16 fused
     3x3 + 1x1 expands with the u8 (identity) or s8 (projection) sum at
     strides 1 and 2, up to a 512-lane intermediate and 2048 output lanes,
     and the f32 head; K3 at its floor-mode 3x3/s2/p1 max pool (112 -> 56)
-    and its 7x7x2048 global average; then one eager forward on the
-    model's example input with every K1 launch held against its plain
-    version (the calibrated activations and the real shortcuts)."""
+    and its 7x7x2048 global average; the unfold kernel against its plain
+    version at the stem's shape at batch 8 and 256 and at 4 channels under
+    a 3x5 kernel at column stride 1, and the stem at batch 256 (unfold and
+    K1) against the plain conv; then one eager forward on the model's
+    example input with every K1 launch held against its plain version (the
+    calibrated activations and the real shortcuts)."""
     from deepfusion_tpu_torch.config import PoolConfig
     from deepfusion_tpu_torch.types import dtype
     from deepfusion_tpu_torch.utils.logger import check_eq
@@ -1058,6 +1067,7 @@ def resnet50_parity(r50, dev, par):
         check_eq(tuple(got.shape[1:3]), (shape[1] // s[0], shape[2] // s[1]),
                  f"{what}: floor-mode output size")
         par.check("pool", what, got, P.pool_plain(x, pc, u8))
+    unfold_parity(r50.convs["stem"], rng, dev, par)
     x = torch.from_numpy(r50.example_input()).to(dev)
     before = par.cases["conv_fused"]
     with held_against_plain(par, "ResNet50 eager forward"):
@@ -1068,6 +1078,49 @@ def resnet50_parity(r50, dev, par):
     print(f"parity: ResNet50 {len(r50.convs)} convs on full-range inputs, "
           f"its two pools and one eager forward's {len(r50.convs)} K1 "
           f"launches at batch {stem.bs}, bitwise equal to the plain "
+          "versions", flush=True)
+
+
+def unfold_parity(stem, rng, dev, par):
+    """The unfold kernel (``unfold_cols_cuda``) bitwise against its plain
+    version at ResNet-50's stem (3 channels, 7 taps at column stride 2 and
+    padding 3, 224 -> 112 columns) at batch 8 and 256 and at 4 channels
+    under a 3x5 kernel at column stride 1 (padding 2, 37 columns, 20 real
+    bytes of 32); then the stem at batch 256 through the unfolded path (its
+    unfold and K1 launch) against the plain conv."""
+    from deepfusion_tpu_torch import _build
+    from deepfusion_tpu_torch.config import ConvConfig
+    from deepfusion_tpu_torch.ops.conv import ConvOp
+    from deepfusion_tpu_torch.types import dtype
+    from deepfusion_tpu_torch.utils.logger import check, check_eq
+    K = importlib.import_module("deepfusion_tpu_torch.ops.conv")
+    c = stem.cfg
+    check(K.unfold_cols(c), "ResNet50 stem: the column taps unfold")
+    odd = ConvConfig.make((3, 9, 37, 4), (16, 4, 3, 5), None, (1, 1),
+                          (1, 2), (3, 9, 37, 16), "u8",
+                          conv0_scales=(1 / 300,))
+    check(K.unfold_cols(odd), "ic 4 under 3x5: the column taps unfold")
+    for what, cfg, n in (("ResNet50 stem b8", c, 8),
+                         ("ResNet50 stem b256", c, 256),
+                         ("ic 4, 3x5, column stride 1", odd, 3)):
+        x = rand(rng, (n, cfg.ih, cfg.iw, cfg.ic), dtype.u8, dev)
+        geo = K._unfold_geo(cfg)
+        par.check("unfold_cols", what, K.unfold_cols_cuda(x, geo),
+                  K.unfold_cols_plain(x, geo))
+    w = rng.integers(-128, 128, (16, 4, 3, 5)).astype(np.int8)
+    x = rand(rng, (3, 9, 37, 4), dtype.u8, dev)
+    op = ConvOp(odd, w, device=dev)
+    par.check("conv_fused", "ic 4, 3x5, column stride 1, unfolded",
+              K.conv_cuda(op, x), K.conv_plain(op, x))
+    x = rand(rng, (256, c.ih, c.iw, c.ic), dtype.u8, dev)
+    before = _build.mode_counts()["conv_fused.unfold"]
+    par.check("conv_fused", "ResNet50 stem b256 unfolded",
+              K.conv_cuda(stem, x), K.conv_plain(stem, x))
+    check_eq(_build.mode_counts()["conv_fused.unfold"] - before, 1,
+             "ResNet50 stem b256: K1 launches over unfolded column taps")
+    print("parity: unfold_cols at the ResNet50 stem (batch 8 and 256) and "
+          "at ic 4 under 3x5; the stem at batch 256 and the ic-4 conv "
+          "through the unfolded path; all bitwise equal to the plain "
           "versions", flush=True)
 
 
@@ -2010,8 +2063,8 @@ def phase_slice(model, cfg, path, kernels, reqs, want, golden,
                       input_shape=reqs[0].shape)
     with srv:
         outs = [f.result(timeout=300) for f in srv.submit_many(reqs)]
-    counts = _build.launch_counts()
-    tiles = _build.mode_counts()["conv_fused.sum_tile"]
+    counts, modes = _build.launch_counts(), _build.mode_counts()
+    tiles, unfolds = modes["conv_fused.sum_tile"], modes["conv_fused.unfold"]
     print(f"{tag}: {path} path: {len(reqs)} requests served in "
           f"{srv.stats['flushes']} flushes ({srv.stats['padded_rows']} "
           f"padded rows); launches {counts}", flush=True)
@@ -2031,6 +2084,11 @@ def phase_slice(model, cfg, path, kernels, reqs, want, golden,
              f"{path}: K1 launches that read the sum as tiles")
     print(f"{tag}: {path} path: {want_tiles} K1 launches a forward read the "
           "sum operand as tiles", flush=True)
+    want_unfolds = FORWARD_UNFOLDS.get(path, 0)
+    check_eq(unfolds, want_unfolds * srv.stats["flushes"],
+             f"{path}: K1 launches over unfolded column taps")
+    print(f"{tag}: {path} path: {want_unfolds} K1 launches a forward ran "
+          "over unfolded column taps", flush=True)
 
     got = np.stack(outs)
     check_eq(got.shape, (len(reqs), cfg.num_classes), "served logits shape")
@@ -2107,7 +2165,7 @@ TRACED = {"conv_fused": "conv_fused", "concat_relu": "concat_relu",
           "sum_relu": "sum_relu", "packed_conv": "packed_conv",
           "packed_sum_pool": "packed_sum_pool",
           "packed_maxpool2": "packed_sum_pool", "convpool": "convpool",
-          "pair_conv": "pair_conv"}
+          "pair_conv": "pair_conv", "unfold_cols": "unfold_cols"}
 TRACED_RE = re.compile(r"(?<![A-Za-z_])(%s)_kernel" % "|".join(TRACED))
 TRACE_TRIES = 3
 

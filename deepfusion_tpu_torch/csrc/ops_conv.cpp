@@ -12,14 +12,18 @@
 //     the TMA maps of an op's K-major weights, a CPU uint8 tensor (6, 128)
 //     that ops/conv.py keeps per op and hands to every launch;
 //   conv_plan(int[] geo) -> int[]
-//     the plan the launcher would run (conv.h: conv_plan), no launch.
+//     the plan the launcher would run (conv.h: conv_plan), no launch;
+//   unfold_cols(Tensor src, int[] geo) -> Tensor
+//     launches unfold_cols_kernel (unfold.cu) through unfold_cols_launch:
+//     the input of a conv whose column taps are folded into its channels
+//     (ops/conv.py: unfold_cols), (n, ih, ow, cp) from NHWC u8 src.
 //
-// geo is the op's configuration, computed once per op by ops/conv.py
-// (conv_geo, convpool_geo) in the orders of ConvGeo and ConvPoolGeo below; the
-// batch comes from src. The launch ops check, make the inputs contiguous
-// and aligned, allocate the output, guard the device, take the current
-// stream and launch; a launch error raises, naming the kernel. Host code
-// only (see torch_ops.cpp).
+// geo is the op's configuration, computed by ops/conv.py (conv_geo and
+// convpool_geo once per op, _unfold_geo) in the orders of ConvGeo,
+// ConvPoolGeo and UnfoldGeo below; the batch comes from src. The launch
+// ops check, make the inputs contiguous and aligned, allocate the output,
+// guard the device, take the current stream and launch; a launch error
+// raises, naming the kernel. Host code only (see torch_ops.cpp).
 #include <ATen/ops/empty.h>
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
@@ -27,6 +31,7 @@
 
 #include "conv.h"
 #include "torch_ops.h"
+#include "unfold.h"
 
 namespace {
 
@@ -45,6 +50,9 @@ enum ConvGeo { C_IH, C_IW, C_IC, C_OH, C_OW, C_KH, C_KW, C_SH, C_SW, C_PH,
 enum ConvPoolGeo { Q_IH, Q_IW, Q_IC, Q_OH, Q_OW, Q_KH, Q_KW, Q_SH, Q_SW, Q_PH,
                Q_PW, Q_OC0, Q_OC0P, Q_RELU0, Q_DOWN0, Q_HAS_BIAS0, Q_DST_DT,
                Q_SUM_DT, Q_AVG, Q_POOL_DOWN, CONVPOOL_GEO_INTS };
+
+// ops/conv.py:_unfold_geo's order
+enum UnfoldGeo { U_OW, U_KW, U_SW, U_PW, U_CP, UNFOLD_GEO_INTS };
 
 // src: NHWC u8 (n, ih, iw, ic) on a CUDA device; returns n.
 int check_src(const at::Tensor& src, int ih, int iw, int ic, const char* op) {
@@ -173,6 +181,27 @@ std::vector<int64_t> conv_plan_op(at::IntArrayRef geo) {
   return std::vector<int64_t>(out, out + CONV_PLAN_OUT);
 }
 
+at::Tensor unfold_cols_op(const at::Tensor& src, at::IntArrayRef geo) {
+  const char* op = "unfold_cols";
+  const auto g = narrow(geo, UNFOLD_GEO_INTS, op, "geo");
+  df_ops::check_tensor(src, src.device(), at::kByte, 4, op, "src");
+  const int iw = narrow(src.size(2), op, "iw");
+  const int ic = narrow(src.size(3), op, "ic");
+  TORCH_CHECK(g[U_CP] % 16 == 0 && g[U_CP] >= int64_t{g[U_KW]} * ic, op,
+              ": cp = ", g[U_CP], " must be a multiple of 16 and at least "
+              "kw * ic = ", int64_t{g[U_KW]} * ic);
+  const at::Tensor x = aligned(src);
+  c10::cuda::CUDAGuard guard(src.device());
+  at::Tensor out =
+      at::empty({src.size(0), src.size(1), g[U_OW], g[U_CP]}, src.options());
+  check_launch(unfold_cols_launch(
+                   x.data_ptr(), out.data_ptr(), src.size(0) * src.size(1),
+                   iw, ic, g[U_OW], g[U_KW], g[U_SW], g[U_PW], g[U_CP],
+                   c10::cuda::getCurrentCUDAStream().stream()),
+               "unfold_cols_kernel");
+  return out;
+}
+
 }  // namespace
 
 TORCH_LIBRARY_FRAGMENT(deepfusion_torch, m) {
@@ -183,12 +212,14 @@ TORCH_LIBRARY_FRAGMENT(deepfusion_torch, m) {
         "Tensor? sum_src, int[] geo, float sum_scale) -> Tensor");
   m.def("conv_weight_maps(Tensor w0k, Tensor? w1k, bool pool) -> Tensor");
   m.def("conv_plan(int[] geo) -> int[]");
+  m.def("unfold_cols(Tensor src, int[] geo) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(deepfusion_torch, CUDA, m) {
   m.impl("conv_fused", &conv_fused_op);
   m.impl("convpool", &convpool_op);
   m.impl("conv_weight_maps", &conv_weight_maps_op);
+  m.impl("unfold_cols", &unfold_cols_op);
 }
 
 // no tensor argument, so no backend to dispatch on: one kernel for all

@@ -10,8 +10,9 @@ is a 1x1 reduce, a 3x3 (stride 2 in the first block of stages 2-4) and a
 
 On the port's ops, one ``ConvOp`` per layer:
 
-* ``stem``: 7x7/s2/p3, u8 with ReLU (the input's channels padded to 16 by
-  the conv's wrapper), then ``pool(..., "max", (3, 3), (2, 2), (1, 1))``
+* ``stem``: 7x7/s2/p3, u8 with ReLU (run as a 7x1 conv over the input's
+  seven column taps folded into 32 channels, ``ops/conv.py:
+  unfold_cols``), then ``pool(..., "max", (3, 3), (2, 2), (1, 1))``
   in floor mode: the values are u8 after a ReLU, so zero padding is the
   max's identity;
 * ``s{i}b{j}_reduce``: the 1x1 reduce, u8 with ReLU;

@@ -9,7 +9,9 @@ CPU tensor it runs ``conv_plain``, the plain PyTorch version of the same
 function, which reads the same packed buffers. Nothing else selects the path.
 
 Stride and padding are handled in the kernel's addressing (TMA's zero fill
-and element strides; the wrapper gathers strides above 8 away). The
+and element strides; the wrapper gathers strides above 8 away). A conv over
+fewer than 16 channels with a kernel wider than 1 runs as a kh x 1 conv over
+its input's column taps folded into the channels (``unfold_cols``). The
 eltwise-sum post-op (``sum_src``, NHWC at the output's shape) joins the
 final stage's epilogue, fused or not. ``conv_fused_acc1`` stops the fused
 conv at its 1x1 product and returns the raw s32 accumulator, the
@@ -110,8 +112,11 @@ class ConvOp(nn.Module):
         # the kernel's B operands (ops/layout.py), derived from the words:
         # not operands, so save/load and with_geometry keep their format;
         # non-persistent buffers, so .to() moves them with the words
-        self.register_buffer("w0k", layout.dense_kmajor_weights(
-            self.w0, cfg.kh, cfg.kw), persistent=False)
+        self._unfold = unfold_cols(cfg)
+        self.register_buffer("w0k", layout.unfolded_kmajor_weights(
+            self.w0, cfg.kh, cfg.kw, cfg.ic) if self._unfold else
+            layout.dense_kmajor_weights(self.w0, cfg.kh, cfg.kw),
+            persistent=False)
         self.register_buffer("w1k", layout.dense_kmajor_weights(
             self.w1, 1, 1) if cfg.fuse_conv1x1 else None, persistent=False)
         self._wmaps = None   # (device pointers, their encoded tensor maps)
@@ -239,31 +244,70 @@ def _gather_stride(x: torch.Tensor, dim: int, o: int, k: int, s: int,
     return F.pad(x, pad).index_select(dim, idx)
 
 
-def _kernel_geometry(cfg: ConvConfig) -> tuple:
-    """The geometry (ih, iw, ic, sh, sw, ph, pw) the kernel runs: ic padded
-    to 16 with zero channels (exact), strides above TMA's 8 gathered away
-    (``_kernel_src``)."""
+def _kernel_geometry(cfg: ConvConfig, unfold: bool) -> tuple:
+    """The geometry (ih, iw, ic, kh, kw, sh, sw, ph, pw) the kernel runs:
+    ic padded to 16 with zero channels (exact), strides above TMA's 8
+    gathered away; with `unfold` (``unfold_cols``; ``ConvPoolOp`` never
+    unfolds) a kh x 1 conv of stride (sh, 1) over (ih, ow,
+    ``layout.unfold_icp(kw, ic)``), the column taps folded into the
+    channels (``_kernel_src``)."""
     ih, iw, ic = cfg.ih, cfg.iw, round_up(cfg.ic, 16)
-    sh, sw, ph, pw = cfg.sh, cfg.sw, cfg.ph, cfg.pw
+    kh, kw, sh, sw, ph, pw = cfg.kh, cfg.kw, cfg.sh, cfg.sw, cfg.ph, cfg.pw
     if sh > _MAX_STRIDE:
         check(cfg.kh <= _MAX_STRIDE, "stride and kernel height both above 8")
         ih, sh, ph = cfg.oh * cfg.kh, cfg.kh, 0
-    if sw > _MAX_STRIDE:
+    if unfold:
+        iw, ic, kw, sw, pw = cfg.ow, layout.unfold_icp(cfg.kw, cfg.ic), 1, 1, 0
+    elif sw > _MAX_STRIDE:
         check(cfg.kw <= _MAX_STRIDE, "stride and kernel width both above 8")
         iw, sw, pw = cfg.ow * cfg.kw, cfg.kw, 0
-    return ih, iw, ic, sh, sw, ph, pw
+    return ih, iw, ic, kh, kw, sh, sw, ph, pw
 
 
-def _kernel_src(cfg: ConvConfig, src: torch.Tensor) -> torch.Tensor:
+def _kernel_src(cfg: ConvConfig, src: torch.Tensor,
+                unfold: bool) -> torch.Tensor:
     """The input of ``_kernel_geometry``: ic padded to 16 with zero
-    channels, strides above 8 gathered (``_gather_stride``)."""
-    if cfg.ic % 16:
+    channels, strides above 8 gathered (``_gather_stride``); with `unfold`
+    the column taps folded into the channels (``unfold_cols_cuda`` on the
+    card, ``unfold_cols_plain`` on the CPU)."""
+    if cfg.ic % 16 and not unfold:
         src = F.pad(src, (0, round_up(cfg.ic, 16) - cfg.ic))
     if cfg.sh > _MAX_STRIDE:
         src = _gather_stride(src, 1, cfg.oh, cfg.kh, cfg.sh, cfg.ph)
+    if unfold:
+        fn = unfold_cols_plain if src.device.type == "cpu" else \
+            unfold_cols_cuda
+        return fn(src, _unfold_geo(cfg))
     if cfg.sw > _MAX_STRIDE:
         src = _gather_stride(src, 2, cfg.ow, cfg.kw, cfg.sw, cfg.pw)
     return src
+
+
+def _unfold_geo(cfg: ConvConfig) -> tuple:
+    """The unfold's ints as ``torch.ops.deepfusion_torch.unfold_cols`` takes
+    them (``csrc/ops_conv.cpp``, ``UnfoldGeo``): ow, kw, sw, pw and the
+    unfolded channels."""
+    return (cfg.ow, cfg.kw, cfg.sw, cfg.pw,
+            layout.unfold_icp(cfg.kw, cfg.ic))
+
+
+def unfold_cols_plain(src: torch.Tensor, geo) -> torch.Tensor:
+    """The plain PyTorch version of ``unfold_cols_kernel``: NHWC u8 (n, ih,
+    iw, ic) -> (n, ih, ow, cp), channel kj * ic + c of pixel (y, ox) the
+    input's channel c at (y, ox * sw - pw + kj), 0 outside the image and
+    past kw * ic."""
+    ow, kw, sw, pw, cp = geo
+    n, ih, _, ic = src.shape
+    x = _gather_stride(src, 2, ow, kw, sw, pw).reshape(n, ih, ow, kw * ic)
+    return F.pad(x, (0, cp - kw * ic))
+
+
+def unfold_cols_cuda(src: torch.Tensor, geo) -> torch.Tensor:
+    """Launch ``unfold_cols_kernel`` (``csrc/unfold.cu``) on the current
+    stream through ``torch.ops.deepfusion_torch.unfold_cols``."""
+    out = _build.op("unfold_cols")(src, geo)
+    _build.count_launch("unfold_cols")
+    return out
 
 
 def _ocps(cfg: ConvConfig):
@@ -277,8 +321,9 @@ def conv_geo(cfg: ConvConfig) -> tuple:
     kernel's geometry, channels and lanes, the epilogue's flags, the dst
     and sum dtype codes."""
     oc0p, oc1p = _ocps(cfg)
-    ih, iw, ic, sh, sw, ph, pw = _kernel_geometry(cfg)
-    return (ih, iw, ic, cfg.oh, cfg.ow, cfg.kh, cfg.kw, sh, sw, ph, pw,
+    ih, iw, ic, kh, kw, sh, sw, ph, pw = _kernel_geometry(cfg,
+                                                          unfold_cols(cfg))
+    return (ih, iw, ic, cfg.oh, cfg.ow, kh, kw, sh, sw, ph, pw,
             cfg.oc, oc0p, cfg.oc1x1, oc1p, int(cfg.conv0_relu),
             int(cfg.conv1_relu), int(cfg.conv0_round == round_mode.down),
             int(cfg.conv1_round == round_mode.down),
@@ -297,6 +342,17 @@ def tiled_sum(cfg: ConvConfig) -> bool:
     ``conv_fused.sum_tile``."""
     return bool(cfg.fuse_conv1x1 and cfg.with_sum and cfg.dst_dt.size == 1
                 and cfg.sum_dt.size == 1 and cfg.out_oc % 16 == 0)
+
+
+def unfold_cols(cfg: ConvConfig) -> bool:
+    """Whether ``ConvOp`` runs the conv over its input's column taps folded
+    into the channels (``_kernel_geometry``, ``_kernel_src``, the weights
+    ``layout.unfolded_kmajor_weights``): an input of fewer than 16 channels
+    under a kernel wider than 1, where every tap would otherwise take a
+    32-byte k-step of mostly zero channels (ResNet-50's 7x7 stem over 3
+    channels: 7 k-steps, not 49). The integer sums are the same. The
+    launches that do are counted as the mode ``conv_fused.unfold``."""
+    return cfg.ic < 16 and cfg.kw > 1
 
 
 def _weight_maps(op, pool: bool = False) -> torch.Tensor:
@@ -325,8 +381,9 @@ def conv_plan(op, n: int, emit_acc1: bool = False,
     GEMM over the flattened pixels, and the work items. ``pool``: the plan
     of the pool mode (``ConvPoolOp``)."""
     cfg = op.cfg
-    ih, iw, ic, sh, sw, ph, pw = _kernel_geometry(cfg)
-    vals = [n, ih, iw, ic, cfg.oh, cfg.ow, cfg.kh, cfg.kw, sh, sw, ph, pw,
+    ih, iw, ic, kh, kw, sh, sw, ph, pw = _kernel_geometry(
+        cfg, not pool and unfold_cols(cfg))
+    vals = [n, ih, iw, ic, cfg.oh, cfg.ow, kh, kw, sh, sw, ph, pw,
             *_ocps(cfg), int(cfg.fuse_conv1x1),
             _ACC1 if emit_acc1 else cfg.dst_dt.value, int(pool)]
     keys = ("tile_m", "tile_rows", "tile_cols", "split", "tiles", "blocks",
@@ -344,11 +401,12 @@ def conv_cuda(op: ConvOp, src: torch.Tensor, sum_src=None,
     cfg = op.cfg
     fuse = cfg.fuse_conv1x1
     out = _build.op("conv_fused")(
-        _kernel_src(cfg, src), _weight_maps(op), op.bias0, op.scale0,
-        op.bias1 if fuse else None, op.scale1 if fuse else None, sum_src,
-        op._geo, cfg.sum_scale, emit_acc1)
+        _kernel_src(cfg, src, op._unfold), _weight_maps(op), op.bias0,
+        op.scale0, op.bias1 if fuse else None, op.scale1 if fuse else None,
+        sum_src, op._geo, cfg.sum_scale, emit_acc1)
     _build.count_launch("conv_fused", *(
-        ("acc1",) if emit_acc1 else ("sum_tile",) if op._sum_tile else ()))
+        ("acc1",) if emit_acc1 else ("sum_tile",) if op._sum_tile else ()),
+        *(("unfold",) if op._unfold else ()))
     return out
 
 

@@ -159,8 +159,8 @@ def convpool_geo(cfg: ConvConfig, pc: PoolConfig) -> tuple:
     (``csrc/ops_conv.cpp``, ``ConvPoolGeo``), computed once per op: the
     kernel's geometry, channels and lanes, the epilogue's flags, the dst and
     sum dtype codes, the pool's kind and round mode."""
-    ih, iw, ic, sh, sw, ph, pw = _kernel_geometry(cfg)
-    return (ih, iw, ic, cfg.oh, cfg.ow, cfg.kh, cfg.kw, sh, sw, ph, pw,
+    ih, iw, ic, kh, kw, sh, sw, ph, pw = _kernel_geometry(cfg, unfold=False)
+    return (ih, iw, ic, cfg.oh, cfg.ow, kh, kw, sh, sw, ph, pw,
             cfg.oc, layout.conv_ocp(cfg.oc), int(cfg.conv0_relu),
             int(cfg.conv0_round == round_mode.down),
             int(cfg.conv0_with_bias), cfg.dst_dt.value,
@@ -174,7 +174,7 @@ def convpool_cuda(op: ConvPoolOp, src: torch.Tensor,
     ``torch.ops.deepfusion_torch.convpool``, which checks the arguments,
     aligns the inputs, allocates the output and launches in C++."""
     out = _build.op("convpool")(
-        _kernel_src(op.cfg, src), _weight_maps(op, pool=True), op.bias0,
-        op.scale0, sum_src, op._geo, op.cfg.sum_scale)
+        _kernel_src(op.cfg, src, unfold=False), _weight_maps(op, pool=True),
+        op.bias0, op.scale0, sum_src, op._geo, op.cfg.sum_scale)
     _build.count_launch("convpool")
     return out

@@ -150,6 +150,26 @@ def dense_kmajor_weights(words: torch.Tensor, kh: int,
     return kmajor_weights(words, kh, kw, [words.shape[-2] * 4])
 
 
+def unfold_icp(kw: int, ic: int) -> int:
+    """The channels of a conv's input with its kw column taps folded into
+    them (``ops/conv.py: unfold_cols``): kw * ic rounded up to one k-step."""
+    return round_up(kw * ic, IC_ALIGN)
+
+
+def unfolded_kmajor_weights(words: torch.Tensor, kh: int, kw: int,
+                            ic: int) -> torch.Tensor:
+    """The dense conv kernel's B operand for the conv run as kh x 1 over
+    the unfolded input: int32 words [kh*kw][icp/4][ocp]
+    (``pack_conv_weights``) -> int8 (ocp, kh * unfold_icp(kw, ic)) on the
+    words' device: row o, tap ki, channel kj * ic + c holds w[o, c, ki,
+    kj], zero past kw * ic."""
+    ocp = words.shape[-1]
+    w = unpack_weights(words, ocp, ic, kh, kw)            # (ocp, ic, kh, kw)
+    w = w.permute(0, 2, 3, 1).reshape(ocp, kh, kw * ic)
+    return F.pad(w, (0, unfold_icp(kw, ic) - kw * ic)).reshape(
+        ocp, -1).contiguous()
+
+
 def u8_shift_correction(wk: torch.Tensor) -> torch.Tensor:
     """Per-output-channel exact correction, int32: 128 * the row sum of a
     K-major (N, K) int8 weight matrix. Added to the accumulator of the

@@ -58,11 +58,18 @@ def _pool_case(oc, ic, k, dst="u8", kind="max"):
 @pytest.mark.parametrize("oc,ic,k", [(8, 16, 3), (40, 3, 3), (264, 32, 1),
                                      (128, 64, 3)])
 def test_convpool_kmajor_weights_are_convops(oc, ic, k):
+    """ConvPoolOp derives its K-major weights as ConvOp does, except where
+    ConvOp folds a narrow input's column taps into the channels (3
+    channels under 3x3): the pool mode never unfolds, so there it keeps
+    the taps as they are."""
     cfg, pc, w, b = _pool_case(oc, ic, k)
     op = ConvPoolOp(cfg, pc, w, b, device="cpu")
     ref = ConvOp(cfg, w, b, device="cpu")
     assert op.w0k.dtype == torch.int8
-    assert torch.equal(op.w0k, ref.w0k)
+    assert ref._unfold == (ic < 16 and k > 1)
+    want = layout.dense_kmajor_weights(ref.w0, k, k) if ref._unfold \
+        else ref.w0k
+    assert torch.equal(op.w0k, want)
     assert op.w1k is None
 
 
@@ -127,7 +134,7 @@ def test_library_is_built_opened_and_declared_once(fake_library):
 OPS = ("concat_relu", "pool", "sum_relu", "conv_fused", "convpool",
        "conv_weight_maps", "conv_plan", "packed_conv", "packed_weight_maps",
        "packed_plan", "packed_sum_pool", "pair_conv", "pair_plan",
-       "empty_launches")
+       "empty_launches", "unfold_cols")
 
 
 def _cpp_sources() -> dict:
@@ -276,7 +283,8 @@ ENUMS = {("pool", "geo"): "PoolGeo", ("conv_fused", "geo"): "ConvGeo",
          ("packed_conv", "rows"): "PackedRows",
          ("pair_conv", "layer_a"): "PairLayer",
          ("pair_conv", "layer_b"): "PairLayer",
-         ("pair_conv", "geo"): "PairGeo", ("pair_conv", "rows"): "PairRows"}
+         ("pair_conv", "geo"): "PairGeo", ("pair_conv", "rows"): "PairRows",
+         ("unfold_cols", "geo"): "UnfoldGeo"}
 
 
 @pytest.fixture
@@ -530,6 +538,24 @@ def _case_empty_launches(calls):
     return {"calls": 3}
 
 
+def _narrow_conv():
+    """A conv over 3 channels under a 5x7 kernel at strides (2, 3), whose
+    column taps the wrapper folds into 32 channels (7 x 3 = 21 real)."""
+    rng = np.random.default_rng(24)
+    w = rng.integers(-128, 128, (20, 3, 5, 7)).astype(np.int8)
+    cfg = ConvConfig.make((2, 11, 16, 3), w.shape, None, (2, 3), (2, 3),
+                          (2, 6, 6, 20), "u8", conv0_relu=True,
+                          conv0_scales=(1 / 3000,))
+    return ConvOp(cfg, w, device="cpu"), rng
+
+
+def _case_unfold_cols(calls):
+    op, rng = _narrow_conv()
+    x = _u8(rng, (2, 11, 16, 3))
+    C.unfold_cols_cuda(x, C._unfold_geo(op.cfg))
+    return {"src": x, "geo": dict(ow=6, kw=7, sw=3, pw=3, cp=32)}
+
+
 def _layer(cfg, kp):
     fuse = cfg.fuse_conv1x1
     return dict(kh=cfg.kh, kw=cfg.kw, ph=cfg.ph, pw=cfg.pw, kp=kp,
@@ -614,7 +640,7 @@ def test_wrapper_passes_the_config_to_the_schema(name, recorded_ops):
               "pool": "pool", "sum_relu": "sum_relu",
               "packed_conv": "packed_conv", "concat_relu": "concat_relu",
               "packed_sum_pool": "packed_sum_pool",
-              "pair_conv": "pair_conv"}.get(name)
+              "pair_conv": "pair_conv", "unfold_cols": "unfold_cols"}.get(name)
     assert counted == ({kernel: 1} if kernel else {})
 
 
@@ -747,7 +773,7 @@ def test_torch_ops_compile_command_carries_torch_abi_and_headers():
         "-c", "-o", "/tmp/o.o", str(src)]
 
 
-@pytest.mark.parametrize("name", ["concat.cu", "conv.cu"])
+@pytest.mark.parametrize("name", ["concat.cu", "conv.cu", "unfold.cu"])
 def test_cu_compile_commands_keep_their_flags(name):
     """The .cu files keep nvcc's flags and no PyTorch header or ABI."""
     src = _build.CSRC / name
@@ -834,3 +860,34 @@ def test_conv_cuda_counts_the_tiled_sum_mode(recorded_ops, sum_dt, dst, oc1,
     (rec,) = recorded_ops["conv_fused"]
     assert rec["args"]["geo"][-1] == (
         0 if sum_dt is None else dtype.from_any(sum_dt).value)
+
+
+def test_conv_cuda_unfolds_a_narrow_input_and_counts_the_mode(recorded_ops,
+                                                             monkeypatch):
+    """A conv over fewer than 16 channels under a kernel wider than 1: its
+    input goes through the unfold op, whose output the conv launch takes
+    at the unfolded geometry (a kh x 1 conv of stride (sh, 1), 32
+    channels, no column padding) with the op's derived weights; one launch
+    of each, and the conv's counted as the mode conv_fused.unfold. Here on
+    CPU tensors, the unfold's plain version stood in by its wrapper."""
+    op, rng = _narrow_conv()
+    x = _u8(rng, (2, 11, 16, 3))
+    monkeypatch.setattr(C, "unfold_cols_plain", C.unfold_cols_cuda)
+    _build.reset_launch_counts()
+    C.conv_cuda(op, x)
+    counts, modes = _build.launch_counts(), _build.mode_counts()
+    _build.reset_launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {"conv_fused": 1,
+                                                      "unfold_cols": 1}
+    assert {k: v for k, v in modes.items() if v} == {"conv_fused.unfold": 1}
+    (unf,) = recorded_ops["unfold_cols"]
+    (rec,) = recorded_ops["conv_fused"]
+    assert unf["args"]["src"] is x and rec["args"]["src"] is unf["out"]
+    fields = _enum_fields("ConvGeo")
+    geo = dict(zip(fields, rec["args"]["geo"]))
+    assert {k: geo[k] for k in ("ih", "iw", "ic", "oh", "ow", "kh", "kw",
+                                "sh", "sw", "ph", "pw")} == dict(
+        ih=11, iw=6, ic=32, oh=6, ow=6, kh=5, kw=1, sh=2, sw=1, ph=2, pw=0)
+    (maps,) = recorded_ops["conv_weight_maps"]
+    assert maps["args"]["w0k"] is op.w0k
+    assert tuple(op.w0k.shape) == (layout.conv_ocp(20), 5 * 32)

@@ -9,9 +9,10 @@ full-range u8 inputs and s8 weights (-128..127). Tolerance: bitwise.
 Also what the CUDA kernel's wrapper prepares on the CPU: the K-major
 weights its TMA reads (``layout.dense_kmajor_weights``) against the JAX
 package's packed weights and the port's own unpacking, with their zero
-padding; the gather that takes strides above TMA's 8 away; and the device
-rule (``utils/device.py``): without CUDA, no device means an error, never
-the CPU.
+padding; the gather that takes strides above TMA's 8 away; the column
+taps of a narrow input folded into its channels (``unfold_cols``); and the
+device rule (``utils/device.py``): without CUDA, no device means an error,
+never the CPU.
 """
 import numpy as np
 import pytest
@@ -282,7 +283,7 @@ def test_strides_above_eight_are_gathered_exactly(k, s, p, hw):
     gathers the rows (columns) each output reads, and a stride-k conv
     without padding over them gives the same accumulator."""
     from deepfusion_tpu_torch.ops.conv import (_kernel_geometry, _kernel_src,
-                                               conv_acc)
+                                               conv_acc, unfold_cols)
     kh, kw = (k, k) if isinstance(k, int) else k
     sh, sw = (s, s) if isinstance(s, int) else s
     ph, pw = (p, p) if isinstance(p, int) else p
@@ -295,8 +296,10 @@ def test_strides_above_eight_are_gathered_exactly(k, s, p, hw):
                           (ph, pw), (n, oh, ow, oc), "s32")
     x = torch.from_numpy(rng.integers(0, 256, (n, hw, hw, ic),
                                       dtype=np.uint8))
-    x2 = _kernel_src(cfg, x)
-    ih2, iw2, ic2, sh2, sw2, ph2, pw2 = _kernel_geometry(cfg)
+    assert not unfold_cols(cfg)
+    x2 = _kernel_src(cfg, x, False)
+    ih2, iw2, ic2, kh2, kw2, sh2, sw2, ph2, pw2 = _kernel_geometry(cfg, False)
+    assert (kh2, kw2) == (kh, kw)
     assert max(sh2, sw2) <= 8 and ic2 % 16 == 0
     assert tuple(x2.shape) == (n, ih2, iw2, ic2)
     assert conv_output_size(ih2, kh, sh2, ph2) == oh
@@ -306,6 +309,88 @@ def test_strides_above_eight_are_gathered_exactly(k, s, p, hw):
     got = conv_acc(x2, torch.from_numpy(w2), (sh2, sw2), (ph2, pw2))
     want = conv_acc(x, torch.from_numpy(w), (sh, sw), (ph, pw))
     assert torch.equal(got, want)
+
+
+# (ic, kernel, stride, padding): ResNet-50's stem, then narrow inputs under
+# kernels 3 and 5 wide at column strides 1 and 2
+UNFOLD_CASES = [(3, (7, 7), (2, 2), (3, 3))] + [
+    (ic, (3, kw), (2, sw), (1, kw // 2)) for ic in (1, 4, 8)
+    for kw in (3, 5) for sw in (1, 2)]
+
+
+@pytest.mark.parametrize("ic,k,s,p", UNFOLD_CASES)
+def test_narrow_inputs_run_over_their_column_taps_folded_into_channels(
+        ic, k, s, p):
+    """A conv over fewer than 16 channels with a kernel wider than 1 runs
+    as a kh x 1 conv of stride (sh, 1) over the input's kw column taps
+    folded into round_up(kw * ic, 32) channels: the unfolded input
+    (``_kernel_src``, here its plain version) at ``_kernel_geometry`` with
+    the op's derived K-major weights, unpacked, gives the original conv's
+    accumulator exactly; the unfold puts the input's channel c at column
+    ox * sw - pw + kj into channel kj * ic + c of pixel ox, zero outside
+    the image and past kw * ic; the op's ints carry that geometry."""
+    from deepfusion_tpu_torch.ops.conv import (_kernel_geometry, _kernel_src,
+                                               conv_acc, conv_geo,
+                                               unfold_cols)
+    (kh, kw), (sh, sw), (ph, pw) = k, s, p
+    n, oc, hw = 2, 24, 13
+    rng = np.random.default_rng(ic * 100 + kw * 10 + sw)
+    oh, ow = (conv_output_size(hw, kh, sh, ph),
+              conv_output_size(hw, kw, sw, pw))
+    w = rng.integers(-128, 128, (oc, ic, kh, kw)).astype(np.int8)
+    cfg = ConvConfig.make((n, hw, hw, ic), w.shape, None, (sh, sw),
+                          (ph, pw), (n, oh, ow, oc), "s32")
+    op = ConvOp(cfg, w, device="cpu")
+    assert unfold_cols(cfg) and op._unfold
+    xn = rng.integers(0, 256, (n, hw, hw, ic), dtype=np.uint8)
+    x = torch.from_numpy(xn)
+    x2 = _kernel_src(cfg, x, True)
+    geo = _kernel_geometry(cfg, True)
+    ih2, iw2, ic2, kh2, kw2, sh2, sw2, ph2, pw2 = geo
+    cp = layout.unfold_icp(kw, ic)
+    assert (ih2, iw2, ic2, kh2, kw2, sh2, sw2, ph2, pw2) == (
+        hw, ow, cp, kh, 1, sh, 1, ph, 0)
+    assert cp % 32 == 0 and cp - kw * ic < 32
+    assert tuple(x2.shape) == (n, ih2, iw2, ic2)
+    assert conv_output_size(ih2, kh2, sh2, ph2) == oh
+    assert conv_output_size(iw2, kw2, sw2, pw2) == ow
+    g = conv_geo(cfg)
+    assert g[:3] == (ih2, iw2, ic2) and g[5:11] == (kh2, kw2, sh2, sw2,
+                                                     ph2, pw2)
+    want_x = np.zeros((n, hw, ow, cp), np.uint8)
+    for ox in range(ow):
+        for kj in range(kw):
+            col = ox * sw - pw + kj
+            if 0 <= col < hw:
+                want_x[:, :, ox, kj * ic:(kj + 1) * ic] = xn[:, :, col]
+    np.testing.assert_array_equal(x2.numpy(), want_x)
+    ocp = op.w0k.shape[0]
+    assert tuple(op.w0k.shape) == (ocp, kh * cp)
+    w2 = op.w0k.reshape(ocp, kh2, kw2, ic2).permute(0, 3, 1, 2)[:oc]
+    assert not w2[:, kw * ic:].any()
+    got = conv_acc(x2, w2, (sh2, sw2), (ph2, pw2))
+    want = conv_acc(x, torch.from_numpy(w), (sh, sw), (ph, pw))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("model", ["FusionNet", "ResFusionNet", "VGGFusion",
+                                   "ResNet50"])
+def test_only_resnet50s_stem_unfolds(model):
+    """Of the dense convs of the four models at their default configs, the
+    column taps are folded into the channels at ResNet-50's stem (3
+    channels under 7x7) alone: every other conv takes 32 channels or more,
+    and ``ConvPoolOp`` never unfolds."""
+    from deepfusion_tpu_torch import models
+    from deepfusion_tpu_torch.ops.conv import unfold_cols
+    from deepfusion_tpu_torch.ops.convpool import ConvPoolOp
+    net = getattr(models, model)(getattr(models, f"{model}Config")(),
+                                 device="cpu")
+    convs = {name: op for name, op in net.named_modules()
+             if isinstance(op, (ConvOp, ConvPoolOp))}
+    unfolded = [name for name, op in convs.items() if unfold_cols(op.cfg)]
+    assert unfolded == (["convs.stem"] if model == "ResNet50" else [])
+    assert all(op._unfold == (name in unfolded)
+               for name, op in convs.items() if isinstance(op, ConvOp))
 
 
 def _no_cuda(monkeypatch):

@@ -25,7 +25,10 @@ res conv's full-resolution output, then K8) and the pool alone; K6 and K8
 at FusionNet's residual and K8 at the C13 shapes; K7 at ResFusionNet's
 downsample beside the 2x2 ``amax`` (also per call in turns); K9 beside K1
 then K3; K10 at VGGFusion's blocks beside K5 + K5 with pool2 and K5 + K5 +
-K7, and at bench.py's --pair shape; bench.py's shapes in TOP/s beside
+K7, and at bench.py's --pair shape; ResNet-50's 7x7/s2 stem at batch 8 and
+256 as its launch runs it (the input's preparation and K1) and the
+preparation alone (the unfold of its column taps, or in a tree without it
+the pad to 16 channels); bench.py's shapes in TOP/s beside
 ``torch._int_mm`` at their GEMMs (``yardstick:``); the host microseconds
 of each wrapper, of each part of a launch (K1, K7, K2) and of a
 ``_build.kernels()`` call after the first, of ``cuTensorMapEncodeTiled``,
@@ -744,6 +747,47 @@ def vggfusion_times(run, vnet, dev):
               ops=z.numel(), tensor=False)
 
 
+def resnet50_stem_times(run, dev, batches=(8, 256)):
+    """ResNet-50's stem (7x7/s2/p3 over 3 channels, 224 -> 112) at each
+    batch: its launch as ``conv_cuda`` makes it (the input prepared for K1,
+    then K1) beside the plain conv, and the preparation alone: the unfold
+    of the seven column taps into 32 channels, or in a tree that lacks it
+    (``ops/conv.py`` without ``unfold_cols``) the pad to 16 channels, under
+    one entry name either way, so that trees compare. Both bounds count the
+    image read once and the output written once."""
+    from deepfusion_tpu_torch.models import ResNet50, ResNet50Config
+    from deepfusion_tpu_torch.ops.conv import conv_plan
+    from deepfusion_tpu_torch.types import dtype
+    K = importlib.import_module("deepfusion_tpu_torch.ops.conv")
+    rng = np.random.default_rng(50)
+    stem = ResNet50(ResNet50Config(), device=dev).convs["stem"]
+    c = stem.cfg
+    unfold = hasattr(K, "unfold_cols") and K.unfold_cols(c)
+    prep = "unfold" if unfold else "pad"
+    for n in batches:
+        x = rand(rng, (n, c.ih, c.iw, c.ic), dtype.u8, dev)
+        label = f"ResNet50 stem b{n}"
+        print_plan("conv_fused", label, conv_plan(stem, n))
+        run.timed("K1a", f"{label} (prep + K1)",
+                  lambda: K.conv_cuda(stem, x),
+                  lambda: K.conv_plain(stem, x), forward=False,
+                  reads=(x, stem), ops=conv_ops(c, n))
+        if unfold:
+            def prepare():
+                return K._kernel_src(c, x, True)
+        else:
+            def prepare():
+                return K._kernel_src(c, x)
+        b_ms, b_by = bound_ms(nbytes(x, prepare()), 0.0, False)
+        warm, cold = device_ms(prepare), cold_device_ms(prepare)
+        key = f"{label} prep alone"
+        run.out(f"timing: {key} ({prep}) device_ms={warm:.5f} cold_device_ms="
+                f"{cold:.5f} bound_ms={b_ms:.5f} bound_by={b_by} "
+                f"cold_share={b_ms / cold:.4f}",
+                **{key: warm, f"{key} cold": cold})
+        del x
+
+
 def bench_times(run, net, dev):
     """bench.py's default (K5), --dense (K1) and --pair (K10) shapes in
     TOP/s, torch._int_mm at their GEMMs and at FusionNet's fused blocks'
@@ -805,6 +849,7 @@ def run_tree(tree):
         resfusion_times(run, ResFusionNet(ResFusionNetConfig(), device=dev),
                         dev)
         vggfusion_times(run, VGGFusion(VGGFusionConfig(), device=dev), dev)
+        resnet50_stem_times(run, dev)
         bench_times(run, net, dev)
     # the heads: each launched once by the dense and once by the packed
     # forward
