@@ -19,10 +19,14 @@ Phases, each printing its own lines:
      FusionNet(cfg) and conv() on a numpy input, given no device, must run
      on cuda:0 through the kernels;
   3. parity: each kernel against its plain PyTorch version on the card,
-     bitwise, at every FusionNet, ResFusionNet, VGGFusion and ResNet-50
-     full-width layer shape (ResNet-50: every conv on full-range inputs
-     and sum operands, its two pools, then one eager forward with each K1
-     launch held against its plain version) and extra cases (every dtype, both round modes,
+     bitwise, at every FusionNet, ResFusionNet, VGGFusion, ResNet-50 and
+     GoogLeNet full-width layer shape (ResNet-50: every conv on full-range
+     inputs and sum operands, its two pools, then one eager forward with
+     each K1 and K3 launch held against its plain version; GoogLeNet, at
+     batch 8 and again at the offline cell's 256: its 57 convs and head on
+     full-range inputs, its three pool kinds, each module's concat, then
+     one eager forward with each K1, K2 and K3 launch held against its
+     plain version) and extra cases (every dtype, both round modes,
      saturation edges, the conv sum post-op with every operand dtype, the
      1-byte sum read as tiles at ResNet-50's fused shapes, every model
      op's conv_plan against the plans recorded before that read; for
@@ -63,9 +67,10 @@ Phases, each printing its own lines:
      launch inside them held against its plain version on the same inputs
      (the shapes, slices, ranges and bounds the wrappers give the kernels);
   4. slice: FusionNet(FusionNetConfig()), ResFusionNet(ResFusionNetConfig()),
-     VGGFusion(VGGFusionConfig()) and ResNet50(ResNet50Config()) on the
-     card behind BatchServer each answer 20 requests through the dense
-     forward, then 20 through the packed forward (ResNet-50 has none);
+     VGGFusion(VGGFusionConfig()), ResNet50(ResNet50Config()) and
+     GoogLeNet(GoogLeNetConfig()) on the card behind BatchServer each
+     answer 20 requests through the dense forward, then 20 through the
+     packed forward (ResNet-50 and GoogLeNet have none);
      VGGFusion's hybrid forward runs the golden batch; each
      answer must equal the model's plain dense forward on the CPU bitwise
      (and the JAX package's golden logits where stored), every kernel
@@ -74,8 +79,8 @@ Phases, each printing its own lines:
      built on the CPU and batch-split by dp_shard over two slots that are
      both this card, answers 16 requests behind BatchServer at batch 16,
      checked the same way;
- 4b. graphs: each model's jit() and jit_packed() (ResNet-50: jit() alone;
-     one CUDA graph per input shape, models/graphed.py) at full width,
+ 4b. graphs: each model's jit() and jit_packed() (ResNet-50 and GoogLeNet:
+     jit() alone; one CUDA graph per input shape, models/graphed.py) at full width,
      batch 8: the first call captures; one replay must launch what
      FORWARD_LAUNCHES says, by the launch counters and by the kernels
      torch.profiler traces; a first result must survive a second call;
@@ -179,6 +184,8 @@ PATH_KERNELS = {
     ("VGGFusion", "packed"): ("pair_conv", "conv_fused"),
     ("VGGFusion", "hybrid"): ("pair_conv", "conv_fused", "convpool", "pool"),
     ("ResNet50", "dense"): ("conv_fused", "pool", "unfold_cols"),
+    ("GoogLeNet", "dense"): ("conv_fused", "concat_relu", "pool",
+                             "unfold_cols"),
 }
 # launches of one forward of each served model path, and of phase 6's
 # sharded calls: what the kernels' launch paths have made since they
@@ -195,6 +202,11 @@ FORWARD_LAUNCHES = {
     # the stem, 16 reduces, 4 projections, 16 fused blocks and the head;
     # the max pool and the global average; the stem's input unfolded
     "ResNet50 dense": {"conv_fused": 38, "pool": 2, "unfold_cols": 1},
+    # the stem, conv2's 1x1 and 3x3, six convs in each of the nine modules
+    # and the head; the nine modules' concats; four 3x3/s2 max pools, nine
+    # branch pools and the global average; the stem's input unfolded
+    "GoogLeNet dense": {"conv_fused": 58, "concat_relu": 9, "pool": 14,
+                        "unfold_cols": 1},
     # two shards of one forward each per served batch
     "FusionNet dense dp=2 split": {"conv_fused": 12, "concat_relu": 2,
                                    "pool": 4, "sum_relu": 2},
@@ -207,8 +219,8 @@ SHARDED_LAUNCHES = {"conv_fused": 58, "packed_conv": 32, "convpool": 2,
 FORWARD_SUM_TILES = {"ResNet50 dense": 16, "ResFusionNet dense": 1}
 # K1 launches a forward over a narrow input's column taps folded into its
 # channels (the mode conv_fused.unfold, ops/conv.py: unfold_cols):
-# ResNet-50's stem; every other served path none
-FORWARD_UNFOLDS = {"ResNet50 dense": 1}
+# ResNet-50's and GoogLeNet's stem; every other served path none
+FORWARD_UNFOLDS = {"ResNet50 dense": 1, "GoogLeNet dense": 1}
 # conv_plan of every dense conv op of the four models at batch 8 and 256
 # ("<model> <module> <batch>"), as the launcher planned them before the
 # sum operand was read as tiles: a plan may add keys, never change these
@@ -222,14 +234,23 @@ SHARDED_MODES = ("conv_fused.acc1", "packed_conv.acc1", "packed_conv.rows",
 PLAN = dict(mb=16, hw=128, c=64)
 
 
+# a profile keeps only the device work whose timestamps fall inside its
+# window, and work that starts or ends right at an edge can fall outside it
+# (a lone kernel went untraced three profiles running, PERF.md §7): a
+# profiled call starts and ends this long inside the window
+TRACE_EDGE_S = 0.01
+
+
 def kernel_counts(fn):
     """(fn()'s result, {device kernel name: launches} that torch.profiler
     traced in that call)."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_EDGE_S)
         out = fn()
         torch.cuda.synchronize()
+        time.sleep(TRACE_EDGE_S)
     return out, {e.key: e.count for e in prof.key_averages()
                  if e.self_device_time_total > 0}
 
@@ -284,12 +305,14 @@ class Parity:
 
 @contextlib.contextmanager
 def held_against_plain(par: Parity, label: str):
-    """Inside the block, every launch of K1, K5, K9 and K10 through its op
-    (the ops look their launchers up at each call) is followed by the
-    plain version on the same inputs and arguments, and the two must be
-    bitwise equal: the kernels are held at the very shapes, slices, row
+    """Inside the block, every launch of K1, K2, K3, K5, K9 and K10 through
+    its op (the ops look their launchers up at each call) is followed by
+    the plain version on the same inputs and arguments, and the two must
+    be bitwise equal: the kernels are held at the very shapes, slices, row
     ranges and bounds the code under test gives them."""
     launchers = [("conv_fused", "conv", "conv_cuda", "conv_plain"),
+                 ("concat_relu", "concat", "concat_cuda", "concat_plain"),
+                 ("pool", "pool", "pool_cuda", "pool_plain"),
                  ("convpool", "convpool", "convpool_cuda", "convpool_plain"),
                  ("packed_conv", "packed", "packed_conv_cuda",
                   "packed_conv_plain"),
@@ -854,7 +877,7 @@ def plan_check(models):
           "equal the recorded plans key for key", flush=True)
 
 
-def phase_parity(net, rnet, vnet, r50, dev, sharded) -> Parity:
+def phase_parity(net, rnet, vnet, r50, gnet, dev, sharded) -> Parity:
     from deepfusion_tpu_torch import _build
     from deepfusion_tpu_torch.utils.logger import check, check_eq
     from deepfusion_tpu_torch.config import ConcatConfig, PoolConfig
@@ -1013,6 +1036,7 @@ def phase_parity(net, rnet, vnet, r50, dev, sharded) -> Parity:
     acc1_parity(net, dev, par)
     range_parity(vnet, dev, par)
     resnet50_parity(r50, dev, par)
+    googlenet_parity(gnet, dev, par)
     sharded_parity(sharded, par)
     for k in KERNEL_INFO:
         print(f"parity: {k} bitwise equal to its plain version in "
@@ -1036,8 +1060,8 @@ def resnet50_parity(r50, dev, par):
     version at the stem's shape at batch 8 and 256 and at 4 channels under
     a 3x5 kernel at column stride 1, and the stem at batch 256 (unfold and
     K1) against the plain conv; then one eager forward on the model's
-    example input with every K1 launch held against its plain version (the
-    calibrated activations and the real shortcuts)."""
+    example input with every K1 and K3 launch held against its plain
+    version (the calibrated activations and the real shortcuts)."""
     from deepfusion_tpu_torch.config import PoolConfig
     from deepfusion_tpu_torch.types import dtype
     from deepfusion_tpu_torch.utils.logger import check_eq
@@ -1079,6 +1103,99 @@ def resnet50_parity(r50, dev, par):
           f"its two pools and one eager forward's {len(r50.convs)} K1 "
           f"launches at batch {stem.bs}, bitwise equal to the plain "
           "versions", flush=True)
+
+
+def googlenet_parity(gnet, dev, par):
+    """At GoogLeNet(GoogLeNetConfig())'s batch and again at the offline
+    cell's batch, 256 (whose K1 plans take other tiles, splits and item
+    counts, and whose K2 and K3 grids differ): K1 at every conv (224x224)
+    on full-range random inputs: the 7x7/s2 stem over its unfolded column
+    taps, the 1x1s to 16-384 lanes (16, 24, 48, 96, 112, 144, 208, 224 and
+    288 no multiple of 64) over 64-832 channels (528 padded to the
+    k-step), the 3x3s over 64-192 channels, the 5x5/p2s over 16-48 (24
+    padded to 32) and the f32 head; K3 at its three pool kinds (the
+    ceil-mode 3x3/s2 max pools at 112, 56, 28 and 14, the 3x3/s1/p1 branch
+    pool at each module's input, the 7x7x1024 global average); K2 at each
+    module's concat of its four u8 branches (256-1,024 lanes); then one
+    eager forward on full-range images with every K1, K2 and K3 launch
+    held against its plain version."""
+    from deepfusion_tpu_torch.config import ConcatConfig, PoolConfig
+    from deepfusion_tpu_torch.models.googlenet import (MODULES,
+                                                       POOLED_BEFORE, pooled)
+    from deepfusion_tpu_torch.types import dtype
+    from deepfusion_tpu_torch.utils.logger import check_eq
+    C = importlib.import_module("deepfusion_tpu_torch.ops.concat")
+    K = importlib.import_module("deepfusion_tpu_torch.ops.conv")
+    P = importlib.import_module("deepfusion_tpu_torch.ops.pool")
+    rng = np.random.default_rng(1409)
+    u8 = dtype.u8
+    convs = gnet.convs
+
+    def out_hw(name):
+        c = convs[name].cfg
+        return (c.oh, c.ow, c.oc)
+    # the 3x3/s2 pools' inputs: the stem's, conv2's, and the module output
+    # before 4a and 5a; each module's input, which its branch pool reads
+    s2 = [out_hw("stem"), out_hw("conv2")]
+    s1 = []
+    prev = None
+    for m, *_ in MODULES:
+        c = convs[f"{m}_1x1"].cfg
+        if m in POOLED_BEFORE:
+            p = convs[f"{prev}_1x1"].cfg
+            s2.append((p.ih, p.iw, c.ic))
+        s1.append((c.ih, c.iw, c.ic))
+        prev = m
+    last, g = convs["head"].cfg, convs[f"{prev}_1x1"].cfg
+    pools = [("3x3/s2 ceil", hwc, (3, 3), (2, 2), (0, 0), "max")
+             for hwc in s2]
+    pools += [("3x3/s1/p1 branch", hwc, (3, 3), (1, 1), (1, 1), "max")
+              for hwc in s1]
+    pools.append(("global avg", (g.ih, g.iw, last.ic), (g.ih, g.iw),
+                  (g.ih, g.iw), (0, 0), "avg_exc"))
+    batches = (last.bs, 256)
+    for n in batches:
+        for name, op in convs.items():
+            c = op.cfg
+            x = rand(rng, (n, c.ih, c.iw, c.ic), u8, dev)
+            par.check("conv_fused", f"GoogLeNet {name} b{n}",
+                      K.conv_cuda(op, x), K.conv_plain(op, x))
+            del x
+        for what, hwc, k, s, p, kind in pools:
+            x = rand(rng, (n, *hwc), u8, dev)
+            pc = PoolConfig.make(kind, hwc[:2], k, s, p)
+            got = P.pool_cuda(x, pc, u8)
+            want_hw = {(2, 2): pooled(hwc[0]), (1, 1): hwc[0]}.get(s, 1)
+            check_eq(got.shape[1], want_hw,
+                     f"GoogLeNet {what} {hwc} b{n}: size")
+            par.check("pool", f"GoogLeNet {what} {hwc} b{n}", got,
+                      P.pool_plain(x, pc, u8))
+        for m, *_ in MODULES:
+            xs = [rand(rng, (n, *out_hw(f"{m}_{b}")), u8, dev)
+                  for b in ("1x1", "3x3", "5x5", "pool_proj")]
+            cc = ConcatConfig.make([tuple(x.shape) for x in xs], torch.uint8,
+                                   False)
+            got = C.concat_cuda(xs, cc)
+            par.check("concat_relu",
+                      f"GoogLeNet {m} concat {tuple(got.shape)}", got,
+                      C.concat_plain(xs, cc))
+        x = rand(rng, (n, gnet.cfg.hw, gnet.cfg.hw, gnet.cfg.in_ch), u8, dev)
+        before = dict(par.cases)
+        with held_against_plain(par, f"GoogLeNet eager forward b{n}"):
+            gnet(x)
+        check_eq({k: par.cases[k] - before[k] for k in
+                  ("conv_fused", "concat_relu", "pool")},
+                 {"conv_fused": len(convs), "concat_relu": len(MODULES),
+                  "pool": len(pools)},
+                 f"GoogLeNet eager forward b{n}: launches held against the "
+                 "plain versions")
+        del x
+        torch.cuda.empty_cache()
+    print(f"parity: GoogLeNet at batch {batches[0]} and {batches[1]}, each: "
+          f"{len(convs)} convs on full-range inputs, {len(pools)} pools of "
+          f"three kinds, {len(MODULES)} concats and one eager forward's "
+          f"{len(convs)} K1, {len(MODULES)} K2 and {len(pools)} K3 "
+          "launches, bitwise equal to the plain versions", flush=True)
 
 
 def unfold_parity(stem, rng, dev, par):
@@ -2436,7 +2553,8 @@ def main():
         phase_processes(name_power, *sys.argv[2:3])
         print(name_power)
         return
-    from deepfusion_tpu_torch.models import (FusionNetConfig, ResFusionNet,
+    from deepfusion_tpu_torch.models import (FusionNetConfig, GoogLeNet,
+                                             GoogLeNetConfig, ResFusionNet,
                                              ResFusionNetConfig, ResNet50,
                                              ResNet50Config, VGGFusion,
                                              VGGFusionConfig)
@@ -2453,13 +2571,14 @@ def main():
     vnet = VGGFusion(VGGFusionConfig(), device=dev)
     vnet.build_packed()
     r50 = ResNet50(ResNet50Config(), device=dev)
+    gnet = GoogLeNet(GoogLeNetConfig(), device=dev)
     plan_check((net, rnet, vnet, r50))
     sharded = sharded_cases(vnet, dev)
     with torch.inference_mode():
-        phase_parity(net, rnet, vnet, r50, dev, sharded)
+        phase_parity(net, rnet, vnet, r50, gnet, dev, sharded)
     counts = dict.fromkeys(KERNEL_INFO, 0)
     slices = []
-    for model in (net, rnet, vnet, r50):
+    for model in (net, rnet, vnet, r50, gnet):
         name = type(model).__name__
         reqs, want, golden = slice_requests(model, GOLDEN.get(name))
         slices.append((model, reqs, want, golden))

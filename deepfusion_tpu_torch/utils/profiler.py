@@ -31,8 +31,10 @@ recorded whole, even if the profiler stops first. The program's spans:
 * ``models/graphed.py``'s ``GraphedForward``: ``model.replay`` around each
   call and ``model.capture`` (attrs ``shape``, ``dtype``) around a graph's
   capture;
-* ``models/resnet50.py``'s forward: ``model.layer`` (attrs ``name``,
-  ``kind``) around each layer, in an eager forward or a graph's capture.
+* ``models/resnet50.py``'s and ``models/googlenet.py``'s forwards:
+  ``model.layer`` (attrs ``name``, ``kind``; a GoogLeNet concat also
+  ``inputs`` and ``lanes``) around each layer, in an eager forward or a
+  graph's capture.
 
 The JAX package's ``maybe_dump_lowered`` (lowered XLA text) is not ported:
 ``DEEPFUSION_DUMP_CODE`` keeps ptxas's report of the kernel build instead

@@ -61,3 +61,24 @@ def test_script_imports_point_one_way(path):
         assert not names & TOOL_NAMES
     else:
         assert names & TOOL_NAMES == {"oncard"}
+
+
+def test_the_layer_split_takes_each_spanned_model_by_name(monkeypatch):
+    """``tools/model_layers.py`` builds the model its ``--model`` names, at
+    the default config and the given batch, for each model whose forward
+    marks its layers with ``model.layer`` spans, and refuses any other."""
+    monkeypatch.setattr(sys, "path", [str(TOOLS), str(ROOT)] + sys.path)
+    spec = importlib.util.spec_from_file_location(
+        "_oncard_script_model_layers", TOOLS / "model_layers.py")
+    tool = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(tool)
+    finally:
+        sys.modules.pop("oncard", None)
+    assert tool.SPANNED == ("ResNet50", "GoogLeNet")
+    for name in tool.SPANNED:
+        net = tool.build(name, batch=2, device="cpu")
+        assert type(net).__name__ == name
+        assert net.input_shape == (2, 224, 224, 3) and net.cfg.seed == 13
+    with pytest.raises(ValueError, match="no model.layer spans"):
+        tool.build("VGGFusion", batch=2, device="cpu")

@@ -1,12 +1,19 @@
-"""Where an eager ResNet-50 v1.5 forward's device time goes, by layer kind.
+"""Where an eager model forward's device time goes, by layer kind.
 
-    python3 tools/resnet50_layers.py [--batch 256] [--out resnet50_layers.json]
+    python3 tools/model_layers.py [--model ResNet50|GoogLeNet] [--batch 256] \
+        [--out model_layers.json]
 
-Runs eager forwards at ``--batch`` on cuda:0 under ``torch.profiler``;
-each kernel's device time is given to the ``model.layer`` span whose host
-range launched it (the launch's correlation id), then summed per forward
-by the span's kind (stem, maxpool, reduce, proj, fused, avgpool, head), by
-layer and by kernel name. Writes the split as one JSON object to ``--out``
+Builds the model that ``--model`` names (a class of
+``deepfusion_tpu_torch.models`` whose forward marks each layer with a
+``model.layer`` span: ``ResNet50``, ``GoogLeNet``) at its default config
+and ``--batch``, and runs eager forwards on cuda:0 under
+``torch.profiler``; each kernel's device time is given to the
+``model.layer`` span whose host range launched it (the launch's
+correlation id), then summed per forward by the span's kind (ResNet-50:
+stem, maxpool, reduce, proj, fused, avgpool, head; GoogLeNet: stem,
+maxpool, reduce, conv, b1x1, b3x3_reduce, b3x3, b5x5_reduce, b5x5,
+branch_pool, pool_proj, concat, avgpool, head), by layer and by kernel
+name. Writes the split as one JSON object to ``--out``
 and prints it; kernels no span launched are counted as unattributed.
 (Kernel parity at the model's shapes is ``chip_smoke.py``'s; the graphed
 forward's time is the benchmark cell's ``model.forward_ms``.)
@@ -26,11 +33,23 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import oncard  # noqa: E402
-from deepfusion_tpu_torch.models import ResNet50, ResNet50Config  # noqa: E402
+from deepfusion_tpu_torch import models  # noqa: E402
 from deepfusion_tpu_torch.utils import profiler  # noqa: E402
 
+# the models whose forward marks its layers with model.layer spans
+SPANNED = ("ResNet50", "GoogLeNet")
 
-def split(net: ResNet50, x: torch.Tensor, forwards: int = 3) -> dict:
+
+def build(name: str, batch: int, seed: int = 13, device="cuda:0"):
+    """The model class `name` at its default config, `batch` and `seed`."""
+    if name not in SPANNED:
+        raise ValueError(f"{name!r} marks no model.layer spans; one of "
+                         f"{SPANNED}")
+    cfg = getattr(models, name + "Config")(batch=batch, seed=seed)
+    return getattr(models, name)(cfg, device=device)
+
+
+def split(net, x: torch.Tensor, forwards: int = 3) -> dict:
     """Per forward: device ms by layer kind, layer and kernel name, from
     the ``model.layer`` spans that launched each kernel."""
     with torch.inference_mode():
@@ -93,14 +112,14 @@ def split(net: ResNet50, x: torch.Tensor, forwards: int = 3) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=SPANNED, default="ResNet50")
     ap.add_argument("--batch", type=int, default=256)
-    ap.add_argument("--out", default="resnet50_layers.json")
+    ap.add_argument("--out", default="model_layers.json")
     args = ap.parse_args()
-    net = ResNet50(ResNet50Config(batch=args.batch, seed=13),
-                   device="cuda:0")
+    net = build(args.model, args.batch)
     x = torch.from_numpy(net.example_input()).cuda()
-    out = dict(card=oncard.card(), torch=torch.__version__, batch=args.batch,
-               **split(net, x))
+    out = dict(card=oncard.card(), torch=torch.__version__, model=args.model,
+               batch=args.batch, **split(net, x))
     print("split:", json.dumps({k: v for k, v in out.items()
                                 if k not in ("by_kernel_ms", "by_layer_ms")}),
           flush=True)

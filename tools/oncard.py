@@ -1,5 +1,5 @@
 """What the on-card scripts share (chip_smoke.py, tools/kernel_times.py,
-tools/k1_ablation.py, tools/k5_ablation.py, tools/resnet50_layers.py): the
+tools/k1_ablation.py, tools/k5_ablation.py, tools/model_layers.py): the
 card's name, the timers, the input makers, the byte and bound arithmetic,
 and the one runner of several trees of the repository in turns.
 
