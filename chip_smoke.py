@@ -9,7 +9,9 @@ Phases, each printing its own lines:
      function may issue mma.sync, and the SASS of every instance of the
      dense conv kernel (K1), its pool mode (K9) and the conv pair (K10)
      must issue wgmma on TMA-loaded tiles, and ptxas (-v) must not have
-     serialized the wgmma of K5, K9 or K10 (its note C7520); a
+     serialized the wgmma of K5, K9 or K10 (its note C7520); the
+     conversion instructions of two K1 instances and every K1 instance's
+     registers and spills are printed; a
      _build.kernels() call after the first must return the same library
      in at most 5 host microseconds; the library must have registered
      every operator of torch.ops.deepfusion_torch that the wrappers call
@@ -28,8 +30,11 @@ Phases, each printing its own lines:
      one eager forward with each K1, K2 and K3 launch held against its
      plain version) and extra cases (every dtype, both round modes,
      saturation edges, the conv sum post-op with every operand dtype, the
-     1-byte sum read as tiles at ResNet-50's fused shapes, every model
-     op's conv_plan against the plans recorded before that read; for
+     1-byte sum read as tiles at ResNet-50's fused shapes, the 1-byte
+     final stage requantized in the integer domain (its fused blocks with
+     u8 and s8 sums and its s8 projection at batch 256, x past +-2^21,
+     sum_scale at the bound and past it, where the f32 path runs), every
+     model op's conv_plan against the plans recorded before that read; for
      K1 also strides 2, 3 and above 8 with padding at both edges and odd
      output sizes, 1x1 GEMM tiles across images, ragged dst pitches, ic
      16, M below one tile, and the geometries of sp_conv's row slabs and
@@ -213,14 +218,22 @@ FORWARD_LAUNCHES = {
 }
 SHARDED_LAUNCHES = {"conv_fused": 58, "packed_conv": 32, "convpool": 2,
                     "pair_conv": 38}
-# K1 launches a forward that read the sum operand as tiles (the mode
-# conv_fused.sum_tile, ops/conv.py: tiled_sum): ResNet-50's 16 fused blocks
-# and ResFusionNet's block1; every other served path none
-FORWARD_SUM_TILES = {"ResNet50 dense": 16, "ResFusionNet dense": 1}
-# K1 launches a forward over a narrow input's column taps folded into its
-# channels (the mode conv_fused.unfold, ops/conv.py: unfold_cols):
-# ResNet-50's and GoogLeNet's stem; every other served path none
-FORWARD_UNFOLDS = {"ResNet50 dense": 1, "GoogLeNet dense": 1}
+# K1 launches a forward in a counted mode, per served path (every path not
+# named none), and what the mode does
+FORWARD_MODES = {
+    # ops/conv.py: tiled_sum; ResNet-50's 16 fused blocks, ResFusionNet's
+    # block1
+    "conv_fused.sum_tile": ({"ResNet50 dense": 16, "ResFusionNet dense": 1},
+                            "read the sum operand as tiles"),
+    # ops/conv.py: unfold_cols; ResNet-50's and GoogLeNet's stem
+    "conv_fused.unfold": ({"ResNet50 dense": 1, "GoogLeNet dense": 1},
+                          "ran over unfolded column taps"),
+    # ops/conv.py: int_requant; ResNet-50's 16 fused blocks (a 1-byte sum)
+    # and 4 projections (s8), ResFusionNet's block1
+    "conv_fused.int_requant": ({"ResNet50 dense": 20,
+                                "ResFusionNet dense": 1},
+                               "requantized in the integer domain"),
+}
 # conv_plan of every dense conv op of the four models at batch 8 and 256
 # ("<model> <module> <batch>"), as the launcher planned them before the
 # sum operand was read as tiles: a plan may add keys, never change these
@@ -444,6 +457,42 @@ def serialized_check(report):
           f"{sorted(K1_SERIALIZED)}")
     bad = sorted(f for f in fns if "conv_fused_kernel" not in f)
     check(not bad, f"ptxas serialized the wgmma of {bad}")
+    for fn, (regs, st, ld) in sorted(ptxas_usage(report).items()):
+        if "conv_fused_kernel" in fn:
+            print(f"ptxas: K1 {fn[:72]} registers {regs}, spill stores {st} "
+                  f"B, spill loads {ld} B", flush=True)
+
+
+# an instruction of the SASS's conversion unit (16 results a clock an SM
+# on sm_90): int -> f32, f32 -> int, f32 round to integral, int -> int,
+# f32 -> f32 of another width
+SASS_CONVERSION = re.compile(
+    r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]\s+)?((?:I2F|F2I|FRND|I2I|F2F)"
+    r"[A-Z0-9_.]*)")
+# the K1 instances whose conversions sass_check prints: the fused kernel
+# into u8 (ResNet-50's 16 blocks) and the unfused into s8 (its projections)
+K1_CONVERSIONS = ("conv_fused_kernelILb1ELi4E", "conv_fused_kernelILb0ELi3E")
+
+
+def ptxas_usage(report):
+    """{function: (registers, spill store bytes, spill load bytes)} from
+    ptxas's -v report."""
+    out, cur, spill = {}, None, (0, 0)
+    for line in open(report):
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m[1]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m[1]), int(m[2]))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            out[cur] = (int(m[1]), *spill)
+            cur, spill = None, (0, 0)
+    return out
 
 
 def sass_check(lib):
@@ -453,7 +502,8 @@ def sass_check(lib):
     four) issues wgmma u8 x s8 (IGMMA.64xNx32.U8.S8) only, and every
     instance of the conv pair (K10, pair_conv_kernel, four) wgmma s8 x s8
     (layer a's packed read) and u8 x s8 (layer b and the 1x1s), each on
-    tiles that TMA loads (UTMALDG)."""
+    tiles that TMA loads (UTMALDG). Prints the conversion instructions
+    (SASS_CONVERSION) of the K1 instances K1_CONVERSIONS."""
     from deepfusion_tpu_torch._build import _nvcc
     from deepfusion_tpu_torch.utils.logger import check
     tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
@@ -463,13 +513,17 @@ def sass_check(lib):
     for line in sass.splitlines():
         if "Function :" in line:
             cur = line.split("Function :")[1].strip()
-            funcs[cur] = {"igmma": set(), "utmaldg": 0, "imma": 0}
+            funcs[cur] = {"igmma": set(), "utmaldg": 0, "imma": 0,
+                          "conv": {}}
         elif cur is not None:
             f = funcs[cur]
             if "IGMMA." in line:
                 f["igmma"].add(line.split("IGMMA.")[1].split()[0])
             f["utmaldg"] += "UTMALDG" in line
             f["imma"] += "IMMA.16832" in line
+            m = SASS_CONVERSION.search(line)
+            if m:
+                f["conv"][m[1]] = f["conv"].get(m[1], 0) + 1
     imma = sorted(k for k, f in funcs.items() if f["imma"])
     check(not imma, f"functions issuing mma.sync (IMMA.16832): {imma}")
     for kernel, name, count, types in (
@@ -487,6 +541,10 @@ def sass_check(lib):
             check(got == types and f["utmaldg"] > 0,
                   f"{fn}: {kernel} must issue IGMMA {sorted(types)} on "
                   "UTMALDG tiles")
+    for inst in K1_CONVERSIONS:
+        (fn,) = [k for k in funcs if inst in k]
+        print(f"sass: K1 {inst} conversions {funcs[fn]['conv']}",
+              flush=True)
 
 
 def phase_default_device(cfg):
@@ -663,6 +721,39 @@ def conv_cases(dev):
         "u8", oc1=32, sum_dt="u8")
     add("per-value sum u8 oc1 264 (pitch no multiple of 16)", 2, 12, 32, 64,
         3, 1, 1, "u8", oc1=264, sum_dt="u8")
+    # the final stage in the integer domain (requant.cuh: requant_int) at
+    # the offline cell's batch 256: ResNet-50's fused blocks with a u8 and
+    # an s8 sum, its stage-2 projection into s8; scales 4 and 16 put x
+    # around and past +-2^21 and 2^22 (saturation through the clamp), ReLU
+    # off lets both ends show; a per-value (ragged pitch) and an unfused
+    # sum; sum_scale at the bound (integer path, the sum read as tiles)
+    # and past it (the f32 path, requant_sum, the sum read a value at a
+    # time, in the same kernel)
+    for sc in (4.0, 16.0):
+        add(f"int requant u8 sum ResNet-50 stage 3 batch 256 scale {sc}",
+            256, 14, 256, 256, 3, 1, 1, "u8", oc1=1024, sum_dt="u8",
+            scale=sc)
+        add(f"int requant s8 sum ResNet-50 stage 2 stride 2 batch 256 scale "
+            f"{sc} no ReLU -> s8", 256, 56, 128, 128, 3, 2, 1, "s8", oc1=512,
+            sum_dt="s8", scale=sc, relu=False, rnd="down")
+        add(f"int requant s8 projection ResNet-50 stage 2 batch 256 scale "
+            f"{sc}", 256, 56, 256, 512, 1, 2, 0, "s8", relu=False, scale=sc)
+    add("int requant s8 projection ResNet-50 stage 2 batch 256", 256, 56,
+        256, 512, 1, 2, 0, "s8", relu=False, scale=1.0 / (256 * 40))
+    add("int requant per-value s8 sum oc1 264 scale 16", 2, 12, 32, 64, 3, 1,
+        1, "s8", oc1=264, sum_dt="s8", scale=16.0, relu=False,
+        sum_scale=-3.0)
+    add("int requant unfused u8 sum scale 16", 2, 12, 64, 96, 3, 1, 1, "u8",
+        sum_dt="u8", scale=16.0, sum_scale=2.5)
+    for sdt, ss in (("u8", 8192.0), ("s8", -8192.0), ("u8", 8192.5),
+                    ("s8", -9000.0), ("u8", 1e30)):
+        path = "integer" if abs(ss) <= 8192.0 else "f32 fallback"
+        add(f"{path} sum_scale {ss} fused {sdt} sum batch 256", 256, 14,
+            256, 256, 3, 1, 1, "u8", oc1=1024, sum_dt=sdt, scale=4.0,
+            sum_scale=ss, relu=False)
+        add(f"{path} sum_scale {ss} per-value {sdt} sum -> s8", 2, 12, 32,
+            64, 3, 1, 1, "s8", oc1=264, sum_dt=sdt, scale=4.0, sum_scale=ss,
+            relu=False)
     return out
 
 
@@ -914,17 +1005,25 @@ def phase_parity(net, rnet, vnet, r50, gnet, dev, sharded) -> Parity:
         par.check("conv_fused", f"VGGFusion {name}", K.conv_cuda(op, x),
                   K.conv_plain(op, x))
     tiled = []
+    ints = {"integer": 0, "f32 fallback": 0}
     for label, op, x, sm in conv_cases(dev):
         par.check("conv_fused", label, K.conv_cuda(op, x, sm),
                   K.conv_plain(op, x, sm))
         if K.tiled_sum(op.cfg):
             plan = K.conv_plan(op, op.cfg.bs)
             tiled.append((plan["split"], plan["passes1"]))
+        for path in ints:
+            if label.startswith(path):
+                ints[path] += 1
+                check(K.int_requant(op.cfg) == (path == "integer"),
+                      f"{label}: the final stage's path")
     check({sp for sp, n in tiled if n > 1} == {0, 1},
           f"the tiled sum cases must run split and whole tiles, each over "
           f"more than one 1x1 pass: {tiled}")
     print(f"parity: {len(tiled)} K1 cases read the sum as tiles (split, 1x1 "
-          f"passes: {sorted(set(tiled))})", flush=True)
+          f"passes: {sorted(set(tiled))}); at the integer requant's "
+          f"sum_scale bound {ints['integer']} cases, past it (the f32 path) "
+          f"{ints['f32 fallback']}", flush=True)
     for label, op in k1_geometry_cases(net, dev):
         cfg = op.cfg
         x = rand(rng, (cfg.bs, cfg.ih, cfg.iw, cfg.ic), u8, dev)
@@ -2181,7 +2280,6 @@ def phase_slice(model, cfg, path, kernels, reqs, want, golden,
     with srv:
         outs = [f.result(timeout=300) for f in srv.submit_many(reqs)]
     counts, modes = _build.launch_counts(), _build.mode_counts()
-    tiles, unfolds = modes["conv_fused.sum_tile"], modes["conv_fused.unfold"]
     print(f"{tag}: {path} path: {len(reqs)} requests served in "
           f"{srv.stats['flushes']} flushes ({srv.stats['padded_rows']} "
           f"padded rows); launches {counts}", flush=True)
@@ -2196,16 +2294,12 @@ def phase_slice(model, cfg, path, kernels, reqs, want, golden,
         check_eq(got, per_forward, f"{path}: launches per forward")
         print(f"{tag}: {path} path: launches per forward {per_forward}, "
               f"as before", flush=True)
-    want_tiles = FORWARD_SUM_TILES.get(path, 0)
-    check_eq(tiles, want_tiles * srv.stats["flushes"],
-             f"{path}: K1 launches that read the sum as tiles")
-    print(f"{tag}: {path} path: {want_tiles} K1 launches a forward read the "
-          "sum operand as tiles", flush=True)
-    want_unfolds = FORWARD_UNFOLDS.get(path, 0)
-    check_eq(unfolds, want_unfolds * srv.stats["flushes"],
-             f"{path}: K1 launches over unfolded column taps")
-    print(f"{tag}: {path} path: {want_unfolds} K1 launches a forward ran "
-          "over unfolded column taps", flush=True)
+    for mode, (per_path, what) in FORWARD_MODES.items():
+        want_mode = per_path.get(path, 0)
+        check_eq(modes[mode], want_mode * srv.stats["flushes"],
+                 f"{path}: K1 launches that {what} ({mode})")
+        print(f"{tag}: {path} path: {want_mode} K1 launches a forward "
+              f"{what} ({mode})", flush=True)
 
     got = np.stack(outs)
     check_eq(got.shape, (len(reqs), cfg.num_classes), "served logits shape")

@@ -56,10 +56,11 @@ KERNELS = ("conv_fused", "concat_relu", "pool", "sum_relu", "packed_conv",
 # an output row range (or input row slice), the widened intermediate
 # bounds, the packed conv's residual merge and pool (merge_pool), the
 # dense conv's sum operand read as tiles (ops/conv.py: tiled_sum), the
-# dense conv over its column taps folded into channels (unfold_cols)
+# dense conv over its column taps folded into channels (unfold_cols), its
+# final stage requantized in the integer domain (int_requant)
 MODES = ("conv_fused.acc1", "packed_conv.acc1", "packed_conv.rows",
          "pair_conv.rows", "pair_conv.bounds", "packed_conv.merge_pool",
-         "conv_fused.sum_tile", "conv_fused.unfold")
+         "conv_fused.sum_tile", "conv_fused.unfold", "conv_fused.int_requant")
 
 _counts_lock = threading.Lock()
 _counts = dict.fromkeys(KERNELS, 0)

@@ -103,8 +103,11 @@
 //   [oc0, k1) are written as 0.
 // * Epilogue: the per-channel parameters sit in shared memory, copied once
 //   per block (a missing bias is zeros: adding +0.0 changes no f32 value
-//   of an integer), and a pass loads them before it stores anything. The
-//   u8 requant takes one conversion (requant.cuh: requant_u8). 1-byte dsts
+//   of an integer), and a pass loads them before it stores anything. A
+//   1-byte dst's requant takes one conversion a value: requant_u8 for u8
+//   without a sum, else requant_int (the join, ReLU and saturation in
+//   integers) with no sum or a 1-byte sum where it is exact (int_sum),
+//   else requant_sum. 1-byte dsts
 //   are staged in shared memory (the intermediate's own rows when the 1x1
 //   needs them no more) and stored 16 bytes a lane where the dst's row
 //   pitch oc allows it, byte by byte where it does not; 4-byte dsts go out
@@ -438,13 +441,23 @@ __device__ __forceinline__ void produce(const Maps& maps, const KArgs& a,
 // into the staging rows.
 enum SumRead { SUM_NONE, SUM_GLOBAL, SUM_TILE };
 
+// Whether the final stage into a 1-byte dst joins its sum operand in the
+// integer domain (requant_int): a 1-byte sum (u8 or s8) at |sum_scale| <=
+// INT_SUM_SCALE_MAX, the bound of its exactness. Without a sum an s8 dst
+// always takes requant_int, a u8 dst requant_u8. What the call shows
+// decides, nothing else (ops/conv.py: int_requant counts these launches).
+__device__ __forceinline__ bool int_sum(const KArgs& a) {
+  return (a.sum_dt == DT_U8 || a.sum_dt == DT_S8) &&
+         fabsf(a.sum_scale) <= INT_SUM_SCALE_MAX;
+}
+
 // Whether the fused kernel's final stage, into a 1-byte dst, reads the sum
-// operand as whole tiles (sum_tile_load): a 1-byte sum (u8 or s8) whose
-// pitch out_oc is a multiple of 16 (16-byte copies). What the call shows
-// decides, nothing else (ops/conv.py: tiled_sum counts these launches).
+// operand as whole tiles (sum_tile_load): a 1-byte sum joined in the
+// integer domain (int_sum) whose pitch out_oc is a multiple of 16 (16-byte
+// copies). What the call shows decides, nothing else (ops/conv.py:
+// tiled_sum counts these launches).
 __device__ __forceinline__ bool tiled_sum(const KArgs& a) {
-  return a.sum && (a.sum_dt == DT_U8 || a.sum_dt == DT_S8) &&
-         a.out_oc % 16 == 0;
+  return a.sum && int_sum(a) && a.out_oc % 16 == 0;
 }
 
 // The sum operand's bytes of the warp's rows m0 + [0, 16) and its lanes
@@ -509,8 +522,6 @@ __device__ __forceinline__ typename dt_traits<DST>::T final_value(
     return requant_sum<DST>(x, true, b, s, relu, down,
                             load_sum(a.sum, (size_t)idx, a.sum_dt,
                                      a.sum_scale));
-  else if constexpr (DST == DT_U8)
-    return static_cast<uint8_t>(requant_u8(x, b, s, down));
   else
     return requant<DST>(x, true, b, s, relu, down);
 }
@@ -523,7 +534,9 @@ __device__ __forceinline__ typename dt_traits<DST>::T final_value(
 // pitch oc that is no multiple of 16 stores byte by byte. With SUM_TILE
 // each value's sum byte sits where its result will be staged
 // (sum_tile_load): the warp waits for its copies, then each thread reads
-// its byte pairs before it writes any.
+// its byte pairs before it writes any. Each value by requant_int (a 1-byte
+// sum's byte widened by sum_byte), but a u8 value without a sum by
+// requant_u8, and one with a sum int_sum refuses by requant_sum.
 template <int DST, int SUM>
 __device__ __forceinline__ void write_bytes(
     const KArgs& a, const int32_t (&acc)[128], const float* bias,
@@ -531,7 +544,7 @@ __device__ __forceinline__ void write_bytes(
     const long long (&pix)[2], long long spix, uint8_t* stage, int m0) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int oc = a.out_oc, tm = a.p.tm;
-  const bool sum_s8 = a.sum_dt == DT_S8;
+  const bool sum_s8 = a.sum_dt == DT_S8, ints = int_sum(a);
   if constexpr (SUM == SUM_TILE) {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncwarp();  // the warp's copies, made by other lanes
@@ -556,14 +569,25 @@ __device__ __forceinline__ void write_bytes(
         if (o + e >= oc || (SUM != SUM_NONE && pix[h] < 0)) continue;
         const int32_t x = acc[4 * j + 2 * h + e];
         const float be = e ? b.y : b.x, se = e ? sc.y : sc.x;
+        const long long idx = pix[h] * oc + o + e;
         uint8_t u;
-        if constexpr (SUM == SUM_TILE)
-          u = static_cast<uint8_t>(requant_sum<DST>(
-              x, true, be, se, relu, down,
-              byte_sum(uint8_t(sv >> (8 * e)), sum_s8, a.sum_scale)));
+        if constexpr (SUM == SUM_TILE)  // tiled_sum: int_sum holds
+          u = static_cast<uint8_t>(requant_int<DST>(
+              x, be, se, relu, down, true,
+              sum_byte((sv >> (8 * e)) & 0xffu, sum_s8), a.sum_scale));
+        else if constexpr (SUM == SUM_NONE && DST == DT_U8)
+          u = static_cast<uint8_t>(requant_u8(x, be, se, down));
+        else if constexpr (SUM == SUM_NONE)
+          u = static_cast<uint8_t>(
+              requant_int<DST>(x, be, se, relu, down, false, 0, 0.0f));
+        else if (ints)  // uniform
+          u = static_cast<uint8_t>(requant_int<DST>(
+              x, be, se, relu, down, true,
+              sum_byte(static_cast<const uint8_t*>(a.sum)[idx], sum_s8),
+              a.sum_scale));
         else
-          u = static_cast<uint8_t>(final_value<DST, SUM == SUM_GLOBAL>(
-              a, x, be, se, relu, down, pix[h] * oc + o + e));
+          u = static_cast<uint8_t>(
+              final_value<DST, true>(a, x, be, se, relu, down, idx));
         v |= uint32_t(u) << (8 * e);
       }
       q[h][j >> 1] = (j & 1) ? q[h][j >> 1] | (v << 16) : v;

@@ -20,6 +20,10 @@
 // round(x) + round(sum * sum_scale), then ReLU, then saturate; for an f32
 // dst an f32 add, then ReLU. The operand widens exactly from u8/s8 and
 // converts with __int2float_rn from s32.
+//
+// requant_u8 and requant_int do the same in the integer domain for a 1-byte
+// dst: one conversion a value (the accumulator's), rounding by an add of
+// 1.5 * 2^23, the sum join, ReLU and saturation as integer operations.
 #pragma once
 
 #include <climits>
@@ -97,14 +101,6 @@ __device__ __forceinline__ float load_sum(const void* src, size_t idx,
   return __fmul_rn(v, scale);
 }
 
-// A 1-byte element of the sum operand already read (s8 if s8, else u8),
-// times sum_scale: load_sum's arithmetic on it (the byte widens exactly
-// first, so one conversion serves both dtypes).
-__device__ __forceinline__ float byte_sum(uint8_t b, bool s8, float scale) {
-  const int v = s8 ? int(static_cast<int8_t>(b)) : int(b);
-  return __fmul_rn(__int2float_rn(v), scale);
-}
-
 // requant with the sum post-op: the f32 value before the final cast,
 // already clipped to the dst's range (integral for integer dsts)
 // (deepfusion_tpu/ops/convpool.py:_requant_presat).
@@ -166,4 +162,60 @@ __device__ __forceinline__ uint32_t requant_u8(int32_t acc, float bias,
       fmaxf(__fmul_rn(__fadd_rn(__int2float_rn(acc), bias), scale), 0.0f);
   const float y = down ? __fadd_rd(x, 12582912.0f) : __fadd_rn(x, 12582912.0f);
   return uint32_t(min(int(__float_as_uint(y)) - 0x4B400000 + plus, 255));
+}
+
+// 1.5 * 2^23 and its bits: for |x| <= 2^22, x + MAGIC lies in [2^23, 2^24],
+// where the f32 grid is the integers (2^24 itself is one), so the one
+// correctly rounded add rounds x to an integer, half to even (MAGIC is
+// even) or down with __fadd_rd, and the sum's bits less MAGIC_BITS are
+// that integer.
+constexpr float MAGIC = 12582912.0f;
+constexpr int MAGIC_BITS = 0x4B400000;
+
+__device__ __forceinline__ int magic_round(float x, bool down) {
+  return __float_as_int(down ? __fadd_rd(x, MAGIC) : __fadd_rn(x, MAGIC)) -
+         MAGIC_BITS;
+}
+
+// The largest |sum_scale| at which requant_int is bitwise requant_sum.
+constexpr float INT_SUM_SCALE_MAX = 8192.0f;
+
+// The final stage's requant into a 1-byte dst in the integer domain:
+// requant<DT> (without a sum), or requant_sum<DT> with a 1-byte sum operand
+// whose byte, u8 or s8, is v (widened: -128..255), at sum_scale. Bitwise
+// theirs for every int32 acc and finite bias and scale, and with a sum for
+// |sum_scale| <= INT_SUM_SCALE_MAX:
+//  * x = (f32(acc) + bias) * scale, as scale_acc: the one conversion.
+//  * v widens to f32 exactly from its bits, v + MAGIC_BITS being the bits
+//    of MAGIC + v; st = f32(v) * sum_scale as load_sum.
+//  * x is clamped to +-C, C = 2^21, and C, st (|st| <= 255 * 8192 < 2^21)
+//    round exactly by magic_round: R = round(st), |R| <= S = 255 * 8192.
+//  * |x| <= C: round(x) + R is an integer of magnitude below 2^22, exact in
+//    f32 as in int32, so the old path's f32 join equals the integer add,
+//    and ReLU then the clamp to [lo, hi] is one integer min/max.
+//  * x > C (+inf too): the old path's round(x) >= C, so its join is at
+//    least C - S (rounding is monotone, C - S an f32 integer); here C + R
+//    >= C - S too. C - S = 8192 > 255, so both saturate to hi. x < -C
+//    likewise to lo (or 0 with ReLU), since -C + S < -128.
+// That holds while S <= 2^21 - 255, |sum_scale| <= 8223.1; the bound is
+// the power of two below. A larger sum_scale keeps requant_sum (the kernel
+// chooses per call: conv.cu, int_sum). Without a sum R = 0.
+template <int DT>
+__device__ __forceinline__ typename dt_traits<DT>::T requant_int(
+    int32_t acc, float bias, float scale, bool relu, bool down,
+    bool has_sum, int v, float sum_scale) {
+  const float x = __fmul_rn(__fadd_rn(__int2float_rn(acc), bias), scale);
+  int r = magic_round(fminf(fmaxf(x, -2097152.0f), 2097152.0f), down);
+  if (has_sum)
+    r += magic_round(
+        __fmul_rn(__fsub_rn(__int_as_float(v + MAGIC_BITS), MAGIC), sum_scale),
+        down);
+  const int lo = relu || DT == DT_U8 ? 0 : -128;
+  return typename dt_traits<DT>::T(min(max(r, lo), DT == DT_U8 ? 255 : 127));
+}
+
+// A 1-byte sum operand's byte b as requant_int takes it: s8 if s8, else
+// u8, widened by integer operations alone.
+__device__ __forceinline__ int sum_byte(uint32_t b, bool s8) {
+  return s8 ? int(b ^ 0x80u) - 0x80 : int(b);
 }

@@ -27,7 +27,7 @@ from torch import nn
 
 from .. import _build
 from ..config import ConvConfig, replace_geometry
-from ..types import round_mode
+from ..types import dtype, round_mode
 from ..utils.device import as_tensor, default_device
 from ..utils.logger import check, check_eq
 from ..utils.mathutil import conv_output_size, round_up
@@ -122,6 +122,7 @@ class ConvOp(nn.Module):
         self._wmaps = None   # (device pointers, their encoded tensor maps)
         self._geo = conv_geo(cfg)
         self._sum_tile = tiled_sum(cfg)
+        self._int_requant = int_requant(cfg)
 
     def with_geometry(self, **kw) -> "ConvOp":
         """The op at another geometry (``replace_geometry``: image and
@@ -337,11 +338,35 @@ def tiled_sum(cfg: ConvConfig) -> bool:
     copied into shared memory, not a value at a time from device memory
     (the kernel decides it from what the call shows, ``csrc/conv.cu``:
     ``tiled_sum``; this is its host side, for the launch count): the fused
-    conv with a 1-byte sum operand into a 1-byte dst whose pitch is a
-    multiple of 16 bytes. The launches that do are counted as the mode
+    conv with a 1-byte sum operand joined in the integer domain
+    (``int_requant``) into a 1-byte dst whose pitch is a multiple of 16
+    bytes. The launches that do are counted as the mode
     ``conv_fused.sum_tile``."""
-    return bool(cfg.fuse_conv1x1 and cfg.with_sum and cfg.dst_dt.size == 1
-                and cfg.sum_dt.size == 1 and cfg.out_oc % 16 == 0)
+    return bool(cfg.fuse_conv1x1 and cfg.with_sum and int_requant(cfg)
+                and cfg.out_oc % 16 == 0)
+
+
+# the largest |sum_scale| at which the kernel joins a 1-byte sum in the
+# integer domain (csrc/requant.cuh: INT_SUM_SCALE_MAX)
+INT_SUM_SCALE_MAX = 8192.0
+
+
+def int_requant(cfg: ConvConfig) -> bool:
+    """Whether the kernel's final stage requantizes in the integer domain,
+    one conversion a value (``csrc/requant.cuh``: ``requant_int``; the
+    kernel decides it from what the call shows, ``csrc/conv.cu``:
+    ``int_sum``; this is its host side, for the launch count): a 1-byte dst
+    with a 1-byte sum operand at |sum_scale| <= ``INT_SUM_SCALE_MAX`` (the
+    bound of its exactness; past it the f32 path), or an s8 dst with no
+    sum. A u8 dst with no sum takes ``requant_u8``, one conversion already,
+    and is not counted. The launches that do are counted as the mode
+    ``conv_fused.int_requant``."""
+    if cfg.dst_dt.size != 1:
+        return False
+    if not cfg.with_sum:
+        return cfg.dst_dt == dtype.s8
+    return bool(cfg.sum_dt.size == 1 and
+                abs(np.float32(cfg.sum_scale)) <= INT_SUM_SCALE_MAX)
 
 
 def unfold_cols(cfg: ConvConfig) -> bool:
@@ -404,9 +429,10 @@ def conv_cuda(op: ConvOp, src: torch.Tensor, sum_src=None,
         _kernel_src(cfg, src, op._unfold), _weight_maps(op), op.bias0,
         op.scale0, op.bias1 if fuse else None, op.scale1 if fuse else None,
         sum_src, op._geo, cfg.sum_scale, emit_acc1)
-    _build.count_launch("conv_fused", *(
-        ("acc1",) if emit_acc1 else ("sum_tile",) if op._sum_tile else ()),
-        *(("unfold",) if op._unfold else ()))
+    modes = ("acc1",) if emit_acc1 else (
+        ("sum_tile",) * op._sum_tile + ("int_requant",) * op._int_requant)
+    _build.count_launch("conv_fused", *modes,
+                        *(("unfold",) if op._unfold else ()))
     return out
 
 

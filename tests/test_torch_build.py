@@ -820,9 +820,10 @@ def test_library_path_tracks_the_installed_torch(monkeypatch):
     assert _build.library_path() != base
 
 
-def _tiled_case(sum_dt, dst, oc1):
+def _tiled_case(sum_dt, dst, oc1, sum_scale=1.0):
     """A small conv (3x3, 32 lanes; fused with a 1x1 of oc1 lanes where
-    oc1 is set) into dst, with a sum operand of sum_dt or none."""
+    oc1 is set) into dst, with a sum operand of sum_dt at sum_scale or
+    none."""
     rng = np.random.default_rng(23)
     oc = oc1 or 32
     w = rng.integers(-128, 128, (32, 16, 3, 3)).astype(np.int8)
@@ -831,27 +832,29 @@ def _tiled_case(sum_dt, dst, oc1):
     cfg = ConvConfig.make((2, 6, 6, 16), w.shape, None, (1, 1), (1, 1),
                           (2, 6, 6, oc), dst, conv0_scales=(1 / 3000,),
                           wei1x1_shape=None if w1 is None else w1.shape,
-                          sum_dt=sum_dt)
+                          sum_dt=sum_dt, sum_scale=sum_scale)
     op = ConvOp(cfg, w, None, w1, device="cpu")
     s = None if sum_dt is None else torch.zeros(
         (2, 6, 6, oc), dtype=dtype.from_any(sum_dt).torch)
     return op, _u8(rng, (2, 6, 6, 16)), s
 
 
-@pytest.mark.parametrize("sum_dt, dst, oc1, tiled", [
-    ("u8", "u8", 32, True), ("s8", "s8", 48, True), ("s8", "u8", 256, True),
-    ("s32", "u8", 32, False), ("f32", "s8", 32, False),
-    ("u8", "u8", 40, False), ("u8", "s32", 32, False),
-    ("u8", "f32", 32, False), ("u8", "u8", None, False),
-    (None, "u8", 32, False)])
+@pytest.mark.parametrize("sum_dt, dst, oc1, tiled, sum_scale", [
+    ("u8", "u8", 32, True, 1.0), ("s8", "s8", 48, True, 1.0),
+    ("s8", "u8", 256, True, 1.0), ("s32", "u8", 32, False, 1.0),
+    ("f32", "s8", 32, False, 1.0), ("u8", "u8", 40, False, 1.0),
+    ("u8", "s32", 32, False, 1.0), ("u8", "f32", 32, False, 1.0),
+    ("u8", "u8", None, False, 1.0), (None, "u8", 32, False, 1.0),
+    ("u8", "u8", 32, True, 8192.0), ("s8", "u8", 32, False, 9000.0)])
 def test_conv_cuda_counts_the_tiled_sum_mode(recorded_ops, sum_dt, dst, oc1,
-                                            tiled):
+                                            tiled, sum_scale):
     """The launches that read the sum operand as tiles are those of the
     fused conv with a 1-byte sum into a 1-byte dst whose pitch is a
-    multiple of 16 (csrc/conv.cu: tiled_sum), counted as the mode
+    multiple of 16, joined in the integer domain (|sum_scale| up to 8192;
+    csrc/conv.cu: tiled_sum), counted as the mode
     conv_fused.sum_tile beside the launch; the launch passes the sum's
-    dtype code, from which the kernel decides the same."""
-    op, x, s = _tiled_case(sum_dt, dst, oc1)
+    dtype code and its scale, from which the kernel decides the same."""
+    op, x, s = _tiled_case(sum_dt, dst, oc1, sum_scale)
     assert C.tiled_sum(op.cfg) is tiled
     _build.reset_launch_counts()
     C.conv_cuda(op, x, s)
@@ -860,6 +863,53 @@ def test_conv_cuda_counts_the_tiled_sum_mode(recorded_ops, sum_dt, dst, oc1,
     (rec,) = recorded_ops["conv_fused"]
     assert rec["args"]["geo"][-1] == (
         0 if sum_dt is None else dtype.from_any(sum_dt).value)
+
+
+_PAST = float(np.nextafter(np.float32(C.INT_SUM_SCALE_MAX),
+                           np.float32(np.inf)))
+
+
+@pytest.mark.parametrize("sum_dt, dst, oc1, sum_scale, ints", [
+    ("u8", "u8", 32, 1.0, True), ("s8", "u8", 256, 1.0, True),
+    ("s8", "s8", 48, -0.5, True), ("u8", "u8", 40, 1.0, True),
+    ("u8", "s8", None, 2.0, True), (None, "s8", 32, 1.0, True),
+    (None, "s8", None, 1.0, True), ("u8", "u8", 32, 8192.0, True),
+    ("s8", "u8", 32, -8192.0, True), ("u8", "u8", 32, _PAST, False),
+    ("s8", "s8", None, -_PAST, False), ("s32", "u8", 32, 1.0, False),
+    ("f32", "s8", 32, 1.0, False), ("u8", "s32", 32, 1.0, False),
+    ("u8", "f32", None, 1.0, False), (None, "u8", 32, 1.0, False),
+    (None, "u8", None, 1.0, False), (None, "s32", 32, 1.0, False)])
+def test_conv_cuda_counts_the_integer_requant_mode(recorded_ops, sum_dt, dst,
+                                                   oc1, sum_scale, ints):
+    """The launches whose final stage requantizes in the integer domain are
+    those into a 1-byte dst with a 1-byte sum at |sum_scale| up to the
+    bound (8192), or into s8 with no sum (csrc/conv.cu: int_sum), fused or
+    not, tiled or not, counted as the mode conv_fused.int_requant beside
+    the launch; the launch passes the sum's dtype code and its scale, from
+    which the kernel decides the same. A u8 dst without a sum
+    (requant_u8) is not counted."""
+    op, x, s = _tiled_case(sum_dt, dst, oc1, sum_scale)
+    assert C.int_requant(op.cfg) is ints
+    _build.reset_launch_counts()
+    C.conv_cuda(op, x, s)
+    assert _build.launch_counts()["conv_fused"] == 1
+    modes = _build.mode_counts()
+    assert modes["conv_fused.int_requant"] == int(ints)
+    assert modes["conv_fused.sum_tile"] == int(C.tiled_sum(op.cfg))
+    (rec,) = recorded_ops["conv_fused"]
+    assert rec["args"]["geo"][-1] == (
+        0 if sum_dt is None else dtype.from_any(sum_dt).value)
+    assert rec["args"]["sum_scale"] == np.float32(sum_scale)
+
+
+def test_conv_cuda_acc1_counts_no_integer_requant(recorded_ops):
+    """The raw 1x1 accumulator's launch (emit_acc1) has no final requant,
+    whatever its config's dst: counted as conv_fused.acc1 alone."""
+    op, x, _ = _tiled_case(None, "s8", 32)
+    _build.reset_launch_counts()
+    C.conv_cuda(op, x, emit_acc1=True)
+    assert {k: v for k, v in _build.mode_counts().items() if v} == {
+        "conv_fused.acc1": 1}
 
 
 def test_conv_cuda_unfolds_a_narrow_input_and_counts_the_mode(recorded_ops,

@@ -82,3 +82,30 @@ def test_the_layer_split_takes_each_spanned_model_by_name(monkeypatch):
         assert net.input_shape == (2, 224, 224, 3) and net.cfg.seed == 13
     with pytest.raises(ValueError, match="no model.layer spans"):
         tool.build("VGGFusion", batch=2, device="cpu")
+
+
+def _variants():
+    """(tool, variant, its edits) of every ablation under tools/."""
+    out = []
+    for tool in ("k1_ablation", "k5_ablation"):
+        spec = importlib.util.spec_from_file_location(
+            f"_variants_{tool}", TOOLS / f"{tool}.py")
+        module = importlib.util.module_from_spec(spec)
+        sys.path.insert(0, str(TOOLS))
+        try:
+            spec.loader.exec_module(module)
+        finally:
+            sys.path.remove(str(TOOLS))
+        out += [(tool, v, e) for v, e in module.VARIANTS.items()]
+    return out
+
+
+@pytest.mark.parametrize("tool, variant, edits", _variants(),
+                         ids=lambda a: a if isinstance(a, str) else "")
+def test_every_ablation_edit_applies_to_the_sources(tool, variant, edits):
+    """An ablation variant is the kernel with one part taken out by text
+    edits (``oncard.make_tree``), which stop the script on the card where
+    their text is gone: each edit's text is in its csrc/ file."""
+    csrc = ROOT / "deepfusion_tpu_torch" / "csrc"
+    for fname, old, new in edits:
+        assert old in (csrc / fname).read_text(), (fname, old)
