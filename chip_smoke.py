@@ -28,7 +28,12 @@ Phases, each printing its own lines:
      batch 8 and again at the offline cell's 256: its 57 convs and head on
      full-range inputs, its three pool kinds, each module's concat, then
      one eager forward with each K1, K2 and K3 launch held against its
-     plain version) and extra cases (every dtype, both round modes,
+     plain version; MobileNetV2, at batch 8 and again at 256: its 36 dense
+     convs on full-range inputs, s8 sources and s8 sums, its 17 depthwise
+     layers (the depthwise kernel), its global average, then one eager
+     forward with each K1, depthwise and K3 launch held against its plain
+     version, and its logits against the benchmark's plain reference
+     (portbench/reference/mobilenetv2.py)) and extra cases (every dtype, both round modes,
      saturation edges, the conv sum post-op with every operand dtype, the
      1-byte sum read as tiles at ResNet-50's fused shapes, the 1-byte
      final stage requantized in the integer domain (its fused blocks with
@@ -72,10 +77,11 @@ Phases, each printing its own lines:
      launch inside them held against its plain version on the same inputs
      (the shapes, slices, ranges and bounds the wrappers give the kernels);
   4. slice: FusionNet(FusionNetConfig()), ResFusionNet(ResFusionNetConfig()),
-     VGGFusion(VGGFusionConfig()), ResNet50(ResNet50Config()) and
-     GoogLeNet(GoogLeNetConfig()) on the card behind BatchServer each
-     answer 20 requests through the dense forward, then 20 through the
-     packed forward (ResNet-50 and GoogLeNet have none);
+     VGGFusion(VGGFusionConfig()), ResNet50(ResNet50Config()),
+     GoogLeNet(GoogLeNetConfig()) and MobileNetV2(MobileNetV2Config()) on
+     the card behind BatchServer each answer 20 requests through the dense
+     forward, then 20 through the packed forward (ResNet-50, GoogLeNet and
+     MobileNetV2 have none);
      VGGFusion's hybrid forward runs the golden batch; each
      answer must equal the model's plain dense forward on the CPU bitwise
      (and the JAX package's golden logits where stored), every kernel
@@ -84,8 +90,8 @@ Phases, each printing its own lines:
      built on the CPU and batch-split by dp_shard over two slots that are
      both this card, answers 16 requests behind BatchServer at batch 16,
      checked the same way;
- 4b. graphs: each model's jit() and jit_packed() (ResNet-50 and GoogLeNet:
-     jit() alone; one CUDA graph per input shape, models/graphed.py) at full width,
+ 4b. graphs: each model's jit() and jit_packed() (ResNet-50, GoogLeNet
+     and MobileNetV2: jit() alone; one CUDA graph per input shape, models/graphed.py) at full width,
      batch 8: the first call captures; one replay must launch what
      FORWARD_LAUNCHES says, by the launch counters and by the kernels
      torch.profiler traces; a first result must survive a second call;
@@ -177,6 +183,7 @@ KERNEL_INFO = {
     "convpool": "deepfusion_tpu_torch/csrc/conv.cu",
     "pair_conv": "deepfusion_tpu_torch/csrc/pair_conv.cu",
     "unfold_cols": "deepfusion_tpu_torch/csrc/unfold.cu",
+    "depthwise": "deepfusion_tpu_torch/csrc/depthwise.cu",
 }
 # the kernels each served path launches (the packed heads are dense convs)
 PATH_KERNELS = {
@@ -191,6 +198,8 @@ PATH_KERNELS = {
     ("ResNet50", "dense"): ("conv_fused", "pool", "unfold_cols"),
     ("GoogLeNet", "dense"): ("conv_fused", "concat_relu", "pool",
                              "unfold_cols"),
+    ("MobileNetV2", "dense"): ("conv_fused", "depthwise", "pool",
+                               "unfold_cols"),
 }
 # launches of one forward of each served model path, and of phase 6's
 # sharded calls: what the kernels' launch paths have made since they
@@ -212,6 +221,10 @@ FORWARD_LAUNCHES = {
     # branch pools and the global average; the stem's input unfolded
     "GoogLeNet dense": {"conv_fused": 58, "concat_relu": 9, "pool": 14,
                         "unfold_cols": 1},
+    # the stem, 16 expands, 17 projections, the last 1x1 and the head; the
+    # 17 depthwise layers; the global average; the stem's input unfolded
+    "MobileNetV2 dense": {"conv_fused": 36, "depthwise": 17, "pool": 1,
+                          "unfold_cols": 1},
     # two shards of one forward each per served batch
     "FusionNet dense dp=2 split": {"conv_fused": 12, "concat_relu": 2,
                                    "pool": 4, "sum_relu": 2},
@@ -225,14 +238,21 @@ FORWARD_MODES = {
     # block1
     "conv_fused.sum_tile": ({"ResNet50 dense": 16, "ResFusionNet dense": 1},
                             "read the sum operand as tiles"),
-    # ops/conv.py: unfold_cols; ResNet-50's and GoogLeNet's stem
-    "conv_fused.unfold": ({"ResNet50 dense": 1, "GoogLeNet dense": 1},
+    # ops/conv.py: unfold_cols; ResNet-50's, GoogLeNet's and MobileNetV2's
+    # stem
+    "conv_fused.unfold": ({"ResNet50 dense": 1, "GoogLeNet dense": 1,
+                           "MobileNetV2 dense": 1},
                           "ran over unfolded column taps"),
     # ops/conv.py: int_requant; ResNet-50's 16 fused blocks (a 1-byte sum)
-    # and 4 projections (s8), ResFusionNet's block1
+    # and 4 projections (s8), ResFusionNet's block1, MobileNetV2's 17
+    # projections (s8, 10 with an s8 sum)
     "conv_fused.int_requant": ({"ResNet50 dense": 20,
-                                "ResFusionNet dense": 1},
+                                "ResFusionNet dense": 1,
+                                "MobileNetV2 dense": 17},
                                "requantized in the integer domain"),
+    # ops/conv.py: conv_cuda (an s8 src); MobileNetV2's 16 expands and its
+    # last 1x1
+    "conv_fused.s8_src": ({"MobileNetV2 dense": 17}, "read an s8 source"),
 }
 # conv_plan of every dense conv op of the four models at batch 8 and 256
 # ("<model> <module> <batch>"), as the launcher planned them before the
@@ -318,8 +338,9 @@ class Parity:
 
 @contextlib.contextmanager
 def held_against_plain(par: Parity, label: str):
-    """Inside the block, every launch of K1, K2, K3, K5, K9 and K10 through
-    its op (the ops look their launchers up at each call) is followed by
+    """Inside the block, every launch of K1, K2, K3, K5, K9, K10 and the
+    depthwise kernel through its op (the ops look their launchers up at
+    each call) is followed by
     the plain version on the same inputs and arguments, and the two must
     be bitwise equal: the kernels are held at the very shapes, slices, row
     ranges and bounds the code under test gives them."""
@@ -329,7 +350,9 @@ def held_against_plain(par: Parity, label: str):
                  ("convpool", "convpool", "convpool_cuda", "convpool_plain"),
                  ("packed_conv", "packed", "packed_conv_cuda",
                   "packed_conv_plain"),
-                 ("pair_conv", "mega", "pair_conv_cuda", "pair_conv_plain")]
+                 ("pair_conv", "mega", "pair_conv_cuda", "pair_conv_plain"),
+                 ("depthwise", "depthwise", "depthwise_cuda",
+                  "depthwise_plain")]
     saved = []
     for kernel, mod, cuda, plain in launchers:
         m = importlib.import_module(f"deepfusion_tpu_torch.ops.{mod}")
@@ -394,7 +417,7 @@ def phase_build(name_power):
 OPS = ("concat_relu", "pool", "sum_relu", "conv_fused", "convpool",
        "conv_weight_maps", "conv_plan", "packed_conv", "packed_weight_maps",
        "packed_plan", "packed_sum_pool", "pair_conv", "pair_plan",
-       "empty_launches", "unfold_cols")
+       "empty_launches", "unfold_cols", "depthwise")
 
 
 def ops_check(lib):
@@ -427,9 +450,12 @@ def ops_check(lib):
 
 
 # The K1 instances that ptxas is known to serialize (C7520): the 1-byte
-# dsts, s8 (dtype code 3) and u8 (4), fused and not; the cause is open.
+# dsts, s8 (dtype code 3) and u8 (4), fused and not, and the s8-source
+# instance (into u8); the cause is open.
 K1_SERIALIZED = {f"conv_fused_kernelILb{f}ELi{d}E" for f in (0, 1)
-                 for d in (3, 4)}
+                 for d in (3, 4)} | {"conv_fused_s8src_kernelILi4E"}
+# the names of K1's instances: u8 sources, and the s8 source
+K1_NAMES = ("conv_fused_kernel", "conv_fused_s8src_kernel")
 
 
 def serialized_check(report):
@@ -443,22 +469,23 @@ def serialized_check(report):
     from deepfusion_tpu_torch.utils.logger import check
     text = open(report).read()
     fns = set(re.findall(r"\(C7520\).*function '([^']+)'", text))
-    for kernel, name in (("K1", "conv_fused_kernel"), ("K5",
-                                                         "packed_conv_kernel"),
+    for kernel, name in (("K1", "conv_fused_kernel"),
+                         ("K1 s8 source", "conv_fused_s8src_kernel"),
+                         ("K5", "packed_conv_kernel"),
                          ("K9", "convpool_kernel"),
                          ("K10", "pair_conv_kernel")):
         print(f"ptxas: {kernel} {name} instances with serialized wgmma "
               f"(C7520): {sum(name in f for f in fns)}", flush=True)
-    k1 = {f for f in fns if "conv_fused_kernel" in f}
+    k1 = {f for f in fns if any(n in f for n in K1_NAMES)}
     known = {k for k in K1_SERIALIZED if any(k in f for f in k1)}
     unknown = sorted(f for f in k1 if not any(k in f for k in K1_SERIALIZED))
     check(known == K1_SERIALIZED and not unknown,
           f"K1 instances with C7520: {sorted(k1)}; expected exactly "
           f"{sorted(K1_SERIALIZED)}")
-    bad = sorted(f for f in fns if "conv_fused_kernel" not in f)
+    bad = sorted(f for f in fns if f not in k1)
     check(not bad, f"ptxas serialized the wgmma of {bad}")
     for fn, (regs, st, ld) in sorted(ptxas_usage(report).items()):
-        if "conv_fused_kernel" in fn:
+        if any(n in fn for n in K1_NAMES):
             print(f"ptxas: K1 {fn[:72]} registers {regs}, spill stores {st} "
                   f"B, spill loads {ld} B", flush=True)
 
@@ -499,7 +526,8 @@ def sass_check(lib):
     """cuobjdump -sass of the built library: no function issues mma.sync
     (IMMA.16832); every instance of the dense conv kernel (K1,
     conv_fused_kernel, nine) and of its pool mode (K9, convpool_kernel,
-    four) issues wgmma u8 x s8 (IGMMA.64xNx32.U8.S8) only, and every
+    four) issues wgmma u8 x s8 (IGMMA.64xNx32.U8.S8) only, its s8-source
+    instance (conv_fused_s8src_kernel, one) s8 x s8 only, and every
     instance of the conv pair (K10, pair_conv_kernel, four) wgmma s8 x s8
     (layer a's packed read) and u8 x s8 (layer b and the 1x1s), each on
     tiles that TMA loads (UTMALDG). Prints the conversion instructions
@@ -528,6 +556,7 @@ def sass_check(lib):
     check(not imma, f"functions issuing mma.sync (IMMA.16832): {imma}")
     for kernel, name, count, types in (
             ("K1", "conv_fused_kernel", 9, {"U8.S8"}),
+            ("K1 s8 source", "conv_fused_s8src_kernel", 1, {"S8.S8"}),
             ("K9", "convpool_kernel", 4, {"U8.S8"}),
             ("K10", "pair_conv_kernel", 4, {"S8.S8", "U8.S8"})):
         inst = {k: v for k, v in funcs.items() if name in k}
@@ -968,7 +997,7 @@ def plan_check(models):
           "equal the recorded plans key for key", flush=True)
 
 
-def phase_parity(net, rnet, vnet, r50, gnet, dev, sharded) -> Parity:
+def phase_parity(net, rnet, vnet, r50, gnet, mnet, dev, sharded) -> Parity:
     from deepfusion_tpu_torch import _build
     from deepfusion_tpu_torch.utils.logger import check, check_eq
     from deepfusion_tpu_torch.config import ConcatConfig, PoolConfig
@@ -1136,6 +1165,7 @@ def phase_parity(net, rnet, vnet, r50, gnet, dev, sharded) -> Parity:
     range_parity(vnet, dev, par)
     resnet50_parity(r50, dev, par)
     googlenet_parity(gnet, dev, par)
+    mobilenetv2_parity(mnet, dev, par)
     sharded_parity(sharded, par)
     for k in KERNEL_INFO:
         print(f"parity: {k} bitwise equal to its plain version in "
@@ -1295,6 +1325,79 @@ def googlenet_parity(gnet, dev, par):
           f"three kinds, {len(MODULES)} concats and one eager forward's "
           f"{len(convs)} K1, {len(MODULES)} K2 and {len(pools)} K3 "
           "launches, bitwise equal to the plain versions", flush=True)
+
+
+def mobilenetv2_parity(mnet, dev, par):
+    """At MobileNetV2(MobileNetV2Config())'s batch and again at the offline
+    cell's 256: K1 at every dense conv (224x224) on full-range random
+    inputs: the 3x3/s2 stem over its unfolded column taps, the 16 expands
+    and the last 1x1 over full-range s8 sources (the s8-source kernel), the
+    17 projections into s8, 10 of them with a full-range s8 sum operand,
+    and the f32 head; the depthwise kernel at its 17 layers (3x3 at stride
+    1 and 2 over 32-960 channels, 112x112 to 7x7); K3 at the 7x7x1280
+    global average; then one eager forward on full-range images with every
+    K1, depthwise and K3 launch held against its plain version, its logits
+    bitwise equal to the benchmark's plain reference's on the same
+    weights."""
+    from deepfusion_tpu_torch.config import PoolConfig
+    from deepfusion_tpu_torch.types import dtype
+    from deepfusion_tpu_torch.utils.logger import check, check_eq
+    from portbench import harness
+    from portbench.reference import mobilenetv2 as ref
+    D = importlib.import_module("deepfusion_tpu_torch.ops.depthwise")
+    K = importlib.import_module("deepfusion_tpu_torch.ops.conv")
+    P = importlib.import_module("deepfusion_tpu_torch.ops.pool")
+    rng = np.random.default_rng(1801)
+    u8 = dtype.u8
+    n_conv = sum(l.kind != "depthwise" for l in mnet.plan)
+    n_dw = len(mnet.plan) - n_conv
+    last = mnet.ops["last"].cfg
+    batches = (mnet.cfg.batch, 256)
+    for n in batches:
+        for layer in mnet.plan:
+            op = mnet.ops[layer.name]
+            if layer.kind == "depthwise":
+                c = op.cfg
+                x = rand(rng, (n, c.ih, c.iw, c.c), u8, dev)
+                par.check("depthwise", f"MobileNetV2 {layer.name} b{n}",
+                          D.depthwise_cuda(op, x), D.depthwise_plain(op, x))
+                continue
+            c = op.cfg
+            x = rand(rng, (n, c.ih, c.iw, c.ic), c.src_dt, dev)
+            sm = rand(rng, (n, c.oh, c.ow, c.out_oc), c.sum_dt, dev) \
+                if c.with_sum else None
+            par.check("conv_fused", f"MobileNetV2 {layer.name} b{n} src "
+                      f"{c.src_dt.name}" + (" sum s8" if sm is not None
+                                            else ""),
+                      K.conv_cuda(op, x, sm), K.conv_plain(op, x, sm))
+            del x, sm
+        x = rand(rng, (n, last.oh, last.ow, last.out_oc), u8, dev)
+        pc = PoolConfig.make("avg_exc", (last.oh, last.ow), (last.oh,
+                                                             last.ow),
+                             (last.oh, last.ow), (0, 0))
+        par.check("pool", f"MobileNetV2 global avg b{n}",
+                  P.pool_cuda(x, pc, u8), P.pool_plain(x, pc, u8))
+        x = rand(rng, (n, mnet.cfg.hw, mnet.cfg.hw, mnet.cfg.in_ch), u8, dev)
+        before = dict(par.cases)
+        with held_against_plain(par, f"MobileNetV2 eager forward b{n}"):
+            got = mnet(x)
+        check_eq({k: par.cases[k] - before[k] for k in
+                  ("conv_fused", "depthwise", "pool")},
+                 {"conv_fused": n_conv, "depthwise": n_dw, "pool": 1},
+                 f"MobileNetV2 eager forward b{n}: launches held against the "
+                 "plain versions")
+        want = harness.reference_logits(ref, mnet.params, x)
+        check(np.array_equal(got.cpu().numpy().view(np.uint32),
+                             want.view(np.uint32)),
+              f"MobileNetV2 b{n}: logits differ from the plain reference's")
+        del x, got
+        torch.cuda.empty_cache()
+    print(f"parity: MobileNetV2 at batch {batches[0]} and {batches[1]}, "
+          f"each: {n_conv} dense convs and {n_dw} depthwise layers on "
+          f"full-range inputs, its global average, one eager forward's "
+          f"{n_conv} K1, {n_dw} depthwise and 1 K3 launches, bitwise equal "
+          "to the plain versions, and its logits to the plain reference's",
+          flush=True)
 
 
 def unfold_parity(stem, rng, dev, par):
@@ -2371,12 +2474,14 @@ def phase_dp_served(golden_path) -> dict:
 
 # the device kernels behind each counted wrapper, by the name torch.profiler
 # gives them (K3's three, K6-K8's two)
-TRACED = {"conv_fused": "conv_fused", "concat_relu": "concat_relu",
+TRACED = {"conv_fused": "conv_fused", "conv_fused_s8src": "conv_fused",
+          "concat_relu": "concat_relu",
           "pool": "pool", "pool_vec": "pool", "pool_split": "pool",
           "sum_relu": "sum_relu", "packed_conv": "packed_conv",
           "packed_sum_pool": "packed_sum_pool",
           "packed_maxpool2": "packed_sum_pool", "convpool": "convpool",
-          "pair_conv": "pair_conv", "unfold_cols": "unfold_cols"}
+          "pair_conv": "pair_conv", "unfold_cols": "unfold_cols",
+          "depthwise": "depthwise"}
 TRACED_RE = re.compile(r"(?<![A-Za-z_])(%s)_kernel" % "|".join(TRACED))
 TRACE_TRIES = 3
 
@@ -2648,7 +2753,8 @@ def main():
         print(name_power)
         return
     from deepfusion_tpu_torch.models import (FusionNetConfig, GoogLeNet,
-                                             GoogLeNetConfig, ResFusionNet,
+                                             GoogLeNetConfig, MobileNetV2,
+                                             MobileNetV2Config, ResFusionNet,
                                              ResFusionNetConfig, ResNet50,
                                              ResNet50Config, VGGFusion,
                                              VGGFusionConfig)
@@ -2666,13 +2772,17 @@ def main():
     vnet.build_packed()
     r50 = ResNet50(ResNet50Config(), device=dev)
     gnet = GoogLeNet(GoogLeNetConfig(), device=dev)
+    mcfg = MobileNetV2Config()
+    mparams = MobileNetV2.random_params(mcfg)
+    mnet = MobileNetV2.from_numpy_params(mcfg, mparams, device=dev)
+    mnet.params = mparams      # the reference's weights (mobilenetv2_parity)
     plan_check((net, rnet, vnet, r50))
     sharded = sharded_cases(vnet, dev)
     with torch.inference_mode():
-        phase_parity(net, rnet, vnet, r50, gnet, dev, sharded)
+        phase_parity(net, rnet, vnet, r50, gnet, mnet, dev, sharded)
     counts = dict.fromkeys(KERNEL_INFO, 0)
     slices = []
-    for model in (net, rnet, vnet, r50, gnet):
+    for model in (net, rnet, vnet, r50, gnet, mnet):
         name = type(model).__name__
         reqs, want, golden = slice_requests(model, GOLDEN.get(name))
         slices.append((model, reqs, want, golden))

@@ -51,16 +51,19 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
 TORCH_LIBS = ("torch", "torch_cpu", "torch_cuda", "c10", "c10_cuda")
 
 KERNELS = ("conv_fused", "concat_relu", "pool", "sum_relu", "packed_conv",
-           "packed_sum_pool", "convpool", "pair_conv", "unfold_cols")
+           "packed_sum_pool", "convpool", "pair_conv", "unfold_cols",
+           "depthwise")
 # kernel modes counted on their own: the raw 1x1 accumulator (emit_acc1),
 # an output row range (or input row slice), the widened intermediate
 # bounds, the packed conv's residual merge and pool (merge_pool), the
 # dense conv's sum operand read as tiles (ops/conv.py: tiled_sum), the
 # dense conv over its column taps folded into channels (unfold_cols), its
-# final stage requantized in the integer domain (int_requant)
+# final stage requantized in the integer domain (int_requant), the dense
+# conv over an s8 source (s8_src)
 MODES = ("conv_fused.acc1", "packed_conv.acc1", "packed_conv.rows",
          "pair_conv.rows", "pair_conv.bounds", "packed_conv.merge_pool",
-         "conv_fused.sum_tile", "conv_fused.unfold", "conv_fused.int_requant")
+         "conv_fused.sum_tile", "conv_fused.unfold", "conv_fused.int_requant",
+         "conv_fused.s8_src")
 
 _counts_lock = threading.Lock()
 _counts = dict.fromkeys(KERNELS, 0)

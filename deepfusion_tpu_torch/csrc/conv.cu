@@ -11,7 +11,9 @@
 // bias, scale or requant (deepfusion_tpu/ops/conv.py:conv_fused_acc1, the
 // tensor-parallel local step). In pool mode it replaces
 // deepfusion_tpu/ops/convpool.py:_convpool_kernel (launcher
-// _convpool_call).
+// _convpool_call). conv_fused_s8src_kernel<DST>: the unfused kernel over an
+// s8 source (a linear bottleneck's output), its first stage's wgmma s8 x s8;
+// the same body, so the u8-source instances are compiled as they were.
 //
 // Pool mode, per pooled pixel (n, py, px) and channel o, with the four conv
 // pixels (2py + dy, 2px + dx) of its window:
@@ -36,9 +38,10 @@
 // and a pass loads nb0 / 64 of them.
 //
 // What it computes, per output pixel p and channel o:
-//   acc0[p,o] = sum_{ki,kj,c} src_u8[n, y*sh-ph+ki, x*sw-pw+kj, c] * w0[o,c,ki,kj]
-//   (taps outside the image read 0: zero padding is exact in the u8 domain,
-//   so there is no -128 shift and no correction term)
+//   acc0[p,o] = sum_{ki,kj,c} src[n, y*sh-ph+ki, x*sw-pw+kj, c] * w0[o,c,ki,kj]
+//   (src u8, or s8 in conv_fused_s8src_kernel; taps outside the image read
+//   0: zero padding is exact in either domain, so there is no -128 shift
+//   and no correction term)
 //   not fused: dst = requant(acc0 [, sum])
 //   fused:     mid = requant_to_u8(acc0); acc1 = mid . w1;
 //              dst = requant(acc1 [, sum])
@@ -97,7 +100,8 @@
 // * K runs over (tap, the input's channels padded to a multiple of 32) in
 //   chunks of 128, 64 and 32 bytes, each chunk one A box and one B box
 //   swizzled to its width; the plan holds the chunks' table (KChunks,
-//   wgmma_tma.cuh). wgmma multiplies u8 x s8 (.u8.s8).
+//   wgmma_tma.cuh). wgmma multiplies u8 x s8 (.u8.s8), or with an s8 source
+//   s8 x s8 (.s8.s8; S8SRC, the first stage only).
 // * The fused intermediate (tm x k1 u8) stays in shared memory in the
 //   no-swizzle K-major layout the 1x1's wgmma reads; its channels
 //   [oc0, k1) are written as 0.
@@ -785,7 +789,7 @@ __device__ __forceinline__ void write_pool(const KArgs& a,
 }
 
 // ------------------------------------------------------------ consumers
-template <bool FUSE, int DST, bool POOL>
+template <bool FUSE, int DST, bool POOL, bool S8SRC>
 __device__ __forceinline__ void consume(const KArgs& a, uint8_t* smem,
                                         uint64_t* full, uint64_t* empty) {
   constexpr bool STAGED = DST == DT_U8 || DST == DT_S8;
@@ -873,9 +877,9 @@ __device__ __forceinline__ void consume(const KArgs& a, uint8_t* smem,
           const uint32_t sb = smem_u32(s + p.slot_a) + kst0 * kc;
           wgmma_fence();
           for (int kk = 0; kk < kc / 32; ++kk)
-            wgmma_step<true>(acc, swizzled_desc(sa, kc, kk),
-                             swizzled_desc(sb, kc, kk), nbw0,
-                             !(first && kk == 0));
+            wgmma_step<!S8SRC>(acc, swizzled_desc(sa, kc, kk),
+                               swizzled_desc(sb, kc, kk), nbw0,
+                               !(first && kk == 0));
           wgmma_commit();
           advance();
           wgmma_wait<1>();  // the previous chunk is done with its slot
@@ -950,8 +954,9 @@ __device__ __forceinline__ void consume(const KArgs& a, uint8_t* smem,
   }
 }
 
-// The kernel body, shared by conv_fused_kernel and convpool_kernel.
-template <bool FUSE, int DST, bool POOL>
+// The kernel body, shared by conv_fused_kernel, conv_fused_s8src_kernel
+// and convpool_kernel.
+template <bool FUSE, int DST, bool POOL, bool S8SRC>
 __device__ __forceinline__ void run(const Maps& maps, const KArgs& a) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = smem_u32(smem_raw);
@@ -972,7 +977,7 @@ __device__ __forceinline__ void run(const Maps& maps, const KArgs& a) {
     if (threadIdx.x == 256) produce<FUSE, POOL>(maps, a, smem, full, empty);
   } else {
     setmaxnreg_inc<232>();
-    consume<FUSE, DST, POOL>(a, smem, full, empty);
+    consume<FUSE, DST, POOL, S8SRC>(a, smem, full, empty);
   }
 }
 
@@ -980,14 +985,23 @@ template <bool FUSE, int DST>
 __global__ void __launch_bounds__(NTH, 1)
     conv_fused_kernel(const __grid_constant__ Maps maps,
                       const __grid_constant__ KArgs a) {
-  run<FUSE, DST, false>(maps, a);
+  run<FUSE, DST, false, false>(maps, a);
+}
+
+// The unfused conv over an s8 source (MobileNetV2's expands and last 1x1,
+// which read a linear bottleneck's s8 output).
+template <int DST>
+__global__ void __launch_bounds__(NTH, 1)
+    conv_fused_s8src_kernel(const __grid_constant__ Maps maps,
+                            const __grid_constant__ KArgs a) {
+  run<false, DST, false, true>(maps, a);
 }
 
 template <int DST>
 __global__ void __launch_bounds__(NTH, 1)
     convpool_kernel(const __grid_constant__ Maps maps,
                     const __grid_constant__ KArgs a) {
-  run<false, DST, true>(maps, a);
+  run<false, DST, true, false>(maps, a);
 }
 
 template <class K>
@@ -1113,8 +1127,11 @@ cudaError_t conv_fused_launch(
     int kw, int sh, int sw, int ph, int pw, int oc0, int oc0p, int oc1,
     int oc1p, int relu0, int relu1, int down0, int down1, int has_bias0,
     int has_bias1, int fuse, int dst_dt, int sum_dt, float sum_scale,
-    cudaStream_t stream) {
+    int src_dt, cudaStream_t stream) {
   if (dst_dt == DT_ACC && (!fuse || sum)) return cudaErrorInvalidValue;
+  // an s8 source: the unfused kernel into u8, its one instance
+  if (src_dt != DT_U8 && (src_dt != DT_S8 || fuse || dst_dt != DT_U8))
+    return cudaErrorInvalidValue;
   const Geo g =
       geometry(n, ih, iw, ic, oh, ow, kh, kw, sh, sw, ph, pw, false);
   KArgs a;
@@ -1132,6 +1149,9 @@ cudaError_t conv_fused_launch(
   a.out_oc = fuse ? oc1 : oc0;
   a.relu0 = relu0; a.relu1 = relu1; a.down0 = down0; a.down1 = down1;
   a.has_bias0 = has_bias0; a.has_bias1 = has_bias1;
+  if (src_dt == DT_S8)
+    return static_cast<cudaError_t>(
+        launch(conv_fused_s8src_kernel<DT_U8>, maps, a, stream));
   return static_cast<cudaError_t>(
       fuse ? launch_dst<true>(maps, a, dst_dt, stream)
            : launch_dst<false>(maps, a, dst_dt, stream));

@@ -34,13 +34,15 @@ cudaError_t conv_weight_maps(const void* w0k, int k0, int oc0p,
 // conv. Launches nothing.
 cudaError_t conv_plan(const int* in, int* out);
 
-// src: NHWC u8, ic a multiple of 16; wmaps: conv_weight_maps' maps of the
+// src: NHWC u8, or s8 where src_dt is DT_S8 (an unfused conv into u8
+// only), ic a multiple of 16; wmaps: conv_weight_maps' maps of the
 // op's K-major weights (host memory); bias/scale: f32 over oc0p (oc1p)
 // lanes. sum: null, or the NHWC sum operand of sum_dt (the dst dtype
 // codes). dst_dt DT_ACC (fused only): dst is the raw s32 1x1 accumulator,
 // (n, oh, ow, oc1) int32, and bias1, scale1, relu1, down1 and sum are not
-// read. Strides 1..8. Launches conv_fused_kernel on `stream` and returns
-// cudaGetLastError(), or the error that kept it from launching.
+// read. Strides 1..8. Launches conv_fused_kernel (conv_fused_s8src_kernel
+// for an s8 src) on `stream` and returns cudaGetLastError(), or the error
+// that kept it from launching.
 cudaError_t conv_fused_launch(
     const void* src, const void* wmaps, const void* bias0,
     const void* scale0, const void* bias1, const void* scale1, void* dst,
@@ -48,7 +50,7 @@ cudaError_t conv_fused_launch(
     int kw, int sh, int sw, int ph, int pw, int oc0, int oc0p, int oc1,
     int oc1p, int relu0, int relu1, int down0, int down1, int has_bias0,
     int has_bias1, int fuse, int dst_dt, int sum_dt, float sum_scale,
-    cudaStream_t stream);
+    int src_dt, cudaStream_t stream);
 
 // Pool mode: the conv (+ sum) then a 2x2/s2 pool (avg, else max, its
 // integer average rounded down when pool_down). dst: NHWC (n, oh / 2,

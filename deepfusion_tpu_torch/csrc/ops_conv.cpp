@@ -4,7 +4,8 @@
 //   conv_fused(Tensor src, Tensor wmaps, Tensor bias0, Tensor scale0,
 //              Tensor? bias1, Tensor? scale1, Tensor? sum_src, int[] geo,
 //              float sum_scale, bool emit_acc1) -> Tensor
-//     launches conv_fused_kernel (conv.cu) through conv_fused_launch;
+//     launches conv_fused_kernel (conv.cu) through conv_fused_launch; an
+//     s8 src (an unfused conv into u8) conv_fused_s8src_kernel;
 //   convpool(Tensor src, Tensor wmaps, Tensor bias0, Tensor scale0,
 //            Tensor? sum_src, int[] geo, float sum_scale) -> Tensor
 //     launches convpool_kernel (conv.cu) through convpool_launch;
@@ -54,9 +55,10 @@ enum ConvPoolGeo { Q_IH, Q_IW, Q_IC, Q_OH, Q_OW, Q_KH, Q_KW, Q_SH, Q_SW, Q_PH,
 // ops/conv.py:_unfold_geo's order
 enum UnfoldGeo { U_OW, U_KW, U_SW, U_PW, U_CP, UNFOLD_GEO_INTS };
 
-// src: NHWC u8 (n, ih, iw, ic) on a CUDA device; returns n.
-int check_src(const at::Tensor& src, int ih, int iw, int ic, const char* op) {
-  df_ops::check_tensor(src, src.device(), at::kByte, 4, op, "src");
+// src: NHWC (n, ih, iw, ic) of `st` on a CUDA device; returns n.
+int check_src(const at::Tensor& src, int ih, int iw, int ic, const char* op,
+              at::ScalarType st = at::kByte) {
+  df_ops::check_tensor(src, src.device(), st, 4, op, "src");
   TORCH_CHECK(src.size(1) == ih && src.size(2) == iw && src.size(3) == ic,
               op, ": src is ", src.sizes(), ", the kernel runs (n, ", ih,
               ", ", iw, ", ", ic, ")");
@@ -87,7 +89,10 @@ at::Tensor conv_fused_op(const at::Tensor& src, const at::Tensor& wmaps,
                          bool emit_acc1) {
   const char* op = "conv_fused";
   const auto g = narrow(geo, CONV_GEO_INTS, op, "geo");
-  const int n = check_src(src, g[C_IH], g[C_IW], g[C_IC], op);
+  // the source's dtype is the tensor's: u8, or s8 (conv.h)
+  const at::ScalarType src_st =
+      src.scalar_type() == at::kChar ? at::kChar : at::kByte;
+  const int n = check_src(src, g[C_IH], g[C_IW], g[C_IC], op, src_st);
   const bool fuse = g[C_FUSE] != 0;
   const c10::Device dev = src.device();
   const void* maps = df_ops::host_maps(wmaps, CONV_WMAPS_BYTES, op);
@@ -115,7 +120,7 @@ at::Tensor conv_fused_op(const at::Tensor& src, const at::Tensor& wmaps,
           g[C_PH], g[C_PW], g[C_OC0], g[C_OC0P], g[C_OC1], g[C_OC1P],
           g[C_RELU0], g[C_RELU1], g[C_DOWN0], g[C_DOWN1], g[C_HAS_BIAS0],
           g[C_HAS_BIAS1], g[C_FUSE], dst_dt, g[C_SUM_DT],
-          static_cast<float>(sum_scale),
+          static_cast<float>(sum_scale), df_ops::dt_code(src_st),
           c10::cuda::getCurrentCUDAStream().stream()),
       "conv_fused_kernel");
   return out;

@@ -23,7 +23,8 @@
 //
 // requant_u8 and requant_int do the same in the integer domain for a 1-byte
 // dst: one conversion a value (the accumulator's), rounding by an add of
-// 1.5 * 2^23, the sum join, ReLU and saturation as integer operations.
+// 1.5 * 2^23, the sum join, ReLU and saturation as integer operations;
+// requant_u8_small without that conversion, for accumulators below 2^22.
 #pragma once
 
 #include <climits>
@@ -218,4 +219,16 @@ __device__ __forceinline__ typename dt_traits<DT>::T requant_int(
 // u8, widened by integer operations alone.
 __device__ __forceinline__ int sum_byte(uint32_t b, bool s8) {
   return s8 ? int(b ^ 0x80u) - 0x80 : int(b);
+}
+
+// requant_u8 for |acc| < 2^22 without the conversion unit (the depthwise
+// conv's accumulators: at most 9 * 255 * 128): MAGIC_BITS + acc are the bits
+// of MAGIC + acc, an integer of [2^23, 2^24), where the f32 grid is the
+// integers, so less MAGIC it is f32(acc) exactly. Bitwise requant_u8 there.
+// Rounds half to even.
+__device__ __forceinline__ uint32_t requant_u8_small(int32_t acc, float bias,
+                                                     float scale) {
+  const float a = __fsub_rn(__int_as_float(acc + MAGIC_BITS), MAGIC);
+  const float x = fmaxf(__fmul_rn(__fadd_rn(a, bias), scale), 0.0f);
+  return uint32_t(min(magic_round(x, false), 255));
 }

@@ -17,6 +17,13 @@
 //   deepfusion_torch::sum_relu(Tensor a, Tensor b, bool relu) -> Tensor
 //     launches sum_relu_kernel (sum_relu.cu) through sum_relu_launch
 //     (pool.h): a + b (+ ReLU), saturating for integers.
+//   deepfusion_torch::depthwise(Tensor src, Tensor wcols, Tensor bias,
+//                               Tensor scale, int[] geo) -> Tensor
+//     launches depthwise_kernel (depthwise.cu) through depthwise_launch
+//     (depthwise.h): a 3x3 depthwise conv of NHWC u8 src into u8 with the
+//     exact requant; wcols the (3, c) weight words of ops/depthwise.py,
+//     bias and scale f32 over c; geo = ih, iw, oh, ow, c, stride
+//     (ops/depthwise.py:depthwise_geo).
 //   deepfusion_torch::empty_launches(int calls) -> int
 //     launches empty_kernel (empty.cu), which does nothing, `calls` times
 //     on the current device's current stream and returns the count: the
@@ -33,8 +40,9 @@
 // none of them in Python.
 //
 // Only CUDA kernels are registered: a CPU tensor raises in the dispatcher.
-// The plain versions for the CPU are ops/concat.py:concat_plain and
-// ops/pool.py:pool_plain and sum_relu_plain.
+// The plain versions for the CPU are ops/concat.py:concat_plain,
+// ops/pool.py:pool_plain and sum_relu_plain, and
+// ops/depthwise.py:depthwise_plain.
 #include <ATen/ops/empty.h>
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
@@ -43,6 +51,7 @@
 #include <tuple>
 
 #include "concat.h"
+#include "depthwise.h"
 #include "empty.h"
 #include "pool.h"
 #include "torch_ops.h"
@@ -153,6 +162,41 @@ at::Tensor sum_relu_op(const at::Tensor& a, const at::Tensor& b,
   return out;
 }
 
+// ops/depthwise.py:depthwise_geo's order
+enum DepthwiseGeo { D_IH, D_IW, D_OH, D_OW, D_C, D_STRIDE,
+                    DEPTHWISE_GEO_INTS };
+
+at::Tensor depthwise_op(const at::Tensor& src, const at::Tensor& wcols,
+                        const at::Tensor& bias, const at::Tensor& scale,
+                        at::IntArrayRef geo) {
+  const char* op = "depthwise";
+  const auto g = narrow(geo, DEPTHWISE_GEO_INTS, op, "geo");
+  const c10::Device dev = src.device();
+  df_ops::check_tensor(src, dev, at::kByte, 4, op, "src");
+  TORCH_CHECK(src.size(1) == g[D_IH] && src.size(2) == g[D_IW] &&
+                  src.size(3) == g[D_C],
+              op, ": src is ", src.sizes(), ", the config's (n, ", g[D_IH],
+              ", ", g[D_IW], ", ", g[D_C], ")");
+  const int n = narrow(src.size(0), op, "batch");
+  df_ops::check_tensor(wcols, dev, at::kInt, 2, op, "wcols");
+  TORCH_CHECK(wcols.size(0) == 3 && wcols.size(1) == g[D_C], op,
+              ": wcols is ", wcols.sizes(), ", it must be (3, ", g[D_C], ")");
+  df_ops::lanes_of(bias, dev, at::kFloat, g[D_C], op, "bias");
+  df_ops::lanes_of(scale, dev, at::kFloat, g[D_C], op, "scale");
+  const at::Tensor x = aligned(src), w = aligned(wcols), b = aligned(bias),
+                   s = aligned(scale);
+  c10::cuda::CUDAGuard guard(dev);
+  at::Tensor out =
+      at::empty({src.size(0), g[D_OH], g[D_OW], g[D_C]}, src.options());
+  check_launch(depthwise_launch(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                s.data_ptr(), out.data_ptr(), n, g[D_IH],
+                                g[D_IW], g[D_OH], g[D_OW], g[D_C],
+                                g[D_STRIDE],
+                                c10::cuda::getCurrentCUDAStream().stream()),
+               "depthwise_kernel");
+  return out;
+}
+
 int64_t empty_launches_op(int64_t calls) {
   check_launch(empty_launch(narrow(calls, "empty_launches", "calls"),
                             c10::cuda::getCurrentCUDAStream().stream()),
@@ -166,6 +210,8 @@ TORCH_LIBRARY(deepfusion_torch, m) {
   m.def("concat_relu(Tensor[] srcs, bool relu) -> (Tensor, int)");
   m.def("pool(Tensor x, int[] geo) -> Tensor");
   m.def("sum_relu(Tensor a, Tensor b, bool relu) -> Tensor");
+  m.def("depthwise(Tensor src, Tensor wcols, Tensor bias, Tensor scale, "
+        "int[] geo) -> Tensor");
   m.def("empty_launches(int calls) -> int");
 }
 
@@ -173,6 +219,7 @@ TORCH_LIBRARY_IMPL(deepfusion_torch, CUDA, m) {
   m.impl("concat_relu", &concat_relu_op);
   m.impl("pool", &pool_op);
   m.impl("sum_relu", &sum_relu_op);
+  m.impl("depthwise", &depthwise_op);
 }
 
 // no tensor argument, so no backend to dispatch on: one kernel for all

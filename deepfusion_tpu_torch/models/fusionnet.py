@@ -64,8 +64,9 @@ def _mkconv(rng, k, ic, oc, dst_dt, *, oc1x1=None, relu=True, in_std=30.0):
 
 def _conv_config(n: int, hw: int, p: dict, stride: int = 1) -> ConvConfig:
     """ConvConfig of one layer from its parameters: padding k // 2 (same
-    padding at stride 1), the given stride, and the sum post-op when the
-    parameters name a ``sum_dt`` (with ``sum_scale``, default 1)."""
+    padding at stride 1), the given stride, the source's ``src_dt`` (u8
+    unless named), and the sum post-op when the parameters name a
+    ``sum_dt`` (with ``sum_scale``, default 1)."""
     oc, ic, k, _ = np.shape(p["wei"])
     pad = k // 2
     o = conv_output_size(hw, k, stride, pad)
@@ -81,7 +82,8 @@ def _conv_config(n: int, hw: int, p: dict, stride: int = 1) -> ConvConfig:
         bia1x1_dt=None if bia1 is None else np.asarray(bia1).dtype,
         conv1_relu=bool(p.get("conv1_relu", False)),
         conv1_scales=p.get("conv1_scales", (1.0,)),
-        sum_dt=p.get("sum_dt"), sum_scale=p.get("sum_scale", 1.0))
+        src_dt=p.get("src_dt", "u8"), sum_dt=p.get("sum_dt"),
+        sum_scale=p.get("sum_scale", 1.0))
 
 
 @dataclasses.dataclass

@@ -13,7 +13,10 @@ and element strides; the wrapper gathers strides above 8 away). A conv over
 fewer than 16 channels with a kernel wider than 1 runs as a kh x 1 conv over
 its input's column taps folded into the channels (``unfold_cols``). The
 eltwise-sum post-op (``sum_src``, NHWC at the output's shape) joins the
-final stage's epilogue, fused or not. ``conv_fused_acc1`` stops the fused
+final stage's epilogue, fused or not. The source is u8, or s8 (a linear
+bottleneck's output, which an unfused conv into u8 reads on the card:
+``conv_fused_s8src_kernel``, the mode ``conv_fused.s8_src``). Zero padding
+is 0 in either domain. ``conv_fused_acc1`` stops the fused
 conv at its 1x1 product and returns the raw s32 accumulator, the
 tensor-parallel local step (``parallel/shard.py``). ``conv_plan`` reports
 the kernel's tiling for a call without launching it.
@@ -50,22 +53,23 @@ def _operand_shapes(cfg: ConvConfig) -> dict:
     return shapes
 
 
-def conv_acc(src_u8: torch.Tensor, wei_oihw: torch.Tensor, stride,
+def conv_acc(src: torch.Tensor, wei_oihw: torch.Tensor, stride,
              padding) -> torch.Tensor:
-    """Exact u8 x s8 -> s32 convolution accumulator, NHWC in and out.
+    """Exact u8 (or s8) x s8 -> s32 convolution accumulator, NHWC in and
+    out, zero padded.
 
     Accumulates tap by tap in float64: every product and partial sum is an
     integer below 2^53 (|acc| <= 255 * 128 * kh * kw * ic), so the sum is
     exact whatever the order of the matrix product."""
-    n, ih, iw, ic = src_u8.shape
+    n, ih, iw, ic = src.shape
     oc, _, kh, kw = wei_oihw.shape
     (sh, sw), (ph, pw) = stride, padding
     oh = conv_output_size(ih, kh, sh, ph)
     ow = conv_output_size(iw, kw, sw, pw)
-    x = F.pad(src_u8.to(torch.float64), (0, 0, pw, pw, ph, ph))
+    x = F.pad(src.to(torch.float64), (0, 0, pw, pw, ph, ph))
     w = wei_oihw.to(torch.float64)
     acc = torch.zeros((n, oh, ow, oc), dtype=torch.float64,
-                      device=src_u8.device)
+                      device=src.device)
     for ki in range(kh):
         for kj in range(kw):
             patch = x[:, ki:ki + (oh - 1) * sh + 1:sh,
@@ -142,7 +146,7 @@ class ConvOp(nn.Module):
 
     def forward(self, src: torch.Tensor, sum_src=None) -> torch.Tensor:
         cfg = self.cfg
-        check_eq(src.dtype, torch.uint8, "conv src dtype")
+        check_eq(src.dtype, cfg.src_dt.torch, "conv src dtype")
         check_eq(tuple(src.shape[1:]), (cfg.ih, cfg.iw, cfg.ic),
                  "conv src shape (NHWC, any batch)")
         check_eq(src.device, self.device, "conv src device")
@@ -196,7 +200,7 @@ def conv_fused_acc1(op: ConvOp, src: torch.Tensor) -> torch.Tensor:
     cfg = op.cfg
     check(cfg.fuse_conv1x1, "conv_fused_acc1 needs the fused config")
     check(not cfg.with_sum, "conv_fused_acc1 takes no sum post-op")
-    check_eq(src.dtype, torch.uint8, "conv src dtype")
+    check_eq(src.dtype, cfg.src_dt.torch, "conv src dtype")
     check_eq(tuple(src.shape[1:]), (cfg.ih, cfg.iw, cfg.ic),
              "conv src shape (NHWC, any batch)")
     check_eq(src.device, op.device, "conv src device")
@@ -420,17 +424,20 @@ def conv_plan(op, n: int, emit_acc1: bool = False,
 def conv_cuda(op: ConvOp, src: torch.Tensor, sum_src=None,
               emit_acc1: bool = False) -> torch.Tensor:
     """Launch ``conv_fused_kernel`` on the current stream (with
-    ``emit_acc1``, its raw 1x1 accumulator store) through
+    ``emit_acc1``, its raw 1x1 accumulator store; with an s8 source
+    ``conv_fused_s8src_kernel``) through
     ``torch.ops.deepfusion_torch.conv_fused``, which checks the arguments,
     aligns the inputs, allocates the output and launches in C++."""
     cfg = op.cfg
     fuse = cfg.fuse_conv1x1
+    s8 = cfg.src_dt == dtype.s8
     out = _build.op("conv_fused")(
         _kernel_src(cfg, src, op._unfold), _weight_maps(op), op.bias0,
         op.scale0, op.bias1 if fuse else None, op.scale1 if fuse else None,
         sum_src, op._geo, cfg.sum_scale, emit_acc1)
     modes = ("acc1",) if emit_acc1 else (
-        ("sum_tile",) * op._sum_tile + ("int_requant",) * op._int_requant)
+        ("sum_tile",) * op._sum_tile + ("int_requant",) * op._int_requant
+        + ("s8_src",) * s8)
     _build.count_launch("conv_fused", *modes,
                         *(("unfold",) if op._unfold else ()))
     return out
@@ -442,7 +449,7 @@ def conv(src, wei, bia=None, stride=(1, 1), padding=(0, 0), *,
          wei1x1=None, bia1x1=None, conv1_relu=False, conv1_scales=(1.0,),
          conv1_round_mode=round_mode.nearest, groups=1,
          sum_src=None, sum_scale=1.0, device=None):
-    """Functional conv3x3(+relu)(+conv1x1+relu), NHWC u8 in.
+    """Functional conv3x3(+relu)(+conv1x1+relu), NHWC u8 (or s8) in.
 
     API parity with ``deepfusion::conv`` (``include/deepfusion.h:120-145``)
     and with the JAX package's ``conv()``. ``src`` is a tensor (the op runs
@@ -466,7 +473,7 @@ def conv(src, wei, bia=None, stride=(1, 1), padding=(0, 0), *,
         wei1x1_shape=None if wei1x1 is None else tuple(np.shape(wei1x1)),
         bia1x1_dt=None if bia1x1 is None else np.asarray(bia1x1).dtype,
         conv1_relu=conv1_relu, conv1_scales=conv1_scales,
-        conv1_round=conv1_round_mode, groups=groups,
+        conv1_round=conv1_round_mode, groups=groups, src_dt=src.dtype,
         sum_dt=None if sum_src is None else torch.as_tensor(sum_src).dtype,
         sum_scale=sum_scale)
     op = ConvOp(cfg, wei, bia, wei1x1, bia1x1, device=src.device)

@@ -17,6 +17,7 @@ of the dense conv kernel must be ``ConvOp``'s and survive
 ``save``/``load``.
 """
 import ast
+import functools
 import importlib
 import inspect
 import re
@@ -40,8 +41,9 @@ from deepfusion_tpu_torch.types import dtype, round_mode
 from deepfusion_tpu_torch.utils.logger import CheckError
 
 # the op modules (ops/__init__ exports functions named conv and pool)
-C, CP, M, P, PL = (importlib.import_module(f"deepfusion_tpu_torch.ops.{m}")
-                   for m in ("conv", "convpool", "mega", "packed", "pool"))
+C, CP, D, M, P, PL = (
+    importlib.import_module(f"deepfusion_tpu_torch.ops.{m}")
+    for m in ("conv", "convpool", "depthwise", "mega", "packed", "pool"))
 
 
 def _pool_case(oc, ic, k, dst="u8", kind="max"):
@@ -134,7 +136,7 @@ def test_library_is_built_opened_and_declared_once(fake_library):
 OPS = ("concat_relu", "pool", "sum_relu", "conv_fused", "convpool",
        "conv_weight_maps", "conv_plan", "packed_conv", "packed_weight_maps",
        "packed_plan", "packed_sum_pool", "pair_conv", "pair_plan",
-       "empty_launches", "unfold_cols")
+       "empty_launches", "unfold_cols", "depthwise")
 
 
 def _cpp_sources() -> dict:
@@ -284,7 +286,8 @@ ENUMS = {("pool", "geo"): "PoolGeo", ("conv_fused", "geo"): "ConvGeo",
          ("pair_conv", "layer_a"): "PairLayer",
          ("pair_conv", "layer_b"): "PairLayer",
          ("pair_conv", "geo"): "PairGeo", ("pair_conv", "rows"): "PairRows",
-         ("unfold_cols", "geo"): "UnfoldGeo"}
+         ("unfold_cols", "geo"): "UnfoldGeo",
+         ("depthwise", "geo"): "DepthwiseGeo"}
 
 
 @pytest.fixture
@@ -556,6 +559,21 @@ def _case_unfold_cols(calls):
     return {"src": x, "geo": dict(ow=6, kw=7, sw=3, pw=3, cp=32)}
 
 
+def _case_depthwise(calls):
+    """A depthwise conv at stride 2 over an odd image."""
+    rng = np.random.default_rng(26)
+    w = rng.integers(-128, 128, (48, 1, 3, 3)).astype(np.int8)
+    b = rng.integers(-99, 99, (48,)).astype(np.int32)
+    sc = rng.uniform(0.5, 1.5, 48).astype(np.float32) / np.float32(700.0)
+    cfg = D.DepthwiseConfig.make((2, 9, 7, 48), w.shape, 2, sc)
+    op = D.DepthwiseOp(cfg, w, b, device="cpu")
+    x = _u8(rng, (2, 9, 7, 48))
+    D.depthwise_cuda(op, x)
+    return {"src": x, "wcols": op.wcols, "bias": op.bias,
+            "scale": op.scale,
+            "geo": dict(ih=9, iw=7, oh=5, ow=4, c=48, stride=2)}
+
+
 def _layer(cfg, kp):
     fuse = cfg.fuse_conv1x1
     return dict(kh=cfg.kh, kw=cfg.kw, ph=cfg.ph, pw=cfg.pw, kp=kp,
@@ -640,7 +658,8 @@ def test_wrapper_passes_the_config_to_the_schema(name, recorded_ops):
               "pool": "pool", "sum_relu": "sum_relu",
               "packed_conv": "packed_conv", "concat_relu": "concat_relu",
               "packed_sum_pool": "packed_sum_pool",
-              "pair_conv": "pair_conv", "unfold_cols": "unfold_cols"}.get(name)
+              "pair_conv": "pair_conv", "unfold_cols": "unfold_cols",
+              "depthwise": "depthwise"}.get(name)
     assert counted == ({kernel: 1} if kernel else {})
 
 
@@ -900,6 +919,40 @@ def test_conv_cuda_counts_the_integer_requant_mode(recorded_ops, sum_dt, dst,
     assert rec["args"]["geo"][-1] == (
         0 if sum_dt is None else dtype.from_any(sum_dt).value)
     assert rec["args"]["sum_scale"] == np.float32(sum_scale)
+
+
+@pytest.mark.parametrize("dst, relu, sum_dt", [("u8", True, None),
+                                                ("s8", False, None),
+                                                ("s8", False, "s8")])
+def test_conv_cuda_hands_an_s8_source_over_and_counts_the_mode(
+        recorded_ops, dst, relu, sum_dt):
+    """A conv whose config reads an s8 source takes the s8 tensor itself
+    to the launch (the op reads its dtype from it), counted as the mode
+    conv_fused.s8_src; a u8 tensor is refused before any launch. The card
+    runs such a conv unfused into u8 only (conv_fused_s8src_kernel), and
+    the config refuses it into s8, so neither path computes it."""
+    rng = np.random.default_rng(27)
+    w = rng.integers(-128, 128, (32, 48, 1, 1)).astype(np.int8)
+    make = functools.partial(
+        ConvConfig.make, (2, 5, 5, 48), w.shape, None, (1, 1), (0, 0),
+        (2, 5, 5, 32), dst, src_dt="s8", conv0_relu=relu,
+        conv0_scales=(1 / 900,), sum_dt=sum_dt)
+    if dst != "u8":
+        with pytest.raises(CheckError, match="s8 conv source"):
+            make()
+        return
+    op = ConvOp(make(), w, device="cpu")
+    x = _s8(rng, (2, 5, 5, 48))
+    s = None if sum_dt is None else _s8(rng, (2, 5, 5, 32))
+    with pytest.raises(CheckError, match="conv src dtype"):
+        op(x.view(torch.uint8), sum_src=s)
+    _build.reset_launch_counts()
+    C.conv_cuda(op, x, s)
+    assert _build.launch_counts()["conv_fused"] == 1
+    assert {k: v for k, v in _build.mode_counts().items() if v} == {
+        "conv_fused.s8_src": 1}
+    (rec,) = recorded_ops["conv_fused"]
+    assert rec["args"]["src"] is x
 
 
 def test_conv_cuda_acc1_counts_no_integer_requant(recorded_ops):

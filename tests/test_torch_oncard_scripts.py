@@ -75,7 +75,7 @@ def test_the_layer_split_takes_each_spanned_model_by_name(monkeypatch):
         spec.loader.exec_module(tool)
     finally:
         sys.modules.pop("oncard", None)
-    assert tool.SPANNED == ("ResNet50", "GoogLeNet")
+    assert tool.SPANNED == ("ResNet50", "GoogLeNet", "MobileNetV2")
     for name in tool.SPANNED:
         net = tool.build(name, batch=2, device="cpu")
         assert type(net).__name__ == name

@@ -28,7 +28,9 @@ then K3; K10 at VGGFusion's blocks beside K5 + K5 with pool2 and K5 + K5 +
 K7, and at bench.py's --pair shape; ResNet-50's 7x7/s2 stem at batch 8 and
 256 as its launch runs it (the input's preparation and K1) and the
 preparation alone (the unfold of its column taps, or in a tree without it
-the pad to 16 channels); bench.py's shapes in TOP/s beside
+the pad to 16 channels); the depthwise kernel (DW) at MobileNetV2's 17
+layers at batch 8 and 256 (none in a tree without it); bench.py's shapes
+in TOP/s beside
 ``torch._int_mm`` at their GEMMs (``yardstick:``); the host microseconds
 of each wrapper, of each part of a launch (K1, K7, K2) and of a
 ``_build.kernels()`` call after the first, of ``cuTensorMapEncodeTiled``,
@@ -37,10 +39,12 @@ sit in the L2; cold: a 128 MB read before every call
 (``oncard.cold_device_ms``). The bound is the larger of the bytes moved
 over 3.35 TB/s and the operations over 1,979 TOP/s int8 (67 T/s for
 elementwise work); share = bound / cold. Last, one ``kernel:`` line per
-row of PERF.md §6 (K1a-K10): its sums over the launches one forward of each
-model makes, or over its timed cases where no forward launches it.
+row of PERF.md §6 (K1a-K10, DW): its sums over the launches one forward of
+each model makes (DW: MobileNetV2's at batch 8), or over its timed cases
+where no forward launches it.
 """
 import importlib
+import importlib.util
 import os
 import statistics
 import sys
@@ -54,7 +58,7 @@ from oncard import (bound_ms, cold_device_ms, conv_ops, cuda_ms, device_ms,
                     nbytes, packed_input, packed_reads, rand)
 
 ROWS = ("K1a", "K1b", "K2", "K3", "K4", "K5", "K5 C13", "K5 merge-pool",
-        "K6", "K7", "K8", "K9", "K10")
+        "K6", "K7", "K8", "K9", "K10", "DW")
 NAN = float("nan")
 
 
@@ -153,6 +157,8 @@ class Run:
         forward launches it)."""
         for row in ROWS:
             cases = self.rows[row]
+            if not cases:        # a kernel this tree lacks
+                continue
             fw = [c for c in cases if c[0]]
             s = [sum(c[i] for c in fw or cases) for i in range(1, 8)]
             what = (f"{len(fw)} launches of the forwards" if fw else
@@ -788,6 +794,34 @@ def resnet50_stem_times(run, dev, batches=(8, 256)):
         del x
 
 
+def depthwise_times(run, dev, batches=(8, 256)):
+    """The depthwise kernel at each of MobileNetV2's 17 layers (3x3 at
+    stride 1 or 2 over 32-960 channels, 112x112 to 7x7) at each batch,
+    beside its plain version; its bound counts the input and output once,
+    the weights, bias and scale, and its nine multiply-adds an output on
+    the CUDA cores. Nothing in a tree without the kernel."""
+    if importlib.util.find_spec("deepfusion_tpu_torch.ops.depthwise") is None:
+        return
+    from deepfusion_tpu_torch.models import MobileNetV2, MobileNetV2Config
+    from deepfusion_tpu_torch.types import dtype
+    D = importlib.import_module("deepfusion_tpu_torch.ops.depthwise")
+    rng = np.random.default_rng(1801)
+    net = MobileNetV2(MobileNetV2Config(), device=dev)
+    for n in batches:
+        for layer in net.plan:
+            if layer.kind != "depthwise":
+                continue
+            op = net.ops[layer.name]
+            c = op.cfg
+            x = rand(rng, (n, c.ih, c.iw, c.c), dtype.u8, dev)
+            run.timed("DW", f"MobileNetV2 {layer.name} {c.ih}x{c.iw}x{c.c} "
+                      f"s{c.stride} b{n}", lambda: D.depthwise_cuda(op, x),
+                      lambda: D.depthwise_plain(op, x), forward=n == 8,
+                      reads=(x, op), ops=18.0 * n * c.oh * c.ow * c.c,
+                      tensor=False)
+            del x
+
+
 def bench_times(run, net, dev):
     """bench.py's default (K5), --dense (K1) and --pair (K10) shapes in
     TOP/s, torch._int_mm at their GEMMs and at FusionNet's fused blocks'
@@ -850,6 +884,7 @@ def run_tree(tree):
                         dev)
         vggfusion_times(run, VGGFusion(VGGFusionConfig(), device=dev), dev)
         resnet50_stem_times(run, dev)
+        depthwise_times(run, dev)
         bench_times(run, net, dev)
     # the heads: each launched once by the dense and once by the packed
     # forward

@@ -1,19 +1,21 @@
 """Where an eager model forward's device time goes, by layer kind.
 
-    python3 tools/model_layers.py [--model ResNet50|GoogLeNet] [--batch 256] \
-        [--out model_layers.json]
+    python3 tools/model_layers.py [--model ResNet50|GoogLeNet|MobileNetV2] \
+        [--batch 256] [--out model_layers.json]
 
 Builds the model that ``--model`` names (a class of
 ``deepfusion_tpu_torch.models`` whose forward marks each layer with a
-``model.layer`` span: ``ResNet50``, ``GoogLeNet``) at its default config
+``model.layer`` span: ``ResNet50``, ``GoogLeNet``, ``MobileNetV2``) at its
+default config
 and ``--batch``, and runs eager forwards on cuda:0 under
 ``torch.profiler``; each kernel's device time is given to the
 ``model.layer`` span whose host range launched it (the launch's
 correlation id), then summed per forward by the span's kind (ResNet-50:
 stem, maxpool, reduce, proj, fused, avgpool, head; GoogLeNet: stem,
 maxpool, reduce, conv, b1x1, b3x3_reduce, b3x3, b5x5_reduce, b5x5,
-branch_pool, pool_proj, concat, avgpool, head), by layer and by kernel
-name. Writes the split as one JSON object to ``--out``
+branch_pool, pool_proj, concat, avgpool, head; MobileNetV2: stem, expand,
+depthwise, project, project_sum, last, avgpool, head), by layer and by
+kernel name. Writes the split as one JSON object to ``--out``
 and prints it; kernels no span launched are counted as unattributed.
 (Kernel parity at the model's shapes is ``chip_smoke.py``'s; the graphed
 forward's time is the benchmark cell's ``model.forward_ms``.)
@@ -37,7 +39,7 @@ from deepfusion_tpu_torch import models  # noqa: E402
 from deepfusion_tpu_torch.utils import profiler  # noqa: E402
 
 # the models whose forward marks its layers with model.layer spans
-SPANNED = ("ResNet50", "GoogLeNet")
+SPANNED = ("ResNet50", "GoogLeNet", "MobileNetV2")
 
 
 def build(name: str, batch: int, seed: int = 13, device="cuda:0"):
